@@ -14,8 +14,9 @@ printed as it ends (any failed check exits non-zero):
    the card's bound and a library yardstick where one call computes the
    same function;
 4. forward  — ``llama_forward`` at Llama-3-8B full width, bf16, [1, 512];
-5. serving  — the paged ``ContinuousBatcher`` at the same width answering
-   12 staggered requests;
+5. serving  — the paged ``ContinuousBatcher`` at the same width:
+   ``warmup()``, then five timed windows of 12 staggered requests (median
+   tokens/s);
 6. parity   — a narrow f32 engine token for token against the port's own
    ``greedy_generate``, and the full-width first decode step's logits
    against the plain dense path.
@@ -58,18 +59,35 @@ def log(phase: str, **kv) -> None:
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``reps`` launches (CUDA events)."""
+    """Mean device time of one ``fn()`` with a cold L2, over ``reps``
+    launches, each between two CUDA events.  Before each launch a 256 MB
+    buffer is zeroed, which evicts the card's 50 MB L2 as the main path's
+    weight reads do between two attention calls.  The card first spins in
+    ``torch.cuda._sleep`` while the host enqueues all of it, so the events
+    time the device alone and not the host's launch rate; if the spin
+    ended before the host was done (the first event already passed), it
+    doubles and the timing is taken again."""
     import torch
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    cycles = 1 << 25
+    for _ in range(8):
+        evs = [tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+               for _ in range(reps)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        for start, end in evs:
+            flush.zero_()
+            start.record()
+            fn()
+            end.record()
+        queued_in_time = not evs[0][0].query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            return sum(s.elapsed_time(e) for s, e in evs) / reps
+        cycles *= 2
+    raise SmokeFailure("cuda_ms: the host never got ahead of the device")
 
 
 def bound_ms(n_bytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -105,18 +123,22 @@ def flash_checks(torch, gen) -> dict:
     log("kernels", kernel="flash_fwd", case="bf16 [1,32,512,128] causal",
         max_abs_err=err, tol=2e-2, lse_err=lse_err, lse_tol=1e-3)
     out["max_abs_err"] = err
-    # f32 edge cases: ragged T/S, end-aligned causal, non-causal, group 4
-    for causal, t, s in ((True, 37, 70), (False, 64, 40), (True, 33, 33)):
-        qf = torch.randn(2, 8, t, 64, generator=gen, device=dev)
-        kf = torch.randn(2, 2, s, 64, generator=gen, device=dev)
-        vf = torch.randn(2, 2, s, 64, generator=gen, device=dev)
+    # f32 edge cases: ragged T/S, end-aligned causal, non-causal, group 4,
+    # and head dims that run the padded instances (16: LlamaConfig.tiny())
+    for causal, t, s, hd in ((True, 37, 70, 64), (False, 64, 40, 64),
+                             (True, 33, 33, 64), (True, 37, 70, 16),
+                             (False, 20, 45, 80)):
+        qf = torch.randn(2, 8, t, hd, generator=gen, device=dev)
+        kf = torch.randn(2, 2, s, hd, generator=gen, device=dev)
+        vf = torch.randn(2, 2, s, hd, generator=gen, device=dev)
         of, lf = fa.flash_attention(qf, kf, vf, causal=causal,
                                     return_lse=True)
         e = max(max_err(of, fa.xla_attention(qf, kf, vf, causal)),
-                max_err(lf, fa._xla_lse(qf, kf, causal, 64 ** -0.5)))
-        check(e <= 1e-4, f"flash f32 t={t} s={s} causal={causal}: {e}")
+                max_err(lf, fa._xla_lse(qf, kf, causal, hd ** -0.5)))
+        check(e <= 1e-4, f"flash f32 t={t} s={s} hd={hd} causal={causal}: "
+              f"{e}")
         log("kernels", kernel="flash_fwd",
-            case=f"f32 [2,8,{t},64] s={s} causal={causal}",
+            case=f"f32 [2,8,{t},{hd}] s={s} causal={causal}",
             max_abs_err=e, tol=1e-4)
     # times at the forward's shape
     out["ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True))
@@ -174,22 +196,23 @@ def paged_checks(torch, gen, slice_rows) -> dict:
         max_abs_err=err, tol=1e-2, m_err=m_err, l_rel_err=l_rel)
     out["max_abs_err"] = err
     # f32 edge cases: GQA 4, a hole, an empty row, decode pages past
-    # t_pad, and folded queries Hq = 4 * Hkv * C with C = 2 and 4
+    # t_pad, folded queries Hq = 4 * Hkv * C with C = 2 and 4, and head
+    # dims that run the padded instances
     rows = [([3, 7, 0, 0], 20, 32, 0),     # prompt over 2 pages
             ([5, 0, 9, 0], 40, 48, 0),     # hole at row-local page 1
             ([0, 0, 0, 0], 0, 0, 0),       # empty row
             ([2, 4, 6, 8], 10, 16, 40)]    # decode spans pages 1..3
-    for hq in (8, 16, 32):
-        fargs = paged_case(torch, gen, torch.float32, 2, 12, 2, 16, 64, hq,
+    for hq, hd in ((8, 64), (16, 64), (32, 64), (8, 16), (4, 80)):
+        fargs = paged_case(torch, gen, torch.float32, 2, 12, 2, 16, hd, hq,
                            rows)
         fargs = fargs[:4] + (1,) + fargs[4:]
         got, ref = pa.paged_attention(*fargs), pa.paged_attention_ref(*fargs)
         e = max(max_err(a, b) for a, b in zip(got, ref))
-        check(e <= 1e-4, f"paged f32 hq={hq}: max |err| {e} > 1e-4")
+        check(e <= 1e-4, f"paged f32 hq={hq} hd={hd}: max |err| {e} > 1e-4")
         check(not got[0][2].any().item() and not got[2][2].any().item(),
               "paged: the empty row must give o = 0, l = 0")
         log("kernels", kernel="paged_decode",
-            case=f"f32 hq={hq} hkv=2 P=16 holes/empty/decode",
+            case=f"f32 hq={hq} hkv=2 hd={hd} P=16 holes/empty/decode",
             max_abs_err=e, tol=1e-4)
     out["ms"] = cuda_ms(lambda: pa.paged_attention(*args))
     out["plain_ms"] = cuda_ms(lambda: pa.paged_attention_ref(*args))
@@ -238,16 +261,14 @@ def forward_phase(torch, kernels, cfg, params, gen) -> dict:
     return {"ms": fwd_ms, "rel_err_vs_plain": rel}
 
 
-def serving_phase(torch, kernels, cfg, params, gen, name) -> dict:
-    from kubegpu_tpu_torch.models import ContinuousBatcher
-    stride, n_new = 16, 32
-    eng = ContinuousBatcher(params, cfg, n_slots=8, max_len=1024,
-                            stride=stride, prompt_buckets=(512,),
-                            paged=True, page_size=128, total_pages=40,
-                            device="cuda")
+def serving_window(torch, kernels, eng, cfg, gen, n_new) -> dict:
+    """One timed window: 12 requests with prompts of 200-512 tokens, 8
+    up front and 4 after two ticks (slots retire and are re-admitted),
+    run to the end with ``drain``; checked and timed on the host clock."""
     lens = torch.randint(200, 513, (12,), generator=gen, device="cuda")
     prompts = [torch.randint(0, cfg.vocab_size, (int(n),), generator=gen,
                              device="cuda").tolist() for n in lens]
+    tick0, tok0 = eng._tick, eng.emitted_tokens
     before = kernels.launches["paged_decode"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -268,17 +289,52 @@ def serving_phase(torch, kernels, cfg, params, gen, name) -> dict:
               f"rid {r.rid}: token out of range")
     eng.check_page_invariants()
     check(len(eng._free_pages) == eng.total_pages, "pages leaked")
-    want = eng._tick * stride * cfg.n_layers
-    check(launched == want,
-          f"paged launches {launched} != ticks {eng._tick} x {stride} x "
+    ticks = eng._tick - tick0
+    check(launched == ticks * eng.stride * cfg.n_layers,
+          f"paged launches {launched} != ticks {ticks} x {eng.stride} x "
           f"{cfg.n_layers}")
-    tok_s = eng.emitted_tokens / wall
-    log("serving", requests=len(done), ticks=eng._tick, waves=eng.wave_sizes,
-        paged_launches=launched, tokens=eng.emitted_tokens,
-        wall_s=round(wall, 3), tokens_per_s=round(tok_s, 2), card=repr(name))
-    stats = {"tokens_per_s": tok_s, "wall_s": wall, "ticks": eng._tick,
+    tokens = eng.emitted_tokens - tok0
+    return {"tokens_per_s": tokens / wall, "wall_s": wall, "ticks": ticks,
+            "tokens": tokens, "paged_launches": launched, "prompts": prompts}
+
+
+def serving_phase(torch, kernels, cfg, params, gen, name,
+                  windows: int = 5) -> dict:
+    """The serving program's order: ``warmup()``, then ``windows`` timed
+    windows of staggered requests; tokens/s is the windows' median."""
+    import statistics
+
+    from kubegpu_tpu_torch.models import ContinuousBatcher
+    stride, n_new = 16, 32
+    eng = ContinuousBatcher(params, cfg, n_slots=8, max_len=1024,
+                            stride=stride, prompt_buckets=(512,),
+                            paged=True, page_size=128, total_pages=40,
+                            device="cuda")
+    before = kernels.launches["paged_decode"]
+    t0 = time.perf_counter()
+    eng.warmup()
+    warm_s = time.perf_counter() - t0
+    warm_launches = kernels.launches["paged_decode"] - before
+    check(warm_launches == stride * cfg.n_layers,
+          f"warmup launched the paged kernel {warm_launches} times")
+    check((eng._tick, eng.emitted_tokens) == (0, 0),
+          "warmup changed the engine's state")
+    runs = [serving_window(torch, kernels, eng, cfg, gen, n_new)
+            for _ in range(windows)]
+    rates = [r["tokens_per_s"] for r in runs]
+    tok_s = statistics.median(rates)
+    log("serving", warmup_s=round(warm_s, 3), windows=windows,
+        requests=12 * windows, ticks=eng._tick, waves=list(eng.wave_sizes),
+        paged_launches=warm_launches + sum(r["paged_launches"] for r in runs),
+        tokens=eng.emitted_tokens, occupancy=round(eng.occupancy, 4),
+        card=repr(name))
+    log("serving", tokens_per_s_median=tok_s, tokens_per_s=rates,
+        wall_s=[r["wall_s"] for r in runs])
+    stats = {"tokens_per_s": tok_s, "tokens_per_s_windows": rates,
+             "wall_s_windows": [r["wall_s"] for r in runs],
+             "warmup_s": warm_s, "ticks": eng._tick,
              "tokens": eng.emitted_tokens, "occupancy": eng.occupancy}
-    return stats, eng, prompts
+    return stats, eng, runs[-1]["prompts"]
 
 
 def profile_phase(torch, eng, prompts, n_new: int = 80) -> dict:

@@ -19,8 +19,11 @@
 // lane j scores key j of the 32-key tile, the warp reduces max and sum with
 // shuffles, and the P.V product walks the tile with each lane owning D/32
 // output channels.  Ragged T and S edges mask in-kernel, so every shape runs
-// here (the TPU kernel fell back to XLA when blocks did not tile).  Moving
-// both products onto wgmma with TMA-fed tiles is later work.
+// here (the TPU kernel fell back to XLA when blocks did not tile).  Head dims
+// 64 and 128 run instances with 16-byte tile loads; any other head dim up to
+// 256 runs an instance padded to the next of 32/64/128/256 channels, with
+// scalar loads and the padding zeroed in shared memory.  Moving both products
+// onto wgmma with TMA-fed tiles is later work.
 
 #include "common.cuh"
 
@@ -36,14 +39,19 @@ constexpr int BK = 32;     // keys per tile, one per lane
 constexpr int WARPS = 8;
 constexpr int RPW = ROWS / WARPS;
 
-template <typename T, int D>
+// DP: channels held per row (a multiple of 32); FULL: the head dim is DP.
+// Otherwise the head dim is Dh < DP and channels Dh..DP-1 are zero.
+template <typename T, int DP, bool FULL>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int Hq, int Hkv, int Tq, int S,
-                 int gc, int bq, int n_gchunks, int causal, float sscale) {
+                 int Dh, int gc, int bq, int n_gchunks, int causal,
+                 float sscale) {
+    constexpr int D = DP;
     constexpr int DPL = D / 32;
     constexpr int VEC = Vec16<T>::N;
+    const int Dg = FULL ? D : Dh;      // row stride in global memory
     extern __shared__ float smem[];
     float* qs = smem;                  // [ROWS][D]
     float* ks = qs + ROWS * D;         // [BK][D + 1]  (padded: lane j reads row j)
@@ -65,8 +73,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int r = idx / D, dd = idx % D;
         const int gl = r / bq, g = gchunk * gc + gl, qi = q0 + r % bq;
         float val = 0.f;
-        if (gl < gc && g < G && qi < Tq)
-            val = to_f(q[(((size_t)b * Hq + hk * G + g) * Tq + qi) * D + dd]);
+        if (gl < gc && g < G && qi < Tq && (FULL || dd < Dh))
+            val = to_f(q[(((size_t)b * Hq + hk * G + g) * Tq + qi) * Dg + dd]);
         qs[idx] = val;
     }
 
@@ -98,26 +106,36 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int q_last = min(q0 + bq, Tq) - 1;
         n_kt = min(n_kt, (off + q_last) / BK + 1);
     }
-    const T* kb = k + ((size_t)b * Hkv + hk) * S * D;
-    const T* vb = v + ((size_t)b * Hkv + hk) * S * D;
+    const T* kb = k + ((size_t)b * Hkv + hk) * S * Dg;
+    const T* vb = v + ((size_t)b * Hkv + hk) * S * Dg;
 
     for (int kt = 0; kt < n_kt; ++kt) {
         const int k0 = kt * BK;
         __syncthreads();   // the previous tile is consumed (and qs is loaded)
-        for (int vi = threadIdx.x; vi < BK * D / VEC; vi += blockDim.x) {
-            const int e = vi * VEC, j = e / D, dd = e % D;
-            float kf[VEC], vf[VEC];
-            if (k0 + j < S) {
-                Vec16<T>::load(kb + (size_t)(k0 + j) * D + dd, kf);
-                Vec16<T>::load(vb + (size_t)(k0 + j) * D + dd, vf);
-            } else {
+        if constexpr (FULL) {
+            for (int vi = threadIdx.x; vi < BK * D / VEC; vi += blockDim.x) {
+                const int e = vi * VEC, j = e / D, dd = e % D;
+                float kf[VEC], vf[VEC];
+                if (k0 + j < S) {
+                    Vec16<T>::load(kb + (size_t)(k0 + j) * D + dd, kf);
+                    Vec16<T>::load(vb + (size_t)(k0 + j) * D + dd, vf);
+                } else {
 #pragma unroll
-                for (int x = 0; x < VEC; ++x) kf[x] = vf[x] = 0.f;
+                    for (int x = 0; x < VEC; ++x) kf[x] = vf[x] = 0.f;
+                }
+#pragma unroll
+                for (int x = 0; x < VEC; ++x) {
+                    ks[j * (D + 1) + dd + x] = kf[x];
+                    vs[j * D + dd + x] = vf[x];
+                }
             }
-#pragma unroll
-            for (int x = 0; x < VEC; ++x) {
-                ks[j * (D + 1) + dd + x] = kf[x];
-                vs[j * D + dd + x] = vf[x];
+        } else {
+            for (int e = threadIdx.x; e < BK * D; e += blockDim.x) {
+                const int j = e / D, dd = e % D;
+                const bool in = k0 + j < S && dd < Dh;
+                const size_t gi = (size_t)(k0 + j) * Dh + dd;
+                ks[j * (D + 1) + dd] = in ? to_f(kb[gi]) : 0.f;
+                vs[j * D + dd] = in ? to_f(vb[gi]) : 0.f;
             }
         }
         __syncthreads();
@@ -170,54 +188,55 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const size_t row = ((size_t)b * Hq + h_r[i]) * Tq + qi_r[i];
 #pragma unroll
         for (int d = 0; d < DPL; ++d)
-            o[row * D + lane + 32 * d] = from_f<T>(acc[i][d] / l_safe);
+            if (FULL || lane + 32 * d < Dh)
+                o[row * Dg + lane + 32 * d] = from_f<T>(acc[i][d] / l_safe);
         if (lse != nullptr && lane == 0)
             lse[row] = m[i] * LN2 + logf(l_safe);   // natural log
     }
 }
 
-template <typename T, int D>
+template <typename T, int DP, bool FULL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int B, int Hq, int Hkv, int Tq, int S,
+                   void* lse, int B, int Hq, int Hkv, int Tq, int S, int Dh,
                    int causal, cudaStream_t stream) {
     const int G = Hq / Hkv;
     const int gc = G < ROWS ? G : ROWS;   // query heads per CTA
     const int bq = ROWS / gc;             // query positions per CTA
     const int n_gchunks = (G + gc - 1) / gc;
     const float sscale =
-        (float)(1.0 / sqrt((double)D) * 1.4426950408889634);
-    const size_t smem = (size_t)(ROWS * D + BK * (D + 1) + BK * D) * sizeof(float);
+        (float)(1.0 / sqrt((double)Dh) * 1.4426950408889634);
+    const size_t smem = (size_t)(ROWS * DP + BK * (DP + 1) + BK * DP) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        flash_fwd_kernel<T, DP, FULL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     dim3 grid((Tq + bq - 1) / bq, B * Hkv * n_gchunks);
-    flash_fwd_kernel<T, D><<<grid, WARPS * 32, smem, stream>>>(
+    flash_fwd_kernel<T, DP, FULL><<<grid, WARPS * 32, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o),
-        static_cast<float*>(lse), Hq, Hkv, Tq, S, gc, bq, n_gchunks, causal,
-        sscale);
+        static_cast<float*>(lse), Hq, Hkv, Tq, S, Dh, gc, bq, n_gchunks,
+        causal, sscale);
     return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int Hq, int Hkv, int Tq, int S, int D,
-                       int causal, cudaStream_t stream) {
-    switch (D) {
-        case 64:
-            return launch<T, 64>(q, k, v, o, lse, B, Hq, Hkv, Tq, S, causal, stream);
-        case 128:
-            return launch<T, 128>(q, k, v, o, lse, B, Hq, Hkv, Tq, S, causal, stream);
-        default:
-            return cudaErrorInvalidValue;
-    }
+                       int causal, cudaStream_t st) {
+    if (D == 64) return launch<T, 64, true>(q, k, v, o, lse, B, Hq, Hkv, Tq, S, D, causal, st);
+    if (D == 128) return launch<T, 128, true>(q, k, v, o, lse, B, Hq, Hkv, Tq, S, D, causal, st);
+    if (D < 1) return cudaErrorInvalidValue;
+    if (D <= 32) return launch<T, 32, false>(q, k, v, o, lse, B, Hq, Hkv, Tq, S, D, causal, st);
+    if (D <= 64) return launch<T, 64, false>(q, k, v, o, lse, B, Hq, Hkv, Tq, S, D, causal, st);
+    if (D <= 128) return launch<T, 128, false>(q, k, v, o, lse, B, Hq, Hkv, Tq, S, D, causal, st);
+    if (D <= 256) return launch<T, 256, false>(q, k, v, o, lse, B, Hq, Hkv, Tq, S, D, causal, st);
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q [B, Hq, T, D]; k/v [B, Hkv, S, D] (contiguous, f32 or bf16); o like q;
-// lse f32 [B, Hq, T] or null.  Returns the launch's cudaError_t.
+// q [B, Hq, T, D]; k/v [B, Hkv, S, D] (contiguous, f32 or bf16, D <= 256);
+// o like q; lse f32 [B, Hq, T] or null.  Returns the launch's cudaError_t.
 extern "C" int kubetpu_flash_fwd(const void* q, const void* k, const void* v,
                                  void* o, void* lse, int B, int Hq, int Hkv,
                                  int Tq, int S, int D, int causal, int is_bf16,

@@ -24,6 +24,10 @@
 // (phys < t | t_pad <= phys < t_pad + d, page id != 0), masked explicitly after
 // the exp because NEG_INF is finite.  The warps' partials merge through
 // shared memory at the end (the same logsumexp merge as merge_partials).
+// Head dims 64 and 128 run instances with 16-byte key loads and one instance
+// per query-group size; any other head dim up to 256 runs an instance padded
+// to the next of 32/64/128/256 channels with scalar loads (8 query heads per
+// CTA, whatever the group).
 
 #include "common.cuh"
 
@@ -37,7 +41,9 @@ constexpr int WARPS = 16;
 constexpr int KC = 32;    // keys per chunk, one per lane
 constexpr int GMAX = 8;   // query heads per CTA
 
-template <typename T, int D, int GR>
+// DP: channels held per query (a multiple of 32); FULL: the head dim is DP.
+// Otherwise the head dim is Dh < DP and channels Dh..DP-1 are zero.
+template <typename T, int DP, int GR, bool FULL>
 __global__ void __launch_bounds__(WARPS * 32)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
                     const T* __restrict__ pool_v, const int* __restrict__ pt,
@@ -45,9 +51,11 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
                     const int* __restrict__ tpad_p, const int* __restrict__ d_p,
                     float* __restrict__ o, float* __restrict__ m_out,
                     float* __restrict__ l_out, int Hq, int Hkv, int n_pages,
-                    int P, int max_pages, int n_gchunks, float scale) {
+                    int P, int Dh, int max_pages, int n_gchunks, float scale) {
+    constexpr int D = DP;
     constexpr int DPL = D / 32;
     constexpr int VEC = Vec16<T>::N;
+    const int Dg = FULL ? D : Dh;   // row stride in global memory
     constexpr int RS = D + 2;   // merge record: acc[D], m, l
     extern __shared__ float smem[];
     float* qs = smem;            // [GR][D]
@@ -63,9 +71,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
     const int ng = min(GR, G - g0);
 
     for (int idx = threadIdx.x; idx < GR * D; idx += blockDim.x) {
-        const int gl = idx / D;
-        qs[idx] = gl < ng
-            ? to_f(q[((size_t)b * Hq + hk * G + g0 + gl) * D + idx % D])
+        const int gl = idx / D, dd = idx % D;
+        qs[idx] = gl < ng && (FULL || dd < Dh)
+            ? to_f(q[((size_t)b * Hq + hk * G + g0 + gl) * Dg + dd])
             : 0.f;
     }
 
@@ -76,7 +84,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
     const int n_dec = (db + P - 1) / P;
     const int cpp = (P + KC - 1) / KC;       // chunks per page
     const int n_chunks = (n_prompt + n_dec) * cpp;
-    const size_t page_elems = (size_t)P * D;
+    const size_t page_elems = (size_t)P * Dg;
     __syncthreads();
 
     float m[GR], l[GR], acc[GR][DPL];
@@ -103,16 +111,25 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
 #pragma unroll
         for (int g = 0; g < GR; ++g) s[g] = 0.f;
         if (valid) {
-            const T* krow = pool_k + page_off + (size_t)pofs * D;
+            const T* krow = pool_k + page_off + (size_t)pofs * Dg;
+            if constexpr (FULL) {
 #pragma unroll 4
-            for (int d0 = 0; d0 < D; d0 += VEC) {
-                float kf[VEC];
-                Vec16<T>::load(krow + d0, kf);
+                for (int d0 = 0; d0 < D; d0 += VEC) {
+                    float kf[VEC];
+                    Vec16<T>::load(krow + d0, kf);
 #pragma unroll
-                for (int e = 0; e < VEC; ++e)
+                    for (int e = 0; e < VEC; ++e)
+#pragma unroll
+                        for (int g = 0; g < GR; ++g)
+                            s[g] = fmaf(qs[g * D + d0 + e], kf[e], s[g]);
+                }
+            } else {
+                for (int dd = 0; dd < Dh; ++dd) {
+                    const float kf = to_f(krow[dd]);
 #pragma unroll
                     for (int g = 0; g < GR; ++g)
-                        s[g] = fmaf(qs[g * D + d0 + e], kf[e], s[g]);
+                        s[g] = fmaf(qs[g * D + dd], kf, s[g]);
+                }
             }
         }
 #pragma unroll
@@ -129,13 +146,15 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
         }
         // P.V over the chunk's valid keys only (the set is warp-uniform)
         unsigned vmask = __ballot_sync(FULL_MASK, valid);
-        const T* vbase = pool_v + page_off + (size_t)(sub * KC) * D + lane * DPL;
+        const T* vbase = pool_v + page_off + (size_t)(sub * KC) * Dg + lane * DPL;
         while (vmask) {
             const int jj = __ffs(vmask) - 1;
             vmask &= vmask - 1;
             float vv[DPL];
 #pragma unroll
-            for (int d = 0; d < DPL; ++d) vv[d] = to_f(vbase[(size_t)jj * D + d]);
+            for (int d = 0; d < DPL; ++d)
+                vv[d] = FULL || lane * DPL + d < Dh
+                    ? to_f(vbase[(size_t)jj * Dg + d]) : 0.f;
 #pragma unroll
             for (int g = 0; g < GR; ++g) {
                 const float wj = __shfl_sync(FULL_MASK, s[g], jj);
@@ -157,8 +176,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
         }
     }
     __syncthreads();
-    for (int idx = threadIdx.x; idx < ng * D; idx += blockDim.x) {
-        const int g = idx / D, dd = idx % D;
+    for (int idx = threadIdx.x; idx < ng * Dg; idx += blockDim.x) {
+        const int g = idx / Dg, dd = idx % Dg;
         float mx = NEG_INF;
         for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, red[(w * GR + g) * RS + D]);
         float lt = 0.f, ot = 0.f;
@@ -169,7 +188,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
             ot += f * rec[dd];
         }
         const size_t row = (size_t)b * Hq + hk * G + g0 + g;
-        o[row * D + dd] = ot / fmaxf(lt, 1e-30f);
+        o[row * Dg + dd] = ot / fmaxf(lt, 1e-30f);
         if (dd == 0) {
             m_out[row] = mx;
             l_out[row] = lt;
@@ -177,43 +196,42 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
     }
 }
 
-template <typename T, int D, int GR>
+template <typename T, int DP, int GR, bool FULL>
 cudaError_t launch(const void* q, const void* pk, const void* pv, const int* pt,
                    const int* layer, const int* t, const int* tpad,
                    const int* d, void* o, void* m, void* l, int B, int Hq,
-                   int Hkv, int n_pages, int P, int max_pages,
+                   int Hkv, int n_pages, int P, int Dh, int max_pages,
                    cudaStream_t stream) {
     const int G = Hq / Hkv;
     const int n_gchunks = (G + GMAX - 1) / GMAX;
-    const size_t smem = (size_t)(GR * D + WARPS * GR * (D + 2)) * sizeof(float);
+    const size_t smem = (size_t)(GR * DP + WARPS * GR * (DP + 2)) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<T, D, GR>,
+        paged_decode_kernel<T, DP, GR, FULL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     dim3 grid(B, Hkv * n_gchunks);
-    paged_decode_kernel<T, D, GR><<<grid, WARPS * 32, smem, stream>>>(
+    paged_decode_kernel<T, DP, GR, FULL><<<grid, WARPS * 32, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(pk),
         static_cast<const T*>(pv), pt, layer, t, tpad, d,
         static_cast<float*>(o), static_cast<float*>(m),
-        static_cast<float*>(l), Hq, Hkv, n_pages, P, max_pages, n_gchunks,
-        (float)(1.0 / sqrt((double)D)));
+        static_cast<float*>(l), Hq, Hkv, n_pages, P, Dh, max_pages, n_gchunks,
+        (float)(1.0 / sqrt((double)Dh)));
     return cudaGetLastError();
 }
 
-template <typename T, int D>
+#define PAGED_ARGS q, pk, pv, pt, layer, t, tpad, d, o, m, l, B, Hq, Hkv, n_pages, P, D, max_pages, st
+
+template <typename T, int DP>
 cudaError_t dispatch_g(const void* q, const void* pk, const void* pv,
                        const int* pt, const int* layer, const int* t,
                        const int* tpad, const int* d, void* o, void* m,
                        void* l, int B, int Hq, int Hkv, int n_pages, int P,
-                       int max_pages, cudaStream_t st) {
+                       int D, int max_pages, cudaStream_t st) {
     const int G = Hq / Hkv;
-    if (G <= 1)
-        return launch<T, D, 1>(q, pk, pv, pt, layer, t, tpad, d, o, m, l, B, Hq, Hkv, n_pages, P, max_pages, st);
-    if (G <= 2)
-        return launch<T, D, 2>(q, pk, pv, pt, layer, t, tpad, d, o, m, l, B, Hq, Hkv, n_pages, P, max_pages, st);
-    if (G <= 4)
-        return launch<T, D, 4>(q, pk, pv, pt, layer, t, tpad, d, o, m, l, B, Hq, Hkv, n_pages, P, max_pages, st);
-    return launch<T, D, GMAX>(q, pk, pv, pt, layer, t, tpad, d, o, m, l, B, Hq, Hkv, n_pages, P, max_pages, st);
+    if (G <= 1) return launch<T, DP, 1, true>(PAGED_ARGS);
+    if (G <= 2) return launch<T, DP, 2, true>(PAGED_ARGS);
+    if (G <= 4) return launch<T, DP, 4, true>(PAGED_ARGS);
+    return launch<T, DP, GMAX, true>(PAGED_ARGS);
 }
 
 template <typename T>
@@ -222,19 +240,21 @@ cudaError_t dispatch_d(const void* q, const void* pk, const void* pv,
                        const int* tpad, const int* d, void* o, void* m,
                        void* l, int B, int Hq, int Hkv, int n_pages, int P,
                        int D, int max_pages, cudaStream_t st) {
-    switch (D) {
-        case 64:
-            return dispatch_g<T, 64>(q, pk, pv, pt, layer, t, tpad, d, o, m, l, B, Hq, Hkv, n_pages, P, max_pages, st);
-        case 128:
-            return dispatch_g<T, 128>(q, pk, pv, pt, layer, t, tpad, d, o, m, l, B, Hq, Hkv, n_pages, P, max_pages, st);
-        default:
-            return cudaErrorInvalidValue;
-    }
+    if (D == 64) return dispatch_g<T, 64>(PAGED_ARGS);
+    if (D == 128) return dispatch_g<T, 128>(PAGED_ARGS);
+    if (D < 1) return cudaErrorInvalidValue;
+    if (D <= 32) return launch<T, 32, GMAX, false>(PAGED_ARGS);
+    if (D <= 64) return launch<T, 64, GMAX, false>(PAGED_ARGS);
+    if (D <= 128) return launch<T, 128, GMAX, false>(PAGED_ARGS);
+    if (D <= 256) return launch<T, 256, GMAX, false>(PAGED_ARGS);
+    return cudaErrorInvalidValue;
 }
+
+#undef PAGED_ARGS
 
 }  // namespace
 
-// q [B, Hq, D]; pools [L, n_pages, Hkv, P, D] (f32 or bf16, like q);
+// q [B, Hq, D]; pools [L, n_pages, Hkv, P, D] (f32 or bf16, like q; D <= 256);
 // page_table [B, max_pages] i32; layer [1] i32; t/t_pad/d [B] i32 (all on
 // the device).  Outputs o f32 [B, Hq, D], m/l f32 [B, Hq].  Returns the
 // launch's cudaError_t.

@@ -73,23 +73,21 @@ def _project_qkv(h: torch.Tensor, lp: dict, cfg: LlamaConfig,
 
 
 def _attn_finish(x: torch.Tensor, o: torch.Tensor, lp: dict,
-                 cfg: LlamaConfig, ffn) -> torch.Tensor:
+                 cfg: LlamaConfig) -> torch.Tensor:
     """Attention output [B, H, T, hd] → wo projection + residual +
     feed-forward."""
     b, t = x.shape[0], x.shape[1]
     o = o.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.head_dim)
     x = x + (o @ lp["wo"]).to(x.dtype)
-    return ffn(x, lp)
+    return _dense_ffn(x, lp, cfg)
 
 
 def _forward_with_cache(params: dict, tokens: torch.Tensor, cache: dict,
-                        pos_offset: int, cfg: LlamaConfig, ffn=None):
+                        pos_offset: int, cfg: LlamaConfig):
     """Run the decoder over ``tokens`` [B, T] starting at global position
     ``pos_offset``, writing K/V into ``cache`` in place.  Returns (logits
     [B, T, vocab] f32, cache)."""
     b, t = tokens.shape
-    if ffn is None:
-        ffn = lambda x_, lp_: _dense_ffn(x_, lp_, cfg)   # noqa: E731
     x = embed_lookup(params["embed"], tokens)
     q_pos = pos_offset + torch.arange(t, device=tokens.device)
     positions = q_pos[None, :].expand(b, t)
@@ -100,28 +98,27 @@ def _forward_with_cache(params: dict, tokens: torch.Tensor, cache: dict,
         ck, cv = cache["k"][i], cache["v"][i]
         ck[:, :, pos_offset:pos_offset + t] = k.to(ck.dtype)
         cv[:, :, pos_offset:pos_offset + t] = v.to(cv.dtype)
-        x = _attn_finish(x, _cached_attend(q, ck, cv, q_pos), lp, cfg, ffn)
+        x = _attn_finish(x, _cached_attend(q, ck, cv, q_pos), lp, cfg)
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"]).float(), cache
 
 
 def prefill(params: dict, prompt: torch.Tensor, cfg: LlamaConfig,
-            max_len: int | None = None, ffn=None):
+            max_len: int | None = None):
     """Process the whole prompt [B, T]; returns (last-position logits
     [B, vocab], primed cache)."""
     cache = init_kv_cache(cfg, prompt.shape[0], max_len,
                           device=prompt.device)
-    logits, cache = _forward_with_cache(params, prompt, cache, 0, cfg,
-                                        ffn=ffn)
+    logits, cache = _forward_with_cache(params, prompt, cache, 0, cfg)
     return logits[:, -1], cache
 
 
 def decode_step(params: dict, cache: dict, token: torch.Tensor, pos: int,
-                cfg: LlamaConfig, ffn=None):
+                cfg: LlamaConfig):
     """One token in, next-token logits out.  token: [B]; ``pos``: the
     global position of ``token``."""
     logits, cache = _forward_with_cache(params, token[:, None], cache, pos,
-                                        cfg, ffn=ffn)
+                                        cfg)
     return logits[:, 0], cache
 
 
@@ -136,15 +133,14 @@ def _validate_rollout(cfg: LlamaConfig, t: int, n_steps: int,
 
 
 def _rollout(params, prompt, cfg: LlamaConfig, t: int, n_steps: int,
-             max_len: int, pick, ffn=None) -> torch.Tensor:
+             max_len: int, pick) -> torch.Tensor:
     """THE decode loop: prefill, then ``n_steps - 1`` decode forwards.
     ``pick(logits, step_index)`` selects each token."""
-    logits, cache = prefill(params, prompt, cfg, max_len, ffn=ffn)
+    logits, cache = prefill(params, prompt, cfg, max_len)
     token = pick(logits, 0)
     toks = [token]
     for i in range(n_steps - 1):
-        logits, cache = decode_step(params, cache, token, t + i, cfg,
-                                    ffn=ffn)
+        logits, cache = decode_step(params, cache, token, t + i, cfg)
         token = pick(logits, i + 1)
         toks.append(token)
     return torch.stack(toks, dim=1)

@@ -31,7 +31,6 @@ import torch
 from kubegpu_tpu_torch.models.decode import (
     _attend_buffer_partials,
     _attn_finish,
-    _dense_ffn,
     _forward_with_cache,
     _project_qkv,
     init_kv_cache,
@@ -48,11 +47,15 @@ from kubegpu_tpu_torch.ops.paged_attention import (
     paged_attention,
 )
 
+# Largest prefill wave (the reference's ``max_wave`` default).
+MAX_WAVE = 8
+
 # Reference knobs this slice does not port: name -> (default, ROADMAP.md
 # queue-1 item that brings it).  A non-default value raises.
 _LATER = {
     "paged": (True, "the dense slot engine (paged=False)"),
     "sampling": (False, "sampling"),
+    "seed": (0, "sampling"),
     "top_k": (0, "sampling"),
     "kv_int8": (False, "KV quantization + eviction"),
     "kv_bits": (None, "KV quantization + eviction"),
@@ -86,13 +89,11 @@ def _pick_token(logits: torch.Tensor) -> torch.Tensor:
 def _paged_row_step(params: dict, tokens: torch.Tensor, pool: dict,
                     pt: torch.Tensor, tvec: torch.Tensor, tpad: torch.Tensor,
                     d0: torch.Tensor, buf: dict, pos: torch.Tensor, j: int,
-                    cfg: LlamaConfig, ffn=None) -> torch.Tensor:
+                    cfg: LlamaConfig) -> torch.Tensor:
     """One decode step for every slot against the paged pool: flushed
     history via the paged kernel, this block's keys via the write buffer
     (written in place at index ``j``), merged with the flash-decoding
     logsumexp merge.  Returns next-token logits [B, V] f32."""
-    if ffn is None:
-        ffn = lambda x_, lp_: _dense_ffn(x_, lp_, cfg)   # noqa: E731
     x = embed_lookup(params["embed"], tokens)[:, None, :]        # [B,1,D]
     positions = pos[:, None]
     for li in range(cfg.n_layers):
@@ -107,7 +108,7 @@ def _paged_row_step(params: dict, tokens: torch.Tensor, pool: dict,
             tpad, d0)
         o_b, m_b, l_b = _attend_buffer_partials(q, bk, bv, j)
         o = merge_partials(o_p, m_p, l_p, o_b, m_b, l_b)
-        x = _attn_finish(x, o[:, :, None, :].to(x.dtype), lp, cfg, ffn)
+        x = _attn_finish(x, o[:, :, None, :].to(x.dtype), lp, cfg)
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"]).float()[:, 0]
 
@@ -237,6 +238,8 @@ class ContinuousBatcher:
     previous tick's token block, retires finishers, admits queued
     requests into free slots (prefill waves), and dispatches the next
     stride block for every slot; ``drain()`` runs to completion.
+    ``warmup()`` runs every shape once on scratch state, before a timed
+    window.
 
     Knobs of the reference engine outside this slice raise
     ``NotImplementedError`` naming their ROADMAP.md item."""
@@ -244,10 +247,9 @@ class ContinuousBatcher:
     def __init__(self, params: dict, cfg: LlamaConfig, n_slots: int = 8,
                  max_len: int | None = None, stride: int = 16,
                  prompt_buckets: tuple[int, ...] = (128, 512, 1024),
-                 seed: int = 0, max_wave: int = 8, paged: bool = False,
-                 page_size: int = 128, total_pages: int | None = None,
+                 paged: bool = False, page_size: int = 128,
+                 total_pages: int | None = None,
                  debug_invariants: bool = False, device="cuda", **later):
-        del seed   # greedy engine: no sampling keys
         later["paged"] = paged
         for name, value in later.items():
             if name not in _LATER:
@@ -266,7 +268,6 @@ class ContinuousBatcher:
         self.n_slots = n_slots
         self.max_len = max_len or cfg.max_seq_len
         self.stride = stride
-        self.max_wave = max(1, max_wave)
         self.prompt_buckets = tuple(sorted(prompt_buckets))
         if self.prompt_buckets[-1] >= self.max_len:
             raise ValueError("largest prompt bucket must be < max_len")
@@ -310,7 +311,8 @@ class ContinuousBatcher:
         self.emitted_tokens = 0      # all generated tokens (incl. first)
         self._decode_tokens = 0      # tokens produced by decode steps
         self.slot_steps = 0          # decode slot-steps spent
-        self.wave_sizes: list[int] = []
+        # k of each recent wave (a bounded window, as the reference trims it)
+        self.wave_sizes: deque[int] = deque(maxlen=32768)
 
     # -- requests -------------------------------------------------------
 
@@ -409,7 +411,7 @@ class ContinuousBatcher:
                     break
                 n_same += 1
             k = 1
-            while k * 2 <= min(n_same, len(free), self.max_wave):
+            while k * 2 <= min(n_same, len(free), MAX_WAVE):
                 k *= 2
             while k > 1 and sum(
                     self._pages_needed(r.remaining_new, bucket)
@@ -449,6 +451,40 @@ class ContinuousBatcher:
                 self.emitted_tokens += 1
                 if remaining <= 1:
                     req.done = True
+
+    def warmup(self) -> None:
+        """Run every shape this engine can hit -- each power-of-two wave
+        size per prompt bucket through prefill and adoption, then one
+        decode block -- on scratch copies of the pool and slot vectors, so
+        no engine state or counter changes.  Call it before a timed
+        window: otherwise the first call at each shape (cuBLAS's algorithm
+        choice, the caching allocator's growth) lands inside it."""
+        scratch = {n: torch.zeros_like(x) for n, x in self.pool.items()}
+        sft, stok = (torch.zeros_like(self.first_toks),
+                     torch.zeros_like(self.tokens))
+        spos = torch.zeros_like(self.pos)
+        for bucket in self.prompt_buckets:
+            k = 1
+            while k <= min(self.n_slots, MAX_WAVE):
+                lens = torch.ones(k, dtype=torch.long, device=self.device)
+                firsts, cache_w = prefill_wave(
+                    self.params, torch.zeros((k, bucket), dtype=torch.long,
+                                             device=self.device),
+                    lens, self.cfg)
+                # page ids 0: every prompt page lands in the trash page
+                adopt_wave(scratch, cache_w,
+                           torch.zeros((k, bucket // self.page_size),
+                                       dtype=torch.long, device=self.device),
+                           torch.arange(k, device=self.device), firsts, lens,
+                           sft, stok, spos, self.page_size)
+                k *= 2
+        self._sync_tables()
+        decode_block(self.params, scratch, self._pt_dev, self._tvec_dev,
+                     self._tpad_dev, stok, spos,
+                     torch.from_numpy(self.active).to(self.device), self.cfg,
+                     self.stride)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _dispatch_tick(self) -> None:
         """Dispatch one stride block for the current slot state and keep

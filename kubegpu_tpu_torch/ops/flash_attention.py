@@ -15,7 +15,9 @@ from kubegpu_tpu_torch import kernels
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
-KERNEL_HEAD_DIMS = (64, 128)
+# head dims 64 and 128 run the kernels' vectorized instances; any other
+# up to this one runs an instance padded to 32/64/128/256 channels
+KERNEL_MAX_HEAD_DIM = 256
 
 
 def repeat_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -80,8 +82,8 @@ def _flash_cuda(q, k, v, causal, return_lse):
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k/v shape {tuple(k.shape)} does not fit q "
                          f"{tuple(q.shape)}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {KERNEL_HEAD_DIMS}")
+    if not 0 < d <= KERNEL_MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} not in [1, {KERNEL_MAX_HEAD_DIM}]")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel needs contiguous q/k/v")
     out = torch.empty_like(q)

@@ -18,9 +18,7 @@ from __future__ import annotations
 import torch
 
 from kubegpu_tpu_torch import kernels
-from kubegpu_tpu_torch.ops.flash_attention import NEG_INF
-
-KERNEL_HEAD_DIMS = (64, 128)
+from kubegpu_tpu_torch.ops.flash_attention import KERNEL_MAX_HEAD_DIM, NEG_INF
 
 _QUANT_TODO = ("int8/int4 pages wait for the KV-quant slice "
                "(ROADMAP.md queue 1, 'KV quantization + eviction')")
@@ -117,8 +115,8 @@ def _paged_cuda(q, pool_k, pool_v, page_table, layer, t, t_pad, d):
     if pool_v.shape != pool_k.shape or pdim != dd or hq % hkv:
         raise ValueError(f"pool {tuple(pool_k.shape)} does not fit q "
                          f"{tuple(q.shape)}")
-    if dd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {dd} not in {KERNEL_HEAD_DIMS}")
+    if not 0 < dd <= KERNEL_MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {dd} not in [1, {KERNEL_MAX_HEAD_DIM}]")
     for name, x in (("page_table", page_table), ("t", t), ("t_pad", t_pad),
                     ("d", d)):
         if x.dtype != torch.int32 or x.device != q.device:

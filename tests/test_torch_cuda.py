@@ -80,6 +80,34 @@ def test_paged_kernel_matches_plain(dev, dtype, hq):
     assert not o[2].any() and not l[2].any()        # the empty row
 
 
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 16), (torch.float32, 80),
+                                      (torch.bfloat16, 96),
+                                      (torch.float32, 256)])
+def test_kernels_take_any_head_dim(dev, dtype, hd):
+    """Head dims other than 64/128 run the padded instances of both
+    kernels (16 is ``LlamaConfig.tiny()``'s); tolerances as above."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+               for shape in ((2, 4, 37, hd), (2, 2, 50, hd), (2, 2, 50, hd)))
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    bf16 = dtype == torch.bfloat16
+    ref = fa.xla_attention(q, k, v, causal=True)
+    assert (out.float() - ref.float()).abs().max().item() <= (
+        2e-2 if bf16 else 1e-4)
+    assert (lse - fa._xla_lse(q, k, True, hd ** -0.5)).abs().max().item() \
+        <= (1e-3 if bf16 else 1e-4)
+    pk, pv = (torch.randn(2, 12, 2, 8, hd, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    qd = torch.randn(4, 8, hd, generator=g, device=dev).to(dtype)
+    t, tpad, d = (torch.from_numpy(x).to(dev) for x in STATE)
+    args = (qd, pk, pv, torch.from_numpy(PT).to(dev), 1, t, tpad, d)
+    (o, m, l), (ro, rm, rl) = (pa.paged_attention(*args),
+                               pa.paged_attention_ref(*args))
+    assert (o - ro).abs().max().item() <= (1e-2 if bf16 else 1e-4)
+    assert (m - rm).abs().max().item() <= 1e-3
+    assert ((l - rl).abs() <= 1e-3 * rl).all()
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.randn(1, 4, 16, 128, device=dev)
     k = torch.randn(1, 2, 16, 128, device=dev)
@@ -88,8 +116,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError, match="dtype"):
         fa.flash_attention(q, k.bfloat16(), k.bfloat16())
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
-                           k[..., :48].contiguous())
+        wide = torch.randn(1, 2, 16, 320, device=dev)
+        fa.flash_attention(wide, wide, wide)
     pool = torch.zeros(1, 3, 2, 8, 128, device=dev)
     i32 = torch.zeros(1, dtype=torch.int32, device=dev)
     with pytest.raises(TypeError, match="int32"):

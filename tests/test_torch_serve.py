@@ -81,7 +81,7 @@ def test_page_accounting_matches_reference(tiny):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("paged", False), ("sampling", True), ("kv_int8", True),
+    ("paged", False), ("sampling", True), ("seed", 1), ("kv_int8", True),
     ("kv_bits", 4), ("prefix_cache", True), ("chunked_prefill", True),
     ("spec_gamma", 2), ("fused_ticks", 2), ("mesh", object()),
     ("evict_policy", "window"), ("chaos", object()), ("tracer", object()),
@@ -93,6 +93,25 @@ def test_unported_knobs_raise(tiny, knob, value):
     kw[knob] = value
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ts.ContinuousBatcher(params_t, cfg, **kw)
+
+
+def test_warmup_is_state_free(tiny):
+    """warmup() runs every wave size and a decode block on scratch state:
+    the pool, slot vectors, tables and counters are untouched, and the
+    engine then serves the same tokens as one that was never warmed."""
+    _, _, cfg, params_t = tiny
+    eng = ts.ContinuousBatcher(params_t, cfg, device="cpu", **ENGINE)
+    eng.warmup()
+    assert not eng.pool["k"].any() and not eng.pool["v"].any()
+    assert not (eng.tokens.any() or eng.pos.any() or eng.first_toks.any())
+    assert (eng._tick, eng.emitted_tokens, eng.slot_steps) == (0, 0, 0)
+    assert not eng.wave_sizes and not eng.slot_req
+    eng.check_page_invariants()
+    prompts = _prompts(cfg.vocab_size)
+    _, got = _serve(eng, prompts)
+    _, cold = _serve(ts.ContinuousBatcher(params_t, cfg, device="cpu",
+                                          **ENGINE), prompts)
+    assert got == cold
 
 
 def test_submit_validation(tiny):
