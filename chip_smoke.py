@@ -10,22 +10,31 @@ printed as it ends (any failed check exits non-zero):
 1. device   — the card's name and power limit (nvidia-smi);
 2. build    — every kernel, one nvcc per source, all at once;
 3. kernels  — each kernel against its plain PyTorch version on the card at
-   the main path's shapes (bf16) and at small f32 edge cases, with times,
-   the card's bound and a library yardstick where one call computes the
-   same function;
+   its path's shapes (bf16) and at small f32 edge cases, with times, the
+   card's bound and a library yardstick where one call computes the same
+   function: flash forward, paged decode, and the flash backward's dq and
+   dk/dv kernels (at the training shape, [4, 32, 2048, 128]);
 4. forward  — ``llama_forward`` at Llama-3-8B full width, bf16, [1, 512];
 5. serving  — the paged ``ContinuousBatcher`` at the same width:
    ``warmup()``, then five timed windows of 12 staggered requests (median
    tokens/s);
 6. parity   — a narrow f32 engine token for token against the port's own
    ``greedy_generate``, and the full-width first decode step's logits
-   against the plain dense path.
+   against the plain dense path;
+7. training — Llama-3-8B at full width cut to 8 layers (remat on), bf16:
+   first one step's loss and gradients at batch 1 through the kernels
+   against ``attn_impl="plain"``, then ``make_train_step`` with the port's
+   ``adamw(1e-3)`` on one [4, 2048] batch: one warm step and three timed
+   steps (median step ms, tokens/s, model-FLOP utilisation, peak memory,
+   falling losses).
 
-Launch counters are zeroed just before phases 4-5 (the main path) and read
-just after.  The line before the last is one JSON object per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  ``--details PATH`` writes
-every phase's numbers to PATH as JSON.  With ``--profile`` it also traces
-one steady engine tick after phase 5 (device time by kernel, idle share).
+Two paths are driven: serving (phases 4-5) and training (phase 7's
+steps).  Launch counters are zeroed just before each and read just after.
+The line before the last is one JSON object per kernel; the last line is
+``{"ok": true, "device": {...}}``.  ``--details PATH`` writes every phase's
+numbers to PATH as JSON.  With ``--profile`` it also traces one steady
+engine tick after phase 5 and one train step after phase 7 (device time by
+kernel, idle share).
 """
 
 from __future__ import annotations
@@ -156,6 +165,125 @@ def flash_checks(torch, gen) -> dict:
     out["bound_ms"], out["bound_by"] = bound_ms(
         n_bytes, 4 * 32 * 128 * pairs, q.dtype)
     return out
+
+
+def causal_pairs(t: int, s: int) -> int:
+    """(query, key) pairs the end-aligned causal mask keeps."""
+    return sum(min(s, i + 1 + s - t) for i in range(t))
+
+
+def rel_err(got, ref) -> float:
+    """Max |err| over max |ref|: gradients have no natural unit."""
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp(min=1e-30)).item()
+
+
+def flash_bwd_checks(torch, gen) -> dict:
+    """Kernels 2 (dq) and 3 (dk, dv) against ``flash_attention_bwd_ref``,
+    and the forward's time at the training shape (its lse output on, as
+    the training path calls it)."""
+    fa = importlib.import_module("kubegpu_tpu_torch.ops.flash_attention")
+    dev = "cuda"
+    b, hq, hkv, t, d = 4, 32, 8, 2048, 128   # the 8B train step's shape
+    q, do = (torch.randn(b, hq, t, d, generator=gen, device=dev).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(b, hkv, t, d, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, True)
+    dq = fa._flash_bwd_dq_cuda(*args)
+    dk, dv = fa._flash_bwd_dkv_cuda(*args)
+    rq, rk, rv = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    errs = {"dq": rel_err(dq, rq), "dk": rel_err(dk, rk),
+            "dv": rel_err(dv, rv)}
+    # bf16: both sides sum in f32 from the same bf16 inputs, in another
+    # order, and round their outputs to bf16; two f32 sums on either side
+    # of a rounding boundary land one bf16 ulp apart, at most 2^-7 of the
+    # value
+    check(max(errs.values()) <= 1e-2,
+          f"flash bwd bf16 rel err {errs} > 1e-2")
+    out_dq = {"max_abs_err": max_err(dq, rq)}
+    out_dkv = {"max_abs_err": max(max_err(dk, rk), max_err(dv, rv))}
+    log("kernels", kernel="flash_bwd_dq+dkv",
+        case=f"bf16 [{b},{hq},{t},{d}] vs [{b},{hkv},{t},{d}] causal",
+        rel_err=errs, tol_rel=1e-2, dq_max_abs_err=out_dq["max_abs_err"],
+        dkv_max_abs_err=out_dkv["max_abs_err"])
+    del dq, dk, dv, rq, rk, rv
+    # f32 edge cases: ragged T/S, end-aligned t < s, non-causal (t > s),
+    # group 1 and group 4, head dims 16/80/128 (16 and 80 run the padded
+    # instances)
+    for causal, eq, ekv, et, es, ed in (
+            (True, 8, 2, 37, 70, 128), (False, 8, 2, 64, 40, 128),
+            (True, 4, 4, 33, 33, 16), (True, 8, 2, 29, 50, 80),
+            (True, 4, 1, 48, 48, 64)):
+        qf, dof = (torch.randn(2, eq, et, ed, generator=gen, device=dev)
+                   for _ in range(2))
+        kf, vf = (torch.randn(2, ekv, es, ed, generator=gen, device=dev)
+                  for _ in range(2))
+        of, lf = fa.flash_attention(qf, kf, vf, causal=causal,
+                                    return_lse=True)
+        fargs = (qf, kf, vf, dof, lf, (dof * of).sum(-1), causal)
+        got = (fa._flash_bwd_dq_cuda(*fargs),
+               *fa._flash_bwd_dkv_cuda(*fargs))
+        ref = fa.flash_attention_bwd_ref(qf, kf, vf, of, lf, dof, causal)
+        e = max(rel_err(a, r) for a, r in zip(got, ref))
+        check(e <= 1e-4, f"flash bwd f32 hq={eq} hkv={ekv} t={et} s={es} "
+              f"hd={ed} causal={causal}: rel err {e}")
+        log("kernels", kernel="flash_bwd_dq+dkv",
+            case=f"f32 [2,{eq},{et},{ed}] hkv={ekv} s={es} causal={causal}",
+            rel_err=e, tol_rel=1e-4)
+    out_dq["ms"] = cuda_ms(lambda: fa._flash_bwd_dq_cuda(*args))
+    out_dkv["ms"] = cuda_ms(lambda: fa._flash_bwd_dkv_cuda(*args))
+    # the plain version computes dq, dk and dv in one call: one time for
+    # both rows
+    plain = cuda_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse,
+                                                       do, True), reps=5)
+    out_dq["plain_ms"] = out_dkv["plain_ms"] = plain
+    # the yardstick: autograd's backward of one SDPA call (one ATen
+    # backward op for dq, dk and dv), its forward outside the window
+    library = None
+    try:
+        import torch.nn.functional as F
+        lq, lk, lv = (x.detach().requires_grad_() for x in (q, k, v))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                            enable_gqa=True)
+        library = cuda_ms(lambda: torch.autograd.grad(
+            lo, (lq, lk, lv), do, retain_graph=True))
+        del lo
+    except (TypeError, RuntimeError) as exc:
+        log("kernels", kernel="flash_bwd", library="unavailable",
+            why=type(exc).__name__)
+    out_dq["library_ms"] = out_dkv["library_ms"] = library
+    pairs = b * hq * causal_pairs(t, t)
+    io = (q.numel() + k.numel() + v.numel() + do.numel()) * 2 \
+        + (lse.numel() + delta.numel()) * 4
+    out_dq["bound_ms"], out_dq["bound_by"] = bound_ms(
+        io + q.numel() * 2, 3 * 2 * d * pairs, q.dtype)
+    out_dkv["bound_ms"], out_dkv["bound_by"] = bound_ms(
+        io + 2 * k.numel() * 2, 4 * 2 * d * pairs, q.dtype)
+    # the forward at the training shape (PERF.md's row 1 at this shape)
+    fwd = {"ms": cuda_ms(lambda: fa.flash_attention(
+        q, k, v, causal=True, return_lse=True))}
+    fwd["bound_ms"], fwd["bound_by"] = bound_ms(
+        (2 * q.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 4,
+        2 * 2 * d * pairs, q.dtype)
+    fwd["plain_ms"] = cuda_ms(lambda: fa.xla_attention(q, k, v, True),
+                              reps=5)
+    fwd["library_ms"] = None
+    try:
+        import torch.nn.functional as F
+        fwd["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+    except (TypeError, RuntimeError) as exc:   # older torch: no GQA call
+        log("kernels", kernel="flash_fwd", library="unavailable",
+            why=type(exc).__name__)
+    log("kernels", kernel="flash_fwd", case=f"training shape [{b},{hq},{t},"
+        f"{d}] with lse", ms=fwd["ms"], plain_ms=fwd["plain_ms"],
+        bound_ms=fwd["bound_ms"],
+        bound_by=fwd["bound_by"], library_ms=fwd["library_ms"])
+    return {"flash_bwd_dq": out_dq, "flash_bwd_dkv": out_dkv}, fwd
 
 
 def paged_case(torch, gen, dtype, n_layers, n_pages, hkv, page, dim, hq,
@@ -337,16 +465,49 @@ def serving_phase(torch, kernels, cfg, params, gen, name,
     return stats, eng, runs[-1]["prompts"]
 
 
+def device_trace(torch, fn, wall_ms: float) -> dict:
+    """Run ``fn()`` (which ends in a synchronize) once under
+    ``torch.profiler``: device time by kernel name, the traced wall time,
+    and the device's idle share, one minus the kernels' summed time (one
+    stream, so kernels never overlap) over ``wall_ms``, the same work's
+    untraced wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            rec = by_name.setdefault(e.name, [0.0, 0])
+            rec[0] += e.device_time_total / 1e3
+            rec[1] += 1
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    return {"wall_ms": wall_ms, "traced_wall_ms": traced_ms,
+            "device_busy_ms": busy_ms,
+            "device_kernels": sum(c for _, c in by_name.values()),
+            "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+            "kernels": [{"name": n[:120], "ms": ms, "calls": c}
+                        for n, (ms, c) in top]}
+
+
+def log_trace(what: str, out: dict) -> None:
+    log("profile", what=what, wall_ms=round(out["wall_ms"], 3),
+        traced_wall_ms=round(out["traced_wall_ms"], 3),
+        device_busy_ms=round(out["device_busy_ms"], 3),
+        device_kernels=out["device_kernels"], idle_share=out["idle_share"],
+        top=[(k["name"][:40], round(k["ms"], 3)) for k in out["kernels"][:8]])
+
+
 def profile_phase(torch, eng, prompts, n_new: int = 80) -> dict:
     """Device time by kernel over one steady engine tick (``--profile``).
     The engine is refilled with requests long enough that the timed ticks
     decode every slot; after admission, one ``step()`` (collect + dispatch
     of a full stride block, ended by a synchronize) is timed untraced, and
-    the next is traced with ``torch.profiler``.  The device's idle share
-    is one minus the traced kernels' summed time (one stream, so kernels
-    never overlap) over the untraced tick's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    the next is traced."""
     for p in prompts[:eng.n_slots]:
         eng.submit(p, n_new)
     eng.step()
@@ -356,32 +517,13 @@ def profile_phase(torch, eng, prompts, n_new: int = 80) -> dict:
     eng.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def tick():
         eng.step()
         torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3
+    out = device_trace(torch, tick, wall_ms)
     eng.drain()
-    by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            rec = by_name.setdefault(e.name, [0.0, 0])
-            rec[0] += e.device_time_total / 1e3
-            rec[1] += 1
-    busy_ms = sum(ms for ms, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    out = {"tick_wall_ms": wall_ms, "traced_tick_wall_ms": traced_ms,
-           "device_busy_ms": busy_ms,
-           "device_kernels": sum(c for _, c in by_name.values()),
-           "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
-           "kernels": [{"name": n[:120], "ms": ms, "calls": c}
-                       for n, (ms, c) in top]}
-    log("profile", tick_wall_ms=round(wall_ms, 3),
-        traced_tick_wall_ms=round(traced_ms, 3),
-        device_busy_ms=round(busy_ms, 3),
-        device_kernels=out["device_kernels"], idle_share=out["idle_share"],
-        top=[(k["name"][:40], round(k["ms"], 3)) for k in out["kernels"][:5]])
+    log_trace("one steady engine tick", out)
     return out
 
 
@@ -462,11 +604,144 @@ def parity_full(torch, cfg, params, gen) -> dict:
     return {"rel_l2_err": rel, "max_abs_err": mx, "argmax_equal": same}
 
 
+# -- phase 7: training -------------------------------------------------------
+
+def train_flops_per_step(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step (fwd + bwd = 3x fwd), the MFU
+    numerator: matmul fwd = 2 * params_in_matmuls * tokens, causal
+    attention fwd = 2 * B * Hq * T^2 * hd per layer.  The reference
+    benchmark's count (``train_flops_per_step``), kept here as a copy;
+    remat's recomputed forward is not model work and is not counted."""
+    hd = cfg.head_dim
+    per_layer = (cfg.d_model * cfg.n_heads * hd
+                 + 2 * cfg.d_model * cfg.n_kv_heads * hd
+                 + cfg.n_heads * hd * cfg.d_model
+                 + 3 * cfg.d_model * cfg.d_ff)
+    matmul_params = cfg.n_layers * per_layer + cfg.d_model * cfg.vocab_size
+    fwd = 2.0 * matmul_params * batch * seq \
+        + cfg.n_layers * 2.0 * batch * cfg.n_heads * seq * seq * hd
+    return 3.0 * fwd
+
+
+def train_parity(torch, cfg, params, gen) -> dict:
+    """One step's loss and the gradients of layer 0's wq/wk/wv and of
+    lm_head at batch 1, through the kernels and through the plain
+    attention (autograd over ``xla_attention``)."""
+    import dataclasses
+
+    from kubegpu_tpu_torch.models.llama import next_token_loss
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen,
+                           device="cuda")
+    wanted = [params["layers"][n] for n in ("wq", "wk", "wv")] + [
+        params["lm_head"]]
+    runs = {}
+    for impl in ("auto", "plain"):
+        loss = next_token_loss(params, tokens,
+                               dataclasses.replace(cfg, attn_impl=impl))
+        grads = torch.autograd.grad(loss, wanted)
+        runs[impl] = (loss.item(), [grads[0][0], grads[1][0], grads[2][0],
+                                    grads[3]])
+        del loss, grads
+    (loss_k, got), (loss_p, ref) = runs["auto"], runs["plain"]
+    rel = {name: ((g.float() - r.float()).norm() / r.float().norm()).item()
+           for name, g, r in zip(("wq0", "wk0", "wv0", "lm_head"), got, ref)}
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    # bf16 through 8 random layers: the plain path rounds probabilities
+    # and its autograd products to bf16 where the kernels keep f32
+    check(math.isfinite(loss_k) and loss_rel <= 1e-2,
+          f"train parity: loss {loss_k} vs plain {loss_p}")
+    check(max(rel.values()) <= 5e-2, f"train parity: grad rel L2 {rel}")
+    log("parity", case="8-layer 8B bf16 loss + grads, kernels vs plain",
+        tokens="[1,2048]", loss=loss_k, loss_plain=loss_p,
+        loss_rel_err=loss_rel, tol_loss_rel=1e-2, grad_rel_l2=rel,
+        tol_rel_l2=5e-2)
+    return {"loss": loss_k, "loss_plain": loss_p, "loss_rel_err": loss_rel,
+            "grad_rel_l2": rel}
+
+
+def train_phase(torch, kernels, gen, name, profile: bool) -> dict:
+    """Llama-3-8B at full width cut to 8 layers (remat on, bf16): parity
+    at batch 1, then ``make_train_step`` + ``adamw(1e-3)`` on one
+    [4, 2048] batch: one warm step, three timed ones.  Launch counters are
+    zeroed just before the steps and read just after."""
+    import dataclasses
+    import statistics
+
+    from kubegpu_tpu_torch.models import LlamaConfig, llama_init
+    from kubegpu_tpu_torch.models.llama import make_train_step
+    from kubegpu_tpu_torch.optim import adamw, tree_leaves
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=8)
+    check(cfg.remat, "the 8B config must keep remat on")
+    batch, seq = 4, 2048
+    t0 = time.perf_counter()
+    params = llama_init(cfg, seed=SEED, device="cuda")
+    for p in tree_leaves(params):
+        p.requires_grad_()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    log("training", init_s=round(time.perf_counter() - t0, 2),
+        layers=cfg.n_layers, params_b=round(n_params / 1e9, 3))
+    parity = train_parity(torch, cfg, params, gen)
+    opt = adamw(1e-3)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    kernels.reset_launches()          # the training path starts here
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, tokens)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        if i == 0:
+            first = dict(kernels.launches)
+    launches = dict(kernels.launches)   # ... and ends here
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    for kname, n in want.items():
+        check(first[kname] == n and launches[kname] == 4 * n,
+              f"{kname}: {first[kname]} launches in the first step, "
+              f"{launches[kname]} in four; want {n} per step")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    timed = step_ms[1:]
+    med_ms = statistics.median(timed)
+    flops = train_flops_per_step(cfg, batch, seq)
+    stats = {"layers": cfg.n_layers, "batch": batch, "seq": seq,
+             "params": n_params, "losses": losses, "step_ms": step_ms,
+             "step_ms_median": med_ms,
+             "tokens_per_s": batch * seq / (med_ms / 1e3),
+             "model_flops": flops,
+             "mfu": flops / (med_ms / 1e3) / PEAK_FLOPS["bfloat16"],
+             "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "launches_per_step": {k: first[k] for k in want},
+             "launches": launches, "parity": parity, "card": name}
+    log("training", steps=len(losses), losses=losses,
+        step_ms=[round(x, 3) for x in step_ms], step_ms_median=med_ms,
+        tokens_per_s=stats["tokens_per_s"], mfu=stats["mfu"],
+        max_memory_gb=round(stats["max_memory_gb"], 3),
+        launches_per_step=stats["launches_per_step"], card=repr(name))
+    if profile:
+        def one_step():
+            nonlocal params, state
+            params, state, _ = step(params, state, tokens)
+            torch.cuda.synchronize()
+        stats["profile"] = device_trace(torch, one_step, med_ms)
+        log_trace("one train step", stats["profile"])
+    return stats
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one steady engine tick (torch.profiler)")
+                    help="also trace one steady engine tick and one train "
+                    "step (torch.profiler)")
     ap.add_argument("--details", metavar="PATH",
                     help="write every phase's numbers to PATH as JSON")
     args = ap.parse_args(argv)
@@ -513,6 +788,8 @@ def main(argv=None) -> int:
                   for i, n in enumerate(slice_lens)]
     results = {"flash_fwd": flash_checks(torch, gen),
                "paged_decode": paged_checks(torch, gen, slice_rows)}
+    bwd, fwd_train = flash_bwd_checks(torch, gen)
+    results.update(bwd)
     for kname, r in results.items():
         log("kernels", kernel=kname, ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -526,13 +803,13 @@ def main(argv=None) -> int:
         weights_gb=round(sum(p.numel() * p.element_size() for p in
                              [params["embed"], params["lm_head"],
                               *params["layers"].values()]) / 1e9, 2))
-    kernels.reset_launches()          # the main path starts here
+    kernels.reset_launches()          # the serving path starts here
     fwd = forward_phase(torch, kernels, cfg, params, gen)
     serve, engine, prompts = serving_phase(torch, kernels, cfg, params, gen,
                                            name)
-    main_launches = dict(kernels.launches)   # ... and ends here
-    check(all(n > 0 for n in main_launches.values()),
-          f"a kernel of the main path never ran: {main_launches}")
+    serve_launches = dict(kernels.launches)   # ... and ends here
+    check(all(serve_launches[k] > 0 for k in ("flash_fwd", "paged_decode")),
+          f"a kernel of the serving path never ran: {serve_launches}")
     prof = profile_phase(torch, engine, prompts) if args.profile else None
     del engine
 
@@ -540,14 +817,29 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
     parity_narrow(torch)
+    torch.cuda.empty_cache()
+
+    train = train_phase(torch, kernels, gen, name, args.profile)
+    train_launches = train["launches"]
+    check(all(train_launches[k] > 0 for k in
+              ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+          f"a kernel of the training path never ran: {train_launches}")
+    torch.cuda.empty_cache()
 
     routes = {"flash_fwd": ("kubegpu_tpu_torch/csrc/flash_fwd.cu",
                             "kubegpu_tpu/ops/flash_attention.py:200"),
               "paged_decode": ("kubegpu_tpu_torch/csrc/paged_decode.cu",
-                               "kubegpu_tpu/ops/paged_attention.py:229")}
+                               "kubegpu_tpu/ops/paged_attention.py:229"),
+              "flash_bwd_dq": ("kubegpu_tpu_torch/csrc/flash_bwd_dq.cu",
+                               "kubegpu_tpu/ops/flash_attention.py:383"),
+              "flash_bwd_dkv": ("kubegpu_tpu_torch/csrc/flash_bwd_dkv.cu",
+                                "kubegpu_tpu/ops/flash_attention.py:425")}
+    # launches: each kernel's count over the paths that run it (the
+    # forward runs on both)
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": routes[k][0],
-         "replaces": routes[k][1], "launches": main_launches[k],
+         "replaces": routes[k][1],
+         "launches": serve_launches[k] + train_launches[k],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
@@ -558,7 +850,11 @@ def main(argv=None) -> int:
               f"{r['name']}: a number is missing")
     details = {"card": card, "kind": name, "build_s": build_s,
                "forward": fwd, "serving": serve, "parity": parity,
-               "profile": prof, "kernels": line["kernels"],
+               "profile": prof, "training": train,
+               "flash_fwd_training_shape": fwd_train,
+               "launches": {"serving": serve_launches,
+                            "training": train_launches},
+               "kernels": line["kernels"],
                "total_s": time.perf_counter() - t_start}
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)),

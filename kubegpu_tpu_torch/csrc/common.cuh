@@ -49,6 +49,38 @@ template <> struct Vec16<__nv_bfloat16> {
     }
 };
 
+// Copy a tile of `rows` rows into shared memory as f32, row r at dst + r * ld,
+// all threads of the block taking part.  Row r comes from src(r), a pointer to
+// its first channel in global memory, or nullptr for a zero row.  FULL: the
+// head dim is D and rows are 16-byte aligned (vector loads); otherwise the
+// head dim is Dh < D, loads are scalar and channels Dh..D-1 are zeroed.
+template <typename T, int D, bool FULL, typename RowPtr>
+__device__ __forceinline__ void load_tile(float* dst, int ld, int rows,
+                                          int Dh, RowPtr src) {
+    if constexpr (FULL) {
+        constexpr int VEC = Vec16<T>::N;
+        for (int vi = threadIdx.x; vi < rows * D / VEC; vi += blockDim.x) {
+            const int e = vi * VEC, r = e / D, dd = e % D;
+            const T* p = src(r);
+            float f[VEC];
+            if (p != nullptr) {
+                Vec16<T>::load(p + dd, f);
+            } else {
+#pragma unroll
+                for (int x = 0; x < VEC; ++x) f[x] = 0.f;
+            }
+#pragma unroll
+            for (int x = 0; x < VEC; ++x) dst[r * ld + dd + x] = f[x];
+        }
+    } else {
+        for (int e = threadIdx.x; e < rows * D; e += blockDim.x) {
+            const int r = e / D, dd = e % D;
+            const T* p = src(r);
+            dst[r * ld + dd] = (p != nullptr && dd < Dh) ? to_f(p[dd]) : 0.f;
+        }
+    }
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
     for (int o = 16; o; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL_MASK, x, o));

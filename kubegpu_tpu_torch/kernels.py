@@ -33,6 +33,8 @@ _I = ctypes.c_int
 # C signatures: every pointer and the stream are c_void_p, ints are c_int
 SIGNATURES = {
     "flash_fwd": ("kubetpu_flash_fwd", [_P] * 5 + [_I] * 8 + [_P]),
+    "flash_bwd_dq": ("kubetpu_flash_bwd_dq", [_P] * 7 + [_I] * 8 + [_P]),
+    "flash_bwd_dkv": ("kubetpu_flash_bwd_dkv", [_P] * 8 + [_I] * 8 + [_P]),
     "paged_decode": ("kubetpu_paged_decode", [_P] * 11 + [_I] * 8 + [_P]),
 }
 

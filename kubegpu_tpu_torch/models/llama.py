@@ -5,8 +5,10 @@ The parameter layout is the reference's: layers stacked on a leading ``L``
 dim, and ``x @ W`` with ``W`` stored as ``[in, out]``, so converting the
 reference's parameters is a copy (:mod:`kubegpu_tpu_torch.convert`).
 bf16 params and activations, f32 for norms, softmax and logits.  Attention
-dispatches by device: the Hopper flash kernel on CUDA tensors, the plain
-version on CPU tensors.  Single device only: no mesh, no remat, no ring.
+dispatches by device: the Hopper flash kernels on CUDA tensors (forward,
+and through autograd the backward), the plain versions on CPU tensors.
+``remat`` recomputes each layer in the backward, as the reference's
+``jax.checkpoint``.  Single device only: no mesh, no ring.
 """
 
 from __future__ import annotations
@@ -15,8 +17,10 @@ from dataclasses import dataclass, replace
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from kubegpu_tpu_torch.ops import attention
+from kubegpu_tpu_torch.optim import tree_leaves
 
 
 @dataclass(frozen=True)
@@ -31,6 +35,7 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
+    remat: bool = True        # recompute each layer in the backward
     attn_impl: str = "auto"   # auto | plain (see ops.attention)
 
     @property
@@ -46,7 +51,7 @@ class LlamaConfig:
         """Test-scale config with the same structure."""
         base = cls(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
                    n_kv_heads=2, d_ff=128, max_seq_len=128,
-                   dtype="float32")
+                   dtype="float32", remat=False)
         return replace(base, **kw)
 
     @property
@@ -149,7 +154,10 @@ def attention_sublayer(x: torch.Tensor, lp: dict, cfg: LlamaConfig,
 
 def llama_forward(params: dict, tokens: torch.Tensor,
                   cfg: LlamaConfig) -> torch.Tensor:
-    """tokens [B, T] → logits [B, T, vocab] (f32), on the tokens' device."""
+    """tokens [B, T] → logits [B, T, vocab] (f32), on the tokens' device.
+    With ``cfg.remat`` and grad enabled, each layer runs under
+    ``torch.utils.checkpoint``: the backward recomputes it from its input,
+    so only the layer inputs stay alive between forward and backward."""
     b, t = tokens.shape
     x = embed_lookup(params["embed"], tokens)
     positions = torch.arange(t, device=tokens.device).expand(b, t)
@@ -157,11 +165,79 @@ def llama_forward(params: dict, tokens: torch.Tensor,
     def attend(q, k, v):
         return attention(q, k, v, causal=True, impl=cfg.attn_impl)
 
-    for i in range(cfg.n_layers):
+    def layer(x, i):
         lp = layer_params(params, i)
         x = attention_sublayer(x, lp, cfg, positions, attend)
         h = _rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
         up = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
-        x = x + (up @ lp["w_down"]).to(x.dtype)
+        return x + (up @ lp["w_down"]).to(x.dtype)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(cfg.n_layers):
+        if remat:
+            # the layer is deterministic: no RNG state to stash
+            x = checkpoint(layer, x, i, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = layer(x, i)
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"]).float()
+
+
+def next_token_loss(params: dict, tokens: torch.Tensor,
+                    cfg: LlamaConfig) -> torch.Tensor:
+    """Causal LM loss: predict tokens[:, 1:] from tokens[:, :-1], as the
+    mean NLL of an f32 log-softmax.  The forward runs on all T tokens and
+    drops the last position's logits rather than slicing the input to
+    T - 1: causality makes the first T - 1 logits the same either way."""
+    logits = llama_forward(params, tokens, cfg)[:, :-1]
+    targets = tokens[:, 1:].long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets[..., None])[..., 0].mean()
+
+
+def make_train_step(cfg: LlamaConfig, optimizer, loss_fn=None,
+                    accum_steps: int = 1):
+    """``step(params, opt_state, tokens) → (params, opt_state, loss)``: the
+    counterpart of the reference's ``make_train_step``.  ``params`` are
+    leaf tensors with ``requires_grad``; ``optimizer`` is a
+    ``kubegpu_tpu_torch.optim.adamw`` (``init`` / ``update``).
+    ``loss_fn(params, tokens, cfg)`` defaults to :func:`next_token_loss`.
+
+    ``accum_steps > 1`` splits the batch into that many equal microbatches,
+    sums their f32 gradients, divides by the count and makes ONE update:
+    activation memory scales with the microbatch while the update stays
+    the full batch's.  Unlike the reference's pure step, the update runs in
+    place to save memory: the returned params and state are the arguments,
+    updated.  Single device: the reference's ``mesh`` waits for
+    multi-device (ROADMAP.md queue 1, item 9)."""
+    loss_fn = loss_fn if loss_fn is not None else next_token_loss
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+
+    def step(params, opt_state, tokens):
+        leaves = tree_leaves(params)
+        if accum_steps == 1:
+            loss = loss_fn(params, tokens, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+        else:
+            b = tokens.shape[0]
+            if b % accum_steps:
+                raise ValueError(f"batch {b} not divisible by accum_steps "
+                                 f"{accum_steps}")
+            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            sums = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+            for mb in tokens.reshape(accum_steps, b // accum_steps,
+                                     *tokens.shape[1:]):
+                mb_loss = loss_fn(params, mb, cfg)
+                for acc, g in zip(sums, torch.autograd.grad(mb_loss,
+                                                            leaves)):
+                    acc += g
+                loss = loss + mb_loss.detach()
+            loss = loss / accum_steps
+            grads = [(acc / accum_steps).to(p.dtype)
+                     for acc, p in zip(sums, leaves)]
+        opt_state = optimizer.update(grads, opt_state, leaves)
+        return params, opt_state, loss.detach()
+
+    return step

@@ -1,10 +1,13 @@
-"""Flash attention: a hand-written Hopper kernel plus its plain version.
+"""Flash attention: hand-written Hopper kernels plus their plain versions.
 
 Counterpart of ``kubegpu_tpu/ops/flash_attention.py``.  Dispatch goes by
-tensor device: a CUDA tensor launches the kernel in
-``csrc/flash_fwd.cu`` (or raises), a CPU tensor takes the plain version
-:func:`xla_attention`.  The kernel masks ragged T/S edges itself, so no
-shape falls back.
+tensor device: a CUDA tensor launches the kernels in ``csrc/`` (or
+raises), a CPU tensor takes the plain versions.  The forward is
+``csrc/flash_fwd.cu`` against :func:`xla_attention`; the backward is
+``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` against
+:func:`flash_attention_bwd_ref`, joined to autograd by
+:class:`_FlashAttention`.  The kernels mask ragged T/S edges themselves,
+so no shape falls back.
 """
 
 from __future__ import annotations
@@ -70,9 +73,9 @@ def _xla_lse(q, k, causal, scale):
     return torch.logsumexp(_masked_scores(q, k, causal, scale), dim=-1)
 
 
-def _flash_cuda(q, k, v, causal, return_lse):
-    b, hq, t, d = q.shape
-    _, hkv, s, _ = k.shape
+def _check_flash_inputs(q, k, v):
+    """What the flash kernels (forward and backward) take."""
+    b, _, _, d = q.shape
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash_attention kernel takes bf16/f32, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -86,6 +89,17 @@ def _flash_cuda(q, k, v, causal, return_lse):
         raise ValueError(f"head_dim {d} not in [1, {KERNEL_MAX_HEAD_DIM}]")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel needs contiguous q/k/v")
+
+
+def _flash_cuda(q, k, v, causal, return_lse):
+    b, hq, t, d = q.shape
+    _, hkv, s, _ = k.shape
+    _check_flash_inputs(q, k, v)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        # the kernel writes through a raw pointer: autograd cannot see it
+        raise RuntimeError("flash_attention's kernel has no grad_fn: call "
+                           "attention(), whose autograd Function runs the "
+                           "backward kernels")
     out = torch.empty_like(q)
     lse = (torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -118,12 +132,127 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, _xla_lse(q, k, causal, d ** -0.5)
 
 
+def flash_attention_bwd_ref(q, k, v, out, lse, do, causal: bool = True):
+    """Plain flash-attention backward: ``(dq, dk, dv)`` from the forward's
+    output and natural-log lse, with no T×S residual saved.  Shapes as
+    :func:`xla_attention`, ``do`` like ``out``, ``lse`` f32 [B, Hq, T]; dk
+    and dv come back at Hkv heads (summed over each query group).  f32
+    throughout, results cast to the inputs' dtypes."""
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    _check_causal(t, s, causal)
+    scale = d ** -0.5
+    qf, dof = q.float(), do.float()
+    kr, vr = (x.float() for x in repeat_kv(q, k, v))
+    delta = (dof * out.float()).sum(-1, keepdim=True)
+    # p recomputed from the saved lse: masked scores are NEG_INF, so
+    # exp(NEG_INF - lse) is exactly 0
+    p = torch.exp(_masked_scores(q, k, causal, scale) - lse[..., None])
+    dp = torch.einsum("bhtd,bhsd->bhts", dof, vr)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhts,bhsd->bhtd", ds, kr)
+    dk = torch.einsum("bhts,bhtd->bhsd", ds, qf)
+    dv = torch.einsum("bhts,bhtd->bhsd", p, dof)
+    dk = dk.view(b, hkv, hq // hkv, s, d).sum(2)
+    dv = dv.view(b, hkv, hq // hkv, s, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_bwd_inputs(q, k, v, do, lse, delta):
+    """What the backward kernels take besides the forward's inputs."""
+    b, hq, t, _ = q.shape
+    _check_flash_inputs(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
+        raise ValueError("do must be contiguous, with q's shape and dtype")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.dtype != torch.float32 or x.shape != (b, hq, t) \
+                or not x.is_contiguous() or x.device != q.device:
+            raise ValueError(f"{name} must be contiguous f32 [B, Hq, T] on "
+                             f"{q.device}")
+    if any(x.data_ptr() % 16 for x in (q, k, v, do)):
+        raise ValueError("flash backward kernels need 16-byte aligned q/k/v/do")
+
+
+def _bwd_args(q, k, v, do, lse, delta, causal):
+    b, hq, t, d = q.shape
+    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr()),
+            (b, hq, k.shape[1], t, k.shape[2], d, int(causal),
+             int(q.dtype == torch.bfloat16)))
+
+
+def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal):
+    """Kernel 2 (``csrc/flash_bwd_dq.cu``): dq like q.  q/k/v/do
+    contiguous CUDA tensors of one dtype; ``lse``/``delta`` f32
+    [B, Hq, T]."""
+    _check_bwd_inputs(q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    if q.numel():   # with no keys the kernel writes zeros
+        ptrs, ints = _bwd_args(q, k, v, do, lse, delta, causal)
+        kernels.call("flash_bwd_dq", *ptrs, dq.data_ptr(), *ints)
+    return dq
+
+
+def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal):
+    """Kernel 3 (``csrc/flash_bwd_dkv.cu``): (dk, dv) at Hkv heads, summed
+    over each query group in the kernel.  Inputs as
+    :func:`_flash_bwd_dq_cuda`."""
+    _check_bwd_inputs(q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if k.numel():   # with no queries the kernel writes zeros
+        ptrs, ints = _bwd_args(q, k, v, do, lse, delta, causal)
+        kernels.call("flash_bwd_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(),
+                     *ints)
+    return dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the counterpart of the reference's
+    ``_flash_diff`` / ``_flash_diff_fwd`` / ``_flash_diff_bwd``.  The
+    forward saves only ``(q, k, v, out, lse)``; the backward computes
+    ``delta = rowsum(dO∘O)`` in plain PyTorch (the reference computes it
+    outside its kernels too), then launches kernels 2 and 3 on CUDA
+    tensors or runs :func:`flash_attention_bwd_ref` on CPU tensors.  dk
+    and dv come back at Hkv heads.
+
+    The reference falls back to differentiating XLA attention when the
+    shape does not tile its blocks, and de-groups its dkv kernel when the
+    group's panel outgrows VMEM.  Neither has a counterpart here: the
+    kernels mask ragged edges themselves, and the dkv kernel streams
+    query tiles through shared memory, so no panel has to stay resident.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        if not q.is_cuda:
+            dq, dk, dv = flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                                 ctx.causal)
+            return dq, dk, dv, None
+        delta = (do.float() * out.float()).sum(-1)
+        dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, ctx.causal)
+        dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, ctx.causal)
+        return dq, dk, dv, None
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, impl: str = "auto") -> torch.Tensor:
     """Dispatch by device: ``auto`` runs :func:`flash_attention` (the kernel
-    on CUDA tensors, the plain version on CPU tensors); ``plain`` forces
-    the plain version, for comparisons."""
+    on CUDA tensors, the plain version on CPU tensors), through
+    :class:`_FlashAttention` when a gradient is wanted; ``plain`` forces
+    the plain version (differentiated by autograd), for comparisons."""
     if impl == "auto":
+        if torch.is_grad_enabled() and any(
+                x.requires_grad for x in (q, k, v)):
+            return _FlashAttention.apply(q, k, v, causal)
         return flash_attention(q, k, v, causal=causal)
     if impl == "plain":
         return xla_attention(q, k, v, causal=causal)

@@ -145,7 +145,15 @@ def paged_attention(q, pool_k, pool_v, page_table, layer, t, t_pad, d,
     """Paged decode attention over one layer of the pool; same signature
     and partials as :func:`paged_attention_ref`.  CUDA tensors launch the
     Hopper kernel (``csrc/paged_decode.cu``), which reads only the pages
-    each row holds; CPU tensors run the plain version."""
+    each row holds; CPU tensors run the plain version.
+
+    There is no gradient, as the reference's ``pallas_call`` has none under
+    ``jax.grad``: with grad enabled and an input that requires it, this
+    raises rather than return a result that autograd cannot see through."""
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, pool_k, pool_v)):
+        raise RuntimeError("paged_attention has no gradient: call it under "
+                           "torch.no_grad() or on tensors that need none")
     if k_scale is not None or v_scale is not None:
         raise NotImplementedError(_QUANT_TODO)
     if collect_mass:

@@ -31,7 +31,7 @@ def test_configs_agree():
             getattr(tl.LlamaConfig, name)()
         for f in ("vocab_size", "d_model", "n_layers", "n_heads",
                   "n_kv_heads", "d_ff", "max_seq_len", "rope_theta",
-                  "norm_eps", "dtype", "head_dim"):
+                  "norm_eps", "dtype", "remat", "head_dim"):
             assert getattr(cj, f) == getattr(ct, f), (name, f)
 
 

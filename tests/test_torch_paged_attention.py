@@ -82,6 +82,23 @@ def test_unported_options_raise():
         paged_attention(*args, collect_mass=True)
 
 
+@pytest.mark.parametrize("needs_grad", ["q", "pool_k", "pool_v"])
+def test_gradient_request_raises(needs_grad):
+    """No silent gradient: as the reference's ``pallas_call`` raises under
+    ``jax.grad``, the wrapper raises when grad is enabled and an input
+    requires it; under ``no_grad`` (how serving calls it) it runs."""
+    pk, pv = map(torch.from_numpy, _pool())
+    q = torch.zeros(4, 4, D)
+    inputs = {"q": q, "pool_k": pk, "pool_v": pv}
+    inputs[needs_grad].requires_grad_()
+    args = (inputs["q"], inputs["pool_k"], inputs["pool_v"],
+            torch.from_numpy(PT), 0, *map(torch.from_numpy, (T, TPAD, DCNT)))
+    with pytest.raises(RuntimeError, match="no gradient"):
+        paged_attention(*args)
+    with torch.no_grad():
+        assert paged_attention(*args)[0].shape == (4, 4, D)
+
+
 def test_merge_partials_matches_jax():
     rng = np.random.default_rng(3)
     o1, o2 = (rng.standard_normal((3, 4, D), np.float32) for _ in range(2))
