@@ -43,6 +43,7 @@ import importlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -51,6 +52,8 @@ import time
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SEED = 0
+# cuBLAS's GEMM kernels by name (nvjet on Hopper, older sm90 xmma/cutlass)
+GEMM_KERNEL = re.compile(r"nvjet|gemm|xmma|cutlass", re.IGNORECASE)
 
 
 class SmokeFailure(AssertionError):
@@ -180,8 +183,8 @@ def rel_err(got, ref) -> float:
 
 def flash_bwd_checks(torch, gen) -> dict:
     """Kernels 2 (dq) and 3 (dk, dv) against ``flash_attention_bwd_ref``,
-    and the forward's time at the training shape (its lse output on, as
-    the training path calls it)."""
+    and kernel 1 against its plain version and timed at the training shape
+    (its lse output on, as the training path calls it)."""
     fa = importlib.import_module("kubegpu_tpu_torch.ops.flash_attention")
     dev = "cuda"
     b, hq, hkv, t, d = 4, 32, 8, 2048, 128   # the 8B train step's shape
@@ -190,6 +193,24 @@ def flash_bwd_checks(torch, gen) -> dict:
     k, v = (torch.randn(b, hkv, t, d, generator=gen, device=dev).bfloat16()
             for _ in range(2))
     out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    # kernel 1 at the training shape, held to the serving check's limits:
+    # 2e-2 on |err| per unit of max(1, |ref|), since a bf16 rounding error
+    # scales with the value and this shape's 16x more outputs reach larger
+    # ones (a row over a few keys is near one value of v); 1e-3 on lse
+    ref = fa.xla_attention(q, k, v, True)
+    fwd = {"max_abs_err": max_err(out, ref),
+           "scaled_err": ((out.float() - ref.float()).abs()
+                          / ref.float().abs().clamp(min=1)).max().item(),
+           "lse_err": max_err(lse, fa._xla_lse(q, k, True, d ** -0.5))}
+    del ref
+    check(fwd["scaled_err"] <= 2e-2, f"flash bf16 training shape max "
+          f"|err| / max(1, |ref|) {fwd['scaled_err']} > 2e-2")
+    check(fwd["lse_err"] <= 1e-3,
+          f"flash bf16 training shape lse max |err| {fwd['lse_err']} > 1e-3")
+    log("kernels", kernel="flash_fwd", case=f"bf16 [{b},{hq},{t},{d}] vs "
+        f"[{b},{hkv},{t},{d}] causal, with lse", max_abs_err=fwd["max_abs_err"],
+        scaled_err=fwd["scaled_err"], tol_scaled=2e-2, lse_err=fwd["lse_err"],
+        lse_tol=1e-3)
     delta = (do.float() * out.float()).sum(-1)
     args = (q, k, v, do, lse, delta, True)
     dq = fa._flash_bwd_dq_cuda(*args)
@@ -264,8 +285,8 @@ def flash_bwd_checks(torch, gen) -> dict:
     out_dkv["bound_ms"], out_dkv["bound_by"] = bound_ms(
         io + 2 * k.numel() * 2, 4 * 2 * d * pairs, q.dtype)
     # the forward at the training shape (PERF.md's row 1 at this shape)
-    fwd = {"ms": cuda_ms(lambda: fa.flash_attention(
-        q, k, v, causal=True, return_lse=True))}
+    fwd["ms"] = cuda_ms(lambda: fa.flash_attention(
+        q, k, v, causal=True, return_lse=True))
     fwd["bound_ms"], fwd["bound_by"] = bound_ms(
         (2 * q.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 4,
         2 * 2 * d * pairs, q.dtype)
@@ -467,10 +488,10 @@ def serving_phase(torch, kernels, cfg, params, gen, name,
 
 def device_trace(torch, fn, wall_ms: float) -> dict:
     """Run ``fn()`` (which ends in a synchronize) once under
-    ``torch.profiler``: device time by kernel name, the traced wall time,
-    and the device's idle share, one minus the kernels' summed time (one
-    stream, so kernels never overlap) over ``wall_ms``, the same work's
-    untraced wall time."""
+    ``torch.profiler``: device time by kernel name, the summed time of
+    every cuBLAS GEMM kernel, the traced wall time, and the device's idle
+    share, one minus the kernels' summed time (one stream, so kernels
+    never overlap) over ``wall_ms``, the same work's untraced wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -486,8 +507,11 @@ def device_trace(torch, fn, wall_ms: float) -> dict:
             rec[1] += 1
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    gemms = [rec for n, rec in by_name.items() if GEMM_KERNEL.search(n)]
     return {"wall_ms": wall_ms, "traced_wall_ms": traced_ms,
             "device_busy_ms": busy_ms,
+            "gemm_ms": sum(ms for ms, _ in gemms),
+            "gemm_launches": sum(c for _, c in gemms),
             "device_kernels": sum(c for _, c in by_name.values()),
             "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
             "kernels": [{"name": n[:120], "ms": ms, "calls": c}
@@ -498,6 +522,7 @@ def log_trace(what: str, out: dict) -> None:
     log("profile", what=what, wall_ms=round(out["wall_ms"], 3),
         traced_wall_ms=round(out["traced_wall_ms"], 3),
         device_busy_ms=round(out["device_busy_ms"], 3),
+        gemm_ms=round(out["gemm_ms"], 3), gemm_launches=out["gemm_launches"],
         device_kernels=out["device_kernels"], idle_share=out["idle_share"],
         top=[(k["name"][:40], round(k["ms"], 3)) for k in out["kernels"][:8]])
 
@@ -623,6 +648,21 @@ def train_flops_per_step(cfg, batch: int, seq: int) -> float:
     return 3.0 * fwd
 
 
+def gemm_flops_per_step(cfg, batch: int, seq: int) -> float:
+    """FLOPs of one remat train step's weight matmuls, the work cuBLAS
+    does: a layer's forward, its two backward products and its recomputed
+    forward (4x), except ``w_down`` (3x): torch's checkpoint stops the
+    recompute once the backward's saved tensors are back, and nothing
+    saves that last product's output.  lm_head is not recomputed (3x).
+    That is 27 GEMMs a layer and 3 for lm_head."""
+    hd, d = cfg.head_dim, cfg.d_model
+    per_layer = (2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+                 + 2 * d * cfg.d_ff)
+    tokens = batch * seq
+    return 2.0 * tokens * (cfg.n_layers * (4 * per_layer + 3 * d * cfg.d_ff)
+                           + 3 * d * cfg.vocab_size)
+
+
 def train_parity(torch, cfg, params, gen) -> dict:
     """One step's loss and the gradients of layer 0's wq/wk/wv and of
     lm_head at batch 1, through the kernels and through the plain
@@ -669,7 +709,8 @@ def train_phase(torch, kernels, gen, name, profile: bool) -> dict:
 
     from kubegpu_tpu_torch.models import LlamaConfig, llama_init
     from kubegpu_tpu_torch.models.llama import make_train_step
-    from kubegpu_tpu_torch.optim import adamw, tree_leaves
+    from kubegpu_tpu_torch.optim import adamw
+    from kubegpu_tpu_torch.tree import tree_leaves
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=8)
     check(cfg.remat, "the 8B config must keep remat on")
     batch, seq = 4, 2048
@@ -731,8 +772,15 @@ def train_phase(torch, kernels, gen, name, profile: bool) -> dict:
             nonlocal params, state
             params, state, _ = step(params, state, tokens)
             torch.cuda.synchronize()
-        stats["profile"] = device_trace(torch, one_step, med_ms)
-        log_trace("one train step", stats["profile"])
+        prof = stats["profile"] = device_trace(torch, one_step, med_ms)
+        prof["gemm_flops"] = gemm_flops_per_step(cfg, batch, seq)
+        prof["gemm_tflops_per_s"] = (prof["gemm_flops"] / prof["gemm_ms"]
+                                     / 1e9 if prof["gemm_ms"] else None)
+        log_trace("one train step", prof)
+        log("profile", what="train step GEMMs", flops=prof["gemm_flops"],
+            gemm_ms=prof["gemm_ms"], launches=prof["gemm_launches"],
+            launches_counted=27 * cfg.n_layers + 3,
+            tflops_per_s=prof["gemm_tflops_per_s"])
     return stats
 
 

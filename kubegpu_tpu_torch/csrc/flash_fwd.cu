@@ -50,7 +50,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  float sscale) {
     constexpr int D = DP;
     constexpr int DPL = D / 32;
-    constexpr int VEC = Vec16<T>::N;
     const int Dg = FULL ? D : Dh;      // row stride in global memory
     extern __shared__ float smem[];
     float* qs = smem;                  // [ROWS][D]
@@ -69,14 +68,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int off = S - Tq;   // end-aligned causal offset
 
     // CTA row r is query head gchunk * gc + r / bq at position q0 + r % bq.
-    for (int idx = threadIdx.x; idx < ROWS * D; idx += blockDim.x) {
-        const int r = idx / D, dd = idx % D;
+    load_tile<T, D, FULL>(qs, D, ROWS, Dh, [&](int r) -> const T* {
         const int gl = r / bq, g = gchunk * gc + gl, qi = q0 + r % bq;
-        float val = 0.f;
-        if (gl < gc && g < G && qi < Tq && (FULL || dd < Dh))
-            val = to_f(q[(((size_t)b * Hq + hk * G + g) * Tq + qi) * Dg + dd]);
-        qs[idx] = val;
-    }
+        if (gl >= gc || g >= G || qi >= Tq) return nullptr;
+        return q + (((size_t)b * Hq + hk * G + g) * Tq + qi) * Dg;
+    });
 
     int qi_r[RPW], h_r[RPW];
     bool ok_r[RPW];
@@ -112,32 +108,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int kt = 0; kt < n_kt; ++kt) {
         const int k0 = kt * BK;
         __syncthreads();   // the previous tile is consumed (and qs is loaded)
-        if constexpr (FULL) {
-            for (int vi = threadIdx.x; vi < BK * D / VEC; vi += blockDim.x) {
-                const int e = vi * VEC, j = e / D, dd = e % D;
-                float kf[VEC], vf[VEC];
-                if (k0 + j < S) {
-                    Vec16<T>::load(kb + (size_t)(k0 + j) * D + dd, kf);
-                    Vec16<T>::load(vb + (size_t)(k0 + j) * D + dd, vf);
-                } else {
-#pragma unroll
-                    for (int x = 0; x < VEC; ++x) kf[x] = vf[x] = 0.f;
-                }
-#pragma unroll
-                for (int x = 0; x < VEC; ++x) {
-                    ks[j * (D + 1) + dd + x] = kf[x];
-                    vs[j * D + dd + x] = vf[x];
-                }
-            }
-        } else {
-            for (int e = threadIdx.x; e < BK * D; e += blockDim.x) {
-                const int j = e / D, dd = e % D;
-                const bool in = k0 + j < S && dd < Dh;
-                const size_t gi = (size_t)(k0 + j) * Dh + dd;
-                ks[j * (D + 1) + dd] = in ? to_f(kb[gi]) : 0.f;
-                vs[j * D + dd] = in ? to_f(vb[gi]) : 0.f;
-            }
-        }
+        load_tile<T, D, FULL>(ks, D + 1, BK, Dh, [&](int j) -> const T* {
+            return k0 + j < S ? kb + (size_t)(k0 + j) * Dg : nullptr;
+        });
+        load_tile<T, D, FULL>(vs, D, BK, Dh, [&](int j) -> const T* {
+            return k0 + j < S ? vb + (size_t)(k0 + j) * Dg : nullptr;
+        });
         __syncthreads();
         if (!warp_live) continue;
 

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from kubegpu_tpu_torch.ops import attention
-from kubegpu_tpu_torch.optim import tree_leaves
+from kubegpu_tpu_torch.tree import tree_leaves
 
 
 @dataclass(frozen=True)

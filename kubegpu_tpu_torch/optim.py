@@ -24,13 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-
-def tree_leaves(tree) -> list[torch.Tensor]:
-    """The tensors of a nested dict (or list) in insertion order."""
-    items = tree.values() if isinstance(tree, dict) else tree
-    return [x for v in items
-            for x in (tree_leaves(v) if isinstance(v, (dict, list, tuple))
-                      else [v])]
+from kubegpu_tpu_torch.tree import tree_leaves
 
 
 def _zeros_like(tree):
@@ -40,7 +34,7 @@ def _zeros_like(tree):
 
 
 @dataclass(frozen=True)
-class AdamW:
+class _AdamW:
     learning_rate: float
     b1: float = 0.9
     b2: float = 0.999
@@ -71,6 +65,9 @@ class AdamW:
         return {"count": count, "mu": state["mu"], "nu": state["nu"]}
 
 
-# optax's spelling: ``adamw(1e-3)``, with optax's defaults (weight decay
-# 1e-4, not torch's 1e-2)
-adamw = AdamW
+def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+          eps: float = 1e-8, weight_decay: float = 1e-4) -> _AdamW:
+    """optax's spelling and defaults (weight decay 1e-4, not torch's
+    1e-2): an optimizer with ``init(params)`` and ``update(grads, state,
+    params)``."""
+    return _AdamW(learning_rate, b1, b2, eps, weight_decay)

@@ -159,7 +159,7 @@ def test_tiny_llama_backward_on_the_card(dev):
     import dataclasses
 
     from kubegpu_tpu_torch.models import llama as tl
-    from kubegpu_tpu_torch.optim import tree_leaves
+    from kubegpu_tpu_torch.tree import tree_leaves
     cfg = tl.LlamaConfig.tiny()
     params = tl.llama_init(cfg, seed=0, device=dev)
     leaves = tree_leaves(params)

@@ -25,7 +25,8 @@ import torch
 from kubegpu_tpu.models import llama as jl
 from kubegpu_tpu_torch.convert import convert_llama_params
 from kubegpu_tpu_torch.models import llama as tl
-from kubegpu_tpu_torch.optim import adamw, tree_leaves
+from kubegpu_tpu_torch.optim import adamw
+from kubegpu_tpu_torch.tree import tree_leaves
 
 LOSS_ATOL = 1e-5
 GRAD_ATOL = 1e-6
@@ -89,11 +90,12 @@ def test_grads_match_jax(tiny):
 
 @pytest.mark.parametrize("accum_steps", [1, 2])
 def test_train_step_matches_jax(tiny, accum_steps):
-    """One step: the loss and every updated leaf match JAX + optax."""
+    """One step: the loss, every updated leaf and both moments match JAX +
+    optax."""
     cfg_j, params_j, cfg, tokens = tiny
     opt_j = optax.adamw(1e-3)
     step_j = jl.make_train_step(cfg_j, opt_j, accum_steps=accum_steps)
-    new_j, _, loss_j = step_j(params_j, opt_j.init(params_j),
+    new_j, state_j, loss_j = step_j(params_j, opt_j.init(params_j),
                               jnp.asarray(tokens, jnp.int32))
     opt = adamw(1e-3)
     params = _torch_params(params_j)
@@ -102,6 +104,17 @@ def test_train_step_matches_jax(tiny, accum_steps):
                             torch.from_numpy(tokens))
     assert state["count"] == 1
     np.testing.assert_allclose(loss.item(), float(loss_j), atol=LOSS_ATOL)
+    # the moments carry the gradient's scale, which the first update
+    # hides (a gradient off by a factor, as a missing / accum_steps makes
+    # it, moves mu by that factor and nu by its square): mu = (1 - b1) g
+    # and nu = (1 - b2) g², held to the gradients' own tolerance
+    for mom, atol in (("mu", 0.1 * GRAD_ATOL), ("nu", 1e-3 * GRAD_ATOL)):
+        ref_m = _flat_jax(getattr(state_j[0], mom))
+        got_m = _flat_torch(state[mom])
+        assert set(ref_m) == set(got_m)
+        for name, ref in ref_m.items():
+            np.testing.assert_allclose(got_m[name], ref, rtol=1e-5,
+                                       atol=atol, err_msg=f"{mom} {name}")
     flat_j, flat_t = _flat_jax(new_j), _flat_torch(new)
     assert set(flat_j) == set(flat_t)
     moved = 0.0
