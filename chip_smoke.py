@@ -12,12 +12,19 @@ printed as it ends (any failed check exits non-zero):
 3. kernels  — each kernel against its plain PyTorch version on the card at
    its path's shapes (bf16) and at small f32 edge cases, with times, the
    card's bound and a library yardstick where one call computes the same
-   function: flash forward, paged decode, and the flash backward's dq and
-   dk/dv kernels (at the training shape, [4, 32, 2048, 128]);
+   function: flash forward, paged decode over bf16, int8 and packed-int4
+   pages (kernels 4-6, each also with its per-page attention mass), and the
+   flash backward's dq and dk/dv kernels (at the training shape,
+   [4, 32, 2048, 128]);
 4. forward  — ``llama_forward`` at Llama-3-8B full width, bf16, [1, 512];
 5. serving  — the paged ``ContinuousBatcher`` at the same width:
    ``warmup()``, then five timed windows of 12 staggered requests (median
    tokens/s);
+5b. quantized serving — the same engine with int8 pages, int4 pages, and
+   int4 pages with mass eviction, in turn: ``warmup()`` and two windows
+   each (the first on phase 5's first prompts: the share of greedy tokens
+   equal to the bf16 engine's is printed), every request finished, no page
+   leaked, pages evicted, the pool's bytes per format;
 6. parity   — a narrow f32 engine token for token against the port's own
    ``greedy_generate``, and the full-width first decode step's logits
    against the plain dense path;
@@ -28,13 +35,13 @@ printed as it ends (any failed check exits non-zero):
    steps (median step ms, tokens/s, model-FLOP utilisation, peak memory,
    falling losses).
 
-Two paths are driven: serving (phases 4-5) and training (phase 7's
-steps).  Launch counters are zeroed just before each and read just after.
-The line before the last is one JSON object per kernel; the last line is
-``{"ok": true, "device": {...}}``.  ``--details PATH`` writes every phase's
-numbers to PATH as JSON.  With ``--profile`` it also traces one steady
-engine tick after phase 5 and one train step after phase 7 (device time by
-kernel, idle share).
+Three paths are driven: serving (phases 4-5), quantized serving (5b) and
+training (phase 7's steps).  Launch counters are zeroed just before each
+and read just after.  The line before the last is one JSON object per
+kernel; the last line is ``{"ok": true, "device": {...}}``.
+``--details PATH`` writes every phase's numbers to PATH as JSON.  With
+``--profile`` it also traces one steady engine tick after phase 5 and one
+train step after phase 7 (device time by kernel, idle share).
 """
 
 from __future__ import annotations
@@ -376,6 +383,123 @@ def paged_checks(torch, gen, slice_rows) -> dict:
     return out
 
 
+def quantize_pool(torch, kvquant, pk, pv, fmt: str):
+    """(pool_k, pool_v, k_scale, v_scale) of a bf16/f32 pool in format
+    ``q8`` (int8, per-token scales) or ``q4g<g>`` (packed int4, one scale
+    per g keys), by the port's quantizers, as the engine writes them."""
+    if fmt == "q8":
+        (kq, ks), (vq, vs) = kvquant.quantize_rows(pk), \
+            kvquant.quantize_rows(pv)
+    else:
+        g = int(fmt[3:])
+        (kq, ks), (vq, vs) = (kvquant.quantize_groups_q4(x, g)
+                              for x in (pk, pv))
+    return kq, vq, ks, vs
+
+
+def mass_checks(torch, got, ref, tol: float, empty_row=None) -> float:
+    """The mass output against the plain version's: within ``tol``, every
+    row summing to at most 1 + 1e-5 and the empty row at 0."""
+    err = max_err(got, ref)
+    check(err <= tol, f"mass max |err| {err} > {tol}")
+    top = got.sum(dim=1).max().item()
+    check(top <= 1 + 1e-5, f"a mass row sums to {top} > 1 + 1e-5")
+    if empty_row is not None:
+        check(not got[empty_row].any().item(), "the empty row's mass is not 0")
+    return err
+
+
+def paged_quant_checks(torch, gen, slice_rows) -> dict:
+    """Kernels 5 (int8 pages) and 6 (packed int4 pages) and the mass output
+    of kernels 4-6 against ``paged_attention_ref`` on the card: the serving
+    shape (pools quantized from bf16 by the port's ``kvquant``, int4 groups
+    of 16), then the f32 edge cases of ``paged_checks`` and int4 groups of
+    1, 4 and P.  Times at the serving shape, bounds from the bytes of this
+    data's valid keys."""
+    pa = importlib.import_module("kubegpu_tpu_torch.ops.paged_attention")
+    kvq = importlib.import_module("kubegpu_tpu_torch.ops.kvquant")
+    q, pk, pv, pt, t, tpad, d = paged_case(
+        torch, gen, torch.bfloat16, 32, 41, 8, 128, 128, 32, slice_rows)
+    pools = {"bf16": (pk, pv, None, None),
+             "q8": quantize_pool(torch, kvq, pk, pv, "q8"),
+             "q4g16": quantize_pool(torch, kvq, pk, pv, "q4g16")}
+    del pk, pv
+    out = {}
+    for fmt, (kq, vq, ks, vs) in pools.items():
+        args = (q, kq, vq, pt, 31, t, tpad, d, ks, vs)
+        got = pa.paged_attention(*args, collect_mass=True)
+        ref = pa.paged_attention_ref(*args, collect_mass=True)
+        part = pa.paged_attention(*args)
+        torch.cuda.synchronize()
+        err = max_err(got[0], ref[0])
+        m_err = max_err(got[1], ref[1])
+        l_rel = ((got[2] - ref[2]).abs() / ref[2].clamp(min=1e-30)).max().item()
+        check(err <= 1e-2, f"paged {fmt} bf16 o max |err| {err} > 1e-2")
+        check(m_err <= 1e-3 and l_rel <= 1e-3,
+              f"paged {fmt} bf16 m err {m_err} / l rel err {l_rel} > 1e-3")
+        mass_err = mass_checks(torch, got[3], ref[3], 1e-3)
+        log("kernels", kernel=f"paged {fmt}", case="bf16 B=8 Hq=32 Hkv=8 "
+            "P=128, with mass", max_abs_err=err, tol=1e-2, m_err=m_err,
+            l_rel_err=l_rel, mass_err=mass_err, mass_tol=1e-3,
+            partials_equal_without_mass=all(
+                torch.equal(a, b) for a, b in zip(part, got[:3])))
+        out[fmt] = {"args": args, "max_abs_err": err, "mass_err": mass_err}
+    # f32 edge cases: a hole, an empty row (2), decode pages past t_pad,
+    # folded queries and padded head dims, on every format with the mass
+    rows = [([3, 7, 0, 0], 20, 32, 0), ([5, 0, 9, 0], 40, 48, 0),
+            ([0, 0, 0, 0], 0, 0, 0), ([2, 4, 6, 8], 10, 16, 40)]
+    cases = [(fmt, hq, hd) for hq, hd in ((8, 64), (16, 64), (32, 64),
+                                          (8, 16), (4, 80))
+             for fmt in ("bf16", "q8", "q4g4")]
+    cases += [("q4g1", 8, 64), ("q4g16", 8, 64), ("q4g1", 8, 16)]
+    for fmt, hq, hd in cases:
+        fq, fk, fv, fpt, ft, ftp, fd = paged_case(
+            torch, gen, torch.float32, 2, 12, 2, 16, hd, hq, rows)
+        kq, vq, ks, vs = ((fk, fv, None, None) if fmt == "bf16"
+                          else quantize_pool(torch, kvq, fk, fv, fmt))
+        fargs = (fq, kq, vq, fpt, 1, ft, ftp, fd, ks, vs)
+        got = pa.paged_attention(*fargs, collect_mass=True)
+        ref = pa.paged_attention_ref(*fargs, collect_mass=True)
+        e = max(max_err(a, b) for a, b in zip(got[:3], ref[:3]))
+        check(e <= 1e-4, f"paged {fmt} f32 hq={hq} hd={hd}: max |err| {e}")
+        check(not got[0][2].any().item() and not got[2][2].any().item(),
+              f"paged {fmt}: the empty row must give o = 0, l = 0")
+        me = mass_checks(torch, got[3], ref[3], 1e-5, empty_row=2)
+        log("kernels", kernel=f"paged {'f32' if fmt == 'bf16' else fmt}",
+            case=f"f32 hq={hq} hkv=2 hd={hd} P=16 holes/empty/decode, mass",
+            max_abs_err=e, tol=1e-4, mass_err=me, mass_tol=1e-5)
+    # times at the serving shape: each kernel without and with the mass
+    valid = sum(t_ + d_ for _, t_, _, d_ in slice_rows)
+    groups = sum(-(-t_ // 16) + -(-d_ // 16) for _, t_, _, d_ in slice_rows)
+    fixed = (8 * 32 * 128 * 2 + sum(len(r[0]) for r in slice_rows) * 4
+             + 3 * 8 * 4 + 8 * 32 * (128 + 2) * 4)   # q, table, state, o/m/l
+    kv_bytes = {"bf16": valid * 8 * 128 * 2 * 2,
+                "q8": valid * 8 * (128 + 4) * 2,
+                "q4g16": (valid * 64 + groups * 4) * 8 * 2}
+    mass_bytes = 8 * pt.shape[1] * 4
+    flops = 4 * 32 * 128 * valid
+    for fmt in pools:
+        args = out[fmt].pop("args")
+        r = out[fmt]
+        r["ms"] = cuda_ms(lambda: pa.paged_attention(*args))
+        r["mass_ms"] = cuda_ms(lambda: pa.paged_attention(
+            *args, collect_mass=True))
+        # 5 reps: the int4 plain version enqueues ~70 kernels a call, and
+        # 20 calls would fill the launch queue before the timed window
+        r["plain_ms"] = cuda_ms(lambda: pa.paged_attention_ref(*args), reps=5)
+        r["library_ms"] = None   # no single PyTorch call reads a page table
+        r["bound_ms"], r["bound_by"] = bound_ms(fixed + kv_bytes[fmt], flops,
+                                                torch.bfloat16)
+        r["mass_bound_ms"], _ = bound_ms(fixed + kv_bytes[fmt] + mass_bytes,
+                                         flops, torch.bfloat16)
+        log("kernels", kernel=f"paged {fmt}", ms=r["ms"],
+            mass_ms=r["mass_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], mass_bound_ms=r["mass_bound_ms"],
+            bound_by=r["bound_by"],
+            **({"perf_md_ms_before": 0.0431} if fmt == "bf16" else {}))
+    return out
+
+
 # -- phases 4-6 ------------------------------------------------------------
 
 def forward_phase(torch, kernels, cfg, params, gen) -> dict:
@@ -410,15 +534,23 @@ def forward_phase(torch, kernels, cfg, params, gen) -> dict:
     return {"ms": fwd_ms, "rel_err_vs_plain": rel}
 
 
-def serving_window(torch, kernels, eng, cfg, gen, n_new) -> dict:
-    """One timed window: 12 requests with prompts of 200-512 tokens, 8
-    up front and 4 after two ticks (slots retire and are re-admitted),
-    run to the end with ``drain``; checked and timed on the host clock."""
-    lens = torch.randint(200, 513, (12,), generator=gen, device="cuda")
-    prompts = [torch.randint(0, cfg.vocab_size, (int(n),), generator=gen,
-                             device="cuda").tolist() for n in lens]
+PAGED_KERNELS = ("paged_decode", "paged_decode_q8", "paged_decode_q4")
+
+
+def serving_window(torch, kernels, eng, cfg, gen, n_new, kernel="paged_decode",
+                   prompts=None) -> dict:
+    """One timed window: 12 requests with prompts of 200-512 tokens (new
+    ones from ``gen``, or ``prompts``), 8 up front and 4 after two ticks
+    (slots retire and are re-admitted), run to the end with ``drain``;
+    checked and timed on the host clock.  ``kernel`` is the paged kernel
+    of the engine's pool format: it must run ``stride × n_layers`` times a
+    tick, and the other paged kernels not at all."""
+    if prompts is None:
+        lens = torch.randint(200, 513, (12,), generator=gen, device="cuda")
+        prompts = [torch.randint(0, cfg.vocab_size, (int(n),), generator=gen,
+                                 device="cuda").tolist() for n in lens]
     tick0, tok0 = eng._tick, eng.emitted_tokens
-    before = kernels.launches["paged_decode"]
+    before = dict(kernels.launches)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rids = [eng.submit(p, n_new) for p in prompts[:8]]
@@ -429,9 +561,13 @@ def serving_window(torch, kernels, eng, cfg, gen, n_new) -> dict:
     done += eng.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launched = kernels.launches["paged_decode"] - before
+    launched = kernels.launches[kernel] - before[kernel]
     check(sorted(r.rid for r in done) == sorted(rids),
           "not every request finished")
+    others = {k: kernels.launches[k] - before[k] for k in PAGED_KERNELS
+              if k != kernel}
+    check(not any(others.values()),
+          f"a {kernel} engine launched other paged kernels: {others}")
     for r in done:
         check(len(r.tokens) == n_new, f"rid {r.rid}: {len(r.tokens)} tokens")
         check(all(0 <= x < cfg.vocab_size for x in r.tokens),
@@ -440,11 +576,13 @@ def serving_window(torch, kernels, eng, cfg, gen, n_new) -> dict:
     check(len(eng._free_pages) == eng.total_pages, "pages leaked")
     ticks = eng._tick - tick0
     check(launched == ticks * eng.stride * cfg.n_layers,
-          f"paged launches {launched} != ticks {ticks} x {eng.stride} x "
+          f"{kernel} launches {launched} != ticks {ticks} x {eng.stride} x "
           f"{cfg.n_layers}")
     tokens = eng.emitted_tokens - tok0
+    by_rid = {r.rid: r.tokens for r in done}
     return {"tokens_per_s": tokens / wall, "wall_s": wall, "ticks": ticks,
-            "tokens": tokens, "paged_launches": launched, "prompts": prompts}
+            "tokens": tokens, "paged_launches": launched, "prompts": prompts,
+            "outputs": [by_rid[r] for r in rids]}
 
 
 def serving_phase(torch, kernels, cfg, params, gen, name,
@@ -482,8 +620,72 @@ def serving_phase(torch, kernels, cfg, params, gen, name,
     stats = {"tokens_per_s": tok_s, "tokens_per_s_windows": rates,
              "wall_s_windows": [r["wall_s"] for r in runs],
              "warmup_s": warm_s, "ticks": eng._tick,
-             "tokens": eng.emitted_tokens, "occupancy": eng.occupancy}
-    return stats, eng, runs[-1]["prompts"]
+             "tokens": eng.emitted_tokens, "occupancy": eng.occupancy,
+             "pool_bytes": pool_bytes(eng)}
+    return stats, eng, runs
+
+
+def pool_bytes(eng) -> int:
+    return sum(x.numel() * x.element_size() for x in eng.pool.values())
+
+
+QUANT_ENGINES = (
+    ("int8", dict(kv_bits=8), "paged_decode_q8"),
+    ("int4", dict(kv_bits=4), "paged_decode_q4"),
+    ("int4+mass", dict(kv_bits=4, evict_policy="mass", evict_param=0.3),
+     "paged_decode_q4"))
+
+
+def quant_serving_phase(torch, kernels, cfg, params, gen, name,
+                        first_window) -> dict:
+    """The quantized pools at phase 5's shape, each engine in turn:
+    ``warmup()``, then two timed windows, the first on phase 5's first
+    window's prompts (the share of greedy tokens that agree with the bf16
+    engine's is printed, not held: random weights give near-tied logits).
+    evict_param 0.3 evicts on the first decoding tick of a 4-page prompt,
+    since the mass EMA starts at 0."""
+    import statistics
+
+    from kubegpu_tpu_torch.models import ContinuousBatcher
+    out = {}
+    for label, kw, kernel in QUANT_ENGINES:
+        eng = ContinuousBatcher(params, cfg, n_slots=8, max_len=1024,
+                                stride=16, prompt_buckets=(512,), paged=True,
+                                page_size=128, total_pages=40, device="cuda",
+                                **kw)
+        before = kernels.launches[kernel]
+        t0 = time.perf_counter()
+        eng.warmup()
+        warm_s = time.perf_counter() - t0
+        check(kernels.launches[kernel] - before == 16 * cfg.n_layers,
+              f"{label}: warmup did not run {kernel} once per step and layer")
+        runs = [serving_window(torch, kernels, eng, cfg, gen, 32, kernel,
+                               prompts=first_window["prompts"]),
+                serving_window(torch, kernels, eng, cfg, gen, 32, kernel)]
+        if eng.evict_policy is not None:
+            check(eng.pages_evicted >= 1, f"{label}: no page was evicted")
+        ref = [x for toks in first_window["outputs"] for x in toks]
+        mine = [x for toks in runs[0]["outputs"] for x in toks]
+        agree = sum(a == b for a, b in zip(ref, mine)) / len(ref)
+        rates = [r["tokens_per_s"] for r in runs]
+        stats = {"tokens_per_s": statistics.median(rates),
+                 "tokens_per_s_windows": rates,
+                 "wall_s_windows": [r["wall_s"] for r in runs],
+                 "warmup_s": warm_s, "ticks": eng._tick,
+                 "kernel_launches": sum(r["paged_launches"] for r in runs),
+                 "pool_bytes": pool_bytes(eng),
+                 "pages_evicted": eng.pages_evicted,
+                 "agree_with_bf16": agree}
+        log("serving", engine=label, kernel=kernel,
+            tokens_per_s=stats["tokens_per_s"], tokens_per_s_windows=rates,
+            warmup_s=round(warm_s, 3), ticks=eng._tick,
+            launches=stats["kernel_launches"], pool_bytes=stats["pool_bytes"],
+            pages_evicted=eng.pages_evicted, agree_with_bf16=agree,
+            card=repr(name))
+        out[label] = stats
+        del eng
+        torch.cuda.empty_cache()
+    return out
 
 
 def device_trace(torch, fn, wall_ms: float) -> dict:
@@ -836,6 +1038,11 @@ def main(argv=None) -> int:
                   for i, n in enumerate(slice_lens)]
     results = {"flash_fwd": flash_checks(torch, gen),
                "paged_decode": paged_checks(torch, gen, slice_rows)}
+    quant = paged_quant_checks(torch, gen, slice_rows)
+    results["paged_decode_q8"] = quant["q8"]
+    results["paged_decode_q4"] = quant["q4g16"]
+    results["paged_decode"]["mass"] = quant["bf16"]
+    torch.cuda.empty_cache()
     bwd, fwd_train = flash_bwd_checks(torch, gen)
     results.update(bwd)
     for kname, r in results.items():
@@ -853,13 +1060,25 @@ def main(argv=None) -> int:
                               *params["layers"].values()]) / 1e9, 2))
     kernels.reset_launches()          # the serving path starts here
     fwd = forward_phase(torch, kernels, cfg, params, gen)
-    serve, engine, prompts = serving_phase(torch, kernels, cfg, params, gen,
+    serve, engine, windows = serving_phase(torch, kernels, cfg, params, gen,
                                            name)
     serve_launches = dict(kernels.launches)   # ... and ends here
     check(all(serve_launches[k] > 0 for k in ("flash_fwd", "paged_decode")),
           f"a kernel of the serving path never ran: {serve_launches}")
-    prof = profile_phase(torch, engine, prompts) if args.profile else None
+    prof = (profile_phase(torch, engine, windows[-1]["prompts"])
+            if args.profile else None)
     del engine
+    torch.cuda.empty_cache()
+    kernels.reset_launches()          # the quantized serving path starts here
+    quant_serve = quant_serving_phase(torch, kernels, cfg, params, gen, name,
+                                      windows[0])
+    quant_launches = dict(kernels.launches)   # ... and ends here
+    check(all(quant_launches[k] > 0 for k in ("paged_decode_q8",
+                                              "paged_decode_q4")),
+          f"a kernel of the quantized serving path never ran: "
+          f"{quant_launches}")
+    log("serving", pool_bytes={"bf16": serve["pool_bytes"], **{
+        k: v["pool_bytes"] for k, v in quant_serve.items()}})
 
     parity = parity_full(torch, cfg, params, gen)
     del params
@@ -878,16 +1097,20 @@ def main(argv=None) -> int:
                             "kubegpu_tpu/ops/flash_attention.py:200"),
               "paged_decode": ("kubegpu_tpu_torch/csrc/paged_decode.cu",
                                "kubegpu_tpu/ops/paged_attention.py:229"),
+              "paged_decode_q8": ("kubegpu_tpu_torch/csrc/paged_decode_q8.cu",
+                                  "kubegpu_tpu/ops/paged_attention.py:347"),
+              "paged_decode_q4": ("kubegpu_tpu_torch/csrc/paged_decode_q4.cu",
+                                  "kubegpu_tpu/ops/paged_attention.py:449"),
               "flash_bwd_dq": ("kubegpu_tpu_torch/csrc/flash_bwd_dq.cu",
                                "kubegpu_tpu/ops/flash_attention.py:383"),
               "flash_bwd_dkv": ("kubegpu_tpu_torch/csrc/flash_bwd_dkv.cu",
                                 "kubegpu_tpu/ops/flash_attention.py:425")}
     # launches: each kernel's count over the paths that run it (the
-    # forward runs on both)
+    # forward runs on serving and training)
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": routes[k][0],
          "replaces": routes[k][1],
-         "launches": serve_launches[k] + train_launches[k],
+         "launches": serve_launches[k] + quant_launches[k] + train_launches[k],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
@@ -896,11 +1119,17 @@ def main(argv=None) -> int:
         check(all(isinstance(r[k], float) and math.isfinite(r[k])
                   for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")),
               f"{r['name']}: a number is missing")
+        check(r["launches"] > 0, f"{r['name']} never ran on a path")
+    check(len(line["kernels"]) == len(kernels.SIGNATURES),
+          "the kernels line misses a kernel")
     details = {"card": card, "kind": name, "build_s": build_s,
                "forward": fwd, "serving": serve, "parity": parity,
+               "quantized_serving": quant_serve,
+               "paged_mass": quant["bf16"],
                "profile": prof, "training": train,
                "flash_fwd_training_shape": fwd_train,
                "launches": {"serving": serve_launches,
+                            "quantized_serving": quant_launches,
                             "training": train_launches},
                "kernels": line["kernels"],
                "total_s": time.perf_counter() - t_start}

@@ -30,12 +30,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures: every pointer and the stream are c_void_p, ints are c_int
+# C signatures: every pointer and the stream are c_void_p, ints are c_int.
+# The three paged-decode sources share one (csrc/paged_decode.cuh).
+_PAGED = [_P] * 15 + [_I] * 10 + [_P]
 SIGNATURES = {
     "flash_fwd": ("kubetpu_flash_fwd", [_P] * 5 + [_I] * 8 + [_P]),
     "flash_bwd_dq": ("kubetpu_flash_bwd_dq", [_P] * 7 + [_I] * 8 + [_P]),
     "flash_bwd_dkv": ("kubetpu_flash_bwd_dkv", [_P] * 8 + [_I] * 8 + [_P]),
-    "paged_decode": ("kubetpu_paged_decode", [_P] * 11 + [_I] * 8 + [_P]),
+    "paged_decode": ("kubetpu_paged_decode", _PAGED),
+    "paged_decode_q8": ("kubetpu_paged_decode_q8", _PAGED),
+    "paged_decode_q4": ("kubetpu_paged_decode_q4", _PAGED),
 }
 
 launches = {name: 0 for name in SIGNATURES}

@@ -21,6 +21,7 @@ from kubegpu_tpu_torch.models.llama import (
     layer_params,
 )
 from kubegpu_tpu_torch.ops.flash_attention import NEG_INF
+from kubegpu_tpu_torch.ops.kvquant import quantize_rows
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int | None = None,
@@ -31,6 +32,11 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int | None = None,
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, s, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.tdtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.tdtype, device=device)}
+
+
+# the quantizer lives in ops/kvquant.py; the pool write paths import it under
+# the reference's historical name
+_quantize_rows = quantize_rows
 
 
 def _cached_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,

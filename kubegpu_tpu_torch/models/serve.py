@@ -10,6 +10,14 @@ through the paged-attention kernel, this block's keys through a dense write
 buffer, merged as flash-decoding partials.  At the end of the block the
 buffer is flushed into each row's current decode page.
 
+The pool may hold int8 pages with per-token scales (``kv_bits=8``) or packed
+int4 pages with one scale per ``kv_group`` tokens (``kv_bits=4``); every
+write path quantizes through :mod:`kubegpu_tpu_torch.ops.kvquant`, while the
+in-block buffer stays in the model dtype.  ``evict_policy`` drops cold
+prompt pages in the middle of decoding ("window": below a trailing window;
+"mass": below an EMA of the per-page attention mass the paged kernel
+reports) and turns them into page-id-0 holes the kernel skips.
+
 The reference's executables (``decode_block``, ``prefill_wave``,
 ``adopt_wave``) are plain functions here; its ``lax.scan`` over the stride
 steps is a Python loop.  The pool and the per-slot device vectors are
@@ -33,6 +41,7 @@ from kubegpu_tpu_torch.models.decode import (
     _attn_finish,
     _forward_with_cache,
     _project_qkv,
+    _quantize_rows,
     init_kv_cache,
 )
 from kubegpu_tpu_torch.models.llama import (
@@ -41,6 +50,7 @@ from kubegpu_tpu_torch.models.llama import (
     embed_lookup,
     layer_params,
 )
+from kubegpu_tpu_torch.ops.kvquant import Q4_ZERO_BYTE, quantize_groups_q4
 from kubegpu_tpu_torch.ops.paged_attention import (
     merge_partials,
     page_table_size,
@@ -57,11 +67,6 @@ _LATER = {
     "sampling": (False, "sampling"),
     "seed": (0, "sampling"),
     "top_k": (0, "sampling"),
-    "kv_int8": (False, "KV quantization + eviction"),
-    "kv_bits": (None, "KV quantization + eviction"),
-    "kv_group": (None, "KV quantization + eviction"),
-    "evict_policy": (None, "KV quantization + eviction"),
-    "evict_param": (None, "KV quantization + eviction"),
     "prefix_cache": (False, "prefix cache and chunked prefill"),
     "chunked_prefill": (False, "prefix cache and chunked prefill"),
     "prefill_chunk": (None, "prefix cache and chunked prefill"),
@@ -89,13 +94,17 @@ def _pick_token(logits: torch.Tensor) -> torch.Tensor:
 def _paged_row_step(params: dict, tokens: torch.Tensor, pool: dict,
                     pt: torch.Tensor, tvec: torch.Tensor, tpad: torch.Tensor,
                     d0: torch.Tensor, buf: dict, pos: torch.Tensor, j: int,
-                    cfg: LlamaConfig) -> torch.Tensor:
+                    cfg: LlamaConfig, collect_mass: bool = False):
     """One decode step for every slot against the paged pool: flushed
     history via the paged kernel, this block's keys via the write buffer
     (written in place at index ``j``), merged with the flash-decoding
-    logsumexp merge.  Returns next-token logits [B, V] f32."""
+    logsumexp merge.  Returns next-token logits [B, V] f32 and, with
+    ``collect_mass``, the per-page attention mass [B, max_pages] averaged
+    over layers."""
     x = embed_lookup(params["embed"], tokens)[:, None, :]        # [B,1,D]
     positions = pos[:, None]
+    k_scale, v_scale = pool.get("k_scale"), pool.get("v_scale")
+    masses = []
     for li in range(cfg.n_layers):
         lp = layer_params(params, li)
         h = _rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
@@ -103,14 +112,38 @@ def _paged_row_step(params: dict, tokens: torch.Tensor, pool: dict,
         bk, bv = buf["k"][li], buf["v"][li]
         bk[:, :, j] = k[:, :, 0].to(bk.dtype)
         bv[:, :, j] = v[:, :, 0].to(bv.dtype)
-        o_p, m_p, l_p = paged_attention(
+        parts = paged_attention(
             q[:, :, 0, :].contiguous(), pool["k"], pool["v"], pt, li, tvec,
-            tpad, d0)
+            tpad, d0, k_scale, v_scale, collect_mass)
+        o_p, m_p, l_p = parts[:3]
+        masses += parts[3:]
         o_b, m_b, l_b = _attend_buffer_partials(q, bk, bv, j)
         o = merge_partials(o_p, m_p, l_p, o_b, m_b, l_b)
         x = _attn_finish(x, o[:, :, None, :].to(x.dtype), lp, cfg)
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float()[:, 0]
+    logits = (x @ params["lm_head"]).float()[:, 0]
+    if collect_mass:
+        return logits, torch.stack(masses).mean(dim=0)
+    return logits
+
+
+def _quantize_like(pool: dict, kv: dict, page_size: int) -> dict:
+    """Rate model-dtype K/V ``[..., T, D]`` into ``pool``'s format in one
+    vectorized pass: int8 per token, or packed int4 per group of
+    ``P / k_scale.shape[3]`` tokens along T (the callers' writes are
+    group-aligned, so a group never straddles two writes).  A bf16/f32
+    pool takes the values as they are."""
+    if "k_scale" not in pool:
+        return kv
+    out = {}
+    for name in ("k", "v"):
+        if pool["k"].dtype == torch.uint8:
+            vals, sc = quantize_groups_q4(
+                kv[name], page_size // pool["k_scale"].shape[3])
+        else:
+            vals, sc = _quantize_rows(kv[name])
+        out[name], out[f"{name}_scale"] = vals, sc
+    return out
 
 
 def _flush_buffer_paged(pool: dict, buf: dict, pt: torch.Tensor,
@@ -121,44 +154,63 @@ def _flush_buffer_paged(pool: dict, buf: dict, pt: torch.Tensor,
     page-aligned and stride divides P, so a block never splits a page.
     Retired rows carry a zeroed page-table row, so their garbage lands in
     trash page 0; the page-index clamp keeps stale positions in the
-    table."""
-    stride = buf["k"].shape[3]
+    table.  A quantized pool gets the whole buffer quantized once, and
+    its scales scattered beside the values."""
     phys0 = tpad + d0
     pidx = torch.clamp(phys0 // page_size, 0, pt.shape[1] - 1)
     page = pt.gather(1, pidx[:, None].long())                    # [B, 1]
-    off = (phys0 % page_size)[:, None] + torch.arange(
-        stride, device=pt.device)                                # [B, stride]
-    page = page.long().expand_as(off)
-    for name in ("k", "v"):
-        # advanced indices around a slice: value dims are [B, stride, L, Hkv, D]
-        pool[name][:, page, :, off.long(), :] = \
-            buf[name].permute(1, 3, 0, 2, 4).to(pool[name].dtype)
+    for name, x in _quantize_like(pool, buf, page_size).items():
+        # x: [L, B, Hkv, n, ...]: n tokens (values, int8 scales) or n
+        # groups (int4 scales) of each row's block, written from the
+        # block's offset in its decode page
+        n = x.shape[3]
+        per = page_size // pool[name].shape[3]   # tokens per entry
+        off = ((phys0 % page_size) // per)[:, None] + torch.arange(
+            n, device=pt.device)                                 # [B, n]
+        # advanced indices around a slice: value dims are [B, n, L, Hkv, ...]
+        pool[name][:, page.long().expand_as(off), :, off.long()] = \
+            x.permute(1, 3, 0, 2, *range(4, x.dim())).to(pool[name].dtype)
 
 
 @torch.no_grad()
 def decode_block(params: dict, pool: dict, pt, tvec, tpad,
                  tokens: torch.Tensor, pos: torch.Tensor,
-                 active: torch.Tensor, cfg: LlamaConfig, stride: int):
+                 active: torch.Tensor, cfg: LlamaConfig, stride: int,
+                 collect_mass: bool = False):
     """``stride`` decode steps for every slot, then the buffer flush.
     ``tokens``/``pos`` advance in place for active rows; the flushed
     decode count is ``pos - tvec`` for active rows and 0 for inactive
-    ones.  Returns (token block [stride, B], per-slot non-finite flag)."""
+    ones.  Returns (token block [stride, B], per-slot non-finite flag) and,
+    with ``collect_mass``, the per-page attention mass averaged over the
+    block's steps [B, max_pages], the signal mass eviction reads."""
     d0 = torch.where(active, pos - tvec, torch.zeros_like(pos)).to(torch.int32)
-    n_layers, _, hkv, _, hd = pool["k"].shape
+    n_layers, _, hkv = pool["k"].shape[:3]
     b = tokens.shape[0]
-    buf = {n: torch.zeros((n_layers, b, hkv, stride, hd), dtype=cfg.tdtype,
-                          device=tokens.device) for n in ("k", "v")}
+    # the buffer stays in the model dtype whatever the pool's (a quantized
+    # pool quantizes at the flush); an int4 pool's rows are D/2 wide, so
+    # the buffer sizes off the config
+    buf = {n: torch.zeros((n_layers, b, hkv, stride, cfg.head_dim),
+                          dtype=cfg.tdtype, device=tokens.device)
+           for n in ("k", "v")}
     bad = torch.zeros(b, dtype=torch.bool, device=tokens.device)
+    macc = torch.zeros(pt.shape, dtype=torch.float32, device=tokens.device)
     block = []
     for j in range(stride):
-        logits = _paged_row_step(params, tokens, pool, pt, tvec, tpad, d0,
-                                 buf, pos, j, cfg)
+        out = _paged_row_step(params, tokens, pool, pt, tvec, tpad, d0, buf,
+                              pos, j, cfg, collect_mass)
+        if collect_mass:
+            logits, pmass = out
+            macc += pmass
+        else:
+            logits = out
         bad |= ~torch.isfinite(logits).all(dim=-1)
         nxt = torch.where(active, _pick_token(logits), tokens)
         tokens.copy_(nxt)
         pos.add_(active.to(pos.dtype))
         block.append(nxt)
     _flush_buffer_paged(pool, buf, pt, tpad, d0, pool["k"].shape[3])
+    if collect_mass:
+        return torch.stack(block), bad, macc / stride
     return torch.stack(block), bad
 
 
@@ -183,15 +235,17 @@ def adopt_wave(pool: dict, cache_w: dict, page_dst: torch.Tensor,
                page_size: int) -> None:
     """Admit a wave IN PLACE: copy each row's prompt panel page by page
     into its pool pages (``page_dst`` [k, bucket/P] page ids) and set the
-    slots' first token, current token and position."""
-    n_layers, k, hkv, bucket, hd = cache_w["k"].shape
-    npp = bucket // page_size
+    slots' first token, current token and position.  A quantized pool gets
+    the whole panel quantized once first (the bucket is a page multiple
+    and the int4 group divides P, so groups never straddle pages)."""
+    n_layers, k, hkv = cache_w["k"].shape[:3]
+    npp = cache_w["k"].shape[3] // page_size
     dst = page_dst.reshape(-1).long()
-    for name in ("k", "v"):
-        pages = cache_w[name].view(n_layers, k, hkv, npp, page_size, hd) \
-            .permute(0, 1, 3, 2, 4, 5).reshape(n_layers, k * npp, hkv,
-                                               page_size, hd)
-        pool[name][:, dst] = pages.to(pool[name].dtype)
+    for name, x in _quantize_like(pool, cache_w, page_size).items():
+        # [L, k, Hkv, npp * n, ...] -> [L, k * npp, Hkv, n, ...]
+        x = x.reshape(n_layers, k, hkv, npp, -1, *x.shape[4:]).transpose(2, 3)
+        pool[name][:, dst] = x.reshape(n_layers, k * npp, hkv,
+                                       *x.shape[4:]).to(pool[name].dtype)
     first_toks[slots] = firsts
     tokens[slots] = firsts
     pos[slots] = plens.to(pos.dtype)
@@ -241,6 +295,15 @@ class ContinuousBatcher:
     ``warmup()`` runs every shape once on scratch state, before a timed
     window.
 
+    ``kv_bits`` picks the pool format: 16 (the model dtype), 8 (int8 pages
+    with per-token scales; ``kv_int8=True`` is its alias) or 4 (packed
+    int4 pages with one scale per ``kv_group`` tokens, default ``stride``;
+    the group must divide both ``stride`` and ``page_size``).
+    ``evict_policy`` ("window" or "mass", with ``evict_param`` a token
+    window, default ``2 * page_size``, or a mass threshold, default 0.02)
+    drops cold prompt pages of decoding slots after each collected block
+    (:meth:`_maybe_evict`); ``pages_evicted`` counts them.
+
     Knobs of the reference engine outside this slice raise
     ``NotImplementedError`` naming their ROADMAP.md item."""
 
@@ -249,7 +312,10 @@ class ContinuousBatcher:
                  prompt_buckets: tuple[int, ...] = (128, 512, 1024),
                  paged: bool = False, page_size: int = 128,
                  total_pages: int | None = None,
-                 debug_invariants: bool = False, device="cuda", **later):
+                 debug_invariants: bool = False, kv_int8: bool = False,
+                 kv_bits: int | None = None, kv_group: int | None = None,
+                 evict_policy: str | None = None,
+                 evict_param: float | None = None, device="cuda", **later):
         later["paged"] = paged
         for name, value in later.items():
             if name not in _LATER:
@@ -271,6 +337,47 @@ class ContinuousBatcher:
         self.prompt_buckets = tuple(sorted(prompt_buckets))
         if self.prompt_buckets[-1] >= self.max_len:
             raise ValueError("largest prompt bucket must be < max_len")
+        # -- KV bit width: 16 = model dtype, 8 = int8 pages (kv_int8's
+        # alias), 4 = packed int4 with one scale per kv_group tokens; the
+        # group divides stride and page_size so every write is
+        # group-aligned
+        if kv_bits is None:
+            kv_bits = 8 if kv_int8 else 16
+        if kv_bits not in (16, 8, 4):
+            raise ValueError(f"kv_bits {kv_bits} not in (16, 8, 4)")
+        if kv_bits == 4:
+            if kv_int8:
+                raise ValueError(
+                    "kv_int8=True and kv_bits=4 are exclusive — pick one "
+                    "pool quantization")
+            if cfg.head_dim % 2:
+                raise ValueError(
+                    f"kv_bits=4 needs an even head_dim, got {cfg.head_dim} "
+                    "(two channels pack per byte)")
+            kv_group = int(kv_group) if kv_group else stride
+            if stride % kv_group or page_size % kv_group:
+                raise ValueError(
+                    f"kv_group {kv_group} must divide both stride {stride} "
+                    f"and page_size {page_size} (group-aligned writes are "
+                    "the exactly-once contract)")
+        else:
+            if kv_group:
+                raise ValueError("kv_group only applies to kv_bits=4")
+            kv_group = 0
+        self.kv_bits = int(kv_bits)
+        self.kv_group = int(kv_group)
+        # -- page eviction: "window" drops prompt pages wholly below the
+        # trailing evict_param-token window, "mass" those whose EMA of the
+        # paged kernel's attention mass fell below evict_param
+        if evict_policy is not None:
+            if evict_policy not in ("window", "mass"):
+                raise ValueError(f"evict_policy {evict_policy!r} not in "
+                                 "('window', 'mass')")
+            if evict_param is None:
+                evict_param = (2.0 * page_size if evict_policy == "window"
+                               else 0.02)
+        self.evict_policy = evict_policy
+        self.evict_param = float(evict_param or 0.0)
         if page_size % stride:
             raise ValueError(f"page_size {page_size} must be a multiple of "
                              f"stride {stride} (block flushes must not "
@@ -284,10 +391,7 @@ class ContinuousBatcher:
         self.total_pages = (total_pages if total_pages is not None
                             else n_slots * self.max_pages)
         self.debug_invariants = bool(debug_invariants)
-        shape = (cfg.n_layers, self.total_pages + 1, cfg.n_kv_heads,
-                 page_size, cfg.head_dim)
-        self.pool = {n: torch.zeros(shape, dtype=cfg.tdtype,
-                                    device=self.device) for n in ("k", "v")}
+        self.pool = self._empty_pool()
         self._free_pages = list(range(1, self.total_pages + 1))
         self._page_refs: dict[int, int] = {}
         self._pt = np.zeros((n_slots, self.max_pages), np.int32)
@@ -313,6 +417,35 @@ class ContinuousBatcher:
         self.slot_steps = 0          # decode slot-steps spent
         # k of each recent wave (a bounded window, as the reference trims it)
         self.wave_sizes: deque[int] = deque(maxlen=32768)
+        # eviction: pages released so far; per-(slot, row-local page) EMA of
+        # the attention mass; the in-flight block's mass, fetched in
+        # _maybe_evict after the tick's one host sync
+        self.pages_evicted = 0
+        self._page_mass = np.zeros((n_slots, self.max_pages))
+        self._mass_pending: torch.Tensor | None = None
+
+    def _empty_pool(self) -> dict:
+        """A pool of ``total_pages + 1`` pages in this engine's format,
+        every page empty: zeros in the model dtype, int8 zeros with scales
+        1, or packed int4 :data:`Q4_ZERO_BYTE` with scales 1; each
+        dequantizes to exact zero."""
+        cfg, dev = self.cfg, self.device
+        shape = (cfg.n_layers, self.total_pages + 1, cfg.n_kv_heads,
+                 self.page_size, cfg.head_dim)
+        if self.kv_bits == 16:
+            return {n: torch.zeros(shape, dtype=cfg.tdtype, device=dev)
+                    for n in ("k", "v")}
+        if self.kv_bits == 8:
+            vals = torch.zeros(shape, dtype=torch.int8, device=dev)
+            n_scale = self.page_size
+        else:
+            vals = torch.full(shape[:-1] + (cfg.head_dim // 2,),
+                              Q4_ZERO_BYTE, dtype=torch.uint8, device=dev)
+            n_scale = self.page_size // self.kv_group
+        scales = torch.ones(shape[:3] + (n_scale,), dtype=torch.float32,
+                            device=dev)
+        return {"k": vals, "v": vals.clone(), "k_scale": scales,
+                "v_scale": scales.clone()}
 
     # -- requests -------------------------------------------------------
 
@@ -373,15 +506,18 @@ class ContinuousBatcher:
         return out
 
     def _release_pages(self, slot: int) -> None:
-        """Return the slot's pages and zero its table row and length
-        scalars, so its per-block garbage flush retargets trash page 0."""
+        """Return the slot's pages and zero its table row, length scalars
+        and mass, so its per-block garbage flush retargets trash page 0."""
         for p in self._slot_pages.pop(slot, []):
+            if p == 0:
+                continue          # eviction hole: already released
             self._page_refs[p] -= 1
             if self._page_refs[p] == 0:
                 del self._page_refs[p]
                 self._free_pages.append(p)
         self._pt[slot, :] = 0
         self._tvec[slot] = self._tpad[slot] = 0
+        self._page_mass[slot] = 0.0
         self._tables_dirty = True
 
     def _sync_tables(self) -> None:
@@ -459,7 +595,7 @@ class ContinuousBatcher:
         no engine state or counter changes.  Call it before a timed
         window: otherwise the first call at each shape (cuBLAS's algorithm
         choice, the caching allocator's growth) lands inside it."""
-        scratch = {n: torch.zeros_like(x) for n, x in self.pool.items()}
+        scratch = self._empty_pool()
         sft, stok = (torch.zeros_like(self.first_toks),
                      torch.zeros_like(self.tokens))
         spos = torch.zeros_like(self.pos)
@@ -482,7 +618,7 @@ class ContinuousBatcher:
         decode_block(self.params, scratch, self._pt_dev, self._tvec_dev,
                      self._tpad_dev, stok, spos,
                      torch.from_numpy(self.active).to(self.device), self.cfg,
-                     self.stride)
+                     self.stride, collect_mass=self.evict_policy == "mass")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -492,19 +628,25 @@ class ContinuousBatcher:
         first tokens) for the next tick's single host fetch."""
         self._sync_tables()
         active = torch.from_numpy(self.active).to(self.device)
-        block, bad = decode_block(
+        outs = decode_block(
             self.params, self.pool, self._pt_dev, self._tvec_dev,
             self._tpad_dev, self.tokens, self.pos, active, self.cfg,
-            self.stride)
+            self.stride, collect_mass=self.evict_policy == "mass")
+        block, bad = outs[:2]
+        if self.evict_policy == "mass":
+            self._mass_pending = outs[2]
         self._inflight = torch.cat([block.reshape(-1), bad.long(),
                                     self.first_toks])
         self._tick += 1
 
     def step(self) -> list[_Request]:
         """One engine tick: collect the previous block, retire finishers,
-        admit into freed slots, dispatch the next block (without waiting
-        for it).  Returns the requests that finished."""
+        evict cold pages (with an ``evict_policy``), admit into freed
+        slots, dispatch the next block (without waiting for it).  Returns
+        the requests that finished."""
         finished = self._collect()
+        if self.evict_policy is not None:
+            self._maybe_evict()
         self._admit()
         if self.slot_req:
             self._dispatch_tick()
@@ -556,6 +698,67 @@ class ContinuousBatcher:
         self.active[slot] = False
         self._release_pages(slot)
 
+    def _maybe_evict(self) -> None:
+        """Drop cold PROMPT pages from decoding slots.
+
+        ``window``: a prompt page wholly below the trailing
+        ``evict_param``-token window of the prompt is dropped; ``mass``:
+        pages whose EMA (0.8 / 0.2 per tick) of the paged kernel's
+        attention mass fell below ``evict_param``, coldest first.  A
+        dropped page goes back to the free list and its table entry
+        becomes a page-id-0 HOLE the kernels skip; positions keep their
+        rope phases.
+
+        Rails: never row-local page 0 (the attention sink), never a page
+        whose refcount is not 1, never a slot that awaits its first token
+        or is inactive, and at least two real prompt pages stay.  The
+        reference also spares slots that are mid-prefill (``_prefilling``)
+        or exporting a migration chain (``_migrate_out``), and
+        prefix-registered pages (``_page_key``): ROADMAP.md queue 1 items
+        4 (prefix cache and chunked prefill) and 7 (pools, fleet and
+        llama_serve) add those rails with the features."""
+        if self.evict_policy == "mass" and self._mass_pending is not None:
+            # its block was synced in _collect: a copy of a ready tensor
+            mass = self._mass_pending.cpu().numpy()
+            self._mass_pending = None
+            live = self.active & np.isfinite(mass).all(axis=1)
+            self._page_mass[live] = (0.8 * self._page_mass[live]
+                                     + 0.2 * mass[live])
+        p = self.page_size
+        for slot in list(self.slot_req):
+            if slot in self._await_first or not self.active[slot]:
+                continue
+            n_prompt = int(self._tpad[slot]) // p
+            if n_prompt <= 2:
+                continue
+            row = self._pt[slot]
+            live_idx = [pi for pi in range(n_prompt) if row[pi] != 0]
+            if self.evict_policy == "window":
+                horizon = int(self._tvec[slot]) - int(self.evict_param)
+                cand = [pi for pi in live_idx
+                        if pi >= 1 and (pi + 1) * p <= horizon]
+            else:
+                cand = sorted(
+                    (pi for pi in live_idx
+                     if pi >= 1
+                     and self._page_mass[slot, pi] < self.evict_param),
+                    key=lambda pi: self._page_mass[slot, pi])
+            remaining = len(live_idx)
+            for pi in cand:
+                if remaining <= 2:
+                    break
+                page = int(row[pi])
+                if self._page_refs.get(page, 0) != 1:
+                    continue    # shared: keep
+                self._pt[slot, pi] = 0
+                self._slot_pages[slot][pi] = 0
+                del self._page_refs[page]
+                self._free_pages.append(page)
+                self._page_mass[slot, pi] = 0.0
+                self._tables_dirty = True
+                self.pages_evicted += 1
+                remaining -= 1
+
     def drain(self, max_ticks: int = 10_000) -> list[_Request]:
         """Run until queue and slots are empty; returns every finished
         request in completion order."""
@@ -569,8 +772,9 @@ class ContinuousBatcher:
     def check_page_invariants(self) -> None:
         """Page-leak detector: free and allocated pages partition
         {1..total_pages}, trash page 0 is in neither, every allocated page
-        has exactly its owners as refcount, and each table row matches
-        its slot's pages (retired rows are all zero)."""
+        has exactly its owners as refcount (eviction holes own nothing),
+        and each table row matches its slot's pages (retired rows are all
+        zero)."""
         def fail(msg: str) -> None:
             raise RuntimeError(f"page invariant violated: {msg}")
 
@@ -585,8 +789,11 @@ class ContinuousBatcher:
         if free | allocated != set(range(1, self.total_pages + 1)):
             fail("free ∪ allocated is not {1..total_pages}")
         owners: dict[int, int] = {}
-        for pages in self._slot_pages.values():
-            for p in pages:
+        for slot, pages in self._slot_pages.items():
+            real = [p for p in pages if p]   # 0 = eviction hole
+            if len(real) != len(set(real)):
+                fail(f"slot {slot} references a page twice")
+            for p in real:
                 owners[p] = owners.get(p, 0) + 1
         for p in allocated:
             if self._page_refs[p] != owners.get(p, 0):

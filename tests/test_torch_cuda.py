@@ -108,6 +108,100 @@ def test_kernels_take_any_head_dim(dev, dtype, hd):
     assert ((l - rl).abs() <= 1e-3 * rl).all()
 
 
+def _quantized(pk, pv, fmt):
+    """Pools in format q8 or q4g<g>, by the port's quantizers."""
+    kvq = importlib.import_module("kubegpu_tpu_torch.ops.kvquant")
+    if fmt == "q8":
+        (kq, ks), (vq, vs) = kvq.quantize_rows(pk), kvq.quantize_rows(pv)
+    else:
+        g = int(fmt[3:])
+        (kq, ks), (vq, vs) = (kvq.quantize_groups_q4(x, g) for x in (pk, pv))
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("fmt,dtype,hd,hq", [
+    ("plain", torch.float32, 16, 8), ("plain", torch.bfloat16, 128, 8),
+    ("q8", torch.float32, 16, 8), ("q8", torch.bfloat16, 64, 8),
+    ("q8", torch.float32, 128, 32), ("q4g1", torch.float32, 16, 8),
+    ("q4g4", torch.bfloat16, 64, 8), ("q4g8", torch.float32, 128, 32),
+    ("q4g2", torch.float32, 64, 4)])
+def test_quant_and_mass_kernels_match_plain(dev, fmt, dtype, hd, hq):
+    """Kernels 5 (int8) and 6 (int4, groups of 1, 2, 4 and P = 8 keys) and
+    the mass output of kernels 4-6 against ``paged_attention_ref``: o
+    within 1e-2 in bf16 and 1e-4 in f32, m within 1e-3, l within 1e-3
+    relative, the mass within 1e-3 in bf16 and 1e-5 in f32; the partials
+    with and without the mass are the same.  hq=32 folds 4 query
+    positions into a group of 4."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    pk, pv = (torch.randn(2, 12, 2, 8, hd, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    kq, vq, ks, vs = (pk, pv, None, None) if fmt == "plain" else \
+        _quantized(pk, pv, fmt)
+    name = {"plain": "paged_decode", "q8": "paged_decode_q8"}.get(
+        fmt, "paged_decode_q4")
+    q = torch.randn(4, hq, hd, generator=g, device=dev).to(dtype)
+    t, tpad, d = (torch.from_numpy(x).to(dev) for x in STATE)
+    args = (q, kq, vq, torch.from_numpy(PT).to(dev), 1, t, tpad, d, ks, vs)
+    before = dict(kernels.launches)
+    o, m, l, mass = pa.paged_attention(*args, collect_mass=True)
+    part = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before[name] + 2
+    assert sum(kernels.launches.values()) == sum(before.values()) + 2
+    ro, rm, rl, rmass = pa.paged_attention_ref(*args, collect_mass=True)
+    bf16 = dtype == torch.bfloat16
+    assert (o - ro).abs().max().item() <= (1e-2 if bf16 else 1e-4)
+    assert (m - rm).abs().max().item() <= 1e-3
+    assert ((l - rl).abs() <= 1e-3 * rl).all()
+    assert (mass - rmass).abs().max().item() <= (1e-3 if bf16 else 1e-5)
+    assert (mass.sum(dim=1) <= 1 + 1e-5).all()
+    assert not o[2].any() and not l[2].any() and not mass[2].any()
+    assert mass[1, 1] == 0                               # the hole
+    for a, b in zip(part, (o, m, l)):
+        assert torch.equal(a, b)
+
+
+def test_engine_int4_pool_runs_kernel6(dev):
+    """The tiny f32 engine with int4 pages and mass eviction on the card
+    goes through kernel 6 (and no other paged kernel) ``stride × n_layers``
+    times a tick, and serves the tokens and evicts the pages of the same
+    engine on the CPU (plain versions)."""
+    from kubegpu_tpu_torch.models import (
+        ContinuousBatcher,
+        LlamaConfig,
+        llama_init,
+    )
+    cfg = LlamaConfig.tiny(n_heads=4, n_kv_heads=2, max_seq_len=64)
+    params = llama_init(cfg, seed=0, device="cpu")
+    kw = dict(n_slots=3, max_len=48, stride=2, prompt_buckets=(32, 40),
+              paged=True, page_size=8, kv_bits=4, evict_policy="mass",
+              evict_param=0.25, debug_invariants=True)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        eng = ContinuousBatcher(_to(params, device), cfg, device=device,
+                                **kw)
+        before = dict(kernels.launches)
+        for j in range(3):
+            eng.submit([(5 * j + 3 * i + 2) % cfg.vocab_size
+                        for i in range(27)], 8)
+        done = eng.drain()
+        launched = {k: kernels.launches[k] - before[k] for k in before}
+        runs[device] = ({r.rid: r.tokens for r in done}, eng.pages_evicted,
+                        eng._tick, launched)
+    toks, evicted, ticks, launched = runs["cuda"]
+    assert launched["paged_decode_q4"] == ticks * 2 * cfg.n_layers
+    assert launched["paged_decode"] == launched["paged_decode_q8"] == 0
+    assert not any(runs["cpu"][3].values())
+    assert evicted >= 1
+    assert (toks, evicted) == runs["cpu"][:2]
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def _rel_err(got, ref) -> float:
     return ((got.float() - ref.float()).abs().max()
             / ref.float().abs().max().clamp(min=1e-30)).item()
@@ -200,3 +294,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         pa.paged_attention(q[:, :, 0].contiguous(), pool, pool,
                            torch.zeros(1, 2, dtype=torch.int64, device=dev),
                            0, i32, i32, i32)
+    # int4 pages with a scale lane count that does not divide P, and int8
+    # pages without their scales
+    packed = torch.zeros(1, 3, 2, 8, 64, dtype=torch.uint8, device=dev)
+    sc = torch.ones(1, 3, 2, 3, device=dev)
+    pt = torch.zeros(1, 2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="do not fit"):
+        pa.paged_attention(q[:, :, 0].contiguous(), packed, packed, pt, 0,
+                           i32, i32, i32, sc, sc)
+    with pytest.raises(ValueError, match="requires k_scale"):
+        pa.paged_attention(q[:, :, 0].contiguous(), pool.to(torch.int8),
+                           pool.to(torch.int8), pt, 0, i32, i32, i32)

@@ -71,17 +71,6 @@ def test_wrapper_takes_plain_version_on_cpu():
         assert torch.equal(a, b)
 
 
-def test_unported_options_raise():
-    pk, pv = map(torch.from_numpy, _pool())
-    q = torch.zeros(4, 4, D)
-    args = (q, pk, pv, torch.from_numpy(PT), 0,
-            *map(torch.from_numpy, (T, TPAD, DCNT)))
-    with pytest.raises(NotImplementedError, match="KV-quant"):
-        paged_attention(*args, k_scale=torch.ones(1))
-    with pytest.raises(NotImplementedError, match="eviction"):
-        paged_attention(*args, collect_mass=True)
-
-
 @pytest.mark.parametrize("needs_grad", ["q", "pool_k", "pool_v"])
 def test_gradient_request_raises(needs_grad):
     """No silent gradient: as the reference's ``pallas_call`` raises under

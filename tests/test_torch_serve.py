@@ -81,10 +81,10 @@ def test_page_accounting_matches_reference(tiny):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("paged", False), ("sampling", True), ("seed", 1), ("kv_int8", True),
-    ("kv_bits", 4), ("prefix_cache", True), ("chunked_prefill", True),
+    ("paged", False), ("sampling", True), ("seed", 1), ("prefill_chunk", 8),
+    ("draft_layers", 1), ("prefix_cache", True), ("chunked_prefill", True),
     ("spec_gamma", 2), ("fused_ticks", 2), ("mesh", object()),
-    ("evict_policy", "window"), ("chaos", object()), ("tracer", object()),
+    ("metrics", object()), ("chaos", object()), ("tracer", object()),
     ("tenant_quotas", {"a": 1}), ("collect_overlap", True),
 ])
 def test_unported_knobs_raise(tiny, knob, value):
