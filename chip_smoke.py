@@ -13,9 +13,10 @@ printed as it ends (any failed check exits non-zero):
    its path's shapes (bf16) and at small f32 edge cases, with times, the
    card's bound and a library yardstick where one call computes the same
    function: flash forward, paged decode over bf16, int8 and packed-int4
-   pages (kernels 4-6, each also with its per-page attention mass), and the
-   flash backward's dq and dk/dv kernels (at the training shape,
-   [4, 32, 2048, 128]);
+   pages (kernels 4-6, each also with its per-page attention mass), the
+   biased paged decode of the T5 decoder (kernel 7, at T5 v1.1-base's
+   serving shape), and the flash backward's dq and dk/dv kernels (at the
+   training shape, [4, 32, 2048, 128]);
 4. forward  — ``llama_forward`` at Llama-3-8B full width, bf16, [1, 512];
 5. serving  — the paged ``ContinuousBatcher`` at the same width:
    ``warmup()``, then five timed windows of 12 staggered requests (median
@@ -33,12 +34,22 @@ printed as it ends (any failed check exits non-zero):
    against ``attn_impl="plain"``, then ``make_train_step`` with the port's
    ``adamw(1e-3)`` on one [4, 2048] batch: one warm step and three timed
    steps (median step ms, tokens/s, model-FLOP utilisation, peak memory,
-   falling losses).
+   falling losses);
+8. t5       — T5 v1.1-base at full width (``T5Config()``), bf16: the dense
+   and the paged greedy generate on 8 encoder inputs of 512 tokens, 384
+   decode steps over pages of 128 (one warm call, then the median of three
+   timed calls each; the paged one runs kernel 7 once per decoder layer and
+   step); parity of the paged tokens with the dense ones on a narrow f32
+   config and of the full-width paged step's logits with the dense step's
+   after two flushed pages; ``make_t5_train_step`` with ``adamw(1e-3)`` on
+   one fixed batch (encoder [8, 512], decoder [8, 128]): one warm and three
+   timed steps.
 
-Three paths are driven: serving (phases 4-5), quantized serving (5b) and
-training (phase 7's steps).  Launch counters are zeroed just before each
-and read just after.  The line before the last is one JSON object per
-kernel; the last line is ``{"ok": true, "device": {...}}``.
+Four paths are driven: serving (phases 4-5), quantized serving (5b),
+training (phase 7's steps) and T5 paged serving (phase 8's paged calls).
+Launch counters are zeroed just before each and read just after.  The
+line before the last is one JSON object per kernel; the last line is
+``{"ok": true, "device": {...}}``.
 ``--details PATH`` writes every phase's numbers to PATH as JSON.  With
 ``--profile`` it also traces one steady engine tick after phase 5 and one
 train step after phase 7 (device time by kernel, idle share).
@@ -497,6 +508,97 @@ def paged_quant_checks(torch, gen, slice_rows) -> dict:
             bound_ms=r["bound_ms"], mass_bound_ms=r["mass_bound_ms"],
             bound_by=r["bound_by"],
             **({"perf_md_ms_before": 0.0431} if fmt == "bf16" else {}))
+    return out
+
+
+# T5 v1.1-base's serving traffic (phase 8) and kernel 7's shape in it
+T5_SERVE = {"batch": 8, "enc_len": 512, "steps": 384, "page": 128}
+T5_TRAIN = {"batch": 8, "enc_len": 512, "dec_len": 128}
+
+
+def paged_bias_checks(torch, gen) -> dict:
+    """Kernel 7 against ``paged_attention_biased_ref`` on the card: at the
+    T5 serving path's shape in its third block (bf16, B 8, H 12, P 128, D
+    64, 32 buckets over 128, t = t_pad = 0, d = 256 flushed keys, q_pos =
+    256 + j), then f32 edge cases at head dims 16, 64 and 80: an empty row,
+    a 0 in a row's page table inside its prompt (attended: kernel 7 has no
+    hole mask), a row with a prompt and a decode region, and three sets of
+    query positions whose valid keys hit every bucket, the clamp included.
+    Times at the serving shape; the bound counts the valid keys' K and V,
+    q, the table, the page table and row state, and o/m/l."""
+    pa = importlib.import_module("kubegpu_tpu_torch.ops.paged_attention")
+    dev = "cuda"
+    b, h, p, dd, nb, max_dist = 8, 12, T5_SERVE["page"], 64, 32, 128
+    n_blocks = -(-T5_SERVE["steps"] // p)
+    i32 = dict(dtype=torch.int32, device=dev)
+    pk, pv = (torch.randn(12, 1 + b * n_blocks, h, p, dd, generator=gen,
+                          device=dev).bfloat16() for _ in range(2))
+    q = torch.randn(b, h, dd, generator=gen, device=dev).bfloat16()
+    pt = (1 + torch.arange(b, **i32)[:, None] * n_blocks
+          + torch.arange(n_blocks, **i32)[None, :])
+    zeros = torch.zeros(b, **i32)
+    d = torch.full((b,), 2 * p, **i32)
+    qpos = 2 * p + torch.arange(b, **i32) * 16
+    table = torch.randn(h, nb, generator=gen, device=dev)
+    args = (q, pk, pv, pt, 11, zeros, zeros, d, qpos, table)
+    o, m, l = pa.paged_attention_biased(*args, bias_max_dist=max_dist)
+    ro, rm, rl = pa.paged_attention_biased_ref(*args, max_dist)
+    torch.cuda.synchronize()
+    err, m_err = max_err(o, ro), max_err(m, rm)
+    l_rel = ((l - rl).abs() / rl.clamp(min=1e-30)).max().item()
+    check(err <= 1e-2, f"paged bias bf16 o max |err| {err} > 1e-2")
+    check(m_err <= 1e-3 and l_rel <= 1e-3,
+          f"paged bias bf16 m err {m_err} / l rel err {l_rel} > 1e-3")
+    log("kernels", kernel="paged_decode_bias",
+        case=f"bf16 B={b} H={h} P={p} D={dd} d=256 q_pos=256+j",
+        max_abs_err=err, tol=1e-2, m_err=m_err, l_rel_err=l_rel)
+    out = {"max_abs_err": err}
+    rows = [([3, 7, 0, 0], 20, 32, 0),     # prompt over 2 pages
+            ([5, 0, 9, 0], 40, 48, 0),     # a 0 inside the prompt
+            ([0, 0, 0, 0], 0, 0, 0),       # empty row
+            ([2, 4, 6, 8], 10, 16, 40)]    # prompt and decode region
+    hit = set()
+    for hd in (16, 64, 80):
+        fq, fk, fv, fpt, ft, ftp, fd = paged_case(
+            torch, gen, torch.float32, 2, 12, 4, 16, hd, 4, rows)
+        ftable = torch.randn(4, nb, generator=gen, device=dev)
+        for qp in ([34, 60, 0, 30], [45, 130, 3, 90], [200, 400, 9, 175]):
+            fqpos = torch.tensor(qp, **i32)
+            fargs = (fq, fk, fv, fpt, 1, ft, ftp, fd, fqpos, ftable)
+            got = pa.paged_attention_biased(*fargs, bias_max_dist=max_dist)
+            ref = pa.paged_attention_biased_ref(*fargs, max_dist)
+            e = max(max_err(a, r) for a, r in zip(got, ref))
+            check(e <= 1e-4, f"paged bias f32 hd={hd} q_pos={qp}: max |err| "
+                  f"{e} > 1e-4")
+            check(not got[0][2].any().item() and not got[2][2].any().item()
+                  and bool((got[1][2] == -1e30).all()),
+                  "paged bias: the empty row must give o = 0, m = NEG_INF, "
+                  "l = 0")
+            log("kernels", kernel="paged_decode_bias",
+                case=f"f32 H=4 hd={hd} P=16 hole/empty/decode q_pos={qp}",
+                max_abs_err=e, tol=1e-4)
+            phys = torch.arange(fpt.shape[1] * 16, device=dev)[None, :]
+            valid = (phys < ft[:, None]) | ((phys >= ftp[:, None])
+                                           & (phys < (ftp + fd)[:, None]))
+            hit |= set(pa.rel_pos_bucket(phys - fqpos[:, None], False, nb,
+                                         max_dist)[valid].tolist())
+    check(hit == set(range(nb)), f"the f32 cases hit buckets {sorted(hit)}")
+    out["ms"] = cuda_ms(lambda: pa.paged_attention_biased(
+        *args, bias_max_dist=max_dist))
+    # 5 reps: the plain version enqueues ~40 kernels a call
+    out["plain_ms"] = cuda_ms(lambda: pa.paged_attention_biased_ref(
+        *args, max_dist), reps=5)
+    out["library_ms"] = None   # no single PyTorch call reads a page table
+    valid = int(d.sum())
+    n_bytes = (valid * h * dd * 2 * 2          # K and V of the valid keys
+               + b * h * dd * 2 + h * nb * 4   # q, the table
+               + pt.numel() * 4 + 4 * b * 4    # page table, t/t_pad/d/q_pos
+               + b * h * (dd + 2) * 4)         # o, m, l
+    out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, 4 * h * dd * valid,
+                                                torch.bfloat16)
+    log("kernels", kernel="paged_decode_bias", ms=out["ms"],
+        plain_ms=out["plain_ms"], bound_ms=out["bound_ms"],
+        bound_by=out["bound_by"], buckets_hit=len(hit))
     return out
 
 
@@ -986,6 +1088,178 @@ def train_phase(torch, kernels, gen, name, profile: bool) -> dict:
     return stats
 
 
+# -- phase 8: T5 -------------------------------------------------------------
+
+def t5_generate_timed(torch, fn, calls: int = 3) -> tuple[list, object]:
+    """One warm ``fn()`` and ``calls`` timed ones, each bracketed by
+    synchronizes; returns the timed walls (s) and the last tokens."""
+    fn()
+    walls = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls, toks
+
+
+def t5_serving(torch, kernels, t5, cfg, params, gen, name) -> dict:
+    """8a: the dense and the paged greedy generate on ``T5_SERVE``'s
+    traffic (encoding included); tokens/s is batch x steps over the median
+    wall.  Launch counters are zeroed just before the paged calls and read
+    just after: kernel 7 runs ``n_dec_layers x steps`` times a call."""
+    import statistics
+    b, steps, page = T5_SERVE["batch"], T5_SERVE["steps"], T5_SERVE["page"]
+    enc = torch.randint(0, cfg.vocab_size, (b, T5_SERVE["enc_len"]),
+                        generator=gen, device="cuda")
+    dense_walls, dense = t5_generate_timed(
+        torch, lambda: t5.t5_greedy_generate(params, enc, steps, cfg,
+                                             device="cuda"))
+    kernels.reset_launches()          # the T5 paged serving path starts here
+    paged_walls, paged = t5_generate_timed(
+        torch, lambda: t5.t5_greedy_generate_paged(
+            params, enc, steps, cfg, page_size=page, device="cuda"))
+    launches = dict(kernels.launches)   # ... and ends here
+    per_call = cfg.n_dec_layers * steps
+    check(launches["paged_decode_bias"] == 4 * per_call,
+          f"paged_decode_bias ran {launches['paged_decode_bias']} times in "
+          f"four paged calls, want {per_call} a call")
+    check(not any(v for k, v in launches.items() if k != "paged_decode_bias"),
+          f"the T5 path launched other kernels: {launches}")
+    for toks in (dense, paged):
+        check(tuple(toks.shape) == (b, steps)
+              and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              f"T5 tokens {tuple(toks.shape)} out of shape or range")
+    agree = (dense == paged).float().mean().item()
+    out = {"dense_tokens_per_s": b * steps / statistics.median(dense_walls),
+           "paged_tokens_per_s": b * steps / statistics.median(paged_walls),
+           "dense_wall_s": dense_walls, "paged_wall_s": paged_walls,
+           "paged_launches_per_call": per_call, "launches": launches,
+           "agree_dense_paged": agree}
+    log("t5", what="serving", batch=b, enc_len=T5_SERVE["enc_len"],
+        steps=steps, page=page, dense_tokens_per_s=out["dense_tokens_per_s"],
+        paged_tokens_per_s=out["paged_tokens_per_s"],
+        dense_wall_s=[round(x, 3) for x in dense_walls],
+        paged_wall_s=[round(x, 3) for x in paged_walls],
+        kernel7_per_call=per_call, agree_dense_paged=agree, card=repr(name))
+    return out
+
+
+def t5_parity(torch, t5, cfg, params, gen) -> dict:
+    """8b: on a narrow f32 config (the JAX package's TestT5OnPages setup:
+    encoder 2 x 9, 11 steps over pages of 4) the paged tokens equal the
+    dense ones; at full width in bf16 the paged step's logits agree with
+    the dense step's at position 2 * page + 5, after two flushed pages,
+    both decoders fed the same random tokens.  Tolerance: relative L2 3e-2,
+    as the Llama paged-vs-dense check (bf16 rounding through 12 layers; the
+    paged path rounds its buffer's weights to bf16 before P.V)."""
+    tiny = t5.T5Config.tiny()
+    tp = t5.t5_init(tiny, seed=5, device="cuda")
+    enc = torch.arange(2 * 9, device="cuda").reshape(2, 9) % tiny.vocab_size
+    dense = t5.t5_greedy_generate(tp, enc, 11, tiny, max_len=16,
+                                  device="cuda")
+    paged = t5.t5_greedy_generate_paged(tp, enc, 11, tiny, page_size=4,
+                                        device="cuda")
+    check(torch.equal(dense, paged), f"narrow f32 T5: paged {paged.tolist()}"
+          f" != dense {dense.tolist()}")
+    log("parity", case="narrow f32 T5 paged vs dense generate", steps=11,
+        page=4, equal=True)
+    page = T5_SERVE["page"]
+    last = 2 * page + 5
+    enc = torch.randint(0, cfg.vocab_size, (2, T5_SERVE["enc_len"]),
+                        generator=gen, device="cuda")
+    forced = torch.randint(0, cfg.vocab_size, (2, last + 1), generator=gen,
+                           device="cuda")
+    logits = {}
+
+    def teacher(label):
+        def pick(lg, i):
+            if i == last:
+                logits[label] = lg
+            return forced[:, i]
+        return pick
+    with torch.no_grad():
+        t5._t5_rollout(params, enc, last + 1, cfg, 0, last + 1,
+                       teacher("dense"))
+        t5._t5_paged_rollout(params, enc, last + 1, cfg, 0, page,
+                             teacher("paged"))
+    got, ref = logits["paged"], logits["dense"]
+    rel = ((got - ref).norm() / ref.norm()).item()
+    same = bool((got.argmax(-1) == ref.argmax(-1)).all())
+    check(rel <= 3e-2, f"T5 full-width paged step logits rel err {rel}")
+    log("parity", case=f"T5 bf16 step at position {last} (two flushed "
+        "pages), paged vs dense", rel_l2_err=rel, max_abs_err=max_err(
+            got, ref), tol_rel=3e-2, argmax_equal=same)
+    return {"rel_l2_err": rel, "max_abs_err": max_err(got, ref),
+            "argmax_equal": same}
+
+
+def t5_training(torch, t5, cfg, params, gen, name) -> dict:
+    """8c: ``make_t5_train_step`` + ``adamw(1e-3)`` on one fixed batch
+    (``T5_TRAIN``): one warm step and three timed ones; losses finite and
+    falling."""
+    import statistics
+
+    from kubegpu_tpu_torch.optim import adamw
+    from kubegpu_tpu_torch.tree import tree_leaves
+    for p in tree_leaves(params):
+        p.requires_grad_()
+    b = T5_TRAIN["batch"]
+    enc = torch.randint(0, cfg.vocab_size, (b, T5_TRAIN["enc_len"]),
+                        generator=gen, device="cuda")
+    dec = torch.randint(0, cfg.vocab_size, (b, T5_TRAIN["dec_len"]),
+                        generator=gen, device="cuda")
+    opt = adamw(1e-3)
+    state = opt.init(params)
+    step = t5.make_t5_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, enc, dec)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    check(all(math.isfinite(x) for x in losses), f"T5 losses {losses}")
+    check(losses[-1] < losses[0], f"T5 loss did not fall: {losses}")
+    med = statistics.median(step_ms[1:])
+    out = {"losses": losses, "step_ms": step_ms, "step_ms_median": med,
+           "tokens_per_s": b * (T5_TRAIN["enc_len"] + T5_TRAIN["dec_len"])
+           / (med / 1e3),
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log("t5", what="training", enc=f"[{b},{T5_TRAIN['enc_len']}]",
+        dec=f"[{b},{T5_TRAIN['dec_len']}]", losses=losses,
+        step_ms=[round(x, 3) for x in step_ms], step_ms_median=med,
+        tokens_per_s=out["tokens_per_s"],
+        max_memory_gb=round(out["max_memory_gb"], 3), card=repr(name))
+    return out
+
+
+def t5_phase(torch, kernels, gen, name, cfg=None) -> dict:
+    """Phase 8 at ``T5Config()`` (T5 v1.1-base widths, bf16) with random
+    weights from ``SEED``: serving, parity, training."""
+    from kubegpu_tpu_torch.tree import tree_leaves
+    t5 = importlib.import_module("kubegpu_tpu_torch.models.t5")
+    cfg = cfg or t5.T5Config()
+    t0 = time.perf_counter()
+    params = t5.t5_init(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    log("t5", init_s=round(time.perf_counter() - t0, 2),
+        params_m=round(n_params / 1e6, 2), d_model=cfg.d_model,
+        layers=f"{cfg.n_enc_layers}+{cfg.n_dec_layers}", heads=cfg.n_heads,
+        d_ff=cfg.d_ff, vocab=cfg.vocab_size)
+    serving = t5_serving(torch, kernels, t5, cfg, params, gen, name)
+    parity = t5_parity(torch, t5, cfg, params, gen)
+    torch.cuda.empty_cache()
+    training = t5_training(torch, t5, cfg, params, gen, name)
+    return {"params": n_params, "serving": serving, "parity": parity,
+            "training": training}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1042,6 +1316,7 @@ def main(argv=None) -> int:
     results["paged_decode_q8"] = quant["q8"]
     results["paged_decode_q4"] = quant["q4g16"]
     results["paged_decode"]["mass"] = quant["bf16"]
+    results["paged_decode_bias"] = paged_bias_checks(torch, gen)
     torch.cuda.empty_cache()
     bwd, fwd_train = flash_bwd_checks(torch, gen)
     results.update(bwd)
@@ -1093,6 +1368,10 @@ def main(argv=None) -> int:
           f"a kernel of the training path never ran: {train_launches}")
     torch.cuda.empty_cache()
 
+    t5_stats = t5_phase(torch, kernels, gen, name)
+    t5_launches = t5_stats["serving"]["launches"]
+    torch.cuda.empty_cache()
+
     routes = {"flash_fwd": ("kubegpu_tpu_torch/csrc/flash_fwd.cu",
                             "kubegpu_tpu/ops/flash_attention.py:200"),
               "paged_decode": ("kubegpu_tpu_torch/csrc/paged_decode.cu",
@@ -1104,13 +1383,17 @@ def main(argv=None) -> int:
               "flash_bwd_dq": ("kubegpu_tpu_torch/csrc/flash_bwd_dq.cu",
                                "kubegpu_tpu/ops/flash_attention.py:383"),
               "flash_bwd_dkv": ("kubegpu_tpu_torch/csrc/flash_bwd_dkv.cu",
-                                "kubegpu_tpu/ops/flash_attention.py:425")}
+                                "kubegpu_tpu/ops/flash_attention.py:425"),
+              "paged_decode_bias": (
+                  "kubegpu_tpu_torch/csrc/paged_decode_bias.cu",
+                  "kubegpu_tpu/ops/paged_attention.py:567")}
+    paths = (serve_launches, quant_launches, train_launches, t5_launches)
     # launches: each kernel's count over the paths that run it (the
     # forward runs on serving and training)
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": routes[k][0],
          "replaces": routes[k][1],
-         "launches": serve_launches[k] + quant_launches[k] + train_launches[k],
+         "launches": sum(path[k] for path in paths),
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
@@ -1128,9 +1411,11 @@ def main(argv=None) -> int:
                "paged_mass": quant["bf16"],
                "profile": prof, "training": train,
                "flash_fwd_training_shape": fwd_train,
+               "t5": t5_stats,
                "launches": {"serving": serve_launches,
                             "quantized_serving": quant_launches,
-                            "training": train_launches},
+                            "training": train_launches,
+                            "t5_paged_serving": t5_launches},
                "kernels": line["kernels"],
                "total_s": time.perf_counter() - t_start}
     if args.details:

@@ -23,11 +23,23 @@ def _leaf(a, device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
+def _tree(tree: dict, device, dtype) -> dict:
+    return {k: (_tree(v, device, dtype) if isinstance(v, dict)
+                else _leaf(v, device, dtype))
+            for k, v in tree.items()}
+
+
 def convert_llama_params(tree: dict, device="cuda",
                          dtype: torch.dtype | None = None) -> dict:
     """Reference Llama params (nested dict of numpy arrays) → the port's
     params (the same nesting, torch tensors on ``device``, cast to
     ``dtype`` when given)."""
-    return {k: (convert_llama_params(v, device, dtype) if isinstance(v, dict)
-                else _leaf(v, device, dtype))
-            for k, v in tree.items()}
+    return _tree(tree, device, dtype)
+
+
+def convert_t5_params(tree: dict, device="cuda",
+                      dtype: torch.dtype | None = None) -> dict:
+    """Reference T5 params → the port's, as :func:`convert_llama_params`
+    (the layouts match leaf for leaf; int8 ``QTensor`` leaves are not
+    ported yet)."""
+    return _tree(tree, device, dtype)

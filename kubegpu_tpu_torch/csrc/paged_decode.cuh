@@ -4,6 +4,8 @@
 //   paged_decode.cu     bf16/f32 pages   (TPU `_paged_kernel`,    kernel 4)
 //   paged_decode_q8.cu  int8 pages       (TPU `_paged_kernel_q8`, kernel 5)
 //   paged_decode_q4.cu  packed int4      (TPU `_paged_kernel_q4`, kernel 6)
+//   paged_decode_bias.cu bf16/f32 pages + T5's relative-position bias
+//                        (TPU `_paged_kernel_bias`, kernel 7)
 //
 // One decode query per q head attends the flushed history of its row, read
 // from the page pool through the row's page table, and the kernel emits the
@@ -51,6 +53,15 @@
 // instance per query-group size; any other head dim up to 256 runs an
 // instance padded to the next of 32/64/128/256 channels with scalar loads
 // (8 query heads per CTA, whatever the group).
+//
+// The bias (BIAS, kernel 7 only; MHA, no mass): each lane buckets its key's
+// distance n = max(q_pos - phys, 0) with T5's causal log-spaced rule, in the
+// reference's f32 order (logf, IEEE division: no fast math, so the bucket is
+// the plain version's), and adds the table entry of the query head to the
+// score after * D^-0.5.  The CTA's rows of the [Hq, n_buckets] f32 table sit
+// in shared memory.  Validity drops the page-id test, as the TPU kernel has
+// no hole mask: a 0 in the used range attends page 0's keys; a row-local page
+// past the table is not a key.  With BIAS false the walk is kernels 4-6's.
 #pragma once
 
 #include "common.cuh"
@@ -83,6 +94,10 @@ struct Args {
     float* scratch;         // mass records and per-CTA partials
     int B, Hq, Hkv, n_pages, P, Dh, max_pages, n_scale, scratch_floats;
     cudaStream_t st;
+    // kernel 7 only: per-row query position, [Hq, n_buckets] f32 bias table
+    const int* qpos = nullptr;
+    const float* table = nullptr;
+    int n_buckets = 0, max_dist = 0;
 };
 
 // Floats of scratch the mass output needs: a (sum, max) record per chunk
@@ -267,7 +282,8 @@ struct Int4Pages {
 
 // DP: channels held per query (a multiple of 32); FULL: the head dim is DP.
 // Otherwise the head dim is Dh < DP and channels Dh..DP-1 are zero.
-template <typename T, typename KV, int DP, int GR, bool FULL, bool MASS>
+template <typename T, typename KV, int DP, int GR, bool FULL, bool MASS,
+          bool BIAS>
 __global__ void __launch_bounds__(WARPS * 32)
 paged_decode_kernel(Args a, int n_gchunks, float scale) {
     using E = typename KV::Elem;
@@ -283,6 +299,7 @@ paged_decode_kernel(Args a, int n_gchunks, float scale) {
     extern __shared__ float smem[];
     float* qs = smem;            // [GR][D]
     float* red = qs + GR * D;    // [WARPS][GR][RS]
+    float* tab = red + WARPS * GR * RS;   // BIAS: [GR][n_buckets]
 
     const int G = Hq / Hkv;
     const int lane = threadIdx.x & 31;
@@ -299,6 +316,14 @@ paged_decode_kernel(Args a, int n_gchunks, float scale) {
             ? to_f(q[((size_t)b * Hq + hk * G + g0 + gl) * Dg + dd])
             : 0.f;
     }
+    const int nb = a.n_buckets;
+    if constexpr (BIAS) {
+        for (int idx = threadIdx.x; idx < GR * nb; idx += blockDim.x) {
+            const int gl = idx / nb;
+            tab[idx] = gl < ng
+                ? a.table[(size_t)(hk * G + g0 + gl) * nb + idx % nb] : 0.f;
+        }
+    }
 
     const int layer = *a.layer;
     const int tb = a.t[b], tpb = a.tpad[b], db = a.d[b];
@@ -309,6 +334,11 @@ paged_decode_kernel(Args a, int n_gchunks, float scale) {
     const int n_chunks = (n_prompt + n_dec) * cpp;
     const size_t page_elems = (size_t)P * Rs;
     const int gsz = KV::SCALED ? P / a.n_scale : 1;   // keys per scale
+    const int qp = BIAS ? a.qpos[b] : 0;
+    const int max_exact = nb / 2;
+    // the reference's f32 log of (max_dist / max_exact) taken in double
+    const float log_denom =
+        BIAS ? logf((float)((double)a.max_dist / (double)max_exact)) : 1.f;
     // this CTA's mass records: (sum of w, running max) per chunk and head
     float2* rec = MASS
         ? reinterpret_cast<float2*>(a.scratch) +
@@ -331,8 +361,16 @@ paged_decode_kernel(Args a, int n_gchunks, float scale) {
         const int pid = rl < max_pages ? a.pt[(size_t)b * max_pages + rl] : 0;
         const int pofs = sub * KC + lane;
         const int phys = rl * P + pofs;
-        const bool valid = pofs < P && pid != 0 &&
+        const bool valid = pofs < P && (BIAS ? rl < max_pages : pid != 0) &&
                            (phys < tb || (phys >= tpb && phys < tpb + db));
+        int bucket = 0;
+        if constexpr (BIAS) {
+            const int n = max(qp - phys, 0);
+            bucket = n < max_exact ? n
+                : min(max_exact + (int)(logf((float)n / (float)max_exact) /
+                                        log_denom * (float)(nb - max_exact)),
+                      nb - 1);
+        }
         const size_t page_id = ((size_t)layer * a.n_pages + pid) * Hkv + hk;
         const size_t page_off = page_id * page_elems;
 
@@ -351,7 +389,10 @@ paged_decode_kernel(Args a, int n_gchunks, float scale) {
         }
 #pragma unroll
         for (int g = 0; g < GR; ++g) {
-            const float sc = valid ? s[g] * scale * ksc : NEG_INF;
+            float sc = valid ? s[g] * scale * ksc : NEG_INF;
+            if constexpr (BIAS) {
+                if (valid) sc += tab[g * nb + bucket];
+            }
             const float m_new = fmaxf(m[g], warp_max(sc));
             const float w = valid ? expf(sc - m_new) : 0.f;
             const float alpha = expf(m[g] - m_new);
@@ -462,12 +503,14 @@ __global__ void mass_reduce_kernel(const float* __restrict__ part,
     }
 }
 
-template <typename T, typename KV, int DP, int GR, bool FULL, bool MASS>
+template <typename T, typename KV, int DP, int GR, bool FULL, bool MASS,
+          bool BIAS>
 cudaError_t launch_one(const Args& a) {
     const int G = a.Hq / a.Hkv;
     const int n_gchunks = (G + GMAX - 1) / GMAX;
-    const size_t smem = (size_t)(GR * DP + WARPS * GR * (DP + 2)) * sizeof(float);
-    auto kern = paged_decode_kernel<T, KV, DP, GR, FULL, MASS>;
+    const size_t smem = sizeof(float) * (size_t)(
+        GR * DP + WARPS * GR * (DP + 2) + (BIAS ? GR * a.n_buckets : 0));
+    auto kern = paged_decode_kernel<T, KV, DP, GR, FULL, MASS, BIAS>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -483,40 +526,54 @@ cudaError_t launch_one(const Args& a) {
     return cudaGetLastError();
 }
 
-template <typename T, typename KV, int DP, int GR, bool FULL>
+// BIAS instantiates only what kernel 7 runs: no mass, one query head a CTA.
+template <typename T, typename KV, int DP, int GR, bool FULL, bool BIAS>
 cudaError_t launch(const Args& a) {
-    if (a.mass != nullptr) return launch_one<T, KV, DP, GR, FULL, true>(a);
-    return launch_one<T, KV, DP, GR, FULL, false>(a);
+    if constexpr (BIAS) {
+        return launch_one<T, KV, DP, GR, FULL, false, true>(a);
+    } else {
+        if (a.mass != nullptr)
+            return launch_one<T, KV, DP, GR, FULL, true, false>(a);
+        return launch_one<T, KV, DP, GR, FULL, false, false>(a);
+    }
 }
 
-template <typename T, typename KV, int DP>
+template <typename T, typename KV, int DP, bool BIAS>
 cudaError_t dispatch_g(const Args& a) {
     const int G = a.Hq / a.Hkv;
-    if (G <= 1) return launch<T, KV, DP, 1, true>(a);
-    if (G <= 2) return launch<T, KV, DP, 2, true>(a);
-    if (G <= 4) return launch<T, KV, DP, 4, true>(a);
-    return launch<T, KV, DP, GMAX, true>(a);
-}
-
-template <typename T, typename KV>
-cudaError_t dispatch_d(const Args& a) {
-    const int D = a.Dh;
-    if (D == 64) return dispatch_g<T, KV, 64>(a);
-    if (D == 128) return dispatch_g<T, KV, 128>(a);
-    if (D < 1) return cudaErrorInvalidValue;
-    if (D <= 32) return launch<T, KV, 32, GMAX, false>(a);
-    if (D <= 64) return launch<T, KV, 64, GMAX, false>(a);
-    if (D <= 128) return launch<T, KV, 128, GMAX, false>(a);
-    if (D <= 256) return launch<T, KV, 256, GMAX, false>(a);
+    if (BIAS || G <= 1) return launch<T, KV, DP, 1, true, BIAS>(a);
+    if constexpr (!BIAS) {
+        if (G <= 2) return launch<T, KV, DP, 2, true, false>(a);
+        if (G <= 4) return launch<T, KV, DP, 4, true, false>(a);
+        return launch<T, KV, DP, GMAX, true, false>(a);
+    }
     return cudaErrorInvalidValue;
 }
 
-// The three sources' C entry: checks what the kernel relies on, then picks
-// the instance for q's dtype, the head dim and the group size.
-template <template <typename> class KVT>
+template <typename T, typename KV, bool BIAS>
+cudaError_t dispatch_d(const Args& a) {
+    constexpr int GP = BIAS ? 1 : GMAX;   // query heads a padded CTA holds
+    const int D = a.Dh;
+    if (D == 64) return dispatch_g<T, KV, 64, BIAS>(a);
+    if (D == 128) return dispatch_g<T, KV, 128, BIAS>(a);
+    if (D < 1) return cudaErrorInvalidValue;
+    if (D <= 32) return launch<T, KV, 32, GP, false, BIAS>(a);
+    if (D <= 64) return launch<T, KV, 64, GP, false, BIAS>(a);
+    if (D <= 128) return launch<T, KV, 128, GP, false, BIAS>(a);
+    if (D <= 256) return launch<T, KV, 256, GP, false, BIAS>(a);
+    return cudaErrorInvalidValue;
+}
+
+// The sources' C entry: checks what the kernel relies on, then picks the
+// instance for q's dtype, the head dim and the group size.
+template <template <typename> class KVT, bool BIAS = false>
 int entry(const Args& a, int is_bf16) {
     if (a.Hkv <= 0 || a.Hq % a.Hkv != 0 || a.B == 0 || a.P <= 0 ||
         !KVT<float>::ok_dim(a.Dh))
+        return cudaErrorInvalidValue;
+    if (BIAS && (a.Hq != a.Hkv || a.qpos == nullptr || a.table == nullptr ||
+                 a.n_buckets < 2 || a.max_dist <= a.n_buckets / 2 ||
+                 a.mass != nullptr))
         return cudaErrorInvalidValue;
     if (KVT<float>::SCALED &&
         (a.k_scale == nullptr || a.v_scale == nullptr || a.n_scale <= 0 ||
@@ -525,14 +582,14 @@ int entry(const Args& a, int is_bf16) {
     if (a.mass != nullptr &&
         (a.scratch == nullptr || a.scratch_floats < mass_scratch_floats(a)))
         return cudaErrorInvalidValue;
-    if (is_bf16) return dispatch_d<__nv_bfloat16, KVT<__nv_bfloat16>>(a);
-    return dispatch_d<float, KVT<float>>(a);
+    if (is_bf16) return dispatch_d<__nv_bfloat16, KVT<__nv_bfloat16>, BIAS>(a);
+    return dispatch_d<float, KVT<float>, BIAS>(a);
 }
 
 }  // namespace paged
 }  // namespace kubetpu
 
-// The C interface of all three sources: q [B, Hq, D] (f32 or bf16; D <=
+// The C interface of kernels 4-6: q [B, Hq, D] (f32 or bf16; D <=
 // 256); pools [L, n_pages, Hkv, P, row] with row D (bf16/f32 like q, or
 // int8) or D/2 (packed int4); k_scale/v_scale f32 [L, n_pages, Hkv, n_scale]
 // (quantized pools; else null); page_table [B, max_pages] i32; layer [1]

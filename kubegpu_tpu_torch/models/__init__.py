@@ -1,5 +1,5 @@
 """Model families of the port (so far: Llama, its cached decode and the
-paged serving engine)."""
+paged serving engine; the T5 encoder-decoder with its paged decode)."""
 
 from kubegpu_tpu_torch.models.decode import greedy_generate  # noqa: F401
 from kubegpu_tpu_torch.models.llama import (  # noqa: F401
@@ -8,3 +8,11 @@ from kubegpu_tpu_torch.models.llama import (  # noqa: F401
     llama_init,
 )
 from kubegpu_tpu_torch.models.serve import ContinuousBatcher  # noqa: F401
+from kubegpu_tpu_torch.models.t5 import (  # noqa: F401
+    T5Config,
+    make_t5_train_step,
+    t5_forward,
+    t5_greedy_generate,
+    t5_greedy_generate_paged,
+    t5_init,
+)

@@ -1,6 +1,6 @@
 """Attention ops: each a Hopper kernel on CUDA tensors, a plain version on
-CPU tensors.  The kernel wrappers ``flash_attention`` and
-``paged_attention`` live in the submodules of the same names."""
+CPU tensors.  The kernel wrappers ``flash_attention``, ``paged_attention``
+and ``paged_attention_biased`` live in the submodules of the same names."""
 
 from kubegpu_tpu_torch.ops.flash_attention import (  # noqa: F401
     NEG_INF,
@@ -12,5 +12,7 @@ from kubegpu_tpu_torch.ops.paged_attention import (  # noqa: F401
     decode_capacity,
     merge_partials,
     page_table_size,
+    paged_attention_biased_ref,
     paged_attention_ref,
+    rel_pos_bucket,
 )

@@ -13,7 +13,9 @@ Three page formats, told apart by the pool's dtype: bf16/f32 pages of q's
 type (kernel 4), int8 pages with per-token f32 scales ``[L, n_pages, Hkv,
 P]`` (kernel 5), and packed int4 pages (uint8 ``[..., D/2]``, see
 :mod:`kubegpu_tpu_torch.ops.kvquant`) with one f32 scale per group of
-tokens ``[L, n_pages, Hkv, P/g]`` (kernel 6).
+tokens ``[L, n_pages, Hkv, P/g]`` (kernel 6).  :func:`paged_attention_biased`
+is the T5 decoder's variant over bf16/f32 pages (kernel 7): MHA, T5's causal
+relative-position bias added to each score, and no page-id-0 hole mask.
 """
 
 from __future__ import annotations
@@ -108,6 +110,72 @@ def paged_attention_ref(q, pool_k, pool_v, page_table, layer, t, t_pad, d,
     return out + (mass,) if collect_mass else out
 
 
+def rel_pos_bucket(rel: torch.Tensor, bidirectional: bool, num_buckets: int,
+                   max_dist: int) -> torch.Tensor:
+    """T5's log-spaced relative-position bucketing.  ``rel`` is memory_pos -
+    query_pos (integer tensor).  Bidirectional splits the bucket space by
+    sign; causal buckets only the past (the future clamps to bucket 0).  The
+    log-spaced part is the reference's f32 arithmetic in its order: the log
+    of the f32 ratio over the f32 log of ``max_dist / max_exact``, times the
+    bucket count, truncated; kernel 7 computes the same with ``logf``."""
+    ret = torch.zeros_like(rel)
+    if bidirectional:
+        num_buckets //= 2
+        ret = ret + (rel > 0).to(rel.dtype) * num_buckets
+        n = rel.abs()
+    else:
+        n = torch.clamp(-rel, min=0)
+    max_exact = num_buckets // 2
+    # the f32 ratio made on rel's device: a host tensor copied there would
+    # synchronize the stream once a decode step
+    log_denom = torch.full((), max_dist / max_exact, dtype=torch.float32,
+                           device=rel.device).log()
+    val_large = max_exact + (
+        torch.log(torch.clamp(n, min=1).float() / max_exact) / log_denom
+        * (num_buckets - max_exact)).to(rel.dtype)
+    val_large = torch.clamp(val_large, max=num_buckets - 1)
+    return ret + torch.where(n < max_exact, n, val_large)
+
+
+def _check_mha(q, pool_k) -> None:
+    if q.shape[1] != pool_k.shape[2]:
+        raise ValueError(f"the biased paged attention is MHA: Hq {q.shape[1]}"
+                         f" != Hkv {pool_k.shape[2]}")
+
+
+def paged_attention_biased_ref(q, pool_k, pool_v, page_table, layer, t, t_pad,
+                               d, q_pos, bias_table, bias_max_dist: int):
+    """Gather-based plain version of kernel 7.  q: [B, H, D]; pool: [L,
+    n_pages, H, P, D] bf16/f32; q_pos: [B] the query's global position;
+    bias_table: [H, n_buckets] (taken in f32).  Each valid key's score is
+    ``q.k * D^-0.5 + bias_table[h, bucket(phys - q_pos)]`` with T5's causal
+    bucketing over ``bias_max_dist``; valid keys are ``phys < t | t_pad <=
+    phys < t_pad + d`` with no page-id test (a 0 in a row's used range
+    attends page 0's keys).  Returns (o [B, H, D] f32 normalized, m [B, H],
+    l [B, H])."""
+    _check_mha(q, pool_k)
+    b, h, dd = q.shape
+    p = pool_k.shape[3]
+    s_len = page_table.shape[1] * p
+    pt = page_table.long()
+    # [B, max_pages, H, P, D] -> [B, H, S, D]
+    k = pool_k[layer][pt].permute(0, 2, 1, 3, 4).reshape(b, h, s_len, dd)
+    v = pool_v[layer][pt].permute(0, 2, 1, 3, 4).reshape(b, h, s_len, dd)
+    s = torch.einsum("bhd,bhsd->bhs", q.float(), k.float()) * (dd ** -0.5)
+    phys = torch.arange(s_len, device=q.device)[None, :]
+    bucket = rel_pos_bucket(phys - q_pos.long()[:, None], False,
+                            bias_table.shape[1], bias_max_dist)   # [B, S]
+    s = s + bias_table.float()[:, bucket].permute(1, 0, 2)
+    t, t_pad, d = t[:, None], t_pad[:, None], d[:, None]
+    valid = ((phys < t) | ((phys >= t_pad) & (phys < t_pad + d)))[:, None, :]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    w = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = w.sum(dim=-1)
+    o = torch.einsum("bhs,bhsd->bhd", w.to(v.dtype).float(), v.float())
+    return o / torch.clamp(l, min=1e-30)[..., None], m, l
+
+
 _layer_ids: dict[tuple, torch.Tensor] = {}
 
 
@@ -127,6 +195,34 @@ def _layer_ptr(layer, n_layers: int, device) -> int:
         _layer_ids[key] = torch.arange(n_layers, dtype=torch.int32,
                                        device=device)
     return _layer_ids[key].data_ptr() + 4 * layer
+
+
+def _check_walk(q, pool_k, pool_v, page_table, rows: dict,
+                extra=()) -> None:
+    """What every paged kernel's walk relies on: a head dim it has an
+    instance for, int32 page table and per-row state (``rows``, one value a
+    query row) on q's device, and contiguous tensors on one device."""
+    b, dd = q.shape[0], q.shape[-1]
+    if not 0 < dd <= KERNEL_MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {dd} not in [1, {KERNEL_MAX_HEAD_DIM}]")
+    for label, x in (("page_table", page_table), *rows.items()):
+        if x.dtype != torch.int32 or x.device != q.device:
+            raise TypeError(f"{label} must be int32 on {q.device}")
+    if page_table.shape[0] != b or any(x.shape != (b,) for x in rows.values()):
+        raise ValueError(f"page_table/{'/'.join(rows)} must have one row per "
+                         "query")
+    tensors = (q, pool_k, pool_v, page_table, *rows.values(), *extra)
+    if not all(x.is_contiguous() and x.device == q.device for x in tensors):
+        raise ValueError("paged kernel needs contiguous tensors on one device")
+
+
+def _refuse_grad(name: str, *tensors) -> None:
+    """No silent gradient: as the reference's ``pallas_call`` raises under
+    ``jax.grad``, the wrappers raise when grad is enabled and an input
+    requires it, rather than return a result autograd cannot see through."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+        raise RuntimeError(f"{name} has no gradient: call it under "
+                           "torch.no_grad() or on tensors that need none")
 
 
 def _paged_cuda(q, pool_k, pool_v, page_table, layer, t, t_pad, d,
@@ -164,19 +260,9 @@ def _paged_cuda(q, pool_k, pool_v, page_table, layer, t, t_pad, d,
     if row != want_row or hq % hkv:
         raise ValueError(f"pool {tuple(pool_k.shape)} {pool_k.dtype} does "
                          f"not fit q {tuple(q.shape)}")
-    if not 0 < dd <= KERNEL_MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {dd} not in [1, {KERNEL_MAX_HEAD_DIM}]")
-    for label, x in (("page_table", page_table), ("t", t), ("t_pad", t_pad),
-                     ("d", d)):
-        if x.dtype != torch.int32 or x.device != q.device:
-            raise TypeError(f"{label} must be int32 on {q.device}")
-    if page_table.shape[0] != b or not (t.shape == t_pad.shape == d.shape
-                                        == (b,)):
-        raise ValueError("page_table/t/t_pad/d must have one row per query")
-    tensors = (q, pool_k, pool_v, page_table, t, t_pad, d) + (
-        (k_scale, v_scale) if quant else ())
-    if not all(x.is_contiguous() and x.device == q.device for x in tensors):
-        raise ValueError("paged kernel needs contiguous tensors on one device")
+    _check_walk(q, pool_k, pool_v, page_table, {"t": t, "t_pad": t_pad,
+                                                "d": d},
+                (k_scale, v_scale) if quant else ())
     max_pages = page_table.shape[1]
     f32 = dict(dtype=torch.float32, device=q.device)
     o = torch.empty((b, hq, dd), **f32)
@@ -214,13 +300,8 @@ def paged_attention(q, pool_k, pool_v, page_table, layer, t, t_pad, d,
     version.  A uint8 pool without scales raises ``ValueError``, as the
     reference does.
 
-    There is no gradient, as the reference's ``pallas_call`` has none under
-    ``jax.grad``: with grad enabled and an input that requires it, this
-    raises rather than return a result that autograd cannot see through."""
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (q, pool_k, pool_v)):
-        raise RuntimeError("paged_attention has no gradient: call it under "
-                           "torch.no_grad() or on tensors that need none")
+    There is no gradient (see :func:`_refuse_grad`)."""
+    _refuse_grad("paged_attention", q, pool_k, pool_v)
     if pool_k.dtype == torch.uint8 and k_scale is None:
         raise ValueError("packed int4 pool requires group scales")
     if q.is_cuda:
@@ -230,3 +311,59 @@ def paged_attention(q, pool_k, pool_v, page_table, layer, t, t_pad, d,
         raise ValueError(f"no paged_attention for device {q.device}")
     return paged_attention_ref(q, pool_k, pool_v, page_table, layer, t,
                                t_pad, d, k_scale, v_scale, collect_mass)
+
+
+def _paged_bias_cuda(q, pool_k, pool_v, page_table, layer, t, t_pad, d, q_pos,
+                     table, max_dist: int):
+    _check_mha(q, pool_k)
+    b, h, dd = q.shape
+    n_layers, n_pages, _, p, row = pool_k.shape
+    if q.dtype not in (torch.bfloat16, torch.float32) or pool_k.dtype != \
+            q.dtype or pool_v.dtype != q.dtype:
+        raise TypeError("kernel 7 takes bf16/f32 queries and pools of q's "
+                        f"dtype, got {q.dtype}, {pool_k.dtype}, "
+                        f"{pool_v.dtype}")
+    if pool_v.shape != pool_k.shape or row != dd:
+        raise ValueError(f"pools {tuple(pool_k.shape)}, {tuple(pool_v.shape)}"
+                         f" do not fit q {tuple(q.shape)}")
+    nb = table.shape[-1]
+    if table.shape != (h, nb) or nb < 2 or max_dist <= nb // 2:
+        raise ValueError(f"bias table {tuple(table.shape)} with max_dist "
+                         f"{max_dist} does not fit {h} heads (needs >= 2 "
+                         "buckets and max_dist > n_buckets // 2)")
+    _check_walk(q, pool_k, pool_v, page_table,
+                {"t": t, "t_pad": t_pad, "d": d, "q_pos": q_pos}, (table,))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    o = torch.empty((b, h, dd), **f32)
+    m = torch.empty((b, h), **f32)
+    l = torch.empty((b, h), **f32)
+    if b:
+        kernels.call("paged_decode_bias", q.data_ptr(), pool_k.data_ptr(),
+                     pool_v.data_ptr(), page_table.data_ptr(),
+                     _layer_ptr(layer, n_layers, q.device), t.data_ptr(),
+                     t_pad.data_ptr(), d.data_ptr(), q_pos.data_ptr(),
+                     table.data_ptr(), o.data_ptr(), m.data_ptr(),
+                     l.data_ptr(), b, h, n_pages, p, dd, page_table.shape[1],
+                     nb, max_dist, int(q.dtype == torch.bfloat16))
+    return o, m, l
+
+
+def paged_attention_biased(q, pool_k, pool_v, page_table, layer, t, t_pad, d,
+                           q_pos, bias_table, bias_max_dist: int):
+    """:func:`paged_attention` plus T5's causal relative-position bias, for
+    the T5 decoder's paged self-attention; same signature and outputs as
+    :func:`paged_attention_biased_ref`.  ``bias_table`` is cast to a
+    contiguous f32 ``[H, n_buckets]``.  CUDA tensors launch kernel 7
+    (``csrc/paged_decode_bias.cu``), which reads only the pages each row
+    holds; CPU tensors run the plain version.  ``Hq != Hkv`` raises
+    ``ValueError`` (the bias is per query head over MHA pages), and so does
+    a gradient request (see :func:`_refuse_grad`)."""
+    _refuse_grad("paged_attention_biased", q, pool_k, pool_v, bias_table)
+    table = bias_table.to(torch.float32).contiguous()
+    if q.is_cuda:
+        return _paged_bias_cuda(q, pool_k, pool_v, page_table, layer, t,
+                                t_pad, d, q_pos, table, bias_max_dist)
+    if q.device.type != "cpu":
+        raise ValueError(f"no paged_attention_biased for device {q.device}")
+    return paged_attention_biased_ref(q, pool_k, pool_v, page_table, layer, t,
+                                      t_pad, d, q_pos, table, bias_max_dist)

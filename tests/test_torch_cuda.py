@@ -275,6 +275,73 @@ def test_tiny_llama_backward_on_the_card(dev):
         assert _rel_err(g, r) <= 1e-4
 
 
+# kernel 7's query positions: near the keys, then far enough that every
+# bucket of (8, 32), the clamp at distance >= 32 included, is hit
+BIAS_QPOS = {"near": [11, 13, 0, 19], "far": [40, 70, 5, 100]}
+
+
+@pytest.mark.parametrize("qpos", list(BIAS_QPOS))
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 16),
+                                      (torch.float32, 64),
+                                      (torch.float32, 80),
+                                      (torch.bfloat16, 64)])
+def test_biased_kernel_matches_plain(dev, dtype, hd, qpos):
+    """Kernel 7 against ``paged_attention_biased_ref`` over the layout of
+    the paged tests (MHA, 4 heads): row 1's prompt covers a 0 in its page
+    table, which kernel 7 attends (no hole mask); row 2 is empty; rows 0
+    and 3 have a prompt and a decode region.  o within 1e-2 in bf16 (the
+    plain version rounds probabilities to bf16 before P.V) and 1e-4 in f32;
+    m within 1e-3; l within 1e-3 relative; a bucket off by one would move a
+    score by a table entry (~1)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    pk, pv = (torch.randn(2, 12, 4, 8, hd, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    q = torch.randn(4, 4, hd, generator=g, device=dev).to(dtype)
+    table = torch.randn(4, 8, generator=g, device=dev)
+    t, tpad, d = (torch.from_numpy(x).to(dev) for x in STATE)
+    args = (q, pk, pv, torch.from_numpy(PT).to(dev), 1, t, tpad, d,
+            torch.tensor(BIAS_QPOS[qpos], dtype=torch.int32, device=dev),
+            table)
+    before = dict(kernels.launches)
+    o, m, l = pa.paged_attention_biased(*args, bias_max_dist=32)
+    torch.cuda.synchronize()
+    assert kernels.launches["paged_decode_bias"] == \
+        before["paged_decode_bias"] + 1
+    assert sum(kernels.launches.values()) == sum(before.values()) + 1
+    ro, rm, rl = pa.paged_attention_biased_ref(*args, 32)
+    assert (o - ro).abs().max().item() <= (
+        1e-2 if dtype == torch.bfloat16 else 1e-4)
+    assert (m - rm).abs().max().item() <= 1e-3
+    assert ((l - rl).abs() <= 1e-3 * rl).all()
+    assert not o[2].any() and not l[2].any() and (m[2] == -1e30).all()
+
+
+def test_tiny_t5_paged_generate_on_the_card(dev):
+    """``T5Config.tiny()`` (f32) with the JAX package's TestT5OnPages setup
+    (encoder 2 x 9, 11 steps over page_size 4): the paged generate on the
+    card runs kernel 7 once per decoder layer and step and gives the tokens
+    of its CPU run and of the dense generate on the card."""
+    from kubegpu_tpu_torch.models import (
+        T5Config,
+        t5_greedy_generate,
+        t5_greedy_generate_paged,
+        t5_init,
+    )
+    cfg = T5Config.tiny()
+    params = t5_init(cfg, seed=5, device="cpu")
+    enc = np.arange(2 * 9).reshape(2, 9) % cfg.vocab_size
+    cpu = t5_greedy_generate_paged(params, enc, 11, cfg, page_size=4,
+                                   device="cpu")
+    on_card = _to(params, dev)
+    before = kernels.launches["paged_decode_bias"]
+    paged = t5_greedy_generate_paged(on_card, enc, 11, cfg, page_size=4,
+                                     device=dev)
+    assert kernels.launches["paged_decode_bias"] == before + 11 * 2
+    dense = t5_greedy_generate(on_card, enc, 11, cfg, max_len=16, device=dev)
+    assert torch.equal(paged.cpu(), cpu)
+    assert torch.equal(dense.cpu(), cpu)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.randn(1, 4, 16, 128, device=dev)
     k = torch.randn(1, 2, 16, 128, device=dev)
@@ -305,3 +372,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="requires k_scale"):
         pa.paged_attention(q[:, :, 0].contiguous(), pool.to(torch.int8),
                            pool.to(torch.int8), pt, 0, i32, i32, i32)
+    # kernel 7: a table that is not [H, n_buckets], int64 positions
+    qb = q[:, :2, 0].contiguous()     # MHA over the pool's 2 heads
+    with pytest.raises(ValueError, match="bias table"):
+        pa.paged_attention_biased(qb, pool, pool, pt, 0, i32, i32, i32, i32,
+                                  torch.zeros(3, 8, device=dev),
+                                  bias_max_dist=32)
+    with pytest.raises(TypeError, match="q_pos must be int32"):
+        pa.paged_attention_biased(qb, pool, pool, pt, 0, i32, i32, i32,
+                                  i32.long(), torch.zeros(2, 8, device=dev),
+                                  bias_max_dist=32)

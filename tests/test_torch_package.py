@@ -57,17 +57,26 @@ def test_entry_points_default_to_the_card():
     no card it raises instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default device works")
-    from kubegpu_tpu_torch.convert import convert_llama_params
+    from kubegpu_tpu_torch.convert import (
+        convert_llama_params,
+        convert_t5_params,
+    )
     from kubegpu_tpu_torch.models import (
         ContinuousBatcher,
         LlamaConfig,
+        T5Config,
         greedy_generate,
         llama_init,
+        t5_greedy_generate,
+        t5_greedy_generate_paged,
+        t5_init,
     )
     from kubegpu_tpu_torch.models.decode import init_kv_cache
 
     cfg = LlamaConfig.tiny()
     params = llama_init(cfg, device="cpu")
+    t5_cfg = T5Config.tiny()
+    t5_params = t5_init(t5_cfg, device="cpu")
     errors = (RuntimeError, AssertionError, ValueError)
     calls = [
         lambda: llama_init(cfg),
@@ -76,6 +85,11 @@ def test_entry_points_default_to_the_card():
         lambda: greedy_generate(params, [[1, 2]], 2, cfg),
         lambda: ContinuousBatcher(params, cfg, paged=True, page_size=8,
                                   stride=4, prompt_buckets=(8,)),
+        lambda: t5_init(t5_cfg),
+        lambda: convert_t5_params({"w": np.zeros(2, np.float32)}),
+        lambda: t5_greedy_generate(t5_params, [[1, 2]], 2, t5_cfg),
+        lambda: t5_greedy_generate_paged(t5_params, [[1, 2]], 2, t5_cfg,
+                                         page_size=4),
     ]
     for call in calls:
         with pytest.raises(errors):
