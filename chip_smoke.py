@@ -16,7 +16,10 @@ printed as it ends (any failed check exits non-zero):
    pages (kernels 4-6, each also with its per-page attention mass), the
    biased paged decode of the T5 decoder (kernel 7, at T5 v1.1-base's
    serving shape), and the flash backward's dq and dk/dv kernels (at the
-   training shape, [4, 32, 2048, 128]);
+   training shape, [4, 32, 2048, 128]).  Kernels 1 and 3 run their
+   tensor-core instances in bf16 (TFLOP/s and share of the bound printed
+   at each shape; dk/dv must give equal bits on two launches) and their
+   CUDA-core instances in the f32 edge cases;
 4. forward  — ``llama_forward`` at Llama-3-8B full width, bf16, [1, 512];
 5. serving  — the paged ``ContinuousBatcher`` at the same width:
    ``warmup()``, then five timed windows of 12 staggered requests (median
@@ -47,9 +50,10 @@ printed as it ends (any failed check exits non-zero):
 
 Four paths are driven: serving (phases 4-5), quantized serving (5b),
 training (phase 7's steps) and T5 paged serving (phase 8's paged calls).
-Launch counters are zeroed just before each and read just after.  The
-line before the last is one JSON object per kernel; the last line is
-``{"ok": true, "device": {...}}``.
+Launch counters are zeroed just before each and read just after; the
+serving and training paths must run kernels 1 and 3 on their tensor-core
+instances only.  The line before the last is one JSON object per kernel;
+the last line is ``{"ok": true, "device": {...}}``.
 ``--details PATH`` writes every phase's numbers to PATH as JSON.  With
 ``--profile`` it also traces one steady engine tick after phase 5 and one
 train step after phase 7 (device time by kernel, idle share).
@@ -72,6 +76,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SEED = 0
 # cuBLAS's GEMM kernels by name (nvjet on Hopper, older sm90 xmma/cutlass)
 GEMM_KERNEL = re.compile(r"nvjet|gemm|xmma|cutlass", re.IGNORECASE)
+# the port's kernels in a trace, by a piece of their (demangled) names
+PORT_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_decode")
 
 
 class SmokeFailure(AssertionError):
@@ -185,7 +191,19 @@ def flash_checks(torch, gen) -> dict:
     n_bytes = (q.numel() + k.numel() + v.numel() + q.numel()) * 2
     out["bound_ms"], out["bound_by"] = bound_ms(
         n_bytes, 4 * 32 * 128 * pairs, q.dtype)
+    rate_line(out, 4 * 32 * 128 * pairs, "flash_fwd", "serving shape "
+              "[1,32,512,128]")
     return out
+
+
+def rate_line(r: dict, flops: float, kernel: str, case: str) -> None:
+    """Adds a kernel time's FLOP rate and its share of the bound to ``r``
+    and prints them."""
+    r["tflops_per_s"] = flops / (r["ms"] * 1e-3) / 1e12
+    r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    log("kernels", kernel=kernel, case=case, ms=r["ms"],
+        tflops_per_s=r["tflops_per_s"], bound_ms=r["bound_ms"],
+        share_of_bound=r["share_of_bound"])
 
 
 def causal_pairs(t: int, s: int) -> int:
@@ -245,6 +263,11 @@ def flash_bwd_checks(torch, gen) -> dict:
           f"flash bwd bf16 rel err {errs} > 1e-2")
     out_dq = {"max_abs_err": max_err(dq, rq)}
     out_dkv = {"max_abs_err": max(max_err(dk, rk), max_err(dv, rv))}
+    # the query group sums in registers, with no atomics: equal bits
+    dk2, dv2 = fa._flash_bwd_dkv_cuda(*args)
+    out_dkv["bit_equal"] = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
+    check(out_dkv["bit_equal"], "flash_bwd_dkv: two launches differ")
+    del dk2, dv2
     log("kernels", kernel="flash_bwd_dq+dkv",
         case=f"bf16 [{b},{hq},{t},{d}] vs [{b},{hkv},{t},{d}] causal",
         rel_err=errs, tol_rel=1e-2, dq_max_abs_err=out_dq["max_abs_err"],
@@ -302,6 +325,8 @@ def flash_bwd_checks(torch, gen) -> dict:
         io + q.numel() * 2, 3 * 2 * d * pairs, q.dtype)
     out_dkv["bound_ms"], out_dkv["bound_by"] = bound_ms(
         io + 2 * k.numel() * 2, 4 * 2 * d * pairs, q.dtype)
+    rate_line(out_dkv, 4 * 2 * d * pairs, "flash_bwd_dkv",
+              f"training shape [{b},{hq},{t},{d}]")
     # the forward at the training shape (PERF.md's row 1 at this shape)
     fwd["ms"] = cuda_ms(lambda: fa.flash_attention(
         q, k, v, causal=True, return_lse=True))
@@ -322,6 +347,8 @@ def flash_bwd_checks(torch, gen) -> dict:
         f"{d}] with lse", ms=fwd["ms"], plain_ms=fwd["plain_ms"],
         bound_ms=fwd["bound_ms"],
         bound_by=fwd["bound_by"], library_ms=fwd["library_ms"])
+    rate_line(fwd, 2 * 2 * d * pairs, "flash_fwd",
+              f"training shape [{b},{hq},{t},{d}]")
     return {"flash_bwd_dq": out_dq, "flash_bwd_dkv": out_dkv}, fwd
 
 
@@ -793,9 +820,10 @@ def quant_serving_phase(torch, kernels, cfg, params, gen, name,
 def device_trace(torch, fn, wall_ms: float) -> dict:
     """Run ``fn()`` (which ends in a synchronize) once under
     ``torch.profiler``: device time by kernel name, the summed time of
-    every cuBLAS GEMM kernel, the traced wall time, and the device's idle
-    share, one minus the kernels' summed time (one stream, so kernels
-    never overlap) over ``wall_ms``, the same work's untraced wall time."""
+    every cuBLAS GEMM kernel and of each of the port's kernels
+    (``PORT_KERNELS``), the traced wall time, and the device's idle share,
+    one minus the kernels' summed time (one stream, so kernels never
+    overlap) over ``wall_ms``, the same work's untraced wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -812,10 +840,14 @@ def device_trace(torch, fn, wall_ms: float) -> dict:
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     gemms = [rec for n, rec in by_name.items() if GEMM_KERNEL.search(n)]
+    port = {k: [sum(r[i] for n, r in by_name.items() if k in n)
+                for i in (0, 1)] for k in PORT_KERNELS}
     return {"wall_ms": wall_ms, "traced_wall_ms": traced_ms,
             "device_busy_ms": busy_ms,
             "gemm_ms": sum(ms for ms, _ in gemms),
             "gemm_launches": sum(c for _, c in gemms),
+            "port_kernels": {k: {"ms": ms, "calls": c}
+                             for k, (ms, c) in port.items()},
             "device_kernels": sum(c for _, c in by_name.values()),
             "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
             "kernels": [{"name": n[:120], "ms": ms, "calls": c}
@@ -828,6 +860,8 @@ def log_trace(what: str, out: dict) -> None:
         device_busy_ms=round(out["device_busy_ms"], 3),
         gemm_ms=round(out["gemm_ms"], 3), gemm_launches=out["gemm_launches"],
         device_kernels=out["device_kernels"], idle_share=out["idle_share"],
+        port_kernels={k: (round(v["ms"], 3), v["calls"])
+                      for k, v in out["port_kernels"].items()},
         top=[(k["name"][:40], round(k["ms"], 3)) for k in out["kernels"][:8]])
 
 
@@ -1260,6 +1294,14 @@ def t5_phase(torch, kernels, gen, name, cfg=None) -> dict:
             "training": training}
 
 
+def only_tc(launches: dict, names, path: str) -> None:
+    """Kernels 1 and 3 ran on their tensor-core instances only."""
+    for k in names:
+        check(launches[f"{k}/tc"] == launches[k] > 0
+              and launches[f"{k}/simt"] == 0,
+              f"{path}: {k} ran off the tensor cores: {launches}")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1340,6 +1382,7 @@ def main(argv=None) -> int:
     serve_launches = dict(kernels.launches)   # ... and ends here
     check(all(serve_launches[k] > 0 for k in ("flash_fwd", "paged_decode")),
           f"a kernel of the serving path never ran: {serve_launches}")
+    only_tc(serve_launches, ("flash_fwd",), "serving")
     prof = (profile_phase(torch, engine, windows[-1]["prompts"])
             if args.profile else None)
     del engine
@@ -1366,6 +1409,7 @@ def main(argv=None) -> int:
     check(all(train_launches[k] > 0 for k in
               ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
           f"a kernel of the training path never ran: {train_launches}")
+    only_tc(train_launches, ("flash_fwd", "flash_bwd_dkv"), "training")
     torch.cuda.empty_cache()
 
     t5_stats = t5_phase(torch, kernels, gen, name)

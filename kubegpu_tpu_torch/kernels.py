@@ -10,6 +10,12 @@ for (there is no fallback on a CUDA tensor).
 ``launches`` counts kernel launches per kernel, a plain integer each; the
 wrappers in :mod:`kubegpu_tpu_torch.ops` add one where they launch and
 nowhere else, so a caller can show that a path went through the kernels.
+A kernel with two instances (``ROUTES``) also counts each under
+``"<name>/<route>"``: ``flash_fwd/tc`` and ``flash_fwd/simt``, say.
+
+The sources share ``csrc/common.cuh``; the tensor-core instances also
+``csrc/sm90.cuh`` (TMA, mbarriers, wgmma as inline PTX); the paged ones
+``csrc/paged_decode.cuh``.  A change to any ``*.cuh`` rebuilds every kernel.
 """
 
 from __future__ import annotations
@@ -34,10 +40,12 @@ _I = ctypes.c_int
 # Kernels 4-6 share one; kernel 7 adds the bias table's (the four paged
 # sources share csrc/paged_decode.cuh).
 _PAGED = [_P] * 15 + [_I] * 10 + [_P]
+# Kernels 1 and 3 take a route (tensor cores or CUDA cores) as their last
+# int.
 SIGNATURES = {
-    "flash_fwd": ("kubetpu_flash_fwd", [_P] * 5 + [_I] * 8 + [_P]),
+    "flash_fwd": ("kubetpu_flash_fwd", [_P] * 5 + [_I] * 9 + [_P]),
     "flash_bwd_dq": ("kubetpu_flash_bwd_dq", [_P] * 7 + [_I] * 8 + [_P]),
-    "flash_bwd_dkv": ("kubetpu_flash_bwd_dkv", [_P] * 8 + [_I] * 8 + [_P]),
+    "flash_bwd_dkv": ("kubetpu_flash_bwd_dkv", [_P] * 8 + [_I] * 9 + [_P]),
     "paged_decode": ("kubetpu_paged_decode", _PAGED),
     "paged_decode_q8": ("kubetpu_paged_decode_q8", _PAGED),
     "paged_decode_q4": ("kubetpu_paged_decode_q4", _PAGED),
@@ -45,7 +53,12 @@ SIGNATURES = {
                           [_P] * 13 + [_I] * 9 + [_P]),
 }
 
+# The instances of a kernel with two, by the int its C entry takes for each
+ROUTES = {"flash_fwd": {"simt": 0, "tc": 1},
+          "flash_bwd_dkv": {"simt": 0, "tc": 1}}
+
 launches = {name: 0 for name in SIGNATURES}
+launches.update({f"{name}/{r}": 0 for name, rs in ROUTES.items() for r in rs})
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -121,14 +134,24 @@ def lib(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def call(name: str, *args) -> None:
+def call(name: str, *args, route: str | None = None) -> None:
     """Launch kernel ``name`` on the current stream and count it; raises
-    on a non-zero ``cudaError_t`` from the launch."""
+    on a non-zero ``cudaError_t`` from the launch.  A kernel in ``ROUTES``
+    takes ``route``, passed to its C entry as one more int and counted
+    under ``"<name>/<route>"`` too."""
     import torch
 
     sym = SIGNATURES[name][0]
+    if (name in ROUTES) != (route is not None) or (
+            route is not None and route not in ROUTES[name]):
+        raise ValueError(f"{name}: route {route!r} does not fit its entry")
+    if route is not None:
+        args = (*args, ROUTES[name][route])
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib(name), sym)(*args, stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}"
+                           + (f" (route {route})" if route else ""))
     launches[name] += 1
+    if route is not None:
+        launches[f"{name}/{route}"] += 1

@@ -7,7 +7,8 @@ raises), a CPU tensor takes the plain versions.  The forward is
 ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` against
 :func:`flash_attention_bwd_ref`, joined to autograd by
 :class:`_FlashAttention`.  The kernels mask ragged T/S edges themselves,
-so no shape falls back.
+so no shape falls back.  Kernels 1 and 3 have two instances each, and
+:func:`_flash_route` picks one by dtype and head dim.
 """
 
 from __future__ import annotations
@@ -18,9 +19,23 @@ from kubegpu_tpu_torch import kernels
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
-# head dims 64 and 128 run the kernels' vectorized instances; any other
-# up to this one runs an instance padded to 32/64/128/256 channels
+# bf16 at head dims 64 and 128 runs kernels 1 and 3 on the tensor cores
+# (_flash_route); f32 at 64 and 128 runs the vectorized CUDA-core
+# instances; any other head dim up to this one runs a CUDA-core instance
+# padded to 32/64/128/256 channels
 KERNEL_MAX_HEAD_DIM = 256
+
+
+def _flash_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The instance of kernels 1 and 3 for a dtype and head dim: ``"tc"``
+    (wgmma on the tensor cores, fed by TMA) for bf16 at head dims 64 and
+    128, ``"simt"`` (f32 FMA loops on the CUDA cores) otherwise.  f32 stays
+    off the tensor cores, where it would compute in TF32.  This is a
+    dispatch, not a fallback: a launch that the chosen instance refuses
+    raises."""
+    if dtype == torch.bfloat16 and head_dim in (64, 128):
+        return "tc"
+    return "simt"
 
 
 def repeat_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -89,6 +104,10 @@ def _check_flash_inputs(q, k, v):
         raise ValueError(f"head_dim {d} not in [1, {KERNEL_MAX_HEAD_DIM}]")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel needs contiguous q/k/v")
+    if _flash_route(q.dtype, d) == "tc" and any(
+            x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("the tensor-core flash kernels need 16-byte aligned "
+                         "q/k/v (TMA)")
 
 
 def _flash_cuda(q, k, v, causal, return_lse):
@@ -107,7 +126,8 @@ def _flash_cuda(q, k, v, causal, return_lse):
         kernels.call("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      out.data_ptr(), lse.data_ptr() if return_lse else None,
                      b, hq, hkv, t, s, d, int(causal),
-                     int(q.dtype == torch.bfloat16))
+                     int(q.dtype == torch.bfloat16),
+                     route=_flash_route(q.dtype, d))
     return (out, lse) if return_lse else out
 
 
@@ -195,14 +215,15 @@ def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal):
 
 def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal):
     """Kernel 3 (``csrc/flash_bwd_dkv.cu``): (dk, dv) at Hkv heads, summed
-    over each query group in the kernel.  Inputs as
+    over each query group in the kernel (no atomics: two launches give
+    equal bits), on the instance :func:`_flash_route` picks.  Inputs as
     :func:`_flash_bwd_dq_cuda`."""
     _check_bwd_inputs(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if k.numel():   # with no queries the kernel writes zeros
         ptrs, ints = _bwd_args(q, k, v, do, lse, delta, causal)
         kernels.call("flash_bwd_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(),
-                     *ints)
+                     *ints, route=_flash_route(q.dtype, q.shape[-1]))
     return dk, dv
 
 

@@ -275,6 +275,91 @@ def test_tiny_llama_backward_on_the_card(dev):
         assert _rel_err(g, r) <= 1e-4
 
 
+# the tensor-core instances of kernels 1 and 3: head dims 64/128, groups
+# 1/4/8, causal on and off, T = S = 300 (ragged against the 128-row tiles)
+# and T = 64 against S = 1000 (end-aligned), B = 2
+TC_CASES = [(d, g, causal, t, s) for d in (64, 128) for g in (1, 4, 8)
+            for causal in (True, False) for t, s in ((300, 300), (64, 1000))]
+
+
+def _tc_inputs(dev, d, g, t, s, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(2, 2 * g, t, d, generator=gen, device=dev).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(2, 2, s, d, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    return q, k, v, do
+
+
+def _moved(before):
+    """The launch counters that changed since ``before``, by how much."""
+    return {k: kernels.launches[k] - before[k] for k in before
+            if kernels.launches[k] != before[k]}
+
+
+@pytest.mark.parametrize("d,g,causal,t,s", TC_CASES)
+def test_flash_tc_forward_matches_plain(dev, d, g, causal, t, s):
+    """Kernel 1's tensor-core instance against ``xla_attention``: |err| per
+    unit of max(1, |ref|) within 2e-2 (both round p to bf16, the kernel
+    before the normalisation, and the output to bf16) and lse within 1e-3
+    (f32 on both sides); one launch, on the ``tc`` route only."""
+    q, k, v, _ = _tc_inputs(dev, d, g, t, s)
+    before = dict(kernels.launches)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert _moved(before) == {"flash_fwd": 1, "flash_fwd/tc": 1}
+    ref = fa.xla_attention(q, k, v, causal=causal).float()
+    err = ((out.float() - ref).abs() / ref.abs().clamp(min=1)).max().item()
+    assert err <= 2e-2
+    ref_lse = fa._xla_lse(q, k, causal, d ** -0.5)
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("d,g,causal,t,s", TC_CASES)
+def test_flash_tc_dkv_matches_plain(dev, d, g, causal, t, s):
+    """Kernel 3's tensor-core instance against ``flash_attention_bwd_ref``:
+    max |err| over max |ref| within 1e-2 (the kernel rounds p and ds to
+    bf16 before its products, as the reference does, and its outputs to
+    bf16); dk/dv at Hkv heads; one launch, on the ``tc`` route only."""
+    q, k, v, do = _tc_inputs(dev, d, g, t, s)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    before = dict(kernels.launches)
+    dk, dv = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert _moved(before) == {"flash_bwd_dkv": 1, "flash_bwd_dkv/tc": 1}
+    _, rk, rv = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
+    for name, a, r in (("dk", dk, rk), ("dv", dv, rv)):
+        assert a.shape == r.shape == k.shape and a.dtype == torch.bfloat16
+        assert _rel_err(a, r) <= 1e-2, name
+
+
+def test_flash_tc_dkv_is_deterministic(dev):
+    """The query group is summed in registers, with no atomics: two
+    launches on the same inputs give equal bits."""
+    q, k, v, do = _tc_inputs(dev, 128, 4, 300, 300, seed=1)
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    first = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True)
+    second = fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"),
+                                         (torch.float32, "simt")])
+def test_flash_route_counts(dev, dtype, route):
+    """At head dim 128 a bf16 call moves only the ``tc`` counters of
+    kernels 1 and 3, an f32 call only the ``simt`` ones."""
+    q, k, v, do = (x.to(dtype) for x in _tc_inputs(dev, 128, 4, 64, 64))
+    before = dict(kernels.launches)
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    fa._flash_bwd_dkv_cuda(q, k, v, do, lse, (do * out).float().sum(-1),
+                           True)
+    torch.cuda.synchronize()
+    assert _moved(before) == {"flash_fwd": 1, f"flash_fwd/{route}": 1,
+                              "flash_bwd_dkv": 1, f"flash_bwd_dkv/{route}": 1}
+
+
 # kernel 7's query positions: near the keys, then far enough that every
 # bucket of (8, 32), the clamp at distance >= 32 included, is hit
 BIAS_QPOS = {"near": [11, 13, 0, 19], "far": [40, 70, 5, 100]}

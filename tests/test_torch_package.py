@@ -103,4 +103,6 @@ def test_kernels_build_lazily():
     for name in kernels.SIGNATURES:
         assert (kernels.CSRC / f"{name}.cu").exists()
         assert kernels._so_path(name).parent == kernels.BUILD_DIR
-    assert set(kernels.launches) == set(kernels.SIGNATURES)
+    routes = {f"{k}/{r}" for k, rs in kernels.ROUTES.items() for r in rs}
+    assert set(kernels.ROUTES) <= set(kernels.SIGNATURES)
+    assert set(kernels.launches) == set(kernels.SIGNATURES) | routes
