@@ -15,11 +15,12 @@ printed as it ends (any failed check exits non-zero):
    function: flash forward, paged decode over bf16, int8 and packed-int4
    pages (kernels 4-6, each also with its per-page attention mass), the
    biased paged decode of the T5 decoder (kernel 7, at T5 v1.1-base's
-   serving shape), and the flash backward's dq and dk/dv kernels (at the
-   training shape, [4, 32, 2048, 128]).  Kernels 1 and 3 run their
-   tensor-core instances in bf16 (TFLOP/s and share of the bound printed
-   at each shape; dk/dv must give equal bits on two launches) and their
-   CUDA-core instances in the f32 edge cases;
+   serving shape; two launches must give equal bits), and the flash
+   backward's dq and dk/dv kernels (at the training shape, [4, 32, 2048,
+   128]).  Kernels 1-3 run their tensor-core instances in bf16 (TFLOP/s
+   and share of the bound printed at each shape; dq and dk/dv must give
+   equal bits on two launches) and their CUDA-core instances in the f32
+   edge cases;
 4. forward  — ``llama_forward`` at Llama-3-8B full width, bf16, [1, 512];
 5. serving  — the paged ``ContinuousBatcher`` at the same width:
    ``warmup()``, then five timed windows of 12 staggered requests (median
@@ -51,7 +52,7 @@ printed as it ends (any failed check exits non-zero):
 Four paths are driven: serving (phases 4-5), quantized serving (5b),
 training (phase 7's steps) and T5 paged serving (phase 8's paged calls).
 Launch counters are zeroed just before each and read just after; the
-serving and training paths must run kernels 1 and 3 on their tensor-core
+serving and training paths must run kernels 1-3 on their tensor-core
 instances only.  The line before the last is one JSON object per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
 ``--details PATH`` writes every phase's numbers to PATH as JSON.  With
@@ -77,7 +78,8 @@ SEED = 0
 # cuBLAS's GEMM kernels by name (nvjet on Hopper, older sm90 xmma/cutlass)
 GEMM_KERNEL = re.compile(r"nvjet|gemm|xmma|cutlass", re.IGNORECASE)
 # the port's kernels in a trace, by a piece of their (demangled) names
-PORT_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_decode")
+PORT_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_decode",
+                "paged_split")
 
 
 class SmokeFailure(AssertionError):
@@ -263,11 +265,15 @@ def flash_bwd_checks(torch, gen) -> dict:
           f"flash bwd bf16 rel err {errs} > 1e-2")
     out_dq = {"max_abs_err": max_err(dq, rq)}
     out_dkv = {"max_abs_err": max(max_err(dk, rk), max_err(dv, rv))}
-    # the query group sums in registers, with no atomics: equal bits
+    # dq rows and the query group sum in registers, with no atomics: equal
+    # bits
+    dq2 = fa._flash_bwd_dq_cuda(*args)
+    out_dq["bit_equal"] = bool(torch.equal(dq, dq2))
+    check(out_dq["bit_equal"], "flash_bwd_dq: two launches differ")
     dk2, dv2 = fa._flash_bwd_dkv_cuda(*args)
     out_dkv["bit_equal"] = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
     check(out_dkv["bit_equal"], "flash_bwd_dkv: two launches differ")
-    del dk2, dv2
+    del dq2, dk2, dv2
     log("kernels", kernel="flash_bwd_dq+dkv",
         case=f"bf16 [{b},{hq},{t},{d}] vs [{b},{hkv},{t},{d}] causal",
         rel_err=errs, tol_rel=1e-2, dq_max_abs_err=out_dq["max_abs_err"],
@@ -325,8 +331,13 @@ def flash_bwd_checks(torch, gen) -> dict:
         io + q.numel() * 2, 3 * 2 * d * pairs, q.dtype)
     out_dkv["bound_ms"], out_dkv["bound_by"] = bound_ms(
         io + 2 * k.numel() * 2, 4 * 2 * d * pairs, q.dtype)
+    rate_line(out_dq, 3 * 2 * d * pairs, "flash_bwd_dq",
+              f"training shape [{b},{hq},{t},{d}]")
     rate_line(out_dkv, 4 * 2 * d * pairs, "flash_bwd_dkv",
               f"training shape [{b},{hq},{t},{d}]")
+    log("kernels", kernel="flash_bwd_dq+dkv", case="training shape, "
+        "against one SDPA backward", ms=out_dq["ms"] + out_dkv["ms"],
+        library_ms=library, perf_md_dq_ms_before=10.765)
     # the forward at the training shape (PERF.md's row 1 at this shape)
     fwd["ms"] = cuda_ms(lambda: fa.flash_attention(
         q, k, v, causal=True, return_lse=True))
@@ -569,8 +580,12 @@ def paged_bias_checks(torch, gen) -> dict:
     table = torch.randn(h, nb, generator=gen, device=dev)
     args = (q, pk, pv, pt, 11, zeros, zeros, d, qpos, table)
     o, m, l = pa.paged_attention_biased(*args, bias_max_dist=max_dist)
+    again = pa.paged_attention_biased(*args, bias_max_dist=max_dist)
     ro, rm, rl = pa.paged_attention_biased_ref(*args, max_dist)
     torch.cuda.synchronize()
+    # the splits merge in a fixed order, with no float atomics: equal bits
+    check(all(torch.equal(x, y) for x, y in zip((o, m, l), again)),
+          "paged_decode_bias: two launches differ")
     err, m_err = max_err(o, ro), max_err(m, rm)
     l_rel = ((l - rl).abs() / rl.clamp(min=1e-30)).max().item()
     check(err <= 1e-2, f"paged bias bf16 o max |err| {err} > 1e-2")
@@ -578,8 +593,9 @@ def paged_bias_checks(torch, gen) -> dict:
           f"paged bias bf16 m err {m_err} / l rel err {l_rel} > 1e-3")
     log("kernels", kernel="paged_decode_bias",
         case=f"bf16 B={b} H={h} P={p} D={dd} d=256 q_pos=256+j",
-        max_abs_err=err, tol=1e-2, m_err=m_err, l_rel_err=l_rel)
-    out = {"max_abs_err": err}
+        max_abs_err=err, tol=1e-2, m_err=m_err, l_rel_err=l_rel,
+        bit_equal=True)
+    out = {"max_abs_err": err, "bit_equal": True}
     rows = [([3, 7, 0, 0], 20, 32, 0),     # prompt over 2 pages
             ([5, 0, 9, 0], 40, 48, 0),     # a 0 inside the prompt
             ([0, 0, 0, 0], 0, 0, 0),       # empty row
@@ -623,9 +639,11 @@ def paged_bias_checks(torch, gen) -> dict:
                + b * h * (dd + 2) * 4)         # o, m, l
     out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, 4 * h * dd * valid,
                                                 torch.bfloat16)
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
     log("kernels", kernel="paged_decode_bias", ms=out["ms"],
         plain_ms=out["plain_ms"], bound_ms=out["bound_ms"],
-        bound_by=out["bound_by"], buckets_hit=len(hit))
+        bound_by=out["bound_by"], share_of_bound=out["share_of_bound"],
+        buckets_hit=len(hit), perf_md_ms_before=0.0263)
     return out
 
 
@@ -1295,7 +1313,7 @@ def t5_phase(torch, kernels, gen, name, cfg=None) -> dict:
 
 
 def only_tc(launches: dict, names, path: str) -> None:
-    """Kernels 1 and 3 ran on their tensor-core instances only."""
+    """Kernels 1-3 ran on their tensor-core instances only."""
     for k in names:
         check(launches[f"{k}/tc"] == launches[k] > 0
               and launches[f"{k}/simt"] == 0,
@@ -1409,7 +1427,8 @@ def main(argv=None) -> int:
     check(all(train_launches[k] > 0 for k in
               ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
           f"a kernel of the training path never ran: {train_launches}")
-    only_tc(train_launches, ("flash_fwd", "flash_bwd_dkv"), "training")
+    only_tc(train_launches, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+            "training")
     torch.cuda.empty_cache()
 
     t5_stats = t5_phase(torch, kernels, gen, name)

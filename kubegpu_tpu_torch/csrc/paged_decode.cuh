@@ -1,9 +1,9 @@
-// Paged decode attention for Hopper (sm_90a): the page walk shared by the
-// three page formats, each built from its own thin source.
+// Paged decode attention for Hopper (sm_90a): the page walks shared by the
+// page formats, each kernel built from its own thin source.
 //
-//   paged_decode.cu     bf16/f32 pages   (TPU `_paged_kernel`,    kernel 4)
-//   paged_decode_q8.cu  int8 pages       (TPU `_paged_kernel_q8`, kernel 5)
-//   paged_decode_q4.cu  packed int4      (TPU `_paged_kernel_q4`, kernel 6)
+//   paged_decode.cu      bf16/f32 pages   (TPU `_paged_kernel`,    kernel 4)
+//   paged_decode_q8.cu   int8 pages       (TPU `_paged_kernel_q8`, kernel 5)
+//   paged_decode_q4.cu   packed int4      (TPU `_paged_kernel_q4`, kernel 6)
 //   paged_decode_bias.cu bf16/f32 pages + T5's relative-position bias
 //                        (TPU `_paged_kernel_bias`, kernel 7)
 //
@@ -18,53 +18,91 @@
 // ~295 flop/byte balance point; int8 pages halve the bytes of bf16 and int4
 // pages quarter them.
 //
-// Design: one CTA per (row b, kv head, chunk of <= 8 query heads of that kv
-// head), so a decode batch launches B * Hkv CTAs instead of the TPU's one
-// program per row.  Each CTA reads layer, t, t_pad, d and its page-table row
-// itself and walks only the used pages in the TPU kernel's order (prompt
-// pages [0, ceil(t/P)), then decode pages from t_pad/P), cut into 32-key
-// chunks.  The 16 warps take chunks round-robin, so a row's pages are in
-// flight in parallel; lane j of a warp scores key j with 16-byte loads
-// straight from the pool (each key row is read once, by one lane), the warp
-// runs the online softmax with shuffles, and the P.V product reads each
-// value row coalesced across the warp.  Validity is the TPU kernel's
-// predicate (phys < t | t_pad <= phys < t_pad + d, page id != 0), masked
-// explicitly after the exp because NEG_INF is finite.  The warps' partials
-// merge through shared memory at the end (the same logsumexp merge as
-// merge_partials).
+// Two walks.  Kernels 4-6 run the chunk walk (paged_decode_kernel); kernel 7
+// runs the split walk (paged_split_kernel), which kernels 4-6 are to move
+// onto.  Both are templated on the page format (the policy KV).
+//
+// The chunk walk: one CTA per (row b, kv head, chunk of <= 8 query heads of
+// that kv head), so a decode batch launches B * Hkv CTAs instead of the
+// TPU's one program per row.  Each CTA reads layer, t, t_pad, d and its
+// page-table row itself and walks only the used pages in the TPU kernel's
+// order (prompt pages [0, ceil(t/P)), then decode pages from t_pad/P), cut
+// into 32-key chunks.  The 16 warps take chunks round-robin; lane j of a
+// warp scores key j with 16-byte loads straight from the pool (each key row
+// is read once, by one lane), the warp runs the online softmax with
+// shuffles, and the P.V product reads each value row coalesced across the
+// warp.  Validity is the TPU kernel's predicate (phys < t | t_pad <= phys <
+// t_pad + d, page id != 0), masked explicitly after the exp because NEG_INF
+// is finite.  The warps' partials merge through shared memory at the end
+// (the same logsumexp merge as merge_partials).  Few bytes are in flight
+// per SM this way: a row of a few pages leaves most warps idle and pays the
+// memory latency once per chunk.
+//
+// The split walk: the row's pages are cut into splits on the host, from
+// the page table's width alone (t, t_pad and d live on the device and are
+// never read by the host): ops/paged_attention.py takes one split a page,
+// up to MAX_SPLITS = 32, so a split holds ceil(max_pages / n_splits)
+// pages.  One CTA of 4 warps per (row, query head, split); a split with no
+// used page loads nothing.  Otherwise the CTA's first thread puts its
+// tiles in flight at entry with bulk async copies into a 2-stage ring of
+// shared memory (a page of one head is P x D contiguous: 16 KB at bf16,
+// D 64), each stage completing on an mbarrier; a tile holds at most 16 KB
+// of keys, so head dims up to 256 and f32 pages stage a page in several
+// tiles.  Lanes cooperate on a key row: DP / 8 lanes hold 8 channels each
+// of the query and of the key (one 16-byte load at bf16), so a warp scores
+// 256 / DP keys a step and sums each by shuffles inside the lane group.
+// Each lane buckets one key of the warp's tile share once, and the warp
+// reads it back by a shuffle.  A warp keeps an online softmax over its
+// share of each tile (one rescale a tile); the CTA merges its warps
+// through shared memory and writes its split's partial (acc, m, l) to
+// scratch, or with one split a row the output itself.  The last CTA of a
+// (row, head), found by an integer counter that it resets, merges the
+// splits' partials in a fixed order (one lane a split, a shuffle tree for
+// the max and the sum, then split order for acc): no float atomics, so two
+// launches give equal bits.  Each dependent memory round trip costs ~1 us
+// at this size, so the row's state and the first page id are fetched
+// together, and the bias lookups run while the tile is in flight.  One
+// page a split beat fewer, longer splits at every row length but the
+// shortest (experiments/torch_paged_bias_scan.py): the merge costs a few
+// microseconds, a CTA that turns its ring over waits a round trip a tile.
+// Head dims other than 32/64/128/256, or a pool that is not 16-byte
+// aligned, run an instance padded to the next of those that reads the rows
+// from the pool with scalar loads instead of staging them.
 //
 // Page formats (the policy KV): a policy widens a key row into the score
-// and a lane's value channels into f32, in registers.  Quantized pools carry
-// f32 scales [L, n_pages, Hkv, n_scale], one per group of P / n_scale keys
-// (1 for int8); the k-scale multiplies the score after * D^-0.5 and the
-// v-scale multiplies the key's weight only for the P.V product, so l and
-// the mass are taken from the unscaled weights, as in the TPU kernels.
+// and a lane's value channels into f32, in registers (the split walk: 8
+// channels of a row, `load8`).  Quantized pools carry f32 scales [L,
+// n_pages, Hkv, n_scale], one per group of P / n_scale keys (1 for int8);
+// the k-scale multiplies the score after * D^-0.5 and the v-scale multiplies
+// the key's weight only for the P.V product, so l and the mass are taken
+// from the unscaled weights, as in the TPU kernels.
 //
-// The mass (MASS): a page's mass is the sum over its keys of exp(s - M)/L,
-// with M and L the final max and sum of each query head, averaged over the
-// Hq heads.  A warp records each chunk's sum of weights with the running
-// max it was taken against; after the merge, when M and L are known, the
-// CTA rescales each record by exp(m_chunk - M)/L and sums a page's records
-// over its chunks and heads into a per-CTA partial.  A second small kernel
-// adds the partials of a row's CTAs in a fixed order and divides by Hq: no
-// float atomics, so eviction reads the same mass from run to run.
+// The mass (MASS, chunk walk): a page's mass is the sum over its keys of
+// exp(s - M)/L, with M and L the final max and sum of each query head,
+// averaged over the Hq heads.  A warp records each chunk's sum of weights
+// with the running max it was taken against; after the merge, when M and L
+// are known, the CTA rescales each record by exp(m_chunk - M)/L and sums a
+// page's records over its chunks and heads into a per-CTA partial.  A
+// second small kernel adds the partials of a row's CTAs in a fixed order
+// and divides by Hq: no float atomics, so eviction reads the same mass from
+// run to run.  Head dims 64 and 128 run chunk-walk instances with 16-byte
+// key loads and one instance per query-group size; any other head dim up
+// to 256 runs an instance padded to the next of 32/64/128/256 channels with
+// scalar loads (8 query heads per CTA, whatever the group).
 //
-// Head dims 64 and 128 run instances with 16-byte key loads and one
-// instance per query-group size; any other head dim up to 256 runs an
-// instance padded to the next of 32/64/128/256 channels with scalar loads
-// (8 query heads per CTA, whatever the group).
-//
-// The bias (BIAS, kernel 7 only; MHA, no mass): each lane buckets its key's
-// distance n = max(q_pos - phys, 0) with T5's causal log-spaced rule, in the
-// reference's f32 order (logf, IEEE division: no fast math, so the bucket is
-// the plain version's), and adds the table entry of the query head to the
-// score after * D^-0.5.  The CTA's rows of the [Hq, n_buckets] f32 table sit
-// in shared memory.  Validity drops the page-id test, as the TPU kernel has
-// no hole mask: a 0 in the used range attends page 0's keys; a row-local page
-// past the table is not a key.  With BIAS false the walk is kernels 4-6's.
+// The bias (kernel 7, split walk; MHA, no mass): each key's distance n =
+// max(q_pos - phys, 0) is bucketed with T5's causal log-spaced rule, in the
+// reference's f32 order (logf, IEEE division: no fast math, so the bucket
+// is the plain version's), and the table entry of the query head is added
+// to the score after * D^-0.5.  Validity has no page-id test, as the TPU
+// kernel has no hole mask: a 0 in the used range attends page 0's keys; a
+// row-local page past the table is not a key.  The weights are rounded to
+// the pool's type before P.V, as the reference rounds them; l sums them in
+// f32.
 #pragma once
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 #include <math.h>
 
@@ -98,6 +136,10 @@ struct Args {
     const int* qpos = nullptr;
     const float* table = nullptr;
     int n_buckets = 0, max_dist = 0;
+    // the split walk: splits per row, the (row, head) counters (zero between
+    // launches) and the splits' partials in `scratch`
+    int n_splits = 0;
+    int* count = nullptr;
 };
 
 // Floats of scratch the mass output needs: a (sum, max) record per chunk
@@ -157,6 +199,22 @@ struct PlainPages {
         for (int d = 0; d < DPL; ++d)
             vv[d] = FULL || lane * DPL + d < Dh
                 ? to_f(vrow[lane * DPL + d]) : 0.f;
+    }
+
+    // The split walk: channels 8g .. 8g + 7 of a row as f32, 0 past Dh.
+    // FULL: the row holds all of them, 16-byte aligned (vector loads).
+    template <bool FULL>
+    __device__ __forceinline__ static void load8(const Elem* row, int g,
+                                                 int Dh, float (&out)[8]) {
+        if constexpr (FULL) {
+#pragma unroll
+            for (int e = 0; e < 8; e += Vec16<T>::N)
+                Vec16<T>::load(row + 8 * g + e, out + e);
+        } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+                out[e] = 8 * g + e < Dh ? to_f(row[8 * g + e]) : 0.f;
+        }
     }
 };
 
@@ -278,12 +336,11 @@ struct Int4Pages {
     }
 };
 
-// -- the page walk --------------------------------------------------------------
+// -- the chunk walk (kernels 4-6) ----------------------------------------------
 
 // DP: channels held per query (a multiple of 32); FULL: the head dim is DP.
 // Otherwise the head dim is Dh < DP and channels Dh..DP-1 are zero.
-template <typename T, typename KV, int DP, int GR, bool FULL, bool MASS,
-          bool BIAS>
+template <typename T, typename KV, int DP, int GR, bool FULL, bool MASS>
 __global__ void __launch_bounds__(WARPS * 32)
 paged_decode_kernel(Args a, int n_gchunks, float scale) {
     using E = typename KV::Elem;
@@ -299,7 +356,6 @@ paged_decode_kernel(Args a, int n_gchunks, float scale) {
     extern __shared__ float smem[];
     float* qs = smem;            // [GR][D]
     float* red = qs + GR * D;    // [WARPS][GR][RS]
-    float* tab = red + WARPS * GR * RS;   // BIAS: [GR][n_buckets]
 
     const int G = Hq / Hkv;
     const int lane = threadIdx.x & 31;
@@ -316,14 +372,6 @@ paged_decode_kernel(Args a, int n_gchunks, float scale) {
             ? to_f(q[((size_t)b * Hq + hk * G + g0 + gl) * Dg + dd])
             : 0.f;
     }
-    const int nb = a.n_buckets;
-    if constexpr (BIAS) {
-        for (int idx = threadIdx.x; idx < GR * nb; idx += blockDim.x) {
-            const int gl = idx / nb;
-            tab[idx] = gl < ng
-                ? a.table[(size_t)(hk * G + g0 + gl) * nb + idx % nb] : 0.f;
-        }
-    }
 
     const int layer = *a.layer;
     const int tb = a.t[b], tpb = a.tpad[b], db = a.d[b];
@@ -334,11 +382,6 @@ paged_decode_kernel(Args a, int n_gchunks, float scale) {
     const int n_chunks = (n_prompt + n_dec) * cpp;
     const size_t page_elems = (size_t)P * Rs;
     const int gsz = KV::SCALED ? P / a.n_scale : 1;   // keys per scale
-    const int qp = BIAS ? a.qpos[b] : 0;
-    const int max_exact = nb / 2;
-    // the reference's f32 log of (max_dist / max_exact) taken in double
-    const float log_denom =
-        BIAS ? logf((float)((double)a.max_dist / (double)max_exact)) : 1.f;
     // this CTA's mass records: (sum of w, running max) per chunk and head
     float2* rec = MASS
         ? reinterpret_cast<float2*>(a.scratch) +
@@ -361,16 +404,8 @@ paged_decode_kernel(Args a, int n_gchunks, float scale) {
         const int pid = rl < max_pages ? a.pt[(size_t)b * max_pages + rl] : 0;
         const int pofs = sub * KC + lane;
         const int phys = rl * P + pofs;
-        const bool valid = pofs < P && (BIAS ? rl < max_pages : pid != 0) &&
+        const bool valid = pofs < P && pid != 0 &&
                            (phys < tb || (phys >= tpb && phys < tpb + db));
-        int bucket = 0;
-        if constexpr (BIAS) {
-            const int n = max(qp - phys, 0);
-            bucket = n < max_exact ? n
-                : min(max_exact + (int)(logf((float)n / (float)max_exact) /
-                                        log_denom * (float)(nb - max_exact)),
-                      nb - 1);
-        }
         const size_t page_id = ((size_t)layer * a.n_pages + pid) * Hkv + hk;
         const size_t page_off = page_id * page_elems;
 
@@ -389,10 +424,7 @@ paged_decode_kernel(Args a, int n_gchunks, float scale) {
         }
 #pragma unroll
         for (int g = 0; g < GR; ++g) {
-            float sc = valid ? s[g] * scale * ksc : NEG_INF;
-            if constexpr (BIAS) {
-                if (valid) sc += tab[g * nb + bucket];
-            }
+            const float sc = valid ? s[g] * scale * ksc : NEG_INF;
             const float m_new = fmaxf(m[g], warp_max(sc));
             const float w = valid ? expf(sc - m_new) : 0.f;
             const float alpha = expf(m[g] - m_new);
@@ -503,14 +535,13 @@ __global__ void mass_reduce_kernel(const float* __restrict__ part,
     }
 }
 
-template <typename T, typename KV, int DP, int GR, bool FULL, bool MASS,
-          bool BIAS>
+template <typename T, typename KV, int DP, int GR, bool FULL, bool MASS>
 cudaError_t launch_one(const Args& a) {
     const int G = a.Hq / a.Hkv;
     const int n_gchunks = (G + GMAX - 1) / GMAX;
-    const size_t smem = sizeof(float) * (size_t)(
-        GR * DP + WARPS * GR * (DP + 2) + (BIAS ? GR * a.n_buckets : 0));
-    auto kern = paged_decode_kernel<T, KV, DP, GR, FULL, MASS, BIAS>;
+    const size_t smem =
+        sizeof(float) * (size_t)(GR * DP + WARPS * GR * (DP + 2));
+    auto kern = paged_decode_kernel<T, KV, DP, GR, FULL, MASS>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -526,54 +557,40 @@ cudaError_t launch_one(const Args& a) {
     return cudaGetLastError();
 }
 
-// BIAS instantiates only what kernel 7 runs: no mass, one query head a CTA.
-template <typename T, typename KV, int DP, int GR, bool FULL, bool BIAS>
+template <typename T, typename KV, int DP, int GR, bool FULL>
 cudaError_t launch(const Args& a) {
-    if constexpr (BIAS) {
-        return launch_one<T, KV, DP, GR, FULL, false, true>(a);
-    } else {
-        if (a.mass != nullptr)
-            return launch_one<T, KV, DP, GR, FULL, true, false>(a);
-        return launch_one<T, KV, DP, GR, FULL, false, false>(a);
-    }
+    if (a.mass != nullptr) return launch_one<T, KV, DP, GR, FULL, true>(a);
+    return launch_one<T, KV, DP, GR, FULL, false>(a);
 }
 
-template <typename T, typename KV, int DP, bool BIAS>
+template <typename T, typename KV, int DP>
 cudaError_t dispatch_g(const Args& a) {
     const int G = a.Hq / a.Hkv;
-    if (BIAS || G <= 1) return launch<T, KV, DP, 1, true, BIAS>(a);
-    if constexpr (!BIAS) {
-        if (G <= 2) return launch<T, KV, DP, 2, true, false>(a);
-        if (G <= 4) return launch<T, KV, DP, 4, true, false>(a);
-        return launch<T, KV, DP, GMAX, true, false>(a);
-    }
-    return cudaErrorInvalidValue;
+    if (G <= 1) return launch<T, KV, DP, 1, true>(a);
+    if (G <= 2) return launch<T, KV, DP, 2, true>(a);
+    if (G <= 4) return launch<T, KV, DP, 4, true>(a);
+    return launch<T, KV, DP, GMAX, true>(a);
 }
 
-template <typename T, typename KV, bool BIAS>
+template <typename T, typename KV>
 cudaError_t dispatch_d(const Args& a) {
-    constexpr int GP = BIAS ? 1 : GMAX;   // query heads a padded CTA holds
     const int D = a.Dh;
-    if (D == 64) return dispatch_g<T, KV, 64, BIAS>(a);
-    if (D == 128) return dispatch_g<T, KV, 128, BIAS>(a);
+    if (D == 64) return dispatch_g<T, KV, 64>(a);
+    if (D == 128) return dispatch_g<T, KV, 128>(a);
     if (D < 1) return cudaErrorInvalidValue;
-    if (D <= 32) return launch<T, KV, 32, GP, false, BIAS>(a);
-    if (D <= 64) return launch<T, KV, 64, GP, false, BIAS>(a);
-    if (D <= 128) return launch<T, KV, 128, GP, false, BIAS>(a);
-    if (D <= 256) return launch<T, KV, 256, GP, false, BIAS>(a);
+    if (D <= 32) return launch<T, KV, 32, GMAX, false>(a);
+    if (D <= 64) return launch<T, KV, 64, GMAX, false>(a);
+    if (D <= 128) return launch<T, KV, 128, GMAX, false>(a);
+    if (D <= 256) return launch<T, KV, 256, GMAX, false>(a);
     return cudaErrorInvalidValue;
 }
 
-// The sources' C entry: checks what the kernel relies on, then picks the
-// instance for q's dtype, the head dim and the group size.
-template <template <typename> class KVT, bool BIAS = false>
+// The chunk walk's C entry: checks what the kernel relies on, then picks
+// the instance for q's dtype, the head dim and the group size.
+template <template <typename> class KVT>
 int entry(const Args& a, int is_bf16) {
     if (a.Hkv <= 0 || a.Hq % a.Hkv != 0 || a.B == 0 || a.P <= 0 ||
         !KVT<float>::ok_dim(a.Dh))
-        return cudaErrorInvalidValue;
-    if (BIAS && (a.Hq != a.Hkv || a.qpos == nullptr || a.table == nullptr ||
-                 a.n_buckets < 2 || a.max_dist <= a.n_buckets / 2 ||
-                 a.mass != nullptr))
         return cudaErrorInvalidValue;
     if (KVT<float>::SCALED &&
         (a.k_scale == nullptr || a.v_scale == nullptr || a.n_scale <= 0 ||
@@ -582,9 +599,389 @@ int entry(const Args& a, int is_bf16) {
     if (a.mass != nullptr &&
         (a.scratch == nullptr || a.scratch_floats < mass_scratch_floats(a)))
         return cudaErrorInvalidValue;
-    if (is_bf16) return dispatch_d<__nv_bfloat16, KVT<__nv_bfloat16>, BIAS>(a);
-    return dispatch_d<float, KVT<float>, BIAS>(a);
+    if (is_bf16) return dispatch_d<__nv_bfloat16, KVT<__nv_bfloat16>>(a);
+    return dispatch_d<float, KVT<float>>(a);
 }
+
+// -- the split walk (kernel 7) --------------------------------------------------
+
+namespace split {
+
+using namespace kubetpu::sm90;
+
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int STAGES = 2;
+constexpr int TILE_BYTES = 16384;   // the keys of one K (or V) tile
+constexpr int MAX_SPLITS = 32;      // one lane each in the last CTA's merge
+
+// Keys a tile holds at DP channels of E: 128, or fewer where a row is wide.
+template <typename E, int DP>
+__host__ __device__ constexpr int tile_keys() {
+    return TILE_BYTES / (DP * (int)sizeof(E)) < 128
+        ? TILE_BYTES / (DP * (int)sizeof(E)) : 128;
+}
+
+// Pages a split holds, for a page table `max_pages` wide.
+__host__ __device__ inline int pages_per_split(int max_pages, int n_splits) {
+    return (max_pages + n_splits - 1) / n_splits;
+}
+
+// Floats of scratch for the splits' partials: acc[Dh], m, l of each.
+inline long long scratch_floats(const Args& a) {
+    return (long long)a.B * a.Hq * a.n_splits * (a.Dh + 2);
+}
+
+// Shared memory (bytes): the mbarriers and the last-CTA flag, the warps'
+// partials [WARPS][DP + 2] f32, then the ring's stages, each a K tile and
+// a V tile [KT][DP] (a split of one tile allocates one stage).
+template <int DP> struct Smem {
+    static constexpr int BAR = 0;
+    static constexpr int LAST = BAR + 2 * STAGES * 8;
+    static constexpr int RED = 128;
+    static constexpr int TILES =
+        (RED + WARPS * (DP + 2) * 4 + 127) / 128 * 128;
+    template <typename E>
+    static constexpr size_t bytes(int stages) {
+        return TILES + (size_t)stages * 2 * tile_keys<E, DP>() * DP *
+                           sizeof(E);
+    }
+};
+
+// DP: channels a lane group holds (8 a lane); FULL: the head dim is DP and
+// the pool is 16-byte aligned, so tiles are staged by bulk copies.
+// Otherwise the head dim is Dh <= DP and rows are read from the pool.
+template <typename T, typename KV, int DP, bool FULL>
+__global__ void __launch_bounds__(THREADS)
+paged_split_kernel(Args a, float scale) {
+    using E = typename KV::Elem;
+    constexpr int LPK = DP / 8;            // lanes on one key row
+    constexpr int KPW = 32 / LPK;          // keys a warp scores a step
+    constexpr int KT = tile_keys<E, DP>();
+    constexpr int KW = KT / WARPS;         // a warp's keys of a tile
+    constexpr int NS = KW / KPW;           // its steps over them
+    static_assert(KW <= 32 && KW % KPW == 0, "a tile's keys split by warp");
+    const E* __restrict__ pool_k = static_cast<const E*>(a.pool_k);
+    const E* __restrict__ pool_v = static_cast<const E*>(a.pool_v);
+    const int P = a.P, Dh = a.Dh, Hq = a.Hq, max_pages = a.max_pages;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int grp = lane / LPK, gl = lane % LPK;
+    const int split = blockIdx.x % a.n_splits;
+    const int bh = blockIdx.x / a.n_splits;   // b * Hq + h
+    const int b = bh / Hq, h = bh % Hq;
+    const int hk = h / (Hq / a.Hkv);
+
+    using L = Smem<DP>;
+    extern __shared__ __align__(128) uint8_t smem[];
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+    uint64_t* empty = full + STAGES;
+    int* last = reinterpret_cast<int*>(smem + L::LAST);
+    float* red = reinterpret_cast<float*>(smem + L::RED);
+    E* kst = reinterpret_cast<E*>(smem + L::TILES);
+
+    // the split's used pages, in row order, each in tpp tiles of KT keys;
+    // the loader fetches its first page's id with the row's state, not
+    // after it
+    const int pps = pages_per_split(max_pages, a.n_splits);
+    const int p_lo = split * pps, p_hi = min(p_lo + pps, max_pages);
+    const int pid_lo = FULL && threadIdx.x == 0 && p_lo < p_hi
+        ? a.pt[(size_t)b * max_pages + p_lo] : 0;
+    const int tb = a.t[b], tpb = a.tpad[b], db = a.d[b];
+    auto used = [&](int rl) {
+        const int k0 = rl * P;
+        return k0 < tb || (db > 0 && k0 < tpb + db && k0 + P > tpb);
+    };
+    auto next_used = [&](int rl) {
+        while (rl < p_hi && !used(rl)) ++rl;
+        return rl;
+    };
+    const int tpp = (P + KT - 1) / KT;
+    int n_tiles = 0;
+    for (int rl = p_lo; rl < p_hi; ++rl) n_tiles += used(rl) ? tpp : 0;
+    const int layer = *a.layer;
+    auto page_row = [&](int rl) {   // the page's first key row in the pool
+        const int pid = FULL && rl == p_lo
+            ? pid_lo : a.pt[(size_t)b * max_pages + rl];
+        return (((size_t)layer * a.n_pages + pid) * a.Hkv + hk) * P;
+    };
+
+    // the first thread keeps the ring filled (a cursor of its own)
+    int l_rl = next_used(p_lo), l_sub = 0, next = 0;
+    auto load = [&](int, int s) {
+        const size_t row = page_row(l_rl) + (size_t)l_sub * KT;
+        const int nk = min(KT, P - l_sub * KT);
+        const uint32_t bytes = (uint32_t)(nk * DP * sizeof(E));
+        E* kd = kst + (size_t)s * 2 * KT * DP;
+        mbar_expect_tx(full + s, 2 * bytes);
+        bulk_load(kd, pool_k + row * DP, bytes, full + s);
+        bulk_load(kd + KT * DP, pool_v + row * DP, bytes, full + s);
+        if (++l_sub == tpp) {
+            l_sub = 0;
+            l_rl = next_used(l_rl + 1);
+        }
+    };
+    auto feed = [&](int need) {
+        if (FULL && threadIdx.x == 0) {
+            ring_feed<STAGES>(next, min(need, n_tiles), empty, true, load);
+            ring_feed<STAGES>(next, n_tiles, empty, false, load);
+        }
+        __syncwarp();
+    };
+    if constexpr (FULL) {
+        if (threadIdx.x == 0) {
+            for (int s = 0; s < STAGES; ++s) {
+                mbar_init(full + s, 1);
+                mbar_init(empty + s, WARPS);   // one arrival a warp
+            }
+            mbar_fence_init();
+        }
+        __syncthreads();
+        feed(STAGES);   // every byte of a one-tile split is in flight now
+    }
+
+    // this lane's 8 channels of the query
+    float qv[8];
+    {
+        const T* qrow = static_cast<const T*>(a.q) + (size_t)bh * Dh;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+            qv[e] = 8 * gl + e < Dh ? to_f(qrow[8 * gl + e]) : 0.f;
+    }
+    const int nb = a.n_buckets, max_exact = nb / 2;
+    const int qp = a.qpos[b];
+    // the reference's f32 log of (max_dist / max_exact) taken in double
+    const float log_denom =
+        logf((float)((double)a.max_dist / (double)max_exact));
+    const float* tab = a.table + (size_t)h * nb;
+
+    float m = NEG_INF, l = 0.f, acc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+    int rl = next_used(p_lo), sub = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES;
+        feed(it + 1);
+        const int key0 = sub * KT;
+        // lane j buckets key j of the warp's share, once, and fetches its
+        // bias while the tile is in flight
+        float bias = 0.f;
+        bool valid = false;
+        if (lane < KW) {
+            const int pofs = key0 + warp * KW + lane;
+            const int phys = rl * P + pofs;
+            valid = pofs < P && (phys < tb || (phys >= tpb && phys < tpb + db));
+            const int n = max(qp - phys, 0);
+            const int bucket = n < max_exact ? n
+                : min(max_exact + (int)(logf((float)n / (float)max_exact) /
+                                        log_denom * (float)(nb - max_exact)),
+                      nb - 1);
+            bias = valid ? __ldg(tab + bucket) : 0.f;
+        }
+        const unsigned vmask = __ballot_sync(FULL_MASK, valid);
+        const E* kt;
+        const E* vt;
+        if constexpr (FULL) {
+            mbar_wait(full + s, (it / STAGES) & 1);
+            kt = kst + (size_t)s * 2 * KT * DP;
+            vt = kt + KT * DP;
+        } else {
+            const size_t row = page_row(rl) + key0;
+            kt = pool_k + row * Dh;
+            vt = pool_v + row * Dh;
+        }
+        const int rs = FULL ? DP : Dh;   // row stride, in elements
+
+        float sc[NS];
+        float mt = NEG_INF;
+#pragma unroll
+        for (int st = 0; st < NS; ++st) {
+            const int j = st * KPW + grp;            // the warp's key j
+            const bool ok = (vmask >> j) & 1u;
+            float part = 0.f;
+            if (ok) {
+                float kf[8];
+                KV::template load8<FULL>(kt + (size_t)(warp * KW + j) * rs,
+                                         gl, Dh, kf);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) part = fmaf(qv[e], kf[e], part);
+            }
+#pragma unroll
+            for (int o = LPK / 2; o; o >>= 1)
+                part += __shfl_xor_sync(FULL_MASK, part, o);
+            const float bj = __shfl_sync(FULL_MASK, bias, j);
+            // NEG_INF is finite: the weight below is masked explicitly
+            sc[st] = ok ? part * scale + bj : NEG_INF;
+            mt = fmaxf(mt, sc[st]);
+        }
+#pragma unroll
+        for (int o = LPK; o < 32; o <<= 1)
+            mt = fmaxf(mt, __shfl_xor_sync(FULL_MASK, mt, o));
+        const float m_new = fmaxf(m, mt);
+        const float alpha = expf(m - m_new);
+        l *= alpha;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[e] *= alpha;
+#pragma unroll
+        for (int st = 0; st < NS; ++st) {
+            const int j = st * KPW + grp;
+            if ((vmask >> j) & 1u) {
+                const float w = expf(sc[st] - m_new);
+                l += w;
+                // P.V with the weight in the pool's type, as the reference
+                const float wv = to_f(from_f<E>(w));
+                float vf[8];
+                KV::template load8<FULL>(vt + (size_t)(warp * KW + j) * rs,
+                                         gl, Dh, vf);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) acc[e] = fmaf(wv, vf[e], acc[e]);
+            }
+        }
+        m = m_new;
+        if constexpr (FULL) mbar_arrive_warp(empty + s);
+        feed(0);
+        if (++sub == tpp) {
+            sub = 0;
+            rl = next_used(rl + 1);
+        }
+    }
+
+    // the warp's lane groups, then the CTA's warps (logsumexp merge)
+#pragma unroll
+    for (int o = LPK; o < 32; o <<= 1) {
+        l += __shfl_xor_sync(FULL_MASK, l, o);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+            acc[e] += __shfl_xor_sync(FULL_MASK, acc[e], o);
+    }
+    float* mine = red + warp * (DP + 2);
+    if (grp == 0) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) mine[8 * gl + e] = acc[e];
+    }
+    if (lane == 0) {
+        mine[DP] = m;
+        mine[DP + 1] = l;
+    }
+    __syncthreads();
+    float mx = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, red[w * (DP + 2) + DP]);
+    float f[WARPS], lt = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+        f[w] = expf(red[w * (DP + 2) + DP] - mx);
+        lt += f[w] * red[w * (DP + 2) + DP + 1];
+    }
+    // one split: the CTA's merge is the output; else its split's partial
+    const bool single = a.n_splits == 1;
+    const int rec = Dh + 2;   // a split's partial: acc[Dh], m, l
+    float* part = a.scratch + ((size_t)bh * a.n_splits + split) * rec;
+    for (int dd = threadIdx.x; dd < Dh; dd += THREADS) {
+        float ot = 0.f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) ot += f[w] * red[w * (DP + 2) + dd];
+        if (single) a.o[(size_t)bh * Dh + dd] = ot / fmaxf(lt, 1e-30f);
+        else part[dd] = ot;
+    }
+    if (single) {
+        if (threadIdx.x == 0) {
+            a.m[bh] = mx;
+            a.l[bh] = lt;
+        }
+        return;
+    }
+    if (threadIdx.x == 0) {
+        part[Dh] = mx;
+        part[Dh + 1] = lt;
+    }
+
+    // the last CTA of (row, head) merges the splits in split order
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        const int done = atomicAdd(a.count + bh, 1);
+        *last = done == a.n_splits - 1;
+    }
+    __syncthreads();
+    if (!*last) return;
+    __threadfence();
+    // lane sp holds split sp's (m, l); every warp reduces them by the same
+    // shuffle tree, so the order is fixed
+    const float* parts = a.scratch + (size_t)bh * a.n_splits * rec;
+    const bool has = lane < a.n_splits;
+    const float ms = has ? __ldcg(parts + lane * rec + Dh) : NEG_INF;
+    const float mm = warp_max(ms);
+    const float fs = has ? expf(ms - mm) : 0.f;
+    const float ll = warp_sum(has ? fs * __ldcg(parts + lane * rec + Dh + 1)
+                                  : 0.f);
+    for (int d0 = 0; d0 < Dh; d0 += THREADS) {   // uniform: shuffles inside
+        const int dd = d0 + threadIdx.x;
+        float ot = 0.f;
+        for (int sp = 0; sp < a.n_splits; ++sp) {
+            const float f = __shfl_sync(FULL_MASK, fs, sp);
+            if (dd < Dh) ot += f * __ldcg(parts + sp * rec + dd);
+        }
+        if (dd < Dh) a.o[(size_t)bh * Dh + dd] = ot / fmaxf(ll, 1e-30f);
+    }
+    if (threadIdx.x == 0) {
+        a.m[bh] = mm;
+        a.l[bh] = ll;
+        a.count[bh] = 0;   // ready for the next launch
+    }
+}
+
+template <typename T, typename KV, int DP, bool FULL>
+cudaError_t launch_split(const Args& a) {
+    using E = typename KV::Elem;
+    constexpr int KT = tile_keys<E, DP>();
+    // a split of one tile needs one stage
+    const int tiles = pages_per_split(a.max_pages, a.n_splits) *
+                      ((a.P + KT - 1) / KT);
+    const size_t smem = Smem<DP>::template bytes<E>(
+        FULL ? (tiles > 1 ? STAGES : 1) : 0);
+    auto kern = paged_split_kernel<T, KV, DP, FULL>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<a.B * a.Hq * a.n_splits, THREADS, smem, a.st>>>(
+        a, (float)(1.0 / sqrt((double)a.Dh)));
+    return cudaGetLastError();
+}
+
+template <typename T, typename KV>
+cudaError_t dispatch_split(const Args& a) {
+    const int D = a.Dh;
+    // bulk copies need 16-byte aligned rows and pool
+    const bool aligned = ((reinterpret_cast<uintptr_t>(a.pool_k) |
+                           reinterpret_cast<uintptr_t>(a.pool_v)) & 15) == 0;
+    if (aligned && D == 32) return launch_split<T, KV, 32, true>(a);
+    if (aligned && D == 64) return launch_split<T, KV, 64, true>(a);
+    if (aligned && D == 128) return launch_split<T, KV, 128, true>(a);
+    if (aligned && D == 256) return launch_split<T, KV, 256, true>(a);
+    if (D < 1) return cudaErrorInvalidValue;
+    if (D <= 32) return launch_split<T, KV, 32, false>(a);
+    if (D <= 64) return launch_split<T, KV, 64, false>(a);
+    if (D <= 128) return launch_split<T, KV, 128, false>(a);
+    if (D <= 256) return launch_split<T, KV, 256, false>(a);
+    return cudaErrorInvalidValue;
+}
+
+// The split walk's C entry for kernel 7 (the bias, MHA, no mass).
+template <template <typename> class KVT>
+int entry_bias(const Args& a, int is_bf16) {
+    if (a.Hkv <= 0 || a.Hq != a.Hkv || a.B == 0 || a.P <= 0 ||
+        !KVT<float>::ok_dim(a.Dh) || a.max_pages <= 0 || a.qpos == nullptr ||
+        a.table == nullptr || a.n_buckets < 2 ||
+        a.max_dist <= a.n_buckets / 2 || a.mass != nullptr ||
+        a.n_splits < 1 || a.n_splits > min(a.max_pages, MAX_SPLITS) ||
+        a.count == nullptr || a.scratch == nullptr ||
+        a.scratch_floats < scratch_floats(a))
+        return cudaErrorInvalidValue;
+    if (is_bf16) return dispatch_split<__nv_bfloat16, KVT<__nv_bfloat16>>(a);
+    return dispatch_split<float, KVT<float>>(a);
+}
+
+}  // namespace split
 
 }  // namespace paged
 }  // namespace kubetpu

@@ -3,7 +3,8 @@
 // every build):
 //   - TMA: a tensor map per operand (built on the host through the driver's
 //     entry point, so a library loaded with ctypes needs no -lcuda), and the
-//     1-D and 3-D tile loads that complete on an mbarrier;
+//     1-D and 3-D tile loads that complete on an mbarrier; a bulk copy of
+//     contiguous bytes that completes the same way;
 //   - mbarriers: init, arrive, arrive with an expected byte count, and the
 //     parity wait;
 //   - wgmma: the shared-memory matrix descriptor for the 128-byte swizzle
@@ -199,6 +200,18 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
         "::bytes [%0], [%1, {%3}], [%2];\n"
         :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
            "r"(smem_u32(bar)), "r"(c0)
+        : "memory");
+}
+
+// `bytes` contiguous bytes of global memory into shared memory, completing
+// on `bar` (both addresses 16-byte aligned, `bytes` a multiple of 16).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];\n"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+           "r"(bytes), "r"(smem_u32(bar))
         : "memory");
 }
 

@@ -13,9 +13,10 @@ nowhere else, so a caller can show that a path went through the kernels.
 A kernel with two instances (``ROUTES``) also counts each under
 ``"<name>/<route>"``: ``flash_fwd/tc`` and ``flash_fwd/simt``, say.
 
-The sources share ``csrc/common.cuh``; the tensor-core instances also
-``csrc/sm90.cuh`` (TMA, mbarriers, wgmma as inline PTX); the paged ones
-``csrc/paged_decode.cuh``.  A change to any ``*.cuh`` rebuilds every kernel.
+The sources share ``csrc/common.cuh``; the tensor-core instances and the
+paged walks also ``csrc/sm90.cuh`` (TMA, bulk copies, mbarriers, wgmma as
+inline PTX); the paged ones ``csrc/paged_decode.cuh``.  A change to any
+``*.cuh`` rebuilds every kernel.
 """
 
 from __future__ import annotations
@@ -37,24 +38,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures: every pointer and the stream are c_void_p, ints are c_int.
-# Kernels 4-6 share one; kernel 7 adds the bias table's (the four paged
-# sources share csrc/paged_decode.cuh).
+# Kernels 4-6 share one (the chunk walk); kernel 7 has its own (the split
+# walk, with the bias table); the four paged sources share
+# csrc/paged_decode.cuh.
 _PAGED = [_P] * 15 + [_I] * 10 + [_P]
-# Kernels 1 and 3 take a route (tensor cores or CUDA cores) as their last
-# int.
+# Kernels 1, 2 and 3 take a route (tensor cores or CUDA cores) as their
+# last int.
 SIGNATURES = {
     "flash_fwd": ("kubetpu_flash_fwd", [_P] * 5 + [_I] * 9 + [_P]),
-    "flash_bwd_dq": ("kubetpu_flash_bwd_dq", [_P] * 7 + [_I] * 8 + [_P]),
+    "flash_bwd_dq": ("kubetpu_flash_bwd_dq", [_P] * 7 + [_I] * 9 + [_P]),
     "flash_bwd_dkv": ("kubetpu_flash_bwd_dkv", [_P] * 8 + [_I] * 9 + [_P]),
     "paged_decode": ("kubetpu_paged_decode", _PAGED),
     "paged_decode_q8": ("kubetpu_paged_decode_q8", _PAGED),
     "paged_decode_q4": ("kubetpu_paged_decode_q4", _PAGED),
     "paged_decode_bias": ("kubetpu_paged_decode_bias",
-                          [_P] * 13 + [_I] * 9 + [_P]),
+                          [_P] * 15 + [_I] * 11 + [_P]),
 }
 
 # The instances of a kernel with two, by the int its C entry takes for each
 ROUTES = {"flash_fwd": {"simt": 0, "tc": 1},
+          "flash_bwd_dq": {"simt": 0, "tc": 1},
           "flash_bwd_dkv": {"simt": 0, "tc": 1}}
 
 launches = {name: 0 for name in SIGNATURES}

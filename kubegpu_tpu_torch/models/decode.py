@@ -18,7 +18,7 @@ from kubegpu_tpu_torch.models.llama import (
     _rmsnorm,
     _rope,
     embed_lookup,
-    layer_params,
+    unbind_layers,
 )
 from kubegpu_tpu_torch.ops.flash_attention import NEG_INF
 from kubegpu_tpu_torch.ops.kvquant import quantize_rows
@@ -97,8 +97,7 @@ def _forward_with_cache(params: dict, tokens: torch.Tensor, cache: dict,
     x = embed_lookup(params["embed"], tokens)
     q_pos = pos_offset + torch.arange(t, device=tokens.device)
     positions = q_pos[None, :].expand(b, t)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+    for i, lp in enumerate(unbind_layers(params["layers"])):
         h = _rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
         q, k, v = _project_qkv(h, lp, cfg, positions)
         ck, cv = cache["k"][i], cache["v"][i]

@@ -99,9 +99,16 @@ def llama_init(cfg: LlamaConfig, seed: int = 0, device="cuda",
     }
 
 
-def layer_params(params: dict, i: int) -> dict:
-    """Layer ``i``'s parameters as views of the stacked leaves."""
-    return {name: leaf[i] for name, leaf in params["layers"].items()}
+def unbind_layers(stack: dict) -> list[dict]:
+    """Every layer's parameters from the stacked ``[L, ...]`` leaves of
+    ``stack``, with one ``unbind`` per leaf.  Under grad, each leaf's
+    backward is then one ``stack`` of its L slices: indexing a leaf once
+    per layer would build a zero-filled copy of the whole stack for every
+    layer and sum the L of them (O(L^2) where the reference's scan is
+    O(L)).  Call it once per forward, outside any checkpointed layer."""
+    names = list(stack)
+    return [dict(zip(names, parts))
+            for parts in zip(*(stack[n].unbind(0) for n in names))]
 
 
 def _rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -165,21 +172,20 @@ def llama_forward(params: dict, tokens: torch.Tensor,
     def attend(q, k, v):
         return attention(q, k, v, causal=True, impl=cfg.attn_impl)
 
-    def layer(x, i):
-        lp = layer_params(params, i)
+    def layer(x, lp):
         x = attention_sublayer(x, lp, cfg, positions, attend)
         h = _rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
         up = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
         return x + (up @ lp["w_down"]).to(x.dtype)
 
     remat = cfg.remat and torch.is_grad_enabled()
-    for i in range(cfg.n_layers):
+    for lp in unbind_layers(params["layers"]):
         if remat:
             # the layer is deterministic: no RNG state to stash
-            x = checkpoint(layer, x, i, use_reentrant=False,
+            x = checkpoint(layer, x, lp, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = layer(x, i)
+            x = layer(x, lp)
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"]).float()
 

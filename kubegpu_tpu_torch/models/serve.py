@@ -48,7 +48,7 @@ from kubegpu_tpu_torch.models.llama import (
     LlamaConfig,
     _rmsnorm,
     embed_lookup,
-    layer_params,
+    unbind_layers,
 )
 from kubegpu_tpu_torch.ops.kvquant import Q4_ZERO_BYTE, quantize_groups_q4
 from kubegpu_tpu_torch.ops.paged_attention import (
@@ -105,8 +105,7 @@ def _paged_row_step(params: dict, tokens: torch.Tensor, pool: dict,
     positions = pos[:, None]
     k_scale, v_scale = pool.get("k_scale"), pool.get("v_scale")
     masses = []
-    for li in range(cfg.n_layers):
-        lp = layer_params(params, li)
+    for li, lp in enumerate(unbind_layers(params["layers"])):
         h = _rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
         q, k, v = _project_qkv(h, lp, cfg, positions)            # [B,H,1,D]
         bk, bv = buf["k"][li], buf["v"][li]

@@ -28,6 +28,7 @@ from kubegpu_tpu_torch.models.llama import (
     _rmsnorm,
     embed_lookup,
     make_train_step,
+    unbind_layers,
 )
 from kubegpu_tpu_torch.ops.flash_attention import NEG_INF
 from kubegpu_tpu_torch.ops.paged_attention import (
@@ -120,10 +121,6 @@ def t5_init(cfg: T5Config, seed: int = 0, device="cuda",
     }
 
 
-def _layer(stack: dict, i: int) -> dict:
-    return {name: leaf[i] for name, leaf in stack.items()}
-
-
 # ---------------------------------------------------------------------------
 # Relative position bias
 # ---------------------------------------------------------------------------
@@ -177,14 +174,15 @@ def _ffn(x, lp, cfg):
     return x + (up @ lp["wo_ff"]).to(x.dtype)
 
 
-def _run_layers(layer, x, n: int, cfg: T5Config):
-    """``x = layer(x, i)`` for each layer; with ``cfg.remat`` and grad
-    enabled each runs under ``torch.utils.checkpoint``, as the reference's
-    ``jax.checkpoint``."""
+def _run_layers(layer, x, stack: dict, cfg: T5Config):
+    """``x = layer(x, lp)`` for each layer's parameters ``lp`` of the
+    stacked ``stack`` (unbound once: see ``unbind_layers``); with
+    ``cfg.remat`` and grad enabled each runs under
+    ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``."""
     remat = cfg.remat and torch.is_grad_enabled()
-    for i in range(n):
-        x = checkpoint(layer, x, i, use_reentrant=False,
-                       preserve_rng_state=False) if remat else layer(x, i)
+    for lp in unbind_layers(stack):
+        x = checkpoint(layer, x, lp, use_reentrant=False,
+                       preserve_rng_state=False) if remat else layer(x, lp)
     return x
 
 
@@ -196,13 +194,12 @@ def t5_encode(params: dict, tokens: torch.Tensor, cfg: T5Config,
     s = tokens.shape[1]
     bias = _rel_bias(params["enc_rel"], s, s, True, cfg)
 
-    def layer(x, i):
-        lp = _layer(params["encoder"], i)
+    def layer(x, lp):
         h = _rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
         x = _attn(h, x, lp, "w", cfg, bias, causal=False)
         return _ffn(x, lp, cfg)
 
-    x = _run_layers(layer, x, cfg.n_enc_layers, cfg)
+    x = _run_layers(layer, x, params["encoder"], cfg)
     return _rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
@@ -215,15 +212,14 @@ def t5_decode_train(params: dict, enc_out: torch.Tensor,
     t = dec_tokens.shape[1]
     self_bias = _rel_bias(params["dec_rel"], t, t, False, cfg)
 
-    def layer(x, i):
-        lp = _layer(params["decoder"], i)
+    def layer(x, lp):
         h = _rmsnorm(x, lp["self_norm"], cfg.norm_eps)
         x = _attn(h, x, lp, "s", cfg, self_bias, causal=True)
         h = _rmsnorm(x, lp["cross_norm"], cfg.norm_eps)
         x = _attn(h, x, lp, "c", cfg, None, causal=False, kv_src=enc_out)
         return _ffn(x, lp, cfg)
 
-    x = _run_layers(layer, x, cfg.n_dec_layers, cfg)
+    x = _run_layers(layer, x, params["decoder"], cfg)
     x = _rmsnorm(x, params["dec_final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"]).float()
 
@@ -327,8 +323,7 @@ def t5_decode_step(params: dict, state: dict, token: torch.Tensor, pos: int,
     x = embed_lookup(params["embed"], token[:, None])   # [B, 1, D]
     self_bias = _decode_rel_bias(params["dec_rel"], pos, s, cfg)
     visible = torch.arange(s, device=token.device) <= pos
-    for i in range(cfg.n_dec_layers):
-        lp = _layer(params["decoder"], i)
+    for i, lp in enumerate(unbind_layers(params["decoder"])):
         ck, cv = state["k"][i], state["v"][i]
         # self-attention over the cache (causal via k_pos <= pos)
         h = _rmsnorm(x, lp["self_norm"], cfg.norm_eps)
@@ -432,8 +427,7 @@ def _t5_paged_step(params: dict, cross_k, cross_v, token, pool_k, pool_v, pt,
     i32 = dict(dtype=torch.int32, device=token.device)
     qpos = torch.full((b,), pos, **i32)
     zeros_b = torch.zeros((b,), **i32)
-    for i in range(cfg.n_dec_layers):
-        lp = _layer(params["decoder"], i)
+    for i, lp in enumerate(unbind_layers(params["decoder"])):
         h = _rmsnorm(x, lp["self_norm"], cfg.norm_eps)[:, 0]   # [B, D]
         q0 = (h @ lp["sq"]).view(b, cfg.n_heads, hd)
         bk, bv = buf_k[i], buf_v[i]

@@ -7,8 +7,8 @@ raises), a CPU tensor takes the plain versions.  The forward is
 ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` against
 :func:`flash_attention_bwd_ref`, joined to autograd by
 :class:`_FlashAttention`.  The kernels mask ragged T/S edges themselves,
-so no shape falls back.  Kernels 1 and 3 have two instances each, and
-:func:`_flash_route` picks one by dtype and head dim.
+so no shape falls back.  Kernels 1, 2 and 3 have two instances each,
+and :func:`_flash_route` picks one by dtype and head dim.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from kubegpu_tpu_torch import kernels
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
-# bf16 at head dims 64 and 128 runs kernels 1 and 3 on the tensor cores
+# bf16 at head dims 64 and 128 runs kernels 1-3 on the tensor cores
 # (_flash_route); f32 at 64 and 128 runs the vectorized CUDA-core
 # instances; any other head dim up to this one runs a CUDA-core instance
 # padded to 32/64/128/256 channels
@@ -27,7 +27,7 @@ KERNEL_MAX_HEAD_DIM = 256
 
 
 def _flash_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The instance of kernels 1 and 3 for a dtype and head dim: ``"tc"``
+    """The instance of kernels 1-3 for a dtype and head dim: ``"tc"``
     (wgmma on the tensor cores, fed by TMA) for bf16 at head dims 64 and
     128, ``"simt"`` (f32 FMA loops on the CUDA cores) otherwise.  f32 stays
     off the tensor cores, where it would compute in TF32.  This is a
@@ -189,8 +189,9 @@ def _check_bwd_inputs(q, k, v, do, lse, delta):
                 or not x.is_contiguous() or x.device != q.device:
             raise ValueError(f"{name} must be contiguous f32 [B, Hq, T] on "
                              f"{q.device}")
-    if any(x.data_ptr() % 16 for x in (q, k, v, do)):
-        raise ValueError("flash backward kernels need 16-byte aligned q/k/v/do")
+    if any(x.data_ptr() % 16 for x in (q, k, v, do, lse, delta)):
+        raise ValueError("flash backward kernels need 16-byte aligned "
+                         "q/k/v/do/lse/delta (TMA)")
 
 
 def _bwd_args(q, k, v, do, lse, delta, causal):
@@ -202,14 +203,16 @@ def _bwd_args(q, k, v, do, lse, delta, causal):
 
 
 def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal):
-    """Kernel 2 (``csrc/flash_bwd_dq.cu``): dq like q.  q/k/v/do
-    contiguous CUDA tensors of one dtype; ``lse``/``delta`` f32
-    [B, Hq, T]."""
+    """Kernel 2 (``csrc/flash_bwd_dq.cu``): dq like q, on the instance
+    :func:`_flash_route` picks (no atomics: two launches give equal bits).
+    q/k/v/do contiguous CUDA tensors of one dtype; ``lse``/``delta`` f32
+    [B, Hq, T]; all 16-byte aligned."""
     _check_bwd_inputs(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
     if q.numel():   # with no keys the kernel writes zeros
         ptrs, ints = _bwd_args(q, k, v, do, lse, delta, causal)
-        kernels.call("flash_bwd_dq", *ptrs, dq.data_ptr(), *ints)
+        kernels.call("flash_bwd_dq", *ptrs, dq.data_ptr(), *ints,
+                     route=_flash_route(q.dtype, q.shape[-1]))
     return dq
 
 

@@ -26,9 +26,12 @@ from kubegpu_tpu_torch import kernels
 from kubegpu_tpu_torch.ops.flash_attention import KERNEL_MAX_HEAD_DIM, NEG_INF
 from kubegpu_tpu_torch.ops.kvquant import q4_unpack
 
-# keys per chunk and query heads per CTA of csrc/paged_decode.cuh: they size
-# the scratch of the mass output
+# keys per chunk and query heads per CTA of csrc/paged_decode.cuh's chunk
+# walk: they size the scratch of the mass output
 _KC, _GMAX = 32, 8
+# kernel 7's split walk cuts a row's pages into one split a page, up to
+# this many splits (at most csrc/paged_decode.cuh's split::MAX_SPLITS)
+_MAX_SPLITS = 32
 
 
 def page_table_size(max_len: int, page_size: int) -> int:
@@ -313,6 +316,24 @@ def paged_attention(q, pool_k, pool_v, page_table, layer, t, t_pad, d,
                                t_pad, d, k_scale, v_scale, collect_mass)
 
 
+_split_buffers: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _split_scratch(device, n_floats: int, n_rows: int):
+    """Kernel 7's scratch on ``device``: the splits' partials (f32) and one
+    counter per (row, head) (int32, zero between launches: the kernel's
+    last CTA resets its own).  Kept and reused across calls, grown when a
+    call needs more: no allocation per call once warm, and nothing read
+    back to the host, so a later CUDA graph can capture the call."""
+    parts, count = _split_buffers.get(device, (None, None))
+    if parts is None or parts.numel() < n_floats:
+        parts = torch.empty(n_floats, dtype=torch.float32, device=device)
+    if count is None or count.numel() < n_rows:
+        count = torch.zeros(n_rows, dtype=torch.int32, device=device)
+    _split_buffers[device] = (parts, count)
+    return parts, count
+
+
 def _paged_bias_cuda(q, pool_k, pool_v, page_table, layer, t, t_pad, d, q_pos,
                      table, max_dist: int):
     _check_mha(q, pool_k)
@@ -337,14 +358,19 @@ def _paged_bias_cuda(q, pool_k, pool_v, page_table, layer, t, t_pad, d, q_pos,
     o = torch.empty((b, h, dd), **f32)
     m = torch.empty((b, h), **f32)
     l = torch.empty((b, h), **f32)
+    max_pages = page_table.shape[1]
     if b:
+        n_splits = min(max_pages, _MAX_SPLITS)
+        n_floats = b * h * n_splits * (dd + 2)
+        parts, count = _split_scratch(q.device, n_floats, b * h)
         kernels.call("paged_decode_bias", q.data_ptr(), pool_k.data_ptr(),
                      pool_v.data_ptr(), page_table.data_ptr(),
                      _layer_ptr(layer, n_layers, q.device), t.data_ptr(),
                      t_pad.data_ptr(), d.data_ptr(), q_pos.data_ptr(),
                      table.data_ptr(), o.data_ptr(), m.data_ptr(),
-                     l.data_ptr(), b, h, n_pages, p, dd, page_table.shape[1],
-                     nb, max_dist, int(q.dtype == torch.bfloat16))
+                     l.data_ptr(), parts.data_ptr(), count.data_ptr(), b, h,
+                     n_pages, p, dd, max_pages, nb, max_dist, n_splits,
+                     parts.numel(), int(q.dtype == torch.bfloat16))
     return o, m, l
 
 
@@ -354,8 +380,9 @@ def paged_attention_biased(q, pool_k, pool_v, page_table, layer, t, t_pad, d,
     the T5 decoder's paged self-attention; same signature and outputs as
     :func:`paged_attention_biased_ref`.  ``bias_table`` is cast to a
     contiguous f32 ``[H, n_buckets]``.  CUDA tensors launch kernel 7
-    (``csrc/paged_decode_bias.cu``), which reads only the pages each row
-    holds; CPU tensors run the plain version.  ``Hq != Hkv`` raises
+    (``csrc/paged_decode_bias.cu``, the split walk: one CTA per row, head
+    and page, up to 32 splits a row, merged in a fixed order), which reads
+    only the pages each row holds; CPU tensors run the plain version.  ``Hq != Hkv`` raises
     ``ValueError`` (the bias is per query head over MHA pages), and so does
     a gradient request (see :func:`_refuse_grad`)."""
     _refuse_grad("paged_attention_biased", q, pool_k, pool_v, bias_table)

@@ -345,18 +345,49 @@ def test_flash_tc_dkv_is_deterministic(dev):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+@pytest.mark.parametrize("d,g,causal,t,s", TC_CASES)
+def test_flash_tc_dq_matches_plain(dev, d, g, causal, t, s):
+    """Kernel 2's tensor-core instance against ``flash_attention_bwd_ref``:
+    max |err| over max |ref| within 1e-2 (the kernel rounds ds to bf16
+    before dQ = ds K, as the reference does, and its output to bf16); one
+    launch, on the ``tc`` route only."""
+    q, k, v, do = _tc_inputs(dev, d, g, t, s)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    before = dict(kernels.launches)
+    dq = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert _moved(before) == {"flash_bwd_dq": 1, "flash_bwd_dq/tc": 1}
+    rq, _, _ = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
+    assert dq.shape == q.shape and dq.dtype == torch.bfloat16
+    assert _rel_err(dq, rq) <= 1e-2
+
+
+def test_flash_tc_dq_is_deterministic(dev):
+    """Each CTA writes its own rows from registers, with no atomics: two
+    launches on the same inputs give equal bits."""
+    q, k, v, do = _tc_inputs(dev, 128, 4, 300, 300, seed=2)
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    delta = (do.float() * out.float()).sum(-1)
+    first = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, True)
+    second = fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, True)
+    assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"),
                                          (torch.float32, "simt")])
 def test_flash_route_counts(dev, dtype, route):
     """At head dim 128 a bf16 call moves only the ``tc`` counters of
-    kernels 1 and 3, an f32 call only the ``simt`` ones."""
+    kernels 1-3, an f32 call only the ``simt`` ones."""
     q, k, v, do = (x.to(dtype) for x in _tc_inputs(dev, 128, 4, 64, 64))
     before = dict(kernels.launches)
     out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
-    fa._flash_bwd_dkv_cuda(q, k, v, do, lse, (do * out).float().sum(-1),
-                           True)
+    delta = (do * out).float().sum(-1)
+    fa._flash_bwd_dq_cuda(q, k, v, do, lse, delta, True)
+    fa._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, True)
     torch.cuda.synchronize()
     assert _moved(before) == {"flash_fwd": 1, f"flash_fwd/{route}": 1,
+                              "flash_bwd_dq": 1, f"flash_bwd_dq/{route}": 1,
                               "flash_bwd_dkv": 1, f"flash_bwd_dkv/{route}": 1}
 
 
@@ -399,6 +430,99 @@ def test_biased_kernel_matches_plain(dev, dtype, hd, qpos):
     assert (m - rm).abs().max().item() <= 1e-3
     assert ((l - rl).abs() <= 1e-3 * rl).all()
     assert not o[2].any() and not l[2].any() and (m[2] == -1e30).all()
+
+
+def _bias_rows(dev, dtype, n_layers, h, p, hd, rows, qpos, seed=0,
+               misalign=False):
+    """Kernel 7's arguments over a fresh pool: ``rows`` as (table, t,
+    t_pad, d); with ``misalign`` the pools start 4 bytes past a 16-byte
+    boundary (the instance that reads rows from the pool)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = 1 + max(max(r[0]) for r in rows)
+    shape = (n_layers, n_pages, h, p, hd)
+    n = int(np.prod(shape))
+
+    def pool():
+        x = torch.randn(n + 4, generator=g, device=dev).to(dtype)
+        off = 4 // x.element_size() if misalign else 0
+        return x[off:off + n].view(shape)
+    pk, pv = pool(), pool()
+    q = torch.randn(len(rows), h, hd, generator=g, device=dev).to(dtype)
+    width = max(len(r[0]) for r in rows)
+    i32 = dict(dtype=torch.int32, device=dev)
+    pt = torch.tensor([r[0] + [0] * (width - len(r[0])) for r in rows], **i32)
+    t, tpad, d = (torch.tensor([r[i] for r in rows], **i32) for i in (1, 2, 3))
+    table = torch.randn(h, 32, generator=g, device=dev)
+    return (q, pk, pv, pt, n_layers - 1, t, tpad, d,
+            torch.tensor(qpos, **i32), table)
+
+
+def _check_biased(args, max_dist, bf16):
+    """One launch of kernel 7 against its plain version (o within 1e-2 in
+    bf16, 1e-4 in f32; m within 1e-3; l within 1e-3 relative), and a second
+    launch with equal bits."""
+    before = dict(kernels.launches)
+    got = pa.paged_attention_biased(*args, bias_max_dist=max_dist)
+    again = pa.paged_attention_biased(*args, bias_max_dist=max_dist)
+    torch.cuda.synchronize()
+    assert _moved(before) == {"paged_decode_bias": 2}
+    ro, rm, rl = pa.paged_attention_biased_ref(*args, max_dist)
+    o, m, l = got
+    assert (o - ro).abs().max().item() <= (1e-2 if bf16 else 1e-4)
+    assert (m - rm).abs().max().item() <= 1e-3
+    assert ((l - rl).abs() <= 1e-3 * rl).all()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    return got
+
+
+def test_biased_split_walk_at_the_t5_shape(dev):
+    """Kernel 7 at T5 v1.1-base's serving shape (bf16, 8 rows, 12 heads,
+    pages of 128, head dim 64, 256 flushed keys of a 3-page table, query
+    positions past them): one split a page, the empty third split
+    included."""
+    rows = [([1 + 3 * r, 2 + 3 * r, 3 + 3 * r], 0, 0, 256) for r in range(8)]
+    args = _bias_rows(dev, torch.bfloat16, 12, 12, 128, 64, rows,
+                      [256 + 16 * r for r in range(8)])
+    _check_biased(args, 128, True)
+
+
+@pytest.mark.parametrize("dtype,hd,misalign", [(torch.float32, 128, False),
+                                               (torch.bfloat16, 256, False),
+                                               (torch.bfloat16, 64, True),
+                                               (torch.float32, 80, False)])
+def test_biased_split_walk_on_long_rows(dev, dtype, hd, misalign):
+    """Tables 40 pages wide (32 splits of 2 pages; at f32 and head dim 128
+    a page is 4 tiles, so the 2-stage ring turns over): a long prompt, a
+    prompt with a decode region far past it, a decode region alone, and an
+    empty row, against the plain version; at head dim 80 and on a
+    misaligned pool the instance that reads rows from the pool."""
+    w = 40
+    rows = [(list(range(1, w + 1)), 4000, 4096, 0),
+            (list(range(w + 1, 2 * w + 1)), 300, 384, 3000),
+            (list(range(2 * w + 1, 3 * w + 1)), 0, 0, 129),
+            ([0] * w, 0, 0, 0)]
+    args = _bias_rows(dev, dtype, 2, 4, 128, hd, rows, [4010, 3500, 90, 0],
+                      misalign=misalign)
+    o, m, l = _check_biased(args, 128, dtype == torch.bfloat16)
+    assert not o[3].any() and not l[3].any() and (m[3] == -1e30).all()
+
+
+@pytest.mark.parametrize("max_splits", [1, 2])
+def test_biased_split_walk_with_fewer_splits(dev, monkeypatch, max_splits):
+    """The long rows of the test above at f32 and head dim 128 (4 tiles a
+    page) with the wrapper's cap on splits lowered: one split a row (the
+    CTA writes the output itself, no merge) and two splits of 20 pages
+    (the 2-stage ring turns over 40 times a CTA)."""
+    monkeypatch.setattr(pa, "_MAX_SPLITS", max_splits)
+    w = 40
+    rows = [(list(range(1, w + 1)), 4000, 4096, 0),
+            (list(range(w + 1, 2 * w + 1)), 300, 384, 3000),
+            (list(range(2 * w + 1, 3 * w + 1)), 0, 0, 129),
+            ([0] * w, 0, 0, 0)]
+    args = _bias_rows(dev, torch.float32, 2, 4, 128, 128, rows,
+                      [4010, 3500, 90, 0])
+    o, m, l = _check_biased(args, 128, False)
+    assert not o[3].any() and not l[3].any() and (m[3] == -1e30).all()
 
 
 def test_tiny_t5_paged_generate_on_the_card(dev):

@@ -2,10 +2,11 @@
 arithmetic modelled on the CPU.
 
 ``_flash_route`` sends bf16 at head dims 64 and 128 to the tensor-core
-instances (wgmma + TMA) and everything else to the CUDA-core ones.  The
-tensor-core instances round differently from the CUDA-core ones: the
-forward rounds p to bf16 before P.V, and dk/dv round p and ds to bf16
-before dV and dK, with f32 sums, as the JAX package's Pallas kernels do.
+instances of kernels 1-3 (wgmma + TMA) and everything else to the CUDA-core
+ones.  The tensor-core instances round differently from the CUDA-core ones:
+the forward rounds p to bf16 before P.V, dk/dv round p and ds to bf16
+before dV and dK, and dq rounds ds to bf16 before dQ, with f32 sums, as the
+JAX package's Pallas kernels do.
 The model below repeats that arithmetic in plain PyTorch and is held to
 
 - the port's f32 plain versions (``xla_attention``, ``_xla_lse``,
@@ -49,10 +50,11 @@ def test_flash_route(dtype, head_dim):
 
 @pytest.mark.parametrize("name,route", [("flash_fwd", None),
                                         ("flash_bwd_dkv", None),
+                                        ("flash_bwd_dq", None),
                                         ("flash_fwd", "wgmma"),
                                         ("paged_decode", "tc")])
 def test_call_refuses_a_route_that_does_not_fit(name, route):
-    """Kernels 1 and 3 need a route, every other kernel takes none, and a
+    """Kernels 1-3 need a route, every other kernel takes none, and a
     route must be one of ``kernels.ROUTES``'; checked before any library
     is loaded, so no launch is counted."""
     from kubegpu_tpu_torch import kernels
@@ -120,6 +122,22 @@ def model_dkv(q, k, v, do, lse, delta, causal):
             dv.view(b, hkv, g, s, d).sum(2).bfloat16())
 
 
+def model_dq(q, k, v, do, lse, delta, causal):
+    """The tensor-core dq's arithmetic: p = exp2(q.k scale log2e - lse
+    log2e) in f32, ds = p (dp - delta) scale in f32, rounded to bf16 before
+    dQ = ds K (f32 sums), rounded to bf16."""
+    t, d = q.shape[2], q.shape[3]
+    s = k.shape[2]
+    scale = d ** -0.5
+    kr, vr = (x.float() for x in repeat_kv(q, k, v))
+    sc = torch.einsum("bhtd,bhsd->bhts", q.float(), kr) * (scale * LOG2E)
+    p = torch.exp2(sc - lse[..., None] * LOG2E)
+    p = p.masked_fill(~_mask(t, s, causal), 0.0)
+    dp = torch.einsum("bhtd,bhsd->bhts", do.float(), vr)
+    ds = (p * (dp - delta[..., None]) * scale).bfloat16().float()
+    return torch.einsum("bhts,bhsd->bhtd", ds, kr).bfloat16()
+
+
 def _bf16_inputs(b, hq, hkv, t, s, d, seed):
     rng = np.random.default_rng(seed)
     q, do = (torch.from_numpy(rng.standard_normal((b, hq, t, d), np.float32))
@@ -181,3 +199,35 @@ def test_tc_model_matches_pallas():
     for got, ref in ((dk, jdk), (dv, jdv)):
         ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
         assert _rel_err(got, ref) <= 1e-2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tc_model_dq_meets_the_card_limit(causal):
+    """At [1, 8, 512, 128] vs [1, 2, 512, 128] (group 4), the tensor-core
+    dq's arithmetic against ``flash_attention_bwd_ref`` in f32, both fed the
+    model forward's out and lse (as the card check feeds the kernel the
+    forward kernel's): max |err| over max |ref| within the card's 1e-2."""
+    q, k, v, do = _bf16_inputs(1, 8, 2, 512, 512, 128, seed=2)
+    out, lse = model_forward(q, k, v, causal)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = model_dq(q, k, v, do, lse, delta, causal)
+    rq, _, _ = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       out.float(), lse, do.float(), causal)
+    assert dq.dtype == torch.bfloat16
+    assert _rel_err(dq, rq) <= 1e-2
+
+
+def test_tc_model_dq_matches_pallas():
+    """At T = S = 256 (group 2, head dim 128, causal), the tensor-core dq's
+    arithmetic against the JAX Pallas ``dq`` kernel in interpret mode, both
+    fed the same bf16 inputs, out and lse: within 1e-2 of max |ref|."""
+    q, k, v, do = _bf16_inputs(1, 4, 2, 256, 256, 128, seed=3)
+    out, lse = model_forward(q, k, v, True)
+    jq, jk, jv, jdo, jout = (jnp.asarray(x.float().numpy(), jnp.bfloat16)
+                             for x in (q, k, v, do, out))
+    jdq, _, _ = jax_bwd(jq, jk, jv, jout, jnp.asarray(lse.numpy()), jdo,
+                        causal=True, block_q=64, block_k=128, interpret=True)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = model_dq(q, k, v, do, lse, delta, True)
+    ref = torch.from_numpy(np.array(jdq.astype(jnp.float32)))
+    assert _rel_err(dq, ref) <= 1e-2

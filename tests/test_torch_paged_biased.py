@@ -15,6 +15,7 @@ import torch
 from kubegpu_tpu.models.t5 import rel_pos_bucket as jax_bucket
 from kubegpu_tpu.ops import paged_attention as jpa
 from kubegpu_tpu_torch.ops import paged_attention_biased_ref, rel_pos_bucket
+from kubegpu_tpu_torch.ops.flash_attention import NEG_INF
 from kubegpu_tpu_torch.ops.paged_attention import paged_attention_biased
 
 ATOL = 1e-5
@@ -139,3 +140,96 @@ def test_gradient_request_raises(needs_grad):
     with torch.no_grad():
         assert paged_attention_biased(
             *args, bias_max_dist=MAX_DIST)[0].shape == (4, 2, D)
+
+
+def model_split_walk(q, pk, pv, pt, layer, t, t_pad, d, q_pos, table,
+                     max_dist, n_splits):
+    """Kernel 7's split walk in plain PyTorch: a row's pages cut into
+    ``n_splits`` splits of ceil(max_pages / n_splits) pages, each split's
+    partial (unnormalized acc, m, l) over its valid keys, the weights
+    rounded to the pool's type before P.V, then the splits merged in split
+    order.  Returns (o normalized, m, l) as the kernel does."""
+    b, h, dd = q.shape
+    p, max_pages = pk.shape[3], pt.shape[1]
+    pps = -(-max_pages // n_splits)
+    o = torch.zeros(b, h, dd)
+    m = torch.full((b, h), NEG_INF)
+    l = torch.zeros(b, h)
+    for r in range(b):
+        parts = []
+        for sp in range(n_splits):
+            pages = range(sp * pps, min(sp * pps + pps, max_pages))
+            phys = torch.tensor([rl * p + j for rl in pages for j in range(p)],
+                                dtype=torch.long)
+            ids = pt[r, list(pages)].long()
+            k = pk[layer][ids].permute(1, 0, 2, 3).reshape(h, -1, dd)
+            v = pv[layer][ids].permute(1, 0, 2, 3).reshape(h, -1, dd)
+            valid = (phys < t[r]) | ((phys >= t_pad[r])
+                                     & (phys < t_pad[r] + d[r]))
+            bucket = rel_pos_bucket(phys - q_pos[r], False, table.shape[1],
+                                    max_dist)
+            s = torch.einsum("hd,hsd->hs", q[r].float(), k.float()) \
+                * dd ** -0.5 + table.float()[:, bucket]
+            s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+            ms = s.amax(-1) if s.shape[-1] else torch.full((h,), NEG_INF)
+            w = torch.where(valid, torch.exp(s - ms[:, None]),
+                            torch.zeros_like(s))
+            acc = torch.einsum("hs,hsd->hd", w.to(pv.dtype).float(),
+                               v.float())
+            parts.append((acc, ms, w.sum(-1)))
+        mm = torch.stack([x[1] for x in parts]).amax(0)
+        ll = sum(torch.exp(ms - mm) * ls for _, ms, ls in parts)
+        acc = sum(torch.exp(ms - mm)[:, None] * a for a, ms, _ in parts)
+        o[r] = acc / ll.clamp(min=1e-30)[:, None]
+        m[r], l[r] = mm, ll
+    return o, m, l
+
+
+# the query sets of the split-walk tests: QPOS's, and one whose queries sit
+# on a valid key or before it (distance 0: bucket 0)
+SPLIT_QPOS = {**QPOS, "on_key": np.array([4, 12, 0, 1], np.int32)}
+
+
+@pytest.mark.parametrize("n_splits", [1, 3, 4])
+@pytest.mark.parametrize("qpos", list(SPLIT_QPOS), ids=list(SPLIT_QPOS))
+def test_split_walk_model_matches_plain_and_jax(qpos, n_splits):
+    """The split walk's order (per-split partials merged in split order;
+    4 splits is the wrapper's one a page, 3 leaves the last split without
+    a page) against ``paged_attention_biased_ref`` and the Pallas kernel 7
+    in interpret mode, within ``ATOL``: row 1 attends page 0 through its
+    hole and row 2 is empty (o = 0, m = NEG_INF, l = 0)."""
+    q, pk, pv, table = _inputs(4, seed=4)
+    args = _torch_args(q, pk, pv, table, SPLIT_QPOS[qpos])
+    got = model_split_walk(*args, MAX_DIST, n_splits)
+    ref = paged_attention_biased_ref(*args, MAX_DIST)
+    ker = jpa.paged_attention_biased(
+        *(jnp.asarray(x) for x in (q, pk, pv, PT)), jnp.int32(1),
+        *(jnp.asarray(x) for x in (T, TPAD, DCNT, SPLIT_QPOS[qpos], table)),
+        bias_max_dist=MAX_DIST, interpret=True)
+    for mine, r, k_ in zip(got, ref, ker):
+        np.testing.assert_allclose(mine.numpy(), r.numpy(), atol=ATOL)
+        np.testing.assert_allclose(mine.numpy(), np.asarray(k_), atol=ATOL)
+    assert not got[0][2].any() and not got[2][2].any()
+    assert (got[1][2] == NEG_INF).all()
+    # the hole: row 1's prompt covers its table's 0, and page 0 is attended
+    pk0 = pk.copy()
+    pk0[:, 0] += 1.0
+    moved = model_split_walk(
+        *_torch_args(q, pk0, pv, table, SPLIT_QPOS[qpos]), MAX_DIST,
+        n_splits)
+    assert not torch.equal(moved[0][1], got[0][1])
+    assert torch.equal(moved[0][0], got[0][0])
+
+
+def test_split_walk_cases_hit_every_bucket():
+    """The valid keys of the split-walk query sets reach every bucket of
+    (NB, MAX_DIST), bucket 0 and the clamp included."""
+    phys = torch.arange(PT.shape[1] * P)[None, :]
+    t, tpad, d = (torch.from_numpy(x)[:, None] for x in (T, TPAD, DCNT))
+    valid = (phys < t) | ((phys >= tpad) & (phys < tpad + d))
+    hit = set()
+    for qp in SPLIT_QPOS.values():
+        bucket = rel_pos_bucket(phys - torch.from_numpy(qp)[:, None].long(),
+                                False, NB, MAX_DIST)
+        hit |= set(bucket[valid].tolist())
+    assert hit == set(range(NB))

@@ -202,3 +202,53 @@ def test_loss_grads_and_train_step_match_jax(tiny, remat):
         np.testing.assert_allclose(p[steady], ref_p[name][steady],
                                    atol=PARAM_ATOL, err_msg=name)
         assert np.abs(p - ref_p[name]).max() <= 2e-3, name
+
+
+def _indexed_per_layer(stack):
+    """The stacked leaves indexed once per layer: the form ``unbind_layers``
+    replaced, whose backward builds a zero-filled full stack per layer."""
+    n = len(next(iter(stack.values())))
+    return [{k: leaf[i] for k, leaf in stack.items()} for i in range(n)]
+
+
+def _leaf_grad_ops(loss, leaves) -> dict:
+    """The autograd nodes of ``loss``'s backward that feed one of
+    ``leaves``' gradients directly, counted by node type."""
+    ops, seen, todo = {}, set(), [loss.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        for nxt, _ in fn.next_functions:
+            if any(getattr(nxt, "variable", None) is x for x in leaves):
+                ops[type(fn).__name__] = ops.get(type(fn).__name__, 0) + 1
+            todo.append(nxt)
+    return ops
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_unbound_stacks_give_equal_grads_and_one_stack_per_leaf(
+        tiny, remat, monkeypatch):
+    """``t5_encode`` and ``t5_decode_train`` unbind the encoder and decoder
+    stacks once per forward: every gradient equals the per-layer-index
+    form's under ``torch.equal``, and each stacked leaf's gradient comes
+    from one ``unbind`` backward (one ``stack``), with no
+    ``select_backward`` (the old form had one a layer and leaf)."""
+    cfg_j, params_j, cfg, _ = tiny
+    cfg = dataclasses.replace(cfg, remat=remat)
+    params = _convert(params_j, grad=True)
+    args = (torch.from_numpy(_tokens(9, 2, 10)),
+            torch.from_numpy(_tokens(10, 2, 7)))
+    leaves = tree_leaves(params)
+    stacked = [*params["encoder"].values(), *params["decoder"].values()]
+    loss = tt.seq2seq_loss(params, *args, cfg)
+    assert _leaf_grad_ops(loss, stacked) == {"UnbindBackward0": len(stacked)}
+    grads = torch.autograd.grad(loss, leaves)
+    monkeypatch.setattr(tt, "unbind_layers", _indexed_per_layer)
+    loss = tt.seq2seq_loss(params, *args, cfg)
+    assert _leaf_grad_ops(loss, stacked) == {"SelectBackward0": sum(
+        len(leaf) for leaf in stacked)}
+    old = torch.autograd.grad(loss, leaves)
+    for g, r in zip(grads, old, strict=True):
+        assert torch.equal(g, r)

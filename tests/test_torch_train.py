@@ -175,3 +175,68 @@ def test_accum_steps_refuse_bad_values(tiny):
     params = _torch_params(params_j)
     with pytest.raises(ValueError, match="not divisible"):
         step(params, adamw(1e-3).init(params), torch.from_numpy(tokens))
+
+
+def _indexed_per_layer(stack):
+    """The stacked leaves indexed once per layer: the form ``unbind_layers``
+    replaced, whose backward builds a zero-filled full stack per layer."""
+    n = len(next(iter(stack.values())))
+    return [{k: leaf[i] for k, leaf in stack.items()} for i in range(n)]
+
+
+def _leaf_grad_ops(loss, leaves) -> dict:
+    """The autograd nodes of ``loss``'s backward that feed one of
+    ``leaves``' gradients directly, counted by node type."""
+    ops, seen, todo = {}, set(), [loss.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        for nxt, _ in fn.next_functions:
+            if any(getattr(nxt, "variable", None) is x for x in leaves):
+                ops[type(fn).__name__] = ops.get(type(fn).__name__, 0) + 1
+            todo.append(nxt)
+    return ops
+
+
+def _deep_tiny(remat):
+    cfg = dataclasses.replace(tl.LlamaConfig.tiny(), n_layers=4, remat=remat)
+    params = tl.llama_init(cfg, seed=3, device="cpu")
+    for p in tree_leaves(params):
+        p.requires_grad_()
+    tokens = torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 16)))
+    return cfg, params, tokens
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_unbound_layers_give_equal_grads(remat, monkeypatch):
+    """Unbinding the stacked leaves once per forward gives the gradients
+    of indexing them once per layer, equal under ``torch.equal`` (the old
+    path only added exact zeros), at 4 layers, with and without remat."""
+    cfg, params, tokens = _deep_tiny(remat)
+    leaves = tree_leaves(params)
+    grads = torch.autograd.grad(tl.next_token_loss(params, tokens, cfg),
+                                leaves)
+    monkeypatch.setattr(tl, "unbind_layers", _indexed_per_layer)
+    old = torch.autograd.grad(tl.next_token_loss(params, tokens, cfg),
+                              leaves)
+    for g, r in zip(grads, old, strict=True):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_stacked_leaf_backward_is_one_stack_per_leaf(remat, monkeypatch):
+    """Pins the op count of one backward: each stacked leaf's gradient
+    comes from one ``unbind`` backward (one ``stack``) and no
+    ``select_backward``; the per-layer-index form had one select a layer
+    and leaf, each a zero-filled full stack."""
+    cfg, params, tokens = _deep_tiny(remat)
+    stacked = list(params["layers"].values())
+    loss = tl.next_token_loss(params, tokens, cfg)
+    assert _leaf_grad_ops(loss, stacked) == {"UnbindBackward0": len(stacked)}
+    monkeypatch.setattr(tl, "unbind_layers", _indexed_per_layer)
+    loss = tl.next_token_loss(params, tokens, cfg)
+    assert _leaf_grad_ops(loss, stacked) == {
+        "SelectBackward0": len(stacked) * cfg.n_layers}
