@@ -13,7 +13,9 @@ printed as it ends (any failed check exits non-zero):
    its path's shapes (bf16) and at small f32 edge cases, with times, the
    card's bound and a library yardstick where one call computes the same
    function: flash forward, paged decode over bf16, int8 and packed-int4
-   pages (kernels 4-6, each also with its per-page attention mass), the
+   pages (kernels 4-6, each also with its per-page attention mass; two
+   launches must give equal bits, and on a bf16 case with V = 1 each must
+   round its P.V weights as the plain version does, within 1e-5), the
    biased paged decode of the T5 decoder (kernel 7, at T5 v1.1-base's
    serving shape; two launches must give equal bits), and the flash
    backward's dq and dk/dv kernels (at the training shape, [4, 32, 2048,
@@ -67,6 +69,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -462,9 +465,11 @@ def paged_quant_checks(torch, gen, slice_rows) -> dict:
     """Kernels 5 (int8 pages) and 6 (packed int4 pages) and the mass output
     of kernels 4-6 against ``paged_attention_ref`` on the card: the serving
     shape (pools quantized from bf16 by the port's ``kvquant``, int4 groups
-    of 16), then the f32 edge cases of ``paged_checks`` and int4 groups of
-    1, 4 and P.  Times at the serving shape, bounds from the bytes of this
-    data's valid keys."""
+    of 16; two launches must give equal bits), then the f32 edge cases of
+    ``paged_checks``, int4 groups of 1, 4 and P, and tables 40 pages wide
+    (a split of the split walk holds two pages).  Times at the serving
+    shape, with and without the mass, bounds from the bytes of this data's
+    valid keys."""
     pa = importlib.import_module("kubegpu_tpu_torch.ops.paged_attention")
     kvq = importlib.import_module("kubegpu_tpu_torch.ops.kvquant")
     q, pk, pv, pt, t, tpad, d = paged_case(
@@ -477,9 +482,14 @@ def paged_quant_checks(torch, gen, slice_rows) -> dict:
     for fmt, (kq, vq, ks, vs) in pools.items():
         args = (q, kq, vq, pt, 31, t, tpad, d, ks, vs)
         got = pa.paged_attention(*args, collect_mass=True)
+        again = pa.paged_attention(*args, collect_mass=True)
         ref = pa.paged_attention_ref(*args, collect_mass=True)
         part = pa.paged_attention(*args)
         torch.cuda.synchronize()
+        # the splits and the mass merge in a fixed order, with no float
+        # atomics: equal bits
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"paged {fmt}: two launches differ")
         err = max_err(got[0], ref[0])
         m_err = max_err(got[1], ref[1])
         l_rel = ((got[2] - ref[2]).abs() / ref[2].clamp(min=1e-30)).max().item()
@@ -490,7 +500,7 @@ def paged_quant_checks(torch, gen, slice_rows) -> dict:
         log("kernels", kernel=f"paged {fmt}", case="bf16 B=8 Hq=32 Hkv=8 "
             "P=128, with mass", max_abs_err=err, tol=1e-2, m_err=m_err,
             l_rel_err=l_rel, mass_err=mass_err, mass_tol=1e-3,
-            partials_equal_without_mass=all(
+            bit_equal=True, partials_equal_without_mass=all(
                 torch.equal(a, b) for a, b in zip(part, got[:3])))
         out[fmt] = {"args": args, "max_abs_err": err, "mass_err": mass_err}
     # f32 edge cases: a hole, an empty row (2), decode pages past t_pad,
@@ -501,22 +511,39 @@ def paged_quant_checks(torch, gen, slice_rows) -> dict:
                                           (8, 16), (4, 80))
              for fmt in ("bf16", "q8", "q4g4")]
     cases += [("q4g1", 8, 64), ("q4g16", 8, 64), ("q4g1", 8, 16)]
-    for fmt, hq, hd in cases:
+    # tables 40 pages wide (32 splits of 2 pages): a long prompt with a
+    # hole, a prompt and a decode region far past it, a decode region alone
+    wide = [([1 + i if i != 7 else 0 for i in range(40)], 600, 608, 0),
+            (list(range(41, 81)), 60, 128, 400), (list(range(81, 121)), 0, 0,
+                                                  257), ([0] * 40, 0, 0, 0)]
+    cases = [(fmt, hq, hd, rows) for fmt, hq, hd in cases] + [
+        (fmt, 8, hd, wide) for fmt, hd in (("bf16", 128), ("q4g4", 128),
+                                           ("bf16", 80))]
+    for fmt, hq, hd, frows in cases:
         fq, fk, fv, fpt, ft, ftp, fd = paged_case(
-            torch, gen, torch.float32, 2, 12, 2, 16, hd, hq, rows)
+            torch, gen, torch.float32, 2, 1 + max(max(r[0]) for r in frows),
+            2, 16, hd, hq, frows)
         kq, vq, ks, vs = ((fk, fv, None, None) if fmt == "bf16"
                           else quantize_pool(torch, kvq, fk, fv, fmt))
         fargs = (fq, kq, vq, fpt, 1, ft, ftp, fd, ks, vs)
         got = pa.paged_attention(*fargs, collect_mass=True)
         ref = pa.paged_attention_ref(*fargs, collect_mass=True)
-        e = max(max_err(a, b) for a, b in zip(got[:3], ref[:3]))
+        # l of the wide rows sums ~600 weights: held relative to its size
+        e = max(max_err(a, b) for a, b in zip(
+            got[:3 if frows is rows else 2], ref))
         check(e <= 1e-4, f"paged {fmt} f32 hq={hq} hd={hd}: max |err| {e}")
-        check(not got[0][2].any().item() and not got[2][2].any().item(),
+        l_rel = ((got[2] - ref[2]).abs() / ref[2].clamp(min=1)).max().item()
+        check(l_rel <= 1e-5, f"paged {fmt} f32 hq={hq} hd={hd}: l rel err "
+              f"{l_rel}")
+        empty = next(i for i, r in enumerate(frows) if r[1] == r[3] == 0)
+        check(not got[0][empty].any().item()
+              and not got[2][empty].any().item(),
               f"paged {fmt}: the empty row must give o = 0, l = 0")
-        me = mass_checks(torch, got[3], ref[3], 1e-5, empty_row=2)
+        me = mass_checks(torch, got[3], ref[3], 1e-5, empty_row=empty)
         log("kernels", kernel=f"paged {'f32' if fmt == 'bf16' else fmt}",
-            case=f"f32 hq={hq} hkv=2 hd={hd} P=16 holes/empty/decode, mass",
-            max_abs_err=e, tol=1e-4, mass_err=me, mass_tol=1e-5)
+            case=f"f32 hq={hq} hkv=2 hd={hd} P=16 holes/empty/decode, mass, "
+            f"{fpt.shape[1]} pages", max_abs_err=e, tol=1e-4, mass_err=me,
+            mass_tol=1e-5)
     # times at the serving shape: each kernel without and with the mass
     valid = sum(t_ + d_ for _, t_, _, d_ in slice_rows)
     groups = sum(-(-t_ // 16) + -(-d_ // 16) for _, t_, _, d_ in slice_rows)
@@ -541,11 +568,59 @@ def paged_quant_checks(torch, gen, slice_rows) -> dict:
                                                 torch.bfloat16)
         r["mass_bound_ms"], _ = bound_ms(fixed + kv_bytes[fmt] + mass_bytes,
                                          flops, torch.bfloat16)
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        r["mass_share_of_bound"] = r["mass_bound_ms"] / r["mass_ms"]
         log("kernels", kernel=f"paged {fmt}", ms=r["ms"],
             mass_ms=r["mass_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], mass_bound_ms=r["mass_bound_ms"],
-            bound_by=r["bound_by"],
-            **({"perf_md_ms_before": 0.0431} if fmt == "bf16" else {}))
+            bound_by=r["bound_by"], share_of_bound=r["share_of_bound"],
+            mass_share_of_bound=r["mass_share_of_bound"],
+            perf_md_ms_before=PAGED_MS_BEFORE[fmt][0],
+            perf_md_mass_ms_before=PAGED_MS_BEFORE[fmt][1])
+    return out
+
+
+# PR 6's times (ms, with the mass) of kernels 4-6 at the serving shape, on
+# the chunk walk (PERF.md section 6, NVIDIA H100 80GB HBM3 at 700 W)
+PAGED_MS_BEFORE = {"bf16": (0.0427, 0.0492), "q8": (0.0396, 0.0476),
+                   "q4g16": (0.0380, 0.0470)}
+
+
+def paged_rounding_checks(torch) -> dict:
+    """Kernels 4-6 round each P.V weight to q's type after the v-scale, as
+    the TPU kernels do: bf16, V = 1, rows of 2-4 valid keys at the start of
+    one page, integer q and K (so both sides compute the same scores and
+    weights exactly).  The plain version's o is off 1 by the rounding
+    (> 1e-4); each kernel must match it within 1e-5, the mass included."""
+    pa = importlib.import_module("kubegpu_tpu_torch.ops.paged_attention")
+    kvq = importlib.import_module("kubegpu_tpu_torch.ops.kvquant")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    shape = (1, 8, 2, 16, 128)
+    pk = torch.randint(-2, 3, shape, generator=g, device="cuda").bfloat16()
+    pv = torch.ones(shape, device="cuda").bfloat16()
+    q = torch.randint(-1, 2, (3, 8, 128), generator=g,
+                      device="cuda").bfloat16()
+    i32 = dict(dtype=torch.int32, device="cuda")
+    pt = torch.tensor([[3, 0], [5, 0], [0, 7]], **i32)
+    t, tpad, d = (torch.tensor(x, **i32) for x in ([3, 0, 0], [16, 0, 16],
+                                                    [0, 4, 2]))
+    out = {}
+    for fmt in ("bf16", "q8", "q4g4"):
+        kq, vq, ks, vs = ((pk, pv, None, None) if fmt == "bf16"
+                          else quantize_pool(torch, kvq, pk, pv, fmt))
+        args = (q, kq, vq, pt, 0, t, tpad, d, ks, vs)
+        got = pa.paged_attention(*args, collect_mass=True)
+        ref = pa.paged_attention_ref(*args, collect_mass=True)
+        off = (ref[0] - 1).abs().max().item()
+        err = max(max_err(a, r) for a, r in zip(got, ref))
+        check(off > 1e-4, f"paged {fmt}: the rounding case is not sensitive "
+              f"(plain o off 1 by {off})")
+        check(err <= 1e-5, f"paged {fmt}: V = 1 rounding case max |err| "
+              f"{err} > 1e-5")
+        log("kernels", kernel=f"paged {fmt}", case="bf16 V=1, 2-4 keys a "
+            "row, integer q and K: weights rounded as the reference",
+            plain_o_off_1=off, max_abs_err=err, tol=1e-5)
+        out[fmt] = err
     return out
 
 
@@ -1312,6 +1387,34 @@ def t5_phase(torch, kernels, gen, name, cfg=None) -> dict:
             "training": training}
 
 
+def ptxas_instances(text: str) -> list:
+    """Each kernel instance of an ``-Xptxas -v`` build log: its name
+    (demangled by ``c++filt`` where the machine has it), registers a thread
+    and bytes spilled (stores + loads)."""
+    out, name, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append({"name": name, "registers": int(m.group(1)),
+                        "spill_bytes": spill})
+            name = None
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(i["name"] for i in out),
+            capture_output=True, text=True, timeout=60).stdout.splitlines()
+        for i, n in zip(out, names):
+            i["name"] = n.replace("kubetpu::", "").replace(
+                "__nv_bfloat16", "bf16")
+    return out
+
+
 def only_tc(launches: dict, names, path: str) -> None:
     """Kernels 1-3 ran on their tensor-core instances only."""
     for k in names:
@@ -1357,10 +1460,13 @@ def main(argv=None) -> int:
     build_logs = kernels.build()
     build_s = time.perf_counter() - t0
     log("build", seconds=round(build_s, 2), kernels=list(build_logs))
-    for kname, text in build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {kname}: {line.strip()}")
+    ptxas = {kname: ptxas_instances(text)
+             for kname, text in build_logs.items()}
+    for kname, inst in ptxas.items():
+        spilling = [i["name"] for i in inst if i["spill_bytes"]]
+        log("build", kernel=kname, instances=len(inst),
+            max_registers=max((i["registers"] for i in inst), default=None),
+            spilling=spilling)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cfg = LlamaConfig.llama3_8b()
@@ -1373,6 +1479,7 @@ def main(argv=None) -> int:
     results = {"flash_fwd": flash_checks(torch, gen),
                "paged_decode": paged_checks(torch, gen, slice_rows)}
     quant = paged_quant_checks(torch, gen, slice_rows)
+    rounding = paged_rounding_checks(torch)
     results["paged_decode_q8"] = quant["q8"]
     results["paged_decode_q4"] = quant["q4g16"]
     results["paged_decode"]["mass"] = quant["bf16"]
@@ -1469,9 +1576,10 @@ def main(argv=None) -> int:
     check(len(line["kernels"]) == len(kernels.SIGNATURES),
           "the kernels line misses a kernel")
     details = {"card": card, "kind": name, "build_s": build_s,
+               "ptxas": ptxas,
                "forward": fwd, "serving": serve, "parity": parity,
                "quantized_serving": quant_serve,
-               "paged_mass": quant["bf16"],
+               "paged_mass": quant["bf16"], "paged_rounding": rounding,
                "profile": prof, "training": train,
                "flash_fwd_training_shape": fwd_train,
                "t5": t5_stats,

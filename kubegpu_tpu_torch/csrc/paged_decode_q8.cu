@@ -5,10 +5,12 @@
 // attention mass.  Pages hold int8 K/V with one f32 scale per key
 // ([L, n_pages, Hkv, P]): a key row is D bytes, read in 16-byte loads and
 // widened in registers; the k-scale folds into the key's score after
-// * D^-0.5, the v-scale into its weight for the P.V product only.
+// * D^-0.5, the v-scale into its weight for the P.V product only, which is
+// then rounded to q's type as the TPU kernel rounds it.
 //
 // What bounds it on the H100: bytes, half of kernel 4's per key (D bytes of
-// K and of V plus two f32 scales).  The page walk is paged_decode.cuh's.
+// K and of V plus two f32 scales).  It still runs paged_decode.cuh's chunk
+// walk.
 
 #include "paged_decode.cuh"
 

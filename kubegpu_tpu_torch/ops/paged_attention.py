@@ -26,12 +26,16 @@ from kubegpu_tpu_torch import kernels
 from kubegpu_tpu_torch.ops.flash_attention import KERNEL_MAX_HEAD_DIM, NEG_INF
 from kubegpu_tpu_torch.ops.kvquant import q4_unpack
 
-# keys per chunk and query heads per CTA of csrc/paged_decode.cuh's chunk
-# walk: they size the scratch of the mass output
+# keys per chunk of csrc/paged_decode.cuh's chunk walk (kernel 5) and
+# query heads per CTA of both its walks: they size the scratch of the mass
+# output
 _KC, _GMAX = 32, 8
-# kernel 7's split walk cuts a row's pages into one split a page, up to
-# this many splits (at most csrc/paged_decode.cuh's split::MAX_SPLITS)
+# the split walk (kernels 4, 6 and 7) cuts a row's pages into one split a
+# page, up to this many splits (at most csrc/paged_decode.cuh's
+# split::MAX_SPLITS); its CTAs have this many warps, each of which records
+# a page's mass
 _MAX_SPLITS = 32
+_SPLIT_WARPS = 4
 
 
 def page_table_size(max_len: int, page_size: int) -> int:
@@ -271,24 +275,39 @@ def _paged_cuda(q, pool_k, pool_v, page_table, layer, t, t_pad, d,
     o = torch.empty((b, hq, dd), **f32)
     m = torch.empty((b, hq), **f32)
     l = torch.empty((b, hq), **f32)
-    mass = scratch = None
-    n_scratch = 0
-    if collect_mass:
-        mass = torch.empty((b, max_pages), **f32)
-        # per CTA: a (sum, max) record per chunk and query head, then one
-        # partial per page
-        ctas = b * hkv * -(-(hq // hkv) // _GMAX)
-        n_scratch = ctas * max_pages * (-(-p // _KC) * _GMAX * 2 + 1)
-        scratch = torch.empty(max(n_scratch, 1), **f32)
+    mass = torch.empty((b, max_pages), **f32) if collect_mass else None
     if b:
         ptr = (lambda x: None if x is None else x.data_ptr())
-        kernels.call(name, q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-                     ptr(k_scale), ptr(v_scale), page_table.data_ptr(),
-                     _layer_ptr(layer, n_layers, q.device), t.data_ptr(),
-                     t_pad.data_ptr(), d.data_ptr(), o.data_ptr(),
-                     m.data_ptr(), l.data_ptr(), ptr(mass), ptr(scratch), b,
-                     hq, hkv, n_pages, p, dd, max_pages, n_sc, n_scratch,
-                     int(q.dtype == torch.bfloat16))
+        args = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+                ptr(k_scale), ptr(v_scale), page_table.data_ptr(),
+                _layer_ptr(layer, n_layers, q.device), t.data_ptr(),
+                t_pad.data_ptr(), d.data_ptr(), o.data_ptr(), m.data_ptr(),
+                l.data_ptr(), ptr(mass))
+        bf16 = int(q.dtype == torch.bfloat16)
+        if name == "paged_decode_q8":   # the chunk walk
+            scratch, n_scratch = None, 0
+            if collect_mass:
+                # per CTA: a (sum, max) record per chunk and query head,
+                # then one partial per page
+                ctas = b * hkv * -(-(hq // hkv) // _GMAX)
+                n_scratch = ctas * max_pages * (-(-p // _KC) * _GMAX * 2 + 1)
+                scratch = torch.empty(max(n_scratch, 1), **f32)
+            kernels.call(name, *args, ptr(scratch), b, hq, hkv, n_pages, p,
+                         dd, max_pages, n_sc, n_scratch, bf16)
+        else:                           # the split walk
+            n_splits = min(max_pages, _MAX_SPLITS)
+            n_chunks = -(-(hq // hkv) // _GMAX)
+            # the splits' partials, and with the mass a (sum, max) record
+            # per query head, page and warp and a page-mass partial per
+            # (row, kv head, query chunk) and page
+            n_floats = b * hq * n_splits * (dd + 2) + (
+                b * max_pages * (hq * _SPLIT_WARPS * 2 + hkv * n_chunks)
+                if collect_mass else 0)
+            parts, count = _split_scratch(q.device, n_floats,
+                                          b * hkv * n_chunks + b)
+            kernels.call(name, *args, parts.data_ptr(), count.data_ptr(), b,
+                         hq, hkv, n_pages, p, dd, max_pages, n_sc, n_splits,
+                         parts.numel(), bf16)
     out = (o, m, l)
     return out + (mass,) if collect_mass else out
 
@@ -298,10 +317,12 @@ def paged_attention(q, pool_k, pool_v, page_table, layer, t, t_pad, d,
     """Paged decode attention over one layer of the pool; same signature
     and outputs as :func:`paged_attention_ref`.  CUDA tensors launch the
     Hopper kernel of the pool's format, which reads only the pages each
-    row holds: ``csrc/paged_decode.cu`` for bf16/f32 pools, ``_q8.cu`` for
-    int8 and ``_q4.cu`` for packed int4 (uint8); CPU tensors run the plain
-    version.  A uint8 pool without scales raises ``ValueError``, as the
-    reference does.
+    row holds: ``csrc/paged_decode.cu`` for bf16/f32 pools and ``_q4.cu``
+    for packed int4 (uint8), both on the split walk (one CTA per row, kv
+    head, chunk of <= 8 query heads and page, up to 32 splits a row,
+    merged with the mass in a fixed order), and ``_q8.cu`` for int8 (the
+    chunk walk); CPU tensors run the plain version.  A uint8 pool without
+    scales raises ``ValueError``, as the reference does.
 
     There is no gradient (see :func:`_refuse_grad`)."""
     _refuse_grad("paged_attention", q, pool_k, pool_v)
@@ -319,17 +340,19 @@ def paged_attention(q, pool_k, pool_v, page_table, layer, t, t_pad, d,
 _split_buffers: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _split_scratch(device, n_floats: int, n_rows: int):
-    """Kernel 7's scratch on ``device``: the splits' partials (f32) and one
-    counter per (row, head) (int32, zero between launches: the kernel's
-    last CTA resets its own).  Kept and reused across calls, grown when a
-    call needs more: no allocation per call once warm, and nothing read
-    back to the host, so a later CUDA graph can capture the call."""
+def _split_scratch(device, n_floats: int, n_counts: int):
+    """The split walk's scratch on ``device``, shared by kernels 4, 6 and 7
+    on one stream: the splits' partials and mass records (f32) and the
+    counters that pick the last CTA of a merge (int32, zero between
+    launches: the kernel's last CTA resets its own).  Kept and reused
+    across calls, grown when a call needs more: no allocation per call once
+    warm, and nothing read back to the host, so a later CUDA graph can
+    capture the call."""
     parts, count = _split_buffers.get(device, (None, None))
     if parts is None or parts.numel() < n_floats:
         parts = torch.empty(n_floats, dtype=torch.float32, device=device)
-    if count is None or count.numel() < n_rows:
-        count = torch.zeros(n_rows, dtype=torch.int32, device=device)
+    if count is None or count.numel() < n_counts:
+        count = torch.zeros(n_counts, dtype=torch.int32, device=device)
     _split_buffers[device] = (parts, count)
     return parts, count
 

@@ -25,6 +25,9 @@ pytestmark = pytest.mark.cuda
 PT = np.array([[7, 1, 2, 0], [3, 0, 5, 6], [0, 0, 0, 0], [4, 2, 9, 0]],
               np.int32)
 STATE = np.array([[5, 13, 0, 3], [8, 16, 0, 8], [3, 0, 0, 11]], np.int32)
+# the same rows as (table, t, t_pad, d)
+EDGE_ROWS = [([int(x) for x in PT[r]], *map(int, STATE[:, r]))
+             for r in range(4)]
 
 
 @pytest.fixture
@@ -62,9 +65,10 @@ def test_flash_kernel_matches_plain(dev, dtype, causal, t, s):
                                       (torch.float32, 32)])
 def test_paged_kernel_matches_plain(dev, dtype, hq):
     """GQA 4 in bf16 and 4-position folded queries (G=16) in f32.  o within
-    1e-2 in bf16 (the plain version rounds probabilities to bf16 before
-    P.V, the kernel does not) and 1e-4 in f32; m within 1e-3; l within
-    1e-3 relative."""
+    1e-2 in bf16 (both round the weights to bf16 before P.V, the kernel
+    against its split's running max and the plain version against the
+    row's final max, so a weight may round one bf16 ulp apart) and 1e-4 in
+    f32; m within 1e-3; l within 1e-3 relative."""
     g = torch.Generator(device=dev).manual_seed(0)
     pk, pv = (torch.randn(2, 12, 2, 8, 64, generator=g, device=dev).to(dtype)
               for _ in range(2))
@@ -194,6 +198,153 @@ def test_engine_int4_pool_runs_kernel6(dev):
     assert not any(runs["cpu"][3].values())
     assert evicted >= 1
     assert (toks, evicted) == runs["cpu"][:2]
+
+
+# kernels 4 and 6 on the split walk: the edge rows above (a hole, an empty
+# row, decode pages past t_pad) at head dims 64 and 128 (the staged
+# instances, one per group size) and 16 and 80 (the padded ones), GQA 4,
+# MHA and folded queries (G = 16: two chunks of 8 query heads)
+SPLIT_CASES = [
+    ("plain", torch.float32, 64, 8), ("plain", torch.bfloat16, 128, 8),
+    ("plain", torch.float32, 128, 2), ("plain", torch.float32, 16, 32),
+    ("plain", torch.bfloat16, 80, 8), ("plain", torch.float32, 64, 4),
+    ("q4g1", torch.float32, 64, 8), ("q4g4", torch.bfloat16, 128, 8),
+    ("q4g8", torch.float32, 128, 32), ("q4g2", torch.float32, 16, 2),
+    ("q4g4", torch.float32, 80, 8), ("q4g8", torch.bfloat16, 64, 16)]
+
+
+def _split_args(dev, fmt, dtype, hd, hq, rows, p=8, n_layers=2, seed=0,
+                misalign=False):
+    """Arguments of ``paged_attention`` over a fresh pool of format ``fmt``
+    (``plain`` or ``q4g<g>``) with 2 kv heads: ``rows`` as (table, t,
+    t_pad, d); with ``misalign`` the pools start 4 bytes past a 16-byte
+    boundary (the instance that reads rows from the pool)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = 1 + max(max(r[0]) for r in rows)
+    pk, pv = (torch.randn(n_layers, n_pages, 2, p, hd, generator=g,
+                          device=dev).to(dtype) for _ in range(2))
+    kq, vq, ks, vs = (pk, pv, None, None) if fmt == "plain" else \
+        _quantized(pk, pv, fmt)
+    if misalign:
+        def shift(x):
+            flat = torch.zeros(x.numel() + 16, dtype=x.dtype, device=dev)
+            off = 4 // x.element_size()
+            flat[off:off + x.numel()] = x.flatten()
+            return flat[off:off + x.numel()].view(x.shape)
+        kq, vq = shift(kq), shift(vq)
+    q = torch.randn(len(rows), hq, hd, generator=g, device=dev).to(dtype)
+    width = max(len(r[0]) for r in rows)
+    i32 = dict(dtype=torch.int32, device=dev)
+    pt = torch.tensor([r[0] + [0] * (width - len(r[0])) for r in rows], **i32)
+    t, tpad, d = (torch.tensor([r[i] for r in rows], **i32) for i in (1, 2, 3))
+    return (q, kq, vq, pt, n_layers - 1, t, tpad, d, ks, vs)
+
+
+def _check_split(args, name, bf16):
+    """Two launches of kernel ``name`` with the mass and one without: one
+    count a call and nothing else launched, equal bits across the two
+    mass launches (o, m, l and the mass) and with the partials of the
+    launch without; o within 1e-2 in bf16 and 1e-4 in f32, m within 1e-3,
+    l within 1e-3 relative and the mass within 1e-3 / 1e-5 of
+    ``paged_attention_ref``, every mass row summing to at most 1."""
+    before = dict(kernels.launches)
+    got = pa.paged_attention(*args, collect_mass=True)
+    again = pa.paged_attention(*args, collect_mass=True)
+    part = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert _moved(before) == {name: 3}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(part, got))
+    o, m, l, mass = got
+    ro, rm, rl, rmass = pa.paged_attention_ref(*args, collect_mass=True)
+    assert (o - ro).abs().max().item() <= (1e-2 if bf16 else 1e-4)
+    assert (m - rm).abs().max().item() <= 1e-3
+    assert ((l - rl).abs() <= 1e-3 * rl).all()
+    assert (mass - rmass).abs().max().item() <= (1e-3 if bf16 else 1e-5)
+    assert (mass.sum(dim=1) <= 1 + 1e-5).all()
+    return got
+
+
+@pytest.mark.parametrize("fmt,dtype,hd,hq", SPLIT_CASES)
+def test_split_walk_kernels_match_plain(dev, fmt, dtype, hd, hq):
+    """Kernels 4 and 6 on the split walk (one split a page) over the edge
+    rows of ``test_quant_and_mass_kernels_match_plain``, at its
+    tolerances; the hole's mass is 0 and the empty row gives o = 0, l = 0,
+    m = NEG_INF and no mass."""
+    args = _split_args(dev, fmt, dtype, hd, hq, EDGE_ROWS)
+    name = "paged_decode" if fmt == "plain" else "paged_decode_q4"
+    o, m, l, mass = _check_split(args, name, dtype == torch.bfloat16)
+    assert not o[2].any() and not l[2].any() and not mass[2].any()
+    assert (m[2] == -1e30).all()
+    assert mass[1, 1] == 0                               # the hole
+
+
+@pytest.mark.parametrize("fmt,dtype,hd", [("plain", torch.float32, 128),
+                                          ("plain", torch.bfloat16, 80),
+                                          ("q4g4", torch.bfloat16, 128),
+                                          ("q4g2", torch.float32, 16)])
+def test_split_walk_on_tables_wider_than_32_pages(dev, fmt, dtype, hd):
+    """Tables 40 pages wide (32 splits of 2 pages, so a split holds two
+    pages and records the mass of each): a long prompt with a hole, a
+    prompt with a decode region far past it, a decode region alone, and
+    an empty row, GQA 4."""
+    w = 40
+    hole = list(range(1, w + 1))
+    hole[7] = 0
+    rows = [(hole, 300, 304, 0),
+            (list(range(w + 1, 2 * w + 1)), 30, 64, 200),
+            (list(range(2 * w + 1, 3 * w + 1)), 0, 0, 129),
+            ([0] * w, 0, 0, 0)]
+    args = _split_args(dev, fmt, dtype, hd, 8, rows)
+    name = "paged_decode" if fmt == "plain" else "paged_decode_q4"
+    o, m, l, mass = _check_split(args, name, dtype == torch.bfloat16)
+    assert not o[3].any() and not l[3].any() and not mass[3].any()
+    assert mass[0, 7] == 0 and mass[0, 38:].sum() == 0
+
+
+@pytest.mark.parametrize("fmt,dtype,hd,misalign", [
+    ("q4g8", torch.bfloat16, 128, False), ("q4g8", torch.float32, 64, False),
+    ("plain", torch.bfloat16, 128, True), ("q4g4", torch.float32, 64, True),
+    ("plain", torch.float32, 64, True)])
+def test_split_walk_on_page_scales_and_misaligned_pools(dev, fmt, dtype, hd,
+                                                        misalign):
+    """int4 groups of P (one 4-byte scale a page, read with __ldg: too small
+    for a bulk copy) and pools 4 bytes past a 16-byte boundary (the padded
+    instance, rows read from the pool), over the edge rows."""
+    args = _split_args(dev, fmt, dtype, hd, 8, EDGE_ROWS, misalign=misalign)
+    if misalign:
+        assert args[1].data_ptr() % 16 == 4
+    name = "paged_decode" if fmt == "plain" else "paged_decode_q4"
+    _check_split(args, name, dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("fmt", ["plain", "q8", "q4g4"])
+def test_kernels_round_the_weights_as_the_reference(dev, fmt):
+    """The fault this slice repairs: the TPU kernels round each P.V weight
+    to q's type after the v-scale, and kernels 4-6 did not.  bf16, V = 1,
+    rows of 2-4 valid keys at the start of one page, and integer q and K,
+    so both sides compute the same scores and weights exactly: the plain
+    version's o is off 1 by the weights' rounding (> 1e-4), and the
+    kernels (4 and 6 on the split walk, 5 on the chunk walk) match it
+    within 1e-5, the mass included."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    shape = (1, 8, 2, 16, 128)
+    pk = torch.randint(-2, 3, shape, generator=g, device=dev).bfloat16()
+    pv = torch.ones(shape, device=dev).bfloat16()
+    kq, vq, ks, vs = (pk, pv, None, None) if fmt == "plain" else \
+        _quantized(pk, pv, fmt)
+    q = torch.randint(-1, 2, (3, 8, 128), generator=g,
+                      device=dev).bfloat16()
+    i32 = dict(dtype=torch.int32, device=dev)
+    pt = torch.tensor([[3, 0], [5, 0], [0, 7]], **i32)
+    t, tpad, d = (torch.tensor(x, **i32) for x in ([3, 0, 0], [16, 0, 16],
+                                                    [0, 4, 2]))
+    args = (q, kq, vq, pt, 0, t, tpad, d, ks, vs)
+    got = pa.paged_attention(*args, collect_mass=True)
+    ref = pa.paged_attention_ref(*args, collect_mass=True)
+    assert (ref[0] - 1).abs().max().item() > 1e-4
+    for a, r in zip(got, ref):
+        assert (a - r).abs().max().item() <= 1e-5
 
 
 def _to(tree, device):
