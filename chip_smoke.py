@@ -58,8 +58,9 @@ serving and training paths must run kernels 1-3 on their tensor-core
 instances only.  The line before the last is one JSON object per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
 ``--details PATH`` writes every phase's numbers to PATH as JSON.  With
-``--profile`` it also traces one steady engine tick after phase 5 and one
-train step after phase 7 (device time by kernel, idle share).
+``--profile`` it also traces one steady tick of the bf16 engine after phase
+5 and of the int8 engine in phase 5b, and one train step after phase 7
+(device time by kernel, idle share).
 """
 
 from __future__ import annotations
@@ -81,8 +82,7 @@ SEED = 0
 # cuBLAS's GEMM kernels by name (nvjet on Hopper, older sm90 xmma/cutlass)
 GEMM_KERNEL = re.compile(r"nvjet|gemm|xmma|cutlass", re.IGNORECASE)
 # the port's kernels in a trace, by a piece of their (demangled) names
-PORT_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_decode",
-                "paged_split")
+PORT_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_split")
 
 
 class SmokeFailure(AssertionError):
@@ -517,8 +517,8 @@ def paged_quant_checks(torch, gen, slice_rows) -> dict:
             (list(range(41, 81)), 60, 128, 400), (list(range(81, 121)), 0, 0,
                                                   257), ([0] * 40, 0, 0, 0)]
     cases = [(fmt, hq, hd, rows) for fmt, hq, hd in cases] + [
-        (fmt, 8, hd, wide) for fmt, hd in (("bf16", 128), ("q4g4", 128),
-                                           ("bf16", 80))]
+        (fmt, 8, hd, wide) for fmt, hd in (("bf16", 128), ("q8", 128),
+                                           ("q4g4", 128), ("bf16", 80))]
     for fmt, hq, hd, frows in cases:
         fq, fk, fv, fpt, ft, ftp, fd = paged_case(
             torch, gen, torch.float32, 2, 1 + max(max(r[0]) for r in frows),
@@ -580,10 +580,11 @@ def paged_quant_checks(torch, gen, slice_rows) -> dict:
     return out
 
 
-# PR 6's times (ms, with the mass) of kernels 4-6 at the serving shape, on
-# the chunk walk (PERF.md section 6, NVIDIA H100 80GB HBM3 at 700 W)
-PAGED_MS_BEFORE = {"bf16": (0.0427, 0.0492), "q8": (0.0396, 0.0476),
-                   "q4g16": (0.0380, 0.0470)}
+# The times (ms, with the mass) of kernels 4-6 at the serving shape before
+# kernel 5 moved onto the split walk: 4 and 6 on the split walk, 5 on the
+# older chunk walk (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W)
+PAGED_MS_BEFORE = {"bf16": (0.02005, 0.02290), "q8": (0.03992, 0.04834),
+                   "q4g16": (0.01624, 0.01933)}
 
 
 def paged_rounding_checks(torch) -> dict:
@@ -859,13 +860,14 @@ QUANT_ENGINES = (
 
 
 def quant_serving_phase(torch, kernels, cfg, params, gen, name,
-                        first_window) -> dict:
+                        first_window, profile: bool = False) -> dict:
     """The quantized pools at phase 5's shape, each engine in turn:
     ``warmup()``, then two timed windows, the first on phase 5's first
     window's prompts (the share of greedy tokens that agree with the bf16
     engine's is printed, not held: random weights give near-tied logits).
     evict_param 0.3 evicts on the first decoding tick of a 4-page prompt,
-    since the mass EMA starts at 0."""
+    since the mass EMA starts at 0.  With ``profile``, one steady tick of
+    the int8 engine is traced after its windows."""
     import statistics
 
     from kubegpu_tpu_torch.models import ContinuousBatcher
@@ -904,6 +906,9 @@ def quant_serving_phase(torch, kernels, cfg, params, gen, name,
             launches=stats["kernel_launches"], pool_bytes=stats["pool_bytes"],
             pages_evicted=eng.pages_evicted, agree_with_bf16=agree,
             card=repr(name))
+        if profile and label == "int8":
+            stats["profile"] = profile_phase(torch, eng,
+                                             first_window["prompts"], label)
         out[label] = stats
         del eng
         torch.cuda.empty_cache()
@@ -958,7 +963,8 @@ def log_trace(what: str, out: dict) -> None:
         top=[(k["name"][:40], round(k["ms"], 3)) for k in out["kernels"][:8]])
 
 
-def profile_phase(torch, eng, prompts, n_new: int = 80) -> dict:
+def profile_phase(torch, eng, prompts, label: str = "bf16",
+                  n_new: int = 80) -> dict:
     """Device time by kernel over one steady engine tick (``--profile``).
     The engine is refilled with requests long enough that the timed ticks
     decode every slot; after admission, one ``step()`` (collect + dispatch
@@ -979,7 +985,7 @@ def profile_phase(torch, eng, prompts, n_new: int = 80) -> dict:
         torch.cuda.synchronize()
     out = device_trace(torch, tick, wall_ms)
     eng.drain()
-    log_trace("one steady engine tick", out)
+    log_trace(f"one steady {label} engine tick", out)
     return out
 
 
@@ -1514,7 +1520,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels.reset_launches()          # the quantized serving path starts here
     quant_serve = quant_serving_phase(torch, kernels, cfg, params, gen, name,
-                                      windows[0])
+                                      windows[0], args.profile)
     quant_launches = dict(kernels.launches)   # ... and ends here
     check(all(quant_launches[k] > 0 for k in ("paged_decode_q8",
                                               "paged_decode_q4")),

@@ -1,4 +1,4 @@
-"""What sets the time of kernels 4 and 6 on the split walk: time against bytes.
+"""What sets the time of kernels 4-6 on the split walk: time against bytes.
 
     python experiments/torch_paged_split_scan.py    # on an H100
 
@@ -6,20 +6,19 @@ Times ``paged_attention`` with ``chip_smoke.cuda_ms`` (cold L2) at the
 serving engine's shape (Llama-3-8B heads: 8 rows, Hq 32, Hkv 8, pages of
 128, head dim 128, bf16 queries) with 256, 512, 1024, 2048 and 4096
 prompt keys a row (one page past them, as the engine's decode page), over
-bf16 pages (kernel 4), packed int4 pages in groups of 16 (kernel 6), each
-without and with the per-page mass, and int8 pages (kernel 5, still on the
-chunk walk) as the old walk's yardstick; a one-element fill is the floor of
-one launch under the same timer.  Each run is also traced with
-``torch.profiler``: the kernel's own duration on the card, without the
-launch and the events around it.  For each series a least-squares line
-through (bytes, ms) splits the time into a fixed part (the intercept:
-launch and dependent memory round trips) and a streaming rate (the slope,
-as GB/s against the card's 3.35 TB/s), once for the timer's ms and once
-for the kernel's, and each run's share of its byte bound (bytes over 3.35
-TB/s, the ``chip_smoke.py`` count: K and V of the valid keys, their
-scales, q, the page table and row state, o/m/l) is printed.  Prints one
-line per run and a JSON summary last, with the card's name and power
-limit.
+bf16 pages (kernel 4), int8 pages (kernel 5) and packed int4 pages in
+groups of 16 (kernel 6), each without and with the per-page mass; a
+one-element fill is the floor of one launch under the same timer.  Each
+run is also traced with ``torch.profiler``: the kernel's own duration on
+the card, without the launch and the events around it.  For each series a
+least-squares line through (bytes, ms) splits the time into a fixed part
+(the intercept: launch and dependent memory round trips) and a streaming
+rate (the slope, as GB/s against the card's 3.35 TB/s), once for the
+timer's ms and once for the kernel's, and each run's share of its byte
+bound (bytes over 3.35 TB/s, the ``chip_smoke.py`` count: K and V of the
+valid keys, their scales, q, the page table and row state, o/m/l) is
+printed.  Prints one line per run and a JSON summary last, with the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -105,19 +104,19 @@ def main() -> int:
     series: dict[str, list] = {}
     for keys in (256, 512, 1024, 2048, 4096):
         args, n_bytes = case(keys, gen)
-        for fmt, mass in (("bf16", False), ("bf16", True), ("q4g16", False),
-                          ("q4g16", True), ("q8", False)):
+        for fmt in ("bf16", "q8", "q4g16"):
             a = args[fmt]
-            call = (lambda: pa.paged_attention(*a, collect_mass=mass))
-            ms = chip_smoke.cuda_ms(call)
-            bound = n_bytes[fmt] / chip_smoke.PEAK_BYTES * 1e3
-            row = {"format": fmt, "mass": mass, "keys": keys,
-                   "bytes": n_bytes[fmt], "ms": ms,
-                   "kernel_ms": kernel_ms(call), "bound_ms": bound,
-                   "share_of_bound": bound / ms}
-            series.setdefault(f"{fmt}{'+mass' if mass else ''}",
-                              []).append(row)
-            print(json.dumps(row), flush=True)
+            for mass in (False, True):
+                call = (lambda: pa.paged_attention(*a, collect_mass=mass))
+                ms = chip_smoke.cuda_ms(call)
+                bound = n_bytes[fmt] / chip_smoke.PEAK_BYTES * 1e3
+                row = {"format": fmt, "mass": mass, "keys": keys,
+                       "bytes": n_bytes[fmt], "ms": ms,
+                       "kernel_ms": kernel_ms(call), "bound_ms": bound,
+                       "share_of_bound": bound / ms}
+                series.setdefault(f"{fmt}{'+mass' if mass else ''}",
+                                  []).append(row)
+                print(json.dumps(row), flush=True)
         del args
         torch.cuda.empty_cache()
     fits = {name: {"timer": fit(rows, "ms"), "kernel": fit(rows, "kernel_ms")}

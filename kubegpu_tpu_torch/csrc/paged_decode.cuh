@@ -1,4 +1,4 @@
-// Paged decode attention for Hopper (sm_90a): the page walks shared by the
+// Paged decode attention for Hopper (sm_90a): the page walk shared by the
 // page formats, each kernel built from its own thin source.
 //
 //   paged_decode.cu      bf16/f32 pages   (TPU `_paged_kernel`,    kernel 4)
@@ -18,45 +18,28 @@
 // ~295 flop/byte balance point; int8 pages halve the bytes of bf16 and int4
 // pages quarter them.
 //
-// Two walks.  Kernel 5 runs the chunk walk (paged_decode_kernel); kernels
-// 4, 6 and 7 run the split walk (paged_split_kernel), which kernel 5 is to
-// move onto.  Both are templated on the page format (the policy KV).
-//
-// The chunk walk: one CTA per (row b, kv head, chunk of <= 8 query heads of
-// that kv head), so a decode batch launches B * Hkv CTAs instead of the
-// TPU's one program per row.  Each CTA reads layer, t, t_pad, d and its
-// page-table row itself and walks only the used pages in the TPU kernel's
-// order (prompt pages [0, ceil(t/P)), then decode pages from t_pad/P), cut
-// into 32-key chunks.  The 16 warps take chunks round-robin; lane j of a
-// warp scores key j with 16-byte loads straight from the pool (each key row
-// is read once, by one lane), the warp runs the online softmax with
-// shuffles, and the P.V product reads each value row coalesced across the
-// warp.  Validity is the TPU kernel's predicate (phys < t | t_pad <= phys <
-// t_pad + d, page id != 0), masked explicitly after the exp because NEG_INF
-// is finite.  The warps' partials merge through shared memory at the end
-// (the same logsumexp merge as merge_partials).  Few bytes are in flight
-// per SM this way: a row of a few pages leaves most warps idle and pays the
-// memory latency once per chunk.
-//
-// The split walk: the row's pages are cut into splits on the host, from
+// The split walk (paged_split_kernel, templated on the page format, the
+// policy KV): the row's pages are cut into splits on the host, from
 // the page table's width alone (t, t_pad and d live on the device and are
 // never read by the host): ops/paged_attention.py takes one split a page,
 // up to MAX_SPLITS = 32, so a split holds ceil(max_pages / n_splits)
 // pages.  One CTA of 4 warps per (row, kv head, chunk of <= 8 query heads
 // of that kv head, split); a split with no used page loads nothing.  A page
-// is used when it holds a valid key (and, for kernels 4 and 6, its table
+// is used when it holds a valid key (and, for kernels 4-6, its table
 // entry is not the hole 0), and only its rows [0, hi) are read, hi the end
-// of its last valid key.  The CTA's first thread puts its tiles in flight
+// of its last valid key.  Validity is the TPU kernels' predicate (phys < t
+// | t_pad <= phys < t_pad + d), masked explicitly after the exp because
+// NEG_INF is finite.  The CTA's first thread puts its tiles in flight
 // at entry with bulk async copies into a 2-stage ring of shared memory (a
 // page of one kv head is P contiguous rows), each stage completing on an
 // mbarrier; a tile holds at most 16 KB of key rows and at most 8192 / DP
 // keys, so wide rows stage a page in several tiles.  Each key row read from
 // shared memory is scored against all of the CTA's query heads, in one of
-// two inner loops.  The tensor-core walk (walk_tc: kernels 4 and 6 with
-// bf16 queries at head dims 64 and 128, the serving engine's) runs Q K^T
-// and P V as mma.sync tiles, the heads the rows of the A operand, its
-// tiles staged by cp.async into padded rows.  The CUDA-core walk (f32,
-// other head dims, kernel 7): DP / 8 lanes hold 8 channels each of the key
+// two inner loops.  The tensor-core walk (walk_tc: kernels 4-6 with bf16
+// queries at head dims 64 and 128, the serving engine's) runs Q K^T and
+// P V as mma.sync tiles, the heads the rows of the A operand, its tiles
+// staged by cp.async into padded rows.  The CUDA-core walk (f32, other
+// head dims, kernel 7): DP / 8 lanes hold 8 channels each of the key
 // and of every query head of the CTA (GR of them), so a warp scores
 // 256 / DP keys a step, summing each by shuffles inside the lane group; it
 // was the first design for kernels 4 and 6 too, and spent most of their
@@ -87,35 +70,31 @@
 // staging them.
 //
 // Page formats (the policy KV): a policy widens a lane's 8 channels of a
-// row into f32 in registers (`load8`; the chunk walk: `dot`, `load_v`;
-// the tensor-core walk reads bf16 rows as they are and unpacks int4 rows
-// into bf16 fragments itself).
+// row into f32 in registers for the CUDA-core walk (`load8`) and names its
+// format (`FMT`) for the tensor-core walk, which reads bf16 rows as they
+// are and turns int8 and int4 rows into bf16 fragments itself.
 // Quantized pools carry f32 scales [L, n_pages, Hkv, n_scale], one per
-// group of P / n_scale keys (1 for int8); the k-scale multiplies the score
-// after * D^-0.5 and the v-scale multiplies the key's weight only for the
-// P.V product, so l and the mass are taken from the unscaled weights, as
-// in the TPU kernels.  The weight of the P.V product is rounded to q's type
-// after the v-scale (w.astype(v.dtype) and (w * vs).astype(v.dtype) in the
-// TPU kernels, whose v has q's type); in f32 that is the identity.
+// group of P / n_scale keys (one a key for int8); the k-scale multiplies
+// the score after * D^-0.5 and the v-scale multiplies the key's weight only
+// for the P.V product, so l and the mass are taken from the unscaled
+// weights, as in the TPU kernels.  The weight of the P.V product is rounded
+// to q's type after the v-scale (w.astype(v.dtype) and (w * vs).astype(
+// v.dtype) in the TPU kernels, whose v has q's type); in f32 that is the
+// identity.
 //
-// The mass (MASS): a page's mass is the sum over its keys of exp(s - M)/L,
-// with M and L the final max and sum of each query head, averaged over the
-// Hq heads.  The chunk walk: a warp records each chunk's sum of weights
-// with the running max it was taken against; after the merge, when M and L
-// are known, the CTA rescales each record by exp(m_chunk - M)/L and sums a
-// page's records over its chunks and heads into a per-CTA partial, and a
-// second small kernel adds the partials of a row's CTAs in a fixed order
-// and divides by Hq.  The split walk, in one launch: at the end of each
-// page it walked a warp records, per query head, the sum of its weights
-// over the page and the running max it was taken against; the last CTA of
-// a (row, kv head, chunk), which knows M and L, turns the records into the
-// chunk's page masses, and the last of a row's (kv head, chunk) merges,
-// found by a second counter, adds them in (kv head, chunk) order, divides
-// by Hq and resets its counter.  No float atomics either way, so eviction
-// reads the same mass from run to run.
+// The mass (MASS), in the same launch: a page's mass is the sum over its
+// keys of exp(s - M)/L, with M and L the final max and sum of each query
+// head, averaged over the Hq heads.  At the end of each page it walked a
+// warp records, per query head, the sum of its weights over the page and
+// the running max it was taken against; the last CTA of a (row, kv head,
+// chunk), which knows M and L, turns the records into the chunk's page
+// masses, and the last of a row's (kv head, chunk) merges, found by a
+// second counter, adds them in (kv head, chunk) order, divides by Hq and
+// resets its counter.  No float atomics, so eviction reads the same mass
+// from run to run.
 //
-// The bias (kernel 7, split walk; MHA, no mass): each key's distance n =
-// max(q_pos - phys, 0) is bucketed with T5's causal log-spaced rule, in the
+// The bias (kernel 7; MHA, no mass): each key's distance n = max(q_pos -
+// phys, 0) is bucketed with T5's causal log-spaced rule, in the
 // reference's f32 order (logf, IEEE division: no fast math, so the bucket
 // is the plain version's), and the table entry of the query head is added
 // to the score after * D^-0.5.  Validity has no page-id test, as the TPU
@@ -132,8 +111,6 @@
 namespace kubetpu {
 namespace paged {
 
-constexpr int WARPS = 16;
-constexpr int KC = 32;    // keys per chunk, one per lane
 constexpr int GMAX = 8;   // query heads per CTA
 
 // Everything the host passes; pointers to device memory.
@@ -159,35 +136,32 @@ struct Args {
     const int* qpos = nullptr;
     const float* table = nullptr;
     int n_buckets = 0, max_dist = 0;
-    // the split walk: splits per row and its counters (zero between
-    // launches): one per (row, kv head, query chunk), then one per row
+    // splits per row and the counters (zero between launches): one per
+    // (row, kv head, query chunk), then one per row
     int n_splits = 0;
     int* count = nullptr;
 };
 
-// Floats of scratch the chunk walk's mass output needs: a (sum, max) record
-// per chunk and query head of every CTA, then one partial per page of every
-// CTA.
-inline long long mass_scratch_floats(const Args& a) {
-    const long long ctas = (long long)a.B * a.Hkv *
-                           ((a.Hq / a.Hkv + GMAX - 1) / GMAX);
-    const long long cpp = (a.P + KC - 1) / KC;
-    return ctas * a.max_pages * (cpp * GMAX * 2 + 1);
-}
-
 // -- page formats -------------------------------------------------------------
-// load8 (split walk): channels 8g .. 8g + 7 of a row as f32, 0 past Dh;
-// FULL: the row holds all DP of them and is 16-byte aligned (vector loads).
-// dot and load_v (chunk walk, int8 only): s[g] += q_g . key over the row's
-// channels (qs holds GR query rows of D floats, zero past Dh), and lane's
-// DPL = D/32 value channels lane*DPL .. lane*DPL + DPL - 1 (0 past Dh).
-// row_elems: a row's stride in elements of Elem.
+// load8 (the CUDA-core walk): channels 8g .. 8g + 7 of a row as f32, 0 past
+// Dh; FULL: the row holds all DP of them and is 16-byte aligned (vector
+// loads).  FMT (the tensor-core walk): how a row's bytes become bf16
+// fragments.  row_elems: a row's stride in elements of Elem.
+
+enum class Fmt { PLAIN, INT8, PACKED };
+
+// 2^23 + byte k of w, exactly: the byte goes into the mantissa of 2^23 by a
+// byte permute (no integer to float conversion, a quarter-rate instruction)
+__device__ __forceinline__ float byte_2p23(uint32_t w, int k) {
+    return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | k));
+}
 
 // bf16/f32 pages of q's type.
 template <typename T>
 struct PlainPages {
     using Elem = T;
     static constexpr bool SCALED = false;
+    static constexpr Fmt FMT = Fmt::PLAIN;
     static bool ok_dim(int) { return true; }
     __host__ __device__ static constexpr int row_elems(int dh) { return dh; }
 
@@ -206,51 +180,34 @@ struct PlainPages {
     }
 };
 
-// int8 pages, per-token scales (n_scale == P).  A key row is Dh bytes: 128
-// at D = 128, eight 16-byte loads.
+// int8 pages, one scale a key (n_scale == P).  A key row is Dh bytes, 128
+// at D = 128; lane group lane g's channels 8g .. 8g + 7 are one 8-byte
+// load.
 template <typename T>
 struct Int8Pages {
     using Elem = int8_t;
     static constexpr bool SCALED = true;
+    static constexpr Fmt FMT = Fmt::INT8;
     static bool ok_dim(int) { return true; }
     __host__ __device__ static constexpr int row_elems(int dh) { return dh; }
 
-    template <int D, int GR, bool FULL>
-    __device__ __forceinline__ static void dot(const Elem* krow,
-                                               const float* qs, int Dh,
-                                               float (&s)[GR]) {
+    template <int DP, bool FULL>
+    __device__ __forceinline__ static void load8(const Elem* row, int g,
+                                                 int Dh, float (&out)[8]) {
         if constexpr (FULL) {
-#pragma unroll 2
-            for (int d0 = 0; d0 < D; d0 += 16) {
-                const uint4 r = *reinterpret_cast<const uint4*>(krow + d0);
-                const int8_t* by = reinterpret_cast<const int8_t*>(&r);
+            // x ^ 0x80 is x + 128 as an unsigned byte
+            const uint2 r = *reinterpret_cast<const uint2*>(row + 8 * g);
+            const uint32_t x = r.x ^ 0x80808080u, y = r.y ^ 0x80808080u;
 #pragma unroll
-                for (int e = 0; e < 16; ++e) {
-                    const float kf = (float)by[e];
-#pragma unroll
-                    for (int g = 0; g < GR; ++g)
-                        s[g] = fmaf(qs[g * D + d0 + e], kf, s[g]);
-                }
+            for (int e = 0; e < 4; ++e) {
+                out[e] = byte_2p23(x, e) - 8388736.f;   // 2^23 + 128
+                out[4 + e] = byte_2p23(y, e) - 8388736.f;
             }
         } else {
-            for (int dd = 0; dd < Dh; ++dd) {
-                const float kf = (float)krow[dd];
 #pragma unroll
-                for (int g = 0; g < GR; ++g)
-                    s[g] = fmaf(qs[g * D + dd], kf, s[g]);
-            }
+            for (int e = 0; e < 8; ++e)
+                out[e] = 8 * g + e < Dh ? (float)row[8 * g + e] : 0.f;
         }
-    }
-
-    template <int D, bool FULL>
-    __device__ __forceinline__ static void load_v(const Elem* vrow, int lane,
-                                                  int Dh,
-                                                  float (&vv)[D / 32]) {
-        constexpr int DPL = D / 32;
-#pragma unroll
-        for (int d = 0; d < DPL; ++d)
-            vv[d] = FULL || lane * DPL + d < Dh
-                ? (float)vrow[lane * DPL + d] : 0.f;
     }
 };
 
@@ -264,6 +221,7 @@ template <typename T>
 struct Int4Pages {
     using Elem = uint8_t;
     static constexpr bool SCALED = true;
+    static constexpr Fmt FMT = Fmt::PACKED;
     static bool ok_dim(int dh) { return dh % 2 == 0; }
     __host__ __device__ static constexpr int row_elems(int dh) {
         return dh / 2;
@@ -271,13 +229,6 @@ struct Int4Pages {
 
     __device__ __forceinline__ static float nib(unsigned b, int shift) {
         return (float)((int)((b >> shift) & 0xFu) - 8);
-    }
-    // byte k of w, a nibble, minus 8: the byte goes into the mantissa of
-    // 2^23 by a byte permute and 2^23 + 8 comes off, exactly (no integer
-    // to float conversion, a quarter-rate instruction)
-    __device__ __forceinline__ static float nib8(unsigned w, int k) {
-        return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | k)) -
-               8388616.f;
     }
 
     template <int DP, bool FULL>
@@ -294,8 +245,8 @@ struct Int4Pages {
             const unsigned y = (r.y >> sh) & 0x0F0F0F0Fu;
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                out[e] = nib8(x, e);
-                out[4 + e] = nib8(y, e);
+                out[e] = byte_2p23(x, e) - 8388616.f;   // 2^23 + 8
+                out[4 + e] = byte_2p23(y, e) - 8388616.f;
             }
         } else {
             const int h = Dh / 2;
@@ -309,277 +260,7 @@ struct Int4Pages {
     }
 };
 
-// -- the chunk walk (kernel 5) ------------------------------------------------
-
-// DP: channels held per query (a multiple of 32); FULL: the head dim is DP.
-// Otherwise the head dim is Dh < DP and channels Dh..DP-1 are zero.
-template <typename T, typename KV, int DP, int GR, bool FULL, bool MASS>
-__global__ void __launch_bounds__(WARPS * 32)
-paged_decode_kernel(Args a, int n_gchunks, float scale) {
-    using E = typename KV::Elem;
-    constexpr int D = DP;
-    constexpr int DPL = D / 32;
-    const T* __restrict__ q = static_cast<const T*>(a.q);
-    const E* __restrict__ pool_k = static_cast<const E*>(a.pool_k);
-    const E* __restrict__ pool_v = static_cast<const E*>(a.pool_v);
-    const int Hq = a.Hq, Hkv = a.Hkv, P = a.P, max_pages = a.max_pages;
-    const int Dg = FULL ? D : a.Dh;        // q/o row stride
-    const int Rs = KV::row_elems(Dg);      // pool row stride, in elements
-    constexpr int RS = D + 2;   // merge record: acc[D], m, l
-    extern __shared__ float smem[];
-    float* qs = smem;            // [GR][D]
-    float* red = qs + GR * D;    // [WARPS][GR][RS]
-
-    const int G = Hq / Hkv;
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int b = blockIdx.x;
-    const int gchunk = blockIdx.y % n_gchunks;
-    const int hk = blockIdx.y / n_gchunks;
-    const int g0 = gchunk * GMAX;
-    const int ng = min(GR, G - g0);
-
-    for (int idx = threadIdx.x; idx < GR * D; idx += blockDim.x) {
-        const int gl = idx / D, dd = idx % D;
-        qs[idx] = gl < ng && (FULL || dd < a.Dh)
-            ? to_f(q[((size_t)b * Hq + hk * G + g0 + gl) * Dg + dd])
-            : 0.f;
-    }
-
-    const int layer = *a.layer;
-    const int tb = a.t[b], tpb = a.tpad[b], db = a.d[b];
-    const int n_prompt = (tb + P - 1) / P;   // row-local pages 0..n_prompt-1
-    const int dstart = tpb / P;              // first decode page (row-local)
-    const int n_dec = (db + P - 1) / P;
-    const int cpp = (P + KC - 1) / KC;       // chunks per page
-    const int n_chunks = (n_prompt + n_dec) * cpp;
-    const size_t page_elems = (size_t)P * Rs;
-    const int gsz = KV::SCALED ? P / a.n_scale : 1;   // keys per scale
-    // this CTA's mass records: (sum of w, running max) per chunk and head
-    float2* rec = MASS
-        ? reinterpret_cast<float2*>(a.scratch) +
-              ((size_t)b * gridDim.y + blockIdx.y) * max_pages * cpp * GR
-        : nullptr;
-    __syncthreads();
-
-    float m[GR], l[GR], acc[GR][DPL];
-#pragma unroll
-    for (int g = 0; g < GR; ++g) {
-        m[g] = NEG_INF;
-        l[g] = 0.f;
-#pragma unroll
-        for (int d = 0; d < DPL; ++d) acc[g][d] = 0.f;
-    }
-
-    for (int c = warp; c < n_chunks; c += WARPS) {
-        const int i = c / cpp, sub = c % cpp;
-        const int rl = i < n_prompt ? i : dstart + (i - n_prompt);
-        const int pid = rl < max_pages ? a.pt[(size_t)b * max_pages + rl] : 0;
-        const int pofs = sub * KC + lane;
-        const int phys = rl * P + pofs;
-        const bool valid = pofs < P && pid != 0 &&
-                           (phys < tb || (phys >= tpb && phys < tpb + db));
-        const size_t page_id = ((size_t)layer * a.n_pages + pid) * Hkv + hk;
-        const size_t page_off = page_id * page_elems;
-
-        float s[GR];
-#pragma unroll
-        for (int g = 0; g < GR; ++g) s[g] = 0.f;
-        float ksc = 1.f, vsc = 1.f;
-        if (valid) {
-            KV::template dot<D, GR, FULL>(pool_k + page_off +
-                                          (size_t)pofs * Rs, qs, a.Dh, s);
-            if constexpr (KV::SCALED) {
-                const size_t si = page_id * a.n_scale + pofs / gsz;
-                ksc = a.k_scale[si];
-                vsc = a.v_scale[si];
-            }
-        }
-#pragma unroll
-        for (int g = 0; g < GR; ++g) {
-            const float sc = valid ? s[g] * scale * ksc : NEG_INF;
-            const float m_new = fmaxf(m[g], warp_max(sc));
-            const float w = valid ? expf(sc - m_new) : 0.f;
-            const float alpha = expf(m[g] - m_new);
-            const float wsum = warp_sum(w);
-            l[g] = l[g] * alpha + wsum;
-            m[g] = m_new;
-#pragma unroll
-            for (int d = 0; d < DPL; ++d) acc[g][d] *= alpha;
-            s[g] = w;
-            if constexpr (MASS) {
-                if (lane == 0 && i < max_pages)
-                    rec[(size_t)c * GR + g] = make_float2(wsum, m_new);
-            }
-        }
-        // P.V over the chunk's valid keys only (the set is warp-uniform)
-        unsigned vmask = __ballot_sync(FULL_MASK, valid);
-        const E* vbase = pool_v + page_off + (size_t)(sub * KC) * Rs;
-        while (vmask) {
-            const int jj = __ffs(vmask) - 1;
-            vmask &= vmask - 1;
-            float vv[DPL];
-            KV::template load_v<D, FULL>(vbase + (size_t)jj * Rs, lane, a.Dh,
-                                         vv);
-            float vj = 1.f;
-            if constexpr (KV::SCALED) vj = __shfl_sync(FULL_MASK, vsc, jj);
-#pragma unroll
-            for (int g = 0; g < GR; ++g) {
-                // the weight in q's type after the v-scale, as the
-                // reference rounds it
-                const float wj =
-                    to_f(from_f<T>(__shfl_sync(FULL_MASK, s[g], jj) * vj));
-#pragma unroll
-                for (int d = 0; d < DPL; ++d) acc[g][d] = fmaf(wj, vv[d], acc[g][d]);
-            }
-        }
-    }
-
-    // merge the warps' partials (logsumexp merge; empty warps have l = 0)
-    float* mine = red + (size_t)warp * GR * RS;
-#pragma unroll
-    for (int g = 0; g < GR; ++g) {
-#pragma unroll
-        for (int d = 0; d < DPL; ++d) mine[g * RS + lane * DPL + d] = acc[g][d];
-        if (lane == 0) {
-            mine[g * RS + D] = m[g];
-            mine[g * RS + D + 1] = l[g];
-        }
-    }
-    __syncthreads();
-    float* ml = qs;   // [GR][2]: final (m, l) per head, for the mass
-    for (int idx = threadIdx.x; idx < ng * Dg; idx += blockDim.x) {
-        const int g = idx / Dg, dd = idx % Dg;
-        float mx = NEG_INF;
-        for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, red[(w * GR + g) * RS + D]);
-        float lt = 0.f, ot = 0.f;
-        for (int w = 0; w < WARPS; ++w) {
-            const float* rec_w = red + (w * GR + g) * RS;
-            const float f = expf(rec_w[D] - mx);
-            lt += f * rec_w[D + 1];
-            ot += f * rec_w[dd];
-        }
-        const size_t row = (size_t)b * Hq + hk * G + g0 + g;
-        a.o[row * Dg + dd] = ot / fmaxf(lt, 1e-30f);
-        if (dd == 0) {
-            a.m[row] = mx;
-            a.l[row] = lt;
-            if constexpr (MASS) {
-                ml[2 * g] = mx;
-                ml[2 * g + 1] = lt;
-            }
-        }
-    }
-    if constexpr (MASS) {
-        __syncthreads();   // ml and every warp's records are in place
-        float* part = a.scratch +
-                      (size_t)a.B * gridDim.y * max_pages * cpp * GMAX * 2 +
-                      ((size_t)b * gridDim.y + blockIdx.y) * max_pages;
-        // a walked page's records over its chunks and heads, rescaled to
-        // the final max and normalized by the final sum
-        auto page_mass = [&](int i) {
-            float acc_m = 0.f;
-            for (int sub = 0; sub < cpp; ++sub)
-                for (int g = 0; g < ng; ++g) {
-                    const float2 r = rec[(size_t)(i * cpp + sub) * GR + g];
-                    acc_m += r.x * expf(r.y - ml[2 * g]) /
-                             fmaxf(ml[2 * g + 1], 1e-30f);
-                }
-            return acc_m;
-        };
-        for (int rl = threadIdx.x; rl < max_pages; rl += blockDim.x) {
-            float pm = 0.f;
-            if (rl < n_prompt) pm += page_mass(rl);
-            const int i = n_prompt + rl - dstart;
-            if (rl >= dstart && rl < dstart + n_dec && i < max_pages)
-                pm += page_mass(i);
-            part[rl] = pm;
-        }
-    }
-}
-
-// mass[b, p] = sum over the row's CTAs of their partials, in CTA order, / Hq
-__global__ void mass_reduce_kernel(const float* __restrict__ part,
-                                   float* __restrict__ mass, int n_cta,
-                                   int max_pages, int Hq) {
-    const int b = blockIdx.x;
-    for (int p = threadIdx.x; p < max_pages; p += blockDim.x) {
-        float s = 0.f;
-        for (int y = 0; y < n_cta; ++y)
-            s += part[((size_t)b * n_cta + y) * max_pages + p];
-        mass[(size_t)b * max_pages + p] = s / (float)Hq;
-    }
-}
-
-template <typename T, typename KV, int DP, int GR, bool FULL, bool MASS>
-cudaError_t launch_one(const Args& a) {
-    const int G = a.Hq / a.Hkv;
-    const int n_gchunks = (G + GMAX - 1) / GMAX;
-    const size_t smem =
-        sizeof(float) * (size_t)(GR * DP + WARPS * GR * (DP + 2));
-    auto kern = paged_decode_kernel<T, KV, DP, GR, FULL, MASS>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid(a.B, a.Hkv * n_gchunks);
-    kern<<<grid, WARPS * 32, smem, a.st>>>(a, n_gchunks,
-                                            (float)(1.0 / sqrt((double)a.Dh)));
-    err = cudaGetLastError();
-    if (err != cudaSuccess || !MASS) return err;
-    const float* part = a.scratch +
-        (size_t)a.B * grid.y * a.max_pages * ((a.P + KC - 1) / KC) * GMAX * 2;
-    mass_reduce_kernel<<<a.B, 128, 0, a.st>>>(part, a.mass, (int)grid.y,
-                                              a.max_pages, a.Hq);
-    return cudaGetLastError();
-}
-
-template <typename T, typename KV, int DP, int GR, bool FULL>
-cudaError_t launch(const Args& a) {
-    if (a.mass != nullptr) return launch_one<T, KV, DP, GR, FULL, true>(a);
-    return launch_one<T, KV, DP, GR, FULL, false>(a);
-}
-
-template <typename T, typename KV, int DP>
-cudaError_t dispatch_g(const Args& a) {
-    const int G = a.Hq / a.Hkv;
-    if (G <= 1) return launch<T, KV, DP, 1, true>(a);
-    if (G <= 2) return launch<T, KV, DP, 2, true>(a);
-    if (G <= 4) return launch<T, KV, DP, 4, true>(a);
-    return launch<T, KV, DP, GMAX, true>(a);
-}
-
-template <typename T, typename KV>
-cudaError_t dispatch_d(const Args& a) {
-    const int D = a.Dh;
-    if (D == 64) return dispatch_g<T, KV, 64>(a);
-    if (D == 128) return dispatch_g<T, KV, 128>(a);
-    if (D < 1) return cudaErrorInvalidValue;
-    if (D <= 32) return launch<T, KV, 32, GMAX, false>(a);
-    if (D <= 64) return launch<T, KV, 64, GMAX, false>(a);
-    if (D <= 128) return launch<T, KV, 128, GMAX, false>(a);
-    if (D <= 256) return launch<T, KV, 256, GMAX, false>(a);
-    return cudaErrorInvalidValue;
-}
-
-// The chunk walk's C entry (kernel 5): checks what the kernel relies on,
-// then picks the instance for q's dtype, the head dim and the group size.
-template <template <typename> class KVT>
-int entry(const Args& a, int is_bf16) {
-    if (a.Hkv <= 0 || a.Hq % a.Hkv != 0 || a.B == 0 || a.P <= 0 ||
-        !KVT<float>::ok_dim(a.Dh))
-        return cudaErrorInvalidValue;
-    if (KVT<float>::SCALED &&
-        (a.k_scale == nullptr || a.v_scale == nullptr || a.n_scale <= 0 ||
-         a.P % a.n_scale != 0))
-        return cudaErrorInvalidValue;
-    if (a.mass != nullptr &&
-        (a.scratch == nullptr || a.scratch_floats < mass_scratch_floats(a)))
-        return cudaErrorInvalidValue;
-    if (is_bf16) return dispatch_d<__nv_bfloat16, KVT<__nv_bfloat16>>(a);
-    return dispatch_d<float, KVT<float>>(a);
-}
-
-// -- the split walk (kernels 4, 6 and 7) --------------------------------------
+// -- the split walk ----------------------------------------------------------
 
 namespace split {
 
@@ -650,9 +331,9 @@ template <typename KV, int DP, int GR> struct Smem {
     }
 };
 
-// Kernels 4 and 6 with bf16 queries at head dims 64 and 128 run the
-// tensor-core walk; everything else (f32, other head dims, a misaligned
-// pool, kernel 7) the CUDA-core walk.
+// Kernels 4-6 (bf16, int8 and int4 pages) with bf16 queries at head dims
+// 64 and 128 run the tensor-core walk; everything else (f32, other head
+// dims, a misaligned pool, kernel 7) the CUDA-core walk.
 template <typename T, int DP, bool FULL, bool BIAS>
 __host__ __device__ constexpr bool use_tc() {
     return std::is_same<T, __nv_bfloat16>::value && FULL && !BIAS &&
@@ -789,8 +470,40 @@ __device__ __forceinline__ uint32_t nib2_bf16(uint32_t x, int sh) {
                                *reinterpret_cast<const __nv_bfloat162*>(&k));
     return *reinterpret_cast<uint32_t*>(&r);
 }
+// The int8 bytes 0 and 2 of x as bf16x2 (byte 0 the low half), exactly,
+// in two LOP3s and one HSUB2 (bytes 1 and 3 are ignored): 0x4300 | (b &
+// 0x7F) is bf16 128 + (b & 0x7F), and 0x4300 | (b & 0x80) is 128, or 256
+// for a negative byte, which comes off.  |b| <= 128 fits bf16's
+// significand; the 2^23 route (a byte permute and an FADD a byte, an F2FP a
+// pair) costs 5.5 instructions a pair against these 3.5 to 4.
+__device__ __forceinline__ uint32_t i8x2_bf16(uint32_t x) {
+    const uint32_t v = (x & 0x007F007Fu) | 0x43004300u;
+    const uint32_t k = (x & 0x00800080u) | 0x43004300u;
+    __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                               *reinterpret_cast<const __nv_bfloat162*>(&k));
+    return *reinterpret_cast<uint32_t*>(&r);
+}
+// N contiguous bytes of shared memory (4 to 32, aligned to min(N, 16)) as
+// N / 4 words
+template <int N>
+__device__ __forceinline__ void lds_words(uint32_t (&w)[N / 4],
+                                          const uint8_t* src) {
+    if constexpr (N >= 16) {
+#pragma unroll
+        for (int i = 0; i < N / 16; ++i) {
+            const uint4 v = reinterpret_cast<const uint4*>(src)[i];
+            w[4 * i] = v.x; w[4 * i + 1] = v.y;
+            w[4 * i + 2] = v.z; w[4 * i + 3] = v.w;
+        }
+    } else if constexpr (N == 8) {
+        const uint2 v = *reinterpret_cast<const uint2*>(src);
+        w[0] = v.x; w[1] = v.y;
+    } else {
+        w[0] = *reinterpret_cast<const uint32_t*>(src);
+    }
+}
 
-// The tensor-core walk of kernels 4 and 6 (bf16 queries, head dims 64 and
+// The tensor-core walk of kernels 4-6 (bf16 queries, head dims 64 and
 // 128): each warp takes KW keys of every tile and runs S^T = Q K^T and
 // O += P V as mma.sync m16n8k16 (bf16 in, f32 accumulate), the CTA's <= 8
 // query heads the rows of the A operand (rows 8-15 zero), so a key row
@@ -799,27 +512,37 @@ __device__ __forceinline__ uint32_t nib2_bf16(uint32_t x, int sh) {
 // its online softmax (m, l per head, reduced over the quad at the end) and
 // its o fragments.  Tiles come in by cp.async from every thread into rows
 // padded by 16 bytes, so ldmatrix's 8 rows at one column hit 8 different
-// banks; a tile is reused once all warps pass a barrier.  int4 rows are
-// unpacked in registers from shared memory, with the head dims permuted,
-// consistently for q, K, V and o, so that a lane's fragments come from
-// contiguous bytes: in a QK step s, k = 2c + e is dim BPT c + 2s + e (a
-// low nibble) and k = 8 + 2c + e is dim D/2 + BPT c + 2s + e (the high
-// nibble of the same byte); o's column n of dim tile i is dim BPG n + i
-// (low nibbles) or D/2 + BPG n + i - BPG (high).  The weights are rounded
-// to bf16 after the v-scale as P V's A operand, as the reference rounds
-// them.  Leaves each warp's (acc, m, l) of each head in `red`.
+// banks; a tile is reused once all warps pass a barrier.  Quantized rows
+// become bf16 fragments in registers, read from shared memory with the
+// head dims permuted, consistently for q, K, V and o, so that a lane's
+// fragments come from contiguous bytes:
+//   int8 (BPT = D/4 bytes of a K row, BPG = D/8 of a V row): in a QK step
+//     s, k = 2c + e is dim BPT c + 4s + 2e and k = 8 + 2c + e is dim
+//     BPT c + 4s + 1 + 2e (a lane's word s, bytes 0, 2 and 1, 3); o's
+//     column n of dim tile i is dim BPG n + i (byte i of the lane's V
+//     slice, two keys' bytes interleaved into a fragment);
+//   int4 (BPT = D/8, BPG = D/16): k = 2c + e is dim BPT c + 2s + e (a
+//     low nibble) and k = 8 + 2c + e is dim D/2 + BPT c + 2s + e (the high
+//     nibble of the same byte); o's column n of dim tile i is dim BPG n + i
+//     (low nibbles) or D/2 + BPG n + i - BPG (high).
+// The weights are rounded to bf16 after the v-scale as P V's A operand, as
+// the reference rounds them.  Leaves each warp's (acc, m, l) of each head
+// in `red`.
 template <typename KV, int DP, int GR, bool MASS>
 __device__ __forceinline__ void walk_tc(const Args& a, float scale,
                                         int n_chunks, uint8_t* smem) {
     using BF = __nv_bfloat16;
     using L = Smem<KV, DP, GR>;
-    constexpr bool Q4 = KV::SCALED;
+    constexpr Fmt F = KV::FMT;
+    constexpr bool SC = KV::SCALED;
     constexpr int KT = tile_keys<KV, DP>();
     constexpr int KW = KT / WARPS;          // a warp's keys of a tile
     constexpr int NT = KW / 8, KQ = KW / 16;
     constexpr int RB = row_bytes<KV, DP>(), SR = RB + 16;
     constexpr int NKS = DP / 16, NDT = DP / 8;
-    constexpr int BPT = DP / 8, BPG = DP / 16;   // int4 bytes a lane reads
+    // quantized bytes a lane reads of a K row (QK) and of a V row (P V)
+    constexpr int BPT = F == Fmt::INT8 ? DP / 4 : DP / 8;
+    constexpr int BPG = F == Fmt::INT8 ? DP / 8 : DP / 16;
     static_assert(KW % 16 == 0 && NKS % 2 == 0 && NDT % 2 == 0,
                   "a warp's keys and the dims in whole mma tiles");
     const int P = a.P, Dh = a.Dh, Hq = a.Hq, max_pages = a.max_pages;
@@ -854,9 +577,10 @@ __device__ __forceinline__ void walk_tc(const Args& a, float scale,
                            gv + (size_t)r * RB + o16);
             }
             // P V multiplies the tile's rows past nk by a zero weight: bf16
-            // V rows there are zeroed, as stale bits could be NaN (a
-            // nibble is always finite; K's scores there are masked)
-            if constexpr (!Q4) {
+            // V rows there are zeroed, as stale bits could be NaN (an int8
+            // byte or an int4 nibble is always finite; K's scores there are
+            // masked)
+            if constexpr (F == Fmt::PLAIN) {
                 for (int ch = threadIdx.x; ch < (KT - nk) * CPR;
                      ch += THREADS) {
                     const int r = nk + ch / CPR, o16 = ch % CPR * 16;
@@ -876,17 +600,29 @@ __device__ __forceinline__ void walk_tc(const Args& a, float scale,
     {
         const BF* qr =
             static_cast<const BF*>(a.q) + ((size_t)at.b * Hq + at.h0 + g) * Dh;
+        auto word = [&](int d0) {
+            return g < at.ng ? *reinterpret_cast<const uint32_t*>(qr + d0)
+                             : 0u;
+        };
 #pragma unroll
         for (int s = 0; s < NKS; ++s) {
-            const int d0 = Q4 ? BPT * c + 2 * s : 16 * s + 2 * c;
-            const int d1 = Q4 ? DP / 2 + BPT * c + 2 * s : 16 * s + 8 + 2 * c;
-            qa[s][0] = g < at.ng
-                ? *reinterpret_cast<const uint32_t*>(qr + d0) : 0u;
-            qa[s][1] = g < at.ng
-                ? *reinterpret_cast<const uint32_t*>(qr + d1) : 0u;
+            if constexpr (F == Fmt::INT8) {
+                // dims d0 .. d0 + 3 as (d0, d0 + 2) and (d0 + 1, d0 + 3)
+                const uint32_t lo = word(BPT * c + 4 * s);
+                const uint32_t hi = word(BPT * c + 4 * s + 2);
+                qa[s][0] = __byte_perm(lo, hi, 0x5410);
+                qa[s][1] = __byte_perm(lo, hi, 0x7632);
+            } else if constexpr (F == Fmt::PACKED) {
+                qa[s][0] = word(BPT * c + 2 * s);
+                qa[s][1] = word(DP / 2 + BPT * c + 2 * s);
+            } else {
+                qa[s][0] = word(16 * s + 2 * c);
+                qa[s][1] = word(16 * s + 8 + 2 * c);
+            }
         }
     }
-    const int gsz = Q4 ? P / a.n_scale : 1;   // keys a scale
+    // keys a scale (int8: one a key)
+    const int gsz = F == Fmt::PACKED ? P / a.n_scale : 1;
 
     float o[NDT][2], m = NEG_INF, l = 0.f, lp = 0.f;
 #pragma unroll
@@ -904,7 +640,7 @@ __device__ __forceinline__ void walk_tc(const Args& a, float scale,
             const int phys = cu.rl * P + pofs;
             valid = pofs < cu.hi &&
                     (phys < tb || (phys >= tpb && phys < tpb + db));
-            if constexpr (Q4) {
+            if constexpr (SC) {
                 if (valid) {
                     const size_t si =
                         pages.head_page(cu.pid) * a.n_scale + pofs / gsz;
@@ -924,7 +660,7 @@ __device__ __forceinline__ void walk_tc(const Args& a, float scale,
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
             sa[j][0] = sa[j][1] = 0.f;
-            if constexpr (!Q4) {
+            if constexpr (F == Fmt::PLAIN) {
 #pragma unroll
                 for (int s2 = 0; s2 < NKS; s2 += 2) {
                     uint32_t r[4];
@@ -935,23 +671,22 @@ __device__ __forceinline__ void walk_tc(const Args& a, float scale,
                     mma_bf16(sa[j], qa[s2 + 1][0], qa[s2 + 1][1], r[2], r[3]);
                 }
             } else {
-                // key 8j + g: bytes BPT c .. BPT c + BPT - 1, two a step
+                // key 8j + g: bytes BPT c .. BPT c + BPT - 1, four (int8)
+                // or two (int4) a step
                 uint32_t w[BPT / 4];
-                const uint8_t* src = kt + (8 * j + g) * SR + BPT * c;
-                if constexpr (BPT == 16) {
-                    const uint4 v = *reinterpret_cast<const uint4*>(src);
-                    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-                } else {
-                    const uint2 v = *reinterpret_cast<const uint2*>(src);
-                    w[0] = v.x; w[1] = v.y;
-                }
+                lds_words<BPT>(w, kt + (8 * j + g) * SR + BPT * c);
 #pragma unroll
                 for (int st = 0; st < NKS; ++st) {
-                    const int p0 = 2 * (st % 2);
-                    const uint32_t x =
-                        __byte_perm(w[st / 2], 0u, p0 | ((p0 + 1) << 8));
-                    mma_bf16(sa[j], qa[st][0], qa[st][1], nib2_bf16(x, 0),
-                             nib2_bf16(x, 4));
+                    if constexpr (F == Fmt::INT8) {
+                        mma_bf16(sa[j], qa[st][0], qa[st][1],
+                                 i8x2_bf16(w[st]), i8x2_bf16(w[st] >> 8));
+                    } else {
+                        const int p0 = 2 * (st % 2);
+                        const uint32_t x =
+                            __byte_perm(w[st / 2], 0u, p0 | ((p0 + 1) << 8));
+                        mma_bf16(sa[j], qa[st][0], qa[st][1],
+                                 nib2_bf16(x, 0), nib2_bf16(x, 4));
+                    }
                 }
             }
         }
@@ -963,10 +698,10 @@ __device__ __forceinline__ void walk_tc(const Args& a, float scale,
             for (int e = 0; e < 2; ++e) {
                 const int kk = 8 * j + 2 * c + e;
                 const float kj =
-                    Q4 ? __shfl_sync(FULL_MASK, ksc, kk) : 1.f;
+                    SC ? __shfl_sync(FULL_MASK, ksc, kk) : 1.f;
                 // NEG_INF is finite: the weight below is masked explicitly
                 sc[j][e] = (vmask >> kk) & 1u
-                    ? (Q4 ? sa[j][e] * scale * kj : sa[j][e] * scale)
+                    ? (SC ? sa[j][e] * scale * kj : sa[j][e] * scale)
                     : NEG_INF;
                 mt = fmaxf(mt, sc[j][e]);
             }
@@ -993,17 +728,17 @@ __device__ __forceinline__ void walk_tc(const Args& a, float scale,
                 for (int e = 0; e < 2; ++e) {
                     const int kk = 16 * q + 8 * h + 2 * c + e;
                     const float vj =
-                        Q4 ? __shfl_sync(FULL_MASK, vsc, kk) : 1.f;
+                        SC ? __shfl_sync(FULL_MASK, vsc, kk) : 1.f;
                     const float w = (vmask >> kk) & 1u
                         ? expf(sc[2 * q + h][e] - m) : 0.f;
                     l += w;
                     if constexpr (MASS) lp += w;
-                    wv[e] = Q4 ? w * vj : w;
+                    wv[e] = SC ? w * vj : w;
                 }
                 // the weights in bf16 after the v-scale, as the reference
                 pa[h] = pack_bf16(wv[0], wv[1]);
             }
-            if constexpr (!Q4) {
+            if constexpr (F == Fmt::PLAIN) {
 #pragma unroll
                 for (int i2 = 0; i2 < NDT; i2 += 2) {
                     uint32_t r[4];
@@ -1015,31 +750,29 @@ __device__ __forceinline__ void walk_tc(const Args& a, float scale,
                 }
             } else {
                 // keys 2c, 2c + 1, 2c + 8, 2c + 9 of the step: BPG bytes
-                // from BPG g of each row, a low and a high nibble a byte
+                // from BPG g of each row, byte i two keys' column of dim
+                // tile i (int8), or of tiles i and i + BPG (int4: a low
+                // and a high nibble)
                 uint32_t v[4][BPG / 4];
 #pragma unroll
-                for (int k = 0; k < 4; ++k) {
-                    const uint8_t* src =
-                        vt + (16 * q + 2 * c + (k & 1) + (k >> 1) * 8) * SR +
-                        BPG * g;
-                    if constexpr (BPG == 8) {
-                        const uint2 x = *reinterpret_cast<const uint2*>(src);
-                        v[k][0] = x.x;
-                        v[k][1] = x.y;
-                    } else {
-                        v[k][0] = *reinterpret_cast<const uint32_t*>(src);
-                    }
-                }
+                for (int k = 0; k < 4; ++k)
+                    lds_words<BPG>(v[k], vt + (16 * q + 2 * c + (k & 1) +
+                                               (k >> 1) * 8) * SR + BPG * g);
 #pragma unroll
                 for (int i = 0; i < BPG; ++i) {
                     const int p0 = i % 4, wi = i / 4;
                     const uint32_t sel = p0 | ((p0 + 4) << 8);
                     const uint32_t x01 = __byte_perm(v[0][wi], v[1][wi], sel);
                     const uint32_t x23 = __byte_perm(v[2][wi], v[3][wi], sel);
-                    mma_bf16(o[i], pa[0], pa[1], nib2_bf16(x01, 0),
-                             nib2_bf16(x23, 0));
-                    mma_bf16(o[i + BPG], pa[0], pa[1], nib2_bf16(x01, 4),
-                             nib2_bf16(x23, 4));
+                    if constexpr (F == Fmt::INT8) {
+                        mma_bf16(o[i], pa[0], pa[1], i8x2_bf16(x01),
+                                 i8x2_bf16(x23));
+                    } else {
+                        mma_bf16(o[i], pa[0], pa[1], nib2_bf16(x01, 0),
+                                 nib2_bf16(x23, 0));
+                        mma_bf16(o[i + BPG], pa[0], pa[1], nib2_bf16(x01, 4),
+                                 nib2_bf16(x23, 4));
+                    }
                 }
             }
         }
@@ -1075,7 +808,8 @@ __device__ __forceinline__ void walk_tc(const Args& a, float scale,
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
                 const int n = 2 * c + e;
-                const int dim = !Q4 ? 8 * i + n
+                const int dim = F == Fmt::PLAIN ? 8 * i + n
+                    : F == Fmt::INT8 ? BPG * n + i
                     : i < BPG ? BPG * n + i : DP / 2 + BPG * n + i - BPG;
                 mine[dim] = o[i][e];
             }
@@ -1090,7 +824,7 @@ __device__ __forceinline__ void walk_tc(const Args& a, float scale,
 // FULL: the head dim is DP and the pool is 16-byte aligned, so tiles are
 // staged by bulk copies.  Otherwise the head dim is Dh <= DP and rows are
 // read from the pool.  BIAS: kernel 7 (T5's bias, no hole mask, one head a
-// CTA); otherwise kernels 4 and 6 (the hole mask; the mass with MASS).
+// CTA); otherwise kernels 4-6 (the hole mask; the mass with MASS).
 template <typename T, typename KV, int DP, int GR, bool FULL, bool BIAS,
           bool MASS>
 __global__ void __launch_bounds__(THREADS)
@@ -1595,7 +1329,7 @@ inline bool aligned(const Args& a) {
              reinterpret_cast<uintptr_t>(a.pool_v)) & 15) == 0;
 }
 
-// Kernels 4 and 6: at head dims 64 and 128 the tensor-core instance (bf16
+// Kernels 4-6: at head dims 64 and 128 the tensor-core instance (bf16
 // queries) or one instance per query-group size (f32), the padded
 // instances (8 query heads a CTA) otherwise.
 template <typename T, typename KV, int DP, bool MASS>
@@ -1653,8 +1387,8 @@ inline bool ok_split(const Args& a) {
            a.scratch_floats >= scratch_floats(a);
 }
 
-// The split walk's C entry for kernels 4 and 6 (GQA, the hole mask, the
-// mass on request).
+// The split walk's C entry for kernels 4-6 (GQA, the hole mask, the mass
+// on request).
 template <template <typename> class KVT>
 int entry_pages(const Args& a, int is_bf16) {
     if (!ok_split(a) || !KVT<float>::ok_dim(a.Dh) || a.qpos != nullptr)
@@ -1687,42 +1421,17 @@ int entry_bias(const Args& a, int is_bf16) {
 }  // namespace paged
 }  // namespace kubetpu
 
-// The C interface of kernel 5 (the chunk walk): q [B, Hq, D] (f32 or bf16;
-// D <= 256); pools [L, n_pages, Hkv, P, D] int8; k_scale/v_scale f32 [L,
-// n_pages, Hkv, P]; page_table [B, max_pages] i32; layer [1] i32;
-// t/t_pad/d [B] i32.  Outputs o f32 [B, Hq, D], m/l f32 [B, Hq] and, when
-// `mass` is not null, mass f32 [B, max_pages] with `scratch` of
-// `scratch_floats` floats.  All on the device.  Returns the launch's
-// cudaError_t.
-#define KUBETPU_PAGED_ENTRY(NAME, POLICY)                                      \
-    extern "C" int NAME(const void* q, const void* pool_k, const void* pool_v,\
-                        const void* k_scale, const void* v_scale,             \
-                        const void* pt, const void* layer, const void* t,     \
-                        const void* tpad, const void* d, void* o, void* m,    \
-                        void* l, void* mass, void* scratch, int B, int Hq,    \
-                        int Hkv, int n_pages, int P, int D, int max_pages,    \
-                        int n_scale, int scratch_floats, int is_bf16,         \
-                        void* stream) {                                       \
-        kubetpu::paged::Args a{                                               \
-            q, pool_k, pool_v, static_cast<const float*>(k_scale),            \
-            static_cast<const float*>(v_scale), static_cast<const int*>(pt),  \
-            static_cast<const int*>(layer), static_cast<const int*>(t),       \
-            static_cast<const int*>(tpad), static_cast<const int*>(d),        \
-            static_cast<float*>(o), static_cast<float*>(m),                   \
-            static_cast<float*>(l), static_cast<float*>(mass),                \
-            static_cast<float*>(scratch), B, Hq, Hkv, n_pages, P, D,          \
-            max_pages, n_scale, scratch_floats,                               \
-            static_cast<cudaStream_t>(stream)};                               \
-        return kubetpu::paged::entry<POLICY>(a, is_bf16);                     \
-    }
-
-// The C interface of kernels 4 and 6 (the split walk): as kernel 5's, with
-// pools [L, n_pages, Hkv, P, row] of row D (bf16/f32 like q) or D/2 (packed
-// int4, scales [L, n_pages, Hkv, n_scale] with n_scale dividing P), the
-// row's pages cut into n_splits (1 <= n_splits <= min(max_pages, 32))
-// splits, scratch of scratch_floats floats (split::scratch_floats) and
-// count of B * Hkv * ceil(Hq / Hkv / 8) + B i32 that are 0 between
-// launches (the kernel leaves them so).
+// The C interface of kernels 4-6: q [B, Hq, D] (f32 or bf16; D <= 256);
+// pools [L, n_pages, Hkv, P, row] of row D (bf16/f32 like q, or int8 with
+// scales [L, n_pages, Hkv, P]) or D/2 (packed int4, scales [L, n_pages,
+// Hkv, n_scale] with n_scale dividing P); page_table [B, max_pages] i32;
+// layer [1] i32; t/t_pad/d [B] i32.  The row's pages are cut into n_splits
+// (1 <= n_splits <= min(max_pages, 32)) splits; scratch holds
+// scratch_floats floats (split::scratch_floats) and count B * Hkv *
+// ceil(Hq / Hkv / 8) + B i32 that are 0 between launches (the kernel
+// leaves them so).  Outputs o f32 [B, Hq, D], m/l f32 [B, Hq] and, when
+// `mass` is not null, mass f32 [B, max_pages].  All on the device.
+// Returns the launch's cudaError_t.
 #define KUBETPU_PAGED_SPLIT_ENTRY(NAME, POLICY)                                \
     extern "C" int NAME(const void* q, const void* pool_k, const void* pool_v,\
                         const void* k_scale, const void* v_scale,             \

@@ -38,10 +38,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures: every pointer and the stream are c_void_p, ints are c_int.
-# Kernel 5 runs the chunk walk; kernels 4 and 6 share the split walk's
-# (with its counters and split count), kernel 7 has its own (the split walk
-# with the bias table); the four paged sources share csrc/paged_decode.cuh.
-_PAGED = [_P] * 15 + [_I] * 10 + [_P]
+# Kernels 4-6 share the split walk's (with its counters and split count),
+# kernel 7 has its own (the split walk with the bias table); the four paged
+# sources share csrc/paged_decode.cuh.
 _PAGED_SPLIT = [_P] * 16 + [_I] * 11 + [_P]
 # Kernels 1, 2 and 3 take a route (tensor cores or CUDA cores) as their
 # last int.
@@ -50,7 +49,7 @@ SIGNATURES = {
     "flash_bwd_dq": ("kubetpu_flash_bwd_dq", [_P] * 7 + [_I] * 9 + [_P]),
     "flash_bwd_dkv": ("kubetpu_flash_bwd_dkv", [_P] * 8 + [_I] * 9 + [_P]),
     "paged_decode": ("kubetpu_paged_decode", _PAGED_SPLIT),
-    "paged_decode_q8": ("kubetpu_paged_decode_q8", _PAGED),
+    "paged_decode_q8": ("kubetpu_paged_decode_q8", _PAGED_SPLIT),
     "paged_decode_q4": ("kubetpu_paged_decode_q4", _PAGED_SPLIT),
     "paged_decode_bias": ("kubetpu_paged_decode_bias",
                           [_P] * 15 + [_I] * 11 + [_P]),

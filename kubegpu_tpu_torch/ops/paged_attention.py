@@ -26,14 +26,11 @@ from kubegpu_tpu_torch import kernels
 from kubegpu_tpu_torch.ops.flash_attention import KERNEL_MAX_HEAD_DIM, NEG_INF
 from kubegpu_tpu_torch.ops.kvquant import q4_unpack
 
-# keys per chunk of csrc/paged_decode.cuh's chunk walk (kernel 5) and
-# query heads per CTA of both its walks: they size the scratch of the mass
-# output
-_KC, _GMAX = 32, 8
-# the split walk (kernels 4, 6 and 7) cuts a row's pages into one split a
-# page, up to this many splits (at most csrc/paged_decode.cuh's
-# split::MAX_SPLITS); its CTAs have this many warps, each of which records
-# a page's mass
+# csrc/paged_decode.cuh's split walk (kernels 4-7) takes up to this many
+# query heads a CTA; it cuts a row's pages into one split a page, up to
+# _MAX_SPLITS splits (at most its split::MAX_SPLITS); its CTAs have this
+# many warps, each of which records a page's mass
+_GMAX = 8
 _MAX_SPLITS = 32
 _SPLIT_WARPS = 4
 
@@ -283,31 +280,19 @@ def _paged_cuda(q, pool_k, pool_v, page_table, layer, t, t_pad, d,
                 _layer_ptr(layer, n_layers, q.device), t.data_ptr(),
                 t_pad.data_ptr(), d.data_ptr(), o.data_ptr(), m.data_ptr(),
                 l.data_ptr(), ptr(mass))
-        bf16 = int(q.dtype == torch.bfloat16)
-        if name == "paged_decode_q8":   # the chunk walk
-            scratch, n_scratch = None, 0
-            if collect_mass:
-                # per CTA: a (sum, max) record per chunk and query head,
-                # then one partial per page
-                ctas = b * hkv * -(-(hq // hkv) // _GMAX)
-                n_scratch = ctas * max_pages * (-(-p // _KC) * _GMAX * 2 + 1)
-                scratch = torch.empty(max(n_scratch, 1), **f32)
-            kernels.call(name, *args, ptr(scratch), b, hq, hkv, n_pages, p,
-                         dd, max_pages, n_sc, n_scratch, bf16)
-        else:                           # the split walk
-            n_splits = min(max_pages, _MAX_SPLITS)
-            n_chunks = -(-(hq // hkv) // _GMAX)
-            # the splits' partials, and with the mass a (sum, max) record
-            # per query head, page and warp and a page-mass partial per
-            # (row, kv head, query chunk) and page
-            n_floats = b * hq * n_splits * (dd + 2) + (
-                b * max_pages * (hq * _SPLIT_WARPS * 2 + hkv * n_chunks)
-                if collect_mass else 0)
-            parts, count = _split_scratch(q.device, n_floats,
-                                          b * hkv * n_chunks + b)
-            kernels.call(name, *args, parts.data_ptr(), count.data_ptr(), b,
-                         hq, hkv, n_pages, p, dd, max_pages, n_sc, n_splits,
-                         parts.numel(), bf16)
+        n_splits = min(max_pages, _MAX_SPLITS)
+        n_chunks = -(-(hq // hkv) // _GMAX)
+        # the splits' partials, and with the mass a (sum, max) record per
+        # query head, page and warp and a page-mass partial per (row, kv
+        # head, query chunk) and page
+        n_floats = b * hq * n_splits * (dd + 2) + (
+            b * max_pages * (hq * _SPLIT_WARPS * 2 + hkv * n_chunks)
+            if collect_mass else 0)
+        parts, count = _split_scratch(q.device, n_floats,
+                                      b * hkv * n_chunks + b)
+        kernels.call(name, *args, parts.data_ptr(), count.data_ptr(), b, hq,
+                     hkv, n_pages, p, dd, max_pages, n_sc, n_splits,
+                     parts.numel(), int(q.dtype == torch.bfloat16))
     out = (o, m, l)
     return out + (mass,) if collect_mass else out
 
@@ -317,11 +302,11 @@ def paged_attention(q, pool_k, pool_v, page_table, layer, t, t_pad, d,
     """Paged decode attention over one layer of the pool; same signature
     and outputs as :func:`paged_attention_ref`.  CUDA tensors launch the
     Hopper kernel of the pool's format, which reads only the pages each
-    row holds: ``csrc/paged_decode.cu`` for bf16/f32 pools and ``_q4.cu``
-    for packed int4 (uint8), both on the split walk (one CTA per row, kv
-    head, chunk of <= 8 query heads and page, up to 32 splits a row,
-    merged with the mass in a fixed order), and ``_q8.cu`` for int8 (the
-    chunk walk); CPU tensors run the plain version.  A uint8 pool without
+    row holds: ``csrc/paged_decode.cu`` for bf16/f32 pools, ``_q8.cu`` for
+    int8 and ``_q4.cu`` for packed int4 (uint8), all three on the split
+    walk (one CTA per row, kv head, chunk of <= 8 query heads and page, up
+    to 32 splits a row, merged with the mass in a fixed order, in one
+    launch); CPU tensors run the plain version.  A uint8 pool without
     scales raises ``ValueError``, as the reference does.
 
     There is no gradient (see :func:`_refuse_grad`)."""
@@ -341,7 +326,7 @@ _split_buffers: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _split_scratch(device, n_floats: int, n_counts: int):
-    """The split walk's scratch on ``device``, shared by kernels 4, 6 and 7
+    """The split walk's scratch on ``device``, shared by kernels 4-7
     on one stream: the splits' partials and mass records (f32) and the
     counters that pick the last CTA of a merge (int32, zero between
     launches: the kernel's last CTA resets its own).  Kept and reused

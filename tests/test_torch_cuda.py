@@ -141,8 +141,7 @@ def test_quant_and_mass_kernels_match_plain(dev, fmt, dtype, hd, hq):
               for _ in range(2))
     kq, vq, ks, vs = (pk, pv, None, None) if fmt == "plain" else \
         _quantized(pk, pv, fmt)
-    name = {"plain": "paged_decode", "q8": "paged_decode_q8"}.get(
-        fmt, "paged_decode_q4")
+    name = PAGED_NAME.get(fmt, "paged_decode_q4")
     q = torch.randn(4, hq, hd, generator=g, device=dev).to(dtype)
     t, tpad, d = (torch.from_numpy(x).to(dev) for x in STATE)
     args = (q, kq, vq, torch.from_numpy(PT).to(dev), 1, t, tpad, d, ks, vs)
@@ -200,23 +199,30 @@ def test_engine_int4_pool_runs_kernel6(dev):
     assert (toks, evicted) == runs["cpu"][:2]
 
 
-# kernels 4 and 6 on the split walk: the edge rows above (a hole, an empty
+# kernels 4-6 on the split walk: the edge rows above (a hole, an empty
 # row, decode pages past t_pad) at head dims 64 and 128 (the staged
-# instances, one per group size) and 16 and 80 (the padded ones), GQA 4,
-# MHA and folded queries (G = 16: two chunks of 8 query heads)
+# instances: the tensor-core one for bf16 queries, one per group size for
+# f32) and 16 and 80 (the padded ones), GQA 4, MHA and folded queries
+# (G = 16: two chunks of 8 query heads)
 SPLIT_CASES = [
     ("plain", torch.float32, 64, 8), ("plain", torch.bfloat16, 128, 8),
     ("plain", torch.float32, 128, 2), ("plain", torch.float32, 16, 32),
     ("plain", torch.bfloat16, 80, 8), ("plain", torch.float32, 64, 4),
+    ("q8", torch.bfloat16, 128, 8), ("q8", torch.bfloat16, 64, 16),
+    ("q8", torch.float32, 128, 32), ("q8", torch.float32, 16, 2),
+    ("q8", torch.bfloat16, 80, 8),
     ("q4g1", torch.float32, 64, 8), ("q4g4", torch.bfloat16, 128, 8),
     ("q4g8", torch.float32, 128, 32), ("q4g2", torch.float32, 16, 2),
     ("q4g4", torch.float32, 80, 8), ("q4g8", torch.bfloat16, 64, 16)]
+
+# the paged kernel of each pool format
+PAGED_NAME = {"plain": "paged_decode", "q8": "paged_decode_q8"}
 
 
 def _split_args(dev, fmt, dtype, hd, hq, rows, p=8, n_layers=2, seed=0,
                 misalign=False):
     """Arguments of ``paged_attention`` over a fresh pool of format ``fmt``
-    (``plain`` or ``q4g<g>``) with 2 kv heads: ``rows`` as (table, t,
+    (``plain``, ``q8`` or ``q4g<g>``) with 2 kv heads: ``rows`` as (table, t,
     t_pad, d); with ``misalign`` the pools start 4 bytes past a 16-byte
     boundary (the instance that reads rows from the pool)."""
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -267,12 +273,12 @@ def _check_split(args, name, bf16):
 
 @pytest.mark.parametrize("fmt,dtype,hd,hq", SPLIT_CASES)
 def test_split_walk_kernels_match_plain(dev, fmt, dtype, hd, hq):
-    """Kernels 4 and 6 on the split walk (one split a page) over the edge
-    rows of ``test_quant_and_mass_kernels_match_plain``, at its
-    tolerances; the hole's mass is 0 and the empty row gives o = 0, l = 0,
-    m = NEG_INF and no mass."""
+    """Kernels 4-6 on the split walk (one split a page) over the edge rows
+    of ``test_quant_and_mass_kernels_match_plain``, at its tolerances; two
+    launches give equal bits, the hole's mass is 0 and the empty row gives
+    o = 0, l = 0, m = NEG_INF and no mass."""
     args = _split_args(dev, fmt, dtype, hd, hq, EDGE_ROWS)
-    name = "paged_decode" if fmt == "plain" else "paged_decode_q4"
+    name = PAGED_NAME.get(fmt, "paged_decode_q4")
     o, m, l, mass = _check_split(args, name, dtype == torch.bfloat16)
     assert not o[2].any() and not l[2].any() and not mass[2].any()
     assert (m[2] == -1e30).all()
@@ -281,6 +287,8 @@ def test_split_walk_kernels_match_plain(dev, fmt, dtype, hd, hq):
 
 @pytest.mark.parametrize("fmt,dtype,hd", [("plain", torch.float32, 128),
                                           ("plain", torch.bfloat16, 80),
+                                          ("q8", torch.bfloat16, 128),
+                                          ("q8", torch.float32, 64),
                                           ("q4g4", torch.bfloat16, 128),
                                           ("q4g2", torch.float32, 16)])
 def test_split_walk_on_tables_wider_than_32_pages(dev, fmt, dtype, hd):
@@ -296,7 +304,7 @@ def test_split_walk_on_tables_wider_than_32_pages(dev, fmt, dtype, hd):
             (list(range(2 * w + 1, 3 * w + 1)), 0, 0, 129),
             ([0] * w, 0, 0, 0)]
     args = _split_args(dev, fmt, dtype, hd, 8, rows)
-    name = "paged_decode" if fmt == "plain" else "paged_decode_q4"
+    name = PAGED_NAME.get(fmt, "paged_decode_q4")
     o, m, l, mass = _check_split(args, name, dtype == torch.bfloat16)
     assert not o[3].any() and not l[3].any() and not mass[3].any()
     assert mass[0, 7] == 0 and mass[0, 38:].sum() == 0
@@ -305,7 +313,8 @@ def test_split_walk_on_tables_wider_than_32_pages(dev, fmt, dtype, hd):
 @pytest.mark.parametrize("fmt,dtype,hd,misalign", [
     ("q4g8", torch.bfloat16, 128, False), ("q4g8", torch.float32, 64, False),
     ("plain", torch.bfloat16, 128, True), ("q4g4", torch.float32, 64, True),
-    ("plain", torch.float32, 64, True)])
+    ("plain", torch.float32, 64, True), ("q8", torch.bfloat16, 128, True),
+    ("q8", torch.float32, 64, True)])
 def test_split_walk_on_page_scales_and_misaligned_pools(dev, fmt, dtype, hd,
                                                         misalign):
     """int4 groups of P (one 4-byte scale a page, read with __ldg: too small
@@ -314,19 +323,19 @@ def test_split_walk_on_page_scales_and_misaligned_pools(dev, fmt, dtype, hd,
     args = _split_args(dev, fmt, dtype, hd, 8, EDGE_ROWS, misalign=misalign)
     if misalign:
         assert args[1].data_ptr() % 16 == 4
-    name = "paged_decode" if fmt == "plain" else "paged_decode_q4"
+    name = PAGED_NAME.get(fmt, "paged_decode_q4")
     _check_split(args, name, dtype == torch.bfloat16)
 
 
 @pytest.mark.parametrize("fmt", ["plain", "q8", "q4g4"])
 def test_kernels_round_the_weights_as_the_reference(dev, fmt):
-    """The fault this slice repairs: the TPU kernels round each P.V weight
-    to q's type after the v-scale, and kernels 4-6 did not.  bf16, V = 1,
-    rows of 2-4 valid keys at the start of one page, and integer q and K,
-    so both sides compute the same scores and weights exactly: the plain
-    version's o is off 1 by the weights' rounding (> 1e-4), and the
-    kernels (4 and 6 on the split walk, 5 on the chunk walk) match it
-    within 1e-5, the mass included."""
+    """The TPU kernels round each P.V weight to q's type after the
+    v-scale, and so must kernels 4-6.  bf16, V = 1, rows of 2-4 valid keys
+    at the start of one page, and integer q and K, so both sides compute
+    the same scores and weights exactly: the plain version's o is off 1 by
+    the weights' rounding (> 1e-4), and the kernels (all three on the
+    split walk's tensor-core instance) match it within 1e-5, the mass
+    included."""
     g = torch.Generator(device=dev).manual_seed(3)
     shape = (1, 8, 2, 16, 128)
     pk = torch.randint(-2, 3, shape, generator=g, device=dev).bfloat16()

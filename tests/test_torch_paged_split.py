@@ -1,6 +1,6 @@
-"""The split walk of kernels 4 and 6 (``csrc/paged_decode.cuh`` namespace
+"""The split walk of kernels 4-6 (``csrc/paged_decode.cuh`` namespace
 ``split``), modelled in plain PyTorch, against the port's
-``paged_attention_ref`` and the JAX package's Pallas kernels 4 and 6 in
+``paged_attention_ref`` and the JAX package's Pallas kernels 4-6 in
 interpret mode.
 
 The model repeats the walk's arithmetic: a row's pages cut into splits of
@@ -62,8 +62,9 @@ WIDE = ([_HOLED, list(range(_W + 1, 2 * _W + 1)),
 
 def _inputs(layout, fmt, hq, dtype, seed=0):
     """numpy (q, pool_k, pool_v, k_scale, v_scale, pt, t, t_pad, d) for a
-    layout (EDGE or WIDE) in format ``f32`` (a pool of q's type) or
-    ``q4g<g>``; ``dtype`` is q's (and a plain pool's) type, ``float32``
+    layout (EDGE or WIDE) in format ``f32`` (a pool of q's type), ``q8``
+    (int8, one scale a key) or ``q4g<g>``; ``dtype`` is q's (and a plain
+    pool's) type, ``float32``
     or ``bfloat16``; bf16 arrays are rounded once, by JAX, and passed to
     both sides as the same bits."""
     pt, t, tpad, d = (np.asarray(x, np.int32) for x in layout)
@@ -77,6 +78,9 @@ def _inputs(layout, fmt, hq, dtype, seed=0):
     q = cast(q)
     if fmt == "f32":
         pk, pv, ks, vs = cast(raw[0]), cast(raw[1]), None, None
+    elif fmt == "q8":
+        (pk, ks), (pv, vs) = (tuple(np.asarray(a) for a in jq.quantize_rows(
+            jnp.asarray(x))) for x in raw)
     else:
         g = int(fmt[3:])
         (pk, ks), (pv, vs) = (
@@ -113,11 +117,12 @@ def _ref(inp, collect_mass=True):
 def model_split_walk(q, pk, pv, pt, layer, t, t_pad, d, n_splits,
                      k_scale=None, v_scale=None, bias=None, round_pv=True):
     """The split walk in plain PyTorch.  q: [B, Hq, D] (f32 or bf16); pool:
-    [L, n_pages, Hkv, P, D] of q's type or packed int4 (uint8, [..., D/2])
-    with group scales [L, n_pages, Hkv, P/g]; ``bias``: (q_pos, table,
-    max_dist) for kernel 7's T5 bias (MHA, no hole mask).  ``round_pv``:
-    round the P.V weights to q's type (the kernels and the reference do).
-    Returns (o, m, l, mass) as kernels 4 and 6 do (kernel 7 has no mass)."""
+    [L, n_pages, Hkv, P, D] of q's type, int8 with per-key scales [L,
+    n_pages, Hkv, P] or packed int4 (uint8, [..., D/2]) with group scales
+    [L, n_pages, Hkv, P/g]; ``bias``: (q_pos, table, max_dist) for kernel
+    7's T5 bias (MHA, no hole mask).  ``round_pv``: round the P.V weights
+    to q's type (the kernels and the reference do).  Returns (o, m, l,
+    mass) as kernels 4-6 do (kernel 7 has no mass)."""
     b, hq, dd = q.shape
     hkv, p = pk.shape[2], pk.shape[3]
     grp, max_pages = hq // hkv, pt.shape[1]
@@ -219,7 +224,7 @@ def _close(got, want, bf16):
                                    else ATOL, rtol=RTOL)
 
 
-CASES = [(fmt, hq, dtype) for fmt in ("f32", "q4g1", "q4g4", "q4g8")
+CASES = [(fmt, hq, dtype) for fmt in ("f32", "q8", "q4g1", "q4g4", "q4g8")
          for hq, dtype in ((2, "float32"), (8, "float32"), (32, "float32"),
                            (8, "bfloat16"))]
 
@@ -229,8 +234,9 @@ CASES = [(fmt, hq, dtype) for fmt in ("f32", "q4g1", "q4g4", "q4g8")
 def test_model_matches_ref_and_jax_kernels(fmt, hq, dtype, n_splits):
     """Over the edge rows (a hole, an empty row, decode pages past t_pad):
     G = 1, 4 and 16 (folded queries: two chunks of 8 query heads), pools of
-    q's type (kernel 4) and int4 groups of 1, 4 and P (kernel 6), one
-    split, 3 splits of 2 pages (the last one empty) and one split a page."""
+    q's type (kernel 4), int8 with a scale a key (kernel 5) and int4
+    groups of 1, 4 and P (kernel 6), one split, 3 splits of 2 pages (the
+    last one empty) and one split a page."""
     inp = _inputs(EDGE, fmt, hq, dtype)
     got = _model(inp, n_splits)
     bf16 = dtype == "bfloat16"
@@ -244,6 +250,7 @@ def test_model_matches_ref_and_jax_kernels(fmt, hq, dtype, n_splits):
 
 
 @pytest.mark.parametrize("fmt,dtype", [("f32", "float32"),
+                                       ("q8", "bfloat16"),
                                        ("q4g4", "float32"),
                                        ("q4g8", "bfloat16")])
 def test_model_on_tables_wider_than_32_pages(fmt, dtype):
@@ -273,12 +280,16 @@ def _few_keys(fmt, seed=3):
     bf = (lambda x: np.asarray(jnp.asarray(x).astype(jnp.bfloat16)))
     if fmt == "f32":
         return bf(q), bf(k), bf(v), None, None, pt, t, tpad, d
+    if fmt == "q8":
+        (kq, ks), (vq, vs) = (tuple(np.asarray(a) for a in jq.quantize_rows(
+            jnp.asarray(x))) for x in (k, v))
+        return bf(q), kq, vq, ks, vs, pt, t, tpad, d
     (kq, ks), (vq, vs) = (tuple(np.asarray(a) for a in jq.quantize_groups_q4(
         jnp.asarray(x), int(fmt[3:]))) for x in (k, v))
     return bf(q), kq, vq, ks, vs, pt, t, tpad, d
 
 
-@pytest.mark.parametrize("fmt", ["f32", "q4g4"])
+@pytest.mark.parametrize("fmt", ["f32", "q8", "q4g4"])
 def test_weights_are_rounded_before_pv(fmt):
     """The fault the kernels had: the TPU kernels round each P.V weight to
     q's type (after the v-scale), so with V = 1 and a few keys o is off 1
@@ -301,7 +312,7 @@ def test_weights_are_rounded_before_pv(fmt):
 def test_page_zero_moves_kernel7_only():
     """A 0 inside a row's used range: with the bias (kernel 7) the walk
     attends page 0's keys, so editing page 0 moves that row; with the hole
-    mask (kernels 4 and 6) it does not, and the edited model still equals
+    mask (kernels 4-6) it does not, and the edited model still equals
     the plain version."""
     inp = list(_inputs(EDGE, "f32", HKV, "float32", seed=5))
     rng = np.random.default_rng(6)
