@@ -24,17 +24,24 @@ printed as it ends (any failed check exits non-zero):
    equal bits on two launches) and their CUDA-core instances in the f32
    edge cases;
 4. forward  — ``llama_forward`` at Llama-3-8B full width, bf16, [1, 512];
-5. serving  — the paged ``ContinuousBatcher`` at the same width:
-   ``warmup()``, then five timed windows of 12 staggered requests (median
-   tokens/s);
-5b. quantized serving — the same engine with int8 pages, int4 pages, and
-   int4 pages with mass eviction, in turn: ``warmup()`` and two windows
-   each (the first on phase 5's first prompts: the share of greedy tokens
-   equal to the bf16 engine's is printed), every request finished, no page
-   leaked, pages evicted, the pool's bytes per format;
-6. parity   — a narrow f32 engine token for token against the port's own
-   ``greedy_generate``, and the full-width first decode step's logits
-   against the plain dense path;
+5. serving  — the paged ``ContinuousBatcher`` at the same width, its tick
+   a CUDA graph captured by ``warmup()`` (eager run, capture and
+   instantiation seconds and the graph's bytes printed), beside an eager
+   engine (``graphs=False``): three windows of 12 staggered requests
+   each, in turns, every window's prompts on both engines (tokens equal;
+   each engine's median tokens/s); then the fused window: 8 requests of
+   128 new tokens on the graph engine and on one with ``fused_ticks=4``
+   (tokens equal, fused dispatches, tokens/s of each);
+5b. quantized serving — the same graph engine with int8 pages, int4
+   pages, and int4 pages with mass eviction, in turn: ``warmup()`` and
+   two windows each (the first on phase 5's first prompts: the share of
+   greedy tokens equal to the bf16 engine's is printed), every request
+   finished, no page leaked, pages evicted, the pool's bytes per format;
+   an eager engine of each format on the first window's prompts must give
+   the same tokens and evictions;
+6. parity   — a narrow f32 engine (through its graph) token for token
+   against the port's own ``greedy_generate``, and the full-width first
+   decode step's logits against the plain dense path;
 7. training — Llama-3-8B at full width cut to 8 layers (remat on), bf16:
    first one step's loss and gradients at batch 1 through the kernels
    against ``attn_impl="plain"``, then ``make_train_step`` with the port's
@@ -43,23 +50,26 @@ printed as it ends (any failed check exits non-zero):
    falling losses);
 8. t5       — T5 v1.1-base at full width (``T5Config()``), bf16: the dense
    and the paged greedy generate on 8 encoder inputs of 512 tokens, 384
-   decode steps over pages of 128 (one warm call, then the median of three
-   timed calls each; the paged one runs kernel 7 once per decoder layer and
-   step); parity of the paged tokens with the dense ones on a narrow f32
-   config and of the full-width paged step's logits with the dense step's
-   after two flushed pages; ``make_t5_train_step`` with ``adamw(1e-3)`` on
-   one fixed batch (encoder [8, 512], decoder [8, 128]): one warm and three
-   timed steps.
+   decode steps over pages of 128, through their CUDA graphs and eagerly
+   (one warm graph call, then graph, eager, graph, eager, graph: equal
+   tokens, each mode's median tokens/s; the paged one runs kernel 7 once
+   per decoder layer and step); parity of the paged tokens with the dense
+   ones on a narrow f32 config and of the full-width paged step's logits
+   with the dense step's after two flushed pages; ``make_t5_train_step``
+   with ``adamw(1e-3)`` on one fixed batch (encoder [8, 512], decoder [8,
+   128]): one warm and three timed steps.
 
 Four paths are driven: serving (phases 4-5), quantized serving (5b),
 training (phase 7's steps) and T5 paged serving (phase 8's paged calls).
-Launch counters are zeroed just before each and read just after; the
-serving and training paths must run kernels 1-3 on their tensor-core
-instances only.  The line before the last is one JSON object per kernel;
-the last line is ``{"ok": true, "device": {...}}``.
-``--details PATH`` writes every phase's numbers to PATH as JSON.  With
-``--profile`` it also traces one steady tick of the bf16 engine after phase
-5 and of the int8 engine in phase 5b, and one train step after phase 7
+Launch counters are zeroed just before each and read just after; a graph
+replay counts the launches captured in it.  The serving and training
+paths must run kernels 1-3 on their tensor-core instances only.  The line
+before the last is one JSON object per kernel; the last line is
+``{"ok": true, "device": {...}}``.  ``--details PATH`` writes every
+phase's numbers to PATH as JSON.  With ``--profile`` it also traces one
+steady tick of the bf16 and of the int8 engine, each as a graph replay
+and eagerly (the profiler must see the paged kernel inside the graph), a
+block of T5's paged decode likewise, and one train step after phase 7
 (device time by kernel, idle share).
 """
 
@@ -760,19 +770,25 @@ def forward_phase(torch, kernels, cfg, params, gen) -> dict:
 PAGED_KERNELS = ("paged_decode", "paged_decode_q8", "paged_decode_q4")
 
 
+def window_prompts(torch, cfg, gen, n: int = 12) -> list:
+    """``n`` prompts of 200-512 tokens from ``gen``."""
+    lens = torch.randint(200, 513, (n,), generator=gen, device="cuda")
+    return [torch.randint(0, cfg.vocab_size, (int(k),), generator=gen,
+                          device="cuda").tolist() for k in lens]
+
+
 def serving_window(torch, kernels, eng, cfg, gen, n_new, kernel="paged_decode",
                    prompts=None) -> dict:
-    """One timed window: 12 requests with prompts of 200-512 tokens (new
-    ones from ``gen``, or ``prompts``), 8 up front and 4 after two ticks
+    """One timed window: requests with prompts of 200-512 tokens (``prompts``,
+    or 12 new ones from ``gen``), 8 up front and the rest after two ticks
     (slots retire and are re-admitted), run to the end with ``drain``;
     checked and timed on the host clock.  ``kernel`` is the paged kernel
     of the engine's pool format: it must run ``stride × n_layers`` times a
-    tick, and the other paged kernels not at all."""
+    tick, graph replays included, and the other paged kernels not at
+    all."""
     if prompts is None:
-        lens = torch.randint(200, 513, (12,), generator=gen, device="cuda")
-        prompts = [torch.randint(0, cfg.vocab_size, (int(n),), generator=gen,
-                                 device="cuda").tolist() for n in lens]
-    tick0, tok0 = eng._tick, eng.emitted_tokens
+        prompts = window_prompts(torch, cfg, gen)
+    tick0, tok0, ev0 = eng._tick, eng.emitted_tokens, eng.pages_evicted
     before = dict(kernels.launches)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -805,47 +821,141 @@ def serving_window(torch, kernels, eng, cfg, gen, n_new, kernel="paged_decode",
     by_rid = {r.rid: r.tokens for r in done}
     return {"tokens_per_s": tokens / wall, "wall_s": wall, "ticks": ticks,
             "tokens": tokens, "paged_launches": launched, "prompts": prompts,
+            "pages_evicted": eng.pages_evicted - ev0,
             "outputs": [by_rid[r] for r in rids]}
 
 
-def serving_phase(torch, kernels, cfg, params, gen, name,
-                  windows: int = 5) -> dict:
-    """The serving program's order: ``warmup()``, then ``windows`` timed
-    windows of staggered requests; tokens/s is the windows' median."""
-    import statistics
+def graph_log(label: str, eng) -> dict:
+    """The engine's warmup costs: the eager tick before the capture, the
+    capture, the instantiation, and the device memory the graph
+    reserved."""
+    st = eng.graph_stats
+    check(st is not None, f"{label}: no CUDA graph was captured")
+    log("graph", engine=label, eager_s=round(st["eager_s"], 3),
+        capture_s=round(st["capture_s"], 3),
+        instantiate_s=round(st["instantiate_s"], 3),
+        pool_bytes=st["pool_bytes"], tally=st["tally"])
+    return dict(st)
 
-    from kubegpu_tpu_torch.models import ContinuousBatcher
-    stride, n_new = 16, 32
-    eng = ContinuousBatcher(params, cfg, n_slots=8, max_len=1024,
-                            stride=stride, prompt_buckets=(512,),
-                            paged=True, page_size=128, total_pages=40,
-                            device="cuda")
-    before = kernels.launches["paged_decode"]
+
+def same_tokens(label: str, graph_run: dict, eager_run: dict) -> None:
+    check(graph_run["outputs"] == eager_run["outputs"],
+          f"{label}: the graph engine's tokens differ from the eager "
+          "engine's on the same prompts")
+    check(graph_run["pages_evicted"] == eager_run["pages_evicted"],
+          f"{label}: evictions {graph_run['pages_evicted']} (graph) != "
+          f"{eager_run['pages_evicted']} (eager)")
+
+
+ENGINE = dict(n_slots=8, max_len=1024, stride=16, prompt_buckets=(512,),
+              paged=True, page_size=128, total_pages=40, device="cuda")
+
+
+def warmed(torch, kernels, ContinuousBatcher, cfg, params, label, kernel,
+           **kw):
+    """A ``warmup()``-ed engine: its eager tick on scratch ran ``kernel``
+    once per step and layer, the state is untouched, and (a graph engine)
+    the graph captured the same launches."""
+    eng = ContinuousBatcher(params, cfg, **ENGINE, **kw)
+    before = kernels.launches[kernel]
     t0 = time.perf_counter()
     eng.warmup()
     warm_s = time.perf_counter() - t0
-    warm_launches = kernels.launches["paged_decode"] - before
-    check(warm_launches == stride * cfg.n_layers,
-          f"warmup launched the paged kernel {warm_launches} times")
+    want = ENGINE["stride"] * cfg.n_layers
+    check(kernels.launches[kernel] - before == want,
+          f"{label}: warmup did not run {kernel} once per step and layer")
     check((eng._tick, eng.emitted_tokens) == (0, 0),
-          "warmup changed the engine's state")
-    runs = [serving_window(torch, kernels, eng, cfg, gen, n_new)
-            for _ in range(windows)]
+          f"{label}: warmup changed the engine's state")
+    if eng.graphs:
+        check(eng.graph_stats["tally"] == {kernel: want},
+              f"{label}: the graph captured {eng.graph_stats['tally']}")
+    return eng, warm_s
+
+
+def serving_phase(torch, kernels, cfg, params, gen, name,
+                  windows: int = 3) -> dict:
+    """The serving program's order: ``warmup()``, then timed windows of
+    staggered requests, on the graph engine and an eager one
+    (``graphs=False``) in turns (G E, E G, ...), each window's prompts fed
+    to both: tokens equal; tokens/s is each engine's median."""
+    import statistics
+
+    from kubegpu_tpu_torch.models import ContinuousBatcher
+    n_new = 32
+    eng, warm_s = warmed(torch, kernels, ContinuousBatcher, cfg, params,
+                         "bf16", "paged_decode")
+    eager, eager_warm_s = warmed(torch, kernels, ContinuousBatcher, cfg,
+                                 params, "bf16 eager", "paged_decode",
+                                 graphs=False)
+    graph = graph_log("bf16", eng)
+    runs, eager_runs = [], []
+    for i in range(windows):
+        prompts = window_prompts(torch, cfg, gen)
+        order = (eng, eager) if i % 2 == 0 else (eager, eng)
+        out = {id(e): serving_window(torch, kernels, e, cfg, gen, n_new,
+                                     prompts=prompts) for e in order}
+        runs.append(out[id(eng)])
+        eager_runs.append(out[id(eager)])
+        same_tokens(f"bf16 window {i}", runs[-1], eager_runs[-1])
     rates = [r["tokens_per_s"] for r in runs]
-    tok_s = statistics.median(rates)
-    log("serving", warmup_s=round(warm_s, 3), windows=windows,
+    eager_rates = [r["tokens_per_s"] for r in eager_runs]
+    tok_s, eager_tok_s = (statistics.median(rates),
+                          statistics.median(eager_rates))
+    log("serving", warmup_s=round(warm_s, 3),
+        eager_warmup_s=round(eager_warm_s, 3), windows=windows,
         requests=12 * windows, ticks=eng._tick, waves=list(eng.wave_sizes),
-        paged_launches=warm_launches + sum(r["paged_launches"] for r in runs),
         tokens=eng.emitted_tokens, occupancy=round(eng.occupancy, 4),
-        card=repr(name))
+        graph_equals_eager=True, card=repr(name))
     log("serving", tokens_per_s_median=tok_s, tokens_per_s=rates,
-        wall_s=[r["wall_s"] for r in runs])
+        eager_tokens_per_s_median=eager_tok_s,
+        eager_tokens_per_s=eager_rates, wall_s=[r["wall_s"] for r in runs],
+        eager_wall_s=[r["wall_s"] for r in eager_runs])
     stats = {"tokens_per_s": tok_s, "tokens_per_s_windows": rates,
+             "eager_tokens_per_s": eager_tok_s,
+             "eager_tokens_per_s_windows": eager_rates,
              "wall_s_windows": [r["wall_s"] for r in runs],
-             "warmup_s": warm_s, "ticks": eng._tick,
+             "eager_wall_s_windows": [r["wall_s"] for r in eager_runs],
+             "warmup_s": warm_s, "eager_warmup_s": eager_warm_s,
+             "graph": graph, "ticks": eng._tick,
              "tokens": eng.emitted_tokens, "occupancy": eng.occupancy,
              "pool_bytes": pool_bytes(eng)}
-    return stats, eng, runs
+    return stats, eng, eager, runs
+
+
+def fused_phase(torch, kernels, cfg, params, gen, eng, name) -> dict:
+    """The fused window: 8 requests up front (prompts of 200-512 from
+    ``gen``), 128 new tokens each, on the graph engine (K = 1) and on one
+    with ``fused_ticks=4``, in turns K1, K4, K4, K1: equal tokens, fused
+    dispatches on the K = 4 engine, tokens/s of each (median of two)."""
+    import statistics
+
+    from kubegpu_tpu_torch.models import ContinuousBatcher
+    fused, warm_s = warmed(torch, kernels, ContinuousBatcher, cfg, params,
+                           "fused K=4", "paged_decode", fused_ticks=4)
+    graph_log("fused K=4", fused)
+    prompts = window_prompts(torch, cfg, gen, 8)
+    d0 = fused.fused_dispatches
+    out = {1: [], 4: []}
+    for k, e in ((1, eng), (4, fused), (4, fused), (1, eng)):
+        out[k].append(serving_window(torch, kernels, e, cfg, gen, 128,
+                                     prompts=prompts))
+    for a, b in zip(out[1], out[4]):
+        check(a["outputs"] == b["outputs"],
+              "fused K=4 tokens differ from K=1 tokens")
+    dispatches = fused.fused_dispatches - d0
+    check(dispatches > 0, "the K=4 engine never fused")
+    stats = {f"k{k}_tokens_per_s": statistics.median(
+        r["tokens_per_s"] for r in runs) for k, runs in out.items()}
+    stats.update({f"k{k}_tokens_per_s_windows": [r["tokens_per_s"]
+                                                for r in runs]
+                  for k, runs in out.items()})
+    stats.update(fused_dispatches=dispatches,
+                 fused_ticks_run=fused.fused_ticks_run,
+                 fused_stalls=fused.fused_stalls,
+                 ticks=[r["ticks"] for r in out[4]], warmup_s=warm_s)
+    log("fused", requests=8, n_new=128, equal=True, **stats, card=repr(name))
+    del fused
+    return stats
 
 
 def pool_bytes(eng) -> int:
@@ -864,28 +974,28 @@ def quant_serving_phase(torch, kernels, cfg, params, gen, name,
     """The quantized pools at phase 5's shape, each engine in turn:
     ``warmup()``, then two timed windows, the first on phase 5's first
     window's prompts (the share of greedy tokens that agree with the bf16
-    engine's is printed, not held: random weights give near-tied logits).
-    evict_param 0.3 evicts on the first decoding tick of a 4-page prompt,
-    since the mass EMA starts at 0.  With ``profile``, one steady tick of
-    the int8 engine is traced after its windows."""
+    engine's is printed, not held: random weights give near-tied logits),
+    and an eager engine (``graphs=False``) on those prompts too, whose
+    tokens and evictions the graph engine's must equal.  evict_param 0.3
+    evicts on the first decoding tick of a 4-page prompt, since the mass
+    EMA starts at 0.  With ``profile``, one steady tick of the int8
+    engine, graph and eager, is traced after its windows."""
     import statistics
 
     from kubegpu_tpu_torch.models import ContinuousBatcher
     out = {}
     for label, kw, kernel in QUANT_ENGINES:
-        eng = ContinuousBatcher(params, cfg, n_slots=8, max_len=1024,
-                                stride=16, prompt_buckets=(512,), paged=True,
-                                page_size=128, total_pages=40, device="cuda",
-                                **kw)
-        before = kernels.launches[kernel]
-        t0 = time.perf_counter()
-        eng.warmup()
-        warm_s = time.perf_counter() - t0
-        check(kernels.launches[kernel] - before == 16 * cfg.n_layers,
-              f"{label}: warmup did not run {kernel} once per step and layer")
+        eng, warm_s = warmed(torch, kernels, ContinuousBatcher, cfg, params,
+                             label, kernel, **kw)
+        graph = graph_log(label, eng)
         runs = [serving_window(torch, kernels, eng, cfg, gen, 32, kernel,
                                prompts=first_window["prompts"]),
                 serving_window(torch, kernels, eng, cfg, gen, 32, kernel)]
+        eager, _ = warmed(torch, kernels, ContinuousBatcher, cfg, params,
+                          f"{label} eager", kernel, graphs=False, **kw)
+        eager_run = serving_window(torch, kernels, eager, cfg, gen, 32,
+                                   kernel, prompts=first_window["prompts"])
+        same_tokens(label, runs[0], eager_run)
         if eng.evict_policy is not None:
             check(eng.pages_evicted >= 1, f"{label}: no page was evicted")
         ref = [x for toks in first_window["outputs"] for x in toks]
@@ -894,23 +1004,26 @@ def quant_serving_phase(torch, kernels, cfg, params, gen, name,
         rates = [r["tokens_per_s"] for r in runs]
         stats = {"tokens_per_s": statistics.median(rates),
                  "tokens_per_s_windows": rates,
+                 "eager_tokens_per_s": eager_run["tokens_per_s"],
                  "wall_s_windows": [r["wall_s"] for r in runs],
-                 "warmup_s": warm_s, "ticks": eng._tick,
+                 "warmup_s": warm_s, "graph": graph, "ticks": eng._tick,
                  "kernel_launches": sum(r["paged_launches"] for r in runs),
                  "pool_bytes": pool_bytes(eng),
                  "pages_evicted": eng.pages_evicted,
+                 "pages_evicted_first_window": runs[0]["pages_evicted"],
                  "agree_with_bf16": agree}
         log("serving", engine=label, kernel=kernel,
             tokens_per_s=stats["tokens_per_s"], tokens_per_s_windows=rates,
+            eager_tokens_per_s=stats["eager_tokens_per_s"],
             warmup_s=round(warm_s, 3), ticks=eng._tick,
             launches=stats["kernel_launches"], pool_bytes=stats["pool_bytes"],
-            pages_evicted=eng.pages_evicted, agree_with_bf16=agree,
-            card=repr(name))
+            pages_evicted=eng.pages_evicted, graph_equals_eager=True,
+            agree_with_bf16=agree, card=repr(name))
         if profile and label == "int8":
-            stats["profile"] = profile_phase(torch, eng,
-                                             first_window["prompts"], label)
+            stats["profile"] = profile_pair(torch, eng, eager,
+                                            first_window["prompts"], label)
         out[label] = stats
-        del eng
+        del eng, eager
         torch.cuda.empty_cache()
     return out
 
@@ -969,7 +1082,9 @@ def profile_phase(torch, eng, prompts, label: str = "bf16",
     The engine is refilled with requests long enough that the timed ticks
     decode every slot; after admission, one ``step()`` (collect + dispatch
     of a full stride block, ended by a synchronize) is timed untraced, and
-    the next is traced."""
+    the next is traced.  On a graph engine the tick is a replay: the
+    profiler must see the paged kernel inside it once per step and
+    layer."""
     for p in prompts[:eng.n_slots]:
         eng.submit(p, n_new)
     eng.step()
@@ -985,7 +1100,27 @@ def profile_phase(torch, eng, prompts, label: str = "bf16",
         torch.cuda.synchronize()
     out = device_trace(torch, tick, wall_ms)
     eng.drain()
-    log_trace(f"one steady {label} engine tick", out)
+    kind = "graph" if eng.graphs else "eager"
+    log_trace(f"one steady {label} engine tick ({kind})", out)
+    want = eng.stride * eng.cfg.n_layers
+    check(out["port_kernels"]["paged_split"]["calls"] == want,
+          f"{label} {kind} tick: the profiler saw "
+          f"{out['port_kernels']['paged_split']['calls']} paged kernels, "
+          f"want {want}")
+    return out
+
+
+def profile_pair(torch, eng, eager, prompts, label: str) -> dict:
+    """One steady tick of the graph engine and of the eager one."""
+    out = {"graph": profile_phase(torch, eng, prompts, label),
+           "eager": profile_phase(torch, eager, prompts, label)}
+    g, e = out["graph"], out["eager"]
+    log("profile", what=f"{label} tick, graph vs eager",
+        wall_ms=(round(g["wall_ms"], 3), round(e["wall_ms"], 3)),
+        device_busy_ms=(round(g["device_busy_ms"], 3),
+                        round(e["device_busy_ms"], 3)),
+        idle_share=(g["idle_share"], e["idle_share"]),
+        device_kernels=(g["device_kernels"], e["device_kernels"]))
     return out
 
 
@@ -1223,59 +1358,125 @@ def train_phase(torch, kernels, gen, name, profile: bool) -> dict:
 
 # -- phase 8: T5 -------------------------------------------------------------
 
-def t5_generate_timed(torch, fn, calls: int = 3) -> tuple[list, object]:
-    """One warm ``fn()`` and ``calls`` timed ones, each bracketed by
-    synchronizes; returns the timed walls (s) and the last tokens."""
-    fn()
-    walls = []
-    for _ in range(calls):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        toks = fn()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    return walls, toks
-
-
 def t5_serving(torch, kernels, t5, cfg, params, gen, name) -> dict:
     """8a: the dense and the paged greedy generate on ``T5_SERVE``'s
-    traffic (encoding included); tokens/s is batch x steps over the median
-    wall.  Launch counters are zeroed just before the paged calls and read
-    just after: kernel 7 runs ``n_dec_layers x steps`` times a call."""
+    traffic (encoding included), through their CUDA graphs (the default)
+    and eagerly (``graphs=False``): one warm graph call (it captures),
+    then timed calls graph, eager, graph, eager, graph, each bracketed by
+    synchronizes.  Every call's tokens equal the first's; tokens/s is
+    batch x steps over each mode's median wall.  Launch counters are
+    zeroed just before the paged calls and read just after: kernel 7 runs
+    ``n_dec_layers x steps`` times a call, replays included."""
     import statistics
     b, steps, page = T5_SERVE["batch"], T5_SERVE["steps"], T5_SERVE["page"]
     enc = torch.randint(0, cfg.vocab_size, (b, T5_SERVE["enc_len"]),
                         generator=gen, device="cuda")
-    dense_walls, dense = t5_generate_timed(
-        torch, lambda: t5.t5_greedy_generate(params, enc, steps, cfg,
-                                             device="cuda"))
-    kernels.reset_launches()          # the T5 paged serving path starts here
-    paged_walls, paged = t5_generate_timed(
-        torch, lambda: t5.t5_greedy_generate_paged(
-            params, enc, steps, cfg, page_size=page, device="cuda"))
-    launches = dict(kernels.launches)   # ... and ends here
+    t5.clear_graphs()
+    calls = {"dense": lambda g: t5.t5_greedy_generate(
+                 params, enc, steps, cfg, device="cuda", graphs=g),
+             "paged": lambda g: t5.t5_greedy_generate_paged(
+                 params, enc, steps, cfg, page_size=page, device="cuda",
+                 graphs=g)}
+    out, toks = {}, {}
+    for kind, call in calls.items():
+        if kind == "paged":
+            kernels.reset_launches()  # the T5 paged serving path starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = call(True)
+        torch.cuda.synchronize()
+        out[f"{kind}_first_call_s"] = time.perf_counter() - t0
+        walls = {True: [], False: []}
+        for graphs in (True, False, True, False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = call(graphs)
+            torch.cuda.synchronize()
+            walls[graphs].append(time.perf_counter() - t0)
+            check(torch.equal(got, first), f"T5 {kind}: the "
+                  f"{'graph' if graphs else 'eager'} call's tokens differ "
+                  "from the first graph call's")
+        if kind == "paged":
+            launches = dict(kernels.launches)   # ... and ends here
+        toks[kind] = first
+        out[f"{kind}_tokens_per_s"] = b * steps / statistics.median(
+            walls[True])
+        out[f"{kind}_eager_tokens_per_s"] = b * steps / statistics.median(
+            walls[False])
+        out[f"{kind}_wall_s"] = walls[True]
+        out[f"{kind}_eager_wall_s"] = walls[False]
+    graphs = {k[0]: {n: {"capture_s": g.capture_s,
+                         "instantiate_s": g.instantiate_s,
+                         "pool_bytes": g.pool_bytes, "tally": g.tally}
+                     for n, g in v[2].items()}
+              for k, v in t5._graph_cache.items()}
     per_call = cfg.n_dec_layers * steps
-    check(launches["paged_decode_bias"] == 4 * per_call,
+    check(launches["paged_decode_bias"] == 6 * per_call,
           f"paged_decode_bias ran {launches['paged_decode_bias']} times in "
-          f"four paged calls, want {per_call} a call")
+          f"six paged calls, want {per_call} a call")
     check(not any(v for k, v in launches.items() if k != "paged_decode_bias"),
           f"the T5 path launched other kernels: {launches}")
-    for toks in (dense, paged):
-        check(tuple(toks.shape) == (b, steps)
-              and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
-              f"T5 tokens {tuple(toks.shape)} out of shape or range")
-    agree = (dense == paged).float().mean().item()
-    out = {"dense_tokens_per_s": b * steps / statistics.median(dense_walls),
-           "paged_tokens_per_s": b * steps / statistics.median(paged_walls),
-           "dense_wall_s": dense_walls, "paged_wall_s": paged_walls,
-           "paged_launches_per_call": per_call, "launches": launches,
-           "agree_dense_paged": agree}
+    check(graphs["paged"]["block"]["tally"] == {
+        "paged_decode_bias": cfg.n_dec_layers * page},
+          f"the T5 block graph captured {graphs['paged']['block']['tally']}")
+    for t in toks.values():
+        check(tuple(t.shape) == (b, steps)
+              and bool(((t >= 0) & (t < cfg.vocab_size)).all()),
+              f"T5 tokens {tuple(t.shape)} out of shape or range")
+    agree = (toks["dense"] == toks["paged"]).float().mean().item()
+    out.update(paged_launches_per_call=per_call, launches=launches,
+               agree_dense_paged=agree, graphs=graphs)
     log("t5", what="serving", batch=b, enc_len=T5_SERVE["enc_len"],
         steps=steps, page=page, dense_tokens_per_s=out["dense_tokens_per_s"],
+        dense_eager_tokens_per_s=out["dense_eager_tokens_per_s"],
         paged_tokens_per_s=out["paged_tokens_per_s"],
-        dense_wall_s=[round(x, 3) for x in dense_walls],
-        paged_wall_s=[round(x, 3) for x in paged_walls],
-        kernel7_per_call=per_call, agree_dense_paged=agree, card=repr(name))
+        paged_eager_tokens_per_s=out["paged_eager_tokens_per_s"],
+        dense_wall_s=[round(x, 3) for x in out["dense_wall_s"]],
+        paged_wall_s=[round(x, 3) for x in out["paged_wall_s"]],
+        first_call_s=(round(out["dense_first_call_s"], 3),
+                      round(out["paged_first_call_s"], 3)),
+        kernel7_per_call=per_call, graph_equals_eager=True,
+        agree_dense_paged=agree, card=repr(name))
+    for kind, gs in graphs.items():
+        for n, g in gs.items():
+            log("graph", t5=f"{kind}/{n}", capture_s=round(g["capture_s"], 3),
+                instantiate_s=round(g["instantiate_s"], 3),
+                pool_bytes=g["pool_bytes"], tally=g["tally"])
+    return out
+
+
+def t5_profile(torch, t5, cfg, params) -> dict:
+    """``--profile``: one block of T5's paged decode (``page`` steps, its
+    third block: two flushed pages a row) as a replay of the cached block
+    graph and as the same body run eagerly, each timed untraced and then
+    traced; per-step numbers are the block's over ``page``.  The profiler
+    must see kernel 7 once per decoder layer and step in both."""
+    page = T5_SERVE["page"]
+    entry = next(v for v in t5._graph_cache.values() if "block" in v[2])
+    st, graph = entry[1], entry[2]["block"]
+    runs = {"graph": graph.replay,
+            "eager": lambda: t5._t5_paged_block(params, st, page, cfg)}
+    out = {}
+    for kind, run in runs.items():
+        def block():
+            st["d0"].fill_(2 * page)
+            run()
+            torch.cuda.synchronize()
+        block()
+        t0 = time.perf_counter()
+        block()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        out[kind] = tr = device_trace(torch, block, wall_ms)
+        log_trace(f"one T5 paged block of {page} steps ({kind})", tr)
+        log("profile", what=f"T5 paged step ({kind})",
+            wall_ms=tr["wall_ms"] / page,
+            device_busy_ms=tr["device_busy_ms"] / page,
+            device_kernels=tr["device_kernels"] / page)
+        want = cfg.n_dec_layers * page
+        check(tr["port_kernels"]["paged_split"]["calls"] == want,
+              f"T5 {kind} block: the profiler saw "
+              f"{tr['port_kernels']['paged_split']['calls']} kernel-7 "
+              f"launches, want {want}")
     return out
 
 
@@ -1371,9 +1572,10 @@ def t5_training(torch, t5, cfg, params, gen, name) -> dict:
     return out
 
 
-def t5_phase(torch, kernels, gen, name, cfg=None) -> dict:
+def t5_phase(torch, kernels, gen, name, cfg=None, profile=False) -> dict:
     """Phase 8 at ``T5Config()`` (T5 v1.1-base widths, bf16) with random
-    weights from ``SEED``: serving, parity, training."""
+    weights from ``SEED``: serving (with ``profile``, a traced block),
+    parity, training."""
     from kubegpu_tpu_torch.tree import tree_leaves
     t5 = importlib.import_module("kubegpu_tpu_torch.models.t5")
     cfg = cfg or t5.T5Config()
@@ -1386,6 +1588,10 @@ def t5_phase(torch, kernels, gen, name, cfg=None) -> dict:
         layers=f"{cfg.n_enc_layers}+{cfg.n_dec_layers}", heads=cfg.n_heads,
         d_ff=cfg.d_ff, vocab=cfg.vocab_size)
     serving = t5_serving(torch, kernels, t5, cfg, params, gen, name)
+    if profile:
+        with torch.no_grad():
+            serving["profile"] = t5_profile(torch, t5, cfg, params)
+    t5.clear_graphs()
     parity = t5_parity(torch, t5, cfg, params, gen)
     torch.cuda.empty_cache()
     training = t5_training(torch, t5, cfg, params, gen, name)
@@ -1433,8 +1639,8 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one steady engine tick and one train "
-                    "step (torch.profiler)")
+                    help="also trace steady engine ticks, a T5 paged block "
+                    "and one train step (torch.profiler)")
     ap.add_argument("--details", metavar="PATH",
                     help="write every phase's numbers to PATH as JSON")
     args = ap.parse_args(argv)
@@ -1508,15 +1714,16 @@ def main(argv=None) -> int:
                               *params["layers"].values()]) / 1e9, 2))
     kernels.reset_launches()          # the serving path starts here
     fwd = forward_phase(torch, kernels, cfg, params, gen)
-    serve, engine, windows = serving_phase(torch, kernels, cfg, params, gen,
-                                           name)
+    serve, engine, eager, windows = serving_phase(torch, kernels, cfg,
+                                                  params, gen, name)
+    fused = fused_phase(torch, kernels, cfg, params, gen, engine, name)
     serve_launches = dict(kernels.launches)   # ... and ends here
     check(all(serve_launches[k] > 0 for k in ("flash_fwd", "paged_decode")),
           f"a kernel of the serving path never ran: {serve_launches}")
     only_tc(serve_launches, ("flash_fwd",), "serving")
-    prof = (profile_phase(torch, engine, windows[-1]["prompts"])
+    prof = (profile_pair(torch, engine, eager, windows[-1]["prompts"], "bf16")
             if args.profile else None)
-    del engine
+    del engine, eager
     torch.cuda.empty_cache()
     kernels.reset_launches()          # the quantized serving path starts here
     quant_serve = quant_serving_phase(torch, kernels, cfg, params, gen, name,
@@ -1544,7 +1751,7 @@ def main(argv=None) -> int:
             "training")
     torch.cuda.empty_cache()
 
-    t5_stats = t5_phase(torch, kernels, gen, name)
+    t5_stats = t5_phase(torch, kernels, gen, name, profile=args.profile)
     t5_launches = t5_stats["serving"]["launches"]
     torch.cuda.empty_cache()
 
@@ -1583,7 +1790,8 @@ def main(argv=None) -> int:
           "the kernels line misses a kernel")
     details = {"card": card, "kind": name, "build_s": build_s,
                "ptxas": ptxas,
-               "forward": fwd, "serving": serve, "parity": parity,
+               "forward": fwd, "serving": serve, "fused": fused,
+               "parity": parity,
                "quantized_serving": quant_serve,
                "paged_mass": quant["bf16"], "paged_rounding": rounding,
                "profile": prof, "training": train,

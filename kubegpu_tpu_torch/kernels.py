@@ -13,6 +13,11 @@ nowhere else, so a caller can show that a path went through the kernels.
 A kernel with two instances (``ROUTES``) also counts each under
 ``"<name>/<route>"``: ``flash_fwd/tc`` and ``flash_fwd/simt``, say.
 
+A launch made while a :class:`Graph` captures runs only when the graph is
+replayed, so it is counted in ``captured`` (once per capture) and in the
+graph's tally, which every :meth:`Graph.replay` adds to ``launches``:
+``launches`` counts kernel executions whichever way they were issued.
+
 The sources share ``csrc/common.cuh``; the tensor-core instances and the
 paged walks also ``csrc/sm90.cuh`` (TMA, bulk copies, mbarriers, wgmma as
 inline PTX); the paged ones ``csrc/paged_decode.cuh``.  A change to any
@@ -62,12 +67,16 @@ ROUTES = {"flash_fwd": {"simt": 0, "tc": 1},
 
 launches = {name: 0 for name in SIGNATURES}
 launches.update({f"{name}/{r}": 0 for name, rs in ROUTES.items() for r in rs})
+captured = dict.fromkeys(launches, 0)
 _libs: dict[str, ctypes.CDLL] = {}
+# the Graph being captured, if any (one capture at a time)
+_capturing: Graph | None = None
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, captured):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -150,11 +159,114 @@ def call(name: str, *args, route: str | None = None) -> None:
         raise ValueError(f"{name}: route {route!r} does not fit its entry")
     if route is not None:
         args = (*args, ROUTES[name][route])
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib(name), sym)(*args, stream)
+    stream = torch.cuda.current_stream()
+    if torch.cuda.is_current_stream_capturing():
+        if _capturing is None:
+            raise RuntimeError(f"{name} launched under a CUDA graph capture "
+                               "that is not a kernels.Graph: its replays "
+                               "would go uncounted")
+        counts = (captured, _capturing.tally)
+    else:
+        counts = (launches,)
+    err = getattr(lib(name), sym)(*args, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}"
                            + (f" (route {route})" if route else ""))
-    launches[name] += 1
-    if route is not None:
-        launches[f"{name}/{route}"] += 1
+    for c in counts:
+        c[name] = c.get(name, 0) + 1
+        if route is not None:
+            c[f"{name}/{route}"] = c.get(f"{name}/{route}", 0) + 1
+
+
+def capturing() -> bool:
+    """Whether a :class:`Graph` is capturing on this thread's stream."""
+    import torch
+    return _capturing is not None and torch.cuda.is_current_stream_capturing()
+
+
+def hold(*tensors) -> None:
+    """Keep ``tensors`` alive as long as the graph being captured: a
+    buffer that a kernel of the graph addresses (a wrapper's static
+    scratch, say) must outlive every replay, even once its owner has
+    replaced it."""
+    if _capturing is None:
+        raise RuntimeError("hold() outside a Graph capture")
+    _capturing.held.extend(tensors)
+
+
+class Graph:
+    """``fn`` captured once into a CUDA graph, then replayed.
+
+    :meth:`capture` records ``fn()`` on a side stream without running it
+    (whatever ``fn`` reads or writes in place is bound by address); run
+    ``fn`` eagerly once before, so that libraries are loaded and static
+    scratch is sized, since nothing may synchronize the host or grow a
+    shared buffer under capture.  :meth:`replay` launches the graph on
+    the stream it was captured for, and adds the kernel launches captured
+    in it (``tally``) to ``launches``.  ``capture_s`` (``fn`` under
+    capture), ``instantiate_s`` (the end of the capture and the graph's
+    instantiation) and ``pool_bytes`` (device memory the capture
+    reserved) say what it cost.  A failure raises: nothing falls back to
+    an eager run."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.graph = None
+        self.stream = None
+        self.tally: dict[str, int] = {}
+        self.held: list = []
+        self.capture_s = self.instantiate_s = 0.0
+        self.pool_bytes = 0
+
+    def capture(self):
+        """Capture ``fn()``; returns what it returned (tensors in the
+        graph's memory, rewritten by every replay)."""
+        global _capturing
+        import time
+
+        import torch
+        if _capturing is not None:
+            raise RuntimeError("a kernels.Graph is already capturing")
+        self.stream = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(self.stream)
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        graph = torch.cuda.CUDAGraph()
+        _capturing = self
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin()
+                t0 = time.perf_counter()
+                try:
+                    out = self.fn()
+                except BaseException:
+                    # end the broken capture so the stream is usable, and
+                    # raise what broke it
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass
+                    raise
+                t1 = time.perf_counter()
+                graph.capture_end()
+                t2 = time.perf_counter()
+        finally:
+            _capturing = None
+        self.stream.wait_stream(side)
+        self.graph = graph
+        self.capture_s, self.instantiate_s = t1 - t0, t2 - t1
+        self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        return out
+
+    def replay(self) -> None:
+        import torch
+        if self.graph is None:
+            raise RuntimeError("replay() before capture()")
+        if torch.cuda.current_stream() != self.stream:
+            raise RuntimeError("a graph replays on the stream it was "
+                               "captured for: its kernels share static "
+                               "scratch with that stream's eager calls")
+        self.graph.replay()
+        for name, n in self.tally.items():
+            launches[name] += n

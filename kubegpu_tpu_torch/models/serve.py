@@ -21,7 +21,17 @@ reports) and turns them into page-id-0 holes the kernel skips.
 The reference's executables (``decode_block``, ``prefill_wave``,
 ``adopt_wave``) are plain functions here; its ``lax.scan`` over the stride
 steps is a Python loop.  The pool and the per-slot device vectors are
-updated IN PLACE (the reference donates and rebinds them).
+updated IN PLACE (the reference donates and rebinds them), and so are the
+page tables and per-slot scalars the tick reads, which live in device
+buffers allocated once and refreshed by one copy from pinned host memory a
+dispatch.  On the card the tick (:func:`tick_body`: ``decode_block``
+inside the reference's lane freeze) is captured once into
+a CUDA graph (:class:`kubegpu_tpu_torch.kernels.Graph`), the counterpart
+of the reference's compiled executable, and every tick replays it;
+``fused_ticks=K`` replays it K times a dispatch with one host fetch.
+Prefill waves and admission stay eager.  ``graphs=False`` runs the same
+body eagerly on the card (for A/B runs); on the CPU the body is called
+directly.
 
 Tokens are greedy and bit-identical to a solo :func:`greedy_generate` at
 the tested f32 configurations; at other batch shapes a near-tied argmax
@@ -30,6 +40,7 @@ may flip, as the reference documents.
 
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -50,8 +61,10 @@ from kubegpu_tpu_torch.models.llama import (
     embed_lookup,
     unbind_layers,
 )
+from kubegpu_tpu_torch import kernels
 from kubegpu_tpu_torch.ops.kvquant import Q4_ZERO_BYTE, quantize_groups_q4
 from kubegpu_tpu_torch.ops.paged_attention import (
+    decode_capacity,
     merge_partials,
     page_table_size,
     paged_attention,
@@ -70,11 +83,10 @@ _LATER = {
     "prefix_cache": (False, "prefix cache and chunked prefill"),
     "chunked_prefill": (False, "prefix cache and chunked prefill"),
     "prefill_chunk": (None, "prefix cache and chunked prefill"),
-    "spec_gamma": (0, "speculative decode and fused ticks"),
-    "draft_layers": (None, "speculative decode and fused ticks"),
-    "fused_ticks": (1, "speculative decode and fused ticks"),
-    "eos_id": (None, "speculative decode and fused ticks"),
-    "collect_overlap": (False, "speculative decode and fused ticks"),
+    "spec_gamma": (0, "speculative decode"),
+    "draft_layers": (None, "speculative decode"),
+    "eos_id": (None, "speculative decode"),
+    "collect_overlap": (False, "speculative decode"),
     "mesh": (None, "multi-device"),
     "chaos": (None, "pools, fleet and llama_serve"),
     "tick_deadline_s": (None, "pools, fleet and llama_serve"),
@@ -214,6 +226,43 @@ def decode_block(params: dict, pool: dict, pt, tvec, tpad,
 
 
 @torch.no_grad()
+def tick_body(params: dict, tables: dict, st: dict, cfg: LlamaConfig,
+              stride: int) -> None:
+    """ONE engine tick: :func:`decode_block` inside the reference's lane
+    freeze (its ``_fused_body``), over the engine's ``tables`` (page
+    table, lengths, page caps, token budgets, active mask) and state
+    ``st`` (pool, slot vectors, freeze state, output views).  A lane runs
+    while it is active, owes tokens (``emitted < budget``) and has never
+    gone non-finite; a lane whose flush would pass its page cap raises
+    ``stall`` and freezes.  The block, the bad flags, the stalls, the
+    first tokens and (with mass eviction) the block's page mass land in
+    the output views at the dispatch's tick index ``tk``, which then
+    advances.  A dispatch runs it K times; K = 1 is the plain tick, whose
+    lanes never freeze (an active slot owes tokens and its pages cover
+    its next block).  The graph engine captures exactly this."""
+    t, f, out = tables, st["freeze"], st["out"]
+    act = (t["active"] != 0) & (f["emitted"] < t["budget"]) & (
+        f["dead"] == 0)
+    overrun = act & (st["pos"] - t["tvec"] + stride > t["cap"])
+    f["stall"].logical_or_(overrun)
+    act = act & ~overrun
+    outs = decode_block(params, st["pool"], t["pt"], t["tvec"], t["tpad"],
+                        st["tokens"], st["pos"], act, cfg, stride,
+                        collect_mass=st["mass"] is not None)
+    block, bad = outs[:2]
+    f["dead"].logical_or_(bad)
+    f["emitted"].add_(act.to(torch.int32) * stride)
+    tk = f["tk"].long()
+    out["blocks"].index_copy_(0, tk, block[None])
+    out["bads"].index_copy_(0, tk, bad.long()[None])
+    out["stall"].copy_(f["stall"])
+    out["firsts"].copy_(st["first_toks"])
+    f["tk"].add_(1)
+    if st["mass"] is not None:
+        st["mass"].copy_(outs[2])
+
+
+@torch.no_grad()
 def prefill_wave(params: dict, padded_prompts: torch.Tensor,
                  true_lens: torch.Tensor, cfg: LlamaConfig):
     """Batch-k prefill of bucket-padded prompts into a dense
@@ -303,6 +352,20 @@ class ContinuousBatcher:
     drops cold prompt pages of decoding slots after each collected block
     (:meth:`_maybe_evict`); ``pages_evicted`` counts them.
 
+    ``fused_ticks=K`` (the reference's non-speculative fused decode)
+    dispatches K complete ticks at once when nothing waits in the queue,
+    with one host fetch at the end; each lane freezes on the device once
+    it has its tokens or its next flush would pass its pages
+    (``fused_dispatches``, ``fused_ticks_run`` and ``fused_stalls`` count
+    them).  It excludes ``evict_policy``, as in the reference.
+
+    On the card the tick runs as one CUDA graph, captured by
+    :meth:`warmup` (or the first dispatch) after one eager run on scratch
+    state; ``graph_stats`` then holds the seconds of that run, of the
+    capture and of the instantiation, and the bytes the graph reserved.
+    ``graphs=False`` runs the tick eagerly on the card instead.  A capture
+    or replay that fails raises.
+
     Knobs of the reference engine outside this slice raise
     ``NotImplementedError`` naming their ROADMAP.md item."""
 
@@ -314,7 +377,8 @@ class ContinuousBatcher:
                  debug_invariants: bool = False, kv_int8: bool = False,
                  kv_bits: int | None = None, kv_group: int | None = None,
                  evict_policy: str | None = None,
-                 evict_param: float | None = None, device="cuda", **later):
+                 evict_param: float | None = None, fused_ticks: int = 1,
+                 graphs: bool = True, device="cuda", **later):
         later["paged"] = paged
         for name, value in later.items():
             if name not in _LATER:
@@ -365,6 +429,11 @@ class ContinuousBatcher:
             kv_group = 0
         self.kv_bits = int(kv_bits)
         self.kv_group = int(kv_group)
+        # -- fused multi-tick decode: K complete ticks a dispatch when no
+        # admission is pending, the lane freeze on the device
+        self.fused_ticks = int(fused_ticks)
+        if self.fused_ticks < 1:
+            raise ValueError(f"fused_ticks {fused_ticks} must be >= 1")
         # -- page eviction: "window" drops prompt pages wholly below the
         # trailing evict_param-token window, "mass" those whose EMA of the
         # paged kernel's attention mass fell below evict_param
@@ -372,6 +441,10 @@ class ContinuousBatcher:
             if evict_policy not in ("window", "mass"):
                 raise ValueError(f"evict_policy {evict_policy!r} not in "
                                  "('window', 'mass')")
+            if self.fused_ticks > 1:
+                raise ValueError(
+                    "evict_policy rides the plain K=1 decode path "
+                    "(spec/fused blocks have no per-tick mass signal)")
             if evict_param is None:
                 evict_param = (2.0 * page_size if evict_policy == "window"
                                else 0.02)
@@ -396,18 +469,45 @@ class ContinuousBatcher:
         self._pt = np.zeros((n_slots, self.max_pages), np.int32)
         self._tvec = np.zeros((n_slots,), np.int32)
         self._tpad = np.zeros((n_slots,), np.int32)
+        # decode positions each slot's pages hold past its prompt region:
+        # a fused lane freezes before its flush would pass them
+        self._cap = np.zeros((n_slots,), np.int32)
         self._slot_pages: dict[int, list[int]] = {}
-        self._tables_dirty = True
-        self._pt_dev = self._tvec_dev = self._tpad_dev = None
-        self.tokens = torch.zeros(n_slots, dtype=torch.long,
-                                  device=self.device)
-        self.pos = torch.zeros(n_slots, dtype=torch.int32, device=self.device)
-        self.first_toks = torch.zeros(n_slots, dtype=torch.long,
-                                      device=self.device)
+        dev = self.device
+        self.tokens = torch.zeros(n_slots, dtype=torch.long, device=dev)
+        self.pos = torch.zeros(n_slots, dtype=torch.int32, device=dev)
+        self.first_toks = torch.zeros(n_slots, dtype=torch.long, device=dev)
         self.active = np.zeros((n_slots,), bool)
+        # -- the tick's static device state, allocated once: the tables it
+        # reads and the lane-freeze state it writes share one int32 buffer,
+        # refreshed by one copy from pinned staging a dispatch (which also
+        # zeroes the freeze state); its outputs share one int64 slab
+        cuda = dev.type == "cuda"
+        self._tables = torch.zeros(self._table_words(), dtype=torch.int32,
+                                   device=dev)
+        self._staging = torch.zeros(self._table_words(), dtype=torch.int32,
+                                    pin_memory=cuda)
+        self._staged = torch.cuda.Event() if cuda else None
+        tv = self._table_views(self._tables)
+        self._pt_dev, self._tvec_dev, self._tpad_dev, self._active_dev = (
+            tv["pt"], tv["tvec"], tv["tpad"], tv["active"])
+        self._slab = torch.zeros(self._slab_words(), dtype=torch.long,
+                                 device=dev)
+        self._mass_out = (torch.zeros((n_slots, self.max_pages),
+                                      dtype=torch.float32, device=dev)
+                          if evict_policy == "mass" else None)
+        self._tv = tv
+        self._live = {"pool": self.pool, "tokens": self.tokens,
+                      "pos": self.pos, "first_toks": self.first_toks,
+                      "freeze": tv, "out": self._slab_views(self._slab),
+                      "mass": self._mass_out}
+        self.graphs = bool(graphs)
+        self._graph: kernels.Graph | None = None
+        self.graph_stats: dict | None = None
         self.slot_req: dict[int, _Request] = {}
         self.queue = _AdmissionQueue()
         self._inflight: torch.Tensor | None = None
+        self._inflight_k = 1
         self._await_first: set[int] = set()
         self._next_rid = 0
         self._tick = 0
@@ -422,6 +522,45 @@ class ContinuousBatcher:
         self.pages_evicted = 0
         self._page_mass = np.zeros((n_slots, self.max_pages))
         self._mass_pending: torch.Tensor | None = None
+        self.fused_dispatches = 0     # fused blocks dispatched
+        self.fused_ticks_run = 0      # device ticks covered by them
+        self.fused_stalls = 0         # lanes frozen by the page cap
+
+    # -- the tick's static buffers ---------------------------------------
+
+    _TABLES = ("tvec", "tpad", "cap", "budget", "active", "emitted", "stall",
+               "dead")
+
+    def _table_words(self) -> int:
+        n = self.n_slots
+        return n * self.max_pages + n * len(self._TABLES) + 1
+
+    def _table_views(self, buf: torch.Tensor) -> dict:
+        """Named views of an int32 table buffer: ``pt`` [n_slots,
+        max_pages], the per-slot vectors of ``_TABLES`` (the tables the
+        host uploads, then the lane freeze the tick writes: tokens emitted
+        this dispatch, page-cap stalls, latched non-finite lanes) and
+        ``tk``, the dispatch's tick index."""
+        n, mp = self.n_slots, self.max_pages
+        out = {"pt": buf[:n * mp].view(n, mp)}
+        for i, name in enumerate(self._TABLES):
+            out[name] = buf[n * mp + i * n:n * mp + (i + 1) * n]
+        out["tk"] = buf[-1:]
+        return out
+
+    def _slab_words(self) -> int:
+        return self.n_slots * (self.fused_ticks * (self.stride + 1) + 2)
+
+    def _slab_views(self, slab: torch.Tensor) -> dict:
+        """The host fetch's layout: ``[K·stride·B token blocks, K·B bad
+        flags, B stall flags, B first tokens]`` with K = ``fused_ticks``
+        (the reference's fused layout; K = 1 is its plain one)."""
+        n, k, s = self.n_slots, self.fused_ticks, self.stride
+        nb = k * s * n
+        return {"blocks": slab[:nb].view(k, s, n),
+                "bads": slab[nb:nb + k * n].view(k, n),
+                "stall": slab[nb + k * n:nb + k * n + n],
+                "firsts": slab[nb + k * n + n:]}
 
     def _empty_pool(self) -> dict:
         """A pool of ``total_pages + 1`` pages in this engine's format,
@@ -515,16 +654,27 @@ class ContinuousBatcher:
                 del self._page_refs[p]
                 self._free_pages.append(p)
         self._pt[slot, :] = 0
-        self._tvec[slot] = self._tpad[slot] = 0
+        self._tvec[slot] = self._tpad[slot] = self._cap[slot] = 0
         self._page_mass[slot] = 0.0
-        self._tables_dirty = True
 
-    def _sync_tables(self) -> None:
-        if self._tables_dirty:
-            self._pt_dev = torch.from_numpy(self._pt).to(self.device)
-            self._tvec_dev = torch.from_numpy(self._tvec).to(self.device)
-            self._tpad_dev = torch.from_numpy(self._tpad).to(self.device)
-            self._tables_dirty = False
+    def _upload_tables(self, budget: np.ndarray) -> None:
+        """Refresh the tick's device tables from the host's (page table,
+        lengths, page caps, this dispatch's token ``budget``, the active
+        mask) and zero the lane-freeze state: one non-blocking copy from
+        pinned staging into the buffers the graph binds.  The staging is
+        rewritten only once the previous copy has left it (an event; by
+        then ``_collect`` has synchronized anyway)."""
+        if self._staged is not None:
+            self._staged.synchronize()
+        host = self._table_views(self._staging)
+        host["pt"].numpy()[:] = self._pt
+        for name, x in (("tvec", self._tvec), ("tpad", self._tpad),
+                        ("cap", self._cap), ("budget", budget),
+                        ("active", self.active)):
+            host[name].numpy()[:] = x
+        self._tables.copy_(self._staging, non_blocking=True)
+        if self._staged is not None:
+            self._staged.record()
 
     # -- the engine tick ------------------------------------------------
 
@@ -571,8 +721,9 @@ class ContinuousBatcher:
                 self._pt[slot, :need] = pages
                 self._tvec[slot] = req.admit_len
                 self._tpad[slot] = bucket
+                self._cap[slot] = decode_capacity(need, bucket,
+                                                  self.page_size)
                 page_dst[i] = pages[:n_prompt_pages]
-            self._tables_dirty = True
             adopt_wave(self.pool, cache_w,
                        torch.from_numpy(page_dst).to(self.device),
                        torch.tensor(slots, device=self.device), firsts,
@@ -590,14 +741,13 @@ class ContinuousBatcher:
     def warmup(self) -> None:
         """Run every shape this engine can hit -- each power-of-two wave
         size per prompt bucket through prefill and adoption, then one
-        decode block -- on scratch copies of the pool and slot vectors, so
-        no engine state or counter changes.  Call it before a timed
+        decode tick -- on scratch copies of the pool and slot vectors, so
+        no engine state or counter changes; on the card, then capture the
+        tick's CUDA graph (which runs nothing).  Call it before a timed
         window: otherwise the first call at each shape (cuBLAS's algorithm
-        choice, the caching allocator's growth) lands inside it."""
-        scratch = self._empty_pool()
-        sft, stok = (torch.zeros_like(self.first_toks),
-                     torch.zeros_like(self.tokens))
-        spos = torch.zeros_like(self.pos)
+        choice, the caching allocator's growth) and the capture land
+        inside it."""
+        scratch = self._scratch_state()
         for bucket in self.prompt_buckets:
             k = 1
             while k <= min(self.n_slots, MAX_WAVE):
@@ -607,36 +757,106 @@ class ContinuousBatcher:
                                              device=self.device),
                     lens, self.cfg)
                 # page ids 0: every prompt page lands in the trash page
-                adopt_wave(scratch, cache_w,
+                adopt_wave(scratch["pool"], cache_w,
                            torch.zeros((k, bucket // self.page_size),
                                        dtype=torch.long, device=self.device),
                            torch.arange(k, device=self.device), firsts, lens,
-                           sft, stok, spos, self.page_size)
+                           scratch["first_toks"], scratch["tokens"],
+                           scratch["pos"], self.page_size)
                 k *= 2
-        self._sync_tables()
-        decode_block(self.params, scratch, self._pt_dev, self._tvec_dev,
-                     self._tpad_dev, stok, spos,
-                     torch.from_numpy(self.active).to(self.device), self.cfg,
-                     self.stride, collect_mass=self.evict_policy == "mass")
+        self._ready_tick(scratch)
+
+    def _scratch_state(self) -> dict:
+        """Zeroed stand-ins for everything the tick body writes."""
+        return {"pool": self._empty_pool(),
+                "tokens": torch.zeros_like(self.tokens),
+                "pos": torch.zeros_like(self.pos),
+                "first_toks": torch.zeros_like(self.first_toks),
+                "freeze": self._table_views(torch.zeros_like(self._tables)),
+                "out": self._slab_views(torch.zeros_like(self._slab)),
+                "mass": (None if self._mass_out is None
+                         else torch.zeros_like(self._mass_out))}
+
+    def _ready_tick(self, scratch: dict) -> None:
+        """Run the tick body once eagerly on ``scratch`` (it reads the
+        live tables and writes only ``scratch``); then, on a graph engine
+        not yet captured, capture it over the live state."""
+        t0 = time.perf_counter()
+        self._tick_on(scratch)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if self._graph is None and self._use_graph():
+            self._capture(time.perf_counter() - t0)
+
+    def _use_graph(self) -> bool:
+        return self.graphs and self.device.type == "cuda"
+
+    def _capture(self, eager_s: float) -> None:
+        """Capture the tick body over the live state (nothing runs: the
+        live state is untouched).  ``eager_s`` is the eager run before it,
+        which loaded the libraries and sized the kernels' scratch."""
+        # the graph's function refers to what the tick reads and writes,
+        # not to the engine: a cycle through it would keep the engine (and
+        # its parameters) alive past its last reference
+        params, tv, live, cfg, stride = (self.params, self._tv, self._live,
+                                         self.cfg, self.stride)
+        graph = kernels.Graph(
+            lambda: tick_body(params, tv, live, cfg, stride))
+        graph.capture()
+        self._graph = graph
+        self.graph_stats = {"eager_s": eager_s, "capture_s": graph.capture_s,
+                            "instantiate_s": graph.instantiate_s,
+                            "pool_bytes": graph.pool_bytes,
+                            "tally": dict(graph.tally)}
+
+    def _tick_on(self, st: dict) -> None:
+        tick_body(self.params, self._tv, st, self.cfg, self.stride)
+
+    def _run_tick(self) -> None:
+        """One tick over the live state: a replay of the engine's graph,
+        or the body itself off the graph path.  Without :meth:`warmup`,
+        the first tick runs eagerly and the graph is captured after it."""
+        if self._graph is not None:
+            self._graph.replay()
+            return
+        t0 = time.perf_counter()
+        self._tick_on(self._live)
+        if self._use_graph():
+            self._capture(time.perf_counter() - t0)
+
+    def _fused_k_now(self) -> int:
+        """How many ticks the next dispatch may fuse: K > 1 only in the
+        steady state, as in the reference (a queued request would be
+        admitted K - 1 ticks late)."""
+        if self.fused_ticks <= 1 or self.queue or not self.slot_req:
+            return 1
+        return self.fused_ticks
 
     def _dispatch_tick(self) -> None:
-        """Dispatch one stride block for the current slot state and keep
-        one fused device tensor (token block, per-slot bad flags, pending
-        first tokens) for the next tick's single host fetch."""
-        self._sync_tables()
-        active = torch.from_numpy(self.active).to(self.device)
-        outs = decode_block(
-            self.params, self.pool, self._pt_dev, self._tvec_dev,
-            self._tpad_dev, self.tokens, self.pos, active, self.cfg,
-            self.stride, collect_mass=self.evict_policy == "mass")
-        block, bad = outs[:2]
-        if self.evict_policy == "mass":
-            self._mass_pending = outs[2]
-        self._inflight = torch.cat([block.reshape(-1), bad.long(),
-                                    self.first_toks])
-        self._tick += 1
+        """Dispatch k ticks for the current slot state (k from
+        :meth:`_fused_k_now`): upload the tables with each slot's token
+        budget (what its request still owes, less a pending first token),
+        run the tick k times back to back, and keep the static slab for
+        the next step's single host fetch.  The slab and the mass are the
+        graph's outputs, rewritten by the next dispatch: ``step`` collects
+        them (``_collect``, ``_maybe_evict``) before it dispatches again."""
+        k = self._fused_k_now()
+        budget = np.zeros((self.n_slots,), np.int32)
+        for slot, req in self.slot_req.items():
+            want = req.max_new_tokens - len(req.tokens)
+            if slot in self._await_first:
+                want -= 1
+            budget[slot] = max(want, 0)
+        self._upload_tables(budget)
+        for _ in range(k):
+            self._run_tick()
+        self._inflight, self._inflight_k = self._slab, k
+        if self._mass_out is not None:
+            self._mass_pending = self._mass_out
+        if k > 1:
+            self.fused_dispatches += 1
+            self.fused_ticks_run += k
+        self._tick += k
 
     def step(self) -> list[_Request]:
         """One engine tick: collect the previous block, retire finishers,
@@ -658,17 +878,21 @@ class ContinuousBatcher:
             return []
         fused = self._inflight.cpu().numpy()    # THE host sync
         self._inflight = None
-        return self._consume(fused)
+        return self._consume(fused, self._inflight_k)
 
-    def _consume(self, fused: np.ndarray) -> list[_Request]:
-        """Account one fetched block: ``[stride·B token block, B bad
-        flags, B first tokens]``."""
+    def _consume(self, fused: np.ndarray, k: int) -> list[_Request]:
+        """Account one fetched slab of ``k`` ticks (layout in
+        :meth:`_slab_views`), replaying the device's lane freeze as the
+        reference's ``_consume_fused`` does: a slot stops consuming the
+        tick its request is satisfied, before it looks at any later bad
+        flag (K single ticks would have retired it first)."""
         finished: list[_Request] = []
-        nb = self.stride * self.n_slots
-        block_np = fused[:nb].reshape(self.stride, self.n_slots)
-        bad_np = fused[nb:nb + self.n_slots]
-        firsts_np = fused[nb + self.n_slots:]
-        self.slot_steps += nb
+        out = self._slab_views(torch.from_numpy(fused))
+        block_np, bad_np = out["blocks"].numpy(), out["bads"].numpy()
+        firsts_np = out["firsts"].numpy()
+        self.slot_steps += k * self.stride * self.n_slots
+        if k > 1:
+            self.fused_stalls += int((out["stall"].numpy() != 0).sum())
         for slot, req in list(self.slot_req.items()):
             if slot in self._await_first:
                 req.tokens.append(int(firsts_np[slot]))
@@ -676,15 +900,19 @@ class ContinuousBatcher:
             if req.done:   # single-token request: retires without decode
                 self._retire(slot, req, finished)
                 continue
-            if bad_np[slot]:
-                raise RuntimeError(
-                    f"non-finite logits in slot {slot} (rid {req.rid}); "
-                    "quarantine and replay are not ported yet (ROADMAP.md "
-                    "queue 1: pools, fleet and llama_serve)")
-            take = min(self.stride, req.max_new_tokens - len(req.tokens))
-            req.tokens.extend(int(x) for x in block_np[:take, slot])
-            self.emitted_tokens += take
-            self._decode_tokens += take
+            for kk in range(k):
+                want = req.max_new_tokens - len(req.tokens)
+                if want <= 0:
+                    break
+                if bad_np[kk, slot]:
+                    raise RuntimeError(
+                        f"non-finite logits in slot {slot} (rid {req.rid}); "
+                        "quarantine and replay are not ported yet "
+                        "(ROADMAP.md queue 1: pools, fleet and llama_serve)")
+                take = min(self.stride, want)
+                req.tokens.extend(int(x) for x in block_np[kk, :take, slot])
+                self.emitted_tokens += take
+                self._decode_tokens += take
             if len(req.tokens) >= req.max_new_tokens:
                 self._retire(slot, req, finished)
         return finished
@@ -754,7 +982,6 @@ class ContinuousBatcher:
                 del self._page_refs[page]
                 self._free_pages.append(page)
                 self._page_mass[slot, pi] = 0.0
-                self._tables_dirty = True
                 self.pages_evicted += 1
                 remaining -= 1
 

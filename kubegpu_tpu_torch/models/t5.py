@@ -10,6 +10,10 @@ table per stack, so :func:`kubegpu_tpu_torch.convert.convert_t5_params` is a
 copy.  Attention is plain einsum with an additive bias in f32, as the
 reference leaves it to XLA, except the paged decoder's self-attention over
 its flushed history, which is kernel 7 (``paged_attention_biased``).
+The decode steps read their position from the device, so on the card the
+greedy generates replay CUDA graphs of them (one step dense, one block of
+``page_size`` steps paged), captured on a shape's first call: the
+counterpart of the reference's jitted scan.
 
 Single device only: a ``mesh`` raises (ROADMAP.md queue 1, item 9), and the
 reference's sharding specs are not ported.  Caches, pools and parameters
@@ -24,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from kubegpu_tpu_torch import kernels
 from kubegpu_tpu_torch.models.llama import (
     _rmsnorm,
     embed_lookup,
@@ -36,6 +41,7 @@ from kubegpu_tpu_torch.ops.paged_attention import (
     paged_attention_biased,
     rel_pos_bucket,
 )
+from kubegpu_tpu_torch.tree import tree_leaves
 
 @dataclass(frozen=True)
 class T5Config:
@@ -291,9 +297,10 @@ def t5_init_decode_state(params: dict, enc_out: torch.Tensor,
             "cross_k": ck, "cross_v": cv}
 
 
-def _decode_rel_bias(table: torch.Tensor, pos: int, s: int,
+def _decode_rel_bias(table: torch.Tensor, pos: torch.Tensor, s: int,
                      cfg: T5Config) -> torch.Tensor:
-    """[H, 1, S] causal rel-pos bias for a single query at ``pos``."""
+    """[H, 1, S] causal rel-pos bias for a single query at ``pos`` (a [1]
+    device tensor)."""
     rel = torch.arange(s, device=table.device) - pos   # memory - query
     bucket = rel_pos_bucket(rel, False, cfg.rel_buckets, cfg.rel_max_dist)
     return table[bucket].T[:, None, :]
@@ -313,11 +320,15 @@ def _cross_attend(x, lp, xk, xv, cfg):
     return x + (o @ lp["co"]).to(x.dtype)
 
 
-def t5_decode_step(params: dict, state: dict, token: torch.Tensor, pos: int,
+def t5_decode_step(params: dict, state: dict, token: torch.Tensor, pos,
                    cfg: T5Config) -> tuple[torch.Tensor, dict]:
     """One decoder token in, next-token logits [B, V] out.  token: [B];
-    pos: the global decoder position of ``token``.  The self-attn cache
-    in ``state`` is written in place."""
+    pos: the global decoder position of ``token``, an int or a [1] int64
+    tensor on the device (the form a CUDA graph replays: the position is
+    read on the device, never baked in).  The self-attn cache in
+    ``state`` is written in place."""
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((1,), pos, dtype=torch.long, device=token.device)
     b, hd = token.shape[0], cfg.head_dim
     s = state["k"].shape[3]
     x = embed_lookup(params["embed"], token[:, None])   # [B, 1, D]
@@ -328,8 +339,10 @@ def t5_decode_step(params: dict, state: dict, token: torch.Tensor, pos: int,
         # self-attention over the cache (causal via k_pos <= pos)
         h = _rmsnorm(x, lp["self_norm"], cfg.norm_eps)
         q = (h @ lp["sq"]).view(b, 1, cfg.n_heads, hd)
-        ck[:, :, pos] = (h[:, 0] @ lp["sk"]).view(b, cfg.n_heads, hd)
-        cv[:, :, pos] = (h[:, 0] @ lp["sv"]).view(b, cfg.n_heads, hd)
+        ck.index_copy_(2, pos, (h @ lp["sk"]).view(b, 1, cfg.n_heads,
+                                                   hd).transpose(1, 2))
+        cv.index_copy_(2, pos, (h @ lp["sv"]).view(b, 1, cfg.n_heads,
+                                                   hd).transpose(1, 2))
         scores = torch.einsum("bthd,bhsd->bhts", q.float(),
                               ck.float()) * hd ** -0.5
         scores = (scores + self_bias[None].float()).masked_fill(~visible,
@@ -350,44 +363,129 @@ def _validate_steps(n_steps: int) -> None:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
 
 
-def _greedy(logits: torch.Tensor, i: int) -> torch.Tensor:
-    return logits.argmax(dim=-1)
+# Static decode state and CUDA graphs of the generate calls, by call shape
+# (dense or paged, batch, encoder length, steps, max_len or page size,
+# config, device, the parameter tensors' addresses): a repeated call binds
+# the same buffers and replays the same graphs.  An entry holds the
+# parameter tensors its graphs read.  The oldest entry goes first.
+_graph_cache: dict[tuple, tuple] = {}
+_GRAPH_CACHE_SIZE = 4
+
+
+def clear_graphs() -> None:
+    """Drop every cached decode state and graph (and the parameters they
+    hold)."""
+    _graph_cache.clear()
+
+
+def _cached_state(key: tuple, params: dict, make) -> tuple[dict, dict]:
+    """(static state, graphs by name) of ``key``'s call shape, made by
+    ``make()`` on its first call."""
+    leaves = tree_leaves(params)
+    key = key + (tuple(p.data_ptr() for p in leaves),)
+    if key not in _graph_cache:
+        if len(_graph_cache) >= _GRAPH_CACHE_SIZE:
+            del _graph_cache[next(iter(_graph_cache))]
+        _graph_cache[key] = (leaves, make(), {})
+    return _graph_cache[key][1:]
+
+
+def _run(fn, times: int, graphs: dict | None, name: str) -> None:
+    """``fn()`` ``times`` times: eagerly without ``graphs``, else through
+    the CUDA graph ``graphs[name]``, which the first call makes from one
+    eager run (it loads the libraries and sizes the kernels' scratch) and
+    a capture.  A failed capture or replay raises."""
+    if graphs is None or times < 1:
+        for _ in range(times):
+            fn()
+        return
+    if name not in graphs:
+        fn()
+        times -= 1
+        graph = kernels.Graph(fn)
+        graph.capture()
+        graphs[name] = graph
+    for _ in range(times):
+        graphs[name].replay()
+
+
+def _pick_into(out: torch.Tensor, token: torch.Tensor, idx: torch.Tensor,
+               logits: torch.Tensor, pick, i: int) -> None:
+    """Select the next token (greedy when ``pick`` is None, else
+    ``pick(logits, i)``), write it to column ``idx`` ([1] device tensor)
+    of ``out`` and make it the current ``token``."""
+    nxt = logits.argmax(dim=-1) if pick is None else pick(logits, i)
+    out.index_copy_(1, idx, nxt[:, None].to(out.dtype))
+    token.copy_(nxt)
 
 
 def _t5_rollout(params: dict, enc_tokens: torch.Tensor, n_steps: int,
                 cfg: T5Config, start_token: int, max_len: int,
-                pick) -> torch.Tensor:
+                pick=None, graphs: bool = False) -> torch.Tensor:
     """THE dense decode loop: encode once, then one decode step a token
-    from ``start_token``; ``pick(logits, step_index)`` selects each token.
-    Returns [B, n_steps]."""
-    state = t5_init_decode_state(params, t5_encode(params, enc_tokens, cfg),
-                                 cfg, max_len)
-    token = torch.full((enc_tokens.shape[0],), start_token, dtype=torch.long,
-                       device=enc_tokens.device)
-    out = []
-    for i in range(n_steps):
-        logits, state = t5_decode_step(params, state, token, i, cfg)
-        token = pick(logits, i)
-        out.append(token)
-    return torch.stack(out, dim=1)
+    from ``start_token``; ``pick(logits, step_index)`` selects each token
+    (None: greedy).  The step reads its position from the device, so with
+    ``graphs`` (greedy only) it is captured once and replayed.  Returns
+    [B, n_steps]."""
+    b, s_enc = enc_tokens.shape
+    dev = enc_tokens.device
+    nd, h, hd = cfg.n_dec_layers, cfg.n_heads, cfg.head_dim
+
+    def make() -> dict:
+        kv = dict(dtype=cfg.tdtype, device=dev)
+        cache, cross = (nd, b, h, max_len, hd), (nd, b, h, s_enc, hd)
+        return {"k": torch.zeros(cache, **kv), "v": torch.zeros(cache, **kv),
+                "cross_k": torch.empty(cross, **kv),
+                "cross_v": torch.empty(cross, **kv),
+                "token": torch.empty((b,), dtype=torch.long, device=dev),
+                "pos": torch.zeros((1,), dtype=torch.long, device=dev),
+                "out": torch.empty((b, n_steps), dtype=torch.long,
+                                   device=dev)}
+
+    if graphs:
+        st, cached = _cached_state(("dense", b, s_enc, n_steps, max_len, cfg,
+                                    str(dev)), params, make)
+        st["k"].zero_()
+        st["v"].zero_()
+        st["pos"].zero_()
+    else:
+        st, cached = make(), None
+    ck, cv = t5_cross_kv(params, t5_encode(params, enc_tokens, cfg), cfg)
+    st["cross_k"].copy_(ck)
+    st["cross_v"].copy_(cv)
+    st["token"].fill_(start_token)
+    i = 0
+
+    def step() -> None:
+        nonlocal i
+        logits, _ = t5_decode_step(params, st, st["token"], st["pos"], cfg)
+        _pick_into(st["out"], st["token"], st["pos"], logits, pick, i)
+        st["pos"].add_(1)
+        i += 1
+
+    _run(step, n_steps, cached, "step")
+    return st["out"].clone()
 
 
 @torch.no_grad()
 def t5_greedy_generate(params: dict, enc_tokens, n_steps: int,
                        cfg: T5Config, start_token: int = 0,
-                       max_len: int | None = None,
-                       device="cuda") -> torch.Tensor:
+                       max_len: int | None = None, device="cuda",
+                       graphs: bool = True) -> torch.Tensor:
     """Encoder-decoder greedy generation: encode ``enc_tokens`` [B, S]
     (moved to ``device``) once, precompute the cross K/V, then one decode
     step a token from ``start_token`` (T5's decoder-start convention).
-    Returns [B, n_steps] (int64)."""
+    Returns [B, n_steps] (int64).  On the card the decode step runs as a
+    CUDA graph, captured on the first call of a shape and replayed
+    ``n_steps`` times a call (the reference's jitted scan);
+    ``graphs=False`` runs it eagerly."""
     max_len = max_len or n_steps
     _validate_steps(n_steps)
     if n_steps > max_len:
         raise ValueError(f"n_steps {n_steps} > max_len {max_len}")
     enc_tokens = torch.as_tensor(enc_tokens, dtype=torch.long, device=device)
     return _t5_rollout(params, enc_tokens, n_steps, cfg, start_token,
-                       max_len, _greedy)
+                       max_len, graphs=graphs and enc_tokens.is_cuda)
 
 
 def _t5_buffer_partials(q0, bk, bv, j: int, bias):
@@ -409,12 +507,13 @@ def _t5_buffer_partials(q0, bk, bv, j: int, bias):
 
 
 def _t5_paged_step(params: dict, cross_k, cross_v, token, pool_k, pool_v, pt,
-                   d0, buf_k, buf_v, pos: int, j: int, cfg: T5Config):
+                   d0, buf_k, buf_v, j: int, cfg: T5Config):
     """One T5 decoder token with the flushed self-attn history on the page
     pool (read by :func:`paged_attention_biased`, which computes the causal
     rel-pos bias in-kernel) and this block's keys in a dense write buffer.
-    token: [B]; pos: global decoder position; j: in-block index.  Writes
-    the buffers in place; returns logits [B, V]."""
+    token: [B]; d0: [B] int32, the block's first position (every row
+    decodes in step, so the query sits at ``d0 + j``); j: in-block index.
+    Writes the buffers in place; returns logits [B, V]."""
     b, hd = token.shape[0], cfg.head_dim
     stride = buf_k.shape[3]
     x = embed_lookup(params["embed"], token[:, None])   # [B, 1, D]
@@ -424,9 +523,8 @@ def _t5_paged_step(params: dict, cross_k, cross_v, token, pool_k, pool_v, pt,
                                 False, cfg.rel_buckets, cfg.rel_max_dist)
     buf_bias = table[buf_bucket].T                      # [H, stride]
     table_t = table.T.float().contiguous()              # kernel 7's [H, nb]
-    i32 = dict(dtype=torch.int32, device=token.device)
-    qpos = torch.full((b,), pos, **i32)
-    zeros_b = torch.zeros((b,), **i32)
+    qpos = d0 + j
+    zeros_b = torch.zeros_like(d0)
     for i, lp in enumerate(unbind_layers(params["decoder"])):
         h = _rmsnorm(x, lp["self_norm"], cfg.norm_eps)[:, 0]   # [B, D]
         q0 = (h @ lp["sq"]).view(b, cfg.n_heads, hd)
@@ -446,50 +544,92 @@ def _t5_paged_step(params: dict, cross_k, cross_v, token, pool_k, pool_v, pt,
     return (x @ params["lm_head"]).float()[:, 0]
 
 
+def _t5_paged_block(params: dict, st: dict, n_j: int, cfg: T5Config,
+                    pick=None, i0: int = 0) -> None:
+    """``n_j`` decode steps of the block that starts at ``st["d0"]``, then
+    its flush: the buffer becomes each row's page ``d0 / page_size``
+    (gathered from the table on the device) and ``d0`` advances a page.
+    Nothing is read back to the host, so a full block is one CUDA graph.
+    ``pick(logits, i0 + j)`` selects each token (None: greedy)."""
+    buf_k, buf_v, d0 = st["buf_k"], st["buf_v"], st["d0"]
+    page = buf_k.shape[3]
+    buf_k.zero_()
+    buf_v.zero_()
+    col = d0[:1].long()                 # the output column of step 0
+    for j in range(n_j):
+        logits = _t5_paged_step(params, st["cross_k"], st["cross_v"],
+                                st["token"], st["pool_k"], st["pool_v"],
+                                st["pt"], d0, buf_k, buf_v, j, cfg)
+        _pick_into(st["out"], st["token"], col + j, logits, pick, i0 + j)
+    pages = st["pt"].index_select(1, col // page)[:, 0].long()
+    st["pool_k"][:, pages] = buf_k
+    st["pool_v"][:, pages] = buf_v
+    d0.add_(page)
+
+
 def _t5_paged_rollout(params: dict, enc_tokens: torch.Tensor, n_steps: int,
                       cfg: T5Config, start_token: int, page_size: int,
-                      pick) -> torch.Tensor:
+                      pick=None, graphs: bool = False) -> torch.Tensor:
     """THE paged decode loop (see :func:`t5_greedy_generate_paged`);
-    ``pick(logits, step_index)`` selects each token.  Returns [B,
-    n_steps]."""
-    device = enc_tokens.device
-    enc_out = t5_encode(params, enc_tokens, cfg)
-    cross_k, cross_v = t5_cross_kv(params, enc_out, cfg)
-    b, nd, hd = enc_tokens.shape[0], cfg.n_dec_layers, cfg.head_dim
-    stride = page_size
-    n_blocks = -(-n_steps // stride)
-    kv = dict(dtype=cfg.tdtype, device=device)
-    pool_shape = (nd, 1 + b * n_blocks, cfg.n_heads, page_size, hd)
-    pool_k, pool_v = torch.zeros(pool_shape, **kv), torch.zeros(pool_shape,
-                                                                **kv)
-    pt = (1 + torch.arange(b, device=device)[:, None] * n_blocks
-          + torch.arange(n_blocks, device=device)[None, :]).to(torch.int32)
-    buf_shape = (nd, b, cfg.n_heads, stride, hd)
-    buf_k, buf_v = torch.zeros(buf_shape, **kv), torch.zeros(buf_shape, **kv)
-    token = torch.full((b,), start_token, dtype=torch.long, device=device)
-    out = []
-    for bi in range(n_blocks):
-        d0 = torch.full((b,), bi * stride, dtype=torch.int32, device=device)
-        buf_k.zero_()
-        buf_v.zero_()
-        for j in range(min(stride, n_steps - bi * stride)):
-            logits = _t5_paged_step(params, cross_k, cross_v, token, pool_k,
-                                    pool_v, pt, d0, buf_k, buf_v,
-                                    bi * stride + j, j, cfg)
-            token = pick(logits, bi * stride + j)
-            out.append(token)
-        if bi + 1 < n_blocks:   # flush the full page into row r's page bi
-            pages = pt[:, bi].long()
-            pool_k[:, pages] = buf_k
-            pool_v[:, pages] = buf_v
-    return torch.stack(out, dim=1)
+    ``pick(logits, step_index)`` selects each token (None: greedy).  With
+    ``graphs`` (greedy only) a full block of ``page_size`` steps is one
+    CUDA graph replayed for every full block, and the last, partial block
+    one graph of its own.  Returns [B, n_steps]."""
+    dev = enc_tokens.device
+    b, s_enc = enc_tokens.shape
+    nd, h, hd = cfg.n_dec_layers, cfg.n_heads, cfg.head_dim
+    n_blocks = -(-n_steps // page_size)
+
+    def make() -> dict:
+        kv = dict(dtype=cfg.tdtype, device=dev)
+        pool = (nd, 1 + b * n_blocks, h, page_size, hd)
+        buf, cross = (nd, b, h, page_size, hd), (nd, b, h, s_enc, hd)
+        # row r owns pages 1 + r * n_blocks ...
+        pt = (1 + torch.arange(b, device=dev)[:, None] * n_blocks
+              + torch.arange(n_blocks, device=dev)[None, :]).to(torch.int32)
+        return {"pool_k": torch.zeros(pool, **kv),
+                "pool_v": torch.zeros(pool, **kv), "pt": pt,
+                "buf_k": torch.zeros(buf, **kv),
+                "buf_v": torch.zeros(buf, **kv),
+                "cross_k": torch.empty(cross, **kv),
+                "cross_v": torch.empty(cross, **kv),
+                "token": torch.empty((b,), dtype=torch.long, device=dev),
+                "d0": torch.zeros((b,), dtype=torch.int32, device=dev),
+                "out": torch.empty((b, n_blocks * page_size),
+                                   dtype=torch.long, device=dev)}
+
+    if graphs:
+        st, cached = _cached_state(("paged", b, s_enc, n_steps, page_size,
+                                    cfg, str(dev)), params, make)
+        st["pool_k"].zero_()
+        st["pool_v"].zero_()
+        st["d0"].zero_()
+    else:
+        st, cached = make(), None
+    ck, cv = t5_cross_kv(params, t5_encode(params, enc_tokens, cfg), cfg)
+    st["cross_k"].copy_(ck)
+    st["cross_v"].copy_(cv)
+    st["token"].fill_(start_token)
+    full, rest = divmod(n_steps, page_size)
+    i0 = 0
+
+    def block(n_j: int):
+        def run() -> None:
+            nonlocal i0
+            _t5_paged_block(params, st, n_j, cfg, pick, i0)
+            i0 += n_j
+        return run
+
+    _run(block(page_size), full, cached, "block")
+    _run(block(rest), 1 if rest else 0, cached, "rest")
+    return st["out"][:, :n_steps].clone()
 
 
 @torch.no_grad()
 def t5_greedy_generate_paged(params: dict, enc_tokens, n_steps: int,
                              cfg: T5Config, start_token: int = 0,
-                             page_size: int = 128,
-                             device="cuda") -> torch.Tensor:
+                             page_size: int = 128, device="cuda",
+                             graphs: bool = True) -> torch.Tensor:
     """:func:`t5_greedy_generate` with the decoder self-attn cache in a
     page pool read by the biased paged kernel; same return contract.
     Cross-attention stays dense (encoder activations, not KV cache).
@@ -499,8 +639,11 @@ def t5_greedy_generate_paged(params: dict, enc_tokens, n_steps: int,
     blocks of ``page_size`` steps: each step reads the flushed pages
     through kernel 7 (``t = t_pad = 0``, ``d = block * page_size``) and the
     block's keys from a dense write buffer, merging the two partials; a
-    full block is flushed as one page per row."""
+    block is flushed as one page per row.  On the card a full block runs
+    as one CUDA graph (and the last, partial block as another), captured
+    on the first call of a shape and replayed; ``graphs=False`` runs the
+    blocks eagerly."""
     _validate_steps(n_steps)
     enc_tokens = torch.as_tensor(enc_tokens, dtype=torch.long, device=device)
     return _t5_paged_rollout(params, enc_tokens, n_steps, cfg, start_token,
-                             page_size, _greedy)
+                             page_size, graphs=graphs and enc_tokens.is_cuda)

@@ -196,8 +196,14 @@ def _layer_ptr(layer, n_layers: int, device) -> int:
         raise ValueError(f"layer {layer} not in [0, {n_layers})")
     key = (str(device), n_layers)
     if key not in _layer_ids:
+        if kernels.capturing():
+            raise RuntimeError("the layer ids would be made during a CUDA "
+                               "graph capture: run the function eagerly "
+                               "once before capturing it")
         _layer_ids[key] = torch.arange(n_layers, dtype=torch.int32,
                                        device=device)
+    if kernels.capturing():
+        kernels.hold(_layer_ids[key])
     return _layer_ids[key].data_ptr() + 4 * layer
 
 
@@ -331,12 +337,26 @@ def _split_scratch(device, n_floats: int, n_counts: int):
     counters that pick the last CTA of a merge (int32, zero between
     launches: the kernel's last CTA resets its own).  Kept and reused
     across calls, grown when a call needs more: no allocation per call once
-    warm, and nothing read back to the host, so a later CUDA graph can
-    capture the call."""
+    warm, and nothing read back to the host, so a CUDA graph can capture
+    the call.  Under a :class:`kernels.Graph` capture it must not grow
+    (the graph would own the new buffer, which no eager call could then
+    share): that raises.  The graph holds what it captured, so a later
+    growth leaves its buffers alive.  Graph replays and eager calls share
+    the buffers, so both must run on one stream (``Graph.replay`` checks
+    that)."""
     parts, count = _split_buffers.get(device, (None, None))
-    if parts is None or parts.numel() < n_floats:
+    grow_parts = parts is None or parts.numel() < n_floats
+    grow_count = count is None or count.numel() < n_counts
+    if kernels.capturing():
+        if grow_parts or grow_count:
+            raise RuntimeError("the split walk's scratch would grow during "
+                               "a CUDA graph capture: run the function "
+                               "eagerly once before capturing it")
+        kernels.hold(parts, count)
+        return parts, count
+    if grow_parts:
         parts = torch.empty(n_floats, dtype=torch.float32, device=device)
-    if count is None or count.numel() < n_counts:
+    if grow_count:
         count = torch.zeros(n_counts, dtype=torch.int32, device=device)
     _split_buffers[device] = (parts, count)
     return parts, count

@@ -751,3 +751,156 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         pa.paged_attention_biased(qb, pool, pool, pt, 0, i32, i32, i32,
                                   i32.long(), torch.zeros(2, 8, device=dev),
                                   bias_max_dist=32)
+
+
+# -- CUDA graphs: the engine tick and T5's decode steps ----------------------
+
+GRAPH_ENGINE = dict(n_slots=3, max_len=48, stride=2, prompt_buckets=(32, 40),
+                    paged=True, page_size=8, debug_invariants=True)
+# the paged kernel each engine format runs
+GRAPH_FORMATS = {"bf16": ({}, "paged_decode"),
+                 "int8": (dict(kv_bits=8), "paged_decode_q8"),
+                 "int4": (dict(kv_bits=4), "paged_decode_q4"),
+                 "int4_mass": (dict(kv_bits=4, evict_policy="mass",
+                                    evict_param=0.25), "paged_decode_q4")}
+
+
+def _tiny_bf16_llama(dev):
+    from kubegpu_tpu_torch.models import LlamaConfig, llama_init
+    cfg = LlamaConfig.tiny(d_model=256, n_heads=4, n_kv_heads=2, d_ff=256,
+                           max_seq_len=64, dtype="bfloat16")
+    return cfg, llama_init(cfg, seed=0, device=dev)
+
+
+def _graph_serve(params, cfg, dev, **kw):
+    """warmup(), then 3 requests up front and 2 more after two steps;
+    returns (tokens by rid, engine, launches by kernel after warmup)."""
+    from kubegpu_tpu_torch.models import ContinuousBatcher
+    eng = ContinuousBatcher(params, cfg, device=dev, **GRAPH_ENGINE, **kw)
+    eng.warmup()
+    before = dict(kernels.launches)
+    prompts = [[(7 * j + 3 * i + 1) % cfg.vocab_size for i in range(27)]
+               for j in range(5)]
+    for p, n in zip(prompts[:3], (8, 5, 11)):
+        eng.submit(p, n)
+    done = eng.step() + eng.step()
+    for p, n in zip(prompts[3:], (6, 9)):
+        eng.submit(p, n)
+    done += eng.drain()
+    launched = {k: kernels.launches[k] - before[k] for k in before}
+    return {r.rid: r.tokens for r in done}, eng, launched
+
+
+@pytest.mark.parametrize("fmt", list(GRAPH_FORMATS))
+def test_engine_graph_tokens_equal_eager(dev, fmt):
+    """The engine's tick replayed from its CUDA graph gives the eager
+    tick's tokens (and evictions) bit for bit; the graph's tally is the
+    format's paged kernel ``stride × n_layers`` times, and replays count it
+    once per tick."""
+    kw, name = GRAPH_FORMATS[fmt]
+    cfg, params = _tiny_bf16_llama(dev)
+    got, eng, launched = _graph_serve(params, cfg, dev, **kw)
+    want, eager, eager_launched = _graph_serve(params, cfg, dev,
+                                               graphs=False, **kw)
+    assert got == want
+    assert eng.pages_evicted == eager.pages_evicted
+    assert eng.graph_stats["tally"] == {name: 2 * cfg.n_layers}
+    assert eager.graph_stats is None and eager._graph is None
+    for e, n in ((eng, launched), (eager, eager_launched)):
+        assert n[name] == e._tick * 2 * cfg.n_layers
+        assert sum(n.values()) == n[name]
+    if kw.get("evict_policy"):
+        assert eng.pages_evicted >= 1
+
+
+def test_fused_ticks_equal_single_ticks_on_the_card(dev):
+    cfg, params = _tiny_bf16_llama(dev)
+    got, eng, launched = _graph_serve(params, cfg, dev, fused_ticks=4)
+    want, _, _ = _graph_serve(params, cfg, dev)
+    assert got == want
+    assert eng.fused_dispatches > 0
+    assert launched["paged_decode"] == eng._tick * 2 * cfg.n_layers
+
+
+def test_capture_refuses_to_grow_the_split_scratch(dev, monkeypatch):
+    """Under a capture the split walk's scratch may not grow (the graph
+    would own it); after one eager call sizes it, the captured call
+    replays to the eager call's bits and counts one launch a replay."""
+    monkeypatch.setattr(pa, "_split_buffers", {})
+    g = torch.Generator(device=dev).manual_seed(0)
+    pk, pv = (torch.randn(2, 12, 2, 8, 64, generator=g, device=dev)
+              for _ in range(2))
+    q = torch.randn(4, 8, 64, generator=g, device=dev)
+    t, tpad, d = (torch.from_numpy(x).to(dev) for x in STATE)
+    layer = torch.ones(1, dtype=torch.int32, device=dev)
+    args = (q, pk, pv, torch.from_numpy(PT).to(dev), layer, t, tpad, d)
+    graph = kernels.Graph(lambda: pa.paged_attention(*args))
+    with pytest.raises(RuntimeError, match="scratch would grow"):
+        graph.capture()
+    ref = pa.paged_attention(*args)
+    graph = kernels.Graph(lambda: pa.paged_attention(*args))
+    out = graph.capture()
+    before = kernels.launches["paged_decode"]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert kernels.launches["paged_decode"] == before + 1
+    assert graph.tally == {"paged_decode": 1}
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+def test_t5_graph_tokens_equal_eager(dev):
+    """T5's dense and paged generates through their graphs give the eager
+    tokens bit for bit (bf16, 11 steps over pages of 4: two full blocks
+    and a partial one); a second call of the shape reuses the graphs and
+    runs kernel 7 once per decoder layer and step."""
+    from kubegpu_tpu_torch.models import (
+        T5Config,
+        t5_greedy_generate,
+        t5_greedy_generate_paged,
+        t5_init,
+    )
+    from kubegpu_tpu_torch.models import t5 as t5m
+    cfg = T5Config.tiny(dtype="bfloat16")
+    params = t5_init(cfg, seed=5, device=dev)
+    enc = torch.arange(2 * 9, device=dev).reshape(2, 9) % cfg.vocab_size
+    t5m.clear_graphs()
+    for graphs in (True, False):
+        dense = [t5_greedy_generate(params, enc, 11, cfg, max_len=16,
+                                    device=dev, graphs=graphs)
+                 for _ in range(2)]
+        before = kernels.launches["paged_decode_bias"]
+        paged = [t5_greedy_generate_paged(params, enc, 11, cfg, page_size=4,
+                                          device=dev, graphs=graphs)
+                 for _ in range(2)]
+        assert kernels.launches["paged_decode_bias"] == before + 2 * 11 * 2
+        if graphs:
+            want = (dense[0], paged[0])
+            assert len(t5m._graph_cache) == 2
+        else:
+            assert torch.equal(dense[0], want[0])
+            assert torch.equal(paged[0], want[1])
+        assert torch.equal(dense[0], dense[1])
+        assert torch.equal(paged[0], paged[1])
+    t5m.clear_graphs()
+
+
+def test_graph_engine_is_freed_by_its_last_reference(dev):
+    """The captured graph refers to the tick's tensors, not to the engine,
+    so dropping the engine frees it (and what it holds) at once, without
+    waiting for the cycle collector."""
+    import gc
+    import weakref
+
+    from kubegpu_tpu_torch.models import ContinuousBatcher
+    cfg, params = _tiny_bf16_llama(dev)
+    eng = ContinuousBatcher(params, cfg, device=dev, **GRAPH_ENGINE)
+    eng.warmup()
+    assert eng._graph is not None
+    ref = weakref.ref(eng)
+    gc.disable()
+    try:
+        del eng
+        assert ref() is None
+    finally:
+        gc.enable()

@@ -144,6 +144,85 @@ def test_greedy_generate_dense_and_paged_match_jax(case):
     np.testing.assert_array_equal(paged.numpy(), ref_paged)
 
 
+def test_decode_step_reads_its_position_from_the_device(tiny):
+    """The dense step at a [1] int64 position tensor (the form a CUDA
+    graph replays) matches the JAX ``t5_decode_step``, and equals the
+    int-position call bit for bit."""
+    cfg_j, params_j, cfg, params = tiny
+    enc, dec = _tokens(25, 2, 7), _tokens(26, 2, 6)
+    enc_j = jax.jit(jt.t5_encode, static_argnums=2)(params_j,
+                                                    jnp.asarray(enc), cfg_j)
+    state_j = jt.t5_init_decode_state(params_j, enc_j, cfg_j, max_len=6)
+    step_j = jax.jit(jt.t5_decode_step, static_argnums=4)
+    enc_out = tt.t5_encode(params, torch.from_numpy(enc), cfg)
+    state = tt.t5_init_decode_state(params, enc_out, cfg, max_len=6)
+    twin = {k: v.clone() for k, v in state.items()}
+    pos = torch.zeros(1, dtype=torch.long)
+    for i in range(6):
+        ref, state_j = step_j(params_j, state_j, jnp.asarray(dec[:, i]), i,
+                              cfg_j)
+        token = torch.from_numpy(dec[:, i]).long()
+        got, state = tt.t5_decode_step(params, state, token, pos, cfg)
+        same, twin = tt.t5_decode_step(params, twin, token, i, cfg)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                   atol=LOGIT_ATOL, err_msg=f"pos {i}")
+        assert torch.equal(got, same)
+        pos += 1
+    assert torch.equal(state["k"], twin["k"])
+
+
+class _ReplayedGraph:
+    """``kernels.Graph`` on the CPU: the capture records nothing and a
+    replay calls the captured function, so the static-state graph runner
+    runs as it does on the card."""
+    replays = 0
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def capture(self):
+        pass
+
+    def replay(self):
+        type(self).replays += 1
+        self.fn()
+
+
+@pytest.mark.parametrize("case", list(PAGED), ids=list(PAGED))
+def test_generate_replays_static_state_as_jax(case, monkeypatch):
+    """The graph runner of both generates (state cached by call shape,
+    reset by each call; one eager step or block, then the captured one
+    replayed) gives the JAX tokens on two calls of one shape with other
+    encoder inputs: the second call reuses the first's state and graphs,
+    and replays every step (dense) or every block (paged)."""
+    seed, enc, n_steps, page = PAGED[case]
+    cfg_j, cfg = jt.T5Config.tiny(), tt.T5Config.tiny()
+    params_j = jt.t5_init(jax.random.PRNGKey(seed), cfg_j)
+    params = _convert(params_j)
+    monkeypatch.setattr(tt.kernels, "Graph", _ReplayedGraph)
+    monkeypatch.setattr(_ReplayedGraph, "replays", 0)
+    tt.clear_graphs()
+    full, rest = divmod(n_steps, page)
+    for call, e in enumerate((enc, (enc * 3 + 1) % 256)):
+        e = e.astype(np.int32)
+        ref_dense = np.asarray(jt.t5_greedy_generate(
+            params_j, jnp.asarray(e), n_steps, cfg_j, max_len=16))
+        ref_paged = np.asarray(jt.t5_greedy_generate_paged(
+            params_j, jnp.asarray(e), n_steps, cfg_j, page_size=page))
+        before = _ReplayedGraph.replays
+        dense = tt._t5_rollout(params, torch.from_numpy(e).long(), n_steps,
+                               cfg, 0, 16, graphs=True)
+        paged = tt._t5_paged_rollout(params, torch.from_numpy(e).long(),
+                                     n_steps, cfg, 0, page, graphs=True)
+        np.testing.assert_array_equal(dense.numpy(), ref_dense)
+        np.testing.assert_array_equal(paged.numpy(), ref_paged)
+        eager = (full > 0) + (rest > 0) + 1 if call == 0 else 0
+        assert _ReplayedGraph.replays - before == (
+            n_steps + full + (rest > 0) - eager)
+    assert len(tt._graph_cache) == 2
+    tt.clear_graphs()
+
+
 def test_generate_validation(tiny):
     _, _, cfg, params = tiny
     enc = _tokens(23, 1, 6)
