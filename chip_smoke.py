@@ -39,6 +39,21 @@ printed as it ends (any failed check exits non-zero):
    finished, no page leaked, pages evicted, the pool's bytes per format;
    an eager engine of each format on the first window's prompts must give
    the same tokens and evictions;
+5c. int8 weights — ``quantize_llama`` of the 8B weights on the card (both
+   trees' bytes printed), ``llama_forward [1, 512]`` on them against the
+   same forward on their dequantized bf16 weights (relative L2 error of the
+   logits within 3e-2), and the paged engine on int8 weights with
+   ``kv_bits=8``, graph and eager, one window each on phase 5's first
+   prompts (tokens equal; tokens/s beside 5b's bf16-weight int8 engine);
+5d. static — ``llama_serve.py``'s bench traffic (batch 32, prompt 1024,
+   128 steps): ``prefill`` and ``greedy_generate`` on int8 weights with
+   the int8 cache, then on bf16 weights with the bf16 cache, its decode
+   step a CUDA graph and eagerly (tokens equal):
+   ``serve_decode_tokens_per_s`` (decode less the same-config prefill) and
+   ``serve_e2e_tokens_per_s``, peak memory and the graph's pool;
+5e. dense — ``ContinuousBatcher(paged=False)`` at phase 5's shape, bf16:
+   ``warmup()`` captures the tick; two windows on it and on an eager
+   engine in turns (tokens equal, no slot held after a window);
 6. parity   — a narrow f32 engine (through its graph) token for token
    against the port's own ``greedy_generate``, and the full-width first
    decode step's logits against the plain dense path;
@@ -55,22 +70,29 @@ printed as it ends (any failed check exits non-zero):
    tokens, each mode's median tokens/s; the paged one runs kernel 7 once
    per decoder layer and step); parity of the paged tokens with the dense
    ones on a narrow f32 config and of the full-width paged step's logits
-   with the dense step's after two flushed pages; ``make_t5_train_step``
+   with the dense step's after two flushed pages; one paged generate on
+   ``quantize_t5`` weights (tokens in range, tokens/s beside bf16's);
+   ``make_t5_train_step``
    with ``adamw(1e-3)`` on one fixed batch (encoder [8, 512], decoder [8,
    128]): one warm and three timed steps.
 
-Four paths are driven: serving (phases 4-5), quantized serving (5b),
-training (phase 7's steps) and T5 paged serving (phase 8's paged calls).
-Launch counters are zeroed just before each and read just after; a graph
-replay counts the launches captured in it.  The serving and training
-paths must run kernels 1-3 on their tensor-core instances only.  The line
+Six paths are driven: serving (phases 4-5), quantized serving (5b),
+int8-weight serving (5c), the static path and the dense engine (5d-5e,
+which run no kernel of the port, as the reference runs no Pallas kernel
+there), training (phase 7's steps) and T5 paged serving (phase 8's bf16
+paged calls).  Launch counters are zeroed just before each and read just
+after; a graph replay counts the launches captured in it.  The serving
+and training paths must run kernels 1-3 on their tensor-core instances
+only.  The line
 before the last is one JSON object per kernel; the last line is
 ``{"ok": true, "device": {...}}``.  ``--details PATH`` writes every
 phase's numbers to PATH as JSON.  With ``--profile`` it also traces one
-steady tick of the bf16 and of the int8 engine, each as a graph replay
-and eagerly (the profiler must see the paged kernel inside the graph), a
-block of T5's paged decode likewise, and one train step after phase 7
-(device time by kernel, idle share).
+steady tick of the bf16, the int8, the int8-weight and the dense engine,
+each as a graph replay and eagerly (the profiler must see the paged
+kernel inside the graph), one replayed static decode step per format
+(with its weight products, weight copies and attention timed alone), a
+block of T5's paged decode like the ticks, and one train step after phase
+7 (device time by kernel, idle share).
 """
 
 from __future__ import annotations
@@ -785,7 +807,7 @@ def serving_window(torch, kernels, eng, cfg, gen, n_new, kernel="paged_decode",
     checked and timed on the host clock.  ``kernel`` is the paged kernel
     of the engine's pool format: it must run ``stride × n_layers`` times a
     tick, graph replays included, and the other paged kernels not at
-    all."""
+    all; the dense engine (``kernel=None``) runs none of them."""
     if prompts is None:
         prompts = window_prompts(torch, cfg, gen)
     tick0, tok0, ev0 = eng._tick, eng.emitted_tokens, eng.pages_evicted
@@ -800,7 +822,7 @@ def serving_window(torch, kernels, eng, cfg, gen, n_new, kernel="paged_decode",
     done += eng.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launched = kernels.launches[kernel] - before[kernel]
+    launched = (kernels.launches[kernel] - before[kernel]) if kernel else 0
     check(sorted(r.rid for r in done) == sorted(rids),
           "not every request finished")
     others = {k: kernels.launches[k] - before[k] for k in PAGED_KERNELS
@@ -814,7 +836,9 @@ def serving_window(torch, kernels, eng, cfg, gen, n_new, kernel="paged_decode",
     eng.check_page_invariants()
     check(len(eng._free_pages) == eng.total_pages, "pages leaked")
     ticks = eng._tick - tick0
-    check(launched == ticks * eng.stride * cfg.n_layers,
+    check(not (eng.slot_req or eng.active.any() or eng.queue),
+          "a slot is still held after the window")
+    check(kernel is None or launched == ticks * eng.stride * cfg.n_layers,
           f"{kernel} launches {launched} != ticks {ticks} x {eng.stride} x "
           f"{cfg.n_layers}")
     tokens = eng.emitted_tokens - tok0
@@ -959,7 +983,8 @@ def fused_phase(torch, kernels, cfg, params, gen, eng, name) -> dict:
 
 
 def pool_bytes(eng) -> int:
-    return sum(x.numel() * x.element_size() for x in eng.pool.values())
+    kv = eng.pool if eng.paged else eng.cache
+    return sum(x.numel() * x.element_size() for x in kv.values())
 
 
 QUANT_ENGINES = (
@@ -1028,6 +1053,294 @@ def quant_serving_phase(torch, kernels, cfg, params, gen, name,
     return out
 
 
+# -- phases 5c-5e: int8 weights, the static path, the dense slot engine ---
+
+# llama_serve.py's bench mode (SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS)
+STATIC = {"batch": 32, "prompt": 1024, "steps": 128}
+DENSE_ENGINE = dict(n_slots=8, max_len=1024, stride=16, prompt_buckets=(512,),
+                    paged=False, device="cuda")
+
+
+def dequantized(tree, dtype):
+    """``tree`` with every QTensor leaf dequantized to ``dtype``."""
+    from kubegpu_tpu_torch.models.quant import QTensor
+    return {k: (dequantized(v, dtype) if isinstance(v, dict) else
+                v.dequantize(dtype) if isinstance(v, QTensor) else v)
+            for k, v in tree.items()}
+
+
+def quant_weights_phase(torch, kernels, cfg, params, gen, name,
+                        first_window, profile: bool = False):
+    """5c: ``quantize_llama`` of the 8B weights on the card (the trees'
+    bytes), ``llama_forward [1, 512]`` on them (kernel 1 once a layer)
+    against the same forward on their dequantized bf16 weights, and the
+    paged engine on int8 weights with ``kv_bits=8`` (kernel 5): a warmed
+    graph engine and an eager one, one window each on phase 5's first
+    prompts, equal tokens.  Returns (stats, the quantized tree)."""
+    from kubegpu_tpu_torch.models import ContinuousBatcher, llama_forward
+    from kubegpu_tpu_torch.models.quant import quantize_llama, tree_nbytes
+    t0 = time.perf_counter()
+    qparams = quantize_llama(params)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    nbytes = {"bf16": tree_nbytes(params), "int8": tree_nbytes(qparams)}
+    tokens = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen,
+                           device="cuda")
+    tol = 3e-2
+    with torch.no_grad():
+        before = kernels.launches["flash_fwd"]
+        logits = llama_forward(qparams, tokens, cfg)
+        launched = kernels.launches["flash_fwd"] - before
+        ref = llama_forward(dequantized(qparams, cfg.tdtype), tokens, cfg)
+        rel = ((logits - ref).norm() / ref.norm()).item()
+        same = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    check(launched == cfg.n_layers,
+          f"int8 forward: flash launches {launched}, want {cfg.n_layers}")
+    check(bool(torch.isfinite(logits).all()), "int8 forward not finite")
+    check(rel <= tol, f"int8 forward vs dequantized bf16 rel err {rel}")
+    del logits, ref
+    torch.cuda.empty_cache()
+    log("quant", what="weights", quantize_s=round(quant_s, 2),
+        tree_bytes=nbytes, forward_rel_l2_err=rel, tol_rel=tol,
+        argmax_agree=same, flash_launches=launched)
+    eng, warm_s = warmed(torch, kernels, ContinuousBatcher, cfg, qparams,
+                         "int8w", "paged_decode_q8", kv_bits=8)
+    graph = graph_log("int8 weights + int8 pages", eng)
+    eager, _ = warmed(torch, kernels, ContinuousBatcher, cfg, qparams,
+                      "int8w eager", "paged_decode_q8", graphs=False,
+                      kv_bits=8)
+    run = serving_window(torch, kernels, eng, cfg, gen, 32, "paged_decode_q8",
+                         prompts=first_window["prompts"])
+    eager_run = serving_window(torch, kernels, eager, cfg, gen, 32,
+                               "paged_decode_q8",
+                               prompts=first_window["prompts"])
+    same_tokens("int8 weights", run, eager_run)
+    stats = {"quantize_s": quant_s, "tree_bytes": nbytes,
+             "forward_rel_l2_err": rel, "forward_tol": tol,
+             "forward_argmax_agree": same,
+             "tokens_per_s": run["tokens_per_s"],
+             "eager_tokens_per_s": eager_run["tokens_per_s"],
+             "wall_s": run["wall_s"], "eager_wall_s": eager_run["wall_s"],
+             "warmup_s": warm_s, "graph": graph, "ticks": run["ticks"]}
+    log("serving", engine="int8 weights + int8 pages",
+        tokens_per_s=run["tokens_per_s"],
+        eager_tokens_per_s=eager_run["tokens_per_s"],
+        warmup_s=round(warm_s, 3), graph_equals_eager=True, card=repr(name))
+    if profile:
+        stats["profile"] = profile_pair(torch, eng, eager,
+                                        first_window["prompts"], "int8w")
+    del eng, eager
+    torch.cuda.empty_cache()
+    return stats, qparams
+
+
+def step_shares(torch, cfg, params, st, kv_int8: bool) -> dict:
+    """``--profile``: one static decode step's parts timed alone at its
+    shape (batch 32 at the step's middle position): the weight products
+    of one layer and the head (with int8 weights, their ``to(bf16)``
+    copies alone too), and one layer's cached attention; the layer parts
+    times ``n_layers``."""
+    from kubegpu_tpu_torch.models import decode as dec
+    from kubegpu_tpu_torch.models.llama import unbind_layers
+    from kubegpu_tpu_torch.models.quant import QTensor
+    b = st["token"].shape[0]
+    lp = unbind_layers(params["layers"])[0]
+    names = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = {n: torch.randn(b, 1, lp[n].shape[0], generator=g, device="cuda",
+                        dtype=cfg.tdtype) for n in names}
+    xh = torch.randn(b, 1, cfg.d_model, generator=g, device="cuda",
+                     dtype=cfg.tdtype)
+    q = torch.randn(b, cfg.n_heads, 1, cfg.head_dim, generator=g,
+                    device="cuda", dtype=cfg.tdtype)
+    qpos = st["pos"].clone()
+    cache = st["cache"]
+    layer = {n: v[0] for n, v in cache.items()}
+    with torch.no_grad():
+        gemm = cuda_ms(lambda: [x[n] @ lp[n] for n in names], reps=5)
+        head = cuda_ms(lambda: xh @ params["lm_head"], reps=5)
+        if kv_int8:
+            attend = cuda_ms(lambda: dec._cached_attend_q8(
+                q, layer["k"], layer["v"], layer["k_scale"],
+                layer["v_scale"], qpos), reps=5)
+        else:
+            attend = cuda_ms(lambda: dec._cached_attend(
+                q, layer["k"], layer["v"], qpos), reps=5)
+        copies = head_copy = 0.0
+        if isinstance(params["lm_head"], QTensor):
+            copies = cuda_ms(lambda: [lp[n].values.to(cfg.tdtype)
+                                      for n in names], reps=5)
+            head_copy = cuda_ms(
+                lambda: params["lm_head"].values.to(cfg.tdtype), reps=5)
+    n = cfg.n_layers
+    return {"weights_ms": gemm * n + head,
+            "weight_copies_ms": copies * n + head_copy,
+            "attention_ms": attend * n}
+
+
+def static_phase(torch, cfg, formats, name, profile: bool = False) -> dict:
+    """5d: ``llama_serve.py``'s bench traffic (``STATIC``: batch 32,
+    prompt 1024, 128 steps, max_len 1152) through ``prefill`` and
+    ``greedy_generate`` for each of ``formats`` ((label, params, kv_int8)),
+    by llama_serve's method: one warm call (it captures the step's
+    graph), then ``prefill`` alone, a graph call and an eager call
+    (``graphs=False``), each bracketed by synchronizes; decode is the call
+    less the same-config prefill.  Tokens equal across the calls; peak
+    memory (``max_memory_allocated``, both weight trees resident) and the
+    graph's pool per format; the graph's state is dropped before the
+    eager call.  With ``profile``, one replayed step is traced and its
+    parts timed alone (:func:`step_shares`)."""
+    from kubegpu_tpu_torch.models import decode as dec
+    b, t, steps = STATIC["batch"], STATIC["prompt"], STATIC["steps"]
+    max_len = t + steps
+    prompt = torch.arange(b * t, device="cuda").reshape(b, t) % cfg.vocab_size
+    out = {}
+    for label, p, kv_int8 in formats:
+        dec.clear_graphs()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, r
+
+        def generate(graphs: bool):
+            return dec.greedy_generate(p, prompt, steps, cfg,
+                                       max_len=max_len, kv_int8=kv_int8,
+                                       device="cuda", graphs=graphs)
+
+        with torch.no_grad():
+            first_s, first = timed(lambda: generate(True))
+            prefill_s, _ = timed(lambda: dec.prefill(
+                p, prompt, cfg, max_len, kv_int8)[0])
+            graph_s, toks = timed(lambda: generate(True))
+        graph_peak = torch.cuda.max_memory_allocated()
+        (_, st, graphs), = dec._graph_cache.values()
+        stats = {}
+        if profile:
+            step_ms = 1e3 * (graph_s - prefill_s) / (steps - 1)
+
+            def one_step():
+                st["pos"].fill_(t + steps // 2)
+                graphs["step"].replay()
+                torch.cuda.synchronize()
+            stats["profile"] = device_trace(torch, one_step, step_ms)
+            log_trace(f"one static {label} decode step (graph)",
+                      stats["profile"])
+            stats["parts"] = step_shares(torch, cfg, p, st, kv_int8)
+            log("profile", what=f"static {label} step parts, alone",
+                step_ms=round(step_ms, 3),
+                **{k: round(v, 3) for k, v in stats["parts"].items()})
+        pool = (graphs["step"].pool_bytes, graphs["step"].capture_s,
+                graphs["step"].instantiate_s)
+        del st, graphs
+        # the eager call makes its own state: drop the graph's first
+        dec.clear_graphs()
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            eager_s, eager_toks = timed(lambda: generate(False))
+        check(tuple(toks.shape) == (b, steps)
+              and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              f"static {label}: tokens {tuple(toks.shape)} out of range")
+        check(torch.equal(toks, first) and torch.equal(toks, eager_toks),
+              f"static {label}: graph tokens differ from eager tokens")
+        peak = torch.cuda.max_memory_allocated()
+        stats.update({
+            "first_call_s": first_s, "prefill_s": prefill_s,
+            "graph_s": graph_s, "eager_s": eager_s,
+            "decode_s": graph_s - prefill_s,
+            "eager_decode_s": eager_s - prefill_s,
+            "serve_decode_tokens_per_s":
+                b * (steps - 1) / max(graph_s - prefill_s, 1e-9),
+            "serve_e2e_tokens_per_s": b * steps / graph_s,
+            "eager_serve_decode_tokens_per_s":
+                b * (steps - 1) / max(eager_s - prefill_s, 1e-9),
+            "eager_serve_e2e_tokens_per_s": b * steps / eager_s,
+            "peak_bytes": peak, "graph_run_peak_bytes": graph_peak,
+            "weights_and_rest_bytes": base, "graph_pool_bytes": pool[0],
+            "capture_s": pool[1], "instantiate_s": pool[2]})
+        log("static", weights=label, kv_int8=kv_int8, batch=b, prompt=t,
+            steps=steps,
+            serve_decode_tokens_per_s=stats["serve_decode_tokens_per_s"],
+            serve_e2e_tokens_per_s=stats["serve_e2e_tokens_per_s"],
+            eager_serve_decode_tokens_per_s=stats[
+                "eager_serve_decode_tokens_per_s"],
+            eager_serve_e2e_tokens_per_s=stats["eager_serve_e2e_tokens_per_s"],
+            prefill_s=round(prefill_s, 4), graph_s=round(graph_s, 4),
+            eager_s=round(eager_s, 4), first_call_s=round(first_s, 3),
+            peak_gb=round(peak / 1e9, 2),
+            graph_run_peak_gb=round(graph_peak / 1e9, 2),
+            resident_gb=round(base / 1e9, 2), graph_pool_bytes=pool[0],
+            graph_equals_eager=True, card=repr(name))
+        out[label] = stats
+    dec.clear_graphs()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_engine_phase(torch, kernels, cfg, params, gen, name, first_window,
+                       profile: bool = False) -> dict:
+    """5e: the dense slot engine (``ContinuousBatcher(paged=False)``, the
+    reference's default) at phase 5's shape, bf16: ``warmup()`` (it
+    captures the tick), then two windows on the graph engine and on an
+    eager one in turns (G E, E G; phase 5's first prompts, then new ones):
+    tokens equal, no slot held after a window; with ``profile``, one steady
+    tick of each traced."""
+    import statistics
+
+    from kubegpu_tpu_torch.models import ContinuousBatcher
+    engines = {}
+    for graphs in (True, False):
+        eng = ContinuousBatcher(params, cfg, graphs=graphs, **DENSE_ENGINE)
+        t0 = time.perf_counter()
+        eng.warmup()
+        torch.cuda.synchronize()
+        engines[graphs] = (eng, time.perf_counter() - t0)
+        check((eng._tick, eng.emitted_tokens) == (0, 0)
+              and not eng.cache["k"].any(),
+              "dense warmup changed the engine's state")
+    (eng, warm_s), (eager, eager_warm_s) = engines[True], engines[False]
+    graph = graph_log("dense", eng)
+    check(graph["tally"] == {}, f"the dense tick captured {graph['tally']}")
+    runs, eager_runs = [], []
+    for i, prompts in enumerate((first_window["prompts"],
+                                 window_prompts(torch, cfg, gen))):
+        order = (eng, eager) if i % 2 == 0 else (eager, eng)
+        got = {id(e): serving_window(torch, kernels, e, cfg, gen, 32, None,
+                                     prompts=prompts) for e in order}
+        runs.append(got[id(eng)])
+        eager_runs.append(got[id(eager)])
+        same_tokens(f"dense window {i}", runs[-1], eager_runs[-1])
+    ref = [x for toks in first_window["outputs"] for x in toks]
+    mine = [x for toks in runs[0]["outputs"] for x in toks]
+    agree = sum(a == b for a, b in zip(ref, mine)) / len(ref)
+    rates = [r["tokens_per_s"] for r in runs]
+    eager_rates = [r["tokens_per_s"] for r in eager_runs]
+    stats = {"tokens_per_s": statistics.median(rates),
+             "tokens_per_s_windows": rates,
+             "eager_tokens_per_s": statistics.median(eager_rates),
+             "eager_tokens_per_s_windows": eager_rates,
+             "warmup_s": warm_s, "eager_warmup_s": eager_warm_s,
+             "graph": graph, "ticks": eng._tick,
+             "cache_bytes": pool_bytes(eng), "agree_with_paged": agree}
+    log("serving", engine="dense", tokens_per_s=stats["tokens_per_s"],
+        tokens_per_s_windows=rates,
+        eager_tokens_per_s=stats["eager_tokens_per_s"],
+        eager_tokens_per_s_windows=eager_rates, warmup_s=round(warm_s, 3),
+        ticks=eng._tick, cache_bytes=stats["cache_bytes"],
+        graph_equals_eager=True, agree_with_paged=agree, card=repr(name))
+    if profile:
+        stats["profile"] = profile_pair(torch, eng, eager,
+                                        first_window["prompts"], "dense")
+    del eng, eager, engines
+    torch.cuda.empty_cache()
+    return stats
+
+
 def device_trace(torch, fn, wall_ms: float) -> dict:
     """Run ``fn()`` (which ends in a synchronize) once under
     ``torch.profiler``: device time by kernel name, the summed time of
@@ -1051,12 +1364,14 @@ def device_trace(torch, fn, wall_ms: float) -> dict:
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     gemms = [rec for n, rec in by_name.items() if GEMM_KERNEL.search(n)]
+    copies = [rec for n, rec in by_name.items() if "copy" in n.lower()]
     port = {k: [sum(r[i] for n, r in by_name.items() if k in n)
                 for i in (0, 1)] for k in PORT_KERNELS}
     return {"wall_ms": wall_ms, "traced_wall_ms": traced_ms,
             "device_busy_ms": busy_ms,
             "gemm_ms": sum(ms for ms, _ in gemms),
             "gemm_launches": sum(c for _, c in gemms),
+            "copy_ms": sum(ms for ms, _ in copies),
             "port_kernels": {k: {"ms": ms, "calls": c}
                              for k, (ms, c) in port.items()},
             "device_kernels": sum(c for _, c in by_name.values()),
@@ -1070,6 +1385,7 @@ def log_trace(what: str, out: dict) -> None:
         traced_wall_ms=round(out["traced_wall_ms"], 3),
         device_busy_ms=round(out["device_busy_ms"], 3),
         gemm_ms=round(out["gemm_ms"], 3), gemm_launches=out["gemm_launches"],
+        copy_ms=round(out["copy_ms"], 3),
         device_kernels=out["device_kernels"], idle_share=out["idle_share"],
         port_kernels={k: (round(v["ms"], 3), v["calls"])
                       for k, v in out["port_kernels"].items()},
@@ -1102,7 +1418,7 @@ def profile_phase(torch, eng, prompts, label: str = "bf16",
     eng.drain()
     kind = "graph" if eng.graphs else "eager"
     log_trace(f"one steady {label} engine tick ({kind})", out)
-    want = eng.stride * eng.cfg.n_layers
+    want = eng.stride * eng.cfg.n_layers if eng.paged else 0
     check(out["port_kernels"]["paged_split"]["calls"] == want,
           f"{label} {kind} tick: the profiler saw "
           f"{out['port_kernels']['paged_split']['calls']} paged kernels, "
@@ -1128,6 +1444,7 @@ def parity_narrow(torch) -> None:
     from kubegpu_tpu_torch.models import (
         ContinuousBatcher,
         LlamaConfig,
+        decode,
         greedy_generate,
         llama_init,
     )
@@ -1153,6 +1470,7 @@ def parity_narrow(torch) -> None:
               f"!= greedy {solo}")
     log("parity", case="narrow f32 engine vs greedy_generate",
         requests=len(done), equal=True)
+    decode.clear_graphs()
 
 
 def parity_full(torch, cfg, params, gen) -> dict:
@@ -1445,6 +1763,49 @@ def t5_serving(torch, kernels, t5, cfg, params, gen, name) -> dict:
     return out
 
 
+def t5_quant_serving(torch, kernels, t5, cfg, params, gen, name,
+                     serving: dict) -> dict:
+    """8b: the paged generate on ``quantize_t5`` weights at ``T5_SERVE``'s
+    shape, through its graph: one warm call (it captures), one timed.
+    Tokens in shape and range and equal on both calls; kernel 7 runs
+    ``n_dec_layers x steps`` times a call; tokens/s beside the bf16
+    call's."""
+    from kubegpu_tpu_torch.models.quant import quantize_t5, tree_nbytes
+    b, steps, page = T5_SERVE["batch"], T5_SERVE["steps"], T5_SERVE["page"]
+    q = quantize_t5(params)
+    enc = torch.randint(0, cfg.vocab_size, (b, T5_SERVE["enc_len"]),
+                        generator=gen, device="cuda")
+    t5.clear_graphs()
+    before = kernels.launches["paged_decode_bias"]
+
+    def call():
+        return t5.t5_greedy_generate_paged(q, enc, steps, cfg, page_size=page,
+                                           device="cuda")
+    first = call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = kernels.launches["paged_decode_bias"] - before
+    check(launched == 2 * cfg.n_dec_layers * steps,
+          f"T5 int8: kernel 7 ran {launched} times in two calls")
+    check(tuple(toks.shape) == (b, steps)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"T5 int8 tokens {tuple(toks.shape)} out of shape or range")
+    check(torch.equal(toks, first), "T5 int8: two calls' tokens differ")
+    out = {"paged_tokens_per_s": b * steps / wall, "wall_s": wall,
+           "bf16_paged_tokens_per_s": serving["paged_tokens_per_s"],
+           "tree_bytes": {"bf16": tree_nbytes(params),
+                          "int8": tree_nbytes(q)}}
+    log("t5", what="paged serving on int8 weights",
+        paged_tokens_per_s=out["paged_tokens_per_s"],
+        bf16_paged_tokens_per_s=out["bf16_paged_tokens_per_s"],
+        tree_bytes=out["tree_bytes"], card=repr(name))
+    t5.clear_graphs()
+    return out
+
+
 def t5_profile(torch, t5, cfg, params) -> dict:
     """``--profile``: one block of T5's paged decode (``page`` steps, its
     third block: two flushed pages a row) as a replay of the cached block
@@ -1591,7 +1952,8 @@ def t5_phase(torch, kernels, gen, name, cfg=None, profile=False) -> dict:
     if profile:
         with torch.no_grad():
             serving["profile"] = t5_profile(torch, t5, cfg, params)
-    t5.clear_graphs()
+    serving["int8"] = t5_quant_serving(torch, kernels, t5, cfg, params, gen,
+                                       name, serving)
     parity = t5_parity(torch, t5, cfg, params, gen)
     torch.cuda.empty_cache()
     training = t5_training(torch, t5, cfg, params, gen, name)
@@ -1736,6 +2098,34 @@ def main(argv=None) -> int:
     log("serving", pool_bytes={"bf16": serve["pool_bytes"], **{
         k: v["pool_bytes"] for k, v in quant_serve.items()}})
 
+    kernels.reset_launches()          # the int8-weight serving path starts here
+    qweights, qparams = quant_weights_phase(torch, kernels, cfg, params, gen,
+                                            name, windows[0], args.profile)
+    qw_launches = dict(kernels.launches)   # ... and ends here
+    check(all(qw_launches[k] > 0 for k in ("flash_fwd", "paged_decode_q8")),
+          f"a kernel of the int8-weight path never ran: {qw_launches}")
+    only_tc(qw_launches, ("flash_fwd",), "int8-weight serving")
+    log("quant", what="paged engine, int8 weights vs bf16 weights (both "
+        "int8 pages, graph, first window's prompts)",
+        int8w_tokens_per_s=qweights["tokens_per_s"],
+        bf16w_tokens_per_s=quant_serve["int8"]["tokens_per_s_windows"][0])
+    kernels.reset_launches()          # the static and dense paths start here
+    static = static_phase(torch, cfg, (("int8", qparams, True),
+                                       ("bf16", params, False)),
+                          name, args.profile)
+    del qparams
+    torch.cuda.empty_cache()
+    dense = dense_engine_phase(torch, kernels, cfg, params, gen, name,
+                               windows[0], args.profile)
+    plain_launches = dict(kernels.launches)   # ... and end here
+    check(not any(plain_launches.values()),
+          f"the static and dense paths launched a kernel: {plain_launches}")
+    log("static", what="int8 weights + int8 cache over bf16",
+        decode=static["int8"]["serve_decode_tokens_per_s"]
+        / static["bf16"]["serve_decode_tokens_per_s"],
+        e2e=static["int8"]["serve_e2e_tokens_per_s"]
+        / static["bf16"]["serve_e2e_tokens_per_s"])
+
     parity = parity_full(torch, cfg, params, gen)
     del params
     torch.cuda.empty_cache()
@@ -1770,7 +2160,8 @@ def main(argv=None) -> int:
               "paged_decode_bias": (
                   "kubegpu_tpu_torch/csrc/paged_decode_bias.cu",
                   "kubegpu_tpu/ops/paged_attention.py:567")}
-    paths = (serve_launches, quant_launches, train_launches, t5_launches)
+    paths = (serve_launches, quant_launches, qw_launches, train_launches,
+             t5_launches)
     # launches: each kernel's count over the paths that run it (the
     # forward runs on serving and training)
     line = {"kernels": [
@@ -1793,12 +2184,16 @@ def main(argv=None) -> int:
                "forward": fwd, "serving": serve, "fused": fused,
                "parity": parity,
                "quantized_serving": quant_serve,
+               "quantized_weights": qweights, "static": static,
+               "dense_engine": dense,
                "paged_mass": quant["bf16"], "paged_rounding": rounding,
                "profile": prof, "training": train,
                "flash_fwd_training_shape": fwd_train,
                "t5": t5_stats,
                "launches": {"serving": serve_launches,
                             "quantized_serving": quant_launches,
+                            "int8_weight_serving": qw_launches,
+                            "static_and_dense": plain_launches,
                             "training": train_launches,
                             "t5_paged_serving": t5_launches},
                "kernels": line["kernels"],

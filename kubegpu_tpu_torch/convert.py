@@ -4,13 +4,18 @@ The port keeps the reference's parameter layout (stacked layers on a
 leading ``L`` dim, ``W`` stored ``[in, out]``), so conversion is a copy of
 each leaf.  The input is the reference's nested dict with numpy leaves
 (for example ``jax.tree.map(np.asarray, params)``); bfloat16 leaves from
-``ml_dtypes`` are reinterpreted bit for bit.
+``ml_dtypes`` are reinterpreted bit for bit.  A quantized leaf (anything
+with ``.values`` and ``.scale``, as the reference's ``QTensor`` after that
+map) becomes the port's :class:`~kubegpu_tpu_torch.models.quant.QTensor`,
+its int8 values and f32 scales copied as they are.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from kubegpu_tpu_torch.models.quant import QTensor
 
 
 def _leaf(a, device, dtype) -> torch.Tensor:
@@ -20,26 +25,35 @@ def _leaf(a, device, dtype) -> torch.Tensor:
                              ).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a, copy=True))
-    return t.to(device=device, dtype=dtype or t.dtype)
+    # dtype casts float leaves only: int8 values stay int8
+    return t.to(device=device,
+                dtype=dtype if dtype and t.is_floating_point() else t.dtype)
 
 
 def _tree(tree: dict, device, dtype) -> dict:
-    return {k: (_tree(v, device, dtype) if isinstance(v, dict)
-                else _leaf(v, device, dtype))
-            for k, v in tree.items()}
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _tree(v, device, dtype)
+        elif hasattr(v, "values") and hasattr(v, "scale"):
+            out[k] = QTensor(_leaf(v.values, device, None),
+                             _leaf(v.scale, device, None))
+        else:
+            out[k] = _leaf(v, device, dtype)
+    return out
 
 
 def convert_llama_params(tree: dict, device="cuda",
                          dtype: torch.dtype | None = None) -> dict:
-    """Reference Llama params (nested dict of numpy arrays) → the port's
-    params (the same nesting, torch tensors on ``device``, cast to
-    ``dtype`` when given)."""
+    """Reference Llama params (nested dict of numpy arrays, int8 leaves
+    allowed) → the port's params (the same nesting, torch tensors on
+    ``device``, float leaves cast to ``dtype`` when given; a quantized
+    leaf keeps its int8 values and f32 scales)."""
     return _tree(tree, device, dtype)
 
 
 def convert_t5_params(tree: dict, device="cuda",
                       dtype: torch.dtype | None = None) -> dict:
     """Reference T5 params → the port's, as :func:`convert_llama_params`
-    (the layouts match leaf for leaf; int8 ``QTensor`` leaves are not
-    ported yet)."""
+    (the layouts match leaf for leaf)."""
     return _tree(tree, device, dtype)

@@ -270,3 +270,39 @@ class Graph:
         self.graph.replay()
         for name, n in self.tally.items():
             launches[name] += n
+
+
+def graph_state(cache: dict, key: tuple, params, make,
+                size: int = 4) -> tuple[dict, dict]:
+    """(static state, graphs by name) of ``key``'s call shape in ``cache``,
+    made by ``make()`` on its first call.  The key also holds the addresses
+    of ``params``' tensors, and the entry holds the tensors, so a graph
+    never outlives what it reads.  The oldest of ``size`` entries goes
+    first."""
+    from kubegpu_tpu_torch.tree import tree_leaves
+    leaves = tree_leaves(params)
+    key = key + (tuple(p.data_ptr() for p in leaves),)
+    if key not in cache:
+        if len(cache) >= size:
+            del cache[next(iter(cache))]
+        cache[key] = (leaves, make(), {})
+    return cache[key][1:]
+
+
+def run_graph(fn, times: int, graphs: dict | None, name: str) -> None:
+    """``fn()`` ``times`` times: eagerly without ``graphs``, else through
+    the :class:`Graph` ``graphs[name]``, which the first call makes from
+    one eager run (it loads the libraries and sizes the kernels' scratch)
+    and a capture.  A failed capture or replay raises."""
+    if graphs is None or times < 1:
+        for _ in range(times):
+            fn()
+        return
+    if name not in graphs:
+        fn()
+        times -= 1
+        graph = Graph(fn)
+        graph.capture()
+        graphs[name] = graph
+    for _ in range(times):
+        graphs[name].replay()

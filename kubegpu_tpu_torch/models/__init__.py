@@ -1,5 +1,6 @@
 """Model families of the port (so far: Llama, its cached decode and the
-paged serving engine; the T5 encoder-decoder with its paged decode)."""
+dense and paged serving engines; the T5 encoder-decoder with its paged
+decode; int8 weights for both in ``quant``)."""
 
 from kubegpu_tpu_torch.models.decode import greedy_generate  # noqa: F401
 from kubegpu_tpu_torch.models.llama import (  # noqa: F401

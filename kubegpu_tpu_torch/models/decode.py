@@ -1,11 +1,16 @@
 """KV-cache prefill and greedy decode for the Llama family (counterpart of
 ``kubegpu_tpu/models/decode.py``).
 
-The cache is a stacked ``[L, B, Hkv, max_len, hd]`` pair allocated once;
-the forward writes new K/V rows into it IN PLACE (the reference returns an
-updated copy).  Attention over the cache is the plain grouped einsum — the
-reference has no kernel there either.  :func:`greedy_generate` is the solo
-oracle every serving parity check holds the engine to.
+The cache is a stacked ``[L, B, Hkv, max_len, hd]`` pair allocated once, in
+the model dtype or (``kv_int8``) as int8 with f32 per-token scales; the
+forward writes new K/V rows into it IN PLACE at its positions with
+``index_copy_`` (the reference returns an updated copy).  Attention over the
+cache is the plain grouped einsum, as in the reference, which has no kernel
+there either.  The position may be a device tensor, so on the card
+:func:`greedy_generate` runs the prompt eagerly and then replays one decode
+step as a CUDA graph, captured on the first call of a shape: the
+counterpart of the reference's jitted scan.  :func:`greedy_generate` is the
+solo oracle every serving parity check holds the engines to.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from kubegpu_tpu_torch import kernels
 from kubegpu_tpu_torch.models.llama import (
     LlamaConfig,
     _rmsnorm,
@@ -25,13 +31,28 @@ from kubegpu_tpu_torch.ops.kvquant import quantize_rows
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int | None = None,
-                  device="cuda") -> dict:
-    """Zeroed stacked cache in the model dtype; ``max_len`` defaults to
-    cfg.max_seq_len.  (The int8 cache waits for the KV-quant slice.)"""
+                  kv_int8: bool = False, device="cuda") -> dict:
+    """Zeroed stacked cache; ``max_len`` defaults to cfg.max_seq_len.
+    ``kv_int8`` stores K/V as int8 with per-(layer, batch, head, token)
+    f32 scales, which start at 1 so unwritten slots dequantize to exact
+    zero."""
     s = max_len or cfg.max_seq_len
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, s, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.tdtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.tdtype, device=device)}
+    if not kv_int8:
+        return {"k": torch.zeros(shape, dtype=cfg.tdtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.tdtype, device=device)}
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.ones(shape[:-1], dtype=torch.float32,
+                                  device=device),
+            "v_scale": torch.ones(shape[:-1], dtype=torch.float32,
+                                  device=device)}
+
+
+def _reset_kv_cache(cache: dict) -> None:
+    """Back to :func:`init_kv_cache`'s state, in place."""
+    for name, x in cache.items():
+        x.fill_(1 if name.endswith("_scale") else 0)
 
 
 # the quantizer lives in ops/kvquant.py; the pool write paths import it under
@@ -54,6 +75,28 @@ def _cached_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     scores = scores.masked_fill(~visible, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgts,bksd->bkgtd", probs, cv.float())
+    return out.reshape(b, hq, t, d).to(q.dtype)
+
+
+def _cached_attend_q8(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                      k_scale: torch.Tensor, v_scale: torch.Tensor,
+                      q_pos: torch.Tensor) -> torch.Tensor:
+    """:func:`_cached_attend` over an int8 cache: values [B, Hkv, S, D]
+    with f32 per-token scales [B, Hkv, S].  The k-scales multiply the f32
+    scores after the ``d ** -0.5`` fold, and the v-scales the f32
+    probabilities, which are not rounded to q's dtype (the reference's
+    ``probs * v_scale`` promotes its einsum to f32).  int8 values are exact
+    in q's dtype, so the f32 upcast is the reference's cast."""
+    b, hq, t, d = q.shape
+    hkv, s = ck.shape[1], ck.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, t, d)
+    scores = torch.einsum("bkgtd,bksd->bkgts", qg.float(), ck.float())
+    scores = scores * (d ** -0.5 * k_scale[:, :, None, None, :])
+    visible = torch.arange(s, device=q.device)[None, :] <= q_pos[:, None]
+    scores = scores.masked_fill(~visible, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bksd->bkgtd",
+                       probs * v_scale[:, :, None, None, :], cv.float())
     return out.reshape(b, hq, t, d).to(q.dtype)
 
 
@@ -89,11 +132,18 @@ def _attn_finish(x: torch.Tensor, o: torch.Tensor, lp: dict,
 
 
 def _forward_with_cache(params: dict, tokens: torch.Tensor, cache: dict,
-                        pos_offset: int, cfg: LlamaConfig):
+                        pos_offset, cfg: LlamaConfig,
+                        last_only: bool = False):
     """Run the decoder over ``tokens`` [B, T] starting at global position
-    ``pos_offset``, writing K/V into ``cache`` in place.  Returns (logits
-    [B, T, vocab] f32, cache)."""
+    ``pos_offset`` (an int, or a [1] int64 tensor on the device: the form
+    a CUDA graph replays), writing K/V into ``cache`` in place, quantized
+    per token when the cache is int8.  Returns (logits [B, T, vocab] f32,
+    cache); with ``last_only`` the head runs on the last position alone
+    ([B, 1, vocab]): the values the reference's prefill keeps of its
+    every-position logits, without them (16.8 GB in f32 at batch 32 ×
+    1024 × 128256)."""
     b, t = tokens.shape
+    kv_int8 = "k_scale" in cache
     x = embed_lookup(params["embed"], tokens)
     q_pos = pos_offset + torch.arange(t, device=tokens.device)
     positions = q_pos[None, :].expand(b, t)
@@ -101,27 +151,39 @@ def _forward_with_cache(params: dict, tokens: torch.Tensor, cache: dict,
         h = _rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
         q, k, v = _project_qkv(h, lp, cfg, positions)
         ck, cv = cache["k"][i], cache["v"][i]
-        ck[:, :, pos_offset:pos_offset + t] = k.to(ck.dtype)
-        cv[:, :, pos_offset:pos_offset + t] = v.to(cv.dtype)
-        x = _attn_finish(x, _cached_attend(q, ck, cv, q_pos), lp, cfg)
+        if kv_int8:
+            ks, vs = cache["k_scale"][i], cache["v_scale"][i]
+            for dst, dst_scale, x_new in ((ck, ks, k), (cv, vs, v)):
+                vals, scale = _quantize_rows(x_new)
+                dst.index_copy_(2, q_pos, vals)
+                dst_scale.index_copy_(2, q_pos, scale)
+            o = _cached_attend_q8(q, ck, cv, ks, vs, q_pos)
+        else:
+            ck.index_copy_(2, q_pos, k.to(ck.dtype))
+            cv.index_copy_(2, q_pos, v.to(cv.dtype))
+            o = _cached_attend(q, ck, cv, q_pos)
+        x = _attn_finish(x, o, lp, cfg)
+    if last_only:
+        x = x[:, -1:]
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"]).float(), cache
 
 
 def prefill(params: dict, prompt: torch.Tensor, cfg: LlamaConfig,
-            max_len: int | None = None):
+            max_len: int | None = None, kv_int8: bool = False):
     """Process the whole prompt [B, T]; returns (last-position logits
     [B, vocab], primed cache)."""
-    cache = init_kv_cache(cfg, prompt.shape[0], max_len,
+    cache = init_kv_cache(cfg, prompt.shape[0], max_len, kv_int8,
                           device=prompt.device)
-    logits, cache = _forward_with_cache(params, prompt, cache, 0, cfg)
+    logits, cache = _forward_with_cache(params, prompt, cache, 0, cfg,
+                                        last_only=True)
     return logits[:, -1], cache
 
 
-def decode_step(params: dict, cache: dict, token: torch.Tensor, pos: int,
+def decode_step(params: dict, cache: dict, token: torch.Tensor, pos,
                 cfg: LlamaConfig):
     """One token in, next-token logits out.  token: [B]; ``pos``: the
-    global position of ``token``."""
+    global position of ``token`` (an int or a [1] device tensor)."""
     logits, cache = _forward_with_cache(params, token[:, None], cache, pos,
                                         cfg)
     return logits[:, 0], cache
@@ -137,31 +199,79 @@ def _validate_rollout(cfg: LlamaConfig, t: int, n_steps: int,
     return max_len
 
 
-def _rollout(params, prompt, cfg: LlamaConfig, t: int, n_steps: int,
-             max_len: int, pick) -> torch.Tensor:
-    """THE decode loop: prefill, then ``n_steps - 1`` decode forwards.
-    ``pick(logits, step_index)`` selects each token."""
-    logits, cache = prefill(params, prompt, cfg, max_len)
-    token = pick(logits, 0)
-    toks = [token]
-    for i in range(n_steps - 1):
-        logits, cache = decode_step(params, cache, token, t + i, cfg)
-        token = pick(logits, i + 1)
-        toks.append(token)
-    return torch.stack(toks, dim=1)
+# Static decode state and the CUDA graph of the decode step, by call shape
+# (config, batch, max_len, cache format, device, the parameter tensors'
+# addresses): a repeated call binds the same buffers and replays the same
+# graph.  An entry holds the parameter tensors its graph reads.
+_graph_cache: dict[tuple, tuple] = {}
+_GRAPH_CACHE_SIZE = 4
+
+
+def clear_graphs() -> None:
+    """Drop every cached decode state and graph (and the parameters they
+    hold)."""
+    _graph_cache.clear()
+
+
+def _rollout(params, prompt, cfg: LlamaConfig, n_steps: int, max_len: int,
+             kv_int8: bool, graphs: bool = False) -> torch.Tensor:
+    """THE decode loop: prefill, then ``n_steps - 1`` decode steps, each
+    reading its position and token from the device and writing its token
+    into column ``pos`` of a static output (so the step never changes and,
+    with ``graphs``, is captured once and replayed).  Returns [B,
+    n_steps]."""
+    b, t = prompt.shape
+    dev = prompt.device
+
+    def make() -> dict:
+        return {"cache": init_kv_cache(cfg, b, max_len, kv_int8, device=dev),
+                "token": torch.empty((b,), dtype=torch.long, device=dev),
+                "pos": torch.zeros((1,), dtype=torch.long, device=dev),
+                "out": torch.empty((b, max_len), dtype=torch.long,
+                                   device=dev)}
+
+    if graphs:
+        st, cached = kernels.graph_state(
+            _graph_cache, (cfg, b, max_len, kv_int8, str(dev)), params, make,
+            _GRAPH_CACHE_SIZE)
+        _reset_kv_cache(st["cache"])
+    else:
+        st, cached = make(), None
+    logits, _ = _forward_with_cache(params, prompt, st["cache"], 0, cfg,
+                                    last_only=True)
+    st["pos"].fill_(t)
+
+    def emit(logits: torch.Tensor) -> None:
+        nxt = logits.argmax(dim=-1)
+        st["out"].index_copy_(1, st["pos"], nxt[:, None])
+        st["token"].copy_(nxt)
+
+    emit(logits[:, -1])
+
+    def step() -> None:
+        logits, _ = decode_step(params, st["cache"], st["token"], st["pos"],
+                                cfg)
+        st["pos"].add_(1)
+        emit(logits)
+
+    kernels.run_graph(step, n_steps - 1, cached, "step")
+    return st["out"][:, t:t + n_steps].clone()
 
 
 @torch.no_grad()
 def greedy_generate(params: dict, prompt, n_steps: int, cfg: LlamaConfig,
-                    max_len: int | None = None, device="cuda"
-                    ) -> torch.Tensor:
+                    max_len: int | None = None, kv_int8: bool = False,
+                    device="cuda", graphs: bool = True) -> torch.Tensor:
     """Greedy decode ``n_steps`` tokens after ``prompt`` [B, T] (moved to
-    ``device``).  Returns the generated tokens [B, n_steps] (int64)."""
+    ``device``).  Returns the generated tokens [B, n_steps] (int64).
+    ``kv_int8`` keeps the cache as int8 with per-token scales.  On the card
+    the decode step runs as a CUDA graph, captured on the first call of a
+    (config, batch, max_len, cache format) and replayed; ``graphs=False``
+    runs it eagerly."""
     prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
-    t = prompt.shape[1]
-    max_len = _validate_rollout(cfg, t, n_steps, max_len)
-    return _rollout(params, prompt, cfg, t, n_steps, max_len,
-                    pick=lambda logits, i: logits.argmax(dim=-1))
+    max_len = _validate_rollout(cfg, prompt.shape[1], n_steps, max_len)
+    return _rollout(params, prompt, cfg, n_steps, max_len, kv_int8,
+                    graphs=graphs and prompt.is_cuda)
 
 
 def _attend_buffer_partials(q: torch.Tensor, bk: torch.Tensor,

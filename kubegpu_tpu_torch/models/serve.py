@@ -1,11 +1,23 @@
-"""Continuous batching over a paged KV pool (counterpart of the paged,
-greedy core of ``kubegpu_tpu/models/serve.py``).
+"""Continuous batching (counterpart of the greedy core of
+``kubegpu_tpu/models/serve.py``): the dense slot engine (``paged=False``,
+the default) and the paged one.
 
-The KV history lives in a page pool ``[L, n_pages, Hkv, P, D]`` shared by
-every slot; page 0 is a trash page that is never allocated.  A request is
-prefilled in a wave (a ``[k, bucket]`` batch of same-bucket prompts), its
-prompt K/V copied page by page into the pages it was given, and then every
-engine tick runs ``stride`` decode steps for all slots: the flushed history
+The dense engine keeps one ``[L, n_slots, Hkv, max_len, D]`` cache row a
+slot.  A wave's prompts prefill into a ``max_len``-wide panel whose rows are
+copied whole into their slots; each tick runs ``stride`` decode steps for
+every slot, attending over the row's flushed history (``k_pos <
+flush_pos``) and this block's keys in a write buffer, and then flushes the
+buffer at each row's block-start position.  An inactive row holds its
+position, so its garbage flush may start past ``max_len - stride``: the
+start is clamped there, as ``lax.dynamic_update_slice`` clamps it in the
+reference, and lands in the row's own cache, which the next admission
+overwrites whole.
+
+In the paged engine the KV history lives in a page pool ``[L, n_pages,
+Hkv, P, D]`` shared by every slot; page 0 is a trash page that is never
+allocated.  A request is prefilled in a wave (a ``[k, bucket]`` batch of
+same-bucket prompts), its prompt K/V copied page by page into the pages it
+was given, and then every engine tick runs ``stride`` decode steps for all slots: the flushed history
 through the paged-attention kernel, this block's keys through a dense write
 buffer, merged as flash-decoding partials.  At the end of the block the
 buffer is flushed into each row's current decode page.
@@ -20,12 +32,13 @@ reports) and turns them into page-id-0 holes the kernel skips.
 
 The reference's executables (``decode_block``, ``prefill_wave``,
 ``adopt_wave``) are plain functions here; its ``lax.scan`` over the stride
-steps is a Python loop.  The pool and the per-slot device vectors are
-updated IN PLACE (the reference donates and rebinds them), and so are the
-page tables and per-slot scalars the tick reads, which live in device
+steps is a Python loop.  The cache or pool and the per-slot device vectors
+are updated IN PLACE (the reference donates and rebinds them), and so are
+the page tables and per-slot scalars the tick reads, which live in device
 buffers allocated once and refreshed by one copy from pinned host memory a
 dispatch.  On the card the tick (:func:`tick_body`: ``decode_block``
-inside the reference's lane freeze) is captured once into
+inside the reference's lane freeze; :func:`dense_tick_body` on the dense
+engine) is captured once into
 a CUDA graph (:class:`kubegpu_tpu_torch.kernels.Graph`), the counterpart
 of the reference's compiled executable, and every tick replays it;
 ``fused_ticks=K`` replays it K times a dispatch with one host fetch.
@@ -62,6 +75,7 @@ from kubegpu_tpu_torch.models.llama import (
     unbind_layers,
 )
 from kubegpu_tpu_torch import kernels
+from kubegpu_tpu_torch.ops.flash_attention import NEG_INF
 from kubegpu_tpu_torch.ops.kvquant import Q4_ZERO_BYTE, quantize_groups_q4
 from kubegpu_tpu_torch.ops.paged_attention import (
     decode_capacity,
@@ -76,7 +90,6 @@ MAX_WAVE = 8
 # Reference knobs this slice does not port: name -> (default, ROADMAP.md
 # queue-1 item that brings it).  A non-default value raises.
 _LATER = {
-    "paged": (True, "the dense slot engine (paged=False)"),
     "sampling": (False, "sampling"),
     "seed": (0, "sampling"),
     "top_k": (0, "sampling"),
@@ -262,13 +275,146 @@ def tick_body(params: dict, tables: dict, st: dict, cfg: LlamaConfig,
         st["mass"].copy_(outs[2])
 
 
+# -- the dense slot engine ---------------------------------------------------
+
+def _attend_rows_buffered(q: torch.Tensor, ck: torch.Tensor,
+                          cv: torch.Tensor, bk: torch.Tensor,
+                          bv: torch.Tensor, flush_pos: torch.Tensor,
+                          j: int) -> torch.Tensor:
+    """Grouped attention with per-row positions over a dense cache plus the
+    in-block write buffer.  q: [B, Hq, 1, D]; cache [B, Hkv, S, D], valid
+    where ``k_pos < flush_pos[b]`` (everything flushed before this block);
+    buffer [B, Hkv, stride, D], valid at index ``<= j``.  One softmax over
+    both key sets, f32 scores."""
+    b, hq, t, d = q.shape
+    hkv, s = ck.shape[1], ck.shape[2]
+    stride = bk.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, t, d).float()
+    sc = torch.einsum("bkgtd,bksd->bkgts", qg, ck.float())
+    sb = torch.einsum("bkgtd,bksd->bkgts", qg, bk.float())
+    scores = torch.cat([sc, sb], dim=-1) * d ** -0.5
+    mask = torch.cat(
+        [torch.arange(s, device=q.device)[None, :] < flush_pos[:, None],
+         (torch.arange(stride, device=q.device) <= j)[None, :].expand(
+             b, stride)], dim=-1)
+    scores = scores.masked_fill(~mask[:, None, None, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = (torch.einsum("bkgts,bksd->bkgtd", probs[..., :s], cv.float())
+           + torch.einsum("bkgts,bksd->bkgtd", probs[..., s:], bv.float()))
+    return out.reshape(b, hq, t, d).to(q.dtype)
+
+
+def _row_step_buffered(params: dict, tokens: torch.Tensor, cache: dict,
+                       buf: dict, flush_pos: torch.Tensor,
+                       pos: torch.Tensor, j: int,
+                       cfg: LlamaConfig) -> torch.Tensor:
+    """One decode step for every slot at its own position ``pos`` [B],
+    its new K/V written into the block buffer at the shared index ``j``
+    (in place).  Returns next-token logits [B, V] f32."""
+    x = embed_lookup(params["embed"], tokens)[:, None, :]        # [B,1,D]
+    positions = pos[:, None]
+    for li, lp in enumerate(unbind_layers(params["layers"])):
+        h = _rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = _project_qkv(h, lp, cfg, positions)            # [B,H,1,D]
+        bk, bv = buf["k"][li], buf["v"][li]
+        bk[:, :, j] = k[:, :, 0].to(bk.dtype)
+        bv[:, :, j] = v[:, :, 0].to(bv.dtype)
+        o = _attend_rows_buffered(q, cache["k"][li], cache["v"][li], bk, bv,
+                                  flush_pos, j)
+        x = _attn_finish(x, o, lp, cfg)
+    x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ params["lm_head"]).float()[:, 0]
+
+
+def _flush_buffer(cache: dict, buf: dict, flush_pos: torch.Tensor) -> None:
+    """Scatter the block buffer [L, B, Hkv, stride, D] into the dense cache
+    [L, B, Hkv, S, D] IN PLACE: row b's segment lands at ``flush_pos[b]``,
+    clamped to ``S - stride`` as ``lax.dynamic_update_slice`` clamps its
+    start (only an inactive row holding its position gets there)."""
+    n_slots, s = cache["k"].shape[1], cache["k"].shape[3]
+    stride = buf["k"].shape[3]
+    start = torch.clamp(flush_pos.long(), 0, s - stride)
+    idx = start[:, None] + torch.arange(stride, device=start.device)
+    rows = torch.arange(n_slots, device=start.device)[:, None]
+    for name in ("k", "v"):
+        # advanced indices around a slice: value dims are [B, stride, L,
+        # Hkv, D]
+        cache[name][:, rows, :, idx] = buf[name].permute(1, 3, 0, 2, 4).to(
+            cache[name].dtype)
+
+
+@torch.no_grad()
+def decode_block_dense(params: dict, cache: dict, tokens: torch.Tensor,
+                       pos: torch.Tensor, active: torch.Tensor,
+                       cfg: LlamaConfig, stride: int):
+    """``stride`` decode steps for every slot over the dense cache, then
+    the buffer flush at the block-start positions.  ``tokens``/``pos``
+    advance in place for active rows; inactive rows hold both.  Returns
+    (token block [stride, B], per-slot non-finite flag)."""
+    flush_pos = pos.clone()
+    n_layers, b, hkv = cache["k"].shape[:3]
+    buf = {n: torch.zeros((n_layers, b, hkv, stride, cfg.head_dim),
+                          dtype=cache[n].dtype, device=tokens.device)
+           for n in ("k", "v")}
+    bad = torch.zeros(b, dtype=torch.bool, device=tokens.device)
+    block = []
+    for j in range(stride):
+        logits = _row_step_buffered(params, tokens, cache, buf, flush_pos,
+                                    pos, j, cfg)
+        bad |= ~torch.isfinite(logits).all(dim=-1)
+        nxt = torch.where(active, _pick_token(logits), tokens)
+        tokens.copy_(nxt)
+        pos.add_(active.to(pos.dtype))
+        block.append(nxt)
+    _flush_buffer(cache, buf, flush_pos)
+    return torch.stack(block), bad
+
+
+@torch.no_grad()
+def dense_tick_body(params: dict, tables: dict, st: dict, cfg: LlamaConfig,
+                    stride: int) -> None:
+    """ONE tick of the dense engine: :func:`decode_block_dense` over the
+    slots the ``tables``' active mask names, its block, bad flags and the
+    first tokens written to the output views of ``st``.  The dense engine
+    has no fused ticks, so no lane freeze; the graph engine captures
+    exactly this."""
+    block, bad = decode_block_dense(params, st["cache"], st["tokens"],
+                                    st["pos"], tables["active"] != 0, cfg,
+                                    stride)
+    out = st["out"]
+    out["blocks"][0].copy_(block)
+    out["bads"][0].copy_(bad)
+    out["firsts"].copy_(st["first_toks"])
+
+
+@torch.no_grad()
+def adopt_wave_dense(cache: dict, cache_w: dict, slots: torch.Tensor,
+                     firsts: torch.Tensor, plens: torch.Tensor,
+                     first_toks: torch.Tensor, tokens: torch.Tensor,
+                     pos: torch.Tensor) -> None:
+    """Admit a wave into the dense cache IN PLACE: each row of the
+    ``max_len``-wide panel becomes its slot's whole cache row, and the
+    slots' first token, current token and position are set."""
+    for name in cache:
+        cache[name][:, slots] = cache_w[name]
+    first_toks[slots] = firsts
+    tokens[slots] = firsts
+    pos[slots] = plens.to(pos.dtype)
+
+
+# -- prefill waves (both engines) ---------------------------------------------
+
 @torch.no_grad()
 def prefill_wave(params: dict, padded_prompts: torch.Tensor,
-                 true_lens: torch.Tensor, cfg: LlamaConfig):
+                 true_lens: torch.Tensor, cfg: LlamaConfig,
+                 max_len: int | None = None):
     """Batch-k prefill of bucket-padded prompts into a dense
-    [L, k, Hkv, bucket, D] panel; returns (first tokens [k], panel)."""
+    [L, k, Hkv, max_len or bucket, D] panel (the dense engine's rows are
+    ``max_len`` wide, the paged engine copies the bucket's pages); returns
+    (first tokens [k], panel)."""
     k, bucket = padded_prompts.shape
-    cache_w = init_kv_cache(cfg, k, bucket, device=padded_prompts.device)
+    cache_w = init_kv_cache(cfg, k, max_len or bucket,
+                            device=padded_prompts.device)
     logits, cache_w = _forward_with_cache(params, padded_prompts, cache_w, 0,
                                           cfg)
     last = logits[torch.arange(k, device=logits.device), true_lens - 1]
@@ -335,18 +481,23 @@ class _Request:
 
 
 class ContinuousBatcher:
-    """Slot-based continuous-batching engine over a paged KV pool
-    (greedy).  ``submit()`` enqueues a request; ``step()`` collects the
-    previous tick's token block, retires finishers, admits queued
-    requests into free slots (prefill waves), and dispatches the next
-    stride block for every slot; ``drain()`` runs to completion.
+    """Slot-based continuous-batching engine (greedy), over a dense cache
+    row a slot (``paged=False``, the reference's default) or a paged KV
+    pool (``paged=True``).  ``submit()`` enqueues a request; ``step()``
+    collects the previous tick's token block, retires finishers, admits
+    queued requests into free slots (prefill waves), and dispatches the
+    next stride block for every slot; ``drain()`` runs to completion.
     ``warmup()`` runs every shape once on scratch state, before a timed
     window.
 
-    ``kv_bits`` picks the pool format: 16 (the model dtype), 8 (int8 pages
-    with per-token scales; ``kv_int8=True`` is its alias) or 4 (packed
-    int4 pages with one scale per ``kv_group`` tokens, default ``stride``;
-    the group must divide both ``stride`` and ``page_size``).
+    The dense engine takes no ``kv_int8``/``kv_bits`` (the static path's
+    ``greedy_generate(kv_int8=True)`` is the dense int8 cache), no
+    ``evict_policy`` and no ``fused_ticks > 1``: each raises ``ValueError``
+    as in the reference.  ``kv_bits`` picks the paged pool's format: 16
+    (the model dtype), 8 (int8 pages with per-token scales; ``kv_int8=True``
+    is its alias) or 4 (packed int4 pages with one scale per ``kv_group``
+    tokens, default ``stride``; the group must divide both ``stride`` and
+    ``page_size``).
     ``evict_policy`` ("window" or "mass", with ``evict_param`` a token
     window, default ``2 * page_size``, or a mass threshold, default 0.02)
     drops cold prompt pages of decoding slots after each collected block
@@ -379,7 +530,6 @@ class ContinuousBatcher:
                  evict_policy: str | None = None,
                  evict_param: float | None = None, fused_ticks: int = 1,
                  graphs: bool = True, device="cuda", **later):
-        later["paged"] = paged
         for name, value in later.items():
             if name not in _LATER:
                 raise TypeError(f"unexpected keyword argument {name!r}")
@@ -400,6 +550,21 @@ class ContinuousBatcher:
         self.prompt_buckets = tuple(sorted(prompt_buckets))
         if self.prompt_buckets[-1] >= self.max_len:
             raise ValueError("largest prompt bucket must be < max_len")
+        self.paged = bool(paged)
+        # -- fused multi-tick decode: K complete ticks a dispatch when no
+        # admission is pending, the lane freeze on the device
+        self.fused_ticks = int(fused_ticks)
+        if self.fused_ticks < 1:
+            raise ValueError(f"fused_ticks {fused_ticks} must be >= 1")
+        if self.fused_ticks > 1 and not paged:
+            raise ValueError(
+                "fused_ticks > 1 requires paged=True — the fused block "
+                "advances page-pool state on device; the dense slot cache "
+                "has no multi-tick story")
+        if kv_int8 and not paged:
+            raise ValueError(
+                "kv_int8=True requires paged=True (the dense engine's int8 "
+                "cache is the static decode path's kv_int8)")
         # -- KV bit width: 16 = model dtype, 8 = int8 pages (kv_int8's
         # alias), 4 = packed int4 with one scale per kv_group tokens; the
         # group divides stride and page_size so every write is
@@ -408,11 +573,17 @@ class ContinuousBatcher:
             kv_bits = 8 if kv_int8 else 16
         if kv_bits not in (16, 8, 4):
             raise ValueError(f"kv_bits {kv_bits} not in (16, 8, 4)")
+        if kv_bits == 8 and not paged:
+            raise ValueError("kv_bits=8 requires paged=True")
         if kv_bits == 4:
             if kv_int8:
                 raise ValueError(
                     "kv_int8=True and kv_bits=4 are exclusive — pick one "
                     "pool quantization")
+            if not paged:
+                raise ValueError(
+                    "kv_bits=4 requires paged=True (the packed int4 format "
+                    "is a page-pool layout)")
             if cfg.head_dim % 2:
                 raise ValueError(
                     f"kv_bits=4 needs an even head_dim, got {cfg.head_dim} "
@@ -429,11 +600,6 @@ class ContinuousBatcher:
             kv_group = 0
         self.kv_bits = int(kv_bits)
         self.kv_group = int(kv_group)
-        # -- fused multi-tick decode: K complete ticks a dispatch when no
-        # admission is pending, the lane freeze on the device
-        self.fused_ticks = int(fused_ticks)
-        if self.fused_ticks < 1:
-            raise ValueError(f"fused_ticks {fused_ticks} must be >= 1")
         # -- page eviction: "window" drops prompt pages wholly below the
         # trailing evict_param-token window, "mass" those whose EMA of the
         # paged kernel's attention mass fell below evict_param
@@ -441,6 +607,8 @@ class ContinuousBatcher:
             if evict_policy not in ("window", "mass"):
                 raise ValueError(f"evict_policy {evict_policy!r} not in "
                                  "('window', 'mass')")
+            if not paged:
+                raise ValueError("evict_policy requires paged=True")
             if self.fused_ticks > 1:
                 raise ValueError(
                     "evict_policy rides the plain K=1 decode path "
@@ -450,20 +618,27 @@ class ContinuousBatcher:
                                else 0.02)
         self.evict_policy = evict_policy
         self.evict_param = float(evict_param or 0.0)
-        if page_size % stride:
-            raise ValueError(f"page_size {page_size} must be a multiple of "
-                             f"stride {stride} (block flushes must not "
-                             "split a page)")
-        if any(b % page_size for b in self.prompt_buckets):
-            raise ValueError(f"prompt buckets {self.prompt_buckets} must be "
-                             f"multiples of page_size {page_size}")
         self.page_size = page_size
-        self.max_pages = page_table_size(
-            self.prompt_buckets[-1] + self.max_len, page_size)
-        self.total_pages = (total_pages if total_pages is not None
-                            else n_slots * self.max_pages)
+        # the dense engine has no pages: its tables are the active mask
+        self.max_pages = self.total_pages = 0
+        if paged:
+            if page_size % stride:
+                raise ValueError(f"page_size {page_size} must be a multiple "
+                                 f"of stride {stride} (block flushes must "
+                                 "not split a page)")
+            if any(b % page_size for b in self.prompt_buckets):
+                raise ValueError(f"prompt buckets {self.prompt_buckets} must "
+                                 f"be multiples of page_size {page_size}")
+            self.max_pages = page_table_size(
+                self.prompt_buckets[-1] + self.max_len, page_size)
+            self.total_pages = (total_pages if total_pages is not None
+                                else n_slots * self.max_pages)
         self.debug_invariants = bool(debug_invariants)
-        self.pool = self._empty_pool()
+        self.pool = self._empty_pool() if paged else None
+        self.cache = (None if paged else
+                      init_kv_cache(cfg, n_slots, self.max_len,
+                                    device=self.device))
+        self._body = tick_body if paged else dense_tick_body
         self._free_pages = list(range(1, self.total_pages + 1))
         self._page_refs: dict[int, int] = {}
         self._pt = np.zeros((n_slots, self.max_pages), np.int32)
@@ -497,7 +672,8 @@ class ContinuousBatcher:
                                       dtype=torch.float32, device=dev)
                           if evict_policy == "mass" else None)
         self._tv = tv
-        self._live = {"pool": self.pool, "tokens": self.tokens,
+        self._live = {"pool": self.pool, "cache": self.cache,
+                      "tokens": self.tokens,
                       "pos": self.pos, "first_toks": self.first_toks,
                       "freeze": tv, "out": self._slab_views(self._slab),
                       "mass": self._mass_out}
@@ -609,7 +785,7 @@ class ContinuousBatcher:
             raise ValueError(
                 f"prompt {t} + max_new {max_new_tokens} + overhang "
                 f"{self.stride} (stride) > max_len {self.max_len}")
-        need = self._pages_needed(max_new_tokens, bucket)
+        need = self._pages_needed(max_new_tokens, bucket) if self.paged else 0
         if need > self.total_pages:
             raise ValueError(
                 f"request needs {need} pages (bucket {bucket} + "
@@ -645,7 +821,10 @@ class ContinuousBatcher:
 
     def _release_pages(self, slot: int) -> None:
         """Return the slot's pages and zero its table row, length scalars
-        and mass, so its per-block garbage flush retargets trash page 0."""
+        and mass, so its per-block garbage flush retargets trash page 0
+        (nothing on the dense engine)."""
+        if not self.paged:
+            return
         for p in self._slot_pages.pop(slot, []):
             if p == 0:
                 continue          # eviction hole: already released
@@ -680,15 +859,16 @@ class ContinuousBatcher:
 
     def _admit(self) -> None:
         """Wave admission: consecutive queue-front requests sharing one
-        prompt bucket prefill as one [k, bucket] batch (k a power of two,
-        shrunk until the wave's pages fit).  FIFO: a request waiting for
-        pages blocks everything behind it."""
+        prompt bucket prefill as one [k, bucket] batch (k a power of two;
+        on the paged engine shrunk until the wave's pages fit).  FIFO: a
+        request waiting for pages blocks everything behind it; the dense
+        engine needs only a free slot."""
         free = deque(s for s in range(self.n_slots) if s not in self.slot_req)
         while free and self.queue:
             req0, p0 = self.queue[0]
             bucket = p0.shape[1]
-            if (self._pages_needed(req0.remaining_new, bucket)
-                    > len(self._free_pages)):
+            if self.paged and (self._pages_needed(req0.remaining_new, bucket)
+                               > len(self._free_pages)):
                 break
             n_same = 1
             for _, p in list(self.queue)[1:min(len(self.queue), len(free))]:
@@ -698,7 +878,7 @@ class ContinuousBatcher:
             k = 1
             while k * 2 <= min(n_same, len(free), MAX_WAVE):
                 k *= 2
-            while k > 1 and sum(
+            while self.paged and k > 1 and sum(
                     self._pages_needed(r.remaining_new, bucket)
                     for r, _ in list(self.queue)[:k]) > len(self._free_pages):
                 k //= 2
@@ -708,27 +888,27 @@ class ContinuousBatcher:
                 np.concatenate([p for _, p in wave])).to(self.device)
             true_lens = torch.tensor([r.admit_len for r, _ in wave],
                                      device=self.device)
-            firsts, cache_w = prefill_wave(self.params, padded, true_lens,
-                                           self.cfg)
+            firsts, cache_w = self._prefill(padded, true_lens)
             self.wave_sizes.append(k)
-            n_prompt_pages = bucket // self.page_size
-            page_dst = np.zeros((k, n_prompt_pages), np.int64)
-            for i, (slot, (req, _)) in enumerate(zip(slots, wave)):
-                need = self._pages_needed(req.remaining_new, bucket)
-                pages = self._alloc_pages(need)
-                self._slot_pages[slot] = pages
-                self._pt[slot, :] = 0
-                self._pt[slot, :need] = pages
-                self._tvec[slot] = req.admit_len
-                self._tpad[slot] = bucket
-                self._cap[slot] = decode_capacity(need, bucket,
-                                                  self.page_size)
-                page_dst[i] = pages[:n_prompt_pages]
-            adopt_wave(self.pool, cache_w,
-                       torch.from_numpy(page_dst).to(self.device),
-                       torch.tensor(slots, device=self.device), firsts,
-                       true_lens, self.first_toks, self.tokens, self.pos,
-                       self.page_size)
+            page_dst = None
+            if self.paged:
+                n_prompt_pages = bucket // self.page_size
+                page_dst = np.zeros((k, n_prompt_pages), np.int64)
+                for i, (slot, (req, _)) in enumerate(zip(slots, wave)):
+                    need = self._pages_needed(req.remaining_new, bucket)
+                    pages = self._alloc_pages(need)
+                    self._slot_pages[slot] = pages
+                    self._pt[slot, :] = 0
+                    self._pt[slot, :need] = pages
+                    self._tvec[slot] = req.admit_len
+                    self._tpad[slot] = bucket
+                    self._cap[slot] = decode_capacity(need, bucket,
+                                                      self.page_size)
+                    page_dst[i] = pages[:n_prompt_pages]
+                page_dst = torch.from_numpy(page_dst).to(self.device)
+            self._adopt(self._live, cache_w, page_dst,
+                        torch.tensor(slots, device=self.device), firsts,
+                        true_lens)
             for slot, (req, _) in zip(slots, wave):
                 remaining = req.remaining_new
                 self.active[slot] = remaining > 1
@@ -752,23 +932,43 @@ class ContinuousBatcher:
             k = 1
             while k <= min(self.n_slots, MAX_WAVE):
                 lens = torch.ones(k, dtype=torch.long, device=self.device)
-                firsts, cache_w = prefill_wave(
-                    self.params, torch.zeros((k, bucket), dtype=torch.long,
-                                             device=self.device),
-                    lens, self.cfg)
+                firsts, cache_w = self._prefill(
+                    torch.zeros((k, bucket), dtype=torch.long,
+                                device=self.device), lens)
                 # page ids 0: every prompt page lands in the trash page
-                adopt_wave(scratch["pool"], cache_w,
-                           torch.zeros((k, bucket // self.page_size),
-                                       dtype=torch.long, device=self.device),
-                           torch.arange(k, device=self.device), firsts, lens,
-                           scratch["first_toks"], scratch["tokens"],
-                           scratch["pos"], self.page_size)
+                page_dst = (torch.zeros((k, bucket // self.page_size),
+                                        dtype=torch.long, device=self.device)
+                            if self.paged else None)
+                self._adopt(scratch, cache_w, page_dst,
+                            torch.arange(k, device=self.device), firsts, lens)
                 k *= 2
         self._ready_tick(scratch)
 
+    def _prefill(self, padded: torch.Tensor, true_lens: torch.Tensor):
+        """A wave's prefill: a bucket-wide panel for the paged engine's
+        pages, a ``max_len``-wide one for the dense engine's rows."""
+        return prefill_wave(self.params, padded, true_lens, self.cfg,
+                            None if self.paged else self.max_len)
+
+    def _adopt(self, st: dict, cache_w: dict, page_dst, slots, firsts,
+               lens) -> None:
+        """Adopt a prefilled wave into ``st`` (the live state or warmup's
+        scratch): into the pages ``page_dst`` names, or into the dense
+        cache rows of ``slots``."""
+        if self.paged:
+            adopt_wave(st["pool"], cache_w, page_dst, slots, firsts, lens,
+                       st["first_toks"], st["tokens"], st["pos"],
+                       self.page_size)
+        else:
+            adopt_wave_dense(st["cache"], cache_w, slots, firsts, lens,
+                             st["first_toks"], st["tokens"], st["pos"])
+
     def _scratch_state(self) -> dict:
         """Zeroed stand-ins for everything the tick body writes."""
-        return {"pool": self._empty_pool(),
+        return {"pool": self._empty_pool() if self.paged else None,
+                "cache": (None if self.paged else
+                          {n: torch.zeros_like(x)
+                           for n, x in self.cache.items()}),
                 "tokens": torch.zeros_like(self.tokens),
                 "pos": torch.zeros_like(self.pos),
                 "first_toks": torch.zeros_like(self.first_toks),
@@ -798,10 +998,10 @@ class ContinuousBatcher:
         # the graph's function refers to what the tick reads and writes,
         # not to the engine: a cycle through it would keep the engine (and
         # its parameters) alive past its last reference
-        params, tv, live, cfg, stride = (self.params, self._tv, self._live,
-                                         self.cfg, self.stride)
-        graph = kernels.Graph(
-            lambda: tick_body(params, tv, live, cfg, stride))
+        body, params, tv, live, cfg, stride = (
+            self._body, self.params, self._tv, self._live, self.cfg,
+            self.stride)
+        graph = kernels.Graph(lambda: body(params, tv, live, cfg, stride))
         graph.capture()
         self._graph = graph
         self.graph_stats = {"eager_s": eager_s, "capture_s": graph.capture_s,
@@ -810,7 +1010,7 @@ class ContinuousBatcher:
                             "tally": dict(graph.tally)}
 
     def _tick_on(self, st: dict) -> None:
-        tick_body(self.params, self._tv, st, self.cfg, self.stride)
+        self._body(self.params, self._tv, st, self.cfg, self.stride)
 
     def _run_tick(self) -> None:
         """One tick over the live state: a replay of the engine's graph,
@@ -1000,7 +1200,10 @@ class ContinuousBatcher:
         {1..total_pages}, trash page 0 is in neither, every allocated page
         has exactly its owners as refcount (eviction holes own nothing),
         and each table row matches its slot's pages (retired rows are all
-        zero)."""
+        zero).  The dense engine has no pages to check."""
+        if not self.paged:
+            return
+
         def fail(msg: str) -> None:
             raise RuntimeError(f"page invariant violated: {msg}")
 

@@ -35,13 +35,14 @@ from kubegpu_tpu_torch.models.llama import (
     make_train_step,
     unbind_layers,
 )
+from kubegpu_tpu_torch.models.quant import QTensor
 from kubegpu_tpu_torch.ops.flash_attention import NEG_INF
 from kubegpu_tpu_torch.ops.paged_attention import (
     merge_partials,
     paged_attention_biased,
     rel_pos_bucket,
 )
-from kubegpu_tpu_torch.tree import tree_leaves
+
 
 @dataclass(frozen=True)
 class T5Config:
@@ -276,8 +277,10 @@ def t5_cross_kv(params: dict, enc_out: torch.Tensor,
     nd, hd = cfg.n_dec_layers, cfg.head_dim
 
     def project(w):   # [L, D_model, H*hd] over enc_out [B, S, D_model]
-        # the reference dequantizes int8 (QTensor) weights here first; the
-        # port has no QTensor yet (ROADMAP.md queue 1, item 8)
+        if isinstance(w, QTensor):
+            # int8 weights (quantize_t5): einsum takes no QTensor, so
+            # dequantize once here, at state init, not in every step
+            w = w.dequantize(enc_out.dtype)
         y = torch.einsum("bsd,ldh->lbsh", enc_out, w)
         return y.reshape(nd, b, s, cfg.n_heads, hd).permute(
             0, 1, 3, 2, 4).contiguous()     # [L, B, H, S_enc, hd]
@@ -378,37 +381,6 @@ def clear_graphs() -> None:
     _graph_cache.clear()
 
 
-def _cached_state(key: tuple, params: dict, make) -> tuple[dict, dict]:
-    """(static state, graphs by name) of ``key``'s call shape, made by
-    ``make()`` on its first call."""
-    leaves = tree_leaves(params)
-    key = key + (tuple(p.data_ptr() for p in leaves),)
-    if key not in _graph_cache:
-        if len(_graph_cache) >= _GRAPH_CACHE_SIZE:
-            del _graph_cache[next(iter(_graph_cache))]
-        _graph_cache[key] = (leaves, make(), {})
-    return _graph_cache[key][1:]
-
-
-def _run(fn, times: int, graphs: dict | None, name: str) -> None:
-    """``fn()`` ``times`` times: eagerly without ``graphs``, else through
-    the CUDA graph ``graphs[name]``, which the first call makes from one
-    eager run (it loads the libraries and sizes the kernels' scratch) and
-    a capture.  A failed capture or replay raises."""
-    if graphs is None or times < 1:
-        for _ in range(times):
-            fn()
-        return
-    if name not in graphs:
-        fn()
-        times -= 1
-        graph = kernels.Graph(fn)
-        graph.capture()
-        graphs[name] = graph
-    for _ in range(times):
-        graphs[name].replay()
-
-
 def _pick_into(out: torch.Tensor, token: torch.Tensor, idx: torch.Tensor,
                logits: torch.Tensor, pick, i: int) -> None:
     """Select the next token (greedy when ``pick`` is None, else
@@ -443,8 +415,9 @@ def _t5_rollout(params: dict, enc_tokens: torch.Tensor, n_steps: int,
                                    device=dev)}
 
     if graphs:
-        st, cached = _cached_state(("dense", b, s_enc, n_steps, max_len, cfg,
-                                    str(dev)), params, make)
+        st, cached = kernels.graph_state(
+            _graph_cache, ("dense", b, s_enc, n_steps, max_len, cfg,
+                           str(dev)), params, make, _GRAPH_CACHE_SIZE)
         st["k"].zero_()
         st["v"].zero_()
         st["pos"].zero_()
@@ -463,7 +436,7 @@ def _t5_rollout(params: dict, enc_tokens: torch.Tensor, n_steps: int,
         st["pos"].add_(1)
         i += 1
 
-    _run(step, n_steps, cached, "step")
+    kernels.run_graph(step, n_steps, cached, "step")
     return st["out"].clone()
 
 
@@ -599,8 +572,9 @@ def _t5_paged_rollout(params: dict, enc_tokens: torch.Tensor, n_steps: int,
                                    dtype=torch.long, device=dev)}
 
     if graphs:
-        st, cached = _cached_state(("paged", b, s_enc, n_steps, page_size,
-                                    cfg, str(dev)), params, make)
+        st, cached = kernels.graph_state(
+            _graph_cache, ("paged", b, s_enc, n_steps, page_size, cfg,
+                           str(dev)), params, make, _GRAPH_CACHE_SIZE)
         st["pool_k"].zero_()
         st["pool_v"].zero_()
         st["d0"].zero_()
@@ -620,8 +594,8 @@ def _t5_paged_rollout(params: dict, enc_tokens: torch.Tensor, n_steps: int,
             i0 += n_j
         return run
 
-    _run(block(page_size), full, cached, "block")
-    _run(block(rest), 1 if rest else 0, cached, "rest")
+    kernels.run_graph(block(page_size), full, cached, "block")
+    kernels.run_graph(block(rest), 1 if rest else 0, cached, "rest")
     return st["out"][:, :n_steps].clone()
 
 

@@ -776,7 +776,7 @@ def _graph_serve(params, cfg, dev, **kw):
     """warmup(), then 3 requests up front and 2 more after two steps;
     returns (tokens by rid, engine, launches by kernel after warmup)."""
     from kubegpu_tpu_torch.models import ContinuousBatcher
-    eng = ContinuousBatcher(params, cfg, device=dev, **GRAPH_ENGINE, **kw)
+    eng = ContinuousBatcher(params, cfg, device=dev, **{**GRAPH_ENGINE, **kw})
     eng.warmup()
     before = dict(kernels.launches)
     prompts = [[(7 * j + 3 * i + 1) % cfg.vocab_size for i in range(27)]
@@ -904,3 +904,44 @@ def test_graph_engine_is_freed_by_its_last_reference(dev):
         assert ref() is None
     finally:
         gc.enable()
+
+
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["kv16", "kv8"])
+@pytest.mark.parametrize("int8_weights", [False, True],
+                         ids=["bf16w", "int8w"])
+def test_static_step_graph_tokens_equal_eager(dev, kv_int8, int8_weights):
+    """``greedy_generate``'s decode step replayed from its CUDA graph gives
+    the eager step's tokens bit for bit (bf16, with bf16 or int8 weights
+    and cache); a second call of the shape reuses the graph, and other
+    prompts give the eager tokens too."""
+    from kubegpu_tpu_torch.models import decode as dm
+    from kubegpu_tpu_torch.models.quant import quantize_llama
+    cfg, params = _tiny_bf16_llama(dev)
+    if int8_weights:
+        params = quantize_llama(params)
+    dm.clear_graphs()
+    for seed in (0, 1):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        prompt = torch.randint(0, cfg.vocab_size, (3, 9), generator=g,
+                               device=dev)
+        got = [dm.greedy_generate(params, prompt, 12, cfg, max_len=32,
+                                  kv_int8=kv_int8, device=dev)
+               for _ in range(2)]
+        want = dm.greedy_generate(params, prompt, 12, cfg, max_len=32,
+                                  kv_int8=kv_int8, device=dev, graphs=False)
+        assert torch.equal(got[0], want) and torch.equal(got[1], want)
+    assert len(dm._graph_cache) == 1
+    dm.clear_graphs()
+
+
+def test_dense_engine_graph_tokens_equal_eager(dev):
+    """The dense engine's tick replayed from its CUDA graph gives the eager
+    tick's tokens bit for bit; the path runs no kernel of the port."""
+    cfg, params = _tiny_bf16_llama(dev)
+    got, eng, launched = _graph_serve(params, cfg, dev, paged=False)
+    want, eager, _ = _graph_serve(params, cfg, dev, graphs=False,
+                                  paged=False)
+    assert got == want
+    assert eng._graph is not None and eager._graph is None
+    assert eng.graph_stats["tally"] == {} and not any(launched.values())
+    assert len(got) == 5

@@ -81,7 +81,7 @@ def test_page_accounting_matches_reference(tiny):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("paged", False), ("sampling", True), ("seed", 1), ("prefill_chunk", 8),
+    ("top_k", 4), ("sampling", True), ("seed", 1), ("prefill_chunk", 8),
     ("draft_layers", 1), ("prefix_cache", True), ("chunked_prefill", True),
     ("spec_gamma", 2), ("eos_id", 2), ("mesh", object()),
     ("metrics", object()), ("chaos", object()), ("tracer", object()),

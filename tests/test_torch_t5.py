@@ -144,6 +144,31 @@ def test_greedy_generate_dense_and_paged_match_jax(case):
     np.testing.assert_array_equal(paged.numpy(), ref_paged)
 
 
+@pytest.mark.parametrize("case", list(PAGED), ids=list(PAGED))
+def test_greedy_generate_on_int8_weights_matches_jax(case):
+    """``quantize_t5`` trees (the cross K/V weights dequantized once per
+    call, every other weight through ``x @ QTensor``): the dense and the
+    paged generate give the JAX family's tokens on its quantized tree."""
+    from kubegpu_tpu.models import quant as jq
+    from kubegpu_tpu_torch.models import quant as tq
+    seed, enc, n_steps, page = PAGED[case]
+    cfg_j, cfg = jt.T5Config.tiny(), tt.T5Config.tiny()
+    params_j = jt.t5_init(jax.random.PRNGKey(seed), cfg_j)
+    params = tq.quantize_t5(_convert(params_j))
+    params_j = jq.quantize_t5(params_j)
+    enc = enc.astype(np.int32)
+    ref_dense = np.asarray(jt.t5_greedy_generate(
+        params_j, jnp.asarray(enc), n_steps, cfg_j, max_len=16))
+    ref_paged = np.asarray(jt.t5_greedy_generate_paged(
+        params_j, jnp.asarray(enc), n_steps, cfg_j, page_size=page))
+    dense = tt.t5_greedy_generate(params, enc, n_steps, cfg, max_len=16,
+                                  device="cpu")
+    paged = tt.t5_greedy_generate_paged(params, enc, n_steps, cfg,
+                                        page_size=page, device="cpu")
+    np.testing.assert_array_equal(dense.numpy(), ref_dense)
+    np.testing.assert_array_equal(paged.numpy(), ref_paged)
+
+
 def test_decode_step_reads_its_position_from_the_device(tiny):
     """The dense step at a [1] int64 position tensor (the form a CUDA
     graph replays) matches the JAX ``t5_decode_step``, and equals the
