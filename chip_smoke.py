@@ -22,7 +22,10 @@ printed as it ends (any failed check exits non-zero):
    128]).  Kernels 1-3 run their tensor-core instances in bf16 (TFLOP/s
    and share of the bound printed at each shape; dq and dk/dv must give
    equal bits on two launches) and their CUDA-core instances in the f32
-   edge cases;
+   edge cases.  Kernels 4-6 also run at the chunk step's shape (q [1,
+   8192, 128] bf16: C = 256 prompt positions of 32 heads folded over 8 kv
+   heads, a 384-token history), with the time, the bound and its share,
+   and a first chunk's row (s = 0) that must give l = 0 and a finite o;
 4. forward  — ``llama_forward`` at Llama-3-8B full width, bf16, [1, 512];
 5. serving  — the paged ``ContinuousBatcher`` at the same width, its tick
    a CUDA graph captured by ``warmup()`` (eager run, capture and
@@ -32,6 +35,18 @@ printed as it ends (any failed check exits non-zero):
    each engine's median tokens/s); then the fused window: 8 requests of
    128 new tokens on the graph engine and on one with ``fused_ticks=4``
    (tokens equal, fused dispatches, tokens/s of each);
+5f. prefix cache — the same engine with ``prefix_cache=True,
+   chunked_prefill=True, prefill_chunk=256``, a graph engine and an eager
+   one: 12 requests of 64 new tokens, four groups of three sharing a
+   384-token prefix, the four leaders first and their eight followers
+   after two steps; equal tokens, exact counters (8 hits, 24 aliased
+   pages, 3072 prompt tokens saved, 16 chunks), no page leaked, kernel 4
+   ``(ticks × stride + chunks) × n_layers`` times (the path's launches
+   are those of the two engines' warmups and windows); the first-token
+   logits through the chunk step against the plain prefill's
+   (relative L2 within 3e-2); prefill tokens, time to first token
+   (leaders, followers) and tokens/s beside phase 5's engine on the same
+   window, and the chunk step's wall ms as a graph and eagerly;
 5b. quantized serving — the same graph engine with int8 pages, int4
    pages, and int4 pages with mass eviction, in turn: ``warmup()`` and
    two windows each (the first on phase 5's first prompts: the share of
@@ -55,7 +70,8 @@ printed as it ends (any failed check exits non-zero):
    ``warmup()`` captures the tick; two windows on it and on an eager
    engine in turns (tokens equal, no slot held after a window);
 6. parity   — a narrow f32 engine (through its graph) token for token
-   against the port's own ``greedy_generate``, and the full-width first
+   against the port's own ``greedy_generate``, plain and with both
+   fast-path knobs (shared prefixes, chunks), and the full-width first
    decode step's logits against the plain dense path;
 7. training — Llama-3-8B at full width cut to 8 layers (remat on), bf16:
    first one step's loss and gradients at batch 1 through the kernels
@@ -76,7 +92,8 @@ printed as it ends (any failed check exits non-zero):
    with ``adamw(1e-3)`` on one fixed batch (encoder [8, 512], decoder [8,
    128]): one warm and three timed steps.
 
-Six paths are driven: serving (phases 4-5), quantized serving (5b),
+Seven paths are driven: serving (phases 4-5), the prefix cache (5f),
+quantized serving (5b),
 int8-weight serving (5c), the static path and the dense engine (5d-5e,
 which run no kernel of the port, as the reference runs no Pallas kernel
 there), training (phase 7's steps) and T5 paged serving (phase 8's bf16
@@ -612,6 +629,72 @@ def paged_quant_checks(torch, gen, slice_rows) -> dict:
     return out
 
 
+# the chunk step's call shape: C = 256 prompt positions of Llama-3-8B's 32
+# query heads folded over 8 kv heads (a group of 1024), a history of 3
+# pages of 128 (s = 384), in the engine's table of 12 pages
+CHUNK = {"c": 256, "s": 384, "width": 12}
+
+
+def chunk_shape_checks(torch, gen) -> dict:
+    """Kernels 4-6 at the chunk step's folded shape (q [1, 8192, 128] bf16,
+    ``t = t_pad = s = 384``, ``d = 0``) against ``paged_attention_ref`` on
+    one pool (bf16, and quantized to int8 and int4 groups of 16): o within
+    1e-2, m within 1e-3, l within 1e-3 relative; then a first chunk's row,
+    s = 0, which holds no valid key and must give l = 0 and a finite o (it
+    drops out of the merge).  Times at the folded shape, the bound from
+    this data's bytes (K and V of the 384 valid keys, q, the table, o, m,
+    l) and operations, and the share of the bound."""
+    pa = importlib.import_module("kubegpu_tpu_torch.ops.paged_attention")
+    kvq = importlib.import_module("kubegpu_tpu_torch.ops.kvquant")
+    c, s, width = CHUNK["c"], CHUNK["s"], CHUNK["width"]
+    hq = 32 * c
+    table = [[3, 17, 29, 5, 11] + [0] * (width - 5)]
+    q, pk, pv, pt, _, _, _ = paged_case(torch, gen, torch.bfloat16, 4, 41, 8,
+                                        128, 128, hq, [(table[0], s, s, 0)])
+    i32 = dict(dtype=torch.int32, device="cuda")
+    sv, zero = torch.full((1,), s, **i32), torch.zeros((1,), **i32)
+    pools = {"bf16": (pk, pv, None, None),
+             "q8": quantize_pool(torch, kvq, pk, pv, "q8"),
+             "q4g16": quantize_pool(torch, kvq, pk, pv, "q4g16")}
+    kv_bytes = {"bf16": s * 8 * 128 * 2 * 2, "q8": s * 8 * (128 + 4) * 2,
+                "q4g16": (s * 64 + (s // 16) * 4) * 8 * 2}
+    fixed = hq * 128 * 2 + width * 4 + 3 * 4 + hq * (128 + 2) * 4
+    flops = 4 * hq * 128 * s
+    out = {}
+    for fmt, (kq, vq, ks, vs) in pools.items():
+        args = (q, kq, vq, pt, 3, sv, sv, zero, ks, vs)
+        o, m, l = pa.paged_attention(*args)
+        ro, rm, rl = pa.paged_attention_ref(*args)
+        first = pa.paged_attention(q, kq, vq, pt, 3, zero, zero, zero, ks, vs)
+        torch.cuda.synchronize()
+        err = max_err(o, ro)
+        m_err = max_err(m, rm)
+        l_rel = ((l - rl).abs() / rl.clamp(min=1e-30)).max().item()
+        check(err <= 1e-2, f"chunk-shape paged {fmt}: o max |err| {err}")
+        check(m_err <= 1e-3 and l_rel <= 1e-3,
+              f"chunk-shape paged {fmt}: m err {m_err} / l rel err {l_rel}")
+        check(not first[2].any().item()
+              and bool(torch.isfinite(first[0]).all()),
+              f"chunk-shape paged {fmt}: the s = 0 row must give l = 0 and "
+              "a finite o")
+        r = {"max_abs_err": err, "m_err": m_err, "l_rel_err": l_rel}
+        r["ms"] = cuda_ms(lambda: pa.paged_attention(*args))
+        r["plain_ms"] = cuda_ms(lambda: pa.paged_attention_ref(*args),
+                                reps=5)
+        r["library_ms"] = None   # no single PyTorch call reads a page table
+        r["bound_ms"], r["bound_by"] = bound_ms(fixed + kv_bytes[fmt], flops,
+                                                torch.bfloat16)
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        log("kernels", kernel=f"paged {fmt}", case=f"chunk shape q [1, {hq}, "
+            f"128] bf16 (C={c} folded), s={s}, table {width} wide; s=0 row "
+            "l=0, o finite", max_abs_err=err, tol=1e-2, m_err=m_err,
+            l_rel_err=l_rel, ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            share_of_bound=r["share_of_bound"])
+        out[fmt] = r
+    return out
+
+
 # The times (ms, with the mass) of kernels 4-6 at the serving shape before
 # kernel 5 moved onto the split walk: 4 and 6 on the split walk, 5 on the
 # older chunk walk (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W)
@@ -979,6 +1062,246 @@ def fused_phase(torch, kernels, cfg, params, gen, eng, name) -> dict:
                  ticks=[r["ticks"] for r in out[4]], warmup_s=warm_s)
     log("fused", requests=8, n_new=128, equal=True, **stats, card=repr(name))
     del fused
+    return stats
+
+
+# phase 5f: the serving fast path on phase 5's engine; traffic of four
+# groups of three requests sharing a 384-token prefix (3 pages)
+PREFIX = dict(prefix_cache=True, chunked_prefill=True, prefill_chunk=256)
+PREFIX_NEW = 64
+
+
+def prefix_prompts(torch, cfg, gen) -> tuple:
+    """(leaders, followers): four groups, each a 384-token prefix and three
+    distinct tails to 400-500 tokens; the groups' first prompts lead."""
+    groups = []
+    for _ in range(4):
+        shared = torch.randint(0, cfg.vocab_size, (384,), generator=gen,
+                               device="cuda").tolist()
+        lens = torch.randint(400, 501, (3,), generator=gen, device="cuda")
+        groups.append([shared + torch.randint(
+            0, cfg.vocab_size, (int(n) - 384,), generator=gen,
+            device="cuda").tolist() for n in lens])
+    return [g[0] for g in groups], [p for g in groups for p in g[1:]]
+
+
+def prefix_window(torch, kernels, eng, cfg, leaders, followers) -> dict:
+    """The four leaders, two ``step()`` calls (their two chunks each: the
+    final one registers their pages), then the eight followers, run to the
+    end; time to first token of each request (host clock from its submit
+    to the step that fetched its first token), tokens/s over the window,
+    and the paged kernel's launches."""
+    reqs, t_sub, ttft = {}, {}, {}
+
+    def submit(prompts):
+        for p in prompts:
+            rid = eng.submit(p, PREFIX_NEW)
+            reqs[rid] = eng.queue[-1][0]
+            t_sub[rid] = time.perf_counter()
+
+    def step():
+        out = eng.step()
+        now = time.perf_counter()
+        for rid, r in reqs.items():
+            if rid not in ttft and r.tokens:
+                ttft[rid] = now - t_sub[rid]
+        return out
+
+    tick0, tok0 = eng._tick, eng.emitted_tokens
+    before = dict(kernels.launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    submit(leaders)
+    done = step() + step()
+    submit(followers)
+    while eng.queue or eng.slot_req:
+        done += step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: kernels.launches[k] - before.get(k, 0)
+                for k in kernels.launches}
+    check(sorted(r.rid for r in done) == sorted(reqs),
+          "not every request finished")
+    for r in done:
+        check(len(r.tokens) == PREFIX_NEW and all(
+            0 <= x < cfg.vocab_size for x in r.tokens),
+            f"rid {r.rid}: {len(r.tokens)} tokens or one out of range")
+    eng.check_page_invariants()
+    check(not (eng.slot_req or eng.active.any() or eng._prefilling),
+          "a slot is still held after the window")
+    check(len(eng._free_pages) + len(eng._page_refs) == eng.total_pages
+          and not any(eng._page_refs.values()),
+          "a page leaked, or a registered page kept a reference")
+    rids = sorted(reqs)
+    lead = [ttft[r] for r in rids[:len(leaders)]]
+    foll = [ttft[r] for r in rids[len(leaders):]]
+    by_rid = {r.rid: r.tokens for r in done}
+    return {"tokens_per_s": (eng.emitted_tokens - tok0) / wall,
+            "wall_s": wall, "ticks": eng._tick - tick0,
+            "ttft_leaders_s": lead, "ttft_followers_s": foll,
+            "ttft_leaders_mean_s": sum(lead) / len(lead),
+            "ttft_followers_mean_s": sum(foll) / len(foll),
+            "launches": launched, "outputs": [by_rid[r] for r in rids]}
+
+
+def first_logits(torch, cfg, params, leaders, followers) -> list:
+    """Relative L2 error of each request's first-token logits through the
+    chunk step (``prefill_chunk_logits``: a leader's two chunks from page
+    0 on fresh pages, a follower's one chunk from page 3 over its leader's
+    three pages) against the plain engine's prefill (``prefill_wave``'s
+    dense forward at bucket 512, the head at ``t - 1``)."""
+    from kubegpu_tpu_torch.models import decode as dec
+    from kubegpu_tpu_torch.models import serve as srv
+    c, width = PREFIX["prefill_chunk"], CHUNK["width"]
+    shape = (cfg.n_layers, 10, cfg.n_kv_heads, 128, cfg.head_dim)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    errs = []
+    with torch.no_grad():
+        for g, lead in enumerate(leaders):
+            pool = {n: torch.zeros(shape, dtype=cfg.tdtype, device="cuda")
+                    for n in ("k", "v")}
+            # the leader on pages 1-5, each follower on 1-3 and two own
+            rows = [([1, 2, 3, 4, 5], lead, (0, c))] + [
+                ([1, 2, 3, 6 + 2 * j, 7 + 2 * j], p, (384,))
+                for j, p in enumerate(followers[2 * g:2 * g + 2])]
+            for pages, prompt, starts in rows:
+                t = len(prompt)
+                toks = torch.zeros(512 + c, dtype=torch.long, device="cuda")
+                toks[:t] = torch.tensor(prompt, device="cuda")
+                pt = torch.tensor([pages + [0] * (width - len(pages))],
+                                  **i32)
+                for s in starts:
+                    got = srv.prefill_chunk_logits(
+                        params, pool, toks[None, s:s + c], pt, s,
+                        torch.full((1,), t, **i32), cfg, 128)
+                cache = dec.init_kv_cache(cfg, 1, 512, device="cuda")
+                want, _ = dec._forward_with_cache(
+                    params, toks[None, :512], cache, 0, cfg,
+                    head_rows=torch.full((1,), t - 1, device="cuda"))
+                want = want[:, 0]
+                errs.append(((got - want).norm() / want.norm()).item())
+            del pool, cache
+    return errs
+
+
+def prefix_phase(torch, kernels, cfg, params, gen, name, plain,
+                 profile: bool = False) -> dict:
+    """Phase 5f: ``ContinuousBatcher(prefix_cache=True, chunked_prefill=
+    True, prefill_chunk=256)`` at phase 5's shape (bf16), a graph engine
+    and an eager one (``graphs=False``), each ``warmup()``-ed (the chunk
+    step's graph captured: ``n_layers`` launches of kernel 4), then the
+    window of ``prefix_window`` on each: equal tokens, exact counters (8
+    hits, 24 aliased pages, 3072 tokens saved, 16 chunks), no page leaked;
+    every prompt admits through the chunk step, and kernel 4 runs
+    ``(ticks × stride + chunks) × n_layers`` times.  The path's launches
+    are read after those two windows.  The same window on phase 5's plain
+    engine (``plain``) for its prefill tokens,
+    time to first token and tokens/s (the share of equal tokens printed:
+    near ties at full width); the first-token logits through the chunk
+    step against the plain prefill's (relative L2 <= 3e-2); and the chunk
+    step alone at its input of phase 3's chunk shape (a 384-token history
+    on pages 1-3, writes to trash page 0), wall ms as a graph replay and
+    eagerly, and the replay's device ms; with ``profile``, both traced
+    (device time by kernel)."""
+    from kubegpu_tpu_torch.models import ContinuousBatcher
+    leaders, followers = prefix_prompts(torch, cfg, gen)
+    stride, n_l = ENGINE["stride"], cfg.n_layers
+    engines = {}
+    for label, kw in (("graph", {}), ("eager", {"graphs": False})):
+        eng = ContinuousBatcher(params, cfg, **ENGINE, **PREFIX, **kw)
+        before = kernels.launches["paged_decode"]
+        t0 = time.perf_counter()
+        eng.warmup()
+        warm_s = time.perf_counter() - t0
+        check(kernels.launches["paged_decode"] - before == (stride + 1) * n_l,
+              f"prefix {label}: warmup did not run the tick and the chunk "
+              "step")
+        if eng.graphs:
+            check(eng.graph_stats["tally"] == {"paged_decode": stride * n_l}
+                  and eng.chunk_graph_stats["tally"] == {
+                      "paged_decode": n_l},
+                  f"prefix: the graphs captured {eng.graph_stats['tally']} "
+                  f"and {eng.chunk_graph_stats['tally']}")
+            log("graph", engine="prefix chunk step",
+                **{k: v for k, v in eng.chunk_graph_stats.items()})
+        engines[label] = (eng, warm_s)
+    runs = {}
+    for label, (eng, _) in engines.items():
+        r = prefix_window(torch, kernels, eng, cfg, leaders, followers)
+        counters = {k: getattr(eng, k) for k in (
+            "prefix_hits", "pages_aliased", "prefill_tokens_saved",
+            "chunks_run")}
+        check(counters == {"prefix_hits": 8, "pages_aliased": 24,
+                           "prefill_tokens_saved": 3072, "chunks_run": 16},
+              f"prefix {label}: counters {counters}")
+        k4 = r["launches"].get("paged_decode", 0)
+        check(k4 == (r["ticks"] * stride + eng.chunks_run) * n_l,
+              f"prefix {label}: launches {r['launches']} for {r['ticks']} "
+              f"ticks and {eng.chunks_run} chunks")
+        r.update(counters, prefill_tokens=eng.prefill_tokens)
+        runs[label] = r
+    # the path ends here: the plain engine's window, the logit comparison
+    # and the timing do not count
+    path_launches = dict(kernels.launches)
+    check(runs["graph"]["outputs"] == runs["eager"]["outputs"],
+          "prefix: the graph engine's tokens differ from the eager one's")
+    base_tokens = plain.prefill_tokens
+    base = prefix_window(torch, kernels, plain, cfg, leaders, followers)
+    base_tokens = plain.prefill_tokens - base_tokens
+    ref = [x for toks in base["outputs"] for x in toks]
+    mine = [x for toks in runs["graph"]["outputs"] for x in toks]
+    agree = sum(a == b for a, b in zip(ref, mine)) / len(ref)
+    errs = first_logits(torch, cfg, params, leaders, followers)
+    check(max(errs) <= 3e-2, f"prefix: first-token logits rel L2 {errs}")
+    # the chunk step alone: replay and eager body at phase 3's chunk input
+    c = PREFIX["prefill_chunk"]
+    step_in = torch.zeros_like(engines["graph"][0]._chunk_in)
+    step_in[:c] = torch.randint(0, cfg.vocab_size, (c,), generator=gen,
+                                device="cuda").int()
+    step_in[c], step_in[c + 1] = CHUNK["s"], 500
+    step_in[c + 2:c + 5] = torch.tensor([1, 2, 3], device="cuda")
+    step = {}
+    for label, (eng, _) in engines.items():
+        eng._chunk_in.copy_(step_in)
+        fn = (eng._chunk_graph.replay if eng.graphs
+              else lambda e=eng: e._chunk_on(e.pool))
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        step[f"{label}_wall_ms"] = (time.perf_counter() - t0) * 200
+        if profile:
+            trace = device_trace(torch, lambda f=fn: (
+                f(), torch.cuda.synchronize()), step[f"{label}_wall_ms"])
+            log_trace(f"prefix chunk step ({label})", trace)
+            step[f"{label}_trace"] = trace
+    step["graph_device_ms"] = cuda_ms(engines["graph"][0]._chunk_graph.replay,
+                                      reps=10)
+    stats = {label: {k: v for k, v in r.items() if k != "outputs"}
+             for label, r in runs.items()}
+    stats.update(plain={k: v for k, v in base.items() if k != "outputs"},
+                 plain_prefill_tokens=base_tokens, token_agreement=agree,
+                 first_logits_rel_l2=errs, chunk_step=step,
+                 warmup_s={k: v[1] for k, v in engines.items()},
+                 path_launches=path_launches)
+    stats["plain"]["prefill_tokens"] = base_tokens
+    for label in ("graph", "eager", "plain"):
+        r = stats[label]
+        log("prefix", engine=label, prefill_tokens=r["prefill_tokens"],
+            ttft_leaders_mean_s=r["ttft_leaders_mean_s"],
+            ttft_followers_mean_s=r["ttft_followers_mean_s"],
+            ttft_leaders_s=r["ttft_leaders_s"],
+            ttft_followers_s=r["ttft_followers_s"],
+            tokens_per_s=r["tokens_per_s"], wall_s=r["wall_s"],
+            ticks=r["ticks"], launches={k: v for k, v in r["launches"].items()
+                                        if v and "/" not in k})
+    log("prefix", prefix_hits=8, pages_aliased=24,
+        prefill_tokens_saved=3072, chunks_run=16, graph_equals_eager=True,
+        first_logits_rel_l2_max=max(errs), tol=3e-2,
+        token_agreement_with_plain=agree, card=repr(name), **{
+            k: v for k, v in step.items() if not k.endswith("_trace")})
     return stats
 
 
@@ -1470,6 +1793,33 @@ def parity_narrow(torch) -> None:
               f"!= greedy {solo}")
     log("parity", case="narrow f32 engine vs greedy_generate",
         requests=len(done), equal=True)
+    # both fast-path knobs: three requests sharing a 16-token page, each
+    # prompt past the 16-token chunk (kernel 4 over folded f32 queries)
+    eng = ContinuousBatcher(params, cfg, n_slots=3, stride=4,
+                            prompt_buckets=(16, 32), paged=True,
+                            page_size=16, prefix_cache=True,
+                            chunked_prefill=True, prefill_chunk=16,
+                            debug_invariants=True, device="cuda")
+    eng.warmup()
+    shared = torch.randint(0, 512, (16,), generator=g).tolist()
+    reqs = [(shared + torch.randint(0, 512, (int(t),), generator=g).tolist(),
+             n) for t, n in ((9, 10), (14, 6), (5, 12), (11, 1))]
+    rids = {eng.submit(*reqs[0]): reqs[0]}
+    done = eng.step() + eng.step() + eng.step()
+    rids.update({eng.submit(p, n): (p, n) for p, n in reqs[1:]})
+    done += eng.drain()
+    check(eng.prefix_hits == 3 and eng.chunks_run == 5,
+          f"narrow prefix engine: {eng.prefix_hits} hits, {eng.chunks_run} "
+          "chunks")
+    for r in done:
+        p, n = rids[r.rid]
+        solo = greedy_generate(params, [p], n, cfg,
+                               device="cuda")[0].tolist()
+        check(r.tokens == solo, f"narrow f32 prefix rid {r.rid}: engine "
+              f"{r.tokens} != greedy {solo}")
+    log("parity", case="narrow f32 prefix cache + chunked prefill engine vs "
+        "greedy_generate", requests=len(done), prefix_hits=eng.prefix_hits,
+        chunks_run=eng.chunks_run, equal=True)
     decode.clear_graphs()
 
 
@@ -2058,6 +2408,10 @@ def main(argv=None) -> int:
     results["paged_decode_q4"] = quant["q4g16"]
     results["paged_decode"]["mass"] = quant["bf16"]
     results["paged_decode_bias"] = paged_bias_checks(torch, gen)
+    chunk = chunk_shape_checks(torch, gen)
+    for kname, fmt in (("paged_decode", "bf16"), ("paged_decode_q8", "q8"),
+                       ("paged_decode_q4", "q4g16")):
+        results[kname]["chunk_shape"] = chunk[fmt]
     torch.cuda.empty_cache()
     bwd, fwd_train = flash_bwd_checks(torch, gen)
     results.update(bwd)
@@ -2083,6 +2437,12 @@ def main(argv=None) -> int:
     check(all(serve_launches[k] > 0 for k in ("flash_fwd", "paged_decode")),
           f"a kernel of the serving path never ran: {serve_launches}")
     only_tc(serve_launches, ("flash_fwd",), "serving")
+    kernels.reset_launches()          # the prefix-cache path starts here
+    prefix = prefix_phase(torch, kernels, cfg, params, gen, name, engine,
+                          args.profile)
+    prefix_launches = prefix["path_launches"]   # its windows' end
+    check(prefix_launches["paged_decode"] > 0,
+          f"kernel 4 never ran on the prefix-cache path: {prefix_launches}")
     prof = (profile_pair(torch, engine, eager, windows[-1]["prompts"], "bf16")
             if args.profile else None)
     del engine, eager
@@ -2160,8 +2520,8 @@ def main(argv=None) -> int:
               "paged_decode_bias": (
                   "kubegpu_tpu_torch/csrc/paged_decode_bias.cu",
                   "kubegpu_tpu/ops/paged_attention.py:567")}
-    paths = (serve_launches, quant_launches, qw_launches, train_launches,
-             t5_launches)
+    paths = (serve_launches, prefix_launches, quant_launches, qw_launches,
+             train_launches, t5_launches)
     # launches: each kernel's count over the paths that run it (the
     # forward runs on serving and training)
     line = {"kernels": [
@@ -2182,6 +2542,7 @@ def main(argv=None) -> int:
     details = {"card": card, "kind": name, "build_s": build_s,
                "ptxas": ptxas,
                "forward": fwd, "serving": serve, "fused": fused,
+               "prefix": prefix, "paged_chunk_shape": chunk,
                "parity": parity,
                "quantized_serving": quant_serve,
                "quantized_weights": qweights, "static": static,
@@ -2191,6 +2552,7 @@ def main(argv=None) -> int:
                "flash_fwd_training_shape": fwd_train,
                "t5": t5_stats,
                "launches": {"serving": serve_launches,
+                            "prefix_cache": prefix_launches,
                             "quantized_serving": quant_launches,
                             "int8_weight_serving": qw_launches,
                             "static_and_dense": plain_launches,

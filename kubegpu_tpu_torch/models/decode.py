@@ -131,9 +131,22 @@ def _attn_finish(x: torch.Tensor, o: torch.Tensor, lp: dict,
     return _dense_ffn(x, lp, cfg)
 
 
+def _gathered_head(params: dict, x: torch.Tensor, rows: torch.Tensor,
+                   cfg: LlamaConfig) -> torch.Tensor:
+    """The LM head at one position a row: hidden states ``x`` [B, T, D]
+    → next-token logits [B, vocab] f32 at positions ``rows`` [B].  The
+    rows are gathered before the final norm and ``lm_head`` (both act on
+    each position alone), so the head never makes the [B, T, vocab]
+    logits the reference computes and indexes."""
+    h = x[torch.arange(x.shape[0], device=x.device), rows.long()][:, None]
+    h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return (h @ params["lm_head"]).float()[:, 0]
+
+
 def _forward_with_cache(params: dict, tokens: torch.Tensor, cache: dict,
                         pos_offset, cfg: LlamaConfig,
-                        last_only: bool = False):
+                        last_only: bool = False,
+                        head_rows: torch.Tensor | None = None):
     """Run the decoder over ``tokens`` [B, T] starting at global position
     ``pos_offset`` (an int, or a [1] int64 tensor on the device: the form
     a CUDA graph replays), writing K/V into ``cache`` in place, quantized
@@ -141,7 +154,8 @@ def _forward_with_cache(params: dict, tokens: torch.Tensor, cache: dict,
     cache); with ``last_only`` the head runs on the last position alone
     ([B, 1, vocab]): the values the reference's prefill keeps of its
     every-position logits, without them (16.8 GB in f32 at batch 32 ×
-    1024 × 128256)."""
+    1024 × 128256); with ``head_rows`` [B] on position ``head_rows[b]``
+    of row b alone ([B, 1, vocab], :func:`_gathered_head`)."""
     b, t = tokens.shape
     kv_int8 = "k_scale" in cache
     x = embed_lookup(params["embed"], tokens)
@@ -163,6 +177,8 @@ def _forward_with_cache(params: dict, tokens: torch.Tensor, cache: dict,
             cv.index_copy_(2, q_pos, v.to(cv.dtype))
             o = _cached_attend(q, ck, cv, q_pos)
         x = _attn_finish(x, o, lp, cfg)
+    if head_rows is not None:
+        return _gathered_head(params, x, head_rows, cfg)[:, None], cache
     if last_only:
         x = x[:, -1:]
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -292,3 +308,29 @@ def _attend_buffer_partials(q: torch.Tensor, bk: torch.Tensor,
     o = torch.einsum("bkgs,bksd->bkgd", w.to(bv.dtype).float(), bv.float())
     o = o / torch.clamp(l, min=1e-30)[..., None]
     return o.reshape(b, hq, d), m.reshape(b, hq), l.reshape(b, hq)
+
+
+def _chunk_causal_partials(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor):
+    """Causal softmax partials of a prompt chunk over its OWN keys.  q:
+    [B, Hq, C, D]; k/v: [B, Hkv, C, D] (the chunk's unquantized K/V).
+    Query i attends keys j <= i, with f32 scores and the weights rounded
+    to V's dtype before P.V, as the reference's einsums do.  Returns
+    flattened (o [B, Hq·C, D] normalized f32, m, l [B, Hq·C]) in the
+    (hkv, group, c)-major order of the paged kernel's folded queries
+    (:func:`kubegpu_tpu_torch.ops.paged_attention.fold_chunk_queries`), so
+    the two merge positionally."""
+    b, hq, c, d = q.shape
+    hkv = k.shape[1]
+    qg = q.reshape(b, hkv, hq // hkv, c, d)
+    s = torch.einsum("bkgcd,bksd->bkgcs", qg.float(),
+                     k.to(q.dtype).float()) * d ** -0.5
+    causal = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
+    s = s.masked_fill(~causal, NEG_INF)
+    m = s.amax(dim=-1)
+    w = torch.where(causal, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = w.sum(dim=-1)
+    o = torch.einsum("bkgcs,bksd->bkgcd", w.to(v.dtype).float(), v.float())
+    o = o / torch.clamp(l, min=1e-30)[..., None]
+    return (o.reshape(b, hq * c, d), m.reshape(b, hq * c),
+            l.reshape(b, hq * c))

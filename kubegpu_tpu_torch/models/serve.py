@@ -22,6 +22,18 @@ through the paged-attention kernel, this block's keys through a dense write
 buffer, merged as flash-decoding partials.  At the end of the block the
 buffer is flushed into each row's current decode page.
 
+Two fast paths of the paged engine share one executable, the chunk step
+(:func:`chunk_body`): one page-aligned chunk of C prompt positions of
+one slot, its K/V written straight into the slot's pages, attending the
+history ``[0, s)`` through the paged kernel (the chunk's C queries folded
+into its query-head dim) merged with the chunk's own causal partials.
+``chunked_prefill`` admits a prompt longer than ``prefill_chunk`` as such
+chunks, one a slot and ``step()``, between decode ticks; ``prefix_cache``
+keeps every full prompt page under a key of the prompt up to its end, so
+a later request with the same leading pages aliases them (a refcount a
+page; registered pages stay at refcount 0 until an allocation needs them,
+least recently used first) and prefills its tail through chunks.
+
 The pool may hold int8 pages with per-token scales (``kv_bits=8``) or packed
 int4 pages with one scale per ``kv_group`` tokens (``kv_bits=4``); every
 write path quantizes through :mod:`kubegpu_tpu_torch.ops.kvquant`, while the
@@ -31,8 +43,9 @@ prompt pages in the middle of decoding ("window": below a trailing window;
 reports) and turns them into page-id-0 holes the kernel skips.
 
 The reference's executables (``decode_block``, ``prefill_wave``,
-``adopt_wave``) are plain functions here; its ``lax.scan`` over the stride
-steps is a Python loop.  The cache or pool and the per-slot device vectors
+``adopt_wave``, ``prefill_chunk`` as :func:`chunk_body`, ``activate_slot``)
+are plain functions
+here; its ``lax.scan`` over the stride steps is a Python loop.  The cache or pool and the per-slot device vectors
 are updated IN PLACE (the reference donates and rebinds them), and so are
 the page tables and per-slot scalars the tick reads, which live in device
 buffers allocated once and refreshed by one copy from pinned host memory a
@@ -41,10 +54,12 @@ inside the reference's lane freeze; :func:`dense_tick_body` on the dense
 engine) is captured once into
 a CUDA graph (:class:`kubegpu_tpu_torch.kernels.Graph`), the counterpart
 of the reference's compiled executable, and every tick replays it;
-``fused_ticks=K`` replays it K times a dispatch with one host fetch.
-Prefill waves and admission stay eager.  ``graphs=False`` runs the same
-body eagerly on the card (for A/B runs); on the CPU the body is called
-directly.
+``fused_ticks=K`` replays it K times a dispatch with one host fetch.  The
+chunk step (:func:`chunk_body`) is a second graph, of one shape, reading
+its chunk, start, length and page-table row from a device buffer that one
+copy a call fills.  Prefill waves and admission stay eager.
+``graphs=False`` runs the same bodies eagerly on the card (for A/B runs);
+on the CPU they are called directly.
 
 Tokens are greedy and bit-identical to a solo :func:`greedy_generate` at
 the tested f32 configurations; at other batch shapes a near-tied argmax
@@ -54,7 +69,7 @@ may flip, as the reference documents.
 from __future__ import annotations
 
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -63,7 +78,9 @@ import torch
 from kubegpu_tpu_torch.models.decode import (
     _attend_buffer_partials,
     _attn_finish,
+    _chunk_causal_partials,
     _forward_with_cache,
+    _gathered_head,
     _project_qkv,
     _quantize_rows,
     init_kv_cache,
@@ -79,35 +96,58 @@ from kubegpu_tpu_torch.ops.flash_attention import NEG_INF
 from kubegpu_tpu_torch.ops.kvquant import Q4_ZERO_BYTE, quantize_groups_q4
 from kubegpu_tpu_torch.ops.paged_attention import (
     decode_capacity,
+    fold_chunk_queries,
     merge_partials,
     page_table_size,
     paged_attention,
 )
 
-# Largest prefill wave (the reference's ``max_wave`` default).
-MAX_WAVE = 8
-
 # Reference knobs this slice does not port: name -> (default, ROADMAP.md
-# queue-1 item that brings it).  A non-default value raises.
+# queue-1 item that brings it).  The default is accepted; any other value
+# raises.
 _LATER = {
     "sampling": (False, "sampling"),
     "seed": (0, "sampling"),
     "top_k": (0, "sampling"),
-    "prefix_cache": (False, "prefix cache and chunked prefill"),
-    "chunked_prefill": (False, "prefix cache and chunked prefill"),
-    "prefill_chunk": (None, "prefix cache and chunked prefill"),
     "spec_gamma": (0, "speculative decode"),
     "draft_layers": (None, "speculative decode"),
+    "spec_adaptive": (True, "speculative decode"),
+    "spec_degrade_after": (None, "speculative decode"),
     "eos_id": (None, "speculative decode"),
     "collect_overlap": (False, "speculative decode"),
     "mesh": (None, "multi-device"),
     "chaos": (None, "pools, fleet and llama_serve"),
+    "max_retries": (2, "pools, fleet and llama_serve"),
     "tick_deadline_s": (None, "pools, fleet and llama_serve"),
     "tenant_quotas": (None, "pools, fleet and llama_serve"),
     "metrics": (None, "pools, fleet and llama_serve"),
     "tracer": (None, "pools, fleet and llama_serve"),
     "trace_ctx": (None, "pools, fleet and llama_serve"),
 }
+
+# The same for ``submit``'s keywords (the request lifecycle).
+_LATER_SUBMIT = {
+    "deadline_s": (None, "pools, fleet and llama_serve"),
+    "migrate_out": (False, "pools, fleet and llama_serve"),
+    "tier": (0, "pools, fleet and llama_serve"),
+    "tenant": ("", "pools, fleet and llama_serve"),
+    "deadline_ticks": (None, "pools, fleet and llama_serve"),
+}
+
+
+def _refuse_later(table: dict, given: dict) -> None:
+    """Accept each of ``given``'s knobs at its reference default in
+    ``table``; raise ``NotImplementedError`` naming its ROADMAP.md item
+    at any other value (and ``TypeError`` for a name the reference does
+    not have)."""
+    for name, value in given.items():
+        if name not in table:
+            raise TypeError(f"unexpected keyword argument {name!r}")
+        default, item = table[name]
+        if value != default:
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported yet "
+                f"(ROADMAP.md queue 1: {item})")
 
 
 def _pick_token(logits: torch.Tensor) -> torch.Tensor:
@@ -411,14 +451,16 @@ def prefill_wave(params: dict, padded_prompts: torch.Tensor,
     """Batch-k prefill of bucket-padded prompts into a dense
     [L, k, Hkv, max_len or bucket, D] panel (the dense engine's rows are
     ``max_len`` wide, the paged engine copies the bucket's pages); returns
-    (first tokens [k], panel)."""
+    (first tokens [k], panel).  The LM head runs at position
+    ``true_lens - 1`` of each row only."""
     k, bucket = padded_prompts.shape
     cache_w = init_kv_cache(cfg, k, max_len or bucket,
                             device=padded_prompts.device)
+    # the head runs on each row's last prompt position alone: the row the
+    # reference keeps of its [k, bucket, vocab] logits
     logits, cache_w = _forward_with_cache(params, padded_prompts, cache_w, 0,
-                                          cfg)
-    last = logits[torch.arange(k, device=logits.device), true_lens - 1]
-    return _pick_token(last), cache_w
+                                          cfg, head_rows=true_lens - 1)
+    return _pick_token(logits[:, 0]), cache_w
 
 
 @torch.no_grad()
@@ -443,6 +485,104 @@ def adopt_wave(pool: dict, cache_w: dict, page_dst: torch.Tensor,
     first_toks[slots] = firsts
     tokens[slots] = firsts
     pos[slots] = plens.to(pos.dtype)
+
+
+# -- the chunk step (prefix caching and chunked prefill) ----------------------
+
+@torch.no_grad()
+def prefill_chunk_logits(params: dict, pool: dict, chunk: torch.Tensor,
+                         pt_row: torch.Tensor, s, tlen: torch.Tensor,
+                         cfg: LlamaConfig, page_size: int) -> torch.Tensor:
+    """One page-aligned PROMPT CHUNK of one slot, straight into the pool
+    (the reference's ``_chunk_body``): chunk tokens [1, C] at global
+    positions ``[s, s + C)``, ``s`` a page multiple ([1] int32 on the
+    device, or an int) and C a page multiple; ``pt_row`` [1, max_pages]
+    int32 the slot's page-table row; ``tlen`` [1] the prompt's length.
+    Per layer: q/k/v at those positions; the chunk's K/V (quantized first
+    for an int8 or int4 pool) written IN PLACE into the pages
+    ``pt_row[s/P + j]``, a row-local index past the table landing in trash
+    page 0; the paged kernel over the folded queries
+    (:func:`fold_chunk_queries`) with the history ``[0, s)`` (``t = t_pad
+    = s``, ``d = 0``) merged with the chunk's causal partials over its
+    UNQUANTIZED K/V (:func:`_chunk_causal_partials`).  The final chunk
+    right-pads past ``tlen``: its pad K/V lands at positions >= ``tlen``
+    in the slot's own pages (or trash page 0), never attended.  The LM
+    head runs at row ``clip(tlen - s - 1, 0, C - 1)`` only: returns its
+    logits [1, vocab] f32, the request's first-token logits on its final
+    chunk (:func:`chunk_body` picks from them)."""
+    c = chunk.shape[1]
+    dev = chunk.device
+    n_wide = pt_row.shape[1]
+    i32 = dict(dtype=torch.int32, device=dev)
+    svec = (s.to(torch.int32) if isinstance(s, torch.Tensor)
+            else torch.full((1,), s, **i32))
+    zeros1 = torch.zeros((1,), **i32)
+    positions = (svec.long() + torch.arange(c, device=dev))[None, :]
+    # the chunk's pages: row-local s/P + j, past the table trash page 0
+    # (never a clamped index: the row's last entry may be a live page)
+    rl = svec.long() // page_size + torch.arange(c // page_size, device=dev)
+    page_ids = torch.where(rl < n_wide,
+                           pt_row[0].long()[rl.clamp(max=n_wide - 1)], 0)
+    k_scale, v_scale = pool.get("k_scale"), pool.get("v_scale")
+    x = embed_lookup(params["embed"], chunk)                     # [1,C,D]
+    for li, lp in enumerate(unbind_layers(params["layers"])):
+        h = _rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = _project_qkv(h, lp, cfg, positions)            # [1,H,C,hd]
+        for name, val in _quantize_like(pool, {"k": k, "v": v},
+                                        page_size).items():
+            # [1, Hkv, C, ...] -> [C/P, Hkv, P, ...] (values) or
+            # [C/P, Hkv, P/g] (group scales)
+            hkv = val.shape[1]
+            val = val.reshape(hkv, page_ids.shape[0], -1,
+                              *val.shape[3:]).transpose(0, 1)
+            pool[name][li, page_ids] = val.to(pool[name].dtype)
+        o_p, m_p, l_p = paged_attention(
+            fold_chunk_queries(q).contiguous(), pool["k"], pool["v"],
+            pt_row, li, svec, svec, zeros1, k_scale, v_scale)
+        o_c, m_c, l_c = _chunk_causal_partials(q, k, v)
+        o = merge_partials(o_p, m_p, l_p, o_c, m_c, l_c)
+        o = o.reshape(1, cfg.n_heads, c, cfg.head_dim).to(x.dtype)
+        x = _attn_finish(x, o, lp, cfg)
+    row = torch.clamp(tlen.long() - svec.long() - 1, 0, c - 1)
+    return _gathered_head(params, x, row, cfg)
+
+
+@torch.no_grad()
+def chunk_body(params: dict, pool: dict, inp: dict, out: torch.Tensor,
+               cfg: LlamaConfig, page_size: int) -> None:
+    """ONE chunk step over the engine's static chunk input ``inp`` (views
+    of one int32 buffer: ``tokens`` [1, C], ``s``, ``tlen`` [1], ``pt``
+    [1, max_pages]) into ``pool``, the greedy pick of
+    :func:`prefill_chunk_logits` (the request's first token on its final
+    chunk) written to ``out`` [1]; the graph engine captures exactly
+    this."""
+    out.copy_(_pick_token(prefill_chunk_logits(
+        params, pool, inp["tokens"].long(), inp["pt"], inp["s"], inp["tlen"],
+        cfg, page_size)))
+
+
+@torch.no_grad()
+def activate_slot(first_toks: torch.Tensor, tokens: torch.Tensor,
+                  pos: torch.Tensor, slot: int, tok: torch.Tensor,
+                  plen: int) -> None:
+    """Flip a chunk-prefilled slot live IN PLACE (the chunk path's
+    counterpart of :func:`adopt_wave`'s vector updates): its first token,
+    current token and position."""
+    first_toks[slot:slot + 1].copy_(tok)
+    tokens[slot:slot + 1].copy_(tok)
+    pos[slot:slot + 1].fill_(plen)
+
+
+def _captured(fn, eager_s: float):
+    """(``fn`` captured as a :class:`kernels.Graph`, its stats: ``eager_s``,
+    the eager run before the capture, which loaded the libraries and sized
+    the kernels' scratch; the capture's and the instantiation's seconds;
+    the bytes the graph reserved; its tally of launches)."""
+    graph = kernels.Graph(fn)
+    graph.capture()
+    return graph, {"eager_s": eager_s, "capture_s": graph.capture_s,
+                   "instantiate_s": graph.instantiate_s,
+                   "pool_bytes": graph.pool_bytes, "tally": dict(graph.tally)}
 
 
 class _AdmissionQueue(deque):
@@ -474,6 +614,7 @@ class _Request:
     done: bool = False
     prompt: object = None        # np.ndarray, set at submit
     admit_len: int = 0
+    prefix_keys: tuple = ()      # registry keys of its full prompt pages
 
     @property
     def remaining_new(self) -> int:
@@ -503,6 +644,16 @@ class ContinuousBatcher:
     drops cold prompt pages of decoding slots after each collected block
     (:meth:`_maybe_evict`); ``pages_evicted`` counts them.
 
+    ``prefix_cache`` and ``chunked_prefill`` (paged only; ``ValueError``
+    otherwise) are the reference's serving fast path: a request whose
+    leading full prompt pages are registered aliases them and prefills
+    its tail, and with ``chunked_prefill`` a prompt whose bucket exceeds
+    ``prefill_chunk`` (default ``2 * page_size``, a page multiple) admits
+    as chunks; both run :func:`chunk_body`, one chunk a prefilling slot
+    a ``step()``, before the tick.  ``prefix_hits``, ``pages_aliased``,
+    ``prefill_tokens_saved``, ``chunks_run`` and ``prefill_tokens`` (waves
+    and chunks) count them.  ``max_wave`` caps a prefill wave.
+
     ``fused_ticks=K`` (the reference's non-speculative fused decode)
     dispatches K complete ticks at once when nothing waits in the queue,
     with one host fetch at the end; each lane freezes on the device once
@@ -514,30 +665,35 @@ class ContinuousBatcher:
     :meth:`warmup` (or the first dispatch) after one eager run on scratch
     state; ``graph_stats`` then holds the seconds of that run, of the
     capture and of the instantiation, and the bytes the graph reserved.
-    ``graphs=False`` runs the tick eagerly on the card instead.  A capture
-    or replay that fails raises.
+    The chunk step is a graph of its own (``chunk_graph_stats``), captured
+    the same way.  ``graphs=False`` runs both eagerly on the card instead.
+    A capture or replay that fails raises.
 
-    Knobs of the reference engine outside this slice raise
-    ``NotImplementedError`` naming their ROADMAP.md item."""
+    Knobs of the reference engine outside this slice (``_LATER``; and
+    ``submit``'s lifecycle keywords) are accepted at the reference's
+    default and raise ``NotImplementedError`` naming their ROADMAP.md item
+    at any other value; so does ``donate=False`` (the pools always update
+    in place, which is what ``donate=True`` asks for)."""
 
     def __init__(self, params: dict, cfg: LlamaConfig, n_slots: int = 8,
                  max_len: int | None = None, stride: int = 16,
                  prompt_buckets: tuple[int, ...] = (128, 512, 1024),
-                 paged: bool = False, page_size: int = 128,
-                 total_pages: int | None = None,
+                 max_wave: int = 8, paged: bool = False,
+                 page_size: int = 128, total_pages: int | None = None,
                  debug_invariants: bool = False, kv_int8: bool = False,
                  kv_bits: int | None = None, kv_group: int | None = None,
                  evict_policy: str | None = None,
-                 evict_param: float | None = None, fused_ticks: int = 1,
-                 graphs: bool = True, device="cuda", **later):
-        for name, value in later.items():
-            if name not in _LATER:
-                raise TypeError(f"unexpected keyword argument {name!r}")
-            default, item = _LATER[name]
-            if value != default:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported yet "
-                    f"(ROADMAP.md queue 1: {item})")
+                 evict_param: float | None = None,
+                 prefix_cache: bool = False, chunked_prefill: bool = False,
+                 prefill_chunk: int | None = None, fused_ticks: int = 1,
+                 donate: bool = True, graphs: bool = True, device="cuda",
+                 **later):
+        _refuse_later(_LATER, later)
+        if donate is not True:
+            raise NotImplementedError(
+                f"donate={donate!r} is not ported yet (ROADMAP.md queue 1: "
+                "pools, fleet and llama_serve); the pools and slot vectors "
+                "always update in place, as donate=True asks")
         self.device = torch.device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params lie on {params['embed'].device}, "
@@ -550,6 +706,7 @@ class ContinuousBatcher:
         self.prompt_buckets = tuple(sorted(prompt_buckets))
         if self.prompt_buckets[-1] >= self.max_len:
             raise ValueError("largest prompt bucket must be < max_len")
+        self.max_wave = max(1, int(max_wave))
         self.paged = bool(paged)
         # -- fused multi-tick decode: K complete ticks a dispatch when no
         # admission is pending, the lane freeze on the device
@@ -618,6 +775,18 @@ class ContinuousBatcher:
                                else 0.02)
         self.evict_policy = evict_policy
         self.evict_param = float(evict_param or 0.0)
+        if (prefix_cache or chunked_prefill) and not paged:
+            raise ValueError(
+                "prefix_cache / chunked_prefill require paged=True — both "
+                "are page-pool structural levers (aliased pages, "
+                "page-aligned chunk writes)")
+        self.prefix_cache_enabled = bool(prefix_cache)
+        self.chunked_prefill = bool(chunked_prefill)
+        self.prefill_chunk = int(prefill_chunk or 2 * page_size)
+        if paged and self.prefill_chunk % page_size:
+            raise ValueError(
+                f"prefill_chunk {self.prefill_chunk} must be a multiple of "
+                f"page_size {page_size} (chunks write whole pages)")
         self.page_size = page_size
         # the dense engine has no pages: its tables are the active mask
         self.max_pages = self.total_pages = 0
@@ -640,7 +809,15 @@ class ContinuousBatcher:
                                     device=self.device))
         self._body = tick_body if paged else dense_tick_body
         self._free_pages = list(range(1, self.total_pages + 1))
+        # every allocated page -> the slots whose table holds it; a page
+        # registered in the prefix cache stays at refcount 0 when its last
+        # owner leaves (reclaimable by _alloc_pages, least recently used
+        # first), any other goes back to the free list
         self._page_refs: dict[int, int] = {}
+        self._prefix_cache: OrderedDict[int, int] = OrderedDict()
+        self._page_key: dict[int, int] = {}      # page -> registry key
+        # slot -> its chunked prefill: request, padded prompt, next start
+        self._prefilling: dict[int, dict] = {}
         self._pt = np.zeros((n_slots, self.max_pages), np.int32)
         self._tvec = np.zeros((n_slots,), np.int32)
         self._tpad = np.zeros((n_slots,), np.int32)
@@ -680,6 +857,22 @@ class ContinuousBatcher:
         self.graphs = bool(graphs)
         self._graph: kernels.Graph | None = None
         self.graph_stats: dict | None = None
+        # -- the chunk step's static input (one int32 buffer: the chunk,
+        # its start, the prompt length and the slot's page-table row),
+        # filled by one copy a call from the slot's row of pinned staging
+        # (an event a row guards its reuse), and its output token; only an
+        # engine that can run a chunk holds them
+        self._chunk_graph: kernels.Graph | None = None
+        self.chunk_graph_stats: dict | None = None
+        if self.paged and (self.prefix_cache_enabled or self.chunked_prefill):
+            words = self.prefill_chunk + 2 + self.max_pages
+            self._chunk_in = torch.zeros(words, dtype=torch.int32, device=dev)
+            self._chunk_staging = torch.zeros(
+                (n_slots, words), dtype=torch.int32, pin_memory=cuda)
+            self._chunk_staged = ([torch.cuda.Event() for _ in range(n_slots)]
+                                  if cuda else None)
+            self._chunk_views = self._chunk_in_views(self._chunk_in)
+            self._chunk_tok = torch.zeros(1, dtype=torch.long, device=dev)
         self.slot_req: dict[int, _Request] = {}
         self.queue = _AdmissionQueue()
         self._inflight: torch.Tensor | None = None
@@ -688,6 +881,11 @@ class ContinuousBatcher:
         self._next_rid = 0
         self._tick = 0
         self.emitted_tokens = 0      # all generated tokens (incl. first)
+        self.prefill_tokens = 0      # prompt tokens prefilled (waves, chunks)
+        self.prefill_tokens_saved = 0   # prompt tokens aliased, not run
+        self.pages_aliased = 0
+        self.prefix_hits = 0         # admissions that aliased >= 1 page
+        self.chunks_run = 0          # prefill chunks dispatched
         self._decode_tokens = 0      # tokens produced by decode steps
         self.slot_steps = 0          # decode slot-steps spent
         # k of each recent wave (a bounded window, as the reference trims it)
@@ -738,6 +936,13 @@ class ContinuousBatcher:
                 "stall": slab[nb + k * n:nb + k * n + n],
                 "firsts": slab[nb + k * n + n:]}
 
+    def _chunk_in_views(self, buf: torch.Tensor) -> dict:
+        """Named views of the chunk step's int32 input: ``tokens`` [1, C],
+        ``s`` and ``tlen`` [1], ``pt`` [1, max_pages]."""
+        c = self.prefill_chunk
+        return {"tokens": buf[:c].view(1, c), "s": buf[c:c + 1],
+                "tlen": buf[c + 1:c + 2], "pt": buf[c + 2:].view(1, -1)}
+
     def _empty_pool(self) -> dict:
         """A pool of ``total_pages + 1`` pages in this engine's format,
         every page empty: zeros in the model dtype, int8 zeros with scales
@@ -764,8 +969,19 @@ class ContinuousBatcher:
     # -- requests -------------------------------------------------------
 
     def submit(self, prompt, max_new_tokens: int,
-               temperature: float = 0.0) -> int:
-        """Enqueue a request (``prompt``: 1-D int sequence); greedy only."""
+               temperature: float = 0.0, deadline_s: float | None = None,
+               migrate_out: bool = False, tier: int = 0, tenant: str = "",
+               deadline_ticks: int | None = None) -> int:
+        """Enqueue a request (``prompt``: 1-D int sequence); greedy only.
+        The lifecycle keywords (deadlines, tier, tenant, migration) are
+        accepted at their defaults only.  With ``prefix_cache`` the
+        request keeps one registry key a full leading prompt page (a hash
+        of the prompt up to that page's end, as the reference: Python's
+        ``hash`` of bytes, so keys compare only within one process); the
+        page holding token ``t - 1`` is never cached."""
+        _refuse_later(_LATER_SUBMIT, dict(
+            deadline_s=deadline_s, migrate_out=migrate_out, tier=tier,
+            tenant=tenant, deadline_ticks=deadline_ticks))
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
@@ -793,9 +1009,13 @@ class ContinuousBatcher:
                 f"{self.total_pages}")
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :t] = prompt_np
+        keys: tuple = ()
+        if self.paged and self.prefix_cache_enabled:
+            keys = tuple(hash(prompt_np[:(i + 1) * self.page_size].tobytes())
+                         for i in range((t - 1) // self.page_size))
         req = _Request(rid=self._next_rid, prompt_len=t,
                        max_new_tokens=max_new_tokens, prompt=prompt_np,
-                       admit_len=t)
+                       admit_len=t, prefix_keys=keys)
         self._next_rid += 1
         self.queue.append((req, padded))
         return req.rid
@@ -809,27 +1029,86 @@ class ContinuousBatcher:
         dec_pages = -(-(blocks * self.stride) // self.page_size)
         return bucket // self.page_size + dec_pages
 
+    # -- the prefix registry (refcounted pages) --------------------------
+
+    def _prefix_hit_run(self, req: _Request) -> int:
+        """Longest run of the request's leading page keys present in the
+        registry (from page 0 on: a reclaim drops single pages, so key i
+        alone does not imply the keys before it)."""
+        if not self.prefix_cache_enabled:
+            return 0
+        h = 0
+        for key in req.prefix_keys:
+            if key not in self._prefix_cache:
+                break
+            h += 1
+        return h
+
+    def _available_pages(self) -> int:
+        """Pages an admission can claim: the free list plus the registered
+        pages no slot holds (reclaimable)."""
+        return len(self._free_pages) + sum(
+            1 for p in self._prefix_cache.values()
+            if self._page_refs.get(p, 0) == 0)
+
     def _alloc_pages(self, n: int) -> list[int]:
-        """Claim n free pages at refcount 1 (the admission gate guarantees
-        they exist)."""
-        if n > len(self._free_pages):
-            raise RuntimeError("page pool exhausted past the admission gate")
-        out = [self._free_pages.pop() for _ in range(n)]
-        for p in out:
+        """Claim n pages at refcount 1, reclaiming the least recently used
+        unreferenced registered page when the free list is empty (the
+        admission gate guarantees they exist)."""
+        out = []
+        for _ in range(n):
+            p = (self._free_pages.pop() if self._free_pages
+                 else self._evict_cached_page())
             self._page_refs[p] = 1
+            out.append(p)
         return out
 
+    def _evict_cached_page(self) -> int:
+        for key, p in self._prefix_cache.items():      # LRU first
+            if self._page_refs.get(p, 0) == 0:
+                del self._prefix_cache[key]
+                del self._page_key[p]
+                del self._page_refs[p]
+                return p
+        raise RuntimeError("page pool exhausted past the admission gate")
+
+    def _alias_pages(self, req: _Request, hits: int) -> list[int]:
+        """Take a reference on each of the request's first ``hits``
+        registered pages (and mark them most recently used)."""
+        pages = []
+        for key in req.prefix_keys[:hits]:
+            p = self._prefix_cache[key]
+            self._prefix_cache.move_to_end(key)
+            self._page_refs[p] += 1
+            pages.append(p)
+        return pages
+
+    def _register_prefix(self, req: _Request, pages: list[int]) -> None:
+        """Publish a finished prefill's full prompt pages under their keys:
+        the first writer of a key wins, and a page aliased from the
+        registry is already there."""
+        if not self.prefix_cache_enabled:
+            return
+        for key, p in zip(req.prefix_keys, pages):
+            if key in self._prefix_cache or p in self._page_key:
+                continue
+            self._prefix_cache[key] = p
+            self._page_key[p] = key
+
     def _release_pages(self, slot: int) -> None:
-        """Return the slot's pages and zero its table row, length scalars
-        and mass, so its per-block garbage flush retargets trash page 0
-        (nothing on the dense engine)."""
+        """Drop one reference on each of the slot's pages and zero its
+        table row, length scalars and mass, so its per-block garbage flush
+        retargets trash page 0 (nothing on the dense engine).  A page
+        frees on its last owner's release, unless it is registered: then
+        it stays at refcount 0, aliasable until an allocation reclaims
+        it."""
         if not self.paged:
             return
         for p in self._slot_pages.pop(slot, []):
             if p == 0:
                 continue          # eviction hole: already released
             self._page_refs[p] -= 1
-            if self._page_refs[p] == 0:
+            if self._page_refs[p] == 0 and p not in self._page_key:
                 del self._page_refs[p]
                 self._free_pages.append(p)
         self._pt[slot, :] = 0
@@ -858,29 +1137,51 @@ class ContinuousBatcher:
     # -- the engine tick ------------------------------------------------
 
     def _admit(self) -> None:
-        """Wave admission: consecutive queue-front requests sharing one
-        prompt bucket prefill as one [k, bucket] batch (k a power of two;
-        on the paged engine shrunk until the wave's pages fit).  FIFO: a
-        request waiting for pages blocks everything behind it; the dense
-        engine needs only a free slot."""
+        """Admission into free slots.  FIFO: a request waiting for pages
+        blocks everything behind it (its registered prefix pages do not
+        count against its ask, unreferenced registered pages count as
+        free); the dense engine needs only a free slot.  A request that
+        hits the prefix registry, or (``chunked_prefill``) whose bucket
+        exceeds ``prefill_chunk``, admits alone onto the chunk path
+        (:meth:`_admit_chunked`); otherwise consecutive queue-front
+        requests sharing one prompt bucket prefill as one [k, bucket] wave
+        (k a power of two up to ``max_wave``; on the paged engine shrunk
+        until the wave's pages fit).  With ``prefix_cache`` a wave stops
+        before a request that hits, or that shares its leading page key
+        with an earlier member: it should alias that member's pages, which
+        are registered right after the wave's adoption."""
         free = deque(s for s in range(self.n_slots) if s not in self.slot_req)
         while free and self.queue:
             req0, p0 = self.queue[0]
             bucket = p0.shape[1]
-            if self.paged and (self._pages_needed(req0.remaining_new, bucket)
-                               > len(self._free_pages)):
-                break
+            if self.paged:
+                hits0 = self._prefix_hit_run(req0)
+                if (self._pages_needed(req0.remaining_new, bucket) - hits0
+                        > self._available_pages()):
+                    break
+                if hits0 or (self.chunked_prefill
+                             and bucket > self.prefill_chunk):
+                    self._admit_chunked(free.popleft(), hits0)
+                    continue
             n_same = 1
-            for _, p in list(self.queue)[1:min(len(self.queue), len(free))]:
+            # (prefix keys exist only with the prefix cache on)
+            seen_lead = set(req0.prefix_keys[:1])
+            for r, p in list(self.queue)[1:min(len(self.queue), len(free))]:
                 if p.shape[1] != bucket:
                     break
+                if r.prefix_keys:
+                    if (self._prefix_hit_run(r)
+                            or r.prefix_keys[0] in seen_lead):
+                        break
+                    seen_lead.add(r.prefix_keys[0])
                 n_same += 1
             k = 1
-            while k * 2 <= min(n_same, len(free), MAX_WAVE):
+            while k * 2 <= min(n_same, len(free), self.max_wave):
                 k *= 2
             while self.paged and k > 1 and sum(
                     self._pages_needed(r.remaining_new, bucket)
-                    for r, _ in list(self.queue)[:k]) > len(self._free_pages):
+                    for r, _ in list(self.queue)[:k]
+                    ) > self._available_pages():
                 k //= 2
             wave = [self.queue.popleft() for _ in range(k)]
             slots = [free.popleft() for _ in range(k)]
@@ -909,6 +1210,7 @@ class ContinuousBatcher:
             self._adopt(self._live, cache_w, page_dst,
                         torch.tensor(slots, device=self.device), firsts,
                         true_lens)
+            self.prefill_tokens += sum(r.admit_len for r, _ in wave)
             for slot, (req, _) in zip(slots, wave):
                 remaining = req.remaining_new
                 self.active[slot] = remaining > 1
@@ -917,20 +1219,123 @@ class ContinuousBatcher:
                 self.emitted_tokens += 1
                 if remaining <= 1:
                     req.done = True
+                if self.paged:
+                    # the adoption is ordered before any later read, so the
+                    # next request of this loop may alias the pages already
+                    self._register_prefix(req, self._slot_pages[slot])
+
+    def _admit_chunked(self, slot: int, hits: int) -> None:
+        """Admit the queue-front request onto ``slot`` without a wave:
+        alias its ``hits`` registered prefix pages, allocate the rest, and
+        queue its prompt from the first unaliased page as chunks that
+        :meth:`_run_prefill_chunks` runs one a step.  The slot stays
+        inactive until its final chunk; its per-block garbage flush lands
+        in its own first decode page (never aliased), which its first real
+        flush overwrites before a position there becomes valid."""
+        req, padded = self.queue.popleft()
+        bucket = padded.shape[1]
+        need = self._pages_needed(req.remaining_new, bucket)
+        pages = self._alias_pages(req, hits) + self._alloc_pages(need - hits)
+        self._slot_pages[slot] = pages
+        self._pt[slot, :] = 0
+        self._pt[slot, :need] = pages
+        self._tvec[slot] = req.admit_len
+        self._tpad[slot] = bucket
+        self._cap[slot] = decode_capacity(need, bucket, self.page_size)
+        if hits:
+            self.prefix_hits += 1
+            self.pages_aliased += hits
+            self.prefill_tokens_saved += hits * self.page_size
+        # padded by one chunk, so the final chunk's slice is whole: its pad
+        # keys land past the prompt, in the slot's own pages or page 0
+        self._prefilling[slot] = {
+            "req": req, "next": hits * self.page_size,
+            "padded": np.pad(padded[0], (0, self.prefill_chunk))}
+        self.slot_req[slot] = req
+        self.active[slot] = False
+
+    def _run_prefill_chunks(self) -> None:
+        """One prefill chunk for each prefilling slot, in slot order; a
+        slot whose chunk held its last prompt position goes live (its
+        first token is the chunk's pick) and registers its pages."""
+        for slot in sorted(self._prefilling):
+            st = self._prefilling[slot]
+            req = st["req"]
+            t, c, start = req.admit_len, self.prefill_chunk, st["next"]
+            self._run_chunk(slot, st["padded"][start:start + c], start, t)
+            self.chunks_run += 1
+            self.prefill_tokens += min(t - start, c)
+            st["next"] = start + c
+            if st["next"] >= t:
+                activate_slot(self.first_toks, self.tokens, self.pos, slot,
+                              self._chunk_tok, t)
+                del self._prefilling[slot]
+                self._register_prefix(req, self._slot_pages[slot])
+                remaining = req.remaining_new
+                self.active[slot] = remaining > 1
+                self._await_first.add(slot)
+                self.emitted_tokens += 1
+                if remaining <= 1:
+                    req.done = True
+
+    def _run_chunk(self, slot: int, chunk: np.ndarray, start: int,
+                   tlen: int, st: dict | None = None) -> None:
+        """Stage one chunk of ``slot`` (its tokens, start, prompt length
+        and the slot's host page-table row: the tick's device tables are
+        refreshed only at dispatch) into the chunk step's device input by
+        one copy, then run the step over ``st``'s pool (default: the live
+        one): a replay of its graph, or the body itself off the graph
+        path.  Without :meth:`warmup`, the first chunk runs eagerly and
+        the graph is captured after it."""
+        c = self.prefill_chunk
+        if self._chunk_staged is not None:
+            self._chunk_staged[slot].synchronize()
+        row = self._chunk_staging[slot].numpy()
+        row[:c] = chunk
+        row[c], row[c + 1] = start, tlen
+        # warmup's scratch run writes through a zero row: trash page 0
+        row[c + 2:] = self._pt[slot] if st is None else 0
+        self._chunk_in.copy_(self._chunk_staging[slot], non_blocking=True)
+        if self._chunk_staged is not None:
+            self._chunk_staged[slot].record()
+        if st is None and self._chunk_graph is not None:
+            self._chunk_graph.replay()
+            return
+        t0 = time.perf_counter()
+        self._chunk_on(self.pool if st is None else st["pool"])
+        if st is None and self._use_graph():
+            self._capture_chunk(time.perf_counter() - t0)
+
+    def _chunk_on(self, pool: dict) -> None:
+        chunk_body(self.params, pool, self._chunk_views, self._chunk_tok,
+                   self.cfg, self.page_size)
+
+    def _capture_chunk(self, eager_s: float) -> None:
+        """Capture the chunk step over the live pool (nothing runs)."""
+        # as in _capture: the graph's function must not refer to the engine
+        params, pool, views, out, cfg, page = (
+            self.params, self.pool, self._chunk_views, self._chunk_tok,
+            self.cfg, self.page_size)
+        self._chunk_graph, self.chunk_graph_stats = _captured(
+            lambda: chunk_body(params, pool, views, out, cfg, page), eager_s)
 
     def warmup(self) -> None:
         """Run every shape this engine can hit -- each power-of-two wave
-        size per prompt bucket through prefill and adoption, then one
-        decode tick -- on scratch copies of the pool and slot vectors, so
-        no engine state or counter changes; on the card, then capture the
-        tick's CUDA graph (which runs nothing).  Call it before a timed
-        window: otherwise the first call at each shape (cuBLAS's algorithm
-        choice, the caching allocator's growth) and the capture land
-        inside it."""
+        size up to ``max_wave`` per prompt bucket through prefill and
+        adoption, the chunk step (with ``prefix_cache`` or
+        ``chunked_prefill``), then one decode tick -- on scratch copies of
+        the pool and slot vectors, so no engine state or counter changes;
+        on the card, then capture the tick's and the chunk step's CUDA
+        graphs (which runs nothing).  The chunk step runs before the tick
+        is captured: its folded queries grow the paged kernels' shared
+        scratch, which must not grow under a capture.  Call it before a
+        timed window: otherwise the first call at each shape (cuBLAS's
+        algorithm choice, the caching allocator's growth) and the captures
+        land inside it."""
         scratch = self._scratch_state()
         for bucket in self.prompt_buckets:
             k = 1
-            while k <= min(self.n_slots, MAX_WAVE):
+            while k <= min(self.n_slots, self.max_wave):
                 lens = torch.ones(k, dtype=torch.long, device=self.device)
                 firsts, cache_w = self._prefill(
                     torch.zeros((k, bucket), dtype=torch.long,
@@ -942,7 +1347,18 @@ class ContinuousBatcher:
                 self._adopt(scratch, cache_w, page_dst,
                             torch.arange(k, device=self.device), firsts, lens)
                 k *= 2
+        chunk_s = None
+        if self.paged and (self.prefix_cache_enabled or self.chunked_prefill):
+            t0 = time.perf_counter()
+            self._run_chunk(0, np.zeros(self.prefill_chunk, np.int64), 0, 1,
+                            st=scratch)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            chunk_s = time.perf_counter() - t0
         self._ready_tick(scratch)
+        if (chunk_s is not None and self._chunk_graph is None
+                and self._use_graph()):
+            self._capture_chunk(chunk_s)
 
     def _prefill(self, padded: torch.Tensor, true_lens: torch.Tensor):
         """A wave's prefill: a bucket-wide panel for the paged engine's
@@ -1001,13 +1417,8 @@ class ContinuousBatcher:
         body, params, tv, live, cfg, stride = (
             self._body, self.params, self._tv, self._live, self.cfg,
             self.stride)
-        graph = kernels.Graph(lambda: body(params, tv, live, cfg, stride))
-        graph.capture()
-        self._graph = graph
-        self.graph_stats = {"eager_s": eager_s, "capture_s": graph.capture_s,
-                            "instantiate_s": graph.instantiate_s,
-                            "pool_bytes": graph.pool_bytes,
-                            "tally": dict(graph.tally)}
+        self._graph, self.graph_stats = _captured(
+            lambda: body(params, tv, live, cfg, stride), eager_s)
 
     def _tick_on(self, st: dict) -> None:
         self._body(self.params, self._tv, st, self.cfg, self.stride)
@@ -1027,8 +1438,9 @@ class ContinuousBatcher:
     def _fused_k_now(self) -> int:
         """How many ticks the next dispatch may fuse: K > 1 only in the
         steady state, as in the reference (a queued request would be
-        admitted K - 1 ticks late)."""
-        if self.fused_ticks <= 1 or self.queue or not self.slot_req:
+        admitted, a pending chunk run, K - 1 ticks late)."""
+        if (self.fused_ticks <= 1 or self.queue or self._prefilling
+                or not self.slot_req):
             return 1
         return self.fused_ticks
 
@@ -1061,12 +1473,15 @@ class ContinuousBatcher:
     def step(self) -> list[_Request]:
         """One engine tick: collect the previous block, retire finishers,
         evict cold pages (with an ``evict_policy``), admit into freed
-        slots, dispatch the next block (without waiting for it).  Returns
-        the requests that finished."""
+        slots, run one prefill chunk for each prefilling slot, dispatch the
+        next block (without waiting for it).  Returns the requests that
+        finished."""
         finished = self._collect()
         if self.evict_policy is not None:
             self._maybe_evict()
         self._admit()
+        if self.paged:
+            self._run_prefill_chunks()
         if self.slot_req:
             self._dispatch_tick()
         if self.debug_invariants:
@@ -1094,6 +1509,8 @@ class ContinuousBatcher:
         if k > 1:
             self.fused_stalls += int((out["stall"].numpy() != 0).sum())
         for slot, req in list(self.slot_req.items()):
+            if slot in self._prefilling:
+                continue    # still chunk-prefilling: nothing emitted yet
             if slot in self._await_first:
                 req.tokens.append(int(firsts_np[slot]))
                 self._await_first.discard(slot)
@@ -1137,13 +1554,13 @@ class ContinuousBatcher:
         rope phases.
 
         Rails: never row-local page 0 (the attention sink), never a page
-        whose refcount is not 1, never a slot that awaits its first token
-        or is inactive, and at least two real prompt pages stay.  The
-        reference also spares slots that are mid-prefill (``_prefilling``)
-        or exporting a migration chain (``_migrate_out``), and
-        prefix-registered pages (``_page_key``): ROADMAP.md queue 1 items
-        4 (prefix cache and chunked prefill) and 7 (pools, fleet and
-        llama_serve) add those rails with the features."""
+        whose refcount is not 1 (an aliased prefix is another slot's live
+        context), never a prefix-registered page, never a slot that is
+        still prefilling, awaits its first token or is inactive, and at
+        least two real prompt pages stay.  The reference also spares slots
+        exporting a migration chain (``_migrate_out``): ROADMAP.md queue 1
+        item 7 (pools, fleet and llama_serve) adds that rail with the
+        feature."""
         if self.evict_policy == "mass" and self._mass_pending is not None:
             # its block was synced in _collect: a copy of a ready tensor
             mass = self._mass_pending.cpu().numpy()
@@ -1153,7 +1570,8 @@ class ContinuousBatcher:
                                      + 0.2 * mass[live])
         p = self.page_size
         for slot in list(self.slot_req):
-            if slot in self._await_first or not self.active[slot]:
+            if (slot in self._prefilling or slot in self._await_first
+                    or not self.active[slot]):
                 continue
             n_prompt = int(self._tpad[slot]) // p
             if n_prompt <= 2:
@@ -1175,8 +1593,9 @@ class ContinuousBatcher:
                 if remaining <= 2:
                     break
                 page = int(row[pi])
-                if self._page_refs.get(page, 0) != 1:
-                    continue    # shared: keep
+                if (self._page_refs.get(page, 0) != 1
+                        or page in self._page_key):
+                    continue    # shared or prefix-registered: keep
                 self._pt[slot, pi] = 0
                 self._slot_pages[slot][pi] = 0
                 del self._page_refs[page]
@@ -1197,9 +1616,11 @@ class ContinuousBatcher:
 
     def check_page_invariants(self) -> None:
         """Page-leak detector: free and allocated pages partition
-        {1..total_pages}, trash page 0 is in neither, every allocated page
-        has exactly its owners as refcount (eviction holes own nothing),
-        and each table row matches its slot's pages (retired rows are all
+        {1..total_pages}, trash page 0 is in neither (nor registered),
+        every allocated page has exactly its owners as refcount (eviction
+        holes own nothing), a page at refcount 0 is one the prefix registry
+        retains (any other is a leak), the registry's two maps agree, and
+        each table row matches its slot's pages (retired rows are all
         zero).  The dense engine has no pages to check."""
         if not self.paged:
             return
@@ -1209,8 +1630,8 @@ class ContinuousBatcher:
 
         allocated = set(self._page_refs)
         free = set(self._free_pages)
-        if 0 in allocated or 0 in free:
-            fail("trash page 0 allocated or free")
+        if 0 in allocated or 0 in free or 0 in self._page_key:
+            fail("trash page 0 allocated, free or registered")
         if len(free) != len(self._free_pages):
             fail("a page is on the free list twice")
         if free & allocated:
@@ -1228,6 +1649,12 @@ class ContinuousBatcher:
             if self._page_refs[p] != owners.get(p, 0):
                 fail(f"page {p}: refcount {self._page_refs[p]} != "
                      f"{owners.get(p, 0)} owners")
+            if self._page_refs[p] == 0 and p not in self._page_key:
+                fail(f"page {p} unreferenced but not prefix-retained "
+                     "(leaked)")
+        for p, key in self._page_key.items():
+            if self._prefix_cache.get(key) != p:
+                fail(f"page {p} registry back-pointer broken")
         for slot in range(self.n_slots):
             pages = self._slot_pages.get(slot, [])
             row = self._pt[slot]

@@ -10,6 +10,7 @@ from kubegpu_tpu_torch.ops.flash_attention import (  # noqa: F401
 )
 from kubegpu_tpu_torch.ops.paged_attention import (  # noqa: F401
     decode_capacity,
+    fold_chunk_queries,
     merge_partials,
     page_table_size,
     paged_attention_biased_ref,

@@ -57,6 +57,19 @@ def merge_partials(o1, m1, l1, o2, m2, l2) -> torch.Tensor:
     return (o1 * w1[..., None] + o2 * w2[..., None]) / tot[..., None]
 
 
+def fold_chunk_queries(q: torch.Tensor) -> torch.Tensor:
+    """Fold a query block ``[B, Hq, C, D]`` (C positions a row) into the
+    paged kernels' query-head dim: ``[B, Hq·C, D]`` in (hkv, group,
+    c)-major order, so the C positions of a query head ride as C more
+    heads of its kv head's group over the same page walk.  All C positions
+    of a row must share one history window (a prompt chunk's queries all
+    see ``[0, s)``); their causal part over the chunk's own keys comes
+    from ``models/decode.py``'s ``_chunk_causal_partials`` in the same
+    order, merged by :func:`merge_partials`."""
+    b, hq, c, d = q.shape
+    return q.reshape(b, hq * c, d)
+
+
 def paged_attention_ref(q, pool_k, pool_v, page_table, layer, t, t_pad, d,
                         k_scale=None, v_scale=None, collect_mass=False):
     """Gather-based plain version.  q: [B, Hq, D]; pool: [L, n_pages, Hkv,

@@ -285,6 +285,30 @@ def test_split_walk_kernels_match_plain(dev, fmt, dtype, hd, hq):
     assert mass[1, 1] == 0                               # the hole
 
 
+# kernels 4-6 over a prompt chunk's folded queries (``fold_chunk_queries``):
+# C = 64 positions of GQA 4 over 2 kv heads, a group of 256 (32 chunks of 8
+# query heads), with a history of 3 pages (t = t_pad = s = 24, d = 0) and a
+# first chunk's row (s = 0: no valid key)
+FOLDED_ROWS = [([1, 2, 3, 4, 5, 6, 0, 0], 24, 24, 0),
+               ([7, 8, 9, 0, 0, 0, 0, 0], 0, 0, 0)]
+
+
+@pytest.mark.parametrize("fmt,dtype,hd", [
+    ("plain", torch.bfloat16, 128), ("plain", torch.float32, 64),
+    ("q8", torch.bfloat16, 128), ("q8", torch.float32, 16),
+    ("q4g4", torch.bfloat16, 128), ("q4g8", torch.float32, 128)])
+def test_kernels_at_a_folded_chunk_shape(dev, fmt, dtype, hd):
+    """The chunk step's call shape at a small width, at
+    ``_check_split``'s tolerances against ``paged_attention_ref``: the
+    first chunk's row gives l = 0 and o = 0, finite, so the merge with the
+    chunk's own partials drops it."""
+    args = _split_args(dev, fmt, dtype, hd, 2 * 4 * 64, FOLDED_ROWS)
+    o, m, l, _ = _check_split(args, PAGED_NAME.get(fmt, "paged_decode_q4"),
+                              dtype == torch.bfloat16)
+    assert o.shape == (2, 512, hd) and bool(torch.isfinite(o).all())
+    assert not o[1].any() and not l[1].any() and (l[0] > 0).all()
+
+
 @pytest.mark.parametrize("fmt,dtype,hd", [("plain", torch.float32, 128),
                                           ("plain", torch.bfloat16, 80),
                                           ("q8", torch.bfloat16, 128),
@@ -811,6 +835,53 @@ def test_engine_graph_tokens_equal_eager(dev, fmt):
         assert sum(n.values()) == n[name]
     if kw.get("evict_policy"):
         assert eng.pages_evicted >= 1
+
+
+def _chunk_serve(params, cfg, dev, **kw):
+    """Both fast-path knobs (chunks of one page): warmup(), a 27-token
+    leader (four chunks), and after four steps two followers sharing its
+    first two pages (two chunks each); returns (tokens by rid, engine,
+    launches by kernel after warmup)."""
+    from kubegpu_tpu_torch.models import ContinuousBatcher
+    eng = ContinuousBatcher(params, cfg, device=dev, prefix_cache=True,
+                            chunked_prefill=True, prefill_chunk=8,
+                            **{**GRAPH_ENGINE, **kw})
+    eng.warmup()
+    before = dict(kernels.launches)
+    v = cfg.vocab_size
+    shared = [(3 * i + 1) % v for i in range(16)]
+    prompts = [shared + [(7 * j + i + 5) % v for i in range(11)]
+               for j in range(3)]
+    eng.submit(prompts[0], 8)
+    done = []
+    for _ in range(4):
+        done += eng.step()
+    for p, n in zip(prompts[1:], (6, 9)):
+        eng.submit(p, n)
+    done += eng.drain()
+    launched = {k: kernels.launches[k] - before[k] for k in before}
+    return {r.rid: r.tokens for r in done}, eng, launched
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "int4"])
+def test_chunk_step_graph_tokens_equal_eager(dev, fmt):
+    """The chunk step replayed from its CUDA graph (captured by warmup(),
+    after the tick's) gives the eager step's tokens bit for bit; its
+    graph's tally is the format's paged kernel once a layer, and every
+    chunk and tick counts its launches."""
+    kw, name = GRAPH_FORMATS[fmt]
+    cfg, params = _tiny_bf16_llama(dev)
+    got, eng, launched = _chunk_serve(params, cfg, dev, **kw)
+    want, eager, eager_launched = _chunk_serve(params, cfg, dev,
+                                               graphs=False, **kw)
+    assert got == want and len(got) == 3
+    assert eng.chunk_graph_stats["tally"] == {name: cfg.n_layers}
+    assert eager.chunk_graph_stats is None and eager._chunk_graph is None
+    for e, n in ((eng, launched), (eager, eager_launched)):
+        assert (e.prefix_hits, e.pages_aliased, e.chunks_run) == (2, 4, 8)
+        assert n[name] == (e._tick * 2 + e.chunks_run) * cfg.n_layers
+        assert sum(n.values()) == n[name]
+        e.check_page_invariants()
 
 
 def test_fused_ticks_equal_single_ticks_on_the_card(dev):

@@ -80,19 +80,105 @@ def test_page_accounting_matches_reference(tiny):
                                                                      bucket)
 
 
+# the engine knobs and submit keywords of the reference that the port takes
+# at their defaults only: name -> (default, another value, ROADMAP.md item)
+LIFECYCLE = "pools, fleet and llama_serve"
+LATER_KNOBS = {
+    "max_retries": (2, 0, LIFECYCLE),
+    "spec_adaptive": (True, False, "speculative decode"),
+    "spec_degrade_after": (None, 3, "speculative decode"),
+    "donate": (True, False, LIFECYCLE),
+}
+LATER_SUBMIT = {
+    "deadline_s": (None, 5.0, LIFECYCLE),
+    "deadline_ticks": (None, 4, LIFECYCLE),
+    "tier": (0, 1, LIFECYCLE),
+    "tenant": ("", "a", LIFECYCLE),
+    "migrate_out": (False, True, LIFECYCLE),
+}
+
+
 @pytest.mark.parametrize("knob,value", [
-    ("top_k", 4), ("sampling", True), ("seed", 1), ("prefill_chunk", 8),
-    ("draft_layers", 1), ("prefix_cache", True), ("chunked_prefill", True),
+    ("top_k", 4), ("sampling", True), ("seed", 1), ("draft_layers", 1),
     ("spec_gamma", 2), ("eos_id", 2), ("mesh", object()),
     ("metrics", object()), ("chaos", object()), ("tracer", object()),
     ("tenant_quotas", {"a": 1}), ("collect_overlap", True),
+    *((k, v[1]) for k, v in LATER_KNOBS.items()),
+    *((f"submit:{k}", v[1]) for k, v in LATER_SUBMIT.items()),
 ])
 def test_unported_knobs_raise(tiny, knob, value):
     _, _, cfg, params_t = tiny
     kw = dict(ENGINE, device="cpu")
+    if knob.startswith("submit:"):
+        name = knob.split(":")[1]
+        eng = ts.ContinuousBatcher(params_t, cfg, **kw)
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md queue 1: {LIFECYCLE}"):
+            eng.submit([1, 2, 3], 2, **{name: value})
+        assert not eng.queue
+        return
     kw[knob] = value
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    item = LATER_KNOBS[knob][2] if knob in LATER_KNOBS else ""
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         ts.ContinuousBatcher(params_t, cfg, **kw)
+
+
+@pytest.mark.parametrize("knob", [*LATER_KNOBS, *(
+    f"submit:{k}" for k in LATER_SUBMIT)])
+def test_reference_defaults_are_accepted(tiny, knob):
+    """Each of these knobs at the reference's default: the engine builds,
+    takes the request and serves the solo greedy tokens."""
+    _, _, cfg, params_t = tiny
+    kw = dict(ENGINE, device="cpu")
+    sub = {}
+    if knob.startswith("submit:"):
+        name = knob.split(":")[1]
+        sub[name] = LATER_SUBMIT[name][0]
+    else:
+        kw[knob] = LATER_KNOBS[knob][0]
+    eng = ts.ContinuousBatcher(params_t, cfg, **kw)
+    p = [5, 1, 4, 1, 5, 9]
+    eng.submit(p, 5, **sub)
+    (done,) = eng.drain()
+    assert done.tokens == td.greedy_generate(params_t, [p], 5, cfg,
+                                             device="cpu")[0].tolist()
+
+
+def test_max_wave_caps_waves_as_the_reference(tiny):
+    """``max_wave=2``: six same-bucket requests on five slots prefill in
+    waves of at most 2 (the default cap of 8 takes four at once), the
+    reference's wave sizes, with its tokens."""
+    cfg_j, params_j, cfg, params_t = tiny
+    kw = dict(ENGINE, n_slots=5, max_wave=2)
+    eng = ts.ContinuousBatcher(params_t, cfg, device="cpu",
+                               debug_invariants=True, **kw)
+    ref = JaxBatcher(params_j, cfg_j, **kw)
+    prompts = [(p, n) for p, n in _prompts(cfg.vocab_size)
+               if len(p) <= 8][:3] * 2
+    got, want = ({e.submit(p, n): None for p, n in prompts} and
+                 {r.rid: r.tokens for r in e.drain()} for e in (eng, ref))
+    assert got == want
+    assert list(eng.wave_sizes) == list(ref.wave_sizes) == [2, 2, 1, 1]
+    wide = ts.ContinuousBatcher(params_t, cfg, device="cpu",
+                                **dict(kw, max_wave=8))
+    for p, n in prompts:
+        wide.submit(p, n)
+    wide.drain()
+    assert list(wide.wave_sizes) == [4, 1, 1]
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(prefill_chunk=12), "prefill_chunk 12 must be a multiple"),
+    (dict(paged=False, prefix_cache=True), "require paged=True"),
+    (dict(paged=False, chunked_prefill=True), "require paged=True"),
+])
+def test_fast_path_knob_errors_match_reference(tiny, kw, match):
+    cfg_j, params_j, cfg, params_t = tiny
+    with pytest.raises(ValueError, match=match):
+        JaxBatcher(params_j, cfg_j, **{**ENGINE, **kw})
+    with pytest.raises(ValueError, match=match):
+        ts.ContinuousBatcher(params_t, cfg, device="cpu",
+                             **{**ENGINE, **kw})
 
 
 def test_warmup_is_state_free(tiny):
