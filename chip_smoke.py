@@ -26,6 +26,11 @@ printed as it ends (any failed check exits non-zero):
    8192, 128] bf16: C = 256 prompt positions of 32 heads folded over 8 kv
    heads, a 384-token history), with the time, the bound and its share,
    and a first chunk's row (s = 0) that must give l = 0 and a finite o;
+   and at the speculative verify's shape (q [8, 160, 128] and [8, 96,
+   128] bf16: γ + 1 = 5 or 3 positions of 32 heads folded over 8 kv heads
+   a row, groups of 20 and 12 cut into query chunks of 8 + 8 + 4 and 8 +
+   4; histories of 200-576 keys), two launches with equal bits, with the
+   time, the bound and its share;
 4. forward  — ``llama_forward`` at Llama-3-8B full width, bf16, [1, 512];
 5. serving  — the paged ``ContinuousBatcher`` at the same width, its tick
    a CUDA graph captured by ``warmup()`` (eager run, capture and
@@ -47,6 +52,17 @@ printed as it ends (any failed check exits non-zero):
    (relative L2 within 3e-2); prefill tokens, time to first token
    (leaders, followers) and tokens/s beside phase 5's engine on the same
    window, and the chunk step's wall ms as a graph and eagerly;
+5g. speculative — the same engine with ``spec_gamma=4`` (a draft of the
+   first 8 layers), a graph engine and an eager one, on the first 8
+   prompts of phase 5's first window with 64 new tokens (the reference's
+   ``cb_spec`` traffic): equal
+   tokens, no page leaked, kernel 4 ``spec_ticks × (γ × draft_layers +
+   n_layers)`` times; tokens/s beside phase 5's engine on the same
+   window, the acceptance and tokens a tick, the spec tick's wall ms
+   (graph and eager) and device ms (graph), the capture's seconds and
+   bytes; then the same window with a draft of all 32 layers (its
+   acceptance above the default draft's, more than one token a tick),
+   ``fused_ticks=4`` (tokens equal to K = 1) and ``kv_bits=8`` and ``4``;
 5b. quantized serving — the same graph engine with int8 pages, int4
    pages, and int4 pages with mass eviction, in turn: ``warmup()`` and
    two windows each (the first on phase 5's first prompts: the share of
@@ -70,8 +86,9 @@ printed as it ends (any failed check exits non-zero):
    ``warmup()`` captures the tick; two windows on it and on an eager
    engine in turns (tokens equal, no slot held after a window);
 6. parity   — a narrow f32 engine (through its graph) token for token
-   against the port's own ``greedy_generate``, plain and with both
-   fast-path knobs (shared prefixes, chunks), and the full-width first
+   against the port's own ``greedy_generate``, plain, with both
+   fast-path knobs (shared prefixes, chunks) and speculative with both
+   knobs (γ = 2, a one-layer draft), and the full-width first
    decode step's logits against the plain dense path;
 7. training — Llama-3-8B at full width cut to 8 layers (remat on), bf16:
    first one step's loss and gradients at batch 1 through the kernels
@@ -92,7 +109,8 @@ printed as it ends (any failed check exits non-zero):
    with ``adamw(1e-3)`` on one fixed batch (encoder [8, 512], decoder [8,
    128]): one warm and three timed steps.
 
-Seven paths are driven: serving (phases 4-5), the prefix cache (5f),
+Eight paths are driven: serving (phases 4-5), the prefix cache (5f),
+speculative serving (5g),
 quantized serving (5b),
 int8-weight serving (5c), the static path and the dense engine (5d-5e,
 which run no kernel of the port, as the reference runs no Pallas kernel
@@ -105,6 +123,7 @@ before the last is one JSON object per kernel; the last line is
 ``{"ok": true, "device": {...}}``.  ``--details PATH`` writes every
 phase's numbers to PATH as JSON.  With ``--profile`` it also traces one
 steady tick of the bf16, the int8, the int8-weight and the dense engine,
+and one spec tick (the draft's kernel-4 time against the verify's),
 each as a graph replay and eagerly (the profiler must see the paged
 kernel inside the graph), one replayed static decode step per format
 (with its weight products, weight copies and attention timed alone), a
@@ -695,6 +714,81 @@ def chunk_shape_checks(torch, gen) -> dict:
     return out
 
 
+# the speculative verify's call shape (phase 5g): γ + 1 positions of
+# Llama-3-8B's 32 query heads folded over 8 kv heads for each of 8 rows,
+# over the engine's table of 12 pages of 128
+VERIFY_GAMMAS = (4, 2)
+
+
+def verify_shape_checks(torch, gen, slice_lens) -> dict:
+    """Kernels 4-6 at the verify's batched folded shape (q [8, 32(γ+1),
+    128] bf16 for γ = 4 and 2: groups of 20 and 12, cut into query chunks
+    of 8 + 8 + 4 and 8 + 4 within one launch) against
+    ``paged_attention_ref``: prompts of ``slice_lens`` (200-512) keys in a
+    512 bucket and 0-64 flushed decode keys a row (histories of 200-576),
+    one pool (bf16, and quantized to int8 and int4 groups of 16); o within
+    1e-2, m within 1e-3, l within 1e-3 relative, and equal bits on two
+    launches.  Times, the bound from this data's bytes (K and V of each
+    row's valid keys, q, the table, o, m, l) and operations, and the share
+    of the bound."""
+    pa = importlib.import_module("kubegpu_tpu_torch.ops.paged_attention")
+    kvq = importlib.import_module("kubegpu_tpu_torch.ops.kvquant")
+    ds = [int(x) for x in torch.randint(0, 65, (8,), generator=gen,
+                                        device="cuda")]
+    rows = [([1 + 5 * i + j for j in range(5)] + [0] * 7, n, 512, d)
+            for i, (n, d) in enumerate(zip(slice_lens, ds))]
+    out = {}
+    for gamma in VERIFY_GAMMAS:
+        hq = 32 * (gamma + 1)
+        q, pk, pv, pt, t, tpad, d = paged_case(
+            torch, gen, torch.bfloat16, 4, 41, 8, 128, 128, hq, rows)
+        pools = {"bf16": (pk, pv, None, None),
+                 "q8": quantize_pool(torch, kvq, pk, pv, "q8"),
+                 "q4g16": quantize_pool(torch, kvq, pk, pv, "q4g16")}
+        valid = sum(r[1] + r[3] for r in rows)
+        groups = sum(-(-r[1] // 16) + -(-r[3] // 16) for r in rows)
+        kv_bytes = {"bf16": valid * 8 * 128 * 2 * 2,
+                    "q8": valid * 8 * (128 + 4) * 2,
+                    "q4g16": (valid * 64 + groups * 4) * 8 * 2}
+        fixed = (8 * hq * 128 * 2 + 8 * 12 * 4 + 3 * 8 * 4
+                 + 8 * hq * (128 + 2) * 4)
+        flops = 4 * hq * 128 * valid
+        for fmt, (kq, vq, ks, vs) in pools.items():
+            args = (q, kq, vq, pt, 3, t, tpad, d, ks, vs)
+            got = pa.paged_attention(*args)
+            again = pa.paged_attention(*args)
+            ref = pa.paged_attention_ref(*args)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"verify-shape paged {fmt} γ={gamma}: two launches differ")
+            err = max_err(got[0], ref[0])
+            m_err = max_err(got[1], ref[1])
+            l_rel = ((got[2] - ref[2]).abs()
+                     / ref[2].clamp(min=1e-30)).max().item()
+            check(err <= 1e-2, f"verify-shape paged {fmt} γ={gamma}: o max "
+                  f"|err| {err}")
+            check(m_err <= 1e-3 and l_rel <= 1e-3,
+                  f"verify-shape paged {fmt} γ={gamma}: m err {m_err} / l "
+                  f"rel err {l_rel}")
+            r = {"max_abs_err": err, "m_err": m_err, "l_rel_err": l_rel}
+            r["ms"] = cuda_ms(lambda: pa.paged_attention(*args))
+            r["plain_ms"] = cuda_ms(lambda: pa.paged_attention_ref(*args),
+                                    reps=5)
+            r["library_ms"] = None   # no PyTorch call reads a page table
+            r["bound_ms"], r["bound_by"] = bound_ms(
+                fixed + kv_bytes[fmt], flops, torch.bfloat16)
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+            log("kernels", kernel=f"paged {fmt}", case=f"verify shape q [8, "
+                f"{hq}, 128] bf16 (γ={gamma}: group {4 * (gamma + 1)} a kv "
+                f"head), {valid} valid keys, two launches equal",
+                max_abs_err=err, tol=1e-2, m_err=m_err, l_rel_err=l_rel,
+                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], share_of_bound=r["share_of_bound"])
+            out.setdefault(fmt, {})[f"gamma{gamma}"] = r
+        del pools, pk, pv
+    return out
+
+
 # The times (ms, with the mass) of kernels 4-6 at the serving shape before
 # kernel 5 moved onto the split walk: 4 and 6 on the split walk, 5 on the
 # older chunk walk (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W)
@@ -888,12 +982,15 @@ def serving_window(torch, kernels, eng, cfg, gen, n_new, kernel="paged_decode",
     or 12 new ones from ``gen``), 8 up front and the rest after two ticks
     (slots retire and are re-admitted), run to the end with ``drain``;
     checked and timed on the host clock.  ``kernel`` is the paged kernel
-    of the engine's pool format: it must run ``stride × n_layers`` times a
-    tick, graph replays included, and the other paged kernels not at
-    all; the dense engine (``kernel=None``) runs none of them."""
+    of the engine's pool format: it must run ``tick_launches`` times a
+    tick (``stride × n_layers``, or ``γ × draft_layers + n_layers`` a
+    speculative tick), graph replays included, and the other paged
+    kernels not at all; the dense engine (``kernel=None``) runs none of
+    them."""
     if prompts is None:
         prompts = window_prompts(torch, cfg, gen)
     tick0, tok0, ev0 = eng._tick, eng.emitted_tokens, eng.pages_evicted
+    spec0 = eng.spec_ticks
     before = dict(kernels.launches)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -919,17 +1016,31 @@ def serving_window(torch, kernels, eng, cfg, gen, n_new, kernel="paged_decode",
     eng.check_page_invariants()
     check(len(eng._free_pages) == eng.total_pages, "pages leaked")
     ticks = eng._tick - tick0
+    spec_ticks = eng.spec_ticks - spec0
     check(not (eng.slot_req or eng.active.any() or eng.queue),
           "a slot is still held after the window")
-    check(kernel is None or launched == ticks * eng.stride * cfg.n_layers,
-          f"{kernel} launches {launched} != ticks {ticks} x {eng.stride} x "
-          f"{cfg.n_layers}")
+    want = (spec_ticks * tick_launches(eng, "spec")
+            + (ticks - spec_ticks) * tick_launches(eng, "plain"))
+    check(kernel is None or launched == want,
+          f"{kernel} launches {launched} != {want} for {ticks} ticks, "
+          f"{spec_ticks} of them speculative")
     tokens = eng.emitted_tokens - tok0
     by_rid = {r.rid: r.tokens for r in done}
     return {"tokens_per_s": tokens / wall, "wall_s": wall, "ticks": ticks,
+            "spec_ticks": spec_ticks,
             "tokens": tokens, "paged_launches": launched, "prompts": prompts,
             "pages_evicted": eng.pages_evicted - ev0,
             "outputs": [by_rid[r] for r in rids]}
+
+
+def tick_launches(eng, kind: str) -> int:
+    """Paged-kernel launches of one tick of ``kind``: a plain tick's
+    ``stride × n_layers``, a speculative one's draft steps (``γ ×
+    draft_layers``) and verify (``n_layers``)."""
+    n_layers = eng.cfg.n_layers
+    if kind == "spec":
+        return eng.spec_gamma * eng.draft_layers + n_layers
+    return eng.stride * n_layers
 
 
 def graph_log(label: str, eng) -> dict:
@@ -961,14 +1072,15 @@ ENGINE = dict(n_slots=8, max_len=1024, stride=16, prompt_buckets=(512,),
 def warmed(torch, kernels, ContinuousBatcher, cfg, params, label, kernel,
            **kw):
     """A ``warmup()``-ed engine: its eager tick on scratch ran ``kernel``
-    once per step and layer, the state is untouched, and (a graph engine)
+    once per step and layer (a speculative tick: per draft step and draft
+    layer, then per layer), the state is untouched, and (a graph engine)
     the graph captured the same launches."""
     eng = ContinuousBatcher(params, cfg, **ENGINE, **kw)
     before = kernels.launches[kernel]
     t0 = time.perf_counter()
     eng.warmup()
     warm_s = time.perf_counter() - t0
-    want = ENGINE["stride"] * cfg.n_layers
+    want = tick_launches(eng, "spec" if eng.spec_gamma else "plain")
     check(kernels.launches[kernel] - before == want,
           f"{label}: warmup did not run {kernel} once per step and layer")
     check((eng._tick, eng.emitted_tokens) == (0, 0),
@@ -1302,6 +1414,188 @@ def prefix_phase(torch, kernels, cfg, params, gen, name, plain,
         first_logits_rel_l2_max=max(errs), tol=3e-2,
         token_agreement_with_plain=agree, card=repr(name), **{
             k: v for k, v in step.items() if not k.endswith("_trace")})
+    return stats
+
+
+# phase 5g: speculative serving on phase 5's engine (the reference's cb_spec
+# row: 8 slots, prompts in a 512 bucket, pages of 128, 64 new tokens, γ = 4;
+# the draft is the first max(1, L / 4) = 8 layers)
+SPEC = dict(spec_gamma=4)
+SPEC_NEW = 64
+
+
+def spec_trace(torch, fn, n_draft: int) -> dict:
+    """One ``fn()`` (a spec tick, ended by a synchronize) under
+    ``torch.profiler``: the device's busy time, its time by kernel name
+    (the eight largest), and the paged kernel's time split between the
+    draft's launches (the first ``n_draft`` in time order) and the
+    verify's (the rest)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    paged = [e.device_time_total / 1e3 for e in evs
+             if "paged_split" in e.name]
+    by_name: dict[str, float] = {}
+    for e in evs:
+        by_name[e.name[:60]] = (by_name.get(e.name[:60], 0.0)
+                                + e.device_time_total / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_busy_ms": sum(e.device_time_total for e in evs) / 1e3,
+            "top": [(n, round(ms, 3)) for n, ms in top],
+            "device_kernels": len(evs), "paged_calls": len(paged),
+            "draft_paged_ms": sum(paged[:n_draft]),
+            "verify_paged_ms": sum(paged[n_draft:]),
+            "draft_paged_calls": len(paged[:n_draft]),
+            "verify_paged_calls": len(paged[n_draft:])}
+
+
+def spec_tick_timing(torch, eng, prompts, profile: bool) -> dict:
+    """The spec tick alone, mid-run: 8 requests of 40 new tokens (16 on
+    an eager engine, which runs the tick 7 times here and drains slowly)
+    admitted and two ticks run, then the tick body run again on that
+    state (its
+    tick index reset each time): wall ms over 5 runs, and for a graph
+    engine the replay's device ms (``cuda_ms``; an eager tick's thousands
+    of launches would fill the launch queue there); with ``profile`` one
+    tick traced.  The slots' tokens and positions are restored after, and
+    the requests drained unchecked."""
+    for p in prompts[:eng.n_slots]:
+        eng.submit(p, 40 if eng.graphs else 16)
+    eng.step()
+    eng.step()
+    pos, tokens = eng.pos.clone(), eng.tokens.clone()
+
+    def tick():
+        eng._tv["tk"].zero_()
+        eng._run_tick("spec")
+
+    tick()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        tick()
+    torch.cuda.synchronize()
+    out = {"wall_ms": (time.perf_counter() - t0) * 200,
+           "device_ms": cuda_ms(tick, reps=5) if eng.graphs else None}
+    if profile:
+        out["trace"] = spec_trace(
+            torch, lambda: (tick(), torch.cuda.synchronize()),
+            eng.spec_gamma * eng.draft_layers)
+        check(out["trace"]["paged_calls"] == tick_launches(eng, "spec"),
+              f"spec tick trace: {out['trace']['paged_calls']} paged calls")
+    eng.pos.copy_(pos)
+    eng.tokens.copy_(tokens)
+    eng.drain()
+    return out
+
+
+def spec_phase(torch, kernels, cfg, params, gen, name, plain, prompts,
+               profile: bool = False) -> dict:
+    """Phase 5g: ``ContinuousBatcher(spec_gamma=4)`` (draft of 8 layers) at
+    phase 5's shape (bf16), a graph engine and an eager one, each
+    ``warmup()``-ed (one spec tick: kernel 4 ``γ × draft_layers + n_layers``
+    = 64 times), then the first 8 prompts of phase 5's first window
+    (``prompts``: one wave, cut from 12 to keep the run's time) with 64
+    new tokens on each: equal tokens, every request finished, no
+    page leaked, kernel 4 ``spec_ticks × 64`` times; the same window on
+    phase 5's plain engine (``plain``) for its tokens/s.  The path's
+    launches are read at the end, less the plain window's.  Then the spec
+    tick's wall
+    and device ms (graph; wall only eagerly), and windows of the same
+    prompts on four more engines: a draft of all 32 layers (its acceptance
+    must pass the default draft's, its tokens per tick 1), ``fused_ticks=4``
+    (tokens equal to the K = 1 graph engine's) and ``kv_bits=8`` and ``4``
+    (kernels 5 and 6 through the verify's window writes)."""
+    from kubegpu_tpu_torch.models import ContinuousBatcher
+    prompts = prompts[:8]
+    engines = {}
+    for label, kw in (("graph", {}), ("eager", {"graphs": False})):
+        engines[label] = warmed(torch, kernels, ContinuousBatcher, cfg,
+                                params, f"spec {label}", "paged_decode",
+                                **SPEC, **kw)
+    eng, eager = engines["graph"][0], engines["eager"][0]
+    graph = graph_log("spec", eng)
+    runs = {}
+    for label, (e, _) in engines.items():
+        runs[label] = serving_window(torch, kernels, e, cfg, gen, SPEC_NEW,
+                                     prompts=prompts)
+        check(runs[label]["spec_ticks"] == runs[label]["ticks"] > 0,
+              f"spec {label}: {runs[label]['spec_ticks']} of "
+              f"{runs[label]['ticks']} ticks speculative")
+        runs[label].update(acceptance=e.spec_acceptance_rate,
+                           tokens_per_tick=e.spec_tokens_per_tick,
+                           spec_ticks_total=e.spec_ticks)
+    same_tokens("spec", runs["graph"], runs["eager"])
+    # the plain engine's window is no part of the path
+    base = serving_window(torch, kernels, plain, cfg, gen, SPEC_NEW,
+                          prompts=prompts)
+    timing = {label: spec_tick_timing(torch, e, prompts, profile)
+              for label, (e, _) in engines.items()}
+    warm = {label: v[1] for label, v in engines.items()}
+    del eng, eager, engines
+    torch.cuda.empty_cache()
+    extra = {}
+    for label, kw, kernel in (
+            ("draft32", dict(draft_layers=32), "paged_decode"),
+            ("fused4", dict(fused_ticks=4), "paged_decode"),
+            ("int8", dict(kv_bits=8), "paged_decode_q8"),
+            ("int4", dict(kv_bits=4), "paged_decode_q4")):
+        e, warm_s = warmed(torch, kernels, ContinuousBatcher, cfg, params,
+                           f"spec {label}", kernel, **SPEC, **kw)
+        r = serving_window(torch, kernels, e, cfg, gen, SPEC_NEW,
+                           kernel=kernel, prompts=prompts)
+        r.update(acceptance=e.spec_acceptance_rate,
+                 tokens_per_tick=e.spec_tokens_per_tick, warmup_s=warm_s,
+                 fused_dispatches=e.fused_dispatches)
+        extra[label] = r
+        del e
+        torch.cuda.empty_cache()
+    path_launches = dict(kernels.launches)   # the path ends here
+    path_launches["paged_decode"] -= base["paged_launches"]
+    check(extra["draft32"]["acceptance"] > runs["graph"]["acceptance"]
+          and extra["draft32"]["tokens_per_tick"] > 1.0,
+          f"spec: the 32-layer draft accepts {extra['draft32']['acceptance']}"
+          f" (default draft {runs['graph']['acceptance']}), "
+          f"{extra['draft32']['tokens_per_tick']} tokens a tick")
+    check(extra["fused4"]["outputs"] == runs["graph"]["outputs"]
+          and extra["fused4"]["fused_dispatches"] > 0,
+          "spec: fused_ticks=4 tokens differ from K = 1, or it never fused")
+    stats = {label: {k: v for k, v in r.items()
+                     if k not in ("outputs", "prompts")}
+             for label, r in {**runs, **extra}.items()}
+    stats.update(plain={k: v for k, v in base.items()
+                        if k not in ("outputs", "prompts")},
+                 tick=timing, capture=graph, warmup_s=warm,
+                 path_launches=path_launches)
+    for label in ("graph", "eager"):
+        r = runs[label]
+        log("spec", engine=label, tokens_per_s=r["tokens_per_s"],
+            wall_s=r["wall_s"], ticks=r["ticks"],
+            acceptance=r["acceptance"], tokens_per_tick=r["tokens_per_tick"],
+            paged_launches=r["paged_launches"],
+            tick_wall_ms=timing[label]["wall_ms"],
+            tick_device_ms=timing[label]["device_ms"])
+    log("spec", engine="plain (phase 5's graph engine, same window)",
+        tokens_per_s=base["tokens_per_s"], wall_s=base["wall_s"],
+        ticks=base["ticks"])
+    for label, r in extra.items():
+        log("spec", run=label, tokens_per_s=r["tokens_per_s"],
+            ticks=r["ticks"], acceptance=r["acceptance"],
+            tokens_per_tick=r["tokens_per_tick"],
+            paged_launches=r["paged_launches"],
+            fused_dispatches=r["fused_dispatches"])
+    log("spec", graph_equals_eager=True, fused4_equals_k1=True,
+        capture_s=graph["capture_s"], instantiate_s=graph["instantiate_s"],
+        graph_pool_bytes=graph["pool_bytes"], card=repr(name))
+    if profile:
+        for label in ("graph", "eager"):
+            log("profile", what=f"one spec tick ({label})",
+                **timing[label]["trace"])
     return stats
 
 
@@ -1820,6 +2114,32 @@ def parity_narrow(torch) -> None:
     log("parity", case="narrow f32 prefix cache + chunked prefill engine vs "
         "greedy_generate", requests=len(done), prefix_hits=eng.prefix_hits,
         chunks_run=eng.chunks_run, equal=True)
+    # the same traffic on a speculative engine through its graph
+    eng = ContinuousBatcher(params, cfg, n_slots=3, stride=4,
+                            prompt_buckets=(16, 32), paged=True,
+                            page_size=16, prefix_cache=True,
+                            chunked_prefill=True, prefill_chunk=16,
+                            spec_gamma=2, draft_layers=1,
+                            debug_invariants=True, device="cuda")
+    eng.warmup()
+    check(eng.graph_stats is not None, "narrow spec engine: no graph")
+    rids = {eng.submit(*reqs[0]): reqs[0]}
+    done = eng.step() + eng.step() + eng.step()
+    rids.update({eng.submit(p, n): (p, n) for p, n in reqs[1:]})
+    done += eng.drain()
+    check(eng.spec_ticks > 0 and eng.prefix_hits == 3,
+          f"narrow spec engine: {eng.spec_ticks} spec ticks, "
+          f"{eng.prefix_hits} hits")
+    for r in done:
+        p, n = rids[r.rid]
+        solo = greedy_generate(params, [p], n, cfg,
+                               device="cuda")[0].tolist()
+        check(r.tokens == solo, f"narrow f32 spec rid {r.rid}: engine "
+              f"{r.tokens} != greedy {solo}")
+    log("parity", case="narrow f32 speculative engine (γ=2, draft 1 layer, "
+        "prefix cache + chunked prefill, graph) vs greedy_generate",
+        requests=len(done), spec_ticks=eng.spec_ticks,
+        acceptance=eng.spec_acceptance_rate, equal=True)
     decode.clear_graphs()
 
 
@@ -2409,9 +2729,11 @@ def main(argv=None) -> int:
     results["paged_decode"]["mass"] = quant["bf16"]
     results["paged_decode_bias"] = paged_bias_checks(torch, gen)
     chunk = chunk_shape_checks(torch, gen)
+    verify = verify_shape_checks(torch, gen, slice_lens)
     for kname, fmt in (("paged_decode", "bf16"), ("paged_decode_q8", "q8"),
                        ("paged_decode_q4", "q4g16")):
         results[kname]["chunk_shape"] = chunk[fmt]
+        results[kname]["verify_shape"] = verify[fmt]
     torch.cuda.empty_cache()
     bwd, fwd_train = flash_bwd_checks(torch, gen)
     results.update(bwd)
@@ -2443,6 +2765,13 @@ def main(argv=None) -> int:
     prefix_launches = prefix["path_launches"]   # its windows' end
     check(prefix_launches["paged_decode"] > 0,
           f"kernel 4 never ran on the prefix-cache path: {prefix_launches}")
+    kernels.reset_launches()          # the speculative path starts here
+    spec = spec_phase(torch, kernels, cfg, params, gen, name, engine,
+                      windows[0]["prompts"], args.profile)
+    spec_launches = spec["path_launches"]   # ... and ends in the phase
+    check(all(spec_launches[k] > 0 for k in PAGED_KERNELS),
+          f"a paged kernel never ran on the speculative path: "
+          f"{spec_launches}")
     prof = (profile_pair(torch, engine, eager, windows[-1]["prompts"], "bf16")
             if args.profile else None)
     del engine, eager
@@ -2520,8 +2849,8 @@ def main(argv=None) -> int:
               "paged_decode_bias": (
                   "kubegpu_tpu_torch/csrc/paged_decode_bias.cu",
                   "kubegpu_tpu/ops/paged_attention.py:567")}
-    paths = (serve_launches, prefix_launches, quant_launches, qw_launches,
-             train_launches, t5_launches)
+    paths = (serve_launches, prefix_launches, spec_launches, quant_launches,
+             qw_launches, train_launches, t5_launches)
     # launches: each kernel's count over the paths that run it (the
     # forward runs on serving and training)
     line = {"kernels": [
@@ -2530,7 +2859,11 @@ def main(argv=None) -> int:
          "launches": sum(path[k] for path in paths),
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         **({"verify_shape": {g: {x: v[x] for x in (
+             "ms", "plain_ms", "bound_ms", "max_abs_err")}
+             for g, v in r["verify_shape"].items()}}
+            if "verify_shape" in r else {})}
         for k, r in results.items()]}
     for r in line["kernels"]:
         check(all(isinstance(r[k], float) and math.isfinite(r[k])
@@ -2543,6 +2876,7 @@ def main(argv=None) -> int:
                "ptxas": ptxas,
                "forward": fwd, "serving": serve, "fused": fused,
                "prefix": prefix, "paged_chunk_shape": chunk,
+               "spec": spec, "paged_verify_shape": verify,
                "parity": parity,
                "quantized_serving": quant_serve,
                "quantized_weights": qweights, "static": static,
@@ -2553,6 +2887,7 @@ def main(argv=None) -> int:
                "t5": t5_stats,
                "launches": {"serving": serve_launches,
                             "prefix_cache": prefix_launches,
+                            "speculative": spec_launches,
                             "quantized_serving": quant_launches,
                             "int8_weight_serving": qw_launches,
                             "static_and_dense": plain_launches,

@@ -334,3 +334,49 @@ def _chunk_causal_partials(q: torch.Tensor, k: torch.Tensor,
     o = o / torch.clamp(l, min=1e-30)[..., None]
     return (o.reshape(b, hq * c, d), m.reshape(b, hq * c),
             l.reshape(b, hq * c))
+
+
+def truncate_at_eos(tokens: list, eos_id: int | None) -> bool:
+    """Trim a generated-token list IN PLACE at its first EOS (inclusive:
+    the terminator is returned like any other token).  Returns True iff an
+    EOS was found: the serving engines' finish signal, shared by every
+    consume path so each retires a request on the same token."""
+    if eos_id is None:
+        return False
+    try:
+        i = tokens.index(eos_id)
+    except ValueError:
+        return False
+    del tokens[i + 1:]
+    return True
+
+
+# -- speculative decoding (greedy, early-exit self-draft) --------------------
+
+def draft_view(params: dict, draft_layers: int) -> dict:
+    """The first ``draft_layers`` layers of a stacked-layer tree as a model
+    of their own (the early-exit self-draft: no extra parameters); embed,
+    final norm and head are shared.  Every stacked leaf (a :class:`QTensor`
+    slices values and scales together) becomes a view of its first
+    ``draft_layers`` rows, so the draft copies no weights."""
+    return {"embed": params["embed"],
+            "layers": {k: v[:draft_layers]
+                       for k, v in params["layers"].items()},
+            "final_norm": params["final_norm"],
+            "lm_head": params["lm_head"]}
+
+
+def spec_acceptance(drafted: torch.Tensor, full: torch.Tensor, cap):
+    """THE speculative acceptance rule: ``drafted`` [B, γ] proposals
+    against ``full`` [B, >= γ] full-model argmaxes at the same positions.
+    Returns ``(matched, take)`` [B] int32: the longest matching prefix a
+    row, and that prefix capped by ``cap`` (a scalar, or a [B] vector: the
+    engine's per-slot adaptive γ).  A token is only ever emitted if the
+    full model argmaxed it, so the cap is a throughput knob, never a
+    correctness one."""
+    g = drafted.shape[1]
+    match = (drafted == full[:, :g]).to(torch.int32)
+    matched = match.cumprod(dim=1).sum(dim=1).to(torch.int32)
+    if isinstance(cap, torch.Tensor):
+        return matched, torch.minimum(matched, cap.to(torch.int32))
+    return matched, matched.clamp(max=int(cap))

@@ -7,8 +7,8 @@ holds the pair, and ``x @ qt`` computes ``(x @ values.to(x.dtype)) *
 scale.to(x.dtype)``, the reference's contract.  Python reaches
 :meth:`QTensor.__rmatmul__` on its own: ``Tensor.__matmul__`` returns
 ``NotImplemented`` to a foreign right-hand operand.  Since the model code
-uses weights only through ``@`` (and :meth:`QTensor.unbind` for stacked
-layers), :func:`quantize_llama` and :func:`quantize_t5` swap leaves in place
+uses weights only through ``@`` (and :meth:`QTensor.unbind` and slicing
+for stacked layers), :func:`quantize_llama` and :func:`quantize_t5` swap leaves in place
 and the forward, decode and serving paths run unchanged on the result.
 Norms, embeddings and relative-bias tables stay full precision.
 
@@ -67,6 +67,14 @@ class QTensor:
         together."""
         return tuple(QTensor(v, s) for v, s in zip(self.values.unbind(dim),
                                                    self.scale.unbind(dim)))
+
+    def __getitem__(self, idx: slice) -> "QTensor":
+        """A slice along the leading (stacked) dim, values and scales
+        together: both are views, so nothing is copied."""
+        if not isinstance(idx, slice):
+            raise TypeError("a QTensor takes a slice of its leading dim "
+                            f"only, got {idx!r}")
+        return QTensor(self.values[idx], self.scale[idx])
 
     def to(self, device) -> "QTensor":
         return QTensor(self.values.to(device), self.scale.to(device))

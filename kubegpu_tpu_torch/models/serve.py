@@ -34,6 +34,18 @@ a later request with the same leading pages aliases them (a refcount a
 page; registered pages stay at refcount 0 until an allocation needs them,
 least recently used first) and prefills its tail through chunks.
 
+Speculative decoding (``spec_gamma=γ``; the reference's batched
+early-exit self-draft) replaces the tick: the first ``draft_layers`` layers
+of the same weights (:func:`draft_view`, views) propose γ tokens a slot
+through :func:`_paged_row_step`, reading the shared pool, and one
+full-model :func:`verify_forward` scores all ``[n_slots, γ+1]`` positions:
+their K/V written into each row's 2-page window through its page table,
+the history through the paged kernel over folded queries (the chunk
+step's composition, batched), the chunk's own part through causal
+partials.  Each slot keeps its longest full-model-agreed prefix, capped by
+an adaptive per-slot γ, plus the correction token, so every token is the
+full model's argmax; rejected entries roll back by validity alone.
+
 The pool may hold int8 pages with per-token scales (``kv_bits=8``) or packed
 int4 pages with one scale per ``kv_group`` tokens (``kv_bits=4``); every
 write path quantizes through :mod:`kubegpu_tpu_torch.ops.kvquant`, while the
@@ -50,8 +62,9 @@ are updated IN PLACE (the reference donates and rebinds them), and so are
 the page tables and per-slot scalars the tick reads, which live in device
 buffers allocated once and refreshed by one copy from pinned host memory a
 dispatch.  On the card the tick (:func:`tick_body`: ``decode_block``
-inside the reference's lane freeze; :func:`dense_tick_body` on the dense
-engine) is captured once into
+inside the reference's lane freeze; :func:`spec_tick_body` on a
+speculative engine; :func:`dense_tick_body` on the dense engine) is
+captured once into
 a CUDA graph (:class:`kubegpu_tpu_torch.kernels.Graph`), the counterpart
 of the reference's compiled executable, and every tick replays it;
 ``fused_ticks=K`` replays it K times a dispatch with one host fetch.  The
@@ -83,7 +96,10 @@ from kubegpu_tpu_torch.models.decode import (
     _gathered_head,
     _project_qkv,
     _quantize_rows,
+    draft_view,
     init_kv_cache,
+    spec_acceptance,
+    truncate_at_eos,
 )
 from kubegpu_tpu_torch.models.llama import (
     LlamaConfig,
@@ -93,7 +109,11 @@ from kubegpu_tpu_torch.models.llama import (
 )
 from kubegpu_tpu_torch import kernels
 from kubegpu_tpu_torch.ops.flash_attention import NEG_INF
-from kubegpu_tpu_torch.ops.kvquant import Q4_ZERO_BYTE, quantize_groups_q4
+from kubegpu_tpu_torch.ops.kvquant import (
+    Q4_ZERO_BYTE,
+    dequantize_q4,
+    quantize_groups_q4,
+)
 from kubegpu_tpu_torch.ops.paged_attention import (
     decode_capacity,
     fold_chunk_queries,
@@ -109,12 +129,7 @@ _LATER = {
     "sampling": (False, "sampling"),
     "seed": (0, "sampling"),
     "top_k": (0, "sampling"),
-    "spec_gamma": (0, "speculative decode"),
-    "draft_layers": (None, "speculative decode"),
-    "spec_adaptive": (True, "speculative decode"),
-    "spec_degrade_after": (None, "speculative decode"),
-    "eos_id": (None, "speculative decode"),
-    "collect_overlap": (False, "speculative decode"),
+    "collect_overlap": (False, "pools, fleet and llama_serve"),
     "mesh": (None, "multi-device"),
     "chaos": (None, "pools, fleet and llama_serve"),
     "max_retries": (2, "pools, fleet and llama_serve"),
@@ -148,6 +163,19 @@ def _refuse_later(table: dict, given: dict) -> None:
             raise NotImplementedError(
                 f"{name}={value!r} is not ported yet "
                 f"(ROADMAP.md queue 1: {item})")
+
+
+# the page cap a single-tick dispatch uploads: the reference's K = 1 tick has
+# no lane freeze, so no lane of one may stall on its pages
+_NO_CAP = np.iinfo(np.int32).max // 2
+
+
+def _gamma_from_accept(ema: np.ndarray, gamma: int) -> np.ndarray:
+    """Adaptive per-slot draft depth: the rolling acceptance EMA mapped
+    monotonically onto [0, γ] (``floor(ema·(γ+1))`` clipped).  A slot at
+    0 emits one full-model token a tick, while its EMA keeps updating from
+    the UNCAPPED match length, so it can recover its depth."""
+    return np.clip(np.floor(ema * (gamma + 1)).astype(np.int32), 0, gamma)
 
 
 def _pick_token(logits: torch.Tensor) -> torch.Tensor:
@@ -215,11 +243,15 @@ def _flush_buffer_paged(pool: dict, buf: dict, pt: torch.Tensor,
                         page_size: int) -> None:
     """Scatter the block buffer [L, B, Hkv, stride, D] into each row's
     CURRENT decode page of the pool, IN PLACE.  The decode region is
-    page-aligned and stride divides P, so a block never splits a page.
-    Retired rows carry a zeroed page-table row, so their garbage lands in
-    trash page 0; the page-index clamp keeps stale positions in the
-    table.  A quantized pool gets the whole buffer quantized once, and
-    its scales scattered beside the values."""
+    page-aligned and stride divides P, so a block never splits a page --
+    until a speculative engine degrades to this tick: its rows' positions
+    are then not stride-aligned, and a block that would pass its page's
+    end starts earlier, clamped as the reference's
+    ``lax.dynamic_update_slice`` clamps it.  Retired rows carry a zeroed
+    page-table row, so their garbage lands in trash page 0; the page-index
+    clamp keeps stale positions in the table.  A quantized pool gets the
+    whole buffer quantized once, and its scales scattered beside the
+    values."""
     phys0 = tpad + d0
     pidx = torch.clamp(phys0 // page_size, 0, pt.shape[1] - 1)
     page = pt.gather(1, pidx[:, None].long())                    # [B, 1]
@@ -229,8 +261,9 @@ def _flush_buffer_paged(pool: dict, buf: dict, pt: torch.Tensor,
         # block's offset in its decode page
         n = x.shape[3]
         per = page_size // pool[name].shape[3]   # tokens per entry
-        off = ((phys0 % page_size) // per)[:, None] + torch.arange(
-            n, device=pt.device)                                 # [B, n]
+        first = torch.clamp((phys0 % page_size) // per,
+                            max=pool[name].shape[3] - n)
+        off = first[:, None] + torch.arange(n, device=pt.device)  # [B, n]
         # advanced indices around a slice: value dims are [B, n, L, Hkv, ...]
         pool[name][:, page.long().expand_as(off), :, off.long()] = \
             x.permute(1, 3, 0, 2, *range(4, x.dim())).to(pool[name].dtype)
@@ -280,14 +313,16 @@ def decode_block(params: dict, pool: dict, pt, tvec, tpad,
 
 @torch.no_grad()
 def tick_body(params: dict, tables: dict, st: dict, cfg: LlamaConfig,
-              stride: int) -> None:
+              stride: int, eos_id: int | None = None) -> None:
     """ONE engine tick: :func:`decode_block` inside the reference's lane
     freeze (its ``_fused_body``), over the engine's ``tables`` (page
     table, lengths, page caps, token budgets, active mask) and state
     ``st`` (pool, slot vectors, freeze state, output views).  A lane runs
     while it is active, owes tokens (``emitted < budget``) and has never
     gone non-finite; a lane whose flush would pass its page cap raises
-    ``stall`` and freezes.  The block, the bad flags, the stalls, the
+    ``stall`` and freezes, and (with an ``eos_id``) a lane whose block
+    holds the EOS token latches ``dead``.  The block, the bad flags, the
+    stalls, the
     first tokens and (with mass eviction) the block's page mass land in
     the output views at the dispatch's tick index ``tk``, which then
     advances.  A dispatch runs it K times; K = 1 is the plain tick, whose
@@ -303,6 +338,8 @@ def tick_body(params: dict, tables: dict, st: dict, cfg: LlamaConfig,
                         st["tokens"], st["pos"], act, cfg, stride,
                         collect_mass=st["mass"] is not None)
     block, bad = outs[:2]
+    if eos_id is not None:
+        f["dead"].logical_or_(act & (block == eos_id).any(dim=0))
     f["dead"].logical_or_(bad)
     f["emitted"].add_(act.to(torch.int32) * stride)
     tk = f["tk"].long()
@@ -313,6 +350,187 @@ def tick_body(params: dict, tables: dict, st: dict, cfg: LlamaConfig,
     f["tk"].add_(1)
     if st["mass"] is not None:
         st["mass"].copy_(outs[2])
+
+
+# -- speculative decoding: early-exit self-draft and one batched verify -------
+
+def _window_slots(pt: torch.Tensor, phys0: torch.Tensor, c: int,
+                  page_size: int):
+    """Pool page and in-page offset of each of the C positions ``phys0[b]
+    + [0, C)`` of each row ([B, C] each).  A row-local page index past the
+    table goes to trash page 0 (never a clamped index: at the table's
+    edge the clamped index would be the row's live last page)."""
+    n_wide = pt.shape[1]
+    phys = phys0.long()[:, None] + torch.arange(c, device=pt.device)
+    rl = phys // page_size
+    pid = torch.where(rl < n_wide,
+                      pt.long().gather(1, rl.clamp(max=n_wide - 1)), 0)
+    return pid, phys % page_size
+
+
+def _write_window(pool: dict, li: int, kv: dict, pt: torch.Tensor,
+                  phys0: torch.Tensor, page_size: int) -> None:
+    """Write each row's verify K/V ``kv`` ([B, Hkv, C, D] in the model
+    dtype) into layer ``li`` of the pool at phys ``[phys0, phys0 + C)``
+    through its page table, IN PLACE, with the reference's bytes (its
+    ``put_win`` / ``put_win_q4``).  Model-dtype and int8 pools (rows
+    quantized per token, scales beside them) take the C positions one by
+    one.  A packed int4 pool requantizes the row's whole 2-page window
+    ``(pid0, pid1)`` per group: dequantize, splice the segment in,
+    requantize; the ``pid1`` halves are written before the ``pid0`` ones,
+    in two writes, so at the table's edge (``pid1 == pid0``) the first
+    half wins, as in the reference."""
+    b, _, c, _ = kv["k"].shape
+    if pool["k"].dtype != torch.uint8:
+        pid, off = _window_slots(pt, phys0, c, page_size)
+        for name, x in _quantize_like(pool, kv, page_size).items():
+            # [B, Hkv, C, ...] -> the index's [B, C, Hkv, ...]
+            pool[name][li, pid, :, off] = x.transpose(1, 2).to(
+                pool[name].dtype)
+        return
+    n_wide = pt.shape[1]
+    p0 = torch.clamp(phys0.long() // page_size, 0, n_wide - 1)
+    p1 = torch.clamp(p0 + 1, max=n_wide - 1)
+    pid0 = pt.long().gather(1, p0[:, None])[:, 0]
+    pid1 = pt.long().gather(1, p1[:, None])[:, 0]
+    rows = torch.arange(b, device=pt.device)[:, None]
+    at = (phys0.long() % page_size)[:, None] + torch.arange(
+        c, device=pt.device)                                     # [B, C]
+    for name in ("k", "v"):
+        vals, scales = pool[name][li], pool[f"{name}_scale"][li]
+        hkv, g = vals.shape[1], page_size // scales.shape[-1]
+        # [B, 2, Hkv, P, ...] -> the window [B, Hkv, 2P, ...]
+        win = torch.stack([vals[pid0], vals[pid1]], 1).transpose(1, 2)
+        sc = torch.stack([scales[pid0], scales[pid1]], 1).transpose(1, 2)
+        f = dequantize_q4(win.reshape(b, hkv, 2 * page_size, -1),
+                          sc.reshape(b, hkv, -1), g)
+        f[rows, :, at] = kv[name].transpose(1, 2).float()
+        wq, wsc = quantize_groups_q4(f, g)
+        wq = wq.reshape(b, hkv, 2, page_size, -1).transpose(1, 2)
+        wsc = wsc.reshape(b, hkv, 2, -1).transpose(1, 2)
+        for half, pid in ((1, pid1), (0, pid0)):
+            vals[pid] = wq[:, half]
+            scales[pid] = wsc[:, half]
+
+
+@torch.no_grad()
+def verify_forward(params: dict, chunk: torch.Tensor, pool: dict,
+                   pt: torch.Tensor, tvec: torch.Tensor, tpad: torch.Tensor,
+                   d0: torch.Tensor, pos: torch.Tensor, cfg: LlamaConfig,
+                   page_size: int) -> torch.Tensor:
+    """The full model's verify forward (the reference's ``_verify_fwd``):
+    C = γ+1 positions of EVERY slot, ``chunk`` [B, C] at positions
+    ``pos[b] + [0, C)``.  Per layer: q/k/v at those positions; the
+    chunk's K/V written into the row's 2-page window at phys ``[t_pad +
+    d0, t_pad + d0 + γ]`` (:func:`_write_window`); the paged kernel over
+    the folded queries (:func:`fold_chunk_queries`: a group of Hq·C/Hkv a
+    kv head) with the history ``phys < t ∪ [t_pad, t_pad + d0)``, which
+    ends before the entries just written; merged with the chunk's causal
+    partials over its own UNQUANTIZED K/V.  Rejected entries need no
+    rollback: the next tick's ``d0`` does not cover them, and its verify
+    overwrites them.  Returns f32 logits [B, C, vocab] (the head runs on
+    every position)."""
+    b, c = chunk.shape
+    positions = pos.long()[:, None] + torch.arange(c, device=chunk.device)
+    phys0 = tpad + d0
+    k_scale, v_scale = pool.get("k_scale"), pool.get("v_scale")
+    x = embed_lookup(params["embed"], chunk)                     # [B,C,D]
+    for li, lp in enumerate(unbind_layers(params["layers"])):
+        h = _rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = _project_qkv(h, lp, cfg, positions)            # [B,H,C,hd]
+        _write_window(pool, li, {"k": k, "v": v}, pt, phys0, page_size)
+        o_p, m_p, l_p = paged_attention(
+            fold_chunk_queries(q).contiguous(), pool["k"], pool["v"], pt, li,
+            tvec, tpad, d0, k_scale, v_scale)
+        o_c, m_c, l_c = _chunk_causal_partials(q, k, v)
+        o = merge_partials(o_p, m_p, l_p, o_c, m_c, l_c)
+        o = o.reshape(b, cfg.n_heads, c, cfg.head_dim).to(x.dtype)
+        x = _attn_finish(x, o, lp, cfg)
+    x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ params["lm_head"]).float()
+
+
+@torch.no_grad()
+def spec_block(params: dict, dparams: dict, pool: dict, pt, tvec, tpad,
+               tokens: torch.Tensor, pos: torch.Tensor, active: torch.Tensor,
+               gcap: torch.Tensor, cfg: LlamaConfig, gamma: int):
+    """One speculative tick for every slot (the reference's
+    ``_spec_tick_body``): the draft ``dparams`` (a :func:`draft_view`)
+    proposes γ tokens a slot through :func:`_paged_row_step` -- it reads
+    the SHARED pool history (its layer-i K/V is the full model's) and
+    keeps its own keys in a γ-wide buffer of the model dtype -- then ONE
+    :func:`verify_forward` scores all [B, γ+1] positions, and each slot
+    keeps its longest full-model-agreed prefix, capped by ``gcap``, plus
+    the full model's correction token.  ``tokens``/``pos`` advance in
+    place for active rows (``pos`` by take + 1).  Returns (emit [B, γ+1]:
+    accepted drafts, then the correction, then filler; take and matched
+    [B], 0 on inactive rows; the per-slot non-finite flag over every
+    verify position)."""
+    dev = tokens.device
+    d0 = torch.where(active, pos - tvec, torch.zeros_like(pos)).to(torch.int32)
+    n_draft = next(iter(dparams["layers"].values())).shape[0]
+    buf = {n: torch.zeros((n_draft, tokens.shape[0], pool["k"].shape[2],
+                           gamma, cfg.head_dim), dtype=cfg.tdtype, device=dev)
+           for n in ("k", "v")}
+    tok, drafted = tokens, []
+    for i in range(gamma):
+        tok = _pick_token(_paged_row_step(dparams, tok, pool, pt, tvec, tpad,
+                                          d0, buf, pos + i, i, cfg))
+        drafted.append(tok)
+    drafted = torch.stack(drafted, dim=1)                        # [B, γ]
+    chunk = torch.cat([tokens[:, None], drafted], dim=1)
+    vlogits = verify_forward(params, chunk, pool, pt, tvec, tpad, d0, pos,
+                             cfg, pool["k"].shape[3])
+    bad = ~torch.isfinite(vlogits).flatten(1).all(dim=1)
+    full = _pick_token(vlogits)                                  # [B, γ+1]
+    matched, take = spec_acceptance(drafted, full, gcap)
+    corr = full.gather(1, take.long()[:, None])[:, 0]
+    padded = torch.cat([drafted, drafted[:, -1:]], dim=1)
+    emit = torch.where(torch.arange(gamma + 1, device=dev)[None, :]
+                       < take[:, None], padded, corr[:, None])
+    take = torch.where(active, take, 0)
+    matched = torch.where(active, matched, 0)
+    tokens.copy_(torch.where(active, corr, tokens))
+    pos.copy_(torch.where(active, pos + take + 1, pos))
+    return emit, take, matched, bad
+
+
+@torch.no_grad()
+def spec_tick_body(params: dict, dparams: dict, tables: dict, st: dict,
+                   cfg: LlamaConfig, gamma: int,
+                   eos_id: int | None = None) -> None:
+    """ONE speculative engine tick: :func:`spec_block` inside the
+    reference's lane freeze (its ``_fused_spec_body``), in the shape of
+    :func:`tick_body`.  A lane runs while it is active, owes tokens and is
+    not dead; the overrun guard reserves the worst case γ+1 positions, so
+    a stalled lane never opens its window past its pages; an EOS among a
+    lane's ``emit[:take+1]`` latches ``dead``; ``emitted`` counts what a
+    tick lands (take + 1).  The emit slab, take, matched, the bad flags,
+    the stalls and the first tokens land in the spec slab's views
+    (``st["spec_out"]``) at the tick index ``tk``, which then advances.
+    A dispatch runs it K times; the graph engine captures exactly this."""
+    t, f, out = tables, st["freeze"], st["spec_out"]
+    act = (t["active"] != 0) & (f["emitted"] < t["budget"]) & (
+        f["dead"] == 0)
+    overrun = act & (st["pos"] - t["tvec"] + gamma + 1 > t["cap"])
+    f["stall"].logical_or_(overrun)
+    act = act & ~overrun
+    emit, take, matched, bad = spec_block(
+        params, dparams, st["pool"], t["pt"], t["tvec"], t["tpad"],
+        st["tokens"], st["pos"], act, t["gcap"], cfg, gamma)
+    if eos_id is not None:
+        landed = (torch.arange(gamma + 1, device=emit.device)[None, :]
+                  <= take[:, None])
+        f["dead"].logical_or_(act & ((emit == eos_id) & landed).any(dim=1))
+    f["dead"].logical_or_(bad)
+    f["emitted"].add_(torch.where(act, take + 1, 0))
+    tk = f["tk"].long()
+    for name, x in (("emit", emit), ("take", take), ("matched", matched),
+                    ("bads", bad)):
+        out[name].index_copy_(0, tk, x.long()[None])
+    out["stall"].copy_(f["stall"])
+    out["firsts"].copy_(st["first_toks"])
+    f["tk"].add_(1)
 
 
 # -- the dense slot engine ---------------------------------------------------
@@ -654,7 +872,18 @@ class ContinuousBatcher:
     ``prefill_tokens_saved``, ``chunks_run`` and ``prefill_tokens`` (waves
     and chunks) count them.  ``max_wave`` caps a prefill wave.
 
-    ``fused_ticks=K`` (the reference's non-speculative fused decode)
+    ``spec_gamma=γ`` (paged only) makes each tick speculative: a draft of
+    the first ``draft_layers`` layers (default ``max(1, L // 4)``)
+    proposes γ tokens a slot and one verify forward of the full model
+    scores them; ``spec_adaptive`` caps each slot's accepted depth by an
+    EMA of its acceptance, and ``spec_degrade_after=N`` switches the engine
+    to the plain tick for good after N ticks in a row in which no active
+    slot matched a draft.  ``spec_ticks``, ``spec_drafts_proposed`` and
+    ``spec_drafts_accepted`` count them (``spec_acceptance_rate``,
+    ``spec_tokens_per_tick``).  ``eos_id`` ends a request at the first
+    EOS it emits (kept in its tokens), on every engine and path.
+
+    ``fused_ticks=K`` (the reference's fused decode, plain or speculative)
     dispatches K complete ticks at once when nothing waits in the queue,
     with one host fetch at the end; each lane freezes on the device once
     it has its tokens or its next flush would pass its pages
@@ -664,7 +893,9 @@ class ContinuousBatcher:
     On the card the tick runs as one CUDA graph, captured by
     :meth:`warmup` (or the first dispatch) after one eager run on scratch
     state; ``graph_stats`` then holds the seconds of that run, of the
-    capture and of the instantiation, and the bytes the graph reserved.
+    capture and of the instantiation, and the bytes the graph reserved
+    (a spec engine with ``spec_degrade_after`` also captures the plain
+    tick it degrades to).
     The chunk step is a graph of its own (``chunk_graph_stats``), captured
     the same way.  ``graphs=False`` runs both eagerly on the card instead.
     A capture or replay that fails raises.
@@ -686,6 +917,10 @@ class ContinuousBatcher:
                  evict_param: float | None = None,
                  prefix_cache: bool = False, chunked_prefill: bool = False,
                  prefill_chunk: int | None = None, fused_ticks: int = 1,
+                 spec_gamma: int = 0, draft_layers: int | None = None,
+                 spec_adaptive: bool = True,
+                 spec_degrade_after: int | None = None,
+                 eos_id: int | None = None,
                  donate: bool = True, graphs: bool = True, device="cuda",
                  **later):
         _refuse_later(_LATER, later)
@@ -708,6 +943,33 @@ class ContinuousBatcher:
             raise ValueError("largest prompt bucket must be < max_len")
         self.max_wave = max(1, int(max_wave))
         self.paged = bool(paged)
+        # -- speculative decoding (spec_gamma > 0): each tick the first
+        # draft_layers layers of the SAME weights propose γ tokens a slot
+        # and one full-model verify scores all [n_slots, γ+1] positions;
+        # γ = 0 is the plain tick
+        self.spec_gamma = int(spec_gamma)
+        self.draft_layers = 0
+        if self.spec_gamma:
+            if not paged:
+                raise ValueError(
+                    "speculative serving (spec_gamma > 0) requires "
+                    "paged=True — the draft reads the shared page pool "
+                    "(its layer-i K/V IS the full model's) and the "
+                    "verify writes through the page tables")
+            if self.spec_gamma + 1 > page_size:
+                raise ValueError(
+                    f"spec_gamma {self.spec_gamma} + 1 must be <= "
+                    f"page_size {page_size} (the verify writes a "
+                    "2-page window)")
+            self.draft_layers = (draft_layers if draft_layers is not None
+                                 else max(1, cfg.n_layers // 4))
+            if not 1 <= self.draft_layers <= cfg.n_layers:
+                raise ValueError(
+                    f"draft_layers {self.draft_layers} not in "
+                    f"[1, {cfg.n_layers}]")
+        self.spec_adaptive = bool(spec_adaptive)
+        self.spec_degrade_after = spec_degrade_after
+        self.eos_id = eos_id
         # -- fused multi-tick decode: K complete ticks a dispatch when no
         # admission is pending, the lane freeze on the device
         self.fused_ticks = int(fused_ticks)
@@ -766,7 +1028,7 @@ class ContinuousBatcher:
                                  "('window', 'mass')")
             if not paged:
                 raise ValueError("evict_policy requires paged=True")
-            if self.fused_ticks > 1:
+            if self.spec_gamma or self.fused_ticks > 1:
                 raise ValueError(
                     "evict_policy rides the plain K=1 decode path "
                     "(spec/fused blocks have no per-tick mass signal)")
@@ -807,7 +1069,9 @@ class ContinuousBatcher:
         self.cache = (None if paged else
                       init_kv_cache(cfg, n_slots, self.max_len,
                                     device=self.device))
-        self._body = tick_body if paged else dense_tick_body
+        # the draft: a view of the first draft_layers layers, made once
+        self._draft_params = (draft_view(params, self.draft_layers)
+                              if self.spec_gamma else None)
         self._free_pages = list(range(1, self.total_pages + 1))
         # every allocated page -> the slots whose table holds it; a page
         # registered in the prefix cache stays at refcount 0 when its last
@@ -853,10 +1117,13 @@ class ContinuousBatcher:
                       "tokens": self.tokens,
                       "pos": self.pos, "first_toks": self.first_toks,
                       "freeze": tv, "out": self._slab_views(self._slab),
+                      "spec_out": (self._spec_slab_views(self._slab)
+                                   if self.spec_gamma else None),
                       "mass": self._mass_out}
         self.graphs = bool(graphs)
-        self._graph: kernels.Graph | None = None
-        self.graph_stats: dict | None = None
+        # the tick graphs by kind ("spec", "plain") and their stats
+        self._graphs: dict[str, kernels.Graph] = {}
+        self._graph_stats: dict[str, dict] = {}
         # -- the chunk step's static input (one int32 buffer: the chunk,
         # its start, the prompt length and the slot's page-table row),
         # filled by one copy a call from the slot's row of pinned staging
@@ -877,6 +1144,8 @@ class ContinuousBatcher:
         self.queue = _AdmissionQueue()
         self._inflight: torch.Tensor | None = None
         self._inflight_k = 1
+        self._inflight_spec = False
+        self._inflight_budget: np.ndarray | None = None
         self._await_first: set[int] = set()
         self._next_rid = 0
         self._tick = 0
@@ -899,11 +1168,25 @@ class ContinuousBatcher:
         self.fused_dispatches = 0     # fused blocks dispatched
         self.fused_ticks_run = 0      # device ticks covered by them
         self.fused_stalls = 0         # lanes frozen by the page cap
+        # -- speculative accounting: ``_gcap`` is the per-slot cap the next
+        # verify applies, ``_accept_ema`` the rolling match fraction
+        # driving it (optimistic for a new request); ``_spec_active`` the
+        # active mask at dispatch, so collect credits the slots that
+        # drafted; ``spec_degrade_after`` zero-match ticks in a row (over
+        # every active slot) degrade the engine to the plain tick for good
+        self._gcap = np.full((n_slots,), self.spec_gamma, np.int32)
+        self._accept_ema = np.ones((n_slots,), np.float64)
+        self._spec_active: np.ndarray | None = None
+        self.spec_ticks = 0
+        self.spec_drafts_proposed = 0
+        self.spec_drafts_accepted = 0
+        self.spec_degraded = False
+        self._spec_reject_streak = 0
 
     # -- the tick's static buffers ---------------------------------------
 
-    _TABLES = ("tvec", "tpad", "cap", "budget", "active", "emitted", "stall",
-               "dead")
+    _TABLES = ("tvec", "tpad", "cap", "budget", "active", "gcap", "emitted",
+               "stall", "dead")
 
     def _table_words(self) -> int:
         n = self.n_slots
@@ -923,18 +1206,37 @@ class ContinuousBatcher:
         return out
 
     def _slab_words(self) -> int:
-        return self.n_slots * (self.fused_ticks * (self.stride + 1) + 2)
+        """Words of the host fetch: its plain layout's, or its spec
+        layout's when that is longer (a spec engine that degrades fetches
+        both through one slab)."""
+        n, k = self.n_slots, self.fused_ticks
+        spec = k * (self.spec_gamma + 4) + 2 if self.spec_gamma else 0
+        return n * max(k * (self.stride + 1) + 2, spec)
 
     def _slab_views(self, slab: torch.Tensor) -> dict:
-        """The host fetch's layout: ``[K·stride·B token blocks, K·B bad
-        flags, B stall flags, B first tokens]`` with K = ``fused_ticks``
-        (the reference's fused layout; K = 1 is its plain one)."""
+        """The host fetch's plain layout: ``[K·stride·B token blocks, K·B
+        bad flags, B stall flags, B first tokens]`` with K =
+        ``fused_ticks`` (the reference's fused layout; K = 1 is its plain
+        one)."""
         n, k, s = self.n_slots, self.fused_ticks, self.stride
         nb = k * s * n
         return {"blocks": slab[:nb].view(k, s, n),
                 "bads": slab[nb:nb + k * n].view(k, n),
                 "stall": slab[nb + k * n:nb + k * n + n],
-                "firsts": slab[nb + k * n + n:]}
+                "firsts": slab[nb + k * n + n:nb + k * n + 2 * n]}
+
+    def _spec_slab_views(self, slab: torch.Tensor) -> dict:
+        """The host fetch's spec layout (the reference's fused spec one):
+        ``[K·B·(γ+1) emit, K·B take, K·B matched, K·B bad flags, B stall
+        flags, B first tokens]``."""
+        n, k, g = self.n_slots, self.fused_ticks, self.spec_gamma
+        ne, kb = k * n * (g + 1), k * n
+        views = {"emit": slab[:ne].view(k, n, g + 1)}
+        for i, name in enumerate(("take", "matched", "bads")):
+            views[name] = slab[ne + i * kb:ne + (i + 1) * kb].view(k, n)
+        views["stall"] = slab[ne + 3 * kb:ne + 3 * kb + n]
+        views["firsts"] = slab[ne + 3 * kb + n:ne + 3 * kb + 2 * n]
+        return views
 
     def _chunk_in_views(self, buf: torch.Tensor) -> dict:
         """Named views of the chunk step's int32 input: ``tokens`` [1, C],
@@ -997,10 +1299,14 @@ class ContinuousBatcher:
         if bucket is None:
             raise ValueError(f"prompt length {t} exceeds largest bucket "
                              f"{self.prompt_buckets[-1]}")
-        if t + max_new_tokens + self.stride > self.max_len:
+        # how far past the last consumed token the engine may write: a
+        # stride block, or a verify tick's γ+1 positions
+        overhang = max(self.stride, self.spec_gamma + 1
+                       if self.spec_gamma else 0)
+        if t + max_new_tokens + overhang > self.max_len:
             raise ValueError(
                 f"prompt {t} + max_new {max_new_tokens} + overhang "
-                f"{self.stride} (stride) > max_len {self.max_len}")
+                f"{overhang} (stride/γ+1) > max_len {self.max_len}")
         need = self._pages_needed(max_new_tokens, bucket) if self.paged else 0
         if need > self.total_pages:
             raise ValueError(
@@ -1024,9 +1330,15 @@ class ContinuousBatcher:
 
     def _pages_needed(self, max_new_tokens: int, bucket: int) -> int:
         """Pool pages a request holds for its lifetime: its prompt bucket
-        plus the decode extent its full stride blocks flush."""
-        blocks = -(-(max_new_tokens - 1) // self.stride)
-        dec_pages = -(-(blocks * self.stride) // self.page_size)
+        plus the decode extent its full stride blocks flush; a speculative
+        engine's extent is ``max_new + γ`` (a verify's rejected tail may
+        pass the accepted frontier by up to γ positions)."""
+        if self.spec_gamma:
+            dec_pages = -(-(max_new_tokens + self.spec_gamma)
+                          // self.page_size)
+        else:
+            blocks = -(-(max_new_tokens - 1) // self.stride)
+            dec_pages = -(-(blocks * self.stride) // self.page_size)
         return bucket // self.page_size + dec_pages
 
     # -- the prefix registry (refcounted pages) --------------------------
@@ -1115,20 +1427,25 @@ class ContinuousBatcher:
         self._tvec[slot] = self._tpad[slot] = self._cap[slot] = 0
         self._page_mass[slot] = 0.0
 
-    def _upload_tables(self, budget: np.ndarray) -> None:
+    def _upload_tables(self, budget: np.ndarray, k: int) -> None:
         """Refresh the tick's device tables from the host's (page table,
         lengths, page caps, this dispatch's token ``budget``, the active
-        mask) and zero the lane-freeze state: one non-blocking copy from
-        pinned staging into the buffers the graph binds.  The staging is
-        rewritten only once the previous copy has left it (an event; by
-        then ``_collect`` has synchronized anyway)."""
+        mask, the speculative caps) and zero the lane-freeze state: one
+        non-blocking copy from pinned staging into the buffers the graph
+        binds.  A dispatch of ``k = 1`` tick uploads no page cap: the
+        reference's single tick has no lane freeze (a degraded spec
+        engine's pages cover ``max_new + γ``, which a stride block may
+        pass).  The staging is rewritten only once the previous copy has
+        left it (an event; by then ``_collect`` has synchronized
+        anyway)."""
         if self._staged is not None:
             self._staged.synchronize()
         host = self._table_views(self._staging)
         host["pt"].numpy()[:] = self._pt
         for name, x in (("tvec", self._tvec), ("tpad", self._tpad),
-                        ("cap", self._cap), ("budget", budget),
-                        ("active", self.active)):
+                        ("cap", self._cap if k > 1 else _NO_CAP),
+                        ("budget", budget), ("active", self.active),
+                        ("gcap", self._gcap)):
             host[name].numpy()[:] = x
         self._tables.copy_(self._staging, non_blocking=True)
         if self._staged is not None:
@@ -1323,15 +1640,17 @@ class ContinuousBatcher:
         """Run every shape this engine can hit -- each power-of-two wave
         size up to ``max_wave`` per prompt bucket through prefill and
         adoption, the chunk step (with ``prefix_cache`` or
-        ``chunked_prefill``), then one decode tick -- on scratch copies of
-        the pool and slot vectors, so no engine state or counter changes;
-        on the card, then capture the tick's and the chunk step's CUDA
-        graphs (which runs nothing).  The chunk step runs before the tick
-        is captured: its folded queries grow the paged kernels' shared
-        scratch, which must not grow under a capture.  Call it before a
-        timed window: otherwise the first call at each shape (cuBLAS's
-        algorithm choice, the caching allocator's growth) and the captures
-        land inside it."""
+        ``chunked_prefill``), then one tick of each kind the engine can
+        dispatch (the spec tick, and the plain one a spec engine degrades
+        to when ``spec_degrade_after`` is set) -- on scratch copies of the
+        pool and slot vectors, so no engine state or counter changes; on
+        the card, then capture the ticks' and the chunk step's CUDA graphs
+        (which runs nothing).  Every eager run comes before every capture:
+        the folded queries of the chunk step and of the verify grow the
+        paged kernels' shared scratch, which must not grow under a
+        capture.  Call it before a timed window: otherwise the first call
+        at each shape (cuBLAS's algorithm choice, the caching allocator's
+        growth) and the captures land inside it."""
         scratch = self._scratch_state()
         for bucket in self.prompt_buckets:
             k = 1
@@ -1352,13 +1671,28 @@ class ContinuousBatcher:
             t0 = time.perf_counter()
             self._run_chunk(0, np.zeros(self.prefill_chunk, np.int64), 0, 1,
                             st=scratch)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._sync()
             chunk_s = time.perf_counter() - t0
-        self._ready_tick(scratch)
-        if (chunk_s is not None and self._chunk_graph is None
-                and self._use_graph()):
+        eager_s = {}
+        for kind in self._tick_kinds():
+            # each kind's run starts from a zeroed freeze state (tk = 0)
+            scratch["freeze"] = self._table_views(
+                torch.zeros_like(self._tables))
+            t0 = time.perf_counter()
+            self._tick_on(scratch, kind)
+            self._sync()
+            eager_s[kind] = time.perf_counter() - t0
+        if not self._use_graph():
+            return
+        for kind, seconds in eager_s.items():
+            if kind not in self._graphs:
+                self._capture(kind, seconds)
+        if chunk_s is not None and self._chunk_graph is None:
             self._capture_chunk(chunk_s)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _prefill(self, padded: torch.Tensor, true_lens: torch.Tensor):
         """A wave's prefill: a bucket-wide panel for the paged engine's
@@ -1381,6 +1715,7 @@ class ContinuousBatcher:
 
     def _scratch_state(self) -> dict:
         """Zeroed stand-ins for everything the tick body writes."""
+        slab = torch.zeros_like(self._slab)
         return {"pool": self._empty_pool() if self.paged else None,
                 "cache": (None if self.paged else
                           {n: torch.zeros_like(x)
@@ -1389,51 +1724,76 @@ class ContinuousBatcher:
                 "pos": torch.zeros_like(self.pos),
                 "first_toks": torch.zeros_like(self.first_toks),
                 "freeze": self._table_views(torch.zeros_like(self._tables)),
-                "out": self._slab_views(torch.zeros_like(self._slab)),
+                "out": self._slab_views(slab),
+                "spec_out": (self._spec_slab_views(slab)
+                             if self.spec_gamma else None),
                 "mass": (None if self._mass_out is None
                          else torch.zeros_like(self._mass_out))}
-
-    def _ready_tick(self, scratch: dict) -> None:
-        """Run the tick body once eagerly on ``scratch`` (it reads the
-        live tables and writes only ``scratch``); then, on a graph engine
-        not yet captured, capture it over the live state."""
-        t0 = time.perf_counter()
-        self._tick_on(scratch)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        if self._graph is None and self._use_graph():
-            self._capture(time.perf_counter() - t0)
 
     def _use_graph(self) -> bool:
         return self.graphs and self.device.type == "cuda"
 
-    def _capture(self, eager_s: float) -> None:
-        """Capture the tick body over the live state (nothing runs: the
-        live state is untouched).  ``eager_s`` is the eager run before it,
-        which loaded the libraries and sized the kernels' scratch."""
-        # the graph's function refers to what the tick reads and writes,
-        # not to the engine: a cycle through it would keep the engine (and
-        # its parameters) alive past its last reference
-        body, params, tv, live, cfg, stride = (
-            self._body, self.params, self._tv, self._live, self.cfg,
-            self.stride)
-        self._graph, self.graph_stats = _captured(
-            lambda: body(params, tv, live, cfg, stride), eager_s)
+    def _tick_kinds(self) -> tuple[str, ...]:
+        """The ticks this engine may dispatch: the spec tick (and, with
+        ``spec_degrade_after``, the plain one it degrades to), or the
+        plain tick."""
+        if not self.spec_gamma:
+            return ("plain",)
+        return ("spec", "plain") if self.spec_degrade_after is not None \
+            else ("spec",)
 
-    def _tick_on(self, st: dict) -> None:
-        self._body(self.params, self._tv, st, self.cfg, self.stride)
+    def _tick_fn(self, kind: str):
+        """The tick body of ``kind`` as a function of the state it runs
+        on.  It refers to what the tick reads, not to the engine: a graph
+        holding it would otherwise keep the engine (and its parameters)
+        alive past its last reference."""
+        params, tv, cfg, stride, eos = (self.params, self._tv, self.cfg,
+                                        self.stride, self.eos_id)
+        if kind == "spec":
+            dparams, gamma = self._draft_params, self.spec_gamma
+            return lambda st: spec_tick_body(params, dparams, tv, st, cfg,
+                                             gamma, eos)
+        if not self.paged:
+            return lambda st: dense_tick_body(params, tv, st, cfg, stride)
+        return lambda st: tick_body(params, tv, st, cfg, stride, eos)
 
-    def _run_tick(self) -> None:
-        """One tick over the live state: a replay of the engine's graph,
-        or the body itself off the graph path.  Without :meth:`warmup`,
-        the first tick runs eagerly and the graph is captured after it."""
-        if self._graph is not None:
-            self._graph.replay()
+    def _capture(self, kind: str, eager_s: float) -> None:
+        """Capture the tick body of ``kind`` over the live state (nothing
+        runs: the live state is untouched).  ``eager_s`` is the eager run
+        before it, which loaded the libraries and sized the kernels'
+        scratch."""
+        fn, live = self._tick_fn(kind), self._live
+        self._graphs[kind], self._graph_stats[kind] = _captured(
+            lambda: fn(live), eager_s)
+
+    @property
+    def _graph(self) -> kernels.Graph | None:
+        """The graph of the engine's own tick (the spec tick on a spec
+        engine)."""
+        return self._graphs.get(self._tick_kinds()[0])
+
+    @property
+    def graph_stats(self) -> dict | None:
+        """The warmup costs of the engine's own tick graph (see
+        :func:`_captured`), or None before its capture."""
+        return self._graph_stats.get(self._tick_kinds()[0])
+
+    def _tick_on(self, st: dict, kind: str) -> None:
+        self._tick_fn(kind)(st)
+
+    def _run_tick(self, kind: str) -> None:
+        """One tick of ``kind`` over the live state: a replay of its
+        graph, or the body itself off the graph path.  Without
+        :meth:`warmup`, the first tick of a kind runs eagerly and its
+        graph is captured after it."""
+        graph = self._graphs.get(kind)
+        if graph is not None:
+            graph.replay()
             return
         t0 = time.perf_counter()
-        self._tick_on(self._live)
+        self._tick_on(self._live, kind)
         if self._use_graph():
-            self._capture(time.perf_counter() - t0)
+            self._capture(kind, time.perf_counter() - t0)
 
     def _fused_k_now(self) -> int:
         """How many ticks the next dispatch may fuse: K > 1 only in the
@@ -1446,23 +1806,29 @@ class ContinuousBatcher:
 
     def _dispatch_tick(self) -> None:
         """Dispatch k ticks for the current slot state (k from
-        :meth:`_fused_k_now`): upload the tables with each slot's token
-        budget (what its request still owes, less a pending first token),
-        run the tick k times back to back, and keep the static slab for
-        the next step's single host fetch.  The slab and the mass are the
-        graph's outputs, rewritten by the next dispatch: ``step`` collects
-        them (``_collect``, ``_maybe_evict``) before it dispatches again."""
+        :meth:`_fused_k_now`; speculative ticks unless the engine has none
+        or degraded): upload the tables with each slot's token budget
+        (what its request still owes, less a pending first token), run the
+        tick k times back to back, and keep the static slab for the next
+        step's single host fetch, with the active mask (``_spec_active``)
+        and the budgets the dispatch ran on.  The slab and the mass are
+        the graph's outputs, rewritten by the next dispatch: ``step``
+        collects them (``_collect``, ``_maybe_evict``) before it
+        dispatches again."""
         k = self._fused_k_now()
+        spec = bool(self.spec_gamma) and not self.spec_degraded
         budget = np.zeros((self.n_slots,), np.int32)
         for slot, req in self.slot_req.items():
             want = req.max_new_tokens - len(req.tokens)
             if slot in self._await_first:
                 want -= 1
             budget[slot] = max(want, 0)
-        self._upload_tables(budget)
+        self._upload_tables(budget, k)
         for _ in range(k):
-            self._run_tick()
+            self._run_tick("spec" if spec else "plain")
         self._inflight, self._inflight_k = self._slab, k
+        self._inflight_spec, self._inflight_budget = spec, budget
+        self._spec_active = self.active.copy() if spec else None
         if self._mass_out is not None:
             self._mass_pending = self._mass_out
         if k > 1:
@@ -1493,19 +1859,39 @@ class ContinuousBatcher:
             return []
         fused = self._inflight.cpu().numpy()    # THE host sync
         self._inflight = None
-        return self._consume(fused, self._inflight_k)
+        spec_active, self._spec_active = self._spec_active, None
+        return self._consume(fused, self._inflight_k, self._inflight_spec,
+                             spec_active, self._inflight_budget)
 
-    def _consume(self, fused: np.ndarray, k: int) -> list[_Request]:
-        """Account one fetched slab of ``k`` ticks (layout in
-        :meth:`_slab_views`), replaying the device's lane freeze as the
-        reference's ``_consume_fused`` does: a slot stops consuming the
-        tick its request is satisfied, before it looks at any later bad
-        flag (K single ticks would have retired it first)."""
+    def _check_eos(self, req: _Request) -> bool:
+        """Trim ``req.tokens`` at its first EOS; True = finished."""
+        return truncate_at_eos(req.tokens, self.eos_id)
+
+    def _consume(self, fused: np.ndarray, k: int, spec: bool = False,
+                 spec_active: np.ndarray | None = None,
+                 budget: np.ndarray | None = None) -> list[_Request]:
+        """Account one fetched slab of ``k`` ticks (its plain or, with
+        ``spec``, its spec layout: :meth:`_slab_views`,
+        :meth:`_spec_slab_views`), replaying the device's lane freeze as
+        the reference's ``_consume_fused`` does: a slot stops consuming
+        the tick its request is satisfied or its tokens hold the EOS,
+        before it looks at any later bad flag (K single ticks would have
+        retired it first).  A speculative tick lands ``take + 1`` tokens
+        of a slot that was active at dispatch; its statistics are
+        replayed by :meth:`_spec_stats`."""
         finished: list[_Request] = []
-        out = self._slab_views(torch.from_numpy(fused))
-        block_np, bad_np = out["blocks"].numpy(), out["bads"].numpy()
-        firsts_np = out["firsts"].numpy()
-        self.slot_steps += k * self.stride * self.n_slots
+        slab = torch.from_numpy(fused)
+        out = (self._spec_slab_views if spec else self._slab_views)(slab)
+        bad_np, firsts_np = out["bads"].numpy(), out["firsts"].numpy()
+        if spec:
+            emit_np, take_np = out["emit"].numpy(), out["take"].numpy()
+            self.slot_steps += k * (self.spec_gamma + 1) * self.n_slots
+            self.spec_ticks += k
+            self._spec_stats(k, emit_np, take_np, out["matched"].numpy(),
+                             bad_np, spec_active, budget)
+        else:
+            block_np = out["blocks"].numpy()
+            self.slot_steps += k * self.stride * self.n_slots
         if k > 1:
             self.fused_stalls += int((out["stall"].numpy() != 0).sum())
         for slot, req in list(self.slot_req.items()):
@@ -1514,9 +1900,13 @@ class ContinuousBatcher:
             if slot in self._await_first:
                 req.tokens.append(int(firsts_np[slot]))
                 self._await_first.discard(slot)
+                if self._check_eos(req):
+                    self._retire(slot, req, finished)
+                    continue
             if req.done:   # single-token request: retires without decode
                 self._retire(slot, req, finished)
                 continue
+            hit_eos = False
             for kk in range(k):
                 want = req.max_new_tokens - len(req.tokens)
                 if want <= 0:
@@ -1526,13 +1916,61 @@ class ContinuousBatcher:
                         f"non-finite logits in slot {slot} (rid {req.rid}); "
                         "quarantine and replay are not ported yet "
                         "(ROADMAP.md queue 1: pools, fleet and llama_serve)")
-                take = min(self.stride, want)
-                req.tokens.extend(int(x) for x in block_np[kk, :take, slot])
+                if spec:
+                    avail = int(take_np[kk, slot]) + 1 \
+                        if spec_active[slot] else 0
+                    take = min(avail, want)
+                    req.tokens.extend(int(x) for x in emit_np[kk, slot, :take])
+                else:
+                    take = min(self.stride, want)
+                    req.tokens.extend(int(x) for x in block_np[kk, :take, slot])
                 self.emitted_tokens += take
                 self._decode_tokens += take
-            if len(req.tokens) >= req.max_new_tokens:
+                if self._check_eos(req):
+                    hit_eos = True
+                    break
+            if hit_eos or len(req.tokens) >= req.max_new_tokens:
                 self._retire(slot, req, finished)
         return finished
+
+    def _spec_stats(self, k: int, emit_np: np.ndarray, take_np: np.ndarray,
+                    matched_np: np.ndarray, bad_np: np.ndarray,
+                    spec_active: np.ndarray, budget: np.ndarray) -> None:
+        """Speculative accounting of a fetched block (the reference's
+        ``_spec_stats_fused``; K = 1 is its plain tick's): replay the
+        device's per-tick active mask (budget, EOS and bad-flag freezes)
+        so the acceptance EMA, the draft counters and the degrade streak
+        see exactly the ticks each slot drafted.  The caps adapt once per
+        block (the device held them fixed across it)."""
+        if spec_active is None or not spec_active.any():
+            return
+        g = self.spec_gamma
+        emitted = np.zeros((self.n_slots,), np.int64)
+        dead = np.zeros((self.n_slots,), bool)
+        for kk in range(k):
+            act = spec_active & (emitted < budget) & ~dead
+            if act.any():
+                self.spec_drafts_proposed += g * int(act.sum())
+                self.spec_drafts_accepted += int(take_np[kk][act].sum())
+                self._accept_ema[act] = (0.7 * self._accept_ema[act]
+                                         + 0.3 * (matched_np[kk][act] / g))
+                if (self.spec_degrade_after is not None
+                        and not self.spec_degraded):
+                    if int(matched_np[kk][act].sum()) == 0:
+                        self._spec_reject_streak += 1
+                    else:
+                        self._spec_reject_streak = 0
+                    if self._spec_reject_streak >= self.spec_degrade_after:
+                        self.spec_degraded = True
+            if self.eos_id is not None:
+                hit = ((emit_np[kk] == self.eos_id)
+                       & (np.arange(g + 1)[None, :]
+                          <= take_np[kk][:, None])).any(axis=1)
+                dead |= act & hit
+            emitted += np.where(act, take_np[kk] + 1, 0)
+            dead |= bad_np[kk] != 0
+        if self.spec_adaptive:
+            self._gcap = _gamma_from_accept(self._accept_ema, g)
 
     def _retire(self, slot: int, req: _Request,
                 finished: list[_Request]) -> None:
@@ -1541,6 +1979,26 @@ class ContinuousBatcher:
         del self.slot_req[slot]
         self.active[slot] = False
         self._release_pages(slot)
+        if self.spec_gamma:
+            # the next occupant starts optimistic, at full γ
+            self._accept_ema[slot] = 1.0
+            self._gcap[slot] = self.spec_gamma
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Accepted draft tokens per proposal, over every verify tick's
+        active slots (0.0 on an engine that never drafted)."""
+        return (self.spec_drafts_accepted / self.spec_drafts_proposed
+                if self.spec_drafts_proposed else 0.0)
+
+    @property
+    def spec_tokens_per_tick(self) -> float:
+        """Mean tokens a slot banks a verify tick (accepted drafts + the
+        correction); 0.0 on an engine that never drafted."""
+        if not self.spec_drafts_proposed:
+            return 0.0
+        ticks_slots = self.spec_drafts_proposed / self.spec_gamma
+        return 1.0 + self.spec_drafts_accepted / ticks_slots
 
     def _maybe_evict(self) -> None:
         """Drop cold PROMPT pages from decoding slots.

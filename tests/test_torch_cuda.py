@@ -1016,3 +1016,124 @@ def test_dense_engine_graph_tokens_equal_eager(dev):
     assert eng._graph is not None and eager._graph is None
     assert eng.graph_stats["tally"] == {} and not any(launched.values())
     assert len(got) == 5
+
+
+# -- speculative decoding: the verify's folded shape and the spec engine ------
+
+@pytest.mark.parametrize("gamma", [4, 2])
+@pytest.mark.parametrize("fmt", ["bf16", "q8", "q4g16"])
+def test_paged_kernels_at_the_verify_shape(dev, fmt, gamma):
+    """Kernels 4-6 at the speculative verify's shape: γ + 1 positions of
+    Llama-3-8B's 32 query heads folded over 8 kv heads for 8 rows (q [8,
+    32(γ+1), 128] bf16: groups of 20 or 12, cut into query chunks of 8 +
+    8 + 4 or 8 + 4 in one launch), pages of 128, histories of 200-576
+    keys; against the plain version (o 1e-2, m 1e-3, l 1e-3 relative) and
+    equal bits on two launches."""
+    from kubegpu_tpu_torch.ops import kvquant
+    g = torch.Generator(device=dev).manual_seed(gamma)
+    hq, n_pages = 32 * (gamma + 1), 41
+    shape = (2, n_pages, 8, 128, 128)
+    pk, pv = (torch.randn(shape, generator=g, device=dev).bfloat16()
+              for _ in range(2))
+    q = torch.randn((8, hq, 128), generator=g, device=dev).bfloat16()
+    i32 = dict(dtype=torch.int32, device=dev)
+    pt = (torch.arange(1, 41, **i32).view(8, 5))
+    pt = torch.cat([pt, torch.zeros((8, 7), **i32)], dim=1)
+    t = torch.randint(200, 513, (8,), generator=g, device=dev).int()
+    tpad = torch.full((8,), 512, **i32)
+    d = torch.randint(0, 65, (8,), generator=g, device=dev).int()
+    if fmt == "bf16":
+        pools = (pk, pv, None, None)
+    elif fmt == "q8":
+        (kq, ks), (vq, vs) = kvquant.quantize_rows(pk), \
+            kvquant.quantize_rows(pv)
+        pools = (kq, vq, ks, vs)
+    else:
+        (kq, ks), (vq, vs) = (kvquant.quantize_groups_q4(x, 16)
+                              for x in (pk, pv))
+        pools = (kq, vq, ks, vs)
+    args = (q, pools[0], pools[1], pt, 1, t, tpad, d, pools[2], pools[3])
+    got = pa.paged_attention(*args)
+    again = pa.paged_attention(*args)
+    ref = pa.paged_attention_ref(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert (got[0] - ref[0]).abs().max().item() <= 1e-2
+    assert (got[1] - ref[1]).abs().max().item() <= 1e-3
+    assert ((got[2] - ref[2]).abs() / ref[2].clamp(min=1e-30)).max() <= 1e-3
+
+
+SPEC_ENGINE = dict(n_slots=3, max_len=48, stride=4, prompt_buckets=(16, 24),
+                   paged=True, page_size=8, debug_invariants=True,
+                   spec_gamma=3, draft_layers=1)
+
+
+def _spec_serve(params, cfg, dev, **kw):
+    """warmup(), then 3 requests up front and 2 more after two steps;
+    returns (tokens by rid, engine, launches by kernel after warmup)."""
+    from kubegpu_tpu_torch.models import ContinuousBatcher
+    eng = ContinuousBatcher(params, cfg, device=dev, **{**SPEC_ENGINE, **kw})
+    eng.warmup()
+    before = dict(kernels.launches)
+    prompts = [[(7 * j + 3 * i + 1) % cfg.vocab_size for i in range(21)]
+               for j in range(5)]
+    for p, n in zip(prompts[:3], (8, 5, 11)):
+        eng.submit(p, n)
+    done = eng.step() + eng.step()
+    for p, n in zip(prompts[3:], (6, 9)):
+        eng.submit(p, n)
+    done += eng.drain()
+    launched = {k: kernels.launches[k] - before[k] for k in before}
+    return {r.rid: r.tokens for r in done}, eng, launched
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "int4"])
+def test_spec_engine_graph_tokens_equal_eager(dev, fmt):
+    """The spec tick replayed from its CUDA graph gives the eager tick's
+    tokens bit for bit, with fused ticks too; its tally is the format's
+    paged kernel γ·draft_layers + n_layers times, and every spec tick of
+    the window counts it once."""
+    kw, name = GRAPH_FORMATS[fmt]
+    cfg, params = _tiny_bf16_llama(dev)
+    got, eng, launched = _spec_serve(params, cfg, dev, **kw)
+    want, eager, eager_launched = _spec_serve(params, cfg, dev, graphs=False,
+                                              **kw)
+    fused, _, _ = _spec_serve(params, cfg, dev, fused_ticks=4, **kw)
+    assert got == want == fused
+    per_tick = 3 * 1 + cfg.n_layers
+    assert eng.graph_stats["tally"] == {name: per_tick}
+    assert eager._graph is None
+    for e, n in ((eng, launched), (eager, eager_launched)):
+        assert e.spec_ticks == e._tick > 0
+        assert n[name] == e.spec_ticks * per_tick
+        assert sum(n.values()) == n[name]
+    assert len(got) == 5 and len(eng._free_pages) == eng.total_pages
+
+
+def test_spec_degrade_replays_warm_graphs(dev):
+    """With ``spec_degrade_after``, ``warmup()`` captures the spec tick
+    and the plain one: the engine degrades mid-window, and serving neither
+    captures nor grows the paged kernels' scratch; the tokens are an eager
+    engine's."""
+    cfg, params = _tiny_bf16_llama(dev)
+    from kubegpu_tpu_torch.models import ContinuousBatcher
+    eng = ContinuousBatcher(params, cfg, device=dev, spec_degrade_after=1,
+                            **SPEC_ENGINE)
+    eng.warmup()
+    graphs = dict(eng._graphs)
+    assert set(graphs) == {"spec", "plain"}
+    scratch = {d: parts for d, (parts, _) in pa._split_buffers.items()}
+    captured = dict(kernels.captured)
+    got, _, _ = _spec_serve(params, cfg, dev, graphs=False,
+                            spec_degrade_after=1)
+    prompts = [[(7 * j + 3 * i + 1) % cfg.vocab_size for i in range(21)]
+               for j in range(5)]
+    rids = [eng.submit(p, n) for p, n in zip(prompts[:3], (8, 5, 11))]
+    done = eng.step() + eng.step()
+    rids += [eng.submit(p, n) for p, n in zip(prompts[3:], (6, 9))]
+    done += eng.drain()
+    assert eng.spec_degraded and 0 < eng.spec_ticks < eng._tick
+    assert eng._graphs == graphs and kernels.captured == captured
+    got_eng = {r.rid: r.tokens for r in done}
+    assert got_eng == got
+    assert all(pa._split_buffers[d][0] is parts
+               for d, parts in scratch.items())

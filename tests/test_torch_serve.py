@@ -85,10 +85,11 @@ def test_page_accounting_matches_reference(tiny):
 LIFECYCLE = "pools, fleet and llama_serve"
 LATER_KNOBS = {
     "max_retries": (2, 0, LIFECYCLE),
-    "spec_adaptive": (True, False, "speculative decode"),
-    "spec_degrade_after": (None, 3, "speculative decode"),
+    "collect_overlap": (False, True, LIFECYCLE),
     "donate": (True, False, LIFECYCLE),
 }
+# ported knobs whose defaults must keep serving the plain greedy tokens
+SPEC_DEFAULTS = {"spec_adaptive": True, "spec_degrade_after": None}
 LATER_SUBMIT = {
     "deadline_s": (None, 5.0, LIFECYCLE),
     "deadline_ticks": (None, 4, LIFECYCLE),
@@ -99,10 +100,9 @@ LATER_SUBMIT = {
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("top_k", 4), ("sampling", True), ("seed", 1), ("draft_layers", 1),
-    ("spec_gamma", 2), ("eos_id", 2), ("mesh", object()),
+    ("top_k", 4), ("sampling", True), ("seed", 1), ("mesh", object()),
     ("metrics", object()), ("chaos", object()), ("tracer", object()),
-    ("tenant_quotas", {"a": 1}), ("collect_overlap", True),
+    ("tenant_quotas", {"a": 1}),
     *((k, v[1]) for k, v in LATER_KNOBS.items()),
     *((f"submit:{k}", v[1]) for k, v in LATER_SUBMIT.items()),
 ])
@@ -123,7 +123,7 @@ def test_unported_knobs_raise(tiny, knob, value):
         ts.ContinuousBatcher(params_t, cfg, **kw)
 
 
-@pytest.mark.parametrize("knob", [*LATER_KNOBS, *(
+@pytest.mark.parametrize("knob", [*LATER_KNOBS, *SPEC_DEFAULTS, *(
     f"submit:{k}" for k in LATER_SUBMIT)])
 def test_reference_defaults_are_accepted(tiny, knob):
     """Each of these knobs at the reference's default: the engine builds,
@@ -134,6 +134,8 @@ def test_reference_defaults_are_accepted(tiny, knob):
     if knob.startswith("submit:"):
         name = knob.split(":")[1]
         sub[name] = LATER_SUBMIT[name][0]
+    elif knob in SPEC_DEFAULTS:
+        kw[knob] = SPEC_DEFAULTS[knob]
     else:
         kw[knob] = LATER_KNOBS[knob][0]
     eng = ts.ContinuousBatcher(params_t, cfg, **kw)
@@ -142,6 +144,26 @@ def test_reference_defaults_are_accepted(tiny, knob):
     (done,) = eng.drain()
     assert done.tokens == td.greedy_generate(params_t, [p], 5, cfg,
                                              device="cpu")[0].tolist()
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(paged=False, spec_gamma=2), "requires paged=True"),
+    (dict(spec_gamma=2, draft_layers=3), "draft_layers 3 not in"),
+    (dict(spec_gamma=2, draft_layers=0), "draft_layers 0 not in"),
+    (dict(spec_gamma=8), "page_size"),
+    (dict(spec_gamma=2, evict_policy="window"), "evict_policy rides"),
+], ids=["dense", "draft_too_deep", "draft_empty", "gamma_past_page",
+        "eviction"])
+def test_spec_knob_validation(tiny, kw, match):
+    """The speculative knobs' ``ValueError``s, with the reference's
+    messages: speculation on the dense engine, a draft deeper than the
+    model (L + 1 = 3) or empty, γ + 1 past a page of 8, and eviction."""
+    cfg_j, params_j, cfg, params_t = tiny
+    with pytest.raises(ValueError, match=match) as want:
+        JaxBatcher(params_j, cfg_j, **{**ENGINE, **kw})
+    with pytest.raises(ValueError, match=match) as got:
+        ts.ContinuousBatcher(params_t, cfg, device="cpu", **{**ENGINE, **kw})
+    assert str(got.value) == str(want.value)
 
 
 def test_max_wave_caps_waves_as_the_reference(tiny):
