@@ -107,15 +107,31 @@ printed as it ends (any failed check exits non-zero):
    ``quantize_t5`` weights (tokens in range, tokens/s beside bf16's);
    ``make_t5_train_step``
    with ``adamw(1e-3)`` on one fixed batch (encoder [8, 512], decoder [8,
-   128]): one warm and three timed steps.
+   128]): one warm and three timed steps;
+9. llama_serve — the workload program the cluster schedules: first kernels
+   4-6 at its bench shape (q [32, 16, 128] bf16 over 4 kv heads, pages of
+   128, 1024-1176 keys a row; two launches with equal bits, the time, the
+   bound and its share), then ``python -m
+   kubegpu_tpu_torch.workloads.programs.llama_serve`` with a whole-card
+   grant's env (``KUBETPU_HBM_GIB=80``, ``TPU_WORKER_ID=0``,
+   ``KUBETPU_REQUIRE_PALLAS=1``; auto picks the bench config: int8 weights,
+   32 x 1024 x 128) in its static and its continuous mode (96 requests on
+   32 slots, int8 pages): rc 0 and the reference program's metric names in
+   order, occupancy in (0, 1], peak state bytes >= state bytes > 0; then
+   ``_serve_continuous`` in process on the bench config with 32 requests,
+   once per pool format (kernel 4, 5 or 6, and no other of them, launched
+   stride x n_layers times a tick and for warmup's tick) and once traced
+   (a valid Chrome trace with one ``request`` span a request, tokens/s
+   beside the untraced run), and on Llama-3-8B's bf16 weights (int8 pages
+   by the program's rule).
 
-Eight paths are driven: serving (phases 4-5), the prefix cache (5f),
+Nine paths are driven: serving (phases 4-5), the prefix cache (5f),
 speculative serving (5g),
 quantized serving (5b),
 int8-weight serving (5c), the static path and the dense engine (5d-5e,
 which run no kernel of the port, as the reference runs no Pallas kernel
-there), training (phase 7's steps) and T5 paged serving (phase 8's bf16
-paged calls).  Launch counters are zeroed just before each and read just
+there), training (phase 7's steps), T5 paged serving (phase 8's bf16
+paged calls) and the program's in-process engine runs (phase 9).  Launch counters are zeroed just before each and read just
 after; a graph replay counts the launches captured in it.  The serving
 and training paths must run kernels 1-3 on their tensor-core instances
 only.  The line
@@ -2631,6 +2647,278 @@ def t5_phase(torch, kernels, gen, name, cfg=None, profile=False) -> dict:
             "training": training}
 
 
+# -- phase 9: the workload program -----------------------------------------
+
+PROGRAM = "kubegpu_tpu_torch.workloads.programs.llama_serve"
+# the env a whole-card grant gets from the crishim; strict mode makes any
+# engine fallback of the program an error
+POD_ENV = {"KUBETPU_HBM_GIB": "80", "TPU_WORKER_ID": "0",
+           "KUBETPU_REQUIRE_PALLAS": "1"}
+# the reference program's metric names, in the order it prints them (the
+# CPU tests hold these lists to its output)
+STATIC_METRICS = (
+    "serve_decode_tokens_per_s", "serve_e2e_tokens_per_s", "serve_cfg_batch",
+    "serve_cfg_prompt", "serve_cfg_steps", "serve_cfg_int8",
+    "serve_phase_prefill_ms", "serve_phase_decode_ms", "serve_phase_e2e_ms")
+CONTINUOUS_METRICS = (
+    "serve_engine_tokens_per_s", "serve_engine_occupancy",
+    "serve_engine_cfg_slots", "serve_engine_cfg_prompt",
+    "serve_engine_cfg_steps", "serve_engine_cfg_stride",
+    "serve_engine_cfg_requests", "serve_engine_cfg_paged",
+    "serve_engine_cfg_tp", "serve_engine_cfg_dp",
+    "serve_engine_cfg_mesh_devices", "serve_engine_cfg_kv_int8",
+    "serve_engine_cfg_int8_weights", "serve_engine_cfg_prefix_cache",
+    "serve_engine_cfg_chunked_prefill", "serve_engine_cfg_spec_gamma",
+    "serve_engine_cfg_fused_k", "serve_fused_dispatches",
+    "serve_engine_cfg_draft_layers", "serve_engine_spec_accept_rate",
+    "serve_engine_spec_tokens_per_tick", "serve_engine_phase_warmup_ms",
+    "serve_engine_phase_drain_ms", "serve_engine_waves", "serve_engine_ticks",
+    "serve_engine_stall_p50_ms", "serve_engine_stall_p99_ms",
+    "serve_failover_total", "serve_requests_retried",
+    "serve_slots_quarantined", "serve_requests_shed", "serve_hbm_pool_bytes",
+    "serve_hbm_peak_bytes", "serve_goodput_tokens_per_s",
+    "serve_requests_preempted", "serve_requests_resumed",
+    "serve_deadline_miss", "serve_routing_affinity_hits",
+    "serve_autoscale_events", "serve_replicas_active", "serve_kv_bits",
+    "serve_pages_evicted_total", "serve_kv_quality_delta")
+# the program's bench traffic: 32 slots, prompts of 1024, 128 steps, its
+# engine's stride and pages; 32 requests for the in-process runs
+BENCH = {"slots": 32, "prompt": 1024, "steps": 128, "stride": 16,
+         "page": 128, "reqs": 32}
+# (label, env, the paged kernel the run's pool format runs)
+PROGRAM_RUNS = (("kv16", {"SERVE_KV_BITS": "16"}, "paged_decode"),
+                ("kv8", {}, "paged_decode_q8"),
+                ("kv4", {"SERVE_KV_BITS": "4"}, "paged_decode_q4"),
+                ("kv8-traced", {"SERVE_TRACE": "1"}, "paged_decode_q8"))
+
+
+def metric_lines(text: str) -> dict:
+    """{metric: value} of the program's JSON metric lines, in order."""
+    out = {}
+    for ln in text.splitlines():
+        if ln.startswith("{") and '"metric"' in ln:
+            m = json.loads(ln)
+            out[m["metric"]] = m["value"]
+    return out
+
+
+def program_env(extra: dict) -> dict:
+    """This process's env without any serving or allocation knob, plus the
+    pod's and ``extra``."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("SERVE_", "KUBETPU_", "TPU_"))}
+    return {**env, **POD_ENV, **extra}
+
+
+def program_run(label: str, names: tuple, extra: dict,
+                timeout: int = 600) -> dict:
+    """``python -m`` the port's program as the pod runs it (``POD_ENV``
+    plus ``extra``); rc must be 0 and its metric names ``names``, in
+    order.  Returns the metrics and the command's wall seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = program_env(extra)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", PROGRAM], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"llama_serve {label}: rc {r.returncode}\n"
+          f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    got = metric_lines(r.stdout)
+    check(tuple(got) == names, f"llama_serve {label}: metric names "
+          f"{list(got)} differ from the reference program's")
+    return {"metrics": got, "wall_s": wall}
+
+
+def program_shape_checks(torch, gen) -> dict:
+    """Kernels 4-6 at ``llama_serve.py``'s bench shape (q [32, 16, 128]
+    bf16 over 4 kv heads, pages of 128, prompts of 1024 and 0-152 flushed
+    decode keys a row, in the engine's table of 18 pages) against
+    ``paged_attention_ref``: o within 1e-2, m within 1e-3, l within 1e-3
+    relative, equal bits on two launches; times, the bound from this data's
+    bytes and operations, and the share of the bound."""
+    pa = importlib.import_module("kubegpu_tpu_torch.ops.paged_attention")
+    kvq = importlib.import_module("kubegpu_tpu_torch.ops.kvquant")
+    b, hq, hkv, page, t = BENCH["slots"], 16, 4, BENCH["page"], 1024
+    ds = [int(x) for x in torch.randint(0, 153, (b,), generator=gen,
+                                        device="cuda")]
+    # 8 prompt pages and 2 decode pages a row, the rest of 18 empty
+    rows = [(list(range(1 + 10 * i, 11 + 10 * i)) + [0] * 8, t, t, d)
+            for i, d in enumerate(ds)]
+    q, pk, pv, pt, tv, tpad, dv = paged_case(
+        torch, gen, torch.bfloat16, 8, 1 + 10 * b, hkv, page, 128, hq, rows)
+    pools = {"bf16": (pk, pv, None, None),
+             "q8": quantize_pool(torch, kvq, pk, pv, "q8"),
+             "q4g16": quantize_pool(torch, kvq, pk, pv, "q4g16")}
+    valid = sum(r[1] + r[3] for r in rows)
+    groups = sum(-(-r[1] // 16) + -(-r[3] // 16) for r in rows)
+    kv_bytes = {"bf16": valid * hkv * 128 * 2 * 2,
+                "q8": valid * hkv * (128 + 4) * 2,
+                "q4g16": (valid * 64 + groups * 4) * hkv * 2}
+    fixed = (b * hq * 128 * 2 + b * 18 * 4 + 3 * b * 4
+             + b * hq * (128 + 2) * 4)          # q, table, state, o/m/l
+    flops = 4 * hq * 128 * valid
+    out = {}
+    for fmt, (kq, vq, ks, vs) in pools.items():
+        args = (q, kq, vq, pt, 7, tv, tpad, dv, ks, vs)
+        got = pa.paged_attention(*args)
+        again = pa.paged_attention(*args)
+        ref = pa.paged_attention_ref(*args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"program-shape paged {fmt}: two launches differ")
+        err = max_err(got[0], ref[0])
+        m_err = max_err(got[1], ref[1])
+        l_rel = ((got[2] - ref[2]).abs() / ref[2].clamp(min=1e-30)).max().item()
+        check(err <= 1e-2, f"program-shape paged {fmt}: o max |err| {err}")
+        check(m_err <= 1e-3 and l_rel <= 1e-3,
+              f"program-shape paged {fmt}: m err {m_err} / l rel err {l_rel}")
+        r = {"max_abs_err": err, "m_err": m_err, "l_rel_err": l_rel,
+             "ms": cuda_ms(lambda: pa.paged_attention(*args)),
+             "plain_ms": cuda_ms(lambda: pa.paged_attention_ref(*args),
+                                 reps=5),
+             "library_ms": None}   # no PyTorch call reads a page table
+        r["bound_ms"], r["bound_by"] = bound_ms(fixed + kv_bytes[fmt], flops,
+                                                torch.bfloat16)
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        log("program", kernel=f"paged {fmt}", case=f"llama_serve bench shape "
+            f"q [{b}, {hq}, 128] bf16 over {hkv} kv heads, {valid} valid "
+            "keys, two launches equal", max_abs_err=err, tol=1e-2,
+            m_err=m_err, l_rel_err=l_rel, ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            share_of_bound=r["share_of_bound"])
+        out[fmt] = r
+    return out
+
+
+def continuous_run(torch, kernels, label, cfg, params, int8, extra,
+                   kernel) -> dict:
+    """One in-process ``_serve_continuous`` at the bench traffic with
+    ``SERVE_REQS=32`` and the pod's env plus ``extra``: rc 0, the reference's
+    metric names, and ``kernel`` (and no other of kernels 4-6) launched
+    ``n_layers`` times a decode step: ``stride × n_layers`` for warmup's
+    eager tick and for each tick dispatched."""
+    import contextlib
+    import io
+    from kubegpu_tpu_torch.workloads.programs import distributed, llama_serve
+    saved = dict(os.environ)
+    os.environ.clear()
+    os.environ.update(program_env({"SERVE_REQS": str(BENCH["reqs"]),
+                                   **extra}))
+    try:
+        buf = io.StringIO()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = llama_serve._serve_continuous(
+                distributed.read_env(), cfg, params, BENCH["slots"],
+                BENCH["prompt"], BENCH["steps"], int8, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+    check(rc == 0, f"{label}: _serve_continuous returned {rc}")
+    got = metric_lines(buf.getvalue())
+    names = CONTINUOUS_METRICS + (("serve_trace_spans",)
+                                  if "SERVE_TRACE" in extra else ())
+    check(tuple(got) == names, f"{label}: metric names {list(got)}")
+    ticks = got["serve_engine_ticks"]
+    want = BENCH["stride"] * cfg.n_layers * (ticks + 1)
+    check(launches[kernel] == want,
+          f"{label}: {kernel} ran {launches[kernel]} times, not stride × "
+          f"n_layers × (ticks + warmup's tick) = {want}")
+    others = [k for k in PAGED_KERNELS if k != kernel and launches[k]]
+    check(not others, f"{label}: {others} also ran")
+    check(0 < got["serve_engine_occupancy"] <= 1
+          and got["serve_hbm_peak_bytes"] >= got["serve_hbm_pool_bytes"] > 0,
+          f"{label}: occupancy or state bytes out of range: {got}")
+    log("program", run=label, wall_s=round(wall, 2), launches={
+        k: launches[k] for k in ("flash_fwd", *PAGED_KERNELS)},
+        **{k.replace("serve_", ""): got[k] for k in (
+            "serve_engine_tokens_per_s", "serve_engine_occupancy",
+            "serve_engine_waves", "serve_engine_ticks",
+            "serve_engine_stall_p50_ms", "serve_engine_stall_p99_ms",
+            "serve_kv_bits", "serve_hbm_pool_bytes",
+            "serve_engine_phase_warmup_ms", "serve_engine_phase_drain_ms")})
+    return {"metrics": got, "launches": launches, "wall_s": wall}
+
+
+def program_phase(torch, kernels, gen, name, bench_cfg=None,
+                  full_cfg=None) -> dict:
+    """Phase 9: ``llama_serve.py`` as the pod runs it.  (e) kernels 4-6 at
+    the program's shape first; (a) the static and (b) the continuous mode
+    as ``python -m`` subprocesses with a whole-card grant's env (auto picks
+    the bench config); (c) ``_serve_continuous`` in process on the bench
+    config with int8 weights, one run per pool format and a traced one;
+    (d) ``_serve_continuous`` on Llama-3-8B's bf16 weights."""
+    from kubegpu_tpu_torch.models import LlamaConfig, llama_init
+    from kubegpu_tpu_torch.models.quant import quantize_llama
+    from kubegpu_tpu_torch.obs.spans import validate_chrome_trace
+    from kubegpu_tpu_torch.workloads.programs.llama_serve import (
+        llama_bench_config)
+    out = {"program_shape": program_shape_checks(torch, gen)}
+    torch.cuda.empty_cache()
+    static = program_run("static", STATIC_METRICS, {})
+    log("program", mode="static", wall_s=round(static["wall_s"], 1),
+        **static["metrics"])
+    cont = program_run("continuous", CONTINUOUS_METRICS,
+                       {"SERVE_MODE": "continuous"})
+    m = cont["metrics"]
+    check(0 < m["serve_engine_occupancy"] <= 1,
+          f"continuous: occupancy {m['serve_engine_occupancy']}")
+    check(m["serve_hbm_peak_bytes"] >= m["serve_hbm_pool_bytes"] > 0,
+          f"continuous: state bytes {m['serve_hbm_pool_bytes']} / peak "
+          f"{m['serve_hbm_peak_bytes']}")
+    check((m["serve_engine_cfg_slots"], m["serve_engine_cfg_requests"],
+           m["serve_kv_bits"]) == (BENCH["slots"], 3 * BENCH["slots"], 8),
+          "continuous: the pod did not serve the bench traffic on int8 "
+          "pages")
+    log("program", mode="continuous", wall_s=round(cont["wall_s"], 1),
+        **{k.replace("serve_", ""): m[k] for k in (
+            "serve_engine_tokens_per_s", "serve_engine_waves",
+            "serve_engine_ticks", "serve_engine_stall_p50_ms",
+            "serve_engine_stall_p99_ms", "serve_hbm_pool_bytes",
+            "serve_hbm_peak_bytes", "serve_engine_occupancy")})
+    out.update(static=static, continuous=cont)
+    # (c) the bench config in process, int8 weights as the program has them
+    cfg = bench_cfg or llama_bench_config()
+    params = quantize_llama(llama_init(cfg, seed=0, device="cuda"))
+    trace_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "build", "llama_serve_trace.json")
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+    runs = {}
+    for label, extra, kernel in PROGRAM_RUNS:
+        if "SERVE_TRACE" in extra:
+            extra = {**extra, "SERVE_TRACE_OUT": trace_path}
+        runs[label] = continuous_run(torch, kernels, label, cfg, params, True,
+                                     extra, kernel)
+    with open(trace_path) as f:
+        events = validate_chrome_trace(f.read())
+    n_req = sum(e["ph"] == "X" and e["name"] == "request" for e in events)
+    check(n_req == BENCH["reqs"], f"traced run: {n_req} request spans, not "
+          f"{BENCH['reqs']}")
+    traced = runs["kv8-traced"]["metrics"]["serve_engine_tokens_per_s"]
+    untraced = runs["kv8"]["metrics"]["serve_engine_tokens_per_s"]
+    log("program", trace_events=len(events), request_spans=n_req,
+        spans=runs["kv8-traced"]["metrics"]["serve_trace_spans"],
+        traced_tokens_per_s=traced, untraced_tokens_per_s=untraced)
+    out["runs"] = runs
+    del params
+    torch.cuda.empty_cache()
+    # (d) full width: Llama-3-8B's bf16 weights, kernel 5 by the kv_int8 rule
+    full = full_cfg or LlamaConfig.llama3_8b()
+    params = llama_init(full, seed=SEED, device="cuda")
+    out["llama3_8b"] = continuous_run(torch, kernels, "llama3-8b", full,
+                                      params, False, {}, "paged_decode_q8")
+    del params
+    torch.cuda.empty_cache()
+    out["launches"] = {k: sum(r["launches"][k] for r in (
+        *runs.values(), out["llama3_8b"])) for k in kernels.launches}
+    return out
+
+
 def ptxas_instances(text: str) -> list:
     """Each kernel instance of an ``-Xptxas -v`` build log: its name
     (demangled by ``c++filt`` where the machine has it), registers a thread
@@ -2834,6 +3122,12 @@ def main(argv=None) -> int:
     t5_launches = t5_stats["serving"]["launches"]
     torch.cuda.empty_cache()
 
+    program = program_phase(torch, kernels, gen, name)
+    program_launches = program["launches"]
+    check(all(program_launches[k] > 0 for k in PAGED_KERNELS),
+          f"a paged kernel never ran on the program's path: "
+          f"{program_launches}")
+
     routes = {"flash_fwd": ("kubegpu_tpu_torch/csrc/flash_fwd.cu",
                             "kubegpu_tpu/ops/flash_attention.py:200"),
               "paged_decode": ("kubegpu_tpu_torch/csrc/paged_decode.cu",
@@ -2850,7 +3144,10 @@ def main(argv=None) -> int:
                   "kubegpu_tpu_torch/csrc/paged_decode_bias.cu",
                   "kubegpu_tpu/ops/paged_attention.py:567")}
     paths = (serve_launches, prefix_launches, spec_launches, quant_launches,
-             qw_launches, train_launches, t5_launches)
+             qw_launches, train_launches, t5_launches, program_launches)
+    # kernels 4-6 at llama_serve.py's bench shape, by their pool format
+    program_rows = {k: program["program_shape"][fmt]
+                    for k, fmt in zip(PAGED_KERNELS, ("bf16", "q8", "q4g16"))}
     # launches: each kernel's count over the paths that run it (the
     # forward runs on serving and training)
     line = {"kernels": [
@@ -2863,7 +3160,10 @@ def main(argv=None) -> int:
          **({"verify_shape": {g: {x: v[x] for x in (
              "ms", "plain_ms", "bound_ms", "max_abs_err")}
              for g, v in r["verify_shape"].items()}}
-            if "verify_shape" in r else {})}
+            if "verify_shape" in r else {}),
+         **({"program_shape": {x: program_rows[k][x] for x in (
+             "ms", "plain_ms", "bound_ms", "max_abs_err")}}
+            if k in program_rows else {})}
         for k, r in results.items()]}
     for r in line["kernels"]:
         check(all(isinstance(r[k], float) and math.isfinite(r[k])
@@ -2884,7 +3184,7 @@ def main(argv=None) -> int:
                "paged_mass": quant["bf16"], "paged_rounding": rounding,
                "profile": prof, "training": train,
                "flash_fwd_training_shape": fwd_train,
-               "t5": t5_stats,
+               "t5": t5_stats, "program": program,
                "launches": {"serving": serve_launches,
                             "prefix_cache": prefix_launches,
                             "speculative": spec_launches,
@@ -2892,7 +3192,8 @@ def main(argv=None) -> int:
                             "int8_weight_serving": qw_launches,
                             "static_and_dense": plain_launches,
                             "training": train_launches,
-                            "t5_paged_serving": t5_launches},
+                            "t5_paged_serving": t5_launches,
+                            "llama_serve": program_launches},
                "kernels": line["kernels"],
                "total_s": time.perf_counter() - t_start}
     if args.details:

@@ -77,6 +77,12 @@ on the CPU they are called directly.
 Tokens are greedy and bit-identical to a solo :func:`greedy_generate` at
 the tested f32 configurations; at other batch shapes a near-tied argmax
 may flip, as the reference documents.
+
+The engine keeps the reference's host-side accounting whatever the knobs
+(prefill waves, per-tick decode stall, busy ticks and the chip-tick cost
+ledger, the readout's and the host's wall a step, live state bytes) and,
+given a ``tracer``, its request spans; none of it runs inside a captured
+graph, and no traced value feeds device math.
 """
 
 from __future__ import annotations
@@ -108,6 +114,8 @@ from kubegpu_tpu_torch.models.llama import (
     unbind_layers,
 )
 from kubegpu_tpu_torch import kernels
+from kubegpu_tpu_torch.obs.cost import CostLedger
+from kubegpu_tpu_torch.obs.metrics import LiveBytesTracker
 from kubegpu_tpu_torch.ops.flash_attention import NEG_INF
 from kubegpu_tpu_torch.ops.kvquant import (
     Q4_ZERO_BYTE,
@@ -136,8 +144,6 @@ _LATER = {
     "tick_deadline_s": (None, "pools, fleet and llama_serve"),
     "tenant_quotas": (None, "pools, fleet and llama_serve"),
     "metrics": (None, "pools, fleet and llama_serve"),
-    "tracer": (None, "pools, fleet and llama_serve"),
-    "trace_ctx": (None, "pools, fleet and llama_serve"),
 }
 
 # The same for ``submit``'s keywords (the request lifecycle).
@@ -148,6 +154,19 @@ _LATER_SUBMIT = {
     "tenant": ("", "pools, fleet and llama_serve"),
     "deadline_ticks": (None, "pools, fleet and llama_serve"),
 }
+
+
+# per-tick accounting window (entries a list keeps), as the reference's
+_ACCT_CAP = 32768
+
+
+def _trim_acct(xs: list) -> None:
+    """Once an accounting list (``stall_ms``, ``wave_sizes``,
+    ``_tick_log``, ...) exceeds ``_ACCT_CAP`` entries, drop its oldest
+    entries down to half the cap, so an engine serving indefinitely holds
+    a bounded recent window (the reference's sweep)."""
+    if len(xs) > _ACCT_CAP:
+        del xs[:len(xs) - _ACCT_CAP // 2]
 
 
 def _refuse_later(table: dict, given: dict) -> None:
@@ -900,6 +919,38 @@ class ContinuousBatcher:
     the same way.  ``graphs=False`` runs both eagerly on the card instead.
     A capture or replay that fails raises.
 
+    Accounting, as the reference's: ``prefill_waves``, ``wave_sizes`` and
+    ``wave_log`` (k, bucket) a wave; a tick that dispatches appends its
+    host wall of eviction, admission and chunk work to ``stall_ms`` (and
+    its work to ``_tick_log``), adds its device ticks to ``busy_ticks``
+    and charges them to ``cost`` (a :class:`CostLedger`; prefilling slots
+    weigh the prompt tokens they prefilled this tick, decoding slots one);
+    every ``step()`` appends its wall less the readout's to
+    ``host_overhead_ms``, and a fused block's readout wall goes to
+    ``fused_block_ms``.  The tick is a graph replay on the card, so these
+    walls time the host's enqueue and its one sync, not device work, as
+    the reference's async dispatch does.  Every list keeps a bounded
+    window (:func:`_trim_acct`).  ``hbm`` (a
+    :class:`LiveBytesTracker`) samples, at every dispatch, the bytes of
+    the state tensors: the pool or cache leaves plus the slot vectors.
+    The port writes that state in place and holds no second handle, so
+    ``hbm_pool_bytes`` sits at 1x the state and equals
+    ``hbm_peak_bytes`` (the reference's donation gives the same 1x).
+    ``requests_retried``, ``slots_quarantined`` and ``requests_shed``
+    read 0: the quarantine, replay and shedding paths that count them
+    are not ported (ROADMAP.md queue 1: pools, fleet and llama_serve).
+    ``note_kv_quality`` records a measured ``kv_quality_delta``.
+
+    ``tracer`` (a :class:`kubegpu_tpu_torch.obs.spans.Tracer`) records
+    the reference's spans: ``engine.start`` (under ``trace_ctx``, a
+    decoded :class:`SpanContext`, when given), a ``request`` span a
+    request from ``submit`` to retirement (queue wait, TTFT, tokens and
+    per-token time as attributes), ``request.admit`` and
+    ``request.prefill_chunk`` instants, and an ``engine.tick`` span a
+    dispatching step with its ``engine.collect``, ``engine.admit`` and
+    ``engine.dispatch`` (``engine.verify``) children.  Each site is one
+    host-side ``is not None`` branch.
+
     Knobs of the reference engine outside this slice (``_LATER``; and
     ``submit``'s lifecycle keywords) are accepted at the reference's
     default and raise ``NotImplementedError`` naming their ROADMAP.md item
@@ -920,7 +971,7 @@ class ContinuousBatcher:
                  spec_gamma: int = 0, draft_layers: int | None = None,
                  spec_adaptive: bool = True,
                  spec_degrade_after: int | None = None,
-                 eos_id: int | None = None,
+                 eos_id: int | None = None, tracer=None, trace_ctx=None,
                  donate: bool = True, graphs: bool = True, device="cuda",
                  **later):
         _refuse_later(_LATER, later)
@@ -1157,8 +1208,34 @@ class ContinuousBatcher:
         self.chunks_run = 0          # prefill chunks dispatched
         self._decode_tokens = 0      # tokens produced by decode steps
         self.slot_steps = 0          # decode slot-steps spent
-        # k of each recent wave (a bounded window, as the reference trims it)
-        self.wave_sizes: deque[int] = deque(maxlen=32768)
+        self.prefill_waves = 0       # admission waves dispatched
+        self.wave_sizes: list[int] = []              # k of each wave
+        self.wave_log: list[tuple[int, int]] = []    # (k, bucket)
+        # per dispatching tick: the host wall (ms) of its eviction,
+        # admission and chunk work, and that work ("wave", k, bucket) /
+        # ("chunk", C)
+        self.stall_ms: list[float] = []
+        self._tick_log: list[dict] = []
+        self._tick_work: list = []
+        # chip-tick cost: each dispatch charges its k device ticks (one
+        # device) to the resident slots, a prefilling slot weighing the
+        # prompt tokens it prefilled this tick (filled at wave and chunk
+        # time), a decoding slot one unit
+        self.cost = CostLedger()
+        self.busy_ticks = 0
+        self._tick_prefill_tokens: dict[int, int] = {}
+        # the readout's wall a fused block, and each step()'s wall less its
+        # readout's (``_sync_ms_last``)
+        self.fused_block_ms: list[float] = []
+        self.host_overhead_ms: list[float] = []
+        self._sync_ms_last = 0.0
+        self.hbm = LiveBytesTracker()
+        # the fault-tolerance counters the reference prints; no path of
+        # the port increments them yet
+        self.requests_retried = 0
+        self.slots_quarantined = 0
+        self.requests_shed = 0
+        self.kv_quality_delta = 0.0
         # eviction: pages released so far; per-(slot, row-local page) EMA of
         # the attention mass; the in-flight block's mass, fetched in
         # _maybe_evict after the tick's one host sync
@@ -1182,6 +1259,19 @@ class ContinuousBatcher:
         self.spec_drafts_accepted = 0
         self.spec_degraded = False
         self._spec_reject_streak = 0
+        # -- request tracing: the anchor span roots the engine's tree,
+        # under the decoded inbound context when there is one
+        self._tracer = tracer
+        self._engine_anchor = None
+        if tracer is not None:
+            with tracer.span("engine.start", parent=trace_ctx,
+                             attrs={"n_slots": n_slots, "paged": paged,
+                                    "tp": 1,
+                                    "spec_gamma": self.spec_gamma}) as sp:
+                self._engine_anchor = sp.context
+        self._req_spans: dict[int, object] = {}   # rid -> open Span
+        self._submit_ts: dict[int, float] = {}    # rid -> submit wall
+        self._first_tok_ts: dict[int, float] = {}  # rid -> TTFT wall
 
     # -- the tick's static buffers ---------------------------------------
 
@@ -1323,6 +1413,12 @@ class ContinuousBatcher:
                        max_new_tokens=max_new_tokens, prompt=prompt_np,
                        admit_len=t, prefix_keys=keys)
         self._next_rid += 1
+        if self._tracer is not None:
+            self._submit_ts[req.rid] = time.perf_counter()
+            self._req_spans[req.rid] = self._tracer.start_span(
+                "request", parent=self._engine_anchor,
+                attrs={"rid": req.rid, "prompt_len": t,
+                       "max_new_tokens": max_new_tokens, "tier": 0})
         self.queue.append((req, padded))
         return req.rid
 
@@ -1507,6 +1603,7 @@ class ContinuousBatcher:
             true_lens = torch.tensor([r.admit_len for r, _ in wave],
                                      device=self.device)
             firsts, cache_w = self._prefill(padded, true_lens)
+            self.prefill_waves += 1
             self.wave_sizes.append(k)
             page_dst = None
             if self.paged:
@@ -1527,15 +1624,21 @@ class ContinuousBatcher:
             self._adopt(self._live, cache_w, page_dst,
                         torch.tensor(slots, device=self.device), firsts,
                         true_lens)
+            self._sample_hbm()
+            self.wave_log.append((k, bucket))
+            self._tick_work.append(("wave", k, bucket))
             self.prefill_tokens += sum(r.admit_len for r, _ in wave)
             for slot, (req, _) in zip(slots, wave):
                 remaining = req.remaining_new
                 self.active[slot] = remaining > 1
                 self.slot_req[slot] = req
+                self._tick_prefill_tokens[slot] = req.admit_len
                 self._await_first.add(slot)
                 self.emitted_tokens += 1
                 if remaining <= 1:
                     req.done = True
+                if self._tracer is not None:
+                    self._trace_admit(req, slot, "wave")
                 if self.paged:
                     # the adoption is ordered before any later read, so the
                     # next request of this loop may alias the pages already
@@ -1570,6 +1673,8 @@ class ContinuousBatcher:
             "padded": np.pad(padded[0], (0, self.prefill_chunk))}
         self.slot_req[slot] = req
         self.active[slot] = False
+        if self._tracer is not None:
+            self._trace_admit(req, slot, "chunk")
 
     def _run_prefill_chunks(self) -> None:
         """One prefill chunk for each prefilling slot, in slot order; a
@@ -1580,8 +1685,17 @@ class ContinuousBatcher:
             req = st["req"]
             t, c, start = req.admit_len, self.prefill_chunk, st["next"]
             self._run_chunk(slot, st["padded"][start:start + c], start, t)
+            self._sample_hbm()
             self.chunks_run += 1
+            self._tick_work.append(("chunk", c))
+            if self._tracer is not None:
+                self._tracer.instant(
+                    "request.prefill_chunk", self._req_spans.get(req.rid),
+                    attrs={"rid": req.rid, "slot": slot, "start": start,
+                           "chunk": c})
             self.prefill_tokens += min(t - start, c)
+            self._tick_prefill_tokens[slot] = (
+                self._tick_prefill_tokens.get(slot, 0) + min(t - start, c))
             st["next"] = start + c
             if st["next"] >= t:
                 activate_slot(self.first_toks, self.tokens, self.pos, slot,
@@ -1826,6 +1940,7 @@ class ContinuousBatcher:
         self._upload_tables(budget, k)
         for _ in range(k):
             self._run_tick("spec" if spec else "plain")
+        self._sample_hbm()
         self._inflight, self._inflight_k = self._slab, k
         self._inflight_spec, self._inflight_budget = spec, budget
         self._spec_active = self.active.copy() if spec else None
@@ -1840,24 +1955,155 @@ class ContinuousBatcher:
         """One engine tick: collect the previous block, retire finishers,
         evict cold pages (with an ``evict_policy``), admit into freed
         slots, run one prefill chunk for each prefilling slot, dispatch the
-        next block (without waiting for it).  Returns the requests that
-        finished."""
+        next block (without waiting for it), and account the step (see the
+        class docstring).  Returns the requests that finished."""
+        self._sync_ms_last = 0.0
+        t_tick = time.perf_counter()
         finished = self._collect()
+        t_col = time.perf_counter() if self._tracer is not None else 0.0
+        t_adm = time.perf_counter()
+        self._tick_work = []
         if self.evict_policy is not None:
             self._maybe_evict()
         self._admit()
         if self.paged:
             self._run_prefill_chunks()
+        # the host wall of the work decode slots waited behind this tick
+        stall = (time.perf_counter() - t_adm) * 1e3
         if self.slot_req:
+            t_d0 = time.perf_counter() if self._tracer is not None else 0.0
             self._dispatch_tick()
+            self._charge_chip_ticks()
+            self.stall_ms.append(stall)
+            self._tick_log.append({"tick": self._tick - 1,
+                                   "work": self._tick_work})
+            if self._tracer is not None:
+                self._trace_tick(t_tick, t_col, t_adm, stall, t_d0,
+                                 len(finished))
         if self.debug_invariants:
             self.check_page_invariants()
+        self._note_host_overhead(t_tick, self._sync_ms_last)
+        for xs in (self.stall_ms, self.wave_sizes, self.wave_log,
+                   self.fused_block_ms, self.host_overhead_ms,
+                   self._tick_log):
+            _trim_acct(xs)
         return finished
+
+    def _charge_chip_ticks(self) -> None:
+        """Charge the dispatch that just went out (``_inflight_k`` device
+        ticks on one device) to the resident slots, pro rata by work
+        units: a prefilling slot weighs the prompt tokens it prefilled this
+        tick, a decoding slot one unit.  Every request is the reference's
+        default tenant and tier ("", 0)."""
+        self.busy_ticks += self._inflight_k
+        entries = [("", 0, self._tick_prefill_tokens.get(slot, 0) or 1)
+                   for slot in sorted(self.slot_req)]
+        self.cost.charge(entries, self._inflight_k)
+        self._tick_prefill_tokens.clear()
+
+    def _note_host_overhead(self, t_tick: float, sync_ms: float) -> None:
+        """This step's wall less its readout's: the host work a fused
+        dispatch amortizes over K ticks."""
+        wall = (time.perf_counter() - t_tick) * 1e3
+        self.host_overhead_ms.append(max(wall - min(sync_ms, wall), 0.0))
+
+    def _state_bytes(self) -> tuple[int, int]:
+        """(pool or cache leaves' bytes, slot vectors' bytes) of the
+        engine's state."""
+        store = self.pool if self.paged else self.cache
+        leaves = sum(x.numel() * x.element_size() for x in store.values())
+        mirrors = sum(x.numel() * x.element_size()
+                      for x in (self.first_toks, self.tokens, self.pos))
+        return leaves, mirrors
+
+    def _sample_hbm(self) -> None:
+        self.hbm.sample(sum(self._state_bytes()))
+
+    @property
+    def hbm_pool_bytes(self) -> int:
+        """Live state bytes at the most recent dispatch (``serve_hbm_pool
+        _bytes``): the pool or cache leaves plus the slot vectors, 1x the
+        state (0 before the first dispatch)."""
+        return self.hbm.live
+
+    @property
+    def hbm_peak_bytes(self) -> int:
+        """Peak of :attr:`hbm_pool_bytes` over the engine's lifetime
+        (``serve_hbm_peak_bytes``)."""
+        return self.hbm.peak
+
+    def note_kv_quality(self, delta: float) -> None:
+        """Record the measured KV-compression quality delta (the fraction
+        of greedy tokens that diverge from a bf16 engine's over the same
+        traffic; a harness measures it, the engine reports it)."""
+        self.kv_quality_delta = float(delta)
+
+    # -- request tracing (each caller checks ``self._tracer is not None``)
+
+    def _trace_admit(self, req: _Request, slot: int, how: str) -> None:
+        """Queue wait ends here: the request owns a slot."""
+        t_sub = self._submit_ts.get(req.rid)
+        sp = self._req_spans.get(req.rid)
+        if sp is not None and t_sub is not None:
+            sp.set_attr("queue_wait_ms",
+                        round((time.perf_counter() - t_sub) * 1e3, 3))
+        self._tracer.instant(
+            "request.admit", sp, attrs={"rid": req.rid, "slot": slot,
+                                        "how": how})
+
+    def _trace_first_token(self, req: _Request) -> None:
+        """TTFT: the first generated token consumed on the host."""
+        if req.rid in self._first_tok_ts:
+            return
+        now = time.perf_counter()
+        self._first_tok_ts[req.rid] = now
+        t_sub = self._submit_ts.get(req.rid)
+        sp = self._req_spans.get(req.rid)
+        if sp is not None and t_sub is not None:
+            sp.set_attr("ttft_ms", round((now - t_sub) * 1e3, 3))
+
+    def _finish_request_trace(self, req: _Request) -> None:
+        """Close the request span with its token count and per-output-
+        token time (pops its state, so a second call does nothing)."""
+        t_first = self._first_tok_ts.pop(req.rid, None)
+        self._submit_ts.pop(req.rid, None)
+        sp = self._req_spans.pop(req.rid, None)
+        if sp is None:
+            return
+        now = time.perf_counter()
+        sp.set_attr("tokens", len(req.tokens))
+        if t_first is not None and len(req.tokens) > 1:
+            sp.set_attr("token_ms", round(
+                (now - t_first) * 1e3 / (len(req.tokens) - 1), 4))
+        sp.end(now)
+
+    def _trace_tick(self, t_tick: float, t_col: float, t_adm: float,
+                    stall: float, t_d0: float, n_finished: int) -> None:
+        """One ``engine.tick`` span a dispatching step, with its collect,
+        admit and dispatch (or verify) children, built from the phase
+        timestamps the step takes anyway."""
+        tr = self._tracer
+        now = time.perf_counter()
+        tick = tr.add_span(
+            "engine.tick", t_tick, now, parent=self._engine_anchor,
+            attrs={"tick": self._tick - 1, "spec": self._inflight_spec,
+                   "fused_k": self._inflight_k,
+                   "slots": len(self.slot_req)}).context
+        tr.add_span("engine.collect", t_tick, t_col, parent=tick,
+                    attrs={"finished": n_finished})
+        tr.add_span("engine.admit", t_adm, t_adm + stall / 1e3,
+                    parent=tick, attrs={"work": len(self._tick_work)})
+        tr.add_span("engine.verify" if self._inflight_spec
+                    else "engine.dispatch", t_d0, now, parent=tick)
 
     def _collect(self) -> list[_Request]:
         if self._inflight is None:
             return []
+        t0 = time.perf_counter()
         fused = self._inflight.cpu().numpy()    # THE host sync
+        self._sync_ms_last = (time.perf_counter() - t0) * 1e3
+        if self._inflight_k > 1:
+            self.fused_block_ms.append(self._sync_ms_last)
         self._inflight = None
         spec_active, self._spec_active = self._spec_active, None
         return self._consume(fused, self._inflight_k, self._inflight_spec,
@@ -1900,6 +2146,8 @@ class ContinuousBatcher:
             if slot in self._await_first:
                 req.tokens.append(int(firsts_np[slot]))
                 self._await_first.discard(slot)
+                if self._tracer is not None:
+                    self._trace_first_token(req)
                 if self._check_eos(req):
                     self._retire(slot, req, finished)
                     continue
@@ -1976,6 +2224,8 @@ class ContinuousBatcher:
                 finished: list[_Request]) -> None:
         req.done = True
         finished.append(req)
+        if self._tracer is not None:
+            self._finish_request_trace(req)
         del self.slot_req[slot]
         self.active[slot] = False
         self._release_pages(slot)

@@ -44,7 +44,9 @@ def test_no_jax_or_reference_imports(path):
 def test_import_leaves_jax_unloaded():
     code = ("import sys, kubegpu_tpu_torch.models, kubegpu_tpu_torch.ops, "
             "kubegpu_tpu_torch.convert, kubegpu_tpu_torch.kernels, "
-            "kubegpu_tpu_torch.optim; "
+            "kubegpu_tpu_torch.optim, kubegpu_tpu_torch.obs, "
+            "kubegpu_tpu_torch.ops.strict, "
+            "kubegpu_tpu_torch.workloads.programs.llama_serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

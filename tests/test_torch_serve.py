@@ -101,7 +101,7 @@ LATER_SUBMIT = {
 
 @pytest.mark.parametrize("knob,value", [
     ("top_k", 4), ("sampling", True), ("seed", 1), ("mesh", object()),
-    ("metrics", object()), ("chaos", object()), ("tracer", object()),
+    ("metrics", object()), ("chaos", object()), ("tick_deadline_s", 1.0),
     ("tenant_quotas", {"a": 1}),
     *((k, v[1]) for k, v in LATER_KNOBS.items()),
     *((f"submit:{k}", v[1]) for k, v in LATER_SUBMIT.items()),
