@@ -30,7 +30,12 @@ printed as it ends (any failed check exits non-zero):
    128] bf16: γ + 1 = 5 or 3 positions of 32 heads folded over 8 kv heads
    a row, groups of 20 and 12 cut into query chunks of 8 + 8 + 4 and 8 +
    4; histories of 200-576 keys), two launches with equal bits, with the
-   time, the bound and its share;
+   time, the bound and its share.  Kernels 4-6 also hold the chaos path's
+   NaN (at the serving rows, each pool format as the engine writes it): a
+   NaN on one row's valid key (``k``, or the int8/int4 ``k_scale``) makes
+   exactly that row non-finite, kernel and plain, and leaves every other
+   row equal to the clean run bit for bit; NaN at every masked position (a
+   recycled page's K and V or scales) reaches no output;
 4. forward  — ``llama_forward`` at Llama-3-8B full width, bf16, [1, 512];
 5. serving  — the paged ``ContinuousBatcher`` at the same width, its tick
    a CUDA graph captured by ``warmup()`` (eager run, capture and
@@ -123,15 +128,32 @@ printed as it ends (any failed check exits non-zero):
    stride x n_layers times a tick and for warmup's tick) and once traced
    (a valid Chrome trace with one ``request`` span a request, tokens/s
    beside the untraced run), and on Llama-3-8B's bf16 weights (int8 pages
-   by the program's rule).
+   by the program's rule);
+10. lifecycle — sampling and the request lifecycle at phase 5's engine
+   shape (``lifecycle_phase``): ``sampling=True, top_k=50, seed=7`` with
+   half the requests at temperature 0.8, on a graph, an eager and a
+   ``fused_ticks=4`` engine (equal tokens), ``seed=8`` (only the sampled
+   requests change) and a greedy engine (its tokens on the greedy ones);
+   the replayed tick's device ms, greedy against top_k 50 and 0; an int8
+   engine with ``nan_logits`` and ``fail_dispatch`` (one quarantine, one
+   replay, one retried dispatch); tier-1 requests preempted by a tier-0
+   one and resumed.  A replayed or resumed request's tokens before the
+   fault and every other request's equal the fault-free run's, and its
+   continuation equals a fresh run of its replay prompt; the share of that
+   continuation equal to the fault-free run's is printed, not held (the
+   replay's prefill computes the accepted tokens' K/V in another GEMM shape
+   than the decode did, and random weights' logits are near-tied).  At
+   phase 6's narrow f32 config the same chaos and tier scenarios give
+   every request the fault-free tokens.
 
-Nine paths are driven: serving (phases 4-5), the prefix cache (5f),
+Ten paths are driven: serving (phases 4-5), the prefix cache (5f),
 speculative serving (5g),
 quantized serving (5b),
 int8-weight serving (5c), the static path and the dense engine (5d-5e,
 which run no kernel of the port, as the reference runs no Pallas kernel
 there), training (phase 7's steps), T5 paged serving (phase 8's bf16
-paged calls) and the program's in-process engine runs (phase 9).  Launch counters are zeroed just before each and read just
+paged calls), the program's in-process engine runs (phase 9) and
+sampling with the request lifecycle (phase 10, run after 5e).  Launch counters are zeroed just before each and read just
 after; a graph replay counts the launches captured in it.  The serving
 and training paths must run kernels 1-3 on their tensor-core instances
 only.  The line
@@ -2919,6 +2941,381 @@ def program_phase(torch, kernels, gen, name, bench_cfg=None,
     return out
 
 
+# -- phase 3 (d): NaN propagation in kernels 4-6 ---------------------------
+
+def masked_positions(torch, slice_rows, n_pages: int, page: int,
+                     group: int = 1):
+    """[n_pages, page] mask of the pool positions that slice_rows' rows hold
+    but never attend: a prompt page's rows past t and the decode page's
+    rows past d (the bytes a recycled page keeps), whole groups of
+    ``group`` keys only (an int4 scale covers a group)."""
+    mask = torch.zeros(n_pages, page, dtype=torch.bool, device="cuda")
+    for pages, t, tpad, d in slice_rows:
+        for rl, pid in enumerate(pages):
+            phys = rl * page + torch.arange(page, device="cuda")
+            valid = (phys < t) | ((phys >= tpad) & (phys < tpad + d))
+            # a group is masked only if none of its keys is valid
+            gvalid = valid.view(-1, group).any(dim=1).repeat_interleave(group)
+            mask[pid] = ~gvalid
+    return mask
+
+
+def paged_nan_checks(torch, gen, slice_rows) -> dict:
+    """The chaos path's NaN on the card, kernels 4-6 against their plain
+    versions at the serving rows (bf16 queries, 32 heads over 8 kv heads,
+    pages of 128; a pool of 2 layers, layer 1), each format as the engine
+    writes it (int4 groups of 16):
+
+    - a NaN on a VALID key (the engine's ``poison_slot``: row 3's first
+      page, its ``k`` or, int8 and int4, its ``k_scale``): exactly row 3's
+      o is non-finite, kernel and plain, and every other row's (o, m, l)
+      equals the clean run's bit for bit;
+    - NaN at every MASKED position of every row (a recycled page's bytes:
+      prompt rows past t, decode rows past d; ``k`` and ``v``, or the
+      int8 and int4 scales, whole int4 groups only): every output stays
+      finite, the kernel's equal to its clean run's bit for bit and the
+      plain version's within the tolerance of the clean comparison."""
+    pa = importlib.import_module("kubegpu_tpu_torch.ops.paged_attention")
+    kvq = importlib.import_module("kubegpu_tpu_torch.ops.kvquant")
+    q, pk, pv, pt, t, tpad, d = paged_case(
+        torch, gen, torch.bfloat16, 2, 41, 8, 128, 128, 32, slice_rows)
+    nan = float("nan")
+    out = {}
+    for kname, fmt, tol in (("paged_decode", "bf16", 1e-2),
+                            ("paged_decode_q8", "q8", 1e-2),
+                            ("paged_decode_q4", "q4g16", 1e-2)):
+        pool = ((pk, pv, None, None) if fmt == "bf16"
+                else quantize_pool(torch, kvq, pk, pv, fmt))
+
+        def run(fn, pool):
+            res = fn(q, pool[0], pool[1], pt, 1, t, tpad, d, pool[2],
+                     pool[3])
+            torch.cuda.synchronize()
+            return res
+
+        clean = run(pa.paged_attention, pool)
+        # a NaN on a valid key of row 3
+        bad = [x.clone() if x is not None else None for x in pool]
+        leaf = 0 if fmt == "bf16" else 2
+        bad[leaf][:, slice_rows[3][0][0]] = nan
+        got, ref = run(pa.paged_attention, bad), run(pa.paged_attention_ref,
+                                                     bad)
+        for label, res in (("kernel", got), ("plain", ref)):
+            rows = (~torch.isfinite(res[0]).all(dim=(1, 2))).tolist()
+            check(rows == [i == 3 for i in range(len(slice_rows))],
+                  f"{kname} ({label}): a NaN on row 3's valid key made rows "
+                  f"{[i for i, r in enumerate(rows) if r]} non-finite")
+        others = [i for i in range(len(slice_rows)) if i != 3]
+        check(all(torch.equal(a[others], b[others])
+                  for a, b in zip(got, clean)),
+              f"{kname}: a row that never reads the NaN page changed")
+        # NaN at every masked position (a recycled page)
+        group = 1 if fmt != "q4g16" else 16
+        mask = masked_positions(torch, slice_rows, pk.shape[1], 128, group)
+        rec = [x.clone() if x is not None else None for x in pool]
+        # [L, n_pages, Hkv, P, ...] through its [L, n_pages, P, Hkv, ...]
+        # view: the (page, position) mask picks every layer's and head's
+        if fmt == "bf16":
+            for x in rec[:2]:
+                x.transpose(2, 3)[:, mask] = nan
+        else:
+            smask = mask.view(mask.shape[0], -1, group)[..., 0]
+            for x in rec[2:]:
+                x.transpose(2, 3)[:, smask] = nan
+        got, ref = run(pa.paged_attention, rec), run(pa.paged_attention_ref,
+                                                     rec)
+        check(all(torch.isfinite(x).all().item() for x in got + ref),
+              f"{kname}: NaN at masked positions reached an output")
+        check(all(torch.equal(a, b) for a, b in zip(got, clean)),
+              f"{kname}: NaN at masked positions changed the kernel's output")
+        err = max_err(got[0], ref[0])
+        check(err <= tol, f"{kname}: masked-NaN o max |err| {err} > {tol}")
+        log("kernels", kernel=kname, case=f"NaN {fmt}: a valid key's NaN "
+            "reaches its row only (others bit-equal); masked NaN "
+            f"({int(mask.sum())} positions) reaches no output",
+            max_abs_err=err, tol=tol)
+        out[fmt] = {"masked_positions": int(mask.sum()),
+                    "max_abs_err_masked": err}
+    return out
+
+
+# -- phase 10: sampling and the request lifecycle ---------------------------
+
+# the sampled engine's knobs: top-k 50, a common serving setting
+SAMPLED = dict(sampling=True, top_k=50)
+LIFECYCLE_NEW = 48
+
+
+def lifecycle_prompts(torch, cfg, gen, n: int = 8) -> list:
+    """``n`` prompts of 200-440 tokens: a replay's prompt (prompt plus the
+    tokens accepted before a quarantine or a park) still fits the 512
+    bucket."""
+    lens = torch.randint(200, 441, (n,), generator=gen, device="cuda")
+    return [torch.randint(0, cfg.vocab_size, (int(k),), generator=gen,
+                          device="cuda").tolist() for k in lens]
+
+
+def lifecycle_run(eng, prompts, n_new, temps=None, tiers=None,
+                  late=None) -> dict:
+    """Submit ``prompts`` (with ``temps`` and ``tiers``), then after two
+    steps the ``late`` (prompt, tier) requests, and drain; every request
+    must come back.  Returns tokens by rid (rids in submit order) and the
+    errors."""
+    n = len(prompts)
+    temps = temps or [0.0] * n
+    tiers = tiers or [0] * n
+    rids = [eng.submit(p, n_new, temperature=tp, tier=tr)
+            for p, tp, tr in zip(prompts, temps, tiers)]
+    done = eng.step() + eng.step()
+    rids += [eng.submit(p, n_new, tier=tr) for p, tr in late or ()]
+    done += eng.drain()
+    check(sorted(r.rid for r in done) == sorted(rids),
+          "phase 10: a request was lost or returned twice")
+    by_rid = {r.rid: r for r in done}
+    eng.check_page_invariants()
+    check(len(eng._free_pages) == eng.total_pages, "phase 10: pages leaked")
+    return {"tokens": [by_rid[r].tokens for r in rids],
+            "errors": [by_rid[r].error for r in rids]}
+
+
+def tick_ms(torch, eng, prompts) -> float:
+    """The device ms of one replayed plain tick with every slot decoding (8
+    requests of 112 new tokens, which fill the 40 pages, admitted and one
+    tick run): ``cuda_ms`` over 5 replays, the tick index reset before
+    each.  The engine is left mid-run: call it last on an engine."""
+    for p in prompts[:eng.n_slots]:
+        eng.submit(p, 112)
+    eng.step()
+    eng.step()
+    check(eng.active.all(), "tick_ms: not every slot is decoding")
+
+    def tick():
+        eng._tv["tk"].zero_()
+        eng._run_tick("plain")
+
+    return cuda_ms(tick, reps=5)
+
+
+def replay_checks(label, clean, got, rid, accepted, fresh) -> float:
+    """A quarantined or parked request against the clean run: every other
+    request's tokens equal, the replayed one's first ``accepted`` tokens
+    equal, and its continuation equal to ``fresh``, a clean engine's
+    tokens for the replay's own prompt (prompt + accepted tokens): the
+    replay is that request, bit for bit.  Returns the share of the
+    continuation equal to the clean run's (not held: the replay's prefill
+    computes the accepted tokens' K/V in another GEMM shape than the
+    decode steps did, and random weights' near-tied logits flip)."""
+    for i, (a, b) in enumerate(zip(clean, got)):
+        if i != rid:
+            check(a == b, f"{label}: rid {i}'s tokens differ from the "
+                  "clean run's")
+    check(got[rid][:accepted] == clean[rid][:accepted],
+          f"{label}: the replayed request's accepted tokens changed")
+    check(got[rid][accepted:] == fresh,
+          f"{label}: the replay differs from a fresh run of its prompt")
+    tail = list(zip(got[rid][accepted:], clean[rid][accepted:]))
+    return sum(a == b for a, b in tail) / max(len(tail), 1)
+
+
+def narrow_replays(torch) -> dict:
+    """Phase 10's chaos and tier scenarios at phase 6's narrow f32 config
+    (model-dtype pages of 16, 3 slots, stride 4): there f32 logits have no
+    near ties, so a quarantined request's replay and a parked request's
+    resume give the fault-free tokens, every request equal to the clean
+    run's and to ``greedy_generate``'s."""
+    from kubegpu_tpu_torch.models import (
+        ContinuousBatcher,
+        LlamaConfig,
+        greedy_generate,
+        llama_init,
+    )
+    from kubegpu_tpu_torch.obs.chaos import ChaosEvent, ChaosInjector
+    cfg = LlamaConfig.tiny(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+                           d_ff=512, vocab_size=512, max_seq_len=128)
+    params = llama_init(cfg, seed=SEED, device="cuda")
+    kw = dict(n_slots=3, stride=4, prompt_buckets=(16, 32), paged=True,
+              page_size=16, debug_invariants=True, device="cuda")
+    g = torch.Generator().manual_seed(SEED)
+    prompts = [torch.randint(0, 512, (t,), generator=g).tolist()
+               for t in (5, 9, 12, 7)]
+    n_new = 16
+    solo = [greedy_generate(params, [p], n_new, cfg,
+                            device="cuda")[0].tolist() for p in prompts]
+    clean = lifecycle_run(ContinuousBatcher(params, cfg, **kw), prompts[:3],
+                          n_new)
+    eng = ContinuousBatcher(params, cfg, chaos=ChaosInjector(
+        [ChaosEvent(2, "nan_logits"), ChaosEvent(3, "fail_dispatch")]), **kw)
+    chaos = lifecycle_run(eng, prompts[:3], n_new)
+    counts = (eng.slots_quarantined, eng.requests_retried,
+              eng.dispatch_failures)
+    check(counts == (1, 1, 1), f"narrow chaos: counters {counts}")
+    check(chaos["tokens"] == clean["tokens"] == solo[:3],
+          "narrow chaos: a replayed request differs from the fault-free run")
+    eng = ContinuousBatcher(params, cfg, **kw)
+    tiers = lifecycle_run(eng, prompts[:3], n_new, tiers=[1] * 3,
+                          late=[(prompts[3], 0)])
+    check(eng.requests_preempted >= 1
+          and eng.requests_resumed == eng.requests_preempted,
+          f"narrow tiers: preempted {eng.requests_preempted}, resumed "
+          f"{eng.requests_resumed}")
+    check(tiers["tokens"] == solo,
+          "narrow tiers: a resumed request differs from the unpreempted run")
+    log("lifecycle", part="narrow f32 (phase 6's config)",
+        quarantined_replay_equals_clean=True, preempted=eng.requests_preempted,
+        resumed_equals_unpreempted=True, equal_greedy_generate=True)
+    return {"chaos_counters": counts,
+            "requests_preempted": eng.requests_preempted}
+
+
+def lifecycle_phase(torch, kernels, cfg, params, gen, name) -> dict:
+    """Phase 10: sampling and the request lifecycle at phase 5's engine
+    shape (Llama-3-8B, bf16, 8 slots, pages of 128, 512 bucket):
+
+    (a) sampling -- ``sampling=True, top_k=50, seed=7``, 8 requests of 48
+        new tokens, half at temperature 0.8 and half greedy, on a graph
+        engine, an eager one and a ``fused_ticks=4`` one (equal tokens);
+        ``seed=8`` changes the sampled requests and only them; the greedy
+        requests equal a greedy engine's; then the replayed tick's device
+        ms, greedy against sampled with top_k 50 and 0 (one tick each,
+        every slot decoding);
+    (b) chaos -- ``kv_bits=8`` with ``nan_logits`` at tick 2 and
+        ``fail_dispatch`` at tick 3: one slot quarantined and replayed,
+        one dispatch retried, against the clean run (:func:`replay_checks`);
+    (c) tiers -- 8 tier-1 requests decode; a tier-0 request arrives after
+        two steps and preempts the newest; the parked request resumes
+        (:func:`replay_checks` against an unpreempted run, the tier-0
+        request against a fresh run of its prompt);
+    then (b) and (c) at the narrow f32 config, every token equal to the
+    fault-free run's (:func:`narrow_replays`).
+
+    Returns the phase's numbers."""
+    from kubegpu_tpu_torch.models import ContinuousBatcher
+    from kubegpu_tpu_torch.obs.chaos import ChaosEvent, ChaosInjector
+
+    def engine(kernel="paged_decode", **kw):
+        return warmed(torch, kernels, ContinuousBatcher, cfg, params,
+                      "phase 10", kernel, **kw)[0]
+
+    t_phase = time.perf_counter()
+    prompts = lifecycle_prompts(torch, cfg, gen)
+    temps = [0.8, 0.0] * 4
+    out = {}
+    # (a) sampling
+    engines, runs = {}, {}
+    for label, kw in (("graph", dict(SAMPLED, seed=7)),
+                      ("eager", dict(SAMPLED, seed=7, graphs=False)),
+                      ("fused4", dict(SAMPLED, seed=7, fused_ticks=4)),
+                      ("seed8", dict(SAMPLED, seed=8)), ("greedy", {})):
+        engines[label] = engine(**kw)
+        runs[label] = lifecycle_run(engines[label], prompts, LIFECYCLE_NEW,
+                                    temps if kw else None)["tokens"]
+    check(engines["fused4"].fused_dispatches > 0, "phase 10: K=4 never fused")
+    check(runs["graph"] == runs["eager"] == runs["fused4"],
+          "phase 10 (a): seed 7's graph, eager and fused K=4 engines differ")
+    sampled = [i for i, tp in enumerate(temps) if tp > 0]
+    greedy_rows = [i for i, tp in enumerate(temps) if tp == 0]
+    check(all(runs["seed8"][i] == runs["graph"][i] == runs["greedy"][i]
+              for i in greedy_rows),
+          "phase 10 (a): a greedy request of a sampling engine differs from "
+          "the greedy engine's")
+    check(any(runs["seed8"][i] != runs["graph"][i] for i in sampled),
+          "phase 10 (a): seed 8 drew seed 7's tokens")
+    check(any(runs["graph"][i] != runs["greedy"][i] for i in sampled),
+          "phase 10 (a): the sampled requests drew the argmax")
+    for label in ("eager", "fused4", "seed8"):
+        del engines[label]
+    ms = {"greedy": tick_ms(torch, engines.pop("greedy"), prompts),
+          "top_k50": tick_ms(torch, engines.pop("graph"), prompts),
+          "top_k0": tick_ms(torch, engine(sampling=True, top_k=0, seed=7),
+                            prompts)}
+    torch.cuda.empty_cache()
+    out["sampling"] = {
+        "tick_ms": ms, "ratio_top_k50": ms["top_k50"] / ms["greedy"],
+        "ratio_top_k0": ms["top_k0"] / ms["greedy"],
+        "sampled_rows_differing_from_greedy": sum(
+            runs["graph"][i] != runs["greedy"][i] for i in sampled)}
+    log("lifecycle", part="(a) sampling", seed7_graph_eager_fused4_equal=True,
+        seed8_changes_sampled=True, greedy_rows_equal_greedy_engine=True,
+        tick_ms=ms, ratio_top_k50=out["sampling"]["ratio_top_k50"],
+        ratio_top_k0=out["sampling"]["ratio_top_k0"], card=repr(name))
+
+    # (b) chaos on int8 pages
+    clean_eng = engine("paged_decode_q8", kv_bits=8)
+    clean = lifecycle_run(clean_eng, prompts, LIFECYCLE_NEW)
+    chaos = ChaosInjector([ChaosEvent(2, "nan_logits"),
+                           ChaosEvent(3, "fail_dispatch")])
+    eng = engine("paged_decode_q8", kv_bits=8, chaos=chaos)
+    quarantined = []
+    quarantine = eng._quarantine
+
+    def note(slot, req):
+        quarantined.append((req.rid, len(req.tokens)))
+        quarantine(slot, req)
+
+    eng._quarantine = note
+    got = lifecycle_run(eng, prompts, LIFECYCLE_NEW)
+    counts = (eng.slots_quarantined, eng.requests_retried,
+              eng.dispatch_failures)
+    check(counts == (1, 1, 1), f"phase 10 (b): quarantined, retried, "
+          f"dispatch failures = {counts}, not (1, 1, 1)")
+    check(not any(got["errors"]), f"phase 10 (b): errors {got['errors']}")
+    (rid, accepted), = quarantined
+    replay = prompts[rid] + got["tokens"][rid][:accepted]
+    fresh = lifecycle_run(clean_eng, [replay], LIFECYCLE_NEW - accepted)
+    share = replay_checks("phase 10 (b)", clean["tokens"], got["tokens"],
+                          rid, accepted, fresh["tokens"][0])
+    out["chaos"] = {"quarantined_rid": rid, "accepted": accepted,
+                    "replay_equals_clean_share": share}
+    log("lifecycle", part="(b) int8 chaos", slots_quarantined=counts[0],
+        requests_retried=counts[1], dispatch_failures=counts[2],
+        quarantined_rid=rid, accepted=accepted,
+        others_equal_clean=True, replay_equals_fresh=True,
+        replay_equals_clean_share=share)
+    del eng, clean_eng
+    torch.cuda.empty_cache()
+
+    # (c) tier preemption; the unpreempted run is (a)'s greedy engine's
+    hi = lifecycle_prompts(torch, cfg, gen, 1)[0]
+    eng = engine()
+    parked = []
+    preempt = eng._preempt_slot
+
+    def note_park(slot, req):
+        parked.append((req.rid, len(req.tokens)))
+        preempt(slot, req)
+
+    eng._preempt_slot = note_park
+    got = lifecycle_run(eng, prompts, LIFECYCLE_NEW, tiers=[1] * 8,
+                        late=[(hi, 0)])
+    check(eng.requests_preempted >= 1 and
+          eng.requests_resumed == eng.requests_preempted,
+          f"phase 10 (c): preempted {eng.requests_preempted}, resumed "
+          f"{eng.requests_resumed}")
+    check(not any(got["errors"]), f"phase 10 (c): errors {got['errors']}")
+    (rid, accepted), = parked
+    replay = prompts[rid] + got["tokens"][rid][:accepted]
+    fresh = lifecycle_run(eng, [replay], LIFECYCLE_NEW - accepted)
+    share = replay_checks("phase 10 (c)", runs["greedy"], got["tokens"][:8],
+                          rid, accepted, fresh["tokens"][0])
+    solo_hi = lifecycle_run(eng, [hi], LIFECYCLE_NEW)["tokens"][0]
+    check(got["tokens"][8] == solo_hi,
+          "phase 10 (c): the tier-0 request differs from a fresh run")
+    out["tiers"] = {"parked_rid": rid, "accepted": accepted,
+                    "requests_preempted": eng.requests_preempted,
+                    "resume_equals_unpreempted_share": share}
+    log("lifecycle", part="(c) tier preemption",
+        requests_preempted=eng.requests_preempted,
+        requests_resumed=eng.requests_resumed, parked_rid=rid,
+        accepted=accepted, others_equal_unpreempted=True,
+        resume_equals_fresh=True, resume_equals_unpreempted_share=share)
+    del eng
+    torch.cuda.empty_cache()
+    out["narrow"] = narrow_replays(torch)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log("lifecycle", wall_s=round(out["wall_s"], 1))
+    return out
+
+
 def ptxas_instances(text: str) -> list:
     """Each kernel instance of an ``-Xptxas -v`` build log: its name
     (demangled by ``c++filt`` where the machine has it), registers a thread
@@ -3012,6 +3409,11 @@ def main(argv=None) -> int:
                "paged_decode": paged_checks(torch, gen, slice_rows)}
     quant = paged_quant_checks(torch, gen, slice_rows)
     rounding = paged_rounding_checks(torch)
+    # the NaN checks and phase 10 draw from generators of their own, so
+    # every other phase gets the inputs it got before they existed
+    nan_checks = paged_nan_checks(
+        torch, torch.Generator(device="cuda").manual_seed(SEED + 1),
+        slice_rows)
     results["paged_decode_q8"] = quant["q8"]
     results["paged_decode_q4"] = quant["q4g16"]
     results["paged_decode"]["mass"] = quant["bf16"]
@@ -3097,6 +3499,14 @@ def main(argv=None) -> int:
     plain_launches = dict(kernels.launches)   # ... and end here
     check(not any(plain_launches.values()),
           f"the static and dense paths launched a kernel: {plain_launches}")
+    kernels.reset_launches()          # the sampling and lifecycle path starts
+    lifecycle = lifecycle_phase(
+        torch, kernels, cfg, params,
+        torch.Generator(device="cuda").manual_seed(SEED + 2), name)
+    lifecycle_launches = dict(kernels.launches)   # ... and ends here
+    check(all(lifecycle_launches[k] > 0 for k in ("paged_decode",
+                                                  "paged_decode_q8")),
+          f"a kernel of the lifecycle path never ran: {lifecycle_launches}")
     log("static", what="int8 weights + int8 cache over bf16",
         decode=static["int8"]["serve_decode_tokens_per_s"]
         / static["bf16"]["serve_decode_tokens_per_s"],
@@ -3144,7 +3554,8 @@ def main(argv=None) -> int:
                   "kubegpu_tpu_torch/csrc/paged_decode_bias.cu",
                   "kubegpu_tpu/ops/paged_attention.py:567")}
     paths = (serve_launches, prefix_launches, spec_launches, quant_launches,
-             qw_launches, train_launches, t5_launches, program_launches)
+             qw_launches, train_launches, t5_launches, program_launches,
+             lifecycle_launches)
     # kernels 4-6 at llama_serve.py's bench shape, by their pool format
     program_rows = {k: program["program_shape"][fmt]
                     for k, fmt in zip(PAGED_KERNELS, ("bf16", "q8", "q4g16"))}
@@ -3182,6 +3593,7 @@ def main(argv=None) -> int:
                "quantized_weights": qweights, "static": static,
                "dense_engine": dense,
                "paged_mass": quant["bf16"], "paged_rounding": rounding,
+               "paged_nan": nan_checks, "lifecycle": lifecycle,
                "profile": prof, "training": train,
                "flash_fwd_training_shape": fwd_train,
                "t5": t5_stats, "program": program,
@@ -3193,7 +3605,8 @@ def main(argv=None) -> int:
                             "static_and_dense": plain_launches,
                             "training": train_launches,
                             "t5_paged_serving": t5_launches,
-                            "llama_serve": program_launches},
+                            "llama_serve": program_launches,
+                            "sampling_and_lifecycle": lifecycle_launches},
                "kernels": line["kernels"],
                "total_s": time.perf_counter() - t_start}
     if args.details:

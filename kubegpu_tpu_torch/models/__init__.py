@@ -2,7 +2,10 @@
 dense and paged serving engines; the T5 encoder-decoder with its paged
 decode; int8 weights for both in ``quant``)."""
 
-from kubegpu_tpu_torch.models.decode import greedy_generate  # noqa: F401
+from kubegpu_tpu_torch.models.decode import (  # noqa: F401
+    greedy_generate,
+    sample_generate,
+)
 from kubegpu_tpu_torch.models.llama import (  # noqa: F401
     LlamaConfig,
     llama_forward,

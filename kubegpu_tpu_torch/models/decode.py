@@ -1,5 +1,5 @@
-"""KV-cache prefill and greedy decode for the Llama family (counterpart of
-``kubegpu_tpu/models/decode.py``).
+"""KV-cache prefill, greedy and sampled decode for the Llama family
+(counterpart of ``kubegpu_tpu/models/decode.py``).
 
 The cache is a stacked ``[L, B, Hkv, max_len, hd]`` pair allocated once, in
 the model dtype or (``kv_int8``) as int8 with f32 per-token scales; the
@@ -11,6 +11,9 @@ there either.  The position may be a device tensor, so on the card
 step as a CUDA graph, captured on the first call of a shape: the
 counterpart of the reference's jitted scan.  :func:`greedy_generate` is the
 solo oracle every serving parity check holds the engines to.
+:func:`sample_generate` draws its noise on JAX's own threefry key schedule
+(:mod:`kubegpu_tpu_torch.prng`), so its tokens equal the reference's for
+the same key.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from kubegpu_tpu_torch import kernels
+from kubegpu_tpu_torch import kernels, prng
 from kubegpu_tpu_torch.models.llama import (
     LlamaConfig,
     _rmsnorm,
@@ -205,8 +208,48 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos,
     return logits[:, 0], cache
 
 
+def _nucleus_mask(sorted_l: torch.Tensor, top_p) -> torch.Tensor:
+    """Given DESC-sorted logits, NEG_INF-mask everything outside the
+    smallest prefix whose EXCLUSIVE cumulative probability is < ``top_p``
+    (at least one token stays; ``top_p >= 1`` keeps all)."""
+    probs = torch.softmax(sorted_l, dim=-1)
+    cum_excl = torch.cumsum(probs, dim=-1) - probs
+    return torch.where(cum_excl < top_p, sorted_l,
+                       torch.full_like(sorted_l, NEG_INF))
+
+
+def _sample_token(logits: torch.Tensor, key: torch.Tensor, temperature,
+                  top_p, top_k: int, nucleus: bool) -> torch.Tensor:
+    """One sampling step over [B, V] f32 logits (the reference's
+    ``_sample_token``): temperature scaling (clamped at 1e-6), the static
+    top-k truncation, the nucleus truncation when ``nucleus``, then
+    :func:`prng.categorical` under ``key``, whose noise has the shape the
+    reference draws: [B, V] without top-k, [B, k] with it (row i's noise
+    depends on the whole shape, so a batch is always drawn whole).  Top-k
+    is ``torch.topk``: on logits tied EXACTLY at the k-th place it may
+    keep another of the tied tokens than ``lax.top_k`` (which keeps the
+    lower index), and among exact ties it may order the kept ones
+    differently, which moves their noise; the full-vocab nucleus sort is
+    stable, as ``lax.top_k``."""
+    l = logits / torch.clamp(temperature, min=1e-6)
+    if top_k:
+        vals, idx = torch.topk(l, top_k, dim=-1)
+        if nucleus:
+            vals = _nucleus_mask(vals, top_p)
+        choice = prng.categorical(key, vals)
+        return idx.gather(1, choice[:, None])[:, 0]
+    if not nucleus:
+        return prng.categorical(key, l)
+    sorted_l, sorted_idx = torch.sort(l, dim=-1, descending=True,
+                                      stable=True)
+    choice = prng.categorical(key, _nucleus_mask(sorted_l, top_p))
+    return sorted_idx.gather(1, choice[:, None])[:, 0]
+
+
 def _validate_rollout(cfg: LlamaConfig, t: int, n_steps: int,
                       max_len: int | None) -> int:
+    """The length contract of greedy and sampled generation; returns the
+    resolved ``max_len``."""
     max_len = max_len or cfg.max_seq_len
     if n_steps < 1:
         raise ValueError(f"n_steps must be >= 1, got {n_steps}")
@@ -216,9 +259,10 @@ def _validate_rollout(cfg: LlamaConfig, t: int, n_steps: int,
 
 
 # Static decode state and the CUDA graph of the decode step, by call shape
-# (config, batch, max_len, cache format, device, the parameter tensors'
-# addresses): a repeated call binds the same buffers and replays the same
-# graph.  An entry holds the parameter tensors its graph reads.
+# (config, batch, max_len, cache format, device, the pick's static knobs,
+# the parameter tensors' addresses): a repeated call binds the same buffers
+# and replays the same graph.  An entry holds the parameter tensors its
+# graph reads.
 _graph_cache: dict[tuple, tuple] = {}
 _GRAPH_CACHE_SIZE = 4
 
@@ -230,35 +274,59 @@ def clear_graphs() -> None:
 
 
 def _rollout(params, prompt, cfg: LlamaConfig, n_steps: int, max_len: int,
-             kv_int8: bool, graphs: bool = False) -> torch.Tensor:
+             kv_int8: bool, graphs: bool = False,
+             sample: dict | None = None) -> torch.Tensor:
     """THE decode loop: prefill, then ``n_steps - 1`` decode steps, each
     reading its position and token from the device and writing its token
     into column ``pos`` of a static output (so the step never changes and,
-    with ``graphs``, is captured once and replayed).  Returns [B,
-    n_steps]."""
+    with ``graphs``, is captured once and replayed).  The pick is the
+    argmax, or with ``sample`` (``key``, ``temperature``, ``top_p``,
+    ``top_k``, ``nucleus``) the reference's sampled pick: token i drawn
+    under ``split(key, n_steps)[i]``, the key row read at a device step
+    index.  Returns [B, n_steps]."""
     b, t = prompt.shape
     dev = prompt.device
 
     def make() -> dict:
-        return {"cache": init_kv_cache(cfg, b, max_len, kv_int8, device=dev),
-                "token": torch.empty((b,), dtype=torch.long, device=dev),
-                "pos": torch.zeros((1,), dtype=torch.long, device=dev),
-                "out": torch.empty((b, max_len), dtype=torch.long,
-                                   device=dev)}
+        st = {"cache": init_kv_cache(cfg, b, max_len, kv_int8, device=dev),
+              "token": torch.empty((b,), dtype=torch.long, device=dev),
+              "pos": torch.zeros((1,), dtype=torch.long, device=dev),
+              "out": torch.empty((b, max_len), dtype=torch.long,
+                                 device=dev)}
+        if sample is not None:
+            st.update(keys=torch.zeros((max_len, 2), dtype=torch.long,
+                                       device=dev),
+                      step=torch.zeros((1,), dtype=torch.long, device=dev),
+                      temp=torch.zeros((), device=dev),
+                      top_p=torch.zeros((), device=dev))
+        return st
 
     if graphs:
+        knobs = (None if sample is None
+                 else (sample["top_k"], sample["nucleus"]))
         st, cached = kernels.graph_state(
-            _graph_cache, (cfg, b, max_len, kv_int8, str(dev)), params, make,
-            _GRAPH_CACHE_SIZE)
+            _graph_cache, (cfg, b, max_len, kv_int8, str(dev), knobs),
+            params, make, _GRAPH_CACHE_SIZE)
         _reset_kv_cache(st["cache"])
     else:
         st, cached = make(), None
+    if sample is not None:
+        st["keys"][:n_steps] = prng.split(sample["key"].to(dev), n_steps)
+        st["step"].zero_()
+        st["temp"].fill_(sample["temperature"])
+        st["top_p"].fill_(sample["top_p"])
     logits, _ = _forward_with_cache(params, prompt, st["cache"], 0, cfg,
                                     last_only=True)
     st["pos"].fill_(t)
 
     def emit(logits: torch.Tensor) -> None:
-        nxt = logits.argmax(dim=-1)
+        if sample is None:
+            nxt = logits.argmax(dim=-1)
+        else:
+            key = st["keys"].index_select(0, st["step"])[0]
+            nxt = _sample_token(logits, key, st["temp"], st["top_p"],
+                                sample["top_k"], sample["nucleus"])
+            st["step"].add_(1)
         st["out"].index_copy_(1, st["pos"], nxt[:, None])
         st["token"].copy_(nxt)
 
@@ -288,6 +356,39 @@ def greedy_generate(params: dict, prompt, n_steps: int, cfg: LlamaConfig,
     max_len = _validate_rollout(cfg, prompt.shape[1], n_steps, max_len)
     return _rollout(params, prompt, cfg, n_steps, max_len, kv_int8,
                     graphs=graphs and prompt.is_cuda)
+
+
+@torch.no_grad()
+def sample_generate(params: dict, prompt, n_steps: int, cfg: LlamaConfig,
+                    key: torch.Tensor, temperature: float = 1.0,
+                    top_k: int = 0, top_p: float = 1.0,
+                    max_len: int | None = None, kv_int8: bool = False,
+                    device="cuda", graphs: bool = True) -> torch.Tensor:
+    """Stochastic decode (the reference's ``sample_generate``):
+    temperature, top-k and top-p (nucleus) sampling over the loop of
+    :func:`greedy_generate`, deterministic per ``key`` (a
+    :func:`kubegpu_tpu_torch.prng.prng_key`) and equal to the reference's
+    tokens for the same key (see :func:`_sample_token` on exact ties).
+    ``top_k=0`` and ``top_p=1.0`` turn their truncation off.  On the card
+    the decode step, sampling included, runs as a CUDA graph, as in
+    :func:`greedy_generate`."""
+    prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
+    max_len = _validate_rollout(cfg, prompt.shape[1], n_steps, max_len)
+    if not 0 <= top_k <= cfg.vocab_size:
+        raise ValueError(f"top_k {top_k} not in [0, vocab]")
+    if not 0.0 < top_p:
+        # top_p <= 0 would mask every token, and the argmax that came out
+        # would be an accident of float absorption
+        raise ValueError(f"top_p must be > 0, got {top_p}")
+    if temperature <= 0:
+        raise ValueError(
+            f"temperature must be > 0, got {temperature} "
+            "(use greedy_generate for argmax decoding)")
+    sample = {"key": key, "temperature": float(temperature),
+              "top_p": float(top_p), "top_k": int(top_k),
+              "nucleus": float(top_p) < 1.0}
+    return _rollout(params, prompt, cfg, n_steps, max_len, kv_int8,
+                    graphs=graphs and prompt.is_cuda, sample=sample)
 
 
 def _attend_buffer_partials(q: torch.Tensor, bk: torch.Tensor,

@@ -74,9 +74,19 @@ copy a call fills.  Prefill waves and admission stay eager.
 ``graphs=False`` runs the same bodies eagerly on the card (for A/B runs);
 on the CPU they are called directly.
 
-Tokens are greedy and bit-identical to a solo :func:`greedy_generate` at
-the tested f32 configurations; at other batch shapes a near-tied argmax
-may flip, as the reference documents.
+Greedy tokens are bit-identical to a solo :func:`greedy_generate` at the
+tested f32 configurations; at other batch shapes a near-tied argmax may
+flip, as the reference documents.  A ``sampling=True`` engine draws its
+temperature-scaled top-k samples on the reference's key schedule
+(:mod:`kubegpu_tpu_torch.prng`), so sampled tokens equal the reference's
+too.
+
+The request lifecycle is the reference single engine's and lives on the
+host: tier-strict EDF admission with preemption of lower-tier greedy
+decoders, deadlines, ``cancel``, tenant quotas, and self-defense (chaos
+injection, the quarantine of a slot whose logits went non-finite and the
+replay of its request as prompt + accepted tokens, dispatch retries, a
+watchdog).
 
 The engine keeps the reference's host-side accounting whatever the knobs
 (prefill waves, per-tick decode stall, busy ticks and the chip-tick cost
@@ -102,6 +112,7 @@ from kubegpu_tpu_torch.models.decode import (
     _gathered_head,
     _project_qkv,
     _quantize_rows,
+    _sample_token,
     draft_view,
     init_kv_cache,
     spec_acceptance,
@@ -113,7 +124,12 @@ from kubegpu_tpu_torch.models.llama import (
     embed_lookup,
     unbind_layers,
 )
-from kubegpu_tpu_torch import kernels
+from kubegpu_tpu_torch import kernels, prng
+from kubegpu_tpu_torch.obs.chaos import (
+    DispatchFailure,
+    ReplicaDeadError,
+    TickStallError,
+)
 from kubegpu_tpu_torch.obs.cost import CostLedger
 from kubegpu_tpu_torch.obs.metrics import LiveBytesTracker
 from kubegpu_tpu_torch.ops.flash_attention import NEG_INF
@@ -134,25 +150,14 @@ from kubegpu_tpu_torch.ops.paged_attention import (
 # queue-1 item that brings it).  The default is accepted; any other value
 # raises.
 _LATER = {
-    "sampling": (False, "sampling"),
-    "seed": (0, "sampling"),
-    "top_k": (0, "sampling"),
     "collect_overlap": (False, "pools, fleet and llama_serve"),
     "mesh": (None, "multi-device"),
-    "chaos": (None, "pools, fleet and llama_serve"),
-    "max_retries": (2, "pools, fleet and llama_serve"),
-    "tick_deadline_s": (None, "pools, fleet and llama_serve"),
-    "tenant_quotas": (None, "pools, fleet and llama_serve"),
     "metrics": (None, "pools, fleet and llama_serve"),
 }
 
-# The same for ``submit``'s keywords (the request lifecycle).
+# The same for ``submit``'s keywords (migration is the pools' half).
 _LATER_SUBMIT = {
-    "deadline_s": (None, "pools, fleet and llama_serve"),
     "migrate_out": (False, "pools, fleet and llama_serve"),
-    "tier": (0, "pools, fleet and llama_serve"),
-    "tenant": ("", "pools, fleet and llama_serve"),
-    "deadline_ticks": (None, "pools, fleet and llama_serve"),
 }
 
 
@@ -197,10 +202,32 @@ def _gamma_from_accept(ema: np.ndarray, gamma: int) -> np.ndarray:
     return np.clip(np.floor(ema * (gamma + 1)).astype(np.int32), 0, gamma)
 
 
-def _pick_token(logits: torch.Tensor) -> torch.Tensor:
-    """Greedy selection (the only branch of the reference's per-slot pick
-    this slice serves)."""
-    return logits.argmax(dim=-1)
+def _pick_token(logits: torch.Tensor, temps: torch.Tensor | None = None,
+                key: torch.Tensor | None = None, top_k: int = 0,
+                sampling: bool = False) -> torch.Tensor:
+    """Per-slot greedy or sampled selection over [B, V] logits (the
+    reference's ``_pick_token``).  Without ``sampling`` (static, as the
+    reference's flag: a greedy engine never draws noise) the argmax; with
+    it, rows whose temperature ``temps`` [B] is positive draw
+    :func:`_sample_token` under ``key`` with the engine's ``top_k`` and no
+    nucleus, and the others keep the argmax."""
+    greedy = logits.argmax(dim=-1)
+    if not sampling:
+        return greedy
+    sampled = _sample_token(logits, key, temps[:, None], 1.0, top_k,
+                            nucleus=False)
+    return torch.where(temps > 0, sampled, greedy)
+
+
+def _step_pick(sample: dict | None, j: int):
+    """The pick of step ``j`` of a block: greedy without ``sample``, else
+    the sampled pick under the block's key row ``j`` (``sample``: the
+    slots' ``temps``, the block's ``keys``, the engine's ``top_k``)."""
+    if sample is None:
+        return _pick_token
+    return lambda logits: _pick_token(logits, sample["temps"],
+                                      sample["keys"][j], sample["top_k"],
+                                      True)
 
 
 def _paged_row_step(params: dict, tokens: torch.Tensor, pool: dict,
@@ -292,13 +319,15 @@ def _flush_buffer_paged(pool: dict, buf: dict, pt: torch.Tensor,
 def decode_block(params: dict, pool: dict, pt, tvec, tpad,
                  tokens: torch.Tensor, pos: torch.Tensor,
                  active: torch.Tensor, cfg: LlamaConfig, stride: int,
-                 collect_mass: bool = False):
+                 collect_mass: bool = False, sample: dict | None = None):
     """``stride`` decode steps for every slot, then the buffer flush.
     ``tokens``/``pos`` advance in place for active rows; the flushed
     decode count is ``pos - tvec`` for active rows and 0 for inactive
-    ones.  Returns (token block [stride, B], per-slot non-finite flag) and,
-    with ``collect_mass``, the per-page attention mass averaged over the
-    block's steps [B, max_pages], the signal mass eviction reads."""
+    ones.  Step j picks greedily, or with ``sample`` (see
+    :func:`_step_pick`) under the block's key row j.  Returns (token block
+    [stride, B], per-slot non-finite flag) and, with ``collect_mass``, the
+    per-page attention mass averaged over the block's steps [B,
+    max_pages], the signal mass eviction reads."""
     d0 = torch.where(active, pos - tvec, torch.zeros_like(pos)).to(torch.int32)
     n_layers, _, hkv = pool["k"].shape[:3]
     b = tokens.shape[0]
@@ -320,7 +349,7 @@ def decode_block(params: dict, pool: dict, pt, tvec, tpad,
         else:
             logits = out
         bad |= ~torch.isfinite(logits).all(dim=-1)
-        nxt = torch.where(active, _pick_token(logits), tokens)
+        nxt = torch.where(active, _step_pick(sample, j)(logits), tokens)
         tokens.copy_(nxt)
         pos.add_(active.to(pos.dtype))
         block.append(nxt)
@@ -332,7 +361,8 @@ def decode_block(params: dict, pool: dict, pt, tvec, tpad,
 
 @torch.no_grad()
 def tick_body(params: dict, tables: dict, st: dict, cfg: LlamaConfig,
-              stride: int, eos_id: int | None = None) -> None:
+              stride: int, eos_id: int | None = None,
+              sampler: dict | None = None) -> None:
     """ONE engine tick: :func:`decode_block` inside the reference's lane
     freeze (its ``_fused_body``), over the engine's ``tables`` (page
     table, lengths, page caps, token budgets, active mask) and state
@@ -346,7 +376,10 @@ def tick_body(params: dict, tables: dict, st: dict, cfg: LlamaConfig,
     the output views at the dispatch's tick index ``tk``, which then
     advances.  A dispatch runs it K times; K = 1 is the plain tick, whose
     lanes never freeze (an active slot owes tokens and its pages cover
-    its next block).  The graph engine captures exactly this."""
+    its next block).  A sampling engine's ``sampler`` (``key0`` =
+    ``fold_in(base, 0)``, ``top_k``) keys the tick ``tick + tk`` from the
+    device tables, the reference's ``tick0 + tk``, so K fused ticks draw
+    what K single ticks draw.  The graph engine captures exactly this."""
     t, f, out = tables, st["freeze"], st["out"]
     act = (t["active"] != 0) & (f["emitted"] < t["budget"]) & (
         f["dead"] == 0)
@@ -355,7 +388,8 @@ def tick_body(params: dict, tables: dict, st: dict, cfg: LlamaConfig,
     act = act & ~overrun
     outs = decode_block(params, st["pool"], t["pt"], t["tvec"], t["tpad"],
                         st["tokens"], st["pos"], act, cfg, stride,
-                        collect_mass=st["mass"] is not None)
+                        collect_mass=st["mass"] is not None,
+                        sample=_tick_sample(sampler, t, f, st, stride))
     block, bad = outs[:2]
     if eos_id is not None:
         f["dead"].logical_or_(act & (block == eos_id).any(dim=0))
@@ -369,6 +403,20 @@ def tick_body(params: dict, tables: dict, st: dict, cfg: LlamaConfig,
     f["tk"].add_(1)
     if st["mass"] is not None:
         st["mass"].copy_(outs[2])
+
+
+def _tick_sample(sampler: dict | None, tables: dict, freeze: dict,
+                 st: dict, stride: int) -> dict | None:
+    """A tick's sampling inputs (None on a greedy engine): the slots'
+    temperatures and the keys of its ``stride`` steps, the reference's
+    ``split(fold_in(fold_in(base, 0), tick), stride)`` with ``key0 =
+    fold_in(base, 0)`` and the tick ``tables["tick"] + freeze["tk"]`` read
+    on the device."""
+    if sampler is None:
+        return None
+    tick = tables["tick"] + freeze["tk"]
+    return {"temps": st["temps"], "top_k": sampler["top_k"],
+            "keys": prng.split(prng.fold_in(sampler["key0"], tick), stride)}
 
 
 # -- speculative decoding: early-exit self-draft and one batched verify -------
@@ -623,11 +671,13 @@ def _flush_buffer(cache: dict, buf: dict, flush_pos: torch.Tensor) -> None:
 @torch.no_grad()
 def decode_block_dense(params: dict, cache: dict, tokens: torch.Tensor,
                        pos: torch.Tensor, active: torch.Tensor,
-                       cfg: LlamaConfig, stride: int):
+                       cfg: LlamaConfig, stride: int,
+                       sample: dict | None = None):
     """``stride`` decode steps for every slot over the dense cache, then
     the buffer flush at the block-start positions.  ``tokens``/``pos``
-    advance in place for active rows; inactive rows hold both.  Returns
-    (token block [stride, B], per-slot non-finite flag)."""
+    advance in place for active rows; inactive rows hold both.  Step j
+    picks as :func:`decode_block`'s.  Returns (token block [stride, B],
+    per-slot non-finite flag)."""
     flush_pos = pos.clone()
     n_layers, b, hkv = cache["k"].shape[:3]
     buf = {n: torch.zeros((n_layers, b, hkv, stride, cfg.head_dim),
@@ -639,7 +689,7 @@ def decode_block_dense(params: dict, cache: dict, tokens: torch.Tensor,
         logits = _row_step_buffered(params, tokens, cache, buf, flush_pos,
                                     pos, j, cfg)
         bad |= ~torch.isfinite(logits).all(dim=-1)
-        nxt = torch.where(active, _pick_token(logits), tokens)
+        nxt = torch.where(active, _step_pick(sample, j)(logits), tokens)
         tokens.copy_(nxt)
         pos.add_(active.to(pos.dtype))
         block.append(nxt)
@@ -649,15 +699,16 @@ def decode_block_dense(params: dict, cache: dict, tokens: torch.Tensor,
 
 @torch.no_grad()
 def dense_tick_body(params: dict, tables: dict, st: dict, cfg: LlamaConfig,
-                    stride: int) -> None:
+                    stride: int, sampler: dict | None = None) -> None:
     """ONE tick of the dense engine: :func:`decode_block_dense` over the
-    slots the ``tables``' active mask names, its block, bad flags and the
-    first tokens written to the output views of ``st``.  The dense engine
-    has no fused ticks, so no lane freeze; the graph engine captures
-    exactly this."""
-    block, bad = decode_block_dense(params, st["cache"], st["tokens"],
-                                    st["pos"], tables["active"] != 0, cfg,
-                                    stride)
+    slots the ``tables``' active mask names (keyed as :func:`tick_body`'s
+    with a ``sampler``), its block, bad flags and the first tokens written
+    to the output views of ``st``.  The dense engine has no fused ticks,
+    so no lane freeze; the graph engine captures exactly this."""
+    block, bad = decode_block_dense(
+        params, st["cache"], st["tokens"], st["pos"],
+        tables["active"] != 0, cfg, stride,
+        sample=_tick_sample(sampler, tables, st["freeze"], st, stride))
     out = st["out"]
     out["blocks"][0].copy_(block)
     out["bads"][0].copy_(bad)
@@ -668,15 +719,25 @@ def dense_tick_body(params: dict, tables: dict, st: dict, cfg: LlamaConfig,
 def adopt_wave_dense(cache: dict, cache_w: dict, slots: torch.Tensor,
                      firsts: torch.Tensor, plens: torch.Tensor,
                      first_toks: torch.Tensor, tokens: torch.Tensor,
-                     pos: torch.Tensor) -> None:
+                     pos: torch.Tensor, temps: torch.Tensor | None = None,
+                     temps_w: torch.Tensor | None = None) -> None:
     """Admit a wave into the dense cache IN PLACE: each row of the
     ``max_len``-wide panel becomes its slot's whole cache row, and the
-    slots' first token, current token and position are set."""
+    slots' first token, current token, position and (given ``temps_w``)
+    temperature are set."""
     for name in cache:
         cache[name][:, slots] = cache_w[name]
+    _adopt_vectors(slots, firsts, plens, first_toks, tokens, pos, temps,
+                   temps_w)
+
+
+def _adopt_vectors(slots, firsts, plens, first_toks, tokens, pos, temps,
+                   temps_w) -> None:
     first_toks[slots] = firsts
     tokens[slots] = firsts
     pos[slots] = plens.to(pos.dtype)
+    if temps_w is not None:
+        temps[slots] = temps_w
 
 
 # -- prefill waves (both engines) ---------------------------------------------
@@ -684,12 +745,15 @@ def adopt_wave_dense(cache: dict, cache_w: dict, slots: torch.Tensor,
 @torch.no_grad()
 def prefill_wave(params: dict, padded_prompts: torch.Tensor,
                  true_lens: torch.Tensor, cfg: LlamaConfig,
-                 max_len: int | None = None):
+                 max_len: int | None = None, sample: dict | None = None):
     """Batch-k prefill of bucket-padded prompts into a dense
     [L, k, Hkv, max_len or bucket, D] panel (the dense engine's rows are
     ``max_len`` wide, the paged engine copies the bucket's pages); returns
     (first tokens [k], panel).  The LM head runs at position
-    ``true_lens - 1`` of each row only."""
+    ``true_lens - 1`` of each row only.  With ``sample`` (the rows'
+    ``temps``, the wave's ``key`` = ``fold_in(fold_in(base, 1), rid0)``,
+    ``top_k``) the first tokens are the reference's per-row pick, the
+    whole wave drawn under the one key."""
     k, bucket = padded_prompts.shape
     cache_w = init_kv_cache(cfg, k, max_len or bucket,
                             device=padded_prompts.device)
@@ -697,7 +761,10 @@ def prefill_wave(params: dict, padded_prompts: torch.Tensor,
     # reference keeps of its [k, bucket, vocab] logits
     logits, cache_w = _forward_with_cache(params, padded_prompts, cache_w, 0,
                                           cfg, head_rows=true_lens - 1)
-    return _pick_token(logits[:, 0]), cache_w
+    if sample is None:
+        return _pick_token(logits[:, 0]), cache_w
+    return _pick_token(logits[:, 0], sample["temps"], sample["key"],
+                       sample["top_k"], True), cache_w
 
 
 @torch.no_grad()
@@ -705,12 +772,14 @@ def adopt_wave(pool: dict, cache_w: dict, page_dst: torch.Tensor,
                slots: torch.Tensor, firsts: torch.Tensor,
                plens: torch.Tensor, first_toks: torch.Tensor,
                tokens: torch.Tensor, pos: torch.Tensor,
-               page_size: int) -> None:
+               page_size: int, temps: torch.Tensor | None = None,
+               temps_w: torch.Tensor | None = None) -> None:
     """Admit a wave IN PLACE: copy each row's prompt panel page by page
     into its pool pages (``page_dst`` [k, bucket/P] page ids) and set the
-    slots' first token, current token and position.  A quantized pool gets
-    the whole panel quantized once first (the bucket is a page multiple
-    and the int4 group divides P, so groups never straddle pages)."""
+    slots' first token, current token, position and (given ``temps_w``)
+    temperature.  A quantized pool gets the whole panel quantized once
+    first (the bucket is a page multiple and the int4 group divides P, so
+    groups never straddle pages)."""
     n_layers, k, hkv = cache_w["k"].shape[:3]
     npp = cache_w["k"].shape[3] // page_size
     dst = page_dst.reshape(-1).long()
@@ -719,9 +788,8 @@ def adopt_wave(pool: dict, cache_w: dict, page_dst: torch.Tensor,
         x = x.reshape(n_layers, k, hkv, npp, -1, *x.shape[4:]).transpose(2, 3)
         pool[name][:, dst] = x.reshape(n_layers, k * npp, hkv,
                                        *x.shape[4:]).to(pool[name].dtype)
-    first_toks[slots] = firsts
-    tokens[slots] = firsts
-    pos[slots] = plens.to(pos.dtype)
+    _adopt_vectors(slots, firsts, plens, first_toks, tokens, pos, temps,
+                   temps_w)
 
 
 # -- the chunk step (prefix caching and chunked prefill) ----------------------
@@ -786,28 +854,40 @@ def prefill_chunk_logits(params: dict, pool: dict, chunk: torch.Tensor,
 
 @torch.no_grad()
 def chunk_body(params: dict, pool: dict, inp: dict, out: torch.Tensor,
-               cfg: LlamaConfig, page_size: int) -> None:
+               cfg: LlamaConfig, page_size: int,
+               sampler: dict | None = None) -> None:
     """ONE chunk step over the engine's static chunk input ``inp`` (views
-    of one int32 buffer: ``tokens`` [1, C], ``s``, ``tlen`` [1], ``pt``
-    [1, max_pages]) into ``pool``, the greedy pick of
-    :func:`prefill_chunk_logits` (the request's first token on its final
-    chunk) written to ``out`` [1]; the graph engine captures exactly
+    of one int32 buffer: ``tokens`` [1, C], ``s``, ``tlen``, ``rid`` [1],
+    ``temp`` [1] (its f32 view), ``pt`` [1, max_pages]) into ``pool``, the
+    pick of :func:`prefill_chunk_logits` (the request's first token on its
+    final chunk) written to ``out`` [1]: greedy, or with a ``sampler``
+    (``key1`` = ``fold_in(base, 1)``, ``top_k``) the reference's pick
+    under ``fold_in(key1, rid)``; the graph engine captures exactly
     this."""
-    out.copy_(_pick_token(prefill_chunk_logits(
+    logits = prefill_chunk_logits(
         params, pool, inp["tokens"].long(), inp["pt"], inp["s"], inp["tlen"],
-        cfg, page_size)))
+        cfg, page_size)
+    if sampler is None:
+        out.copy_(_pick_token(logits))
+        return
+    out.copy_(_pick_token(logits, inp["temp"],
+                          prng.fold_in(sampler["key1"], inp["rid"]),
+                          sampler["top_k"], True))
 
 
 @torch.no_grad()
 def activate_slot(first_toks: torch.Tensor, tokens: torch.Tensor,
                   pos: torch.Tensor, slot: int, tok: torch.Tensor,
-                  plen: int) -> None:
+                  plen: int, temps: torch.Tensor | None = None,
+                  temp: float | None = None) -> None:
     """Flip a chunk-prefilled slot live IN PLACE (the chunk path's
     counterpart of :func:`adopt_wave`'s vector updates): its first token,
-    current token and position."""
+    current token, position and (given ``temp``) temperature."""
     first_toks[slot:slot + 1].copy_(tok)
     tokens[slot:slot + 1].copy_(tok)
     pos[slot:slot + 1].fill_(plen)
+    if temp is not None:
+        temps[slot:slot + 1].fill_(temp)
 
 
 def _captured(fn, eager_s: float):
@@ -824,7 +904,11 @@ def _captured(fn, eager_s: float):
 
 class _AdmissionQueue(deque):
     """The admission queue with an incremental queued-prompt-token total
-    (``prompt_tokens``).  Items are ``(request, padded_prompt)`` pairs."""
+    (``prompt_tokens``) that every mutation the engine makes keeps equal
+    to ``sum(r.prompt_len for r, _ in q)`` (append at submit and requeue,
+    popleft at admission, ``del q[i]`` at cancel and deadline pruning,
+    the sorted rebuild of :meth:`ContinuousBatcher._sort_queue`).  Items
+    are ``(request, padded_prompt)`` pairs."""
 
     def __init__(self, items=()):
         super().__init__()
@@ -841,17 +925,41 @@ class _AdmissionQueue(deque):
         self.prompt_tokens -= item[0].prompt_len
         return item
 
+    def __delitem__(self, i) -> None:
+        self.prompt_tokens -= self[i][0].prompt_len
+        super().__delitem__(i)
+
 
 @dataclass
 class _Request:
     rid: int
     prompt_len: int
     max_new_tokens: int
+    temperature: float = 0.0     # 0 = greedy
     tokens: list[int] = field(default_factory=list)   # generated so far
     done: bool = False
+    prefix_keys: tuple = ()      # registry keys of its full prompt pages
+    # the prompt stays on the host for the request's life, so a quarantine
+    # or a preemption replays it as prompt + accepted tokens; admit_len is
+    # the current admission's prompt length (the grown one at a replay)
     prompt: object = None        # np.ndarray, set at submit
     admit_len: int = 0
-    prefix_keys: tuple = ()      # registry keys of its full prompt pages
+    retries: int = 0             # quarantine replays so far
+    not_before_tick: int = 0     # replay backoff gate (a step count)
+    deadline: float | None = None   # time.monotonic() cutoff
+    error: str | None = None     # set when the request FAILED
+    # admission order: tier strictly (0 most critical), then the step-count
+    # deadline (EDF), then seq, the enqueue order, drawn anew at a requeue
+    tier: int = 0
+    tenant: str = ""             # quota bucket ("" = unmetered)
+    seq: int = 0
+    deadline_tick: int | None = None   # step-count cutoff
+    preemptions: int = 0         # park/resume cycles survived
+    resuming: bool = False       # parked; its next admission resumes it
+    # engine-tick stamps: submit, first token consumed, finish
+    submit_tick: int = -1
+    first_tick: int = -1
+    finish_tick: int = -1
 
     @property
     def remaining_new(self) -> int:
@@ -859,14 +967,26 @@ class _Request:
 
 
 class ContinuousBatcher:
-    """Slot-based continuous-batching engine (greedy), over a dense cache
-    row a slot (``paged=False``, the reference's default) or a paged KV
-    pool (``paged=True``).  ``submit()`` enqueues a request; ``step()``
+    """Slot-based continuous-batching engine, over a dense cache row a slot
+    (``paged=False``, the reference's default) or a paged KV pool
+    (``paged=True``).  ``submit()`` enqueues a request; ``step()``
     collects the previous tick's token block, retires finishers, admits
     queued requests into free slots (prefill waves), and dispatches the
     next stride block for every slot; ``drain()`` runs to completion.
     ``warmup()`` runs every shape once on scratch state, before a timed
     window.
+
+    Requests are greedy unless ``submit`` gives a positive
+    ``temperature``, which needs a ``sampling=True`` engine: such a
+    request samples with the engine's ``top_k`` truncation, on the
+    reference's key schedule from ``seed`` (:mod:`kubegpu_tpu_torch.prng`,
+    JAX's own threefry), so its tokens equal the reference engine's.
+    A tick's stride steps draw under ``split(fold_in(fold_in(base, 0),
+    tick), stride)`` (the tick a device scalar in the tables, advanced by
+    each fused replay), a prefill wave under ``fold_in(fold_in(base, 1),
+    rid0)``, a chunk under ``fold_in(fold_in(base, 1), rid)``.  A greedy
+    engine (``sampling=False``) draws nothing and captures the same
+    graphs as before sampling existed.
 
     The dense engine takes no ``kv_int8``/``kv_bits`` (the static path's
     ``greedy_generate(kv_int8=True)`` is the dense int8 cache), no
@@ -936,10 +1056,33 @@ class ContinuousBatcher:
     The port writes that state in place and holds no second handle, so
     ``hbm_pool_bytes`` sits at 1x the state and equals
     ``hbm_peak_bytes`` (the reference's donation gives the same 1x).
-    ``requests_retried``, ``slots_quarantined`` and ``requests_shed``
-    read 0: the quarantine, replay and shedding paths that count them
-    are not ported (ROADMAP.md queue 1: pools, fleet and llama_serve).
     ``note_kv_quality`` records a measured ``kv_quality_delta``.
+
+    The request lifecycle, as the reference's single engine: ``submit``
+    takes a wall-clock ``deadline_s`` and a step-count ``deadline_ticks``
+    (expired requests are pruned from the queue before any prefill, as
+    ``deadline`` sheds, or cancelled mid-decode with their partial
+    tokens; ``deadline_misses``), a ``tier`` (0 most critical: once any
+    request has a tier or a tick deadline the queue is tier-strict and
+    EDF within a tier, and a more critical request preempts strictly
+    lower-tier greedy decoders, which park host-side and resume through
+    the bit-exact replay of prompt + accepted tokens:
+    ``requests_preempted``, ``requests_resumed``) and a ``tenant``
+    (``tenant_quotas`` caps each tenant's in-flight requests; an
+    over-quota submit is shed at the door).  ``cancel(rid)`` removes a
+    request wherever it is.  Failed requests (``error`` set) come back
+    from the next ``step()``; ``requests_shed`` and ``shed_by_reason``
+    count the sheds.  Self-defense: a slot whose logits go non-finite is
+    quarantined (``slots_quarantined``) and its request replayed bit for
+    bit after a jittered backoff, at most ``max_retries`` times
+    (``requests_retried``); ``chaos`` (a
+    :class:`kubegpu_tpu_torch.obs.chaos.ChaosInjector`) injects faults at
+    each dispatch; a failed dispatch is retried in place
+    (``dispatch_failures``) and three in a row kill the engine;
+    ``tick_deadline_s`` is a watchdog on each step's wall.  A dead engine
+    (``dead``) raises :class:`ReplicaDeadError` from every later
+    ``step()``; ``take_orphans()`` returns the requests that finished in
+    the step that killed it.
 
     ``tracer`` (a :class:`kubegpu_tpu_torch.obs.spans.Tracer`) records
     the reference's spans: ``engine.start`` (under ``trace_ctx``, a
@@ -952,14 +1095,15 @@ class ContinuousBatcher:
     host-side ``is not None`` branch.
 
     Knobs of the reference engine outside this slice (``_LATER``; and
-    ``submit``'s lifecycle keywords) are accepted at the reference's
-    default and raise ``NotImplementedError`` naming their ROADMAP.md item
-    at any other value; so does ``donate=False`` (the pools always update
-    in place, which is what ``donate=True`` asks for)."""
+    ``submit``'s ``migrate_out``) are accepted at the reference's default
+    and raise ``NotImplementedError`` naming their ROADMAP.md item at any
+    other value; so does ``donate=False`` (the pools always update in
+    place, which is what ``donate=True`` asks for)."""
 
     def __init__(self, params: dict, cfg: LlamaConfig, n_slots: int = 8,
                  max_len: int | None = None, stride: int = 16,
                  prompt_buckets: tuple[int, ...] = (128, 512, 1024),
+                 sampling: bool = False, top_k: int = 0, seed: int = 0,
                  max_wave: int = 8, paged: bool = False,
                  page_size: int = 128, total_pages: int | None = None,
                  debug_invariants: bool = False, kv_int8: bool = False,
@@ -972,6 +1116,8 @@ class ContinuousBatcher:
                  spec_adaptive: bool = True,
                  spec_degrade_after: int | None = None,
                  eos_id: int | None = None, tracer=None, trace_ctx=None,
+                 chaos=None, tick_deadline_s: float | None = None,
+                 max_retries: int = 2, tenant_quotas: dict | None = None,
                  donate: bool = True, graphs: bool = True, device="cuda",
                  **later):
         _refuse_later(_LATER, later)
@@ -994,6 +1140,14 @@ class ContinuousBatcher:
             raise ValueError("largest prompt bucket must be < max_len")
         self.max_wave = max(1, int(max_wave))
         self.paged = bool(paged)
+        if not 0 <= top_k <= cfg.vocab_size:
+            raise ValueError(
+                f"top_k {top_k} not in [0, vocab_size={cfg.vocab_size}]")
+        # -- sampling: a static flag, as the reference's (a greedy engine
+        # never draws noise); the engine-wide top_k, per-request
+        # temperatures in ``temps``, keys from ``seed``
+        self.sampling = bool(sampling)
+        self.top_k = int(top_k)
         # -- speculative decoding (spec_gamma > 0): each tick the first
         # draft_layers layers of the SAME weights propose γ tokens a slot
         # and one full-model verify scores all [n_slots, γ+1] positions;
@@ -1007,6 +1161,11 @@ class ContinuousBatcher:
                     "paged=True — the draft reads the shared page pool "
                     "(its layer-i K/V IS the full model's) and the "
                     "verify writes through the page tables")
+            if sampling:
+                raise ValueError(
+                    "speculative serving is greedy-only (acceptance "
+                    "compares argmaxes); build a sampling=False engine "
+                    "or set spec_gamma=0")
             if self.spec_gamma + 1 > page_size:
                 raise ValueError(
                     f"spec_gamma {self.spec_gamma} + 1 must be <= "
@@ -1144,6 +1303,16 @@ class ContinuousBatcher:
         self.tokens = torch.zeros(n_slots, dtype=torch.long, device=dev)
         self.pos = torch.zeros(n_slots, dtype=torch.int32, device=dev)
         self.first_toks = torch.zeros(n_slots, dtype=torch.long, device=dev)
+        self.temps = torch.zeros(n_slots, dtype=torch.float32, device=dev)
+        # deterministic sampling: the reference's base key and its two
+        # fold-in domains (0: the tick's stride steps, 1: prefill by rid),
+        # made once; no generator state on the device
+        self._sampler = None
+        if self.sampling:
+            base = prng.prng_key(seed, device=dev)
+            self._sampler = {"key0": prng.fold_in(base, 0),
+                             "key1": prng.fold_in(base, 1),
+                             "top_k": self.top_k}
         self.active = np.zeros((n_slots,), bool)
         # -- the tick's static device state, allocated once: the tables it
         # reads and the lane-freeze state it writes share one int32 buffer,
@@ -1165,7 +1334,7 @@ class ContinuousBatcher:
                           if evict_policy == "mass" else None)
         self._tv = tv
         self._live = {"pool": self.pool, "cache": self.cache,
-                      "tokens": self.tokens,
+                      "tokens": self.tokens, "temps": self.temps,
                       "pos": self.pos, "first_toks": self.first_toks,
                       "freeze": tv, "out": self._slab_views(self._slab),
                       "spec_out": (self._spec_slab_views(self._slab)
@@ -1183,7 +1352,7 @@ class ContinuousBatcher:
         self._chunk_graph: kernels.Graph | None = None
         self.chunk_graph_stats: dict | None = None
         if self.paged and (self.prefix_cache_enabled or self.chunked_prefill):
-            words = self.prefill_chunk + 2 + self.max_pages
+            words = self.prefill_chunk + 4 + self.max_pages
             self._chunk_in = torch.zeros(words, dtype=torch.int32, device=dev)
             self._chunk_staging = torch.zeros(
                 (n_slots, words), dtype=torch.int32, pin_memory=cuda)
@@ -1230,12 +1399,40 @@ class ContinuousBatcher:
         self.host_overhead_ms: list[float] = []
         self._sync_ms_last = 0.0
         self.hbm = LiveBytesTracker()
-        # the fault-tolerance counters the reference prints; no path of
-        # the port increments them yet
-        self.requests_retried = 0
-        self.slots_quarantined = 0
-        self.requests_shed = 0
         self.kv_quality_delta = 0.0
+        # -- fault injection and self-defense: ``chaos`` is consulted at
+        # every dispatch, ``tick_deadline_s`` bounds a step's wall (the
+        # watchdog), ``max_retries`` a request's quarantine replays
+        self.chaos = chaos
+        self.tick_deadline_s = tick_deadline_s
+        self.max_retries = int(max_retries)
+        self.dead: str | None = None      # the death reason, once dead
+        self.slots_quarantined = 0
+        self.requests_retried = 0
+        self.requests_shed = 0
+        self.dispatch_failures = 0
+        # -- SLO-guarded admission: the queue turns tier-strict and EDF at
+        # the first submit with a tier or a tick deadline (until then it is
+        # the FIFO it always was); tenant quotas bound each tenant's
+        # in-flight (queued + resident) requests
+        self._seq = 0
+        self._tier_mode = False
+        self.tenant_quotas = dict(tenant_quotas or {})
+        self._tenant_load: dict[str, int] = {}
+        self._rid_tenant: dict[int, str] = {}
+        self.requests_preempted = 0
+        self.requests_resumed = 0
+        self.deadline_misses = 0
+        self.shed_by_reason: dict[str, int] = {}
+        self._jseed = seed
+        # advances every step(), dispatching or not (``_tick`` does not:
+        # an idle engine would never clear a replay's backoff gate)
+        self._step_count = 0
+        # shed, failed and deadline-cancelled requests the next step()
+        # returns, and the requests that finished in the step that killed
+        # the engine (for a failover's harvest)
+        self._failed: list[_Request] = []
+        self._orphans: list[_Request] = []
         # eviction: pages released so far; per-(slot, row-local page) EMA of
         # the attention mass; the in-flight block's mass, fetched in
         # _maybe_evict after the tick's one host sync
@@ -1280,18 +1477,20 @@ class ContinuousBatcher:
 
     def _table_words(self) -> int:
         n = self.n_slots
-        return n * self.max_pages + n * len(self._TABLES) + 1
+        return n * self.max_pages + n * len(self._TABLES) + 2
 
     def _table_views(self, buf: torch.Tensor) -> dict:
         """Named views of an int32 table buffer: ``pt`` [n_slots,
         max_pages], the per-slot vectors of ``_TABLES`` (the tables the
         host uploads, then the lane freeze the tick writes: tokens emitted
-        this dispatch, page-cap stalls, latched non-finite lanes) and
-        ``tk``, the dispatch's tick index."""
+        this dispatch, page-cap stalls, latched non-finite lanes),
+        ``tick``, the engine tick the dispatch starts at (its first
+        tick's sampling key), and ``tk``, the dispatch's tick index."""
         n, mp = self.n_slots, self.max_pages
         out = {"pt": buf[:n * mp].view(n, mp)}
         for i, name in enumerate(self._TABLES):
             out[name] = buf[n * mp + i * n:n * mp + (i + 1) * n]
+        out["tick"] = buf[-2:-1]
         out["tk"] = buf[-1:]
         return out
 
@@ -1330,10 +1529,13 @@ class ContinuousBatcher:
 
     def _chunk_in_views(self, buf: torch.Tensor) -> dict:
         """Named views of the chunk step's int32 input: ``tokens`` [1, C],
-        ``s`` and ``tlen`` [1], ``pt`` [1, max_pages]."""
+        ``s``, ``tlen`` and ``rid`` [1], ``temp`` [1] (a float32 view of
+        its word), ``pt`` [1, max_pages]."""
         c = self.prefill_chunk
         return {"tokens": buf[:c].view(1, c), "s": buf[c:c + 1],
-                "tlen": buf[c + 1:c + 2], "pt": buf[c + 2:].view(1, -1)}
+                "tlen": buf[c + 1:c + 2], "rid": buf[c + 2:c + 3],
+                "temp": buf[c + 3:c + 4].view(torch.float32),
+                "pt": buf[c + 4:].view(1, -1)}
 
     def _empty_pool(self) -> dict:
         """A pool of ``total_pages + 1`` pages in this engine's format,
@@ -1364,23 +1566,38 @@ class ContinuousBatcher:
                temperature: float = 0.0, deadline_s: float | None = None,
                migrate_out: bool = False, tier: int = 0, tenant: str = "",
                deadline_ticks: int | None = None) -> int:
-        """Enqueue a request (``prompt``: 1-D int sequence); greedy only.
-        The lifecycle keywords (deadlines, tier, tenant, migration) are
-        accepted at their defaults only.  With ``prefix_cache`` the
-        request keeps one registry key a full leading prompt page (a hash
-        of the prompt up to that page's end, as the reference: Python's
-        ``hash`` of bytes, so keys compare only within one process); the
-        page holding token ``t - 1`` is never cached."""
-        _refuse_later(_LATER_SUBMIT, dict(
-            deadline_s=deadline_s, migrate_out=migrate_out, tier=tier,
-            tenant=tenant, deadline_ticks=deadline_ticks))
+        """Enqueue a request (``prompt``: 1-D int sequence).
+        ``temperature`` 0 decodes greedily, > 0 samples (a
+        ``sampling=True`` engine only).  ``deadline_s`` fails the request
+        (``error='deadline exceeded'``, partial tokens kept) if it has not
+        finished that many seconds from now; ``deadline_ticks`` does so
+        after that many ``step()`` calls and also orders it within its
+        tier (EDF; the wall clock only prunes).  ``tier`` is the priority
+        (0 most critical), ``tenant`` the quota bucket: an over-quota
+        submit is shed at the door, returned FAILED by the next
+        ``step()``.  ``migrate_out`` is accepted at its default only.
+        With ``prefix_cache`` the request keeps one registry key a full
+        leading prompt page (a hash of the prompt up to that page's end,
+        as the reference: Python's ``hash`` of bytes, so keys compare only
+        within one process); the page holding token ``t - 1`` is never
+        cached."""
+        _refuse_later(_LATER_SUBMIT, dict(migrate_out=migrate_out))
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
-        if temperature != 0.0:
-            raise NotImplementedError(
-                "temperature > 0 is not ported yet (ROADMAP.md queue 1: "
-                "sampling)")
+        if tier < 0:
+            raise ValueError(f"tier must be >= 0, got {tier}")
+        if deadline_ticks is not None and deadline_ticks < 1:
+            raise ValueError(
+                f"deadline_ticks must be >= 1, got {deadline_ticks}")
+        if temperature < 0:
+            raise ValueError(
+                f"temperature must be >= 0, got {temperature}")
+        if temperature > 0 and not self.sampling:
+            raise ValueError(
+                "temperature > 0 needs a sampling-enabled engine "
+                "(ContinuousBatcher(..., sampling=True)) — greedy-only "
+                "engines compile argmax-only decode steps")
         prompt_np = np.asarray(prompt, np.int64)
         t = int(prompt_np.shape[0])
         if t < 1:
@@ -1403,24 +1620,58 @@ class ContinuousBatcher:
                 f"request needs {need} pages (bucket {bucket} + "
                 f"{max_new_tokens} new tokens) but the pool has only "
                 f"{self.total_pages}")
+        req = _Request(rid=self._next_rid, prompt_len=t,
+                       max_new_tokens=max_new_tokens,
+                       temperature=float(temperature), prompt=prompt_np,
+                       admit_len=t, tier=int(tier), tenant=str(tenant),
+                       deadline=(time.monotonic() + deadline_s
+                                 if deadline_s is not None else None),
+                       deadline_tick=(self._step_count + deadline_ticks
+                                      if deadline_ticks is not None
+                                      else None))
+        self._next_rid += 1
+        req.submit_tick = self._tick
+        if tier > 0 or deadline_ticks is not None:
+            self._tier_mode = True
+        if self._tracer is not None:
+            self._submit_ts[req.rid] = time.perf_counter()
+            self._req_spans[req.rid] = self._tracer.start_span(
+                "request", parent=self._engine_anchor,
+                attrs={"rid": req.rid, "prompt_len": t,
+                       "max_new_tokens": max_new_tokens, "tier": int(tier)})
+        quota = self.tenant_quotas.get(req.tenant) if req.tenant else None
+        if (quota is not None
+                and self._tenant_load.get(req.tenant, 0) >= quota):
+            # over quota: rejected at the door, never queued or prefilled
+            self._shed(req, f"tenant {req.tenant!r} over quota "
+                       f"({quota} in flight)", reason="quota")
+            return req.rid
+        if req.tenant:
+            self._rid_tenant[req.rid] = req.tenant
+            self._tenant_load[req.tenant] = \
+                self._tenant_load.get(req.tenant, 0) + 1
+        self._enqueue(req, prompt_np)
+        return req.rid
+
+    def _enqueue(self, req: _Request, prompt_np: np.ndarray) -> None:
+        """Queue ``req`` for admission with ``prompt_np`` as its prompt
+        (the original, or prompt + accepted tokens at a requeue): its
+        bucket-padded row, its prefix keys (``prefix_cache``; see
+        :meth:`submit`) and a fresh enqueue ``seq``.  The caller has
+        checked that a bucket holds it."""
+        t = int(prompt_np.shape[0])
+        bucket = next(b for b in self.prompt_buckets if b >= t)
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :t] = prompt_np
         keys: tuple = ()
         if self.paged and self.prefix_cache_enabled:
             keys = tuple(hash(prompt_np[:(i + 1) * self.page_size].tobytes())
                          for i in range((t - 1) // self.page_size))
-        req = _Request(rid=self._next_rid, prompt_len=t,
-                       max_new_tokens=max_new_tokens, prompt=prompt_np,
-                       admit_len=t, prefix_keys=keys)
-        self._next_rid += 1
-        if self._tracer is not None:
-            self._submit_ts[req.rid] = time.perf_counter()
-            self._req_spans[req.rid] = self._tracer.start_span(
-                "request", parent=self._engine_anchor,
-                attrs={"rid": req.rid, "prompt_len": t,
-                       "max_new_tokens": max_new_tokens, "tier": 0})
+        req.prefix_keys = keys
+        req.admit_len = t
+        req.seq = self._seq
+        self._seq += 1
         self.queue.append((req, padded))
-        return req.rid
 
     # -- pages ----------------------------------------------------------
 
@@ -1526,7 +1777,8 @@ class ContinuousBatcher:
     def _upload_tables(self, budget: np.ndarray, k: int) -> None:
         """Refresh the tick's device tables from the host's (page table,
         lengths, page caps, this dispatch's token ``budget``, the active
-        mask, the speculative caps) and zero the lane-freeze state: one
+        mask, the speculative caps, the engine tick) and zero the
+        lane-freeze state: one
         non-blocking copy from pinned staging into the buffers the graph
         binds.  A dispatch of ``k = 1`` tick uploads no page cap: the
         reference's single tick has no lane freeze (a degraded spec
@@ -1541,7 +1793,7 @@ class ContinuousBatcher:
         for name, x in (("tvec", self._tvec), ("tpad", self._tpad),
                         ("cap", self._cap if k > 1 else _NO_CAP),
                         ("budget", budget), ("active", self.active),
-                        ("gcap", self._gcap)):
+                        ("gcap", self._gcap), ("tick", self._tick)):
             host[name].numpy()[:] = x
         self._tables.copy_(self._staging, non_blocking=True)
         if self._staged is not None:
@@ -1550,10 +1802,15 @@ class ContinuousBatcher:
     # -- the engine tick ------------------------------------------------
 
     def _admit(self) -> None:
-        """Admission into free slots.  FIFO: a request waiting for pages
-        blocks everything behind it (its registered prefix pages do not
-        count against its ask, unreferenced registered pages count as
-        free); the dense engine needs only a free slot.  A request that
+        """Admission into free slots, in queue order: FIFO, or in tier mode
+        tier-strict and EDF within a tier (:meth:`_sort_queue`).  The
+        queue front waits out its replay backoff, and a front waiting for
+        pages blocks everything behind it (its registered prefix pages do
+        not count against its ask, unreferenced registered pages count as
+        free); a front that could never fit the pool is shed.  In tier
+        mode a front short of a slot or of pages first preempts strictly
+        lower-tier decoders (:meth:`_maybe_preempt`).  The dense engine
+        needs only a free slot.  A request that
         hits the prefix registry, or (``chunked_prefill``) whose bucket
         exceeds ``prefill_chunk``, admits alone onto the chunk path
         (:meth:`_admit_chunked`); otherwise consecutive queue-front
@@ -1564,13 +1821,44 @@ class ContinuousBatcher:
         with an earlier member: it should alias that member's pages, which
         are registered right after the wave's adoption."""
         free = deque(s for s in range(self.n_slots) if s not in self.slot_req)
+        if self._tier_mode:
+            self._sort_queue()
+            if self.queue and not free:
+                # slot pressure: the most critical queued request outranks
+                # a resident lower-tier decoder
+                req0, p0 = self.queue[0]
+                if req0.not_before_tick <= self._step_count:
+                    need = 0
+                    if self.paged:
+                        need = (self._pages_needed(req0.remaining_new,
+                                                   p0.shape[1])
+                                - self._prefix_hit_run(req0))
+                    free.extend(sorted(
+                        self._maybe_preempt(req0, need, need_slot=True)))
         while free and self.queue:
             req0, p0 = self.queue[0]
+            if req0.not_before_tick > self._step_count:
+                break        # a replay's backoff: it waits at the front
             bucket = p0.shape[1]
             if self.paged:
                 hits0 = self._prefix_hit_run(req0)
-                if (self._pages_needed(req0.remaining_new, bucket) - hits0
-                        > self._available_pages()):
+                need0 = self._pages_needed(req0.remaining_new, bucket)
+                if need0 - hits0 > self.total_pages:
+                    # a replay whose prompt grew past the pool can never
+                    # fit: shed it instead of blocking the queue behind it
+                    self.queue.popleft()
+                    self._shed(req0, f"shed: needs {need0 - hits0} "
+                               f"pages, pool has {self.total_pages}")
+                    continue
+                if need0 - hits0 > self._available_pages():
+                    if self._tier_mode:
+                        freed = self._maybe_preempt(req0, need0 - hits0,
+                                                    need_slot=False)
+                        if freed:
+                            free.extend(sorted(freed))
+                            # the parked victims re-entered the queue
+                            self._sort_queue()
+                            continue
                     break
                 if hits0 or (self.chunked_prefill
                              and bucket > self.prefill_chunk):
@@ -1602,7 +1890,11 @@ class ContinuousBatcher:
                 np.concatenate([p for _, p in wave])).to(self.device)
             true_lens = torch.tensor([r.admit_len for r, _ in wave],
                                      device=self.device)
-            firsts, cache_w = self._prefill(padded, true_lens)
+            temps_w = (torch.tensor([r.temperature for r, _ in wave],
+                                    dtype=torch.float32, device=self.device)
+                       if self.sampling else None)
+            firsts, cache_w = self._prefill(padded, true_lens, temps_w,
+                                            wave[0][0].rid)
             self.prefill_waves += 1
             self.wave_sizes.append(k)
             page_dst = None
@@ -1623,7 +1915,7 @@ class ContinuousBatcher:
                 page_dst = torch.from_numpy(page_dst).to(self.device)
             self._adopt(self._live, cache_w, page_dst,
                         torch.tensor(slots, device=self.device), firsts,
-                        true_lens)
+                        true_lens, temps_w)
             self._sample_hbm()
             self.wave_log.append((k, bucket))
             self._tick_work.append(("wave", k, bucket))
@@ -1635,6 +1927,7 @@ class ContinuousBatcher:
                 self._tick_prefill_tokens[slot] = req.admit_len
                 self._await_first.add(slot)
                 self.emitted_tokens += 1
+                self._note_resume(req, slot)
                 if remaining <= 1:
                     req.done = True
                 if self._tracer is not None:
@@ -1673,6 +1966,7 @@ class ContinuousBatcher:
             "padded": np.pad(padded[0], (0, self.prefill_chunk))}
         self.slot_req[slot] = req
         self.active[slot] = False
+        self._note_resume(req, slot)
         if self._tracer is not None:
             self._trace_admit(req, slot, "chunk")
 
@@ -1684,7 +1978,8 @@ class ContinuousBatcher:
             st = self._prefilling[slot]
             req = st["req"]
             t, c, start = req.admit_len, self.prefill_chunk, st["next"]
-            self._run_chunk(slot, st["padded"][start:start + c], start, t)
+            self._run_chunk(slot, st["padded"][start:start + c], start, t,
+                            req.rid, req.temperature)
             self._sample_hbm()
             self.chunks_run += 1
             self._tick_work.append(("chunk", c))
@@ -1699,7 +1994,8 @@ class ContinuousBatcher:
             st["next"] = start + c
             if st["next"] >= t:
                 activate_slot(self.first_toks, self.tokens, self.pos, slot,
-                              self._chunk_tok, t)
+                              self._chunk_tok, t, self.temps,
+                              req.temperature if self.sampling else None)
                 del self._prefilling[slot]
                 self._register_prefix(req, self._slot_pages[slot])
                 remaining = req.remaining_new
@@ -1710,22 +2006,24 @@ class ContinuousBatcher:
                     req.done = True
 
     def _run_chunk(self, slot: int, chunk: np.ndarray, start: int,
-                   tlen: int, st: dict | None = None) -> None:
-        """Stage one chunk of ``slot`` (its tokens, start, prompt length
-        and the slot's host page-table row: the tick's device tables are
-        refreshed only at dispatch) into the chunk step's device input by
-        one copy, then run the step over ``st``'s pool (default: the live
-        one): a replay of its graph, or the body itself off the graph
-        path.  Without :meth:`warmup`, the first chunk runs eagerly and
-        the graph is captured after it."""
+                   tlen: int, rid: int = 0, temp: float = 0.0,
+                   st: dict | None = None) -> None:
+        """Stage one chunk of ``slot`` (its tokens, start, prompt length,
+        the request's rid and temperature, and the slot's host page-table
+        row: the tick's device tables are refreshed only at dispatch) into
+        the chunk step's device input by one copy, then run the step over
+        ``st``'s pool (default: the live one): a replay of its graph, or
+        the body itself off the graph path.  Without :meth:`warmup`, the
+        first chunk runs eagerly and the graph is captured after it."""
         c = self.prefill_chunk
         if self._chunk_staged is not None:
             self._chunk_staged[slot].synchronize()
         row = self._chunk_staging[slot].numpy()
         row[:c] = chunk
-        row[c], row[c + 1] = start, tlen
+        row[c], row[c + 1], row[c + 2] = start, tlen, rid
+        row[c + 3] = np.float32(temp).view(np.int32)
         # warmup's scratch run writes through a zero row: trash page 0
-        row[c + 2:] = self._pt[slot] if st is None else 0
+        row[c + 4:] = self._pt[slot] if st is None else 0
         self._chunk_in.copy_(self._chunk_staging[slot], non_blocking=True)
         if self._chunk_staged is not None:
             self._chunk_staged[slot].record()
@@ -1739,16 +2037,17 @@ class ContinuousBatcher:
 
     def _chunk_on(self, pool: dict) -> None:
         chunk_body(self.params, pool, self._chunk_views, self._chunk_tok,
-                   self.cfg, self.page_size)
+                   self.cfg, self.page_size, self._sampler)
 
     def _capture_chunk(self, eager_s: float) -> None:
         """Capture the chunk step over the live pool (nothing runs)."""
         # as in _capture: the graph's function must not refer to the engine
-        params, pool, views, out, cfg, page = (
+        params, pool, views, out, cfg, page, sampler = (
             self.params, self.pool, self._chunk_views, self._chunk_tok,
-            self.cfg, self.page_size)
+            self.cfg, self.page_size, self._sampler)
         self._chunk_graph, self.chunk_graph_stats = _captured(
-            lambda: chunk_body(params, pool, views, out, cfg, page), eager_s)
+            lambda: chunk_body(params, pool, views, out, cfg, page, sampler),
+            eager_s)
 
     def warmup(self) -> None:
         """Run every shape this engine can hit -- each power-of-two wave
@@ -1770,15 +2069,18 @@ class ContinuousBatcher:
             k = 1
             while k <= min(self.n_slots, self.max_wave):
                 lens = torch.ones(k, dtype=torch.long, device=self.device)
+                temps_w = (torch.zeros(k, device=self.device)
+                           if self.sampling else None)
                 firsts, cache_w = self._prefill(
                     torch.zeros((k, bucket), dtype=torch.long,
-                                device=self.device), lens)
+                                device=self.device), lens, temps_w, 0)
                 # page ids 0: every prompt page lands in the trash page
                 page_dst = (torch.zeros((k, bucket // self.page_size),
                                         dtype=torch.long, device=self.device)
                             if self.paged else None)
                 self._adopt(scratch, cache_w, page_dst,
-                            torch.arange(k, device=self.device), firsts, lens)
+                            torch.arange(k, device=self.device), firsts, lens,
+                            temps_w)
                 k *= 2
         chunk_s = None
         if self.paged and (self.prefix_cache_enabled or self.chunked_prefill):
@@ -1808,24 +2110,33 @@ class ContinuousBatcher:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _prefill(self, padded: torch.Tensor, true_lens: torch.Tensor):
+    def _prefill(self, padded: torch.Tensor, true_lens: torch.Tensor,
+                 temps_w: torch.Tensor | None, rid0: int):
         """A wave's prefill: a bucket-wide panel for the paged engine's
-        pages, a ``max_len``-wide one for the dense engine's rows."""
+        pages, a ``max_len``-wide one for the dense engine's rows; a
+        sampling engine's first tokens drawn under the wave's key
+        ``fold_in(fold_in(base, 1), rid0)`` at the rows' ``temps_w``."""
+        sample = None
+        if self._sampler is not None:
+            sample = {"temps": temps_w, "top_k": self.top_k,
+                      "key": prng.fold_in(self._sampler["key1"], rid0)}
         return prefill_wave(self.params, padded, true_lens, self.cfg,
-                            None if self.paged else self.max_len)
+                            None if self.paged else self.max_len, sample)
 
     def _adopt(self, st: dict, cache_w: dict, page_dst, slots, firsts,
-               lens) -> None:
+               lens, temps_w) -> None:
         """Adopt a prefilled wave into ``st`` (the live state or warmup's
         scratch): into the pages ``page_dst`` names, or into the dense
-        cache rows of ``slots``."""
+        cache rows of ``slots``; a sampling engine also writes the rows'
+        temperatures ``temps_w``."""
         if self.paged:
             adopt_wave(st["pool"], cache_w, page_dst, slots, firsts, lens,
                        st["first_toks"], st["tokens"], st["pos"],
-                       self.page_size)
+                       self.page_size, st["temps"], temps_w)
         else:
             adopt_wave_dense(st["cache"], cache_w, slots, firsts, lens,
-                             st["first_toks"], st["tokens"], st["pos"])
+                             st["first_toks"], st["tokens"], st["pos"],
+                             st["temps"], temps_w)
 
     def _scratch_state(self) -> dict:
         """Zeroed stand-ins for everything the tick body writes."""
@@ -1835,6 +2146,7 @@ class ContinuousBatcher:
                           {n: torch.zeros_like(x)
                            for n, x in self.cache.items()}),
                 "tokens": torch.zeros_like(self.tokens),
+                "temps": torch.zeros_like(self.temps),
                 "pos": torch.zeros_like(self.pos),
                 "first_toks": torch.zeros_like(self.first_toks),
                 "freeze": self._table_views(torch.zeros_like(self._tables)),
@@ -1861,15 +2173,18 @@ class ContinuousBatcher:
         on.  It refers to what the tick reads, not to the engine: a graph
         holding it would otherwise keep the engine (and its parameters)
         alive past its last reference."""
-        params, tv, cfg, stride, eos = (self.params, self._tv, self.cfg,
-                                        self.stride, self.eos_id)
+        params, tv, cfg, stride, eos, sampler = (
+            self.params, self._tv, self.cfg, self.stride, self.eos_id,
+            self._sampler)
         if kind == "spec":
             dparams, gamma = self._draft_params, self.spec_gamma
             return lambda st: spec_tick_body(params, dparams, tv, st, cfg,
                                              gamma, eos)
         if not self.paged:
-            return lambda st: dense_tick_body(params, tv, st, cfg, stride)
-        return lambda st: tick_body(params, tv, st, cfg, stride, eos)
+            return lambda st: dense_tick_body(params, tv, st, cfg, stride,
+                                              sampler)
+        return lambda st: tick_body(params, tv, st, cfg, stride, eos,
+                                    sampler)
 
     def _capture(self, kind: str, eager_s: float) -> None:
         """Capture the tick body of ``kind`` over the live state (nothing
@@ -1928,7 +2243,12 @@ class ContinuousBatcher:
         and the budgets the dispatch ran on.  The slab and the mass are
         the graph's outputs, rewritten by the next dispatch: ``step``
         collects them (``_collect``, ``_maybe_evict``) before it
-        dispatches again."""
+        dispatches again.  A dead engine raises; the chaos events due at
+        this tick apply first, before anything is uploaded, so a failed
+        dispatch is retried from the same state."""
+        if self.dead is not None:
+            raise ReplicaDeadError(self.dead)
+        self._chaos_gate()
         k = self._fused_k_now()
         spec = bool(self.spec_gamma) and not self.spec_degraded
         budget = np.zeros((self.n_slots,), np.int32)
@@ -1953,51 +2273,369 @@ class ContinuousBatcher:
 
     def step(self) -> list[_Request]:
         """One engine tick: collect the previous block, retire finishers,
-        evict cold pages (with an ``evict_policy``), admit into freed
-        slots, run one prefill chunk for each prefilling slot, dispatch the
-        next block (without waiting for it), and account the step (see the
-        class docstring).  Returns the requests that finished."""
+        expire deadlines, evict cold pages (with an ``evict_policy``),
+        admit into freed slots, run one prefill chunk for each prefilling
+        slot, dispatch the next block (without waiting for it), and
+        account the step (see the class docstring).  Returns the requests
+        that finished, then those that failed this step (shed, out of
+        retries, past their deadline).  A dead engine raises
+        :class:`ReplicaDeadError`; the requests that finished in the step
+        that killed it go to ``take_orphans()``."""
+        if self.dead is not None:
+            raise ReplicaDeadError(self.dead)
+        self._step_count += 1
         self._sync_ms_last = 0.0
         t_tick = time.perf_counter()
         finished = self._collect()
         t_col = time.perf_counter() if self._tracer is not None else 0.0
-        t_adm = time.perf_counter()
-        self._tick_work = []
-        if self.evict_policy is not None:
-            self._maybe_evict()
-        self._admit()
-        if self.paged:
-            self._run_prefill_chunks()
-        # the host wall of the work decode slots waited behind this tick
-        stall = (time.perf_counter() - t_adm) * 1e3
-        if self.slot_req:
-            t_d0 = time.perf_counter() if self._tracer is not None else 0.0
-            self._dispatch_tick()
-            self._charge_chip_ticks()
-            self.stall_ms.append(stall)
-            self._tick_log.append({"tick": self._tick - 1,
-                                   "work": self._tick_work})
-            if self._tracer is not None:
-                self._trace_tick(t_tick, t_col, t_adm, stall, t_d0,
-                                 len(finished))
+        try:
+            self._expire_deadlines(finished)
+            t_adm = time.perf_counter()
+            self._tick_work = []
+            if self.evict_policy is not None:
+                self._maybe_evict()
+            self._admit()
+            if self.paged:
+                self._run_prefill_chunks()
+            # the host wall of the work decode slots waited behind this tick
+            stall = (time.perf_counter() - t_adm) * 1e3
+            if self.slot_req:
+                t_d0 = time.perf_counter() if self._tracer is not None else 0.0
+                self._dispatch_with_retry()
+                self._charge_chip_ticks()
+                self.stall_ms.append(stall)
+                self._tick_log.append({"tick": self._tick - 1,
+                                       "work": self._tick_work})
+                if self._tracer is not None:
+                    self._trace_tick(t_tick, t_col, t_adm, stall, t_d0,
+                                     len(finished))
+        except ReplicaDeadError:
+            # what finished in this step survives the death, for the
+            # failover's harvest (a completed request is never replayed)
+            self._orphans.extend(finished + self._failed)
+            self._failed.clear()
+            raise
+        finished.extend(self._failed)
+        self._failed.clear()
         if self.debug_invariants:
             self.check_page_invariants()
         self._note_host_overhead(t_tick, self._sync_ms_last)
+        self._watchdog(t_tick, finished)
         for xs in (self.stall_ms, self.wave_sizes, self.wave_log,
                    self.fused_block_ms, self.host_overhead_ms,
                    self._tick_log):
             _trim_acct(xs)
         return finished
 
+    # -- the request lifecycle: sheds, tiers, preemption, deadlines, cancel
+
+    def _shed(self, req: _Request, why: str,
+              reason: str = "pressure") -> None:
+        """Fail ONE request instead of letting it block the queue; it comes
+        back FAILED from the next ``step()``.  ``reason`` tags the cause in
+        ``shed_by_reason``: ``pressure`` (pool or bucket exhaustion),
+        ``quota`` (its tenant over quota) or ``deadline`` (pruned from the
+        queue before prefill)."""
+        req.done = True
+        req.error = why
+        self.requests_shed += 1
+        self.shed_by_reason[reason] = self.shed_by_reason.get(reason, 0) + 1
+        self._failed.append(req)
+        self._finish_request_trace(req)
+
+    def _note_resume(self, req: _Request, slot: int) -> None:
+        """A parked (preempted) request re-entered a slot: its replay
+        prefill of prompt + accepted tokens is the bit-exact greedy
+        resume.  Counted once a park/resume cycle."""
+        if not req.resuming:
+            return
+        req.resuming = False
+        self.requests_resumed += 1
+        if self._tracer is not None:
+            self._tracer.instant(
+                "request.resume", self._req_spans.get(req.rid),
+                attrs={"rid": req.rid, "slot": slot, "tier": req.tier,
+                       "preemptions": req.preemptions})
+
+    def _sort_queue(self) -> None:
+        """Tier-strict, EDF-within-tier admission order: sort the queue by
+        (tier, deadline_tick, seq).  Requests without a tick deadline sort
+        after those with one, in enqueue order, so an untiered engine's
+        schedule stays FIFO; the wall-clock ``deadline_s`` never orders
+        anything (wall time must not drive the schedule)."""
+        if len(self.queue) > 1:
+            self.queue = _AdmissionQueue(sorted(
+                self.queue,
+                key=lambda e: (e[0].tier,
+                               e[0].deadline_tick
+                               if e[0].deadline_tick is not None
+                               else float("inf"),
+                               e[0].seq)))
+
+    def _requeue_host(self, req: _Request, what: str) -> bool:
+        """Put ``req`` back on the queue as prompt + accepted tokens, the
+        re-admission shared by quarantine replays and preemption (both
+        resume through the same bit-exact greedy path).  False = the
+        grown prompt fits no bucket: the request is shed instead."""
+        replay = (np.concatenate([req.prompt,
+                                  np.asarray(req.tokens, np.int64)])
+                  if req.tokens else req.prompt)
+        t = int(replay.shape[0])
+        if t > self.prompt_buckets[-1]:
+            self._shed(req, f"{what} prompt {t} exceeds largest "
+                       f"bucket {self.prompt_buckets[-1]}")
+            return False
+        self._enqueue(req, replay)
+        return True
+
+    def _preempt_slot(self, slot: int, req: _Request) -> None:
+        """Park a lower-priority DECODING request on the host so its slot
+        and pages serve a more critical admission: release them and
+        requeue prompt + accepted tokens.  The resume is the standing
+        bit-exact greedy replay, so a preempted request's tokens equal an
+        unpreempted run's; it spends no retry (being outranked is policy,
+        not a fault), and it waits one step, so it never bounces straight
+        back into the slot it left ahead of the request it left it for."""
+        self.requests_preempted += 1
+        req.preemptions += 1
+        if self._tracer is not None:
+            self._tracer.instant(
+                "request.preempt", self._req_spans.get(req.rid),
+                attrs={"rid": req.rid, "slot": slot, "tier": req.tier,
+                       "tokens": len(req.tokens)})
+        self._vacate(slot)
+        req.resuming = True
+        req.not_before_tick = max(req.not_before_tick, self._step_count + 1)
+        self._requeue_host(req, "parked")
+
+    def _maybe_preempt(self, req0: _Request, need_pages: int,
+                       need_slot: bool) -> list[int]:
+        """Free capacity for ``req0`` by preempting strictly lower-tier
+        decoding slots (lowest tier first, newest first within a tier).
+        Victims are greedy (a sampled resume is not bit-exact), past
+        their chunked prefill and their first token, and replayable (the
+        grown prompt still fits the largest bucket).  Returns the freed
+        slots; none when no victim qualifies or all of them could not
+        free enough pages (then nobody is parked in vain)."""
+        victims = sorted(
+            ((s, r) for s, r in self.slot_req.items()
+             if r.tier > req0.tier and not r.done
+             and s not in self._prefilling
+             and s not in self._await_first
+             and r.temperature == 0.0
+             and int(r.prompt.shape[0]) + len(r.tokens)
+             <= self.prompt_buckets[-1]),
+            key=lambda sr: (-sr[1].tier, -sr[1].seq))
+        if not victims:
+            return []
+        if self.paged and need_pages > self._available_pages() + sum(
+                sum(1 for p in self._slot_pages.get(s, ()) if p)
+                for s, _ in victims):
+            return []
+        freed: list[int] = []
+        for s, r in victims:
+            fits = not self.paged or need_pages <= self._available_pages()
+            if fits and (freed or not need_slot):
+                break
+            self._preempt_slot(s, r)
+            freed.append(s)
+        return freed
+
+    def _cancel_req(self, req: _Request, why: str) -> None:
+        """Remove a request from wherever it is (queue, slot, chunked
+        prefill) and mark it failed with its partial tokens."""
+        req.done = True
+        req.error = why
+        self._finish_request_trace(req)
+        self._dequeue(req.rid)
+        for slot, r in list(self.slot_req.items()):
+            if r.rid == req.rid:
+                self._vacate(slot)
+                break
+
+    def _dequeue(self, rid: int) -> None:
+        """Drop request ``rid`` from the admission queue, if it is there."""
+        for i, (r, _) in enumerate(self.queue):
+            if r.rid == rid:
+                del self.queue[i]
+                return
+
+    def cancel(self, rid: int, reason: str = "canceled"):
+        """Cancel a queued or resident request.  Returns it (done,
+        ``error`` set, partial tokens kept), here and not from a later
+        ``step()``; None for an unknown or finished rid."""
+        for r in [r for r, _ in self.queue] + list(self.slot_req.values()):
+            if r.rid == rid:
+                self._cancel_req(r, reason)
+                return r
+        return None
+
+    def _expire_deadlines(self, finished: list) -> None:
+        """Fail the requests whose deadline (``deadline_s`` or
+        ``deadline_ticks``) passed; they come back from this step.  It runs
+        before admission, so a QUEUED expiry is pruned before any prefill
+        (a ``deadline`` shed), while a resident one is cancelled mid-decode
+        with its partial tokens."""
+        reqs = [r for r, _ in self.queue] + list(self.slot_req.values())
+        if not any(r.deadline is not None or r.deadline_tick is not None
+                   for r in reqs):
+            return
+        now = time.monotonic()
+
+        def expired(r: _Request) -> bool:
+            return ((r.deadline is not None and now > r.deadline)
+                    or (r.deadline_tick is not None
+                        and self._step_count > r.deadline_tick))
+
+        for req, _ in [e for e in self.queue if expired(e[0])]:
+            self.deadline_misses += 1
+            self._dequeue(req.rid)
+            self._shed(req, "deadline exceeded", reason="deadline")
+        for req in [r for r in self.slot_req.values() if expired(r)]:
+            self.deadline_misses += 1
+            self._cancel_req(req, "deadline exceeded")
+            finished.append(req)
+
+    # -- self-defense: chaos, quarantine and replay, the watchdog -----------
+
+    def _die(self, reason: str) -> None:
+        """Mark the engine dead and raise; every later ``step()`` raises
+        again.  The host-side request state stays for a failover."""
+        self.dead = reason
+        raise ReplicaDeadError(reason)
+
+    def _chaos_gate(self) -> None:
+        """Apply every chaos event due at this tick, before the dispatch
+        touches any state (so a failed dispatch retries the same call)."""
+        if self.chaos is None:
+            return
+        due = self.chaos.take(self._tick)
+        for i, ev in enumerate(due):
+            if ev.kind == "kill_replica":
+                self._die(f"chaos: replica killed at tick {self._tick}")
+            elif ev.kind == "stall_tick":
+                time.sleep(ev.stall_s)
+            elif ev.kind == "nan_logits":
+                if not self._poison_one_slot():
+                    self.chaos.defer(ev, self._tick + 1)
+            elif ev.kind == "fail_dispatch":
+                for rest in due[i + 1:]:
+                    self.chaos.defer(rest, self._tick)
+                raise DispatchFailure(
+                    f"chaos: dispatch failed at tick {self._tick}")
+
+    def poison_slot(self, slot: int) -> None:
+        """Chaos hook: NaN one slot's K/V history.  Paged: its first decode
+        page (never prefix-registered, so no other request can alias the
+        poison), in ``k`` or, for int8 and int4 pages, ``k_scale``; dense:
+        its cache row.  That slot's next logits go non-finite while its
+        neighbours stay exact."""
+        if self.paged:
+            pid = int(self._pt[slot, int(self._tpad[slot]) // self.page_size])
+            leaf = "k_scale" if "k_scale" in self.pool else "k"
+            self.pool[leaf][:, pid] = float("nan")
+        else:
+            self.cache["k"][:, slot] = float("nan")
+
+    def _poison_one_slot(self) -> bool:
+        """Poison the lowest eligible slot (active and, paged, past its
+        first decode flush, so the paged kernel reads the poisoned page);
+        False defers the event to the next tick."""
+        pos = self.pos.cpu().numpy() if self.paged else None
+        for slot in sorted(self.slot_req):
+            if slot in self._prefilling or not self.active[slot]:
+                continue
+            if self.paged and int(pos[slot]) - int(self._tvec[slot]) < 1:
+                continue
+            self.poison_slot(slot)
+            return True
+        return False
+
+    def _backoff_ticks(self, req: _Request) -> int:
+        """Exponential backoff in steps with a deterministic jitter a
+        (rid, attempt), the reference's, so replays spread out."""
+        base = min(1 << (req.retries - 1), 8)
+        j = int(np.random.default_rng(
+            abs(hash((self._jseed, req.rid, req.retries)))
+        ).integers(0, base + 1))
+        return base + j
+
+    def _replay(self, req: _Request, why: str) -> None:
+        """Re-admit a faulted request as its prompt + accepted tokens with
+        what it still owes: a greedy replay is bit-exact (the accepted
+        prefix conditions the same continuation), and with the prefix
+        cache the original prompt's registered pages make its prefill
+        mostly aliasing.  At most ``max_retries`` times, after a jittered
+        backoff; an unfittable replay is shed."""
+        req.retries += 1
+        if req.retries > self.max_retries:
+            req.done = True
+            req.error = f"failed after {req.retries - 1} retries: {why}"
+            self._failed.append(req)
+            self._finish_request_trace(req)
+            return
+        if self._tracer is not None:
+            self._tracer.instant(
+                "request.replay", self._req_spans.get(req.rid),
+                attrs={"rid": req.rid, "retries": req.retries, "why": why})
+        req.not_before_tick = self._step_count + self._backoff_ticks(req)
+        if self._requeue_host(req, "replay"):
+            self.requests_retried += 1
+
+    def _quarantine(self, slot: int, req: _Request) -> None:
+        """Non-finite logits: pull the slot out of the batch (its rows
+        never mixed with its neighbours'), drop the poisoned tick's
+        tokens, release its pages and replay the request from its last
+        good token."""
+        self.slots_quarantined += 1
+        if self._tracer is not None:
+            self._tracer.instant(
+                "request.quarantine", self._req_spans.get(req.rid),
+                attrs={"rid": req.rid, "slot": slot})
+        self._vacate(slot)
+        self._replay(req, "non-finite logits quarantined")
+
+    def take_orphans(self) -> list[_Request]:
+        """The requests that FINISHED in the step that killed this engine,
+        so a failover never replays a completed request."""
+        out, self._orphans = self._orphans, []
+        return out
+
+    def _watchdog(self, t0: float, finished: list) -> None:
+        """A step whose wall passed ``tick_deadline_s`` declares the engine
+        stalled (after the fact: a hung sync cannot be interrupted from
+        its own thread); the policy is failover, not waiting."""
+        if self.tick_deadline_s is None or self.dead is not None:
+            return
+        dt = time.perf_counter() - t0
+        if dt > self.tick_deadline_s:
+            self._orphans.extend(finished)
+            self.dead = (f"watchdog: tick {self._tick - 1} took "
+                         f"{dt * 1e3:.0f} ms > deadline "
+                         f"{self.tick_deadline_s * 1e3:.0f} ms")
+            raise TickStallError(self.dead)
+
+    def _dispatch_with_retry(self) -> None:
+        """Retry a dispatch that failed transiently, in place (the chaos
+        gate raises before the dispatch touches state); three failures in
+        a row kill the engine."""
+        for _ in range(3):
+            try:
+                return self._dispatch_tick()
+            except DispatchFailure:
+                self.dispatch_failures += 1
+        self._die("dispatch failed 3 times in a row")
+
     def _charge_chip_ticks(self) -> None:
         """Charge the dispatch that just went out (``_inflight_k`` device
         ticks on one device) to the resident slots, pro rata by work
         units: a prefilling slot weighs the prompt tokens it prefilled this
-        tick, a decoding slot one unit.  Every request is the reference's
-        default tenant and tier ("", 0)."""
+        tick, a decoding slot one unit; each charge goes to the request's
+        (tenant, tier)."""
         self.busy_ticks += self._inflight_k
-        entries = [("", 0, self._tick_prefill_tokens.get(slot, 0) or 1)
-                   for slot in sorted(self.slot_req)]
+        entries = [(req.tenant, req.tier,
+                    self._tick_prefill_tokens.get(slot, 0) or 1)
+                   for slot, req in sorted(self.slot_req.items())]
         self.cost.charge(entries, self._inflight_k)
         self._tick_prefill_tokens.clear()
 
@@ -2013,7 +2651,8 @@ class ContinuousBatcher:
         store = self.pool if self.paged else self.cache
         leaves = sum(x.numel() * x.element_size() for x in store.values())
         mirrors = sum(x.numel() * x.element_size()
-                      for x in (self.first_toks, self.tokens, self.pos))
+                      for x in (self.first_toks, self.tokens, self.pos,
+                                self.temps))
         return leaves, mirrors
 
     def _sample_hbm(self) -> None:
@@ -2052,7 +2691,10 @@ class ContinuousBatcher:
                                         "how": how})
 
     def _trace_first_token(self, req: _Request) -> None:
-        """TTFT: the first generated token consumed on the host."""
+        """TTFT: the first generated token consumed on the host (once: a
+        replayed request keeps its first stamp)."""
+        if req.first_tick < 0:
+            req.first_tick = self._tick
         if req.rid in self._first_tok_ts:
             return
         now = time.perf_counter()
@@ -2063,8 +2705,19 @@ class ContinuousBatcher:
             sp.set_attr("ttft_ms", round((now - t_sub) * 1e3, 3))
 
     def _finish_request_trace(self, req: _Request) -> None:
-        """Close the request span with its token count and per-output-
-        token time (pops its state, so a second call does nothing)."""
+        """A request reached a terminal state (retired, shed, cancelled,
+        failed): stamp its finish tick, free its tenant's quota slot, and
+        close its span with its token count, per-output-token time and
+        error.  Pops its state, so a second call does nothing."""
+        if req.finish_tick < 0:
+            req.finish_tick = self._tick
+        ten = self._rid_tenant.pop(req.rid, None)
+        if ten is not None:
+            left = self._tenant_load.get(ten, 1) - 1
+            if left > 0:
+                self._tenant_load[ten] = left
+            else:
+                self._tenant_load.pop(ten, None)
         t_first = self._first_tok_ts.pop(req.rid, None)
         self._submit_ts.pop(req.rid, None)
         sp = self._req_spans.pop(req.rid, None)
@@ -2075,6 +2728,8 @@ class ContinuousBatcher:
         if t_first is not None and len(req.tokens) > 1:
             sp.set_attr("token_ms", round(
                 (now - t_first) * 1e3 / (len(req.tokens) - 1), 4))
+        if req.error is not None:
+            sp.set_attr("error", req.error)
         sp.end(now)
 
     def _trace_tick(self, t_tick: float, t_col: float, t_adm: float,
@@ -2122,9 +2777,11 @@ class ContinuousBatcher:
         the reference's ``_consume_fused`` does: a slot stops consuming
         the tick its request is satisfied or its tokens hold the EOS,
         before it looks at any later bad flag (K single ticks would have
-        retired it first).  A speculative tick lands ``take + 1`` tokens
-        of a slot that was active at dispatch; its statistics are
-        replayed by :meth:`_spec_stats`."""
+        retired it first), and is quarantined at its first bad tick, its
+        tokens from that tick on discarded (:meth:`_quarantine`).  A
+        speculative tick lands ``take + 1`` tokens of a slot that was
+        active at dispatch; its statistics are replayed by
+        :meth:`_spec_stats`."""
         finished: list[_Request] = []
         slab = torch.from_numpy(fused)
         out = (self._spec_slab_views if spec else self._slab_views)(slab)
@@ -2154,16 +2811,15 @@ class ContinuousBatcher:
             if req.done:   # single-token request: retires without decode
                 self._retire(slot, req, finished)
                 continue
-            hit_eos = False
+            quarantined = hit_eos = False
             for kk in range(k):
                 want = req.max_new_tokens - len(req.tokens)
                 if want <= 0:
                     break
                 if bad_np[kk, slot]:
-                    raise RuntimeError(
-                        f"non-finite logits in slot {slot} (rid {req.rid}); "
-                        "quarantine and replay are not ported yet "
-                        "(ROADMAP.md queue 1: pools, fleet and llama_serve)")
+                    self._quarantine(slot, req)
+                    quarantined = True
+                    break
                 if spec:
                     avail = int(take_np[kk, slot]) + 1 \
                         if spec_active[slot] else 0
@@ -2177,6 +2833,8 @@ class ContinuousBatcher:
                 if self._check_eos(req):
                     hit_eos = True
                     break
+            if quarantined:
+                continue
             if hit_eos or len(req.tokens) >= req.max_new_tokens:
                 self._retire(slot, req, finished)
         return finished
@@ -2224,13 +2882,19 @@ class ContinuousBatcher:
                 finished: list[_Request]) -> None:
         req.done = True
         finished.append(req)
-        if self._tracer is not None:
-            self._finish_request_trace(req)
+        self._finish_request_trace(req)
+        self._vacate(slot)
+
+    def _vacate(self, slot: int) -> None:
+        """Free ``slot`` for the next admission: drop its request and
+        chunk-prefill state, release its pages, and reset its draft depth
+        (the next occupant starts optimistic, at full γ)."""
         del self.slot_req[slot]
         self.active[slot] = False
+        self._prefilling.pop(slot, None)
+        self._await_first.discard(slot)
         self._release_pages(slot)
         if self.spec_gamma:
-            # the next occupant starts optimistic, at full γ
             self._accept_ema[slot] = 1.0
             self._gcap[slot] = self.spec_gamma
 
@@ -2314,13 +2978,35 @@ class ContinuousBatcher:
 
     def drain(self, max_ticks: int = 10_000) -> list[_Request]:
         """Run until queue and slots are empty; returns every finished
-        request in completion order."""
+        (and failed) request in completion order.  Work left after
+        ``max_ticks`` raises an error naming every stuck slot and queued
+        request (:meth:`_drain_diagnosis`)."""
         out: list[_Request] = []
         for _ in range(max_ticks):
             if not self.queue and not self.slot_req:
                 return out
             out.extend(self.step())
-        raise RuntimeError(f"drain did not converge after {max_ticks} ticks")
+        raise RuntimeError(
+            f"drain did not converge after {max_ticks} ticks; "
+            f"stuck work: {self._drain_diagnosis()}")
+
+    def _drain_diagnosis(self) -> str:
+        """Who is stuck and why: the payload ``drain()`` raises with."""
+        parts = []
+        for slot in sorted(self.slot_req):
+            req = self.slot_req[slot]
+            state = ("prefilling" if slot in self._prefilling
+                     else "active" if self.active[slot] else "inactive")
+            parts.append(
+                f"slot {slot}: rid={req.rid} {state} "
+                f"tokens={len(req.tokens)}/{req.max_new_tokens} "
+                f"retries={req.retries}")
+        for req, _ in self.queue:
+            parts.append(
+                f"queued rid={req.rid} admit_len={req.admit_len} "
+                f"not_before_tick={req.not_before_tick} "
+                f"(engine step {self._step_count})")
+        return "; ".join(parts) or "none visible (bookkeeping bug)"
 
     def check_page_invariants(self) -> None:
         """Page-leak detector: free and allocated pages partition

@@ -78,7 +78,10 @@ def paged_attention_ref(q, pool_k, pool_v, page_table, layer, t, t_pad, d,
     f32 [L, n_pages, Hkv, P] per token (int8) or [L, n_pages, Hkv, P/g] per
     group of g tokens (int4).  The k-scale multiplies the scores after
     ``* D^-0.5``; the v-scale multiplies the weights after l and the mass
-    are taken, before the P.V product.  Returns (o [B, Hq, D] f32
+    are taken, before the P.V product.  Masked positions are selected out
+    of the scores and of P.V, never multiplied by a zero, so NaN left in
+    a recycled page's masked rows (K, V or their scales) stays out of
+    every output, as in the kernels, which load only valid rows.  Returns (o [B, Hq, D] f32
     normalized, m [B, Hq] f32, l [B, Hq] f32), plus with ``collect_mass``
     the per-page normalized mass [B, max_pages] (mean over query heads, so
     a row sums to at most 1; holes and pages never walked get 0)."""
@@ -118,9 +121,13 @@ def paged_attention_ref(q, pool_k, pool_v, page_table, layer, t, t_pad, d,
     if collect_mass:
         wn = w / torch.clamp(l, min=1e-30)[..., None]
         mass = wn.reshape(b, hkv, g, max_pages, p).sum(dim=(1, 2, 4)) / hq
+    # a masked position adds nothing, whatever its bytes: a recycled page
+    # may still hold NaN there (a quarantined slot's), which a zero weight
+    # would carry into o; the kernels never load those rows
     if v_scale is not None:
-        w = w * per_token(v_scale)[:, :, None, :]
+        w = torch.where(valid, w * per_token(v_scale)[:, :, None, :], 0.0)
         v = v.to(q.dtype)
+    v = v.masked_fill(~valid[:, :, 0, :, None], 0)
     o = torch.einsum("bkgs,bksd->bkgd", w.to(v.dtype).float(), v.float())
     o = o / torch.clamp(l, min=1e-30)[..., None]
     out = (o.reshape(b, hq, dd), m.reshape(b, hq), l.reshape(b, hq))

@@ -84,25 +84,22 @@ def test_page_accounting_matches_reference(tiny):
 # at their defaults only: name -> (default, another value, ROADMAP.md item)
 LIFECYCLE = "pools, fleet and llama_serve"
 LATER_KNOBS = {
-    "max_retries": (2, 0, LIFECYCLE),
     "collect_overlap": (False, True, LIFECYCLE),
     "donate": (True, False, LIFECYCLE),
 }
-# ported knobs whose defaults must keep serving the plain greedy tokens
-SPEC_DEFAULTS = {"spec_adaptive": True, "spec_degrade_after": None}
 LATER_SUBMIT = {
-    "deadline_s": (None, 5.0, LIFECYCLE),
-    "deadline_ticks": (None, 4, LIFECYCLE),
-    "tier": (0, 1, LIFECYCLE),
-    "tenant": ("", "a", LIFECYCLE),
     "migrate_out": (False, True, LIFECYCLE),
 }
+# knobs and submit keywords (ported, or taken at their defaults only) whose
+# reference defaults must keep serving the plain greedy tokens
+DEFAULT_KNOBS = {"max_retries": 2, "collect_overlap": False, "donate": True,
+                 "spec_adaptive": True, "spec_degrade_after": None}
+DEFAULT_SUBMIT = {"deadline_s": None, "deadline_ticks": None, "tier": 0,
+                  "tenant": "", "migrate_out": False}
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("top_k", 4), ("sampling", True), ("seed", 1), ("mesh", object()),
-    ("metrics", object()), ("chaos", object()), ("tick_deadline_s", 1.0),
-    ("tenant_quotas", {"a": 1}),
+    ("mesh", object()), ("metrics", object()),
     *((k, v[1]) for k, v in LATER_KNOBS.items()),
     *((f"submit:{k}", v[1]) for k, v in LATER_SUBMIT.items()),
 ])
@@ -123,8 +120,8 @@ def test_unported_knobs_raise(tiny, knob, value):
         ts.ContinuousBatcher(params_t, cfg, **kw)
 
 
-@pytest.mark.parametrize("knob", [*LATER_KNOBS, *SPEC_DEFAULTS, *(
-    f"submit:{k}" for k in LATER_SUBMIT)])
+@pytest.mark.parametrize("knob", [*DEFAULT_KNOBS, *(
+    f"submit:{k}" for k in DEFAULT_SUBMIT)])
 def test_reference_defaults_are_accepted(tiny, knob):
     """Each of these knobs at the reference's default: the engine builds,
     takes the request and serves the solo greedy tokens."""
@@ -133,11 +130,9 @@ def test_reference_defaults_are_accepted(tiny, knob):
     sub = {}
     if knob.startswith("submit:"):
         name = knob.split(":")[1]
-        sub[name] = LATER_SUBMIT[name][0]
-    elif knob in SPEC_DEFAULTS:
-        kw[knob] = SPEC_DEFAULTS[knob]
+        sub[name] = DEFAULT_SUBMIT[name]
     else:
-        kw[knob] = LATER_KNOBS[knob][0]
+        kw[knob] = DEFAULT_KNOBS[knob]
     eng = ts.ContinuousBatcher(params_t, cfg, **kw)
     p = [5, 1, 4, 1, 5, 9]
     eng.submit(p, 5, **sub)
@@ -225,7 +220,7 @@ def test_warmup_is_state_free(tiny):
 def test_submit_validation(tiny):
     _, _, cfg, params_t = tiny
     eng = ts.ContinuousBatcher(params_t, cfg, device="cpu", **ENGINE)
-    with pytest.raises(NotImplementedError, match="sampling"):
+    with pytest.raises(ValueError, match="sampling-enabled"):
         eng.submit([1, 2], 3, temperature=0.5)
     with pytest.raises(ValueError, match="bucket"):
         eng.submit(list(range(17)), 3)

@@ -9,9 +9,9 @@ mode.
 Wall-clock lists can only be held by their lengths; everything the
 schedule decides must be equal.  The pool (or cache) leaves' bytes must
 equal the reference's.  The slot vectors differ: the port keeps
-``tokens``/``first_toks`` as int64 and ``pos`` as int32 (20 bytes a slot),
-the reference ``first_toks``/``tokens``/``pos``/``temps`` as four 4-byte
-words (16 bytes a slot)."""
+``tokens``/``first_toks`` as int64 and ``pos``/``temps`` as int32/f32 (24
+bytes a slot), the reference ``first_toks``/``tokens``/``pos``/``temps`` as
+four 4-byte words (16 bytes a slot)."""
 
 import jax
 import numpy as np
@@ -107,14 +107,14 @@ def test_accounting_matches_reference(tiny, case):
         assert eng.chunks_run > 0 and any(
             w[0] == "chunk" for _, work in ours["_tick_log"] for w in work)
     # live bytes: the pool (cache) leaves equal the reference's; the slot
-    # vectors are 20 bytes a slot here and 16 there (see the docstring)
+    # vectors are 24 bytes a slot here and 16 there (see the docstring)
     leaves, mirrors = eng._state_bytes()
     store = ref.pool if kw["paged"] else ref.cache
     ref_leaves = sum(x.nbytes for x in jax.tree.leaves(store))
     ref_mirrors = sum(x.nbytes for x in (ref.first_toks, ref.tokens,
                                          ref.pos, ref.temps))
     assert leaves == ref_leaves > 0
-    assert (mirrors, ref_mirrors) == (20 * kw["n_slots"],
+    assert (mirrors, ref_mirrors) == (24 * kw["n_slots"],
                                       16 * kw["n_slots"])
     assert eng.hbm_pool_bytes == eng.hbm_peak_bytes == leaves + mirrors
     assert ref.hbm_pool_bytes == ref_leaves + ref_mirrors
