@@ -144,16 +144,32 @@ printed as it ends (any failed check exits non-zero):
    replay's prefill computes the accepted tokens' K/V in another GEMM shape
    than the decode did, and random weights' logits are near-tied).  At
    phase 6's narrow f32 config the same chaos and tier scenarios give
-   every request the fault-free tokens.
+   every request the fault-free tokens;
+11. pools    -- the serving pools at phase 5's engine shape
+   (``pool_phase``), two engines sharing the weights on the one card:
+   ``DataParallelServePool(dp=2, routing="affinity")`` with the prefix
+   cache on 16 requests in three shared-prefix groups (exactly once, the
+   same routes and tokens from a second identical pool, the affinity hit
+   rate, tokens/s beside one 16-slot engine's, the memory a retired
+   replica still holds), a chaos kill of replica 1 (one failover, every
+   request finished on replica 0), ``DisaggServePool(prefill=1,
+   decode=1)`` on bf16 and int8 pages (migrations equal the requests
+   with more than one new token, every import's digest met, the decode
+   replica's kernel launches, each chain's export and import ms, the
+   pages migrated); then the same at phase 6's narrow f32 config, every
+   token equal to ``greedy_generate``'s (the int8 pools' to one int8
+   engine's), the disaggregated pool's to the symmetric pool's and the
+   replays to the fault-free run.
 
-Ten paths are driven: serving (phases 4-5), the prefix cache (5f),
+Eleven paths are driven: serving (phases 4-5), the prefix cache (5f),
 speculative serving (5g),
 quantized serving (5b),
 int8-weight serving (5c), the static path and the dense engine (5d-5e,
 which run no kernel of the port, as the reference runs no Pallas kernel
 there), training (phase 7's steps), T5 paged serving (phase 8's bf16
-paged calls), the program's in-process engine runs (phase 9) and
-sampling with the request lifecycle (phase 10, run after 5e).  Launch counters are zeroed just before each and read just
+paged calls), the program's in-process engine runs (phase 9),
+sampling with the request lifecycle (phase 10, run after 5e) and the
+serving pools (phase 11, after 10).  Launch counters are zeroed just before each and read just
 after; a graph replay counts the launches captured in it.  The serving
 and training paths must run kernels 1-3 on their tensor-core instances
 only.  The line
@@ -3316,6 +3332,401 @@ def lifecycle_phase(torch, kernels, cfg, params, gen, name) -> dict:
     return out
 
 
+# -- phase 11: the serving pools --------------------------------------------
+
+# phase 5's engine without its device: the pools place their replicas
+POOL_ENGINE = {k: v for k, v in ENGINE.items() if k != "device"}
+POOL_NEW = 32
+# phase 6's narrow f32 config and a small paged engine over it
+NARROW_CFG = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
+                  vocab_size=512, max_seq_len=128)
+# (the 48 bucket holds a replay's prompt: prompt + accepted tokens)
+NARROW_ENGINE = dict(n_slots=3, stride=4, prompt_buckets=(16, 32, 48),
+                     paged=True, page_size=16, debug_invariants=True)
+
+
+def pool_prompts(torch, vocab, gen, prefix: int, tail: tuple, n: int = 16,
+                 groups: int = 3) -> list:
+    """``n`` prompts in ``groups`` shared-prefix groups (request i in group
+    i % groups): a group's ``prefix`` tokens (whole pages) and a tail of
+    ``tail`` = (lo, hi) random tokens."""
+    heads = [torch.randint(0, vocab, (prefix,), generator=gen,
+                           device="cuda").tolist() for _ in range(groups)]
+    lens = torch.randint(tail[0], tail[1] + 1, (n,), generator=gen,
+                         device="cuda")
+    return [heads[i % groups] + torch.randint(
+        0, vocab, (int(k),), generator=gen, device="cuda").tolist()
+        for i, k in enumerate(lens)]
+
+
+def pool_window(torch, pool, prompts, n_new) -> dict:
+    """Submit every prompt (``n_new[i]`` new tokens) and drain, timed to a
+    synchronize: tokens by submit order, each request returned exactly
+    once and without error, tokens/s, the routes and which replica
+    finished each request."""
+    finished = {}
+    if hasattr(pool, "_finish"):
+        base = pool._finish
+
+        def note(replica, r, done):
+            rid = pool._local.get((replica, r.rid))
+            base(replica, r, done)
+            if rid is not None:
+                finished[rid] = replica
+
+        pool._finish = note
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [pool.submit(p, n) for p, n in zip(prompts, n_new)]
+    done = pool.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(sorted(r.rid for r in done) == sorted(rids),
+          "phase 11: a request was lost or returned twice")
+    check(all(r.error is None for r in done),
+          f"phase 11: errors {[r.error for r in done if r.error]}")
+    by_rid = {r.rid: r.tokens for r in done}
+    tokens = [by_rid[r] for r in rids]
+    check(all(len(t) == n for t, n in zip(tokens, n_new)),
+          "phase 11: a request came back short")
+    return {"tokens": tokens, "wall_s": wall,
+            "tokens_per_s": sum(map(len, tokens)) / wall,
+            "routes": [tuple(x) for x in getattr(pool, "route_log", ())],
+            "finished_on": [finished.get(r) for r in rids]}
+
+
+def equal_share(a: list, b: list) -> float:
+    """The share of token positions two runs agree on."""
+    pairs = [(x, y) for ta, tb in zip(a, b) for x, y in zip(ta, tb)]
+    return sum(x == y for x, y in pairs) / max(len(pairs), 1)
+
+
+def counted_imports(serve, pool) -> list:
+    """Wrap the decode replica's ``import_chain`` to note, for each offered
+    chain (a deferred one is offered again), whether the import computed
+    its digest once (the engine's own check, ``serve._chain_digest``; a
+    mismatch raises and fails the request); returns the list it fills.
+    The caller restores ``serve._chain_digest``."""
+    eng, seen, calls = pool.replicas[1], [], [0]
+    real_import, real_digest = eng.import_chain, serve._chain_digest
+
+    def digest(chain, t):
+        calls[0] += 1
+        return real_digest(chain, t)
+
+    def checked(exp, *a, **k):
+        before = calls[0]
+        local = real_import(exp, *a, **k)
+        seen.append(calls[0] - before == 1)
+        return local
+
+    serve._chain_digest = digest
+    eng.import_chain = checked
+    return seen
+
+
+def timed_exports(torch, pool) -> list:
+    """Wrap the prefill replica's chain export to time each (gather, copy
+    to the host, digest); returns the ms list it fills."""
+    eng, ms = pool.replicas[0], []
+    real = eng._export_chain_slot
+
+    def timed(slot, req):
+        t0 = time.perf_counter()
+        real(slot, req)
+        ms.append((time.perf_counter() - t0) * 1e3)
+
+    eng._export_chain_slot = timed
+    return ms
+
+
+def replica_launches(kernels, eng, kernel: str) -> list:
+    """Wrap ``eng.step`` to add up the ``kernel`` launches each of its steps
+    makes (a graph replay adds its captured tally); returns a one-item
+    list holding the sum."""
+    total = [0]
+    real = eng.step
+
+    def step():
+        before = kernels.launches[kernel]
+        try:
+            return real()
+        finally:
+            total[0] += kernels.launches[kernel] - before
+
+    eng.step = step
+    return total
+
+
+def disagg_run(torch, kernels, DisaggServePool, params, cfg, prompts, n_new,
+               kernel, **kw) -> dict:
+    """A warmed ``DisaggServePool(prefill=1, decode=1)`` on one card over
+    ``prompts``: migrations equal the requests with ``n_new > 1``, every
+    import met its digest, the decode replica launched ``kernel``."""
+    from kubegpu_tpu_torch.models import serve
+    pool = DisaggServePool(params, cfg, prefill=1, decode=1,
+                           devices=["cuda:0"] * 2, **kw)
+    pool.warmup()
+    real_digest = serve._chain_digest
+    imports = counted_imports(serve, pool)
+    export_ms = timed_exports(torch, pool)
+    dec = replica_launches(kernels, pool.replicas[1], kernel)
+    try:
+        run = pool_window(torch, pool, prompts, n_new)
+    finally:
+        serve._chain_digest = real_digest
+    want = sum(n > 1 for n in n_new)
+    check(pool.migrations == want == pool.replicas[1].chains_imported,
+          f"phase 11 (c): migrations {pool.migrations}, imports "
+          f"{pool.replicas[1].chains_imported}, want {want}")
+    check(len(imports) >= want and all(imports),
+          "phase 11 (c): an import did not check its chain's digest")
+    check(dec[0] > 0, f"phase 11 (c): the decode replica never ran {kernel}")
+    check(len(export_ms) == pool.replicas[0].chains_exported == want,
+          "phase 11 (c): exports != migrations")
+    run.update(migrations=pool.migrations,
+               migrated_pages=pool.migrated_pages, export_ms=export_ms,
+               import_ms=list(pool.migration_ms),
+               decode_replica_launches=dec[0],
+               import_attempts=len(imports))
+    del pool
+    torch.cuda.empty_cache()
+    return run
+
+
+def narrow_pools(torch, kernels) -> dict:
+    """(a)-(c) at phase 6's narrow f32 config: every token equals
+    ``greedy_generate``'s for its prompt (model-dtype pages, the prefix
+    cache on) or, on int8 pages (waves of one, no prefix cache), one int8
+    engine's; the disaggregated pool's equal the symmetric pool's, and
+    the chaos run's replays equal the fault-free run."""
+    from kubegpu_tpu_torch.models import (
+        ContinuousBatcher,
+        DataParallelServePool,
+        DisaggServePool,
+        LlamaConfig,
+        greedy_generate,
+        llama_init,
+    )
+    from kubegpu_tpu_torch.obs.chaos import ChaosEvent, ChaosInjector
+    cfg = LlamaConfig.tiny(**NARROW_CFG)
+    params = llama_init(cfg, seed=SEED, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    prompts = pool_prompts(torch, cfg.vocab_size, g, 16, (4, 14), n=9)
+    n_new = [16] * 8 + [1]
+    solo = [greedy_generate(params, [p], n, cfg, device="cuda")[0].tolist()
+            for p, n in zip(prompts, n_new)]
+    kw = dict(NARROW_ENGINE, prefix_cache=True)
+    devs = ["cuda:0"] * 2
+    out = {}
+    runs = []
+    for _ in range(2):
+        pool = DataParallelServePool(params, cfg, dp=2, devices=devs, **kw)
+        runs.append(pool_window(torch, pool, prompts, n_new))
+    check(runs[0]["tokens"] == runs[1]["tokens"] == solo,
+          "narrow (a): a pool's tokens differ from greedy_generate's")
+    check(runs[0]["routes"] == runs[1]["routes"],
+          "narrow (a): the routes differ between two identical runs")
+    out["affinity_hit_rate"] = pool.routing_affinity_hit_rate
+    pool = DataParallelServePool(params, cfg, dp=2, devices=devs, chaos={
+        1: ChaosInjector([ChaosEvent(1, "kill_replica")])}, **kw)
+    chaos = pool_window(torch, pool, prompts, [16] * len(prompts))
+    check(pool.failovers == 1 and 1 in pool.dead_replicas,
+          f"narrow (b): failovers {pool.failovers}")
+    check(chaos["tokens"][:8] == solo[:8],
+          "narrow (b): a replayed request differs from the fault-free run")
+    check(set(chaos["finished_on"]) == {0},
+          "narrow (b): a request finished off replica 0")
+    before = kernels.launches["paged_decode"]
+    dis = disagg_run(torch, kernels, DisaggServePool, params, cfg, prompts,
+                     n_new, "paged_decode", **kw)
+    check(dis["tokens"] == runs[0]["tokens"],
+          "narrow (c): the disaggregated pool's tokens differ from the "
+          "symmetric pool's")
+    check(kernels.launches["paged_decode"] > before, "narrow: no kernel 4")
+    # int8 codes round the K/V: a request must see the same GEMM shapes on
+    # every engine for its codes to be equal, so every prefill is a wave of
+    # one and nothing is aliased (a follower's tail through the chunk step,
+    # or a wave of another size, may move a code by one)
+    q8 = dict(NARROW_ENGINE, kv_bits=8, max_wave=1)
+    single = ContinuousBatcher(params, cfg, device="cuda", **q8)
+    for p, n in zip(prompts, n_new):
+        single.submit(p, n)
+    by_rid = {r.rid: r.tokens for r in single.drain()}
+    q8_single = [by_rid[i] for i in range(len(prompts))]
+    sym8 = pool_window(torch, DataParallelServePool(
+        params, cfg, dp=2, devices=devs, **q8), prompts, n_new)
+    dis8 = disagg_run(torch, kernels, DisaggServePool, params, cfg, prompts,
+                      n_new, "paged_decode_q8", **q8)
+    check(sym8["tokens"] == q8_single,
+          "narrow (c): the int8 symmetric pool differs from one int8 engine")
+    check(dis8["tokens"] == sym8["tokens"],
+          "narrow (c): the int8 disaggregated pool differs from the "
+          "symmetric one")
+    out.update(pool_equals_greedy=True, routes_repeat=True,
+               replays_equal_fault_free=True, disagg_equals_symmetric=True,
+               int8_disagg_equals_single=True,
+               migrations=dis["migrations"], migrated_pages=dis["migrated_pages"])
+    log("pools", part="narrow f32 (phase 6's config)",
+        pool_equals_greedy=True, routes_repeat=True,
+        affinity_hit_rate=round(out["affinity_hit_rate"], 3),
+        replays_equal_fault_free=True, disagg_equals_symmetric=True,
+        int8_disagg_equals_single_engine=True,
+        migrations=dis["migrations"], migrated_pages=dis["migrated_pages"])
+    return out
+
+
+def pool_phase(torch, kernels, cfg, params, gen, name) -> dict:
+    """Phase 11: the serving pools at phase 5's engine shape (Llama-3-8B,
+    bf16 weights shared by two engines on the one card, 8 slots each,
+    pages of 128, a 512 bucket), every pool ``warmup()``-ed (the replicas
+    capture their graphs one after the other):
+
+    (a) ``DataParallelServePool(dp=2, routing="affinity",
+        prefix_cache=True)``: 16 greedy requests in three groups sharing a
+        256-token prefix (two pages), 32 new tokens (two of them 1);
+        every request returns once; a second identical pool gives the
+        same routes and tokens; the affinity hit rate, and tokens/s
+        beside one 16-slot engine's (80 pages) on the same prompts; then
+        ``retire_replica(1)`` and the memory still held (a retired
+        replica keeps its engine, and so its pool and graphs);
+    (b) the second pool again, its replica 1 killed at its second tick
+        (``ChaosInjector``): one failover, every request returned once
+        and finished on replica 0;
+    (c) ``DisaggServePool(prefill=1, decode=1)`` on bf16 pages and on
+        ``kv_bits=8`` pages (kernel 5): migrations equal the requests with
+        more than one new token, every import met its digest, the decode
+        replica's launches; each chain's export and import ms and the
+        pages migrated;
+    (d) (a)-(c) at phase 6's narrow f32 config with every token held
+        (:func:`narrow_pools`).
+
+    At full width in bf16 only exactly-once completion and the counters
+    are held: near-tied argmaxes flip across batch shapes and replays
+    (ROADMAP.md queue 3), so the shares of equal tokens are printed."""
+    from kubegpu_tpu_torch.models import (
+        ContinuousBatcher,
+        DataParallelServePool,
+        DisaggServePool,
+    )
+    from kubegpu_tpu_torch.obs.chaos import ChaosEvent, ChaosInjector
+    t_phase = time.perf_counter()
+    prompts = pool_prompts(torch, cfg.vocab_size, gen, 256, (40, 200))
+    n_new = [POOL_NEW] * 14 + [1, 1]
+    devs = ["cuda:0"] * 2
+    aff_kw = dict(POOL_ENGINE, prefix_cache=True)
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+
+    def warmed_pool(cls, **kw):
+        pool = cls(params, cfg, devices=devs, **kw)
+        t0 = time.perf_counter()
+        pool.warmup()
+        torch.cuda.synchronize()
+        return pool, time.perf_counter() - t0
+
+    # (a) affinity routing on two identical pools, and one 16-slot engine
+    pools, runs, warm_s = [], [], []
+    for _ in range(2):
+        pool, w = warmed_pool(DataParallelServePool, dp=2, routing="affinity",
+                              **aff_kw)
+        pools.append(pool)
+        warm_s.append(w)
+        runs.append(pool_window(torch, pool, prompts, n_new))
+    check(runs[0]["routes"] == runs[1]["routes"],
+          "phase 11 (a): the routes differ between two identical runs")
+    check(runs[0]["tokens"] == runs[1]["tokens"],
+          "phase 11 (a): two identical pools gave different tokens")
+    hit_rate = pool.routing_affinity_hit_rate
+    check(hit_rate > 0, "phase 11 (a): no request hit its chain's replica")
+    peak = torch.cuda.max_memory_allocated()
+    held0 = torch.cuda.memory_allocated()
+    pool = pools.pop(0)
+    pool.retire_replica(1)
+    pool.step()
+    check(1 in pool.dead_replicas and pool.drains == 1,
+          "phase 11 (a): the retire did not land")
+    held1 = torch.cuda.memory_allocated()
+    del pool
+    torch.cuda.empty_cache()
+    single = ContinuousBatcher(params, cfg, device="cuda",
+                               **dict(aff_kw, n_slots=16, total_pages=80))
+    single.warmup()
+    one = pool_window(torch, single, prompts, n_new)
+    del single
+    torch.cuda.empty_cache()
+    out["affinity"] = {
+        "hit_rate": hit_rate, "routes": runs[0]["routes"],
+        "tokens_per_s": [r["tokens_per_s"] for r in runs],
+        "single_engine_tokens_per_s": one["tokens_per_s"],
+        "equal_single_engine_share": equal_share(runs[0]["tokens"],
+                                                 one["tokens"]),
+        "warmup_s": warm_s, "peak_bytes": peak,
+        "allocated_before_retire": held0, "allocated_after_retire": held1}
+    log("pools", part="(a) dp=2 affinity", card=repr(name),
+        hit_rate=round(hit_rate, 3), routes_repeat=True, tokens_repeat=True,
+        tokens_per_s=[round(r["tokens_per_s"], 1) for r in runs],
+        single_16slot_tokens_per_s=round(one["tokens_per_s"], 1),
+        equal_single_engine_share=round(
+            out["affinity"]["equal_single_engine_share"], 4),
+        warmup_s=[round(w, 2) for w in warm_s],
+        peak_gb=round(peak / 1e9, 2),
+        allocated_gb_before_retire=round(held0 / 1e9, 3),
+        allocated_gb_after_retire=round(held1 / 1e9, 3))
+
+    # (b) the second pool's replica 1 killed at its next tick but one
+    pool = pools.pop()
+    pool.replicas[1].chaos = ChaosInjector([ChaosEvent(
+        pool.replicas[1]._tick + 1, "kill_replica")])
+    chaos = pool_window(torch, pool, prompts, [POOL_NEW] * len(prompts))
+    check(pool.failovers == 1 and 1 in pool.dead_replicas,
+          f"phase 11 (b): failovers {pool.failovers}, dead "
+          f"{pool.dead_replicas}")
+    check(set(chaos["finished_on"]) == {0},
+          "phase 11 (b): a request finished off replica 0")
+    out["chaos"] = {"failovers": pool.failovers,
+                    "requests_retried": pool.requests_retried,
+                    "replay_ms": list(pool.replay_ms),
+                    "equal_fault_free_share": equal_share(
+                        runs[0]["tokens"][:14], chaos["tokens"][:14])}
+    log("pools", part="(b) replica 1 killed", failovers=pool.failovers,
+        requests_retried=pool.requests_retried,
+        replay_ms=[round(x, 3) for x in pool.replay_ms],
+        all_finished_on_replica_0=True,
+        equal_fault_free_share=round(out["chaos"]["equal_fault_free_share"],
+                                     4))
+    del pool
+    torch.cuda.empty_cache()
+
+    # (c) disaggregated prefill/decode, bf16 and int8 pages
+    out["disagg"] = {}
+    for label, kernel, kw in (("bf16", "paged_decode", {}),
+                              ("int8", "paged_decode_q8", {"kv_bits": 8})):
+        run = disagg_run(torch, kernels, DisaggServePool, params, cfg,
+                         prompts, n_new, kernel, **aff_kw, **kw)
+        if label == "bf16":
+            run["equal_symmetric_share"] = equal_share(runs[0]["tokens"],
+                                                       run["tokens"])
+        out["disagg"][label] = {k: v for k, v in run.items()
+                                if k not in ("tokens", "routes")}
+        log("pools", part=f"(c) disagg {label}",
+            migrations=run["migrations"],
+            migrated_pages=run["migrated_pages"],
+            digests_checked=run["import_attempts"],
+            decode_replica_launches=run["decode_replica_launches"],
+            export_ms=[round(x, 3) for x in run["export_ms"]],
+            import_ms=[round(x, 3) for x in run["import_ms"]],
+            tokens_per_s=round(run["tokens_per_s"], 1),
+            **({"equal_symmetric_share": round(
+                run["equal_symmetric_share"], 4)} if label == "bf16" else {}))
+
+    # (d) the narrow f32 config, every token held
+    out["narrow"] = narrow_pools(torch, kernels)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log("pools", wall_s=round(out["wall_s"], 1))
+    return out
+
+
 def ptxas_instances(text: str) -> list:
     """Each kernel instance of an ``-Xptxas -v`` build log: its name
     (demangled by ``c++filt`` where the machine has it), registers a thread
@@ -3507,6 +3918,14 @@ def main(argv=None) -> int:
     check(all(lifecycle_launches[k] > 0 for k in ("paged_decode",
                                                   "paged_decode_q8")),
           f"a kernel of the lifecycle path never ran: {lifecycle_launches}")
+    kernels.reset_launches()          # the pools' path starts here
+    pools = pool_phase(torch, kernels, cfg, params,
+                       torch.Generator(device="cuda").manual_seed(SEED + 4),
+                       name)
+    pool_launches = dict(kernels.launches)   # ... and ends here
+    check(all(pool_launches[k] > 0 for k in ("paged_decode",
+                                             "paged_decode_q8")),
+          f"a kernel of the pools' path never ran: {pool_launches}")
     log("static", what="int8 weights + int8 cache over bf16",
         decode=static["int8"]["serve_decode_tokens_per_s"]
         / static["bf16"]["serve_decode_tokens_per_s"],
@@ -3555,7 +3974,7 @@ def main(argv=None) -> int:
                   "kubegpu_tpu/ops/paged_attention.py:567")}
     paths = (serve_launches, prefix_launches, spec_launches, quant_launches,
              qw_launches, train_launches, t5_launches, program_launches,
-             lifecycle_launches)
+             lifecycle_launches, pool_launches)
     # kernels 4-6 at llama_serve.py's bench shape, by their pool format
     program_rows = {k: program["program_shape"][fmt]
                     for k, fmt in zip(PAGED_KERNELS, ("bf16", "q8", "q4g16"))}
@@ -3594,6 +4013,7 @@ def main(argv=None) -> int:
                "dense_engine": dense,
                "paged_mass": quant["bf16"], "paged_rounding": rounding,
                "paged_nan": nan_checks, "lifecycle": lifecycle,
+               "pools": pools,
                "profile": prof, "training": train,
                "flash_fwd_training_shape": fwd_train,
                "t5": t5_stats, "program": program,
@@ -3606,7 +4026,8 @@ def main(argv=None) -> int:
                             "training": train_launches,
                             "t5_paged_serving": t5_launches,
                             "llama_serve": program_launches,
-                            "sampling_and_lifecycle": lifecycle_launches},
+                            "sampling_and_lifecycle": lifecycle_launches,
+                            "pools": pool_launches},
                "kernels": line["kernels"],
                "total_s": time.perf_counter() - t_start}
     if args.details:

@@ -207,7 +207,9 @@ class Graph:
     capture), ``instantiate_s`` (the end of the capture and the graph's
     instantiation) and ``pool_bytes`` (device memory the capture
     reserved) say what it cost.  A failure raises: nothing falls back to
-    an eager run."""
+    an eager run.  Python's collector runs before the capture and not
+    during it: a dropped graph that it destroyed under a capture (an
+    engine freed with a reference cycle) would invalidate the capture."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -222,6 +224,7 @@ class Graph:
         """Capture ``fn()``; returns what it returned (tensors in the
         graph's memory, rewritten by every replay)."""
         global _capturing
+        import gc
         import time
 
         import torch
@@ -231,9 +234,12 @@ class Graph:
         side = torch.cuda.Stream()
         side.wait_stream(self.stream)
         torch.cuda.synchronize()
+        gc.collect()
         reserved = torch.cuda.memory_reserved()
         graph = torch.cuda.CUDAGraph()
         _capturing = self
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.stream(side):
                 graph.capture_begin()
@@ -253,6 +259,8 @@ class Graph:
                 t2 = time.perf_counter()
         finally:
             _capturing = None
+            if collecting:
+                gc.enable()
         self.stream.wait_stream(side)
         self.graph = graph
         self.capture_s, self.instantiate_s = t1 - t0, t2 - t1

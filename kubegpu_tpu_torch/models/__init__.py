@@ -1,6 +1,7 @@
-"""Model families of the port (so far: Llama, its cached decode and the
-dense and paged serving engines; the T5 encoder-decoder with its paged
-decode; int8 weights for both in ``quant``)."""
+"""Model families of the port (so far: Llama, its cached decode, the dense
+and paged serving engines and the replica pools over them; the T5
+encoder-decoder with its paged decode; int8 weights for both in
+``quant``)."""
 
 from kubegpu_tpu_torch.models.decode import (  # noqa: F401
     greedy_generate,
@@ -11,7 +12,11 @@ from kubegpu_tpu_torch.models.llama import (  # noqa: F401
     llama_forward,
     llama_init,
 )
-from kubegpu_tpu_torch.models.serve import ContinuousBatcher  # noqa: F401
+from kubegpu_tpu_torch.models.serve import (  # noqa: F401
+    ContinuousBatcher,
+    DataParallelServePool,
+    DisaggServePool,
+)
 from kubegpu_tpu_torch.models.t5 import (  # noqa: F401
     T5Config,
     make_t5_train_step,

@@ -88,6 +88,11 @@ injection, the quarantine of a slot whose logits went non-finite and the
 replay of its request as prompt + accepted tokens, dispatch retries, a
 watchdog).
 
+Page chains migrate between engines (``migrate_out``, ``import_chain``),
+and :class:`DataParallelServePool` and :class:`DisaggServePool` run several
+engines behind one queue: routing by prefix affinity, failover by replay,
+the scale surface, and prefill/decode disaggregation.
+
 The engine keeps the reference's host-side accounting whatever the knobs
 (prefill waves, per-tick decode stall, busy ticks and the chip-tick cost
 ledger, the readout's and the host's wall a step, live state bytes) and,
@@ -97,6 +102,7 @@ graph, and no traced value feeds device math.
 
 from __future__ import annotations
 
+import hashlib
 import time
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
@@ -125,6 +131,7 @@ from kubegpu_tpu_torch.models.llama import (
     unbind_layers,
 )
 from kubegpu_tpu_torch import kernels, prng
+from kubegpu_tpu_torch.kubemeta.codec import pod_gang_spec
 from kubegpu_tpu_torch.obs.chaos import (
     DispatchFailure,
     ReplicaDeadError,
@@ -141,9 +148,11 @@ from kubegpu_tpu_torch.ops.kvquant import (
 from kubegpu_tpu_torch.ops.paged_attention import (
     decode_capacity,
     fold_chunk_queries,
+    gather_pages,
     merge_partials,
     page_table_size,
     paged_attention,
+    scatter_pages,
 )
 
 # Reference knobs this slice does not port: name -> (default, ROADMAP.md
@@ -152,13 +161,10 @@ from kubegpu_tpu_torch.ops.paged_attention import (
 _LATER = {
     "collect_overlap": (False, "pools, fleet and llama_serve"),
     "mesh": (None, "multi-device"),
-    "metrics": (None, "pools, fleet and llama_serve"),
 }
 
-# The same for ``submit``'s keywords (migration is the pools' half).
-_LATER_SUBMIT = {
-    "migrate_out": (False, "pools, fleet and llama_serve"),
-}
+# The same for ``submit``'s keywords: every one is ported.
+_LATER_SUBMIT: dict = {}
 
 
 # per-tick accounting window (entries a list keeps), as the reference's
@@ -930,6 +936,25 @@ class _AdmissionQueue(deque):
         super().__delitem__(i)
 
 
+def _chain_digest(chain: dict, t: int) -> str:
+    """Content hash of an exported page chain: the reference's sha256 over
+    the prompt length, then each leaf's name, shape (a tuple's text), dtype
+    name and bytes, in sorted leaf order, so a chain hashes to the same hex
+    string in either package.  The leaves are host tensors; a bf16 leaf's
+    bits go through an int16 view (numpy has no bf16) under the name
+    ``bfloat16``.  The importer recomputes it before touching its pool, so
+    a torn or corrupted transfer fails loudly."""
+    h = hashlib.sha256(str(t).encode())
+    for name in sorted(chain):
+        a = chain[name].detach().cpu().contiguous()
+        h.update(name.encode())
+        h.update(str(tuple(a.shape)).encode())
+        h.update(str(a.dtype).removeprefix("torch.").encode())
+        bits = a.view(torch.int16) if a.dtype == torch.bfloat16 else a
+        h.update(bits.numpy().tobytes())
+    return h.hexdigest()
+
+
 @dataclass
 class _Request:
     rid: int
@@ -1094,11 +1119,23 @@ class ContinuousBatcher:
     ``engine.dispatch`` (``engine.verify``) children.  Each site is one
     host-side ``is not None`` branch.
 
-    Knobs of the reference engine outside this slice (``_LATER``; and
-    ``submit``'s ``migrate_out``) are accepted at the reference's default
-    and raise ``NotImplementedError`` naming their ROADMAP.md item at any
-    other value; so does ``donate=False`` (the pools always update in
-    place, which is what ``donate=True`` asks for)."""
+    ``metrics`` (a :class:`kubegpu_tpu_torch.obs.metrics.MetricsRegistry`)
+    receives every counter, gauge and histogram the reference engine
+    feeds, under its names, from the host (the walls are the port's own).
+
+    Page-chain migration (disaggregated serving): ``submit(...,
+    migrate_out=True)`` exports the request's page-aligned prompt pages to
+    host tensors at its retirement (:meth:`take_export`, with a
+    :func:`_chain_digest`), and :meth:`import_chain` adopts such a chain
+    into a free slot mid-decode (``chains_exported``, ``chains_imported``,
+    ``pages_migrated_out``, ``pages_migrated_in``).  Both run eagerly, as
+    index copies outside every graph.
+
+    Knobs of the reference engine outside this slice (``_LATER``) are
+    accepted at the reference's default and raise ``NotImplementedError``
+    naming their ROADMAP.md item at any other value; so does
+    ``donate=False`` (the pools always update in place, which is what
+    ``donate=True`` asks for)."""
 
     def __init__(self, params: dict, cfg: LlamaConfig, n_slots: int = 8,
                  max_len: int | None = None, stride: int = 16,
@@ -1118,8 +1155,8 @@ class ContinuousBatcher:
                  eos_id: int | None = None, tracer=None, trace_ctx=None,
                  chaos=None, tick_deadline_s: float | None = None,
                  max_retries: int = 2, tenant_quotas: dict | None = None,
-                 donate: bool = True, graphs: bool = True, device="cuda",
-                 **later):
+                 metrics=None, donate: bool = True, graphs: bool = True,
+                 device="cuda", **later):
         _refuse_later(_LATER, later)
         if donate is not True:
             raise NotImplementedError(
@@ -1398,8 +1435,24 @@ class ContinuousBatcher:
         self.fused_block_ms: list[float] = []
         self.host_overhead_ms: list[float] = []
         self._sync_ms_last = 0.0
-        self.hbm = LiveBytesTracker()
+        self._metrics = metrics
+        if metrics is not None:
+            metrics.set_gauge("serve_kv_bits",
+                              self.kv_bits if paged else 16)
+        self.hbm = LiveBytesTracker(metrics)
         self.kv_quality_delta = 0.0
+        # -- page-chain migration: the rids whose chain is exported at
+        # retirement (a disaggregated pool's prefill leg), and the exports
+        # awaiting take_export (host tensors: they outlive this engine)
+        self._migrate_out: set[int] = set()
+        self._exports: dict[int, dict] = {}
+        # slots an import activated after the in-flight block's dispatch:
+        # that block holds nothing of theirs
+        self._imported: set[int] = set()
+        self.chains_exported = 0
+        self.chains_imported = 0
+        self.pages_migrated_out = 0
+        self.pages_migrated_in = 0
         # -- fault injection and self-defense: ``chaos`` is consulted at
         # every dispatch, ``tick_deadline_s`` bounds a step's wall (the
         # watchdog), ``max_retries`` a request's quarantine replays
@@ -1575,13 +1628,14 @@ class ContinuousBatcher:
         tier (EDF; the wall clock only prunes).  ``tier`` is the priority
         (0 most critical), ``tenant`` the quota bucket: an over-quota
         submit is shed at the door, returned FAILED by the next
-        ``step()``.  ``migrate_out`` is accepted at its default only.
+        ``step()``.  ``migrate_out`` (paged only) exports the request's
+        page chain at retirement, before its pages return (the prefill
+        leg of disaggregated serving; :meth:`take_export`).
         With ``prefix_cache`` the request keeps one registry key a full
         leading prompt page (a hash of the prompt up to that page's end,
         as the reference: Python's ``hash`` of bytes, so keys compare only
         within one process); the page holding token ``t - 1`` is never
         cached."""
-        _refuse_later(_LATER_SUBMIT, dict(migrate_out=migrate_out))
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
@@ -1590,6 +1644,10 @@ class ContinuousBatcher:
         if deadline_ticks is not None and deadline_ticks < 1:
             raise ValueError(
                 f"deadline_ticks must be >= 1, got {deadline_ticks}")
+        if migrate_out and not self.paged:
+            raise ValueError(
+                "migrate_out needs the paged pool (page chains are "
+                "the migration transfer unit)")
         if temperature < 0:
             raise ValueError(
                 f"temperature must be >= 0, got {temperature}")
@@ -1633,8 +1691,9 @@ class ContinuousBatcher:
         req.submit_tick = self._tick
         if tier > 0 or deadline_ticks is not None:
             self._tier_mode = True
-        if self._tracer is not None:
+        if self._tracer is not None or self._metrics is not None:
             self._submit_ts[req.rid] = time.perf_counter()
+        if self._tracer is not None:
             self._req_spans[req.rid] = self._tracer.start_span(
                 "request", parent=self._engine_anchor,
                 attrs={"rid": req.rid, "prompt_len": t,
@@ -1650,6 +1709,8 @@ class ContinuousBatcher:
             self._rid_tenant[req.rid] = req.tenant
             self._tenant_load[req.tenant] = \
                 self._tenant_load.get(req.tenant, 0) + 1
+        if migrate_out:
+            self._migrate_out.add(req.rid)
         self._enqueue(req, prompt_np)
         return req.rid
 
@@ -1930,7 +1991,7 @@ class ContinuousBatcher:
                 self._note_resume(req, slot)
                 if remaining <= 1:
                     req.done = True
-                if self._tracer is not None:
+                if self._tracer is not None or self._metrics is not None:
                     self._trace_admit(req, slot, "wave")
                 if self.paged:
                     # the adoption is ordered before any later read, so the
@@ -1967,7 +2028,7 @@ class ContinuousBatcher:
         self.slot_req[slot] = req
         self.active[slot] = False
         self._note_resume(req, slot)
-        if self._tracer is not None:
+        if self._tracer is not None or self._metrics is not None:
             self._trace_admit(req, slot, "chunk")
 
     def _run_prefill_chunks(self) -> None:
@@ -2306,6 +2367,15 @@ class ContinuousBatcher:
                 self.stall_ms.append(stall)
                 self._tick_log.append({"tick": self._tick - 1,
                                        "work": self._tick_work})
+                # a DECODE stall: only ticks where a slot past its prefill
+                # with more than one token to make waited count
+                if self._metrics is not None and any(
+                        s not in self._prefilling
+                        and self.slot_req[s].max_new_tokens > 1
+                        for s in self.slot_req):
+                    self._metrics.observe("serve_decode_stall_ms", stall)
+                    self._metrics.observe("serve_decode_stall_work",
+                                          float(len(self._tick_work)))
                 if self._tracer is not None:
                     self._trace_tick(t_tick, t_col, t_adm, stall, t_d0,
                                      len(finished))
@@ -2340,6 +2410,11 @@ class ContinuousBatcher:
         req.error = why
         self.requests_shed += 1
         self.shed_by_reason[reason] = self.shed_by_reason.get(reason, 0) + 1
+        if self._metrics is not None:
+            self._metrics.inc("serve_requests_shed")
+            self._metrics.inc("serve_requests_shed" + f"_{reason}")
+            if self._tier_mode:
+                self._metrics.inc("serve_requests_shed" + f"_t{req.tier}")
         self._failed.append(req)
         self._finish_request_trace(req)
 
@@ -2351,6 +2426,8 @@ class ContinuousBatcher:
             return
         req.resuming = False
         self.requests_resumed += 1
+        if self._metrics is not None:
+            self._metrics.inc("serve_requests_resumed")
         if self._tracer is not None:
             self._tracer.instant(
                 "request.resume", self._req_spans.get(req.rid),
@@ -2398,6 +2475,9 @@ class ContinuousBatcher:
         back into the slot it left ahead of the request it left it for."""
         self.requests_preempted += 1
         req.preemptions += 1
+        if self._metrics is not None:
+            self._metrics.inc("serve_requests_preempted")
+            self._metrics.inc("serve_requests_preempted" + f"_t{req.tier}")
         if self._tracer is not None:
             self._tracer.instant(
                 "request.preempt", self._req_spans.get(req.rid),
@@ -2413,7 +2493,8 @@ class ContinuousBatcher:
         """Free capacity for ``req0`` by preempting strictly lower-tier
         decoding slots (lowest tier first, newest first within a tier).
         Victims are greedy (a sampled resume is not bit-exact), past
-        their chunked prefill and their first token, and replayable (the
+        their chunked prefill and their first token, not a migrate-out
+        leg, and replayable (the
         grown prompt still fits the largest bucket).  Returns the freed
         slots; none when no victim qualifies or all of them could not
         free enough pages (then nobody is parked in vain)."""
@@ -2423,6 +2504,7 @@ class ContinuousBatcher:
              and s not in self._prefilling
              and s not in self._await_first
              and r.temperature == 0.0
+             and r.rid not in self._migrate_out
              and int(r.prompt.shape[0]) + len(r.tokens)
              <= self.prompt_buckets[-1]),
             key=lambda sr: (-sr[1].tier, -sr[1].seq))
@@ -2488,13 +2570,20 @@ class ContinuousBatcher:
                         and self._step_count > r.deadline_tick))
 
         for req, _ in [e for e in self.queue if expired(e[0])]:
-            self.deadline_misses += 1
+            self._note_deadline_miss(req)
             self._dequeue(req.rid)
             self._shed(req, "deadline exceeded", reason="deadline")
         for req in [r for r in self.slot_req.values() if expired(r)]:
-            self.deadline_misses += 1
+            self._note_deadline_miss(req)
             self._cancel_req(req, "deadline exceeded")
             finished.append(req)
+
+    def _note_deadline_miss(self, req: _Request) -> None:
+        self.deadline_misses += 1
+        if self._metrics is not None:
+            self._metrics.inc("serve_deadline_miss")
+            if self._tier_mode:
+                self._metrics.inc("serve_deadline_miss" + f"_t{req.tier}")
 
     # -- self-defense: chaos, quarantine and replay, the watchdog -----------
 
@@ -2502,6 +2591,8 @@ class ContinuousBatcher:
         """Mark the engine dead and raise; every later ``step()`` raises
         again.  The host-side request state stays for a failover."""
         self.dead = reason
+        if self._metrics is not None:
+            self._metrics.inc("serve_replica_deaths")
         raise ReplicaDeadError(reason)
 
     def _chaos_gate(self) -> None:
@@ -2581,6 +2672,8 @@ class ContinuousBatcher:
         req.not_before_tick = self._step_count + self._backoff_ticks(req)
         if self._requeue_host(req, "replay"):
             self.requests_retried += 1
+            if self._metrics is not None:
+                self._metrics.inc("serve_requests_retried")
 
     def _quarantine(self, slot: int, req: _Request) -> None:
         """Non-finite logits: pull the slot out of the batch (its rows
@@ -2588,6 +2681,8 @@ class ContinuousBatcher:
         tokens, release its pages and replay the request from its last
         good token."""
         self.slots_quarantined += 1
+        if self._metrics is not None:
+            self._metrics.inc("serve_slots_quarantined")
         if self._tracer is not None:
             self._tracer.instant(
                 "request.quarantine", self._req_spans.get(req.rid),
@@ -2613,6 +2708,8 @@ class ContinuousBatcher:
             self.dead = (f"watchdog: tick {self._tick - 1} took "
                          f"{dt * 1e3:.0f} ms > deadline "
                          f"{self.tick_deadline_s * 1e3:.0f} ms")
+            if self._metrics is not None:
+                self._metrics.inc("serve_tick_stalls")
             raise TickStallError(self.dead)
 
     def _dispatch_with_retry(self) -> None:
@@ -2624,6 +2721,8 @@ class ContinuousBatcher:
                 return self._dispatch_tick()
             except DispatchFailure:
                 self.dispatch_failures += 1
+                if self._metrics is not None:
+                    self._metrics.inc("serve_dispatch_failures")
         self._die("dispatch failed 3 times in a row")
 
     def _charge_chip_ticks(self) -> None:
@@ -2643,7 +2742,11 @@ class ContinuousBatcher:
         """This step's wall less its readout's: the host work a fused
         dispatch amortizes over K ticks."""
         wall = (time.perf_counter() - t_tick) * 1e3
-        self.host_overhead_ms.append(max(wall - min(sync_ms, wall), 0.0))
+        overhead = max(wall - min(sync_ms, wall), 0.0)
+        self.host_overhead_ms.append(overhead)
+        if self._metrics is not None and wall > 0:
+            self._metrics.set_gauge("serve_host_overhead_pct",
+                                    round(100.0 * overhead / wall, 3))
 
     def _state_bytes(self) -> tuple[int, int]:
         """(pool or cache leaves' bytes, slot vectors' bytes) of the
@@ -2676,23 +2779,40 @@ class ContinuousBatcher:
         of greedy tokens that diverge from a bf16 engine's over the same
         traffic; a harness measures it, the engine reports it)."""
         self.kv_quality_delta = float(delta)
+        if self._metrics is not None:
+            self._metrics.set_gauge("serve_kv_quality_delta",
+                                    round(float(delta), 6))
 
-    # -- request tracing (each caller checks ``self._tracer is not None``)
+    # -- request tracing and metrics (the callers of the first two check
+    # ``self._tracer is not None or self._metrics is not None``)
 
     def _trace_admit(self, req: _Request, slot: int, how: str) -> None:
-        """Queue wait ends here: the request owns a slot."""
+        """Queue wait ends here: the request owns a slot.  Observes
+        ``serve_queue_wait_ms`` and its tick twin ``serve_queue_wait_ticks``
+        (per tier too in tier mode)."""
+        now = time.perf_counter()
         t_sub = self._submit_ts.get(req.rid)
+        wait_ms = (now - t_sub) * 1e3 if t_sub is not None else None
+        if self._metrics is not None and wait_ms is not None:
+            wait_ticks = float(self._tick - req.submit_tick)
+            self._metrics.observe("serve_queue_wait_ms", wait_ms)
+            self._metrics.observe("serve_queue_wait_ticks", wait_ticks)
+            if self._tier_mode:
+                self._metrics.observe(
+                    "serve_queue_wait_ticks" + f"_t{req.tier}", wait_ticks)
+        if self._tracer is None:
+            return
         sp = self._req_spans.get(req.rid)
-        if sp is not None and t_sub is not None:
-            sp.set_attr("queue_wait_ms",
-                        round((time.perf_counter() - t_sub) * 1e3, 3))
+        if sp is not None and wait_ms is not None:
+            sp.set_attr("queue_wait_ms", round(wait_ms, 3))
         self._tracer.instant(
             "request.admit", sp, attrs={"rid": req.rid, "slot": slot,
                                         "how": how})
 
     def _trace_first_token(self, req: _Request) -> None:
         """TTFT: the first generated token consumed on the host (once: a
-        replayed request keeps its first stamp)."""
+        replayed request keeps its first stamp); ``serve_ttft_ms`` and
+        ``serve_ttft_ticks``."""
         if req.first_tick < 0:
             req.first_tick = self._tick
         if req.rid in self._first_tok_ts:
@@ -2700,9 +2820,16 @@ class ContinuousBatcher:
         now = time.perf_counter()
         self._first_tok_ts[req.rid] = now
         t_sub = self._submit_ts.get(req.rid)
+        if t_sub is None:
+            return
+        ttft = (now - t_sub) * 1e3
+        if self._metrics is not None:
+            self._metrics.observe("serve_ttft_ms", ttft)
+            self._metrics.observe("serve_ttft_ticks",
+                                  float(self._tick - req.submit_tick))
         sp = self._req_spans.get(req.rid)
-        if sp is not None and t_sub is not None:
-            sp.set_attr("ttft_ms", round((now - t_sub) * 1e3, 3))
+        if sp is not None:
+            sp.set_attr("ttft_ms", round(ttft, 3))
 
     def _finish_request_trace(self, req: _Request) -> None:
         """A request reached a terminal state (retired, shed, cancelled,
@@ -2721,13 +2848,19 @@ class ContinuousBatcher:
         t_first = self._first_tok_ts.pop(req.rid, None)
         self._submit_ts.pop(req.rid, None)
         sp = self._req_spans.pop(req.rid, None)
-        if sp is None:
+        if sp is None and (self._metrics is None or t_first is None):
             return
         now = time.perf_counter()
-        sp.set_attr("tokens", len(req.tokens))
+        tok_ms = None
         if t_first is not None and len(req.tokens) > 1:
-            sp.set_attr("token_ms", round(
-                (now - t_first) * 1e3 / (len(req.tokens) - 1), 4))
+            tok_ms = (now - t_first) * 1e3 / (len(req.tokens) - 1)
+            if self._metrics is not None:
+                self._metrics.observe("serve_token_ms", tok_ms)
+        if sp is None:
+            return
+        sp.set_attr("tokens", len(req.tokens))
+        if tok_ms is not None:
+            sp.set_attr("token_ms", round(tok_ms, 4))
         if req.error is not None:
             sp.set_attr("error", req.error)
         sp.end(now)
@@ -2759,10 +2892,16 @@ class ContinuousBatcher:
         self._sync_ms_last = (time.perf_counter() - t0) * 1e3
         if self._inflight_k > 1:
             self.fused_block_ms.append(self._sync_ms_last)
+            if self._metrics is not None:
+                self._metrics.observe("serve_fused_block_ms",
+                                      self._sync_ms_last)
         self._inflight = None
         spec_active, self._spec_active = self._spec_active, None
-        return self._consume(fused, self._inflight_k, self._inflight_spec,
-                             spec_active, self._inflight_budget)
+        finished = self._consume(fused, self._inflight_k,
+                                 self._inflight_spec, spec_active,
+                                 self._inflight_budget)
+        self._imported.clear()
+        return finished
 
     def _check_eos(self, req: _Request) -> bool:
         """Trim ``req.tokens`` at its first EOS; True = finished."""
@@ -2798,12 +2937,12 @@ class ContinuousBatcher:
         if k > 1:
             self.fused_stalls += int((out["stall"].numpy() != 0).sum())
         for slot, req in list(self.slot_req.items()):
-            if slot in self._prefilling:
-                continue    # still chunk-prefilling: nothing emitted yet
+            if slot in self._prefilling or slot in self._imported:
+                continue    # chunk-prefilling, or imported after dispatch
             if slot in self._await_first:
                 req.tokens.append(int(firsts_np[slot]))
                 self._await_first.discard(slot)
-                if self._tracer is not None:
+                if self._tracer is not None or self._metrics is not None:
                     self._trace_first_token(req)
                 if self._check_eos(req):
                     self._retire(slot, req, finished)
@@ -2858,8 +2997,16 @@ class ContinuousBatcher:
             if act.any():
                 self.spec_drafts_proposed += g * int(act.sum())
                 self.spec_drafts_accepted += int(take_np[kk][act].sum())
+                frac = matched_np[kk][act] / g
                 self._accept_ema[act] = (0.7 * self._accept_ema[act]
-                                         + 0.3 * (matched_np[kk][act] / g))
+                                         + 0.3 * frac)
+                if self._metrics is not None:
+                    for f_ in frac:
+                        self._metrics.observe("serve_spec_accept",
+                                              float(f_))
+                    for t_ in take_np[kk][act]:
+                        self._metrics.observe("serve_spec_tokens_per_tick",
+                                              float(t_) + 1.0)
                 if (self.spec_degrade_after is not None
                         and not self.spec_degraded):
                     if int(matched_np[kk][act].sum()) == 0:
@@ -2868,6 +3015,8 @@ class ContinuousBatcher:
                         self._spec_reject_streak = 0
                     if self._spec_reject_streak >= self.spec_degrade_after:
                         self.spec_degraded = True
+                        if self._metrics is not None:
+                            self._metrics.inc("serve_spec_degraded")
             if self.eos_id is not None:
                 hit = ((emit_np[kk] == self.eos_id)
                        & (np.arange(g + 1)[None, :]
@@ -2880,6 +3029,12 @@ class ContinuousBatcher:
 
     def _retire(self, slot: int, req: _Request,
                 finished: list[_Request]) -> None:
+        if (req.rid in self._migrate_out and req.error is None
+                and req.tokens):
+            # before the pages return: the gather must read this request's
+            # bytes, not a later owner's
+            self._export_chain_slot(slot, req)
+        self._migrate_out.discard(req.rid)
         req.done = True
         finished.append(req)
         self._finish_request_trace(req)
@@ -2893,10 +3048,144 @@ class ContinuousBatcher:
         self.active[slot] = False
         self._prefilling.pop(slot, None)
         self._await_first.discard(slot)
+        self._imported.discard(slot)
         self._release_pages(slot)
         if self.spec_gamma:
             self._accept_ema[slot] = 1.0
             self._gcap[slot] = self.spec_gamma
+
+    # -- page-chain migration (disaggregated serving) -------------------
+
+    def _export_chain_slot(self, slot: int, req: _Request) -> None:
+        """Gather the retiring request's page chain, the page-aligned
+        prompt region ``[0, tpad)`` (under the prefill leg's
+        ``max_new_tokens == 1`` nothing was flushed past it), into host
+        tensors and keep it for :meth:`take_export` with its digest, the
+        prompt, its prefix keys and the first token.  The export lives on
+        the host, so it survives this engine's death."""
+        n_chain = int(self._tpad[slot]) // self.page_size
+        ids = torch.from_numpy(self._pt[slot, :n_chain].astype(np.int64))
+        chain = {name: leaf.cpu()
+                 for name, leaf in gather_pages(
+                     self.pool, ids.to(self.device)).items()}
+        t = int(self._tvec[slot])
+        self._exports[req.rid] = {
+            "rid": req.rid, "t": t, "tpad": int(self._tpad[slot]),
+            "pages": n_chain, "page_size": self.page_size,
+            "prefix_keys": tuple(req.prefix_keys),
+            "first_token": int(req.tokens[0]), "prompt": req.prompt,
+            "chain": chain, "digest": _chain_digest(chain, t),
+        }
+        self.chains_exported += 1
+        self.pages_migrated_out += n_chain
+
+    def take_export(self, rid: int) -> dict | None:
+        """Pop one finished export, exactly once (a second call returns
+        None); callable on a dead engine (the exports are host state)."""
+        return self._exports.pop(rid, None)
+
+    def take_exports(self) -> dict[int, dict]:
+        """Pop every finished export at once."""
+        out, self._exports = self._exports, {}
+        return out
+
+    def import_chain(self, export: dict, max_new_tokens: int,
+                     temperature: float = 0.0, tier: int = 0,
+                     tenant: str = "") -> int | None:
+        """Adopt a migrated page chain: verify its digest, allocate pages,
+        upload and scatter the chain into them (eagerly, outside any graph
+        replay, synchronized before the pages are registered), activate a
+        slot mid-decode with the export's first token, and register the
+        prompt pages in the prefix registry, so later shared-prefix
+        requests alias them.  ``max_new_tokens`` is this leg's whole
+        budget, the first token included.  Returns the local rid, or None
+        when no slot or pages are free now (the caller retries later).
+        Raises ``ValueError`` for a dense engine, a budget below 2, a
+        sampled request on a greedy engine, another page size, a digest
+        mismatch, or a request that exceeds ``max_len`` or the pool, and
+        :class:`ReplicaDeadError` on a dead engine."""
+        if not self.paged:
+            raise ValueError("import_chain needs the paged pool")
+        if self.dead is not None:
+            raise ReplicaDeadError(f"replica dead: {self.dead}")
+        if max_new_tokens < 2:
+            raise ValueError(
+                "import_chain needs max_new_tokens >= 2 — a satisfied "
+                "request retires at its prefill replica")
+        if temperature > 0 and not self.sampling:
+            raise ValueError(
+                "temperature > 0 needs a sampling-enabled engine")
+        if int(export["page_size"]) != self.page_size:
+            raise ValueError(
+                f"page-size mismatch: chain {export['page_size']} vs "
+                f"pool {self.page_size}")
+        chain = export["chain"]
+        t = int(export["t"])
+        if _chain_digest(chain, t) != export["digest"]:
+            raise ValueError(
+                "chain digest mismatch — torn or corrupted transfer")
+        bucket = int(export["tpad"])
+        n_chain = int(export["pages"])
+        overhang = max(self.stride, self.spec_gamma + 1
+                       if self.spec_gamma else 0)
+        if t + max_new_tokens + overhang > self.max_len:
+            raise ValueError(
+                f"prompt {t} + max_new {max_new_tokens} + overhang "
+                f"{overhang} > max_len {self.max_len}")
+        need = self._pages_needed(max_new_tokens, bucket)
+        if need > self.total_pages:
+            raise ValueError(
+                f"import needs {need} pages but the pool has only "
+                f"{self.total_pages}")
+        slot = next((s for s in range(self.n_slots)
+                     if s not in self.slot_req), None)
+        if slot is None or self._available_pages() < need:
+            return None
+        req = _Request(rid=self._next_rid, prompt_len=t,
+                       max_new_tokens=max_new_tokens,
+                       temperature=float(temperature),
+                       prefix_keys=tuple(export["prefix_keys"]),
+                       prompt=np.asarray(export["prompt"], np.int64),
+                       admit_len=t, tier=int(tier), tenant=str(tenant))
+        self._next_rid += 1
+        req.submit_tick = self._tick
+        req.seq = self._seq
+        self._seq += 1
+        if tier > 0:
+            self._tier_mode = True
+        req.tokens = [int(export["first_token"])]
+        pages = self._alloc_pages(need)
+        self._slot_pages[slot] = pages
+        self._pt[slot, :] = 0
+        self._pt[slot, :need] = pages
+        self._tvec[slot] = t
+        self._tpad[slot] = bucket
+        self._cap[slot] = decode_capacity(need, bucket, self.page_size)
+        dev = self.device
+        scatter_pages(self.pool,
+                      {name: leaf.to(dev) for name, leaf in chain.items()},
+                      torch.tensor(pages[:n_chain], device=dev))
+        activate_slot(self.first_toks, self.tokens, self.pos, slot,
+                      torch.full((1,), req.tokens[0], dtype=torch.long,
+                                 device=dev), t, self.temps,
+                      req.temperature if self.sampling else None)
+        self._sync()
+        self._sample_hbm()
+        self.slot_req[slot] = req
+        self._register_prefix(req, pages)
+        # the first token was consumed (and its TTFT stamped) at the
+        # prefill replica: the slot awaits no first token, and a block in
+        # flight was dispatched without it (the reference consumes that
+        # block's column for the slot: ROADMAP.md queue 3)
+        self.active[slot] = True
+        if self._inflight is not None:
+            self._imported.add(slot)
+        if self.spec_gamma:
+            self._accept_ema[slot] = 1.0
+            self._gcap[slot] = self.spec_gamma
+        self.chains_imported += 1
+        self.pages_migrated_in += n_chain
+        return req.rid
 
     @property
     def spec_acceptance_rate(self) -> float:
@@ -2928,11 +3217,9 @@ class ContinuousBatcher:
         Rails: never row-local page 0 (the attention sink), never a page
         whose refcount is not 1 (an aliased prefix is another slot's live
         context), never a prefix-registered page, never a slot that is
-        still prefilling, awaits its first token or is inactive, and at
-        least two real prompt pages stay.  The reference also spares slots
-        exporting a migration chain (``_migrate_out``): ROADMAP.md queue 1
-        item 7 (pools, fleet and llama_serve) adds that rail with the
-        feature."""
+        still prefilling, awaits its first token, exports a migration
+        chain at retirement (``_migrate_out``) or is inactive, and at
+        least two real prompt pages stay."""
         if self.evict_policy == "mass" and self._mass_pending is not None:
             # its block was synced in _collect: a copy of a ready tensor
             mass = self._mass_pending.cpu().numpy()
@@ -2941,8 +3228,9 @@ class ContinuousBatcher:
             self._page_mass[live] = (0.8 * self._page_mass[live]
                                      + 0.2 * mass[live])
         p = self.page_size
-        for slot in list(self.slot_req):
+        for slot, req in list(self.slot_req.items()):
             if (slot in self._prefilling or slot in self._await_first
+                    or req.rid in self._migrate_out
                     or not self.active[slot]):
                 continue
             n_prompt = int(self._tpad[slot]) // p
@@ -2975,6 +3263,8 @@ class ContinuousBatcher:
                 self._page_mass[slot, pi] = 0.0
                 self.pages_evicted += 1
                 remaining -= 1
+                if self._metrics is not None:
+                    self._metrics.inc("serve_pages_evicted_total")
 
     def drain(self, max_ticks: int = 10_000) -> list[_Request]:
         """Run until queue and slots are empty; returns every finished
@@ -3060,3 +3350,954 @@ class ContinuousBatcher:
         """Fraction of decode slot-steps whose token a request consumed."""
         return (self._decode_tokens / self.slot_steps
                 if self.slot_steps else 0.0)
+
+
+def _params_on(tree, device: torch.device):
+    """A copy of a parameter tree (dicts of tensors and ``QTensor``s) on
+    ``device``."""
+    if isinstance(tree, dict):
+        return {k: _params_on(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _torch_device(d) -> torch.device:
+    """``d`` as a torch device, a bare "cuda" pinned to its index."""
+    dev = torch.device(d)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+@dataclass
+class _PoolEntry:
+    """Host-side record of one pool request: everything needed to replay
+    it on another replica after a fault."""
+    rid: int
+    prompt: np.ndarray
+    max_new: int
+    temperature: float
+    deadline: float | None
+    replica: int
+    local: int                    # engine-local rid on `replica`
+    prefix: list = field(default_factory=list)   # accepted tokens
+    retries: int = 0              # failover replays consumed
+    tier: int = 0                 # priority tier (survives failover)
+    tenant: str = ""              # quota bucket (survives failover)
+
+
+class DataParallelServePool:
+    """``dp`` independent engine replicas behind one admission queue (the
+    reference's pool at ``tp=1``: each replica a :class:`ContinuousBatcher`
+    on one torch device, sharing nothing on the device but, where two
+    replicas share a device, the weight tensors; each has its own pool).
+    ``devices`` lists the replicas' devices, by default the first ``dp``
+    CUDA devices; a device may repeat (``["cuda:0"] * dp``, or ``["cpu"] *
+    dp`` in tests).  The weights are copied once to each other device.
+
+    ``submit()`` routes a request (``routing="affinity"``, the default:
+    the replica already holding the longest leading run of the prompt's
+    prefix-page chain, unless its load outweighs that run; with no such
+    run, or ``routing="least_loaded"``, the replica with the fewest queued
+    and resident requests, then the fewest queued prompt tokens, then the
+    lowest index).  ``route_log`` keeps (rid, replica, affinity pages).
+
+    Failover: every request's prompt and accepted tokens live on the
+    host, so when a replica dies (its ``step()`` raises
+    :class:`ReplicaDeadError`: a chaos kill, the watchdog, or a
+    control-plane eviction seen through :meth:`observe_gang_eviction` or
+    :meth:`watch_health`) the pool collects what finished in the dying
+    step (``take_orphans``) and replays every other resident request on
+    the least-loaded live replica as prompt + accepted tokens with what it
+    still owes (bit-exact for greedy requests), at most ``max_replays``
+    times a request; a request past that bound, past its ``deadline_s``
+    or left with no live replica comes back FAILED (``error`` set,
+    partial tokens kept).  ``failovers``, ``replay_ms``,
+    ``requests_retried`` and ``dead_replicas`` count it.
+
+    The scale surface: :meth:`add_replica` builds one more replica on a
+    free device (through :meth:`_build_engine`, the one construction
+    seam, which a subclass may override), :meth:`retire_replica` drains
+    one through the same replay parking at the next ``step()`` without
+    spending any request's replay budget.  With a ``metrics`` registry
+    every engine feeds it, and the pool adds ``serve_failover_total``,
+    ``serve_replay_ms``, ``serve_requests_retried``,
+    ``serve_routing_affinity_hits``, ``serve_autoscale_events``,
+    ``serve_replicas_active``, ``serve_replica_queue_depth_r<i>`` (deleted
+    when replica i dies) and ``serve_chip_ticks_total``.  A dead or
+    retired replica keeps its engine object, and with it its pool.
+
+    ``tp > 1`` (a replica over several devices) raises
+    ``NotImplementedError``: ROADMAP.md queue 1 item 9 (multi-device)."""
+
+    def __init__(self, params: dict, cfg: LlamaConfig, dp: int = 1,
+                 tp: int = 1, devices=None, metrics=None,
+                 max_replays: int = 2, chaos=None, tracer=None,
+                 trace_ctx=None, routing: str = "affinity", **engine_kw):
+        if tp != 1:
+            raise NotImplementedError(
+                f"tp={tp} is not ported yet (ROADMAP.md queue 1 item 9: "
+                "multi-device); a replica runs on one device")
+        if devices is None:
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())][:dp * tp]
+        devs = [_torch_device(d) for d in devices]
+        if len(devs) < dp * tp:
+            raise ValueError(
+                f"dp={dp} x tp={tp} needs {dp * tp} devices, "
+                f"have {len(devs)}")
+        if routing not in ("affinity", "least_loaded"):
+            raise ValueError(
+                f"routing must be 'affinity' or 'least_loaded', "
+                f"got {routing!r}")
+        engine_kw.setdefault("paged", True)
+        self.dp, self.tp = dp, tp
+        self.routing = routing
+        # what add_replica needs to build an engine as __init__ did
+        self._params, self._cfg = params, cfg
+        self._params_by_dev: dict[torch.device, dict] = {}
+        self._devs = devs
+        self._chaos = chaos or {}
+        self._engine_kw = engine_kw
+        self._trace_ctx = trace_ctx
+        self._blocks = list(range(dp))    # replica -> device index
+        self._metrics = metrics
+        # one tracer for every replica: a replayed request's spans share
+        # the timeline of its first life
+        self._tracer = tracer
+        self.replicas = [self._build_engine(i) for i in range(dp)]
+        self.max_replays = int(max_replays)
+        # the host-side record: pool rid -> entry, (replica, local rid) ->
+        # pool rid
+        self._entries: dict[int, _PoolEntry] = {}
+        self._local: dict[tuple[int, int], int] = {}
+        self._next_rid = 0
+        self.dead_replicas: dict[int, str] = {}
+        self.failovers = 0
+        self.replay_ms: list[float] = []
+        self.requests_retried = 0
+        # control-plane glue: serving gang -> replica, and the evictions
+        # observed that the next step() turns into failovers
+        self._gang_replica: dict[str, int] = {}
+        self._pending_deaths: deque[tuple[int, str]] = deque()
+        self._unsub = None
+        # prefix-affinity routing: each replica's set of chain keys,
+        # registered or inbound (queued or resident requests'), rebuilt
+        # every step() and warmed at each submit; host-side only
+        self._digests: list[set] = [set() for _ in range(dp)]
+        self.routing_affinity_hits = 0
+        self.route_log: list[tuple[int, int, int]] = []  # (rid, rep, aff)
+        # the scale surface: retires drain through the replay parking
+        self._pending_retire: deque[int] = deque()
+        self.autoscale_events = 0
+        self.drains = 0
+        self.drain_replays = 0
+        self.replicas_active_min = dp
+        self.replicas_active_max = dp
+
+    def _replica_params(self, dev: torch.device) -> dict:
+        """The weights on ``dev``: the caller's tensors where they lie
+        there, else one copy a device, shared by its replicas."""
+        if self._params["embed"].device == dev:
+            return self._params
+        if dev not in self._params_by_dev:
+            self._params_by_dev[dev] = _params_on(self._params, dev)
+        return self._params_by_dev[dev]
+
+    def _build_engine(self, i: int) -> ContinuousBatcher:
+        """Build replica ``i``'s engine on its device: the only place a
+        replica is constructed (``__init__`` and :meth:`add_replica`), so
+        a subclass that overrides it inherits the routing, failover and
+        scaling above it."""
+        dev = self._devs[self._blocks[i]]
+        return ContinuousBatcher(
+            self._replica_params(dev), self._cfg, device=dev,
+            metrics=self._metrics, chaos=self._chaos.get(i),
+            tracer=self._tracer, trace_ctx=self._trace_ctx,
+            **self._engine_kw)
+
+    def warmup(self) -> None:
+        """Warm every replica, one after the other (each captures its own
+        graphs)."""
+        for eng in self.replicas:
+            eng.warmup()
+
+    def _load(self, eng: ContinuousBatcher) -> int:
+        return len(eng.queue) + len(eng.slot_req)
+
+    def _route_key(self, j: int):
+        """The least-loaded key: requests, then queued prompt tokens (the
+        queue's running total), then the index."""
+        eng = self.replicas[j]
+        return (self._load(eng), eng.queue.prompt_tokens, j)
+
+    def _alive(self) -> list[int]:
+        return [i for i in range(self.dp) if i not in self.dead_replicas]
+
+    # -- prefix-affinity routing ------------------------------------------
+
+    def _chain_keys(self, prompt_np: np.ndarray) -> tuple:
+        """The registry keys of the prompt's leading whole pages, in the
+        engine's own scheme (:meth:`ContinuousBatcher._enqueue`)."""
+        eng = self.replicas[0]
+        if not (eng.paged and eng.prefix_cache_enabled):
+            return ()
+        p = np.asarray(prompt_np, np.int64)
+        return tuple(hash(p[:(i + 1) * eng.page_size].tobytes())
+                     for i in range((int(p.shape[0]) - 1) // eng.page_size))
+
+    def _affinity(self, j: int, keys: tuple) -> int:
+        """The longest leading run of ``keys`` in replica ``j``'s digest
+        (as the engine's ``_prefix_hit_run``: key i alone aliases
+        nothing)."""
+        d = self._digests[j]
+        h = 0
+        for key in keys:
+            if key not in d:
+                break
+            h += 1
+        return h
+
+    def _route(self, candidates: list[int],
+               prompt_np: np.ndarray) -> tuple[int, int]:
+        """(replica, affinity pages) for ``prompt_np`` among
+        ``candidates``: with affinity, the least ``(load - affinity,
+        load, queued tokens, index)``; zero affinity everywhere is exactly
+        the least-loaded key.  The chosen replica's digest takes the
+        prompt's keys at once, so a burst of one prefix stays together."""
+        if self.routing != "affinity":
+            return min(candidates, key=self._route_key), 0
+        keys = self._chain_keys(prompt_np)
+        aff = ({j: self._affinity(j, keys) for j in candidates}
+               if keys else {})
+        if keys and any(aff.values()):
+            i = min(candidates, key=lambda j: (
+                self._load(self.replicas[j]) - aff[j],)
+                + self._route_key(j))
+            hit = aff[i]
+        else:
+            i = min(candidates, key=self._route_key)
+            hit = 0
+        if keys:
+            self._digests[i].update(keys)
+        return i, hit
+
+    def _record_route(self, rid: int, i: int, aff: int) -> None:
+        self.route_log.append((rid, i, aff))
+        _trim_acct(self.route_log)
+        if aff > 0:
+            self.routing_affinity_hits += 1
+            if self._metrics is not None:
+                self._metrics.inc("serve_routing_affinity_hits")
+        if self._tracer is not None:
+            sp = self._tracer.start_span(
+                "request.route",
+                parent=self.replicas[i]._engine_anchor,
+                attrs={"rid": rid, "replica": i, "affinity_pages": aff,
+                       "load": self._load(self.replicas[i])})
+            sp.end()
+
+    def _refresh_digests(self) -> None:
+        """Rebuild every live replica's digest from its registry and its
+        queued and resident requests' keys (an LRU reclaim's stale key
+        heals here)."""
+        for j, eng in enumerate(self.replicas):
+            if j in self.dead_replicas:
+                self._digests[j] = set()
+                continue
+            d = (set(eng._prefix_cache)
+                 if eng.paged and eng.prefix_cache_enabled else set())
+            for req in eng.slot_req.values():
+                d.update(req.prefix_keys)
+            for req, _ in eng.queue:
+                d.update(req.prefix_keys)
+            self._digests[j] = d
+
+    @property
+    def routing_affinity_hit_rate(self) -> float:
+        """The share of routed submits (recent window) that landed on a
+        replica already holding a page of the prompt's chain."""
+        if not self.route_log:
+            return 0.0
+        return (sum(1 for _, _, a in self.route_log if a > 0)
+                / len(self.route_log))
+
+    # -- the scale surface -------------------------------------------------
+
+    def add_replica(self, gang: str | None = None) -> int:
+        """Scale up: build one more replica on a device no live replica
+        holds (a dead replica's device is reused), bound to ``gang`` when
+        given.  Returns its index; ``ValueError`` when every device is in
+        use."""
+        n_blocks = len(self._devs) // self.tp
+        used = {self._blocks[j] for j in range(len(self.replicas))
+                if j not in self.dead_replicas}
+        free = [b for b in range(n_blocks) if b not in used]
+        if not free:
+            raise ValueError(
+                f"no spare devices for a new replica: tp={self.tp}, "
+                f"{len(self._devs)} devices, {len(used)} blocks in use")
+        i = len(self.replicas)
+        self._blocks.append(free[0])
+        eng = self._build_engine(i)
+        self.replicas.append(eng)
+        self._digests.append(set())
+        self.dp = len(self.replicas)
+        if gang is not None:
+            self.bind_replica_gang(i, gang)
+        self.autoscale_events += 1
+        n = len(self._alive())
+        self.replicas_active_max = max(self.replicas_active_max, n)
+        if self._metrics is not None:
+            self._metrics.inc("serve_autoscale_events")
+            self._metrics.set_gauge("serve_replicas_active", float(n))
+        if self._tracer is not None:
+            sp = self._tracer.start_span(
+                "pool.scale", parent=eng._engine_anchor,
+                attrs={"direction": "up", "replica": i,
+                       "replicas_active": n})
+            sp.end()
+        return i
+
+    def retire_replica(self, i: int) -> None:
+        """Graceful scale-down: the next ``step()`` parks replica ``i``'s
+        requests on the others through the replay (prompt + accepted
+        tokens), spending no request's replay budget."""
+        if not 0 <= i < self.dp:
+            raise ValueError(f"no replica {i} (dp={self.dp})")
+        if i in self.dead_replicas:
+            raise ValueError(
+                f"replica {i} is already dead: {self.dead_replicas[i]}")
+        if i in self._pending_retire:
+            return
+        survivors = [j for j in self._alive()
+                     if j != i and j not in self._pending_retire]
+        if not survivors:
+            raise ValueError("cannot retire the last healthy replica")
+        self._pending_retire.append(i)
+
+    def _scale_down(self, i: int, done: list) -> None:
+        eng = self.replicas[i]
+        sp = None
+        if self._tracer is not None:
+            sp = self._tracer.start_span(
+                "pool.scale", parent=eng._engine_anchor,
+                attrs={"direction": "down", "replica": i})
+        eng.dead = "retired (scale-down)"
+        before = self.drain_replays
+        self._failover(i, "scale-down drain", done, drain=True)
+        self.autoscale_events += 1
+        n = len(self._alive())
+        self.replicas_active_min = min(self.replicas_active_min, n)
+        if self._metrics is not None:
+            self._metrics.inc("serve_autoscale_events")
+            self._metrics.set_gauge("serve_replicas_active", float(n))
+        if sp is not None:
+            sp.set_attr("replicas_active", n)
+            sp.set_attr("drain_replays", self.drain_replays - before)
+            sp.end()
+
+    def _new_entry(self, i: int, local: int, prompt_np: np.ndarray,
+                   max_new_tokens: int, temperature: float,
+                   deadline_s: float | None, tier: int, tenant: str,
+                   aff: int) -> int:
+        rid = self._next_rid
+        self._next_rid += 1
+        self._entries[rid] = _PoolEntry(
+            rid=rid, prompt=prompt_np, max_new=max_new_tokens,
+            temperature=float(temperature),
+            deadline=(time.monotonic() + deadline_s
+                      if deadline_s is not None else None),
+            replica=i, local=local, tier=int(tier), tenant=str(tenant))
+        self._local[(i, local)] = rid
+        self._record_route(rid, i, aff)
+        return rid
+
+    def _no_replica_left(self) -> ReplicaDeadError:
+        return ReplicaDeadError(
+            "no healthy replicas left: "
+            + "; ".join(f"replica {i}: {r}"
+                        for i, r in self.dead_replicas.items()))
+
+    def submit(self, prompt, max_new_tokens: int, temperature: float = 0.0,
+               deadline_s: float | None = None, tier: int = 0,
+               tenant: str = "") -> int:
+        """Route and enqueue a request; returns its pool rid.  Raises
+        :class:`ReplicaDeadError` when no replica is alive."""
+        alive = self._alive()
+        if not alive:
+            raise self._no_replica_left()
+        prompt_np = np.asarray(prompt, np.int64)
+        i, aff = self._route(alive, prompt_np)
+        local = self.replicas[i].submit(prompt, max_new_tokens, temperature,
+                                        tier=tier, tenant=tenant)
+        return self._new_entry(i, local, prompt_np, max_new_tokens,
+                               temperature, deadline_s, tier, tenant, aff)
+
+    # -- control-plane integration -----------------------------------------
+
+    def bind_replica_gang(self, replica: int, gang: str) -> None:
+        """Declare that ``replica`` is backed by serving gang ``gang``, the
+        link a health controller's evictions resolve through."""
+        self._gang_replica[gang] = replica
+
+    def observe_gang_eviction(self, gang: str,
+                              reason: str = "gang evicted") -> None:
+        """A serving gang died in the control plane: its replica is marked
+        for death, and the next ``step()`` fails its requests over."""
+        i = self._gang_replica.pop(gang, None)
+        if i is not None and i not in self.dead_replicas:
+            self._pending_deaths.append((i, f"{reason} (gang {gang})"))
+
+    def watch_health(self, api) -> None:
+        """Subscribe to an apiserver's watch stream (``api.watch(cb)``
+        returning an unsubscribe function): a DELETED pod of a bound
+        serving gang marks its replica dead."""
+
+        def _cb(ev) -> None:
+            if ev.kind != "Pod" or ev.type != "DELETED":
+                return
+            gs = pod_gang_spec(ev.obj)
+            if gs is not None and gs.name in self._gang_replica:
+                self.observe_gang_eviction(gs.name, "pod evicted")
+
+        self._unsub = api.watch(_cb)
+
+    def close(self) -> None:
+        if self._unsub is not None:
+            self._unsub()
+            self._unsub = None
+
+    # -- failover ----------------------------------------------------------
+
+    def _fail_entry(self, e: _PoolEntry, why: str, done: list) -> None:
+        r = _Request(rid=e.rid, prompt_len=int(e.prompt.shape[0]),
+                     max_new_tokens=e.max_new, temperature=e.temperature,
+                     prompt=e.prompt)
+        r.tokens = list(e.prefix)
+        r.done = True
+        r.error = why
+        self._entries.pop(e.rid, None)
+        done.append(r)
+
+    def _finish(self, replica: int, r: _Request, done: list) -> None:
+        rid = self._local.pop((replica, r.rid), None)
+        if rid is None:
+            return   # already completed or failed over
+        e = self._entries.pop(rid, None)
+        if e is not None and e.prefix:
+            r.tokens = e.prefix + r.tokens
+        r.rid = rid
+        done.append(r)
+
+    def _replay_submit(self, replay, remaining: int,
+                       e: _PoolEntry) -> tuple[int, int]:
+        """Place one replay (prompt + accepted tokens, what it still
+        owes) on the least-loaded live replica: ``(replica, local rid)``;
+        the engine's ``ValueError`` propagates."""
+        j = min(self._alive(), key=self._route_key)
+        return j, self.replicas[j].submit(replay, remaining, e.temperature,
+                                          tier=e.tier, tenant=e.tenant)
+
+    def _failover(self, i: int, reason: str, done: list,
+                  drain: bool = False) -> None:
+        """Replay every request resident on dead replica ``i`` on the live
+        ones.  ``drain=True`` is a retire: the same parking, but no
+        failover counters and no replay spent."""
+        self.dead_replicas[i] = reason
+        if drain:
+            self.drains += 1
+        else:
+            self.failovers += 1
+            if self._metrics is not None:
+                self._metrics.inc("serve_failover_total")
+        t0 = time.perf_counter()
+        eng = self.replicas[i]
+        fo_span = None
+        if self._tracer is not None and not drain:
+            fo_span = self._tracer.start_span(
+                "pool.failover", parent=eng._engine_anchor,
+                attrs={"replica": i, "reason": reason})
+        # what finished in the dying step completes, exactly once
+        for r in eng.take_orphans():
+            self._finish(i, r, done)
+        resident: dict[int, _Request] = {}
+        for req in list(eng.slot_req.values()) + [r for r, _ in eng.queue]:
+            resident[req.rid] = req
+        alive = self._alive()
+        n_replayed = 0
+        for local in sorted(resident):
+            req = resident[local]
+            rid = self._local.pop((i, local), None)
+            if rid is None:
+                continue
+            e = self._entries[rid]
+            e.prefix = e.prefix + list(req.tokens)
+            remaining = e.max_new - len(e.prefix)
+            if remaining < 1:    # finished exactly at the fault
+                r = _Request(rid=rid, prompt_len=int(e.prompt.shape[0]),
+                             max_new_tokens=e.max_new,
+                             temperature=e.temperature, prompt=e.prompt)
+                r.tokens = list(e.prefix)
+                r.done = True
+                self._entries.pop(rid, None)
+                done.append(r)
+                continue
+            if not drain:
+                e.retries += 1
+                if e.retries > self.max_replays:
+                    self._fail_entry(
+                        e, f"exceeded {self.max_replays} failovers "
+                        f"(last: {reason})", done)
+                    continue
+            if not alive:
+                self._fail_entry(
+                    e, f"no healthy replicas left ({reason})", done)
+                continue
+            replay = (np.concatenate([e.prompt,
+                                      np.asarray(e.prefix, np.int64)])
+                      if e.prefix else e.prompt)
+            try:
+                j, new_local = self._replay_submit(replay, remaining, e)
+            except ValueError as err:
+                self._fail_entry(e, f"replay rejected: {err}", done)
+                continue
+            e.replica, e.local = j, new_local
+            self._local[(j, new_local)] = rid
+            n_replayed += 1
+            if drain:
+                self.drain_replays += 1
+            else:
+                self.requests_retried += 1
+                if self._metrics is not None:
+                    self._metrics.inc("serve_requests_retried")
+        dt = (time.perf_counter() - t0) * 1e3
+        if n_replayed or resident:
+            self.replay_ms.append(dt)
+            _trim_acct(self.replay_ms)
+            if self._metrics is not None:
+                self._metrics.observe("serve_replay_ms", dt)
+        # the dead engine never steps again: no digest, and no depth gauge
+        # left on the scrape surface
+        self._digests[i] = set()
+        if self._metrics is not None:
+            self._metrics.delete_gauge("serve_replica_queue_depth" + f"_r{i}")
+        if fo_span is not None:
+            fo_span.set_attr("replayed", n_replayed)
+            fo_span.set_attr("resident", len(resident))
+            fo_span.end()
+
+    def _expire_deadlines(self, done: list) -> None:
+        if not any(e.deadline is not None for e in self._entries.values()):
+            return
+        now = time.monotonic()
+        for e in list(self._entries.values()):
+            if e.deadline is None or now <= e.deadline:
+                continue
+            partial = None
+            if e.replica not in self.dead_replicas:
+                partial = self.replicas[e.replica].cancel(
+                    e.local, "deadline exceeded")
+            self._local.pop((e.replica, e.local), None)
+            if partial is not None and partial.tokens:
+                e.prefix = e.prefix + list(partial.tokens)
+            self._fail_entry(e, "deadline exceeded", done)
+
+    def cancel(self, rid: int, reason: str = "canceled"):
+        """Cancel a pool request wherever it lives: the failed request
+        (partial tokens kept), or None for an unknown rid."""
+        e = self._entries.get(rid)
+        if e is None:
+            return None
+        if e.replica not in self.dead_replicas:
+            partial = self.replicas[e.replica].cancel(e.local, reason)
+            if partial is not None and partial.tokens:
+                e.prefix = e.prefix + list(partial.tokens)
+        self._local.pop((e.replica, e.local), None)
+        sink: list = []
+        self._fail_entry(e, reason, sink)
+        return sink[0]
+
+    def step(self) -> list[_Request]:
+        """Retires first (a retire whose gang eviction also arrives is not
+        a fault), then observed deaths, deadlines, and one ``step()`` of
+        every live replica (a replica that raises
+        :class:`ReplicaDeadError` fails over); returns the requests that
+        finished or failed, under their pool rids."""
+        done: list[_Request] = []
+        while self._pending_retire:
+            i = self._pending_retire.popleft()
+            if i not in self.dead_replicas:
+                self._scale_down(i, done)
+        while self._pending_deaths:
+            i, reason = self._pending_deaths.popleft()
+            if i in self.dead_replicas:
+                continue
+            self.replicas[i].dead = reason   # the engine refuses new work
+            self._failover(i, reason, done)
+        self._expire_deadlines(done)
+        for i, eng in enumerate(self.replicas):
+            if i in self.dead_replicas:
+                continue
+            try:
+                rs = eng.step()
+            except ReplicaDeadError as e:
+                self._failover(i, str(e), done)
+                continue
+            for r in rs:
+                self._finish(i, r, done)
+        if self.routing == "affinity":
+            self._refresh_digests()
+        n_alive = len(self._alive())
+        self.replicas_active_min = min(self.replicas_active_min, n_alive)
+        self.replicas_active_max = max(self.replicas_active_max, n_alive)
+        if self._metrics is not None:
+            # one depth gauge a live replica; a dead one's is deleted
+            # again here (idempotent), whatever path killed it
+            for i in self.dead_replicas:
+                self._metrics.delete_gauge(
+                    "serve_replica_queue_depth" + f"_r{i}")
+            for i, eng in enumerate(self.replicas):
+                if i not in self.dead_replicas:
+                    self._metrics.set_gauge(
+                        "serve_replica_queue_depth" + f"_r{i}",
+                        float(len(eng.queue)))
+            self._metrics.set_gauge("serve_replicas_active", float(n_alive))
+            self._metrics.set_gauge(
+                "serve_chip_ticks_total",
+                float(sum(e.cost.busy_chip_ticks for e in self.replicas)))
+        return done
+
+    def drain(self, max_ticks: int = 10_000) -> list[_Request]:
+        """Step until every request finished or failed; raises naming the
+        stuck work after ``max_ticks``."""
+        out: list[_Request] = []
+        for _ in range(max_ticks):
+            if (not self._entries and not self._pending_deaths
+                    and not self._pending_retire):
+                return out
+            out.extend(self.step())
+        diag = "; ".join(
+            f"replica {e.replica}"
+            f"{' (DEAD)' if e.replica in self.dead_replicas else ''}: "
+            f"rid={rid} prefix={len(e.prefix)}/{e.max_new} "
+            f"retries={e.retries}"
+            for rid, e in sorted(self._entries.items()))
+        raise RuntimeError(
+            f"drain did not converge after {max_ticks} ticks; "
+            f"stuck work: {diag or 'none visible (bookkeeping bug)'}")
+
+    # -- aggregates: the single engine's surface, summed over replicas -----
+
+    @property
+    def emitted_tokens(self) -> int:
+        return sum(e.emitted_tokens for e in self.replicas)
+
+    @property
+    def occupancy(self) -> float:
+        steps = sum(e.slot_steps for e in self.replicas)
+        toks = sum(e._decode_tokens for e in self.replicas)
+        return toks / steps if steps else 0.0
+
+    @property
+    def prefill_waves(self) -> int:
+        return sum(e.prefill_waves for e in self.replicas)
+
+    @property
+    def slot_steps(self) -> int:
+        return sum(e.slot_steps for e in self.replicas)
+
+    @property
+    def stall_ms(self) -> list[float]:
+        return [s for e in self.replicas for s in e.stall_ms]
+
+    @property
+    def slots_quarantined(self) -> int:
+        return sum(e.slots_quarantined for e in self.replicas)
+
+    @property
+    def dispatch_failures(self) -> int:
+        return sum(e.dispatch_failures for e in self.replicas)
+
+    @property
+    def requests_retried_total(self) -> int:
+        """Failover replays plus the engines' quarantine replays."""
+        return self.requests_retried + sum(
+            e.requests_retried for e in self.replicas)
+
+    @property
+    def requests_shed(self) -> int:
+        return sum(e.requests_shed for e in self.replicas)
+
+    @property
+    def requests_preempted(self) -> int:
+        return sum(e.requests_preempted for e in self.replicas)
+
+    @property
+    def requests_resumed(self) -> int:
+        return sum(e.requests_resumed for e in self.replicas)
+
+    @property
+    def deadline_misses(self) -> int:
+        return sum(e.deadline_misses for e in self.replicas)
+
+    @property
+    def shed_by_reason(self) -> dict[str, int]:
+        out: dict[str, int] = {}
+        for e in self.replicas:
+            for k, v in e.shed_by_reason.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        prop = sum(e.spec_drafts_proposed for e in self.replicas)
+        acc = sum(e.spec_drafts_accepted for e in self.replicas)
+        return acc / prop if prop else 0.0
+
+    @property
+    def spec_tokens_per_tick(self) -> float:
+        gamma = self.replicas[0].spec_gamma
+        if not gamma:
+            return 0.0
+        prop = sum(e.spec_drafts_proposed for e in self.replicas)
+        acc = sum(e.spec_drafts_accepted for e in self.replicas)
+        return 1.0 + acc / (prop / gamma) if prop else 0.0
+
+    @property
+    def hbm_pool_bytes(self) -> int:
+        """Live state bytes summed over the live replicas (a dead one's
+        pool drops out of the sum, though its engine keeps it)."""
+        return sum(e.hbm_pool_bytes for e in self.replicas
+                   if e.dead is None)
+
+    @property
+    def hbm_peak_bytes(self) -> int:
+        return sum(e.hbm_peak_bytes for e in self.replicas)
+
+    @property
+    def cost(self) -> CostLedger:
+        """Every replica's ledger merged (dead ones keep theirs: the
+        chip-ticks they burned were spent)."""
+        led = CostLedger()
+        for e in self.replicas:
+            led.merge(e.cost)
+        return led
+
+    @property
+    def busy_ticks(self) -> int:
+        return sum(e.busy_ticks for e in self.replicas)
+
+
+class DisaggServePool(DataParallelServePool):
+    """Disaggregated prefill/decode serving: ``prefill`` replicas prefill
+    a prompt and make its first token, ``decode`` replicas adopt the
+    migrated page chains and decode.
+
+    A request, step by step: ``submit`` routes the prompt to a prefill
+    replica as a ``max_new_tokens=1, migrate_out=True`` request; at its
+    retirement, before its pages return, the prefill engine exports the
+    page-aligned prompt region of its pool (every leaf, int8 and int4
+    scales with their values) to host tensors with a sha256 digest, the
+    prompt, its prefix keys and the first token; the pool takes the
+    export (exactly once) and hands it to the least-loaded decode replica,
+    whose ``import_chain`` checks the digest, scatters the chain into its
+    own pages, activates a slot mid-decode and registers the prompt pages
+    for later shared-prefix requests.  Decode then reads the same pool
+    bytes the prefill wrote, so greedy tokens equal a symmetric pool's.
+    A full decode side defers the migration to the next step; a rejected
+    chain fails its request.  ``migrations``, ``migrated_pages`` and
+    ``migration_ms`` (with a registry: ``serve_migrated_pages_total``,
+    ``serve_migration_ms``) count them.
+
+    Failover composes: an export is host memory, so a prefill replica
+    dying mid-migration still hands over its finished chains (from the
+    orphans), an unexported prefill replays on a live prefill replica, a
+    decode death replays prompt + accepted tokens through a prefill leg
+    again; with a whole role dead the pool serves symmetrically on what
+    is left."""
+
+    def __init__(self, params: dict, cfg: LlamaConfig, prefill: int = 1,
+                 decode: int = 1, tp: int = 1, **kw):
+        if prefill < 1 or decode < 1:
+            raise ValueError(
+                f"need at least one replica per role, got "
+                f"prefill={prefill} decode={decode}")
+        kw.setdefault("paged", True)
+        super().__init__(params, cfg, dp=prefill + decode, tp=tp, **kw)
+        self.n_prefill, self.n_decode = prefill, decode
+        self.roles = ["prefill"] * prefill + ["decode"] * decode
+        # (pool rid, export) pairs awaiting decode capacity
+        self._pending_migrations: deque = deque()
+        self.migrations = 0
+        self.migrated_pages = 0
+        self.migration_ms: list[float] = []
+
+    def _role_replicas(self, role: str, alive: list[int]) -> list[int]:
+        return [i for i in alive if self.roles[i] == role]
+
+    def add_replica(self, gang: str | None = None,
+                    role: str = "decode") -> int:
+        """Scale up one role (the autoscaler grows the decode side)."""
+        if role not in ("prefill", "decode"):
+            raise ValueError(
+                f"role must be 'prefill' or 'decode', got {role!r}")
+        i = super().add_replica(gang)
+        self.roles.append(role)
+        if role == "prefill":
+            self.n_prefill += 1
+        else:
+            self.n_decode += 1
+        return i
+
+    def submit(self, prompt, max_new_tokens: int, temperature: float = 0.0,
+               deadline_s: float | None = None, tier: int = 0,
+               tenant: str = "") -> int:
+        alive = self._alive()
+        if not alive:
+            raise self._no_replica_left()
+        pref = self._role_replicas("prefill", alive)
+        dec = self._role_replicas("decode", alive)
+        prompt_np = np.asarray(prompt, np.int64)
+        if pref and dec and max_new_tokens > 1:
+            # the prefill leg makes one token; affinity scores the prefill
+            # role, where the prompt's chain pages alias
+            i, aff = self._route(pref, prompt_np)
+            local = self.replicas[i].submit(
+                prompt, 1, temperature, migrate_out=True, tier=tier,
+                tenant=tenant)
+        elif pref and max_new_tokens == 1:
+            # satisfied by the prefill alone: nothing migrates
+            i, aff = self._route(pref, prompt_np)
+            local = self.replicas[i].submit(prompt, 1, temperature,
+                                            tier=tier, tenant=tenant)
+        else:
+            # a whole role is dead: serve symmetrically on what is left
+            i, aff = self._route(alive, prompt_np)
+            local = self.replicas[i].submit(prompt, max_new_tokens,
+                                            temperature, tier=tier,
+                                            tenant=tenant)
+        return self._new_entry(i, local, prompt_np, max_new_tokens,
+                               temperature, deadline_s, tier, tenant, aff)
+
+    def _replay_submit(self, replay, remaining: int,
+                       e: _PoolEntry) -> tuple[int, int]:
+        """Unfinished work goes back through a prefill replica as a new
+        migrate-out leg, or symmetrically when a whole role is dead."""
+        alive = self._alive()
+        pref = self._role_replicas("prefill", alive)
+        dec = self._role_replicas("decode", alive)
+        if pref and dec and remaining > 1:
+            j = min(pref, key=self._route_key)
+            return j, self.replicas[j].submit(
+                replay, 1, e.temperature, migrate_out=True, tier=e.tier,
+                tenant=e.tenant)
+        j = min(alive, key=self._route_key)
+        return j, self.replicas[j].submit(replay, remaining, e.temperature,
+                                          tier=e.tier, tenant=e.tenant)
+
+    def _finish(self, replica: int, r: _Request, done: list) -> None:
+        """A prefill replica's finisher whose budget is not met is a
+        hand-off: its export queues for a decode replica.  Everything else
+        (decode finishers, one-token requests, an EOS first token, failed
+        requests) completes as in the symmetric pool."""
+        rid = self._local.get((replica, r.rid))
+        if (rid is not None and self.roles[replica] == "prefill"
+                and r.error is None):
+            e = self._entries[rid]
+            eng = self.replicas[replica]
+            exp = eng.take_export(r.rid)
+            hit_eos = (eng.eos_id is not None and r.tokens
+                       and r.tokens[-1] == eng.eos_id)
+            needs_more = e.max_new > len(e.prefix) + len(r.tokens)
+            if needs_more and not hit_eos:
+                self._local.pop((replica, r.rid))
+                if exp is not None:
+                    # the first token rides inside the export: e.prefix
+                    # stays, so the budget stays exact
+                    self._pending_migrations.append((rid, exp))
+                else:
+                    # no chain (a degraded-mode leg landed here): bank the
+                    # tokens and replay the rest
+                    e.prefix = e.prefix + list(r.tokens)
+                    remaining = e.max_new - len(e.prefix)
+                    replay = np.concatenate(
+                        [e.prompt, np.asarray(e.prefix, np.int64)])
+                    try:
+                        j, new_local = self._replay_submit(
+                            replay, remaining, e)
+                    except ValueError as err:
+                        self._fail_entry(e, f"replay rejected: {err}", done)
+                        return
+                    e.replica, e.local = j, new_local
+                    self._local[(j, new_local)] = rid
+                return
+        super()._finish(replica, r, done)
+
+    def _drain_migrations(self, done: list) -> None:
+        """Hand every pending export to the least-loaded decode replica
+        (any live one when the decode role is dead); a full or dying
+        decode side defers it to the next step, a rejected chain fails its
+        request."""
+        if not self._pending_migrations:
+            return
+        alive = self._alive()
+        dec = self._role_replicas("decode", alive) or alive
+        pending, self._pending_migrations = \
+            self._pending_migrations, deque()
+        for rid, exp in pending:
+            e = self._entries.get(rid)
+            if e is None:
+                continue   # cancelled or expired in flight
+            if not dec:
+                self._fail_entry(
+                    e, "no healthy replicas left for migration", done)
+                continue
+            j = min(dec, key=self._route_key)
+            eng = self.replicas[j]
+            remaining = e.max_new - len(e.prefix)
+            sp = None
+            if self._tracer is not None:
+                sp = self._tracer.start_span(
+                    "request.migrate", parent=eng._engine_anchor,
+                    attrs={"rid": rid, "pages": exp["pages"],
+                           "to_replica": j})
+            t0 = time.perf_counter()
+            try:
+                local = eng.import_chain(exp, remaining, e.temperature,
+                                         tier=e.tier, tenant=e.tenant)
+            except ReplicaDeadError:
+                local, outcome = None, "replica_dead"
+            except ValueError as err:
+                self._fail_entry(e, f"migration rejected: {err}", done)
+                if sp is not None:
+                    sp.set_attr("outcome", "rejected")
+                    sp.end()
+                continue
+            else:
+                outcome = "deferred"
+            if local is None:
+                self._pending_migrations.append((rid, exp))
+                if sp is not None:
+                    sp.set_attr("outcome", outcome)
+                    sp.end()
+                continue
+            dt = (time.perf_counter() - t0) * 1e3
+            self.migrations += 1
+            self.migrated_pages += int(exp["pages"])
+            self.migration_ms.append(dt)
+            _trim_acct(self.migration_ms)
+            if self._metrics is not None:
+                self._metrics.inc("serve_migrated_pages_total",
+                                  float(exp["pages"]))
+                self._metrics.observe("serve_migration_ms", dt)
+            if sp is not None:
+                sp.set_attr("outcome", "migrated")
+                sp.set_attr("ms", round(dt, 3))
+                sp.end()
+            e.replica, e.local = j, local
+            self._local[(j, local)] = rid
+
+    def step(self) -> list[_Request]:
+        done = super().step()
+        self._drain_migrations(done)
+        return done

@@ -11,9 +11,11 @@ from kubegpu_tpu_torch.ops.flash_attention import (  # noqa: F401
 from kubegpu_tpu_torch.ops.paged_attention import (  # noqa: F401
     decode_capacity,
     fold_chunk_queries,
+    gather_pages,
     merge_partials,
     page_table_size,
     paged_attention_biased_ref,
     paged_attention_ref,
     rel_pos_bucket,
+    scatter_pages,
 )

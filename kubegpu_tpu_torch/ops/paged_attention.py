@@ -46,6 +46,25 @@ def decode_capacity(n_pages: int, t_pad: int, page_size: int) -> int:
     return max(n_pages * page_size - t_pad, 0)
 
 
+def gather_pages(pool: dict, page_ids: torch.Tensor) -> dict:
+    """The listed pages of every pool leaf, the transfer unit of page
+    migration between engines: the page axis is axis 1 of the model-dtype
+    two-leaf pool, and of the values and scales of the int8 and packed
+    int4 pools, so the scales travel with their values.  Id 0 gathers the
+    trash page, which is never attended."""
+    return {name: leaf.index_select(1, page_ids)
+            for name, leaf in pool.items()}
+
+
+def scatter_pages(pool: dict, chain: dict, page_ids: torch.Tensor) -> None:
+    """Write a gathered chain into ``pool`` IN PLACE at ``page_ids`` (the
+    import side of page migration; the reference returns the updated
+    pool).  Each chain leaf carries ``len(page_ids)`` pages; id 0 writes
+    the trash page, which is never attended."""
+    for name, leaf in pool.items():
+        leaf.index_copy_(1, page_ids, chain[name])
+
+
 def merge_partials(o1, m1, l1, o2, m2, l2) -> torch.Tensor:
     """Combine two normalized softmax partials over disjoint key sets
     (flash decoding's split merge).  o: [B, Hq, D] f32; m/l: [B, Hq].

@@ -56,8 +56,10 @@ Env knobs:
                  on the prefix cache / chunked prefill
   SERVE_TP, SERVE_DP  continuous+paged: tensor / data parallel serving.
                  An ask the visible devices cannot satisfy degrades to the
-                 one-device engine (loudly under strict mode); one they
-                 can satisfy raises NotImplementedError, as the port's
+                 one-device engine (loudly under strict mode); a dp ask
+                 they can satisfy at tp 1 serves through a
+                 DataParallelServePool (dp replicas, one a card), and a
+                 tp ask raises NotImplementedError, as the port's
                  multi-device engine is not written yet
   SERVE_TRACE    "1" traces the engine (so does a KUBETPU_TRACE_CONTEXT
                  token); SERVE_TRACE_OUT writes the Chrome trace there
@@ -289,8 +291,9 @@ def _serve_continuous(env, cfg, params, n_slots, prompt_t, steps, int8,
         evict_policy = evict_param = None
     # mesh serving (SERVE_TP / SERVE_DP): an ask the allocation or the
     # head geometry cannot satisfy degrades to the one-device engine
-    # (loudly under strict mode); one it can satisfy needs the
-    # multi-device engine, which is not ported yet
+    # (loudly under strict mode); a dp ask it can satisfy at tp = 1 runs
+    # dp replicas behind one queue, and a tp ask needs the multi-device
+    # engine, which is not ported yet
     n_dev = _device_count(device)
     tp = int(os.environ.get("SERVE_TP", "1"))
     dp = int(os.environ.get("SERVE_DP", "1"))
@@ -322,13 +325,21 @@ def _serve_continuous(env, cfg, params, n_slots, prompt_t, steps, int8,
                   spec_gamma=spec_gamma, draft_layers=draft_layers,
                   fused_ticks=fused_k,
                   tracer=tracer, trace_ctx=trace_ctx)
-    if paged and (dp > 1 or tp > 1):
+    if paged and tp > 1:
         raise NotImplementedError(
             f"SERVE_TP={tp} / SERVE_DP={dp} on {n_dev} devices needs the "
             "multi-device engine, which is not ported yet (ROADMAP.md "
             "queue 1: multi-device)")
-    tp = dp = 1
-    eng = ContinuousBatcher(params, cfg, device=device, **eng_kw)
+    if paged and dp > 1:
+        from kubegpu_tpu_torch.models.serve import DataParallelServePool
+        # the first dp cards, or dp replicas on the caller's CPU
+        eng = DataParallelServePool(
+            params, cfg, dp=dp, tp=tp,
+            devices=None if device.type == "cuda" else [device] * dp,
+            **eng_kw)
+    else:
+        tp = dp = 1
+        eng = ContinuousBatcher(params, cfg, device=device, **eng_kw)
     # every wave size, the chunk step and the tick run (and, on the card,
     # are captured) OUTSIDE the timed window; warmup() leaves the engine's
     # state and counters as they were
@@ -380,8 +391,13 @@ def _serve_continuous(env, cfg, params, n_slots, prompt_t, steps, int8,
                 ("serve_engine_cfg_chunked_prefill", int(chunked)),
                 ("serve_engine_cfg_spec_gamma", spec_gamma),
                 ("serve_engine_cfg_fused_k", fused_k),
-                ("serve_fused_dispatches", eng.fused_dispatches),
-                ("serve_engine_cfg_draft_layers", eng.draft_layers),
+                ("serve_fused_dispatches",
+                 eng.fused_dispatches if hasattr(eng, "fused_dispatches")
+                 else sum(e.fused_dispatches for e in eng.replicas)),
+                ("serve_engine_cfg_draft_layers",
+                 getattr(eng, "draft_layers",
+                         eng.replicas[0].draft_layers
+                         if hasattr(eng, "replicas") else 0)),
                 ("serve_engine_spec_accept_rate",
                  round(eng.spec_acceptance_rate, 4)),
                 ("serve_engine_spec_tokens_per_tick",
@@ -400,7 +416,9 @@ def _serve_continuous(env, cfg, params, n_slots, prompt_t, steps, int8,
                 # fault-tolerance echo: zeros on a healthy run
                 ("serve_failover_total",
                  getattr(eng, "failovers", 0)),
-                ("serve_requests_retried", eng.requests_retried),
+                ("serve_requests_retried",
+                 getattr(eng, "requests_retried_total",
+                         eng.requests_retried)),
                 ("serve_slots_quarantined", eng.slots_quarantined),
                 ("serve_requests_shed", eng.requests_shed),
                 # live / peak state bytes at the dispatch boundaries
@@ -422,10 +440,15 @@ def _serve_continuous(env, cfg, params, n_slots, prompt_t, steps, int8,
                  getattr(eng, "routing_affinity_hits", 0)),
                 ("serve_autoscale_events",
                  getattr(eng, "autoscale_events", 0)),
-                ("serve_replicas_active", 1),
+                ("serve_replicas_active",
+                 len(eng._alive()) if hasattr(eng, "_alive") else 1),
                 # kv compression & eviction echo
-                ("serve_kv_bits", eng.kv_bits),
-                ("serve_pages_evicted_total", eng.pages_evicted),
+                ("serve_kv_bits",
+                 eng.kv_bits if hasattr(eng, "kv_bits")
+                 else eng.replicas[0].kv_bits),
+                ("serve_pages_evicted_total",
+                 eng.pages_evicted if hasattr(eng, "pages_evicted")
+                 else sum(e.pages_evicted for e in eng.replicas)),
                 ("serve_kv_quality_delta",
                  getattr(eng, "kv_quality_delta", 0.0))):
             print(json.dumps({"metric": name, "value": value}))

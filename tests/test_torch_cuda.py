@@ -920,6 +920,43 @@ def test_capture_refuses_to_grow_the_split_scratch(dev, monkeypatch):
         assert torch.equal(a, b)
 
 
+def test_capture_survives_a_dropped_graph_in_a_cycle(dev):
+    """A graph dropped with a reference cycle (an engine freed while a
+    wrapper closes over it) waits for the collector; collecting it under
+    another graph's capture would destroy a graph mid-capture and break
+    the capture.  ``Graph.capture`` collects first and not during."""
+    import gc
+    g = torch.Generator(device=dev).manual_seed(0)
+    pk, pv = (torch.randn(2, 12, 2, 8, 64, generator=g, device=dev)
+              for _ in range(2))
+    q = torch.randn(4, 8, 64, generator=g, device=dev)
+    t, tpad, d = (torch.from_numpy(x).to(dev) for x in STATE)
+    layer = torch.ones(1, dtype=torch.int32, device=dev)
+    args = (q, pk, pv, torch.from_numpy(PT).to(dev), layer, t, tpad, d)
+    ref = pa.paged_attention(*args)
+
+    class Holder:
+        pass
+
+    for _ in range(4):
+        h = Holder()
+        h.graph = kernels.Graph(lambda: pa.paged_attention(*args))
+        h.graph.capture()
+        h.self = h                      # a cycle: only gc frees it
+        del h
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)                 # collect at the next allocation
+    try:
+        graph = kernels.Graph(lambda: pa.paged_attention(*args))
+        out = graph.capture()
+    finally:
+        gc.set_threshold(*thresholds)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
 def test_t5_graph_tokens_equal_eager(dev):
     """T5's dense and paged generates through their graphs give the eager
     tokens bit for bit (bf16, 11 steps over pages of 4: two full blocks

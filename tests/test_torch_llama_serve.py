@@ -126,12 +126,37 @@ def test_tp_ask_degrades_on_one_device(clean_env, capsys):
 
 @pytest.mark.parametrize("knob", ["SERVE_TP", "SERVE_DP"])
 def test_satisfiable_tp_dp_ask_is_not_ported(clean_env, knob):
-    """An ask the devices could serve needs the multi-device engine."""
-    for k, v in {**CONT, knob: "2"}.items():
+    """A tp ask the devices could serve needs the multi-device engine,
+    alone or under a dp ask (a dp ask at tp 1 is ported: the pool)."""
+    env = {**CONT, knob: "2"}
+    if knob == "SERVE_DP":
+        env["SERVE_TP"] = "2"
+    for k, v in env.items():
         clean_env.setenv(k, v)
-    clean_env.setattr(tls, "_device_count", lambda device: 2)
+    clean_env.setattr(tls, "_device_count", lambda device: 4)
     with pytest.raises(NotImplementedError, match="multi-device"):
         tls.main(device="cpu")
+
+
+def test_dp_ask_serves_through_the_pool(clean_env, capsys):
+    """``SERVE_DP=2`` on two devices: both programs serve through their
+    ``DataParallelServePool`` (the port's two replicas on the CPU, the
+    reference's on 2 of its 8 virtual devices) and print the same metric
+    lines, the dp, mesh-device and replica echo equal."""
+    for k, v in {**CONT, "SERVE_DP": "2"}.items():
+        clean_env.setenv(k, v)
+    clean_env.setattr(tls, "_device_count", lambda device: 2)
+    ours, ref = run_both(capsys, lambda: tls.main(device="cpu"), jls.main)
+    assert [m["metric"] for m in ours] == [m["metric"] for m in ref]
+    assert [sorted(m) for m in ours] == [sorted(m) for m in ref]
+    got = {m["metric"]: m["value"] for m in ours}
+    want = {m["metric"]: m["value"] for m in ref}
+    for name in ("serve_engine_cfg_dp", "serve_engine_cfg_tp",
+                 "serve_engine_cfg_mesh_devices", "serve_replicas_active",
+                 "serve_failover_total", "serve_kv_bits"):
+        assert got[name] == want[name], name
+    assert (got["serve_engine_cfg_dp"], got["serve_replicas_active"]) == (2, 2)
+    assert ours[0]["requests"] == 3
 
 
 def test_more_than_one_worker_raises(clean_env):

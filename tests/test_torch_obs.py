@@ -88,8 +88,16 @@ def test_live_bytes_tracker_matches_reference():
         ref.sample(b)
     assert (ours.live, ours.peak, ours.samples) == (ref.live, ref.peak,
                                                     ref.samples)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        tmetrics.LiveBytesTracker(registry=object())
+    # with a registry, both set the same two gauges
+    regs = tmetrics.MetricsRegistry(), jmetrics.MetricsRegistry()
+    trackers = (tmetrics.LiveBytesTracker(regs[0]),
+                jmetrics.LiveBytesTracker(regs[1]))
+    for b in (10, 30, 20):
+        for t in trackers:
+            t.sample(b)
+    assert regs[0].snapshot() == regs[1].snapshot() == {
+        "counters": {}, "histograms": {},
+        "gauges": {"serve_hbm_pool_bytes": 20, "serve_hbm_peak_bytes": 30}}
 
 
 @pytest.mark.parametrize("flag", [None, "0", "1", "yes"])

@@ -41,11 +41,22 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+def test_walk_covers_the_control_plane_subpackages():
+    """The AST walk reaches the port's ``scheduler`` and ``kubemeta``
+    copies (the autoscaler and the gang codec the pools read)."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for sub in ("scheduler/__init__.py", "scheduler/serve.py",
+                "kubemeta/__init__.py", "kubemeta/codec.py"):
+        assert f"kubegpu_tpu_torch/{sub}" in names, sub
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys, kubegpu_tpu_torch.models, kubegpu_tpu_torch.ops, "
             "kubegpu_tpu_torch.convert, kubegpu_tpu_torch.kernels, "
             "kubegpu_tpu_torch.optim, kubegpu_tpu_torch.obs, "
-            "kubegpu_tpu_torch.ops.strict, "
+            "kubegpu_tpu_torch.ops.strict, kubegpu_tpu_torch.scheduler, "
+            "kubegpu_tpu_torch.scheduler.serve, kubegpu_tpu_torch.kubemeta, "
+            "kubegpu_tpu_torch.kubemeta.codec, "
             "kubegpu_tpu_torch.workloads.programs.llama_serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
@@ -65,6 +76,8 @@ def test_entry_points_default_to_the_card():
     )
     from kubegpu_tpu_torch.models import (
         ContinuousBatcher,
+        DataParallelServePool,
+        DisaggServePool,
         LlamaConfig,
         T5Config,
         greedy_generate,
@@ -87,6 +100,11 @@ def test_entry_points_default_to_the_card():
         lambda: greedy_generate(params, [[1, 2]], 2, cfg),
         lambda: ContinuousBatcher(params, cfg, paged=True, page_size=8,
                                   stride=4, prompt_buckets=(8,)),
+        # the pools default to the first dp CUDA devices: none here
+        lambda: DataParallelServePool(params, cfg, dp=1, page_size=8,
+                                      stride=4, prompt_buckets=(8,)),
+        lambda: DisaggServePool(params, cfg, page_size=8, stride=4,
+                                prompt_buckets=(8,)),
         lambda: t5_init(t5_cfg),
         lambda: convert_t5_params({"w": np.zeros(2, np.float32)}),
         lambda: t5_greedy_generate(t5_params, [[1, 2]], 2, t5_cfg),

@@ -87,11 +87,9 @@ LATER_KNOBS = {
     "collect_overlap": (False, True, LIFECYCLE),
     "donate": (True, False, LIFECYCLE),
 }
-LATER_SUBMIT = {
-    "migrate_out": (False, True, LIFECYCLE),
-}
 # knobs and submit keywords (ported, or taken at their defaults only) whose
-# reference defaults must keep serving the plain greedy tokens
+# reference defaults must keep serving the plain greedy tokens; every
+# submit keyword is ported (migrate_out: tests/test_torch_page_migration.py)
 DEFAULT_KNOBS = {"max_retries": 2, "collect_overlap": False, "donate": True,
                  "spec_adaptive": True, "spec_degrade_after": None}
 DEFAULT_SUBMIT = {"deadline_s": None, "deadline_ticks": None, "tier": 0,
@@ -99,21 +97,13 @@ DEFAULT_SUBMIT = {"deadline_s": None, "deadline_ticks": None, "tier": 0,
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("mesh", object()), ("metrics", object()),
+    ("mesh", object()),
     *((k, v[1]) for k, v in LATER_KNOBS.items()),
-    *((f"submit:{k}", v[1]) for k, v in LATER_SUBMIT.items()),
 ])
 def test_unported_knobs_raise(tiny, knob, value):
+    assert ts._LATER_SUBMIT == {}
     _, _, cfg, params_t = tiny
     kw = dict(ENGINE, device="cpu")
-    if knob.startswith("submit:"):
-        name = knob.split(":")[1]
-        eng = ts.ContinuousBatcher(params_t, cfg, **kw)
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md queue 1: {LIFECYCLE}"):
-            eng.submit([1, 2, 3], 2, **{name: value})
-        assert not eng.queue
-        return
     kw[knob] = value
     item = LATER_KNOBS[knob][2] if knob in LATER_KNOBS else ""
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):

@@ -118,8 +118,23 @@ def test_tracer_without_context_roots_its_own_trace(tiny):
 
 
 def test_metrics_registry_still_raises(tiny):
+    """``metrics`` takes a registry (``kubegpu_tpu_torch.obs.metrics.
+    MetricsRegistry``, ported: ``tests/test_torch_serve_pool.py`` holds
+    what it is fed against the JAX engine's); anything else still raises,
+    at construction.  A traced engine with a registry gets the request
+    spans and the registry's time-to-first-token samples alike."""
+    from kubegpu_tpu_torch.obs.metrics import MetricsRegistry
     _, _, cfg, params_t = tiny
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1: pools, fleet"):
+    with pytest.raises(AttributeError, match="set_gauge"):
         ts.ContinuousBatcher(params_t, cfg, device="cpu", metrics=object(),
                              **dict(BASE, paged=True))
+    tr, reg = tspans.Tracer(), MetricsRegistry()
+    eng = ts.ContinuousBatcher(params_t, cfg, device="cpu", tracer=tr,
+                               metrics=reg, **dict(BASE, paged=True))
+    for p in ([1, 2, 3], [4, 5, 6, 7]):
+        eng.submit(p, 4)
+    eng.drain()
+    assert tr.count("request") == 2
+    assert reg.histogram("serve_ttft_ms").count == 2
+    assert reg.gauge("serve_kv_bits") == 16
+    assert not (eng._req_spans or eng._submit_ts or eng._first_tok_ts)
