@@ -159,17 +159,35 @@ printed as it ends (any failed check exits non-zero):
    pages migrated); then the same at phase 6's narrow f32 config, every
    token equal to ``greedy_generate``'s (the int8 pools' to one int8
    engine's), the disaggregated pool's to the symmetric pool's and the
-   replays to the fault-free run.
+   replays to the fault-free run;
+12. load     -- the open-loop load harness at phase 5f's engine shape
+   (``load_phase``): one seeded bursty trace (48 requests, prompts around
+   300 tokens, half on 3 shared 128-token prefixes, the reference's three
+   goodput tiers) through ``run_load`` on one engine FIFO and tiered
+   (goodput a tick and a second, attainment by tier, TTFT p99 in ticks
+   and ms, nothing lost or duplicated), on ``DataParallelServePool(dp=2)``
+   with affinity and least-loaded routing (the hit rate, the gold tier's
+   goodput ratio), with ``collect_overlap=True`` on bf16 and int8 pages
+   (``overlap_ms``, overlapped ticks > 0, tokens/s both ways, the share of
+   equal tokens and the logit gap where one parts; ``--profile``: the idle
+   share of three steady steps both ways), ``donate=False`` (a held pool
+   handle keeps its values, the peak grows by one pool), the narrow f32
+   config's equal-token gates for both knobs, then ``run_fleet`` of 64
+   simulated replicas calibrated from the card's tick and chunk (a rack
+   killed, watch weather, an upgrade wave and a control-plane crash:
+   nothing lost or duplicated, outcomes identical to the twin, the kill
+   paged within 16 ticks; the host seconds).
 
-Eleven paths are driven: serving (phases 4-5), the prefix cache (5f),
+Twelve paths are driven: serving (phases 4-5), the prefix cache (5f),
 speculative serving (5g),
 quantized serving (5b),
 int8-weight serving (5c), the static path and the dense engine (5d-5e,
 which run no kernel of the port, as the reference runs no Pallas kernel
 there), training (phase 7's steps), T5 paged serving (phase 8's bf16
 paged calls), the program's in-process engine runs (phase 9),
-sampling with the request lifecycle (phase 10, run after 5e) and the
-serving pools (phase 11, after 10).  Launch counters are zeroed just before each and read just
+sampling with the request lifecycle (phase 10, run after 5e), the
+serving pools (phase 11, after 10) and the load harness (phase 12, after
+11).  Launch counters are zeroed just before each and read just
 after; a graph replay counts the launches captured in it.  The serving
 and training paths must run kernels 1-3 on their tensor-core instances
 only.  The line
@@ -181,8 +199,9 @@ and one spec tick (the draft's kernel-4 time against the verify's),
 each as a graph replay and eagerly (the profiler must see the paged
 kernel inside the graph), one replayed static decode step per format
 (with its weight products, weight copies and attention timed alone), a
-block of T5's paged decode like the ticks, and one train step after phase
-7 (device time by kernel, idle share).
+block of T5's paged decode like the ticks, one train step after phase
+7 (device time by kernel, idle share), and three steady steps of phase
+12's bf16 engine with ``collect_overlap`` off and on.
 """
 
 from __future__ import annotations
@@ -3727,6 +3746,651 @@ def pool_phase(torch, kernels, cfg, params, gen, name) -> dict:
     return out
 
 
+# -- phase 12: the load harness and the fleet ------------------------------
+
+# the reference's cb_slo_goodput tiers: (name, TTFT ticks, ticks a token,
+# share of the traffic)
+LOAD_TIERS = (("gold", 8, 4.0, 0.3), ("std", 30, 8.0, 0.4),
+              ("batch", 10 ** 6, 10 ** 6, 0.3))
+LOAD_ENGINE = dict(ENGINE, **PREFIX)
+LOAD_POOL_ENGINE = {k: v for k, v in LOAD_ENGINE.items() if k != "device"}
+# the fleet's failure domains, replicas and trace
+FLEET = {"replicas": 64, "domains": 4, "requests": 4096,
+         "mean_iat_ticks": 0.1}
+
+
+def load_spec(loadgen, vocab: int, **kw):
+    """Phase 12's open-loop traffic (``LoadSpec``, seed 7): 48 requests,
+    0.9 ticks between arrivals on average, Markov-modulated bursts,
+    prompts log-normal around 300 tokens (sigma 0.4, at most 512), 8-64
+    new tokens (log-normal around 24), half of them on one of 3 shared
+    128-token prefixes (one page), under the three tiers; ``kw``
+    overrides a field (the narrow config's lengths and vocabulary)."""
+    tiers = tuple(loadgen.TierSpec(*t) for t in LOAD_TIERS)
+    spec = dict(seed=7, n_requests=48, mean_iat_ticks=0.9, burst=True,
+                prompt_len_mean=math.log(300), prompt_len_sigma=0.4,
+                prompt_len_max=512, out_len_mean=math.log(24),
+                out_len_min=8, out_len_max=64, prefix_share=0.5,
+                n_shared_prefixes=3, prefix_len=128, vocab=vocab,
+                tiers=tiers)
+    spec.update(kw)
+    return loadgen.LoadSpec(**spec), tiers
+
+
+def load_leg(torch, kernels, loadgen, label, target, trace, tiers, vocab,
+             tiered: bool = True) -> dict:
+    """``run_load`` of ``trace`` through ``target`` (an engine or a pool
+    built with a metrics registry, so every first token is stamped): no
+    request lost or returned twice, every completed one with its tokens,
+    in range; the ticks and wall, goodput a tick and a second, attainment
+    by tier, TTFT p99 in ticks (from the records) and in ms (the
+    registry's ``serve_ttft_ms``), the engine's tokens/s and the paged
+    kernels' launches."""
+    from kubegpu_tpu_torch.obs.metrics import percentiles
+    before = dict(kernels.launches)
+    torch.cuda.synchronize()
+    rep = loadgen.run_load(target, trace, tiers, tiered=tiered)
+    torch.cuda.synchronize()
+    check(rep.lost == 0 and rep.duplicated == 0,
+          f"phase 12 {label}: lost {rep.lost}, duplicated {rep.duplicated}")
+    check(rep.completed + rep.failed == rep.submitted == len(trace),
+          f"phase 12 {label}: {rep.completed} + {rep.failed} of "
+          f"{rep.submitted}")
+    for rec in rep.records:
+        if rec["completed"]:
+            check(len(rec["tokens"]) == rec["max_new"],
+                  f"phase 12 {label}: rid {rec['rid']} came back short")
+    check(all(0 <= t < vocab for rec in rep.records for t in rec["tokens"]),
+          f"phase 12 {label}: a token out of range")
+    ttft = [rec["ttft_ticks"] for rec in rep.records if "ttft_ticks" in rec]
+    reg = getattr(target, "_metrics", None)
+    hists = reg.snapshot()["histograms"] if reg is not None else {}
+    out = {"ticks": rep.ticks, "wall_s": rep.wall_s,
+           "submitted": rep.submitted, "completed": rep.completed,
+           "failed": rep.failed, "lost": rep.lost,
+           "duplicated": rep.duplicated,
+           "goodput_tokens": rep.goodput_tokens,
+           "goodput_tokens_per_tick": rep.goodput_tokens_per_tick,
+           "goodput_tokens_per_s": rep.goodput_tokens_per_s,
+           "tokens_per_s": rep.total_tokens / rep.wall_s,
+           "attainment": {a["name"]: a["attainment"]
+                          for a in rep.per_tier.values()},
+           "goodput_by_tier": {a["name"]: a["goodput_tokens"]
+                               for a in rep.per_tier.values()},
+           "ttft_p99_ticks": percentiles(ttft)["p99"] if ttft else None,
+           "ttft_p99_ms": (hists["serve_ttft_ms"]["p99"]
+                           if "serve_ttft_ms" in hists else None),
+           "busy_chip_ticks": rep.busy_chip_ticks,
+           "launches": {k: kernels.launches[k] - before[k]
+                        for k in PAGED_KERNELS},
+           "records": rep.records}
+    log("load", leg=label, ticks=rep.ticks, wall_s=round(rep.wall_s, 3),
+        goodput_tokens_per_tick=round(rep.goodput_tokens_per_tick, 4),
+        goodput_tokens_per_s=round(rep.goodput_tokens_per_s, 1),
+        tokens_per_s=round(out["tokens_per_s"], 1),
+        attainment=out["attainment"],
+        ttft_p99_ticks=out["ttft_p99_ticks"],
+        ttft_p99_ms=(round(out["ttft_p99_ms"], 3)
+                     if out["ttft_p99_ms"] is not None else None),
+        completed=rep.completed, failed=rep.failed, lost=rep.lost,
+        duplicated=rep.duplicated,
+        launches={k: v for k, v in out["launches"].items() if v})
+    return out
+
+
+def load_engine(torch, ContinuousBatcher, cfg, params, **kw):
+    """A ``warmup()``-ed engine of phase 5f's shape with a metrics
+    registry, and its warmup seconds."""
+    from kubegpu_tpu_torch.obs.metrics import MetricsRegistry
+    eng = ContinuousBatcher(params, cfg, metrics=MetricsRegistry(),
+                            **dict(LOAD_ENGINE, **kw))
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def token_split(torch, cfg, params, a: list, b: list) -> dict:
+    """Records of two legs of one trace: the share of completed requests
+    with equal tokens, and for each that differs, the gap between the two
+    legs' tokens' logits at the first position they part (the plain
+    prefill's logits, ``llama_forward`` of prompt + the agreed tokens),
+    beside that row's logit range.  A near tie (gap within 5% of the
+    range) is bf16 rounding that one extra batch row or prefill shape
+    can flip; a wider gap is a fault."""
+    from kubegpu_tpu_torch.models import llama_forward
+    pairs = [(x, y) for x, y in zip(a, b)
+             if x["completed"] and y["completed"]]
+    same = sum(x["tokens"] == y["tokens"] for x, y in pairs)
+    gaps = []
+    for x, y in pairs:
+        j = next((i for i, (u, v) in enumerate(zip(x["tokens"],
+                                                   y["tokens"]))
+                  if u != v), None)
+        if j is None:
+            continue
+        seq = [int(t) for t in x["prompt"]] + x["tokens"][:j]
+        with torch.no_grad():
+            row = llama_forward(params, torch.tensor([seq], device="cuda"),
+                                cfg)[0, -1].float()
+        gap = abs(row[x["tokens"][j]] - row[y["tokens"][j]]).item()
+        span = (row.max() - row.min()).item()
+        gaps.append({"rid": x["rid"], "pos": j, "gap": gap, "range": span})
+        check(gap <= 0.05 * span,
+              f"phase 12: rid {x['rid']} parts at token {j} with a logit "
+              f"gap {gap} of a {span} range: not a near tie")
+    return {"equal_share": same / max(len(pairs), 1), "compared": len(pairs),
+            "splits": gaps}
+
+
+def steady_prompts(torch, cfg, gen, n: int = 8) -> list:
+    """``n`` prompts of 128 tokens (one page, one chunk)."""
+    return [torch.randint(0, cfg.vocab_size, (128,), generator=gen,
+                          device="cuda").tolist() for _ in range(n)]
+
+
+def steady_state(eng, prompts, n_new: int = 128) -> int:
+    """Fill every slot with a 128-new-token request (8 ticks) and step
+    until every slot decodes, none prefills and nothing queues; returns
+    the steps taken."""
+    for p in prompts[:eng.n_slots]:
+        eng.submit(p, n_new)
+    for steps in range(1, 6):
+        eng.step()
+        if eng.active.all() and not eng._prefilling and not eng.queue:
+            return steps
+    raise SmokeFailure("phase 12: the engine never reached its steady "
+                       "state")
+
+
+def event_ms(torch, fn, reps: int = 5) -> float:
+    """Median device ms of ``fn()`` between two CUDA events, one call at a
+    time (a replayed tick is ~10^4 kernels: ``cuda_ms``'s queue of calls
+    behind a sleeping card does not fit it, and the host's enqueue is
+    small beside the ~0.2 s it times)."""
+    import statistics
+    times = []
+    for _ in range(reps + 1):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[1:])
+
+
+def steady_idle(torch, eng, prompts, label: str, block_ms: float,
+                steps: int = 3) -> dict:
+    """``--profile``: the device's idle share over ``steps`` consecutive
+    steady steps (no synchronize between them, one at the end): their
+    untraced wall against ``steps`` replayed ticks' device ms
+    (``block_ms``, :func:`calibrate`), then the same count traced
+    (``device_trace``; its busy ms over its own traced wall); with
+    ``collect_overlap`` each of them dispatches the next tick before it
+    reads the last.  Every slot must still be resident after."""
+    steady_state(eng, prompts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def run():
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    out = device_trace(torch, run, wall_ms)
+    check(len(eng.slot_req) == eng.n_slots,
+          f"{label}: a request finished inside the traced steps")
+    eng.drain()
+    out["idle_share_events"] = 1 - steps * block_ms / wall_ms
+    out["idle_share_traced"] = 1 - out["device_busy_ms"] / out[
+        "traced_wall_ms"]
+    log_trace(f"{steps} steady {label} steps", out)
+    return out
+
+
+def calibrate(torch, eng, prompts) -> dict:
+    """The fleet's cost model from the card: the device ms of one replayed
+    chunk step (``prefill_chunk`` prompt tokens) a token, and of one
+    replayed plain tick (a stride block) with every slot decoding
+    (:func:`event_ms`).  The chunk replays rewrite the last chunk's
+    (freed) pages; the tick's run past the slots' host state, so the
+    engine is drained after (its requests' tokens are not looked at)."""
+    chunk_ms = event_ms(torch, eng._chunk_graph.replay)
+    steady_state(eng, prompts, n_new=112)
+
+    def tick():
+        eng._tv["tk"].zero_()
+        eng._run_tick("plain")
+
+    block_ms = event_ms(torch, tick)
+    eng.drain()
+    check(len(eng._free_pages) == eng.total_pages,
+          "calibrate: the drained engine leaked pages")
+    return {"block_ms": block_ms, "chunk_ms": chunk_ms,
+            "prefill_ms_per_token": chunk_ms / eng.prefill_chunk}
+
+
+def narrow_load(torch) -> dict:
+    """(c) and (d) at phase 6's narrow f32 config: one trace of its own
+    (prompts of at most 48 tokens, 4-24 new ones, a 16-token shared
+    prefix) through an engine with ``collect_overlap`` off and on, on
+    model-dtype and on int8 pages: equal tokens; and an engine with
+    ``donate=False`` against ``donate=True`` on the same trace: equal
+    tokens."""
+    from kubegpu_tpu_torch import loadgen
+    from kubegpu_tpu_torch.models import (
+        ContinuousBatcher,
+        LlamaConfig,
+        llama_init,
+    )
+    from kubegpu_tpu_torch.obs.metrics import MetricsRegistry
+    cfg = LlamaConfig.tiny(**NARROW_CFG)
+    params = llama_init(cfg, seed=SEED, device="cuda")
+    spec, tiers = load_spec(loadgen, cfg.vocab_size, n_requests=24,
+                            prompt_len_mean=math.log(20), prompt_len_max=48,
+                            out_len_mean=math.log(10), out_len_min=4,
+                            out_len_max=24, prefix_len=16)
+    trace = loadgen.synth_trace(spec)
+    out = {}
+
+    def tokens(**kw):
+        eng = ContinuousBatcher(params, cfg, device="cuda",
+                                metrics=MetricsRegistry(),
+                                **dict(NARROW_ENGINE, prefix_cache=True,
+                                       **kw))
+        rep = loadgen.run_load(eng, trace, tiers)
+        check(rep.lost == 0 and rep.duplicated == 0,
+              "phase 12 narrow: lost or duplicated")
+        return eng, [r["tokens"] for r in rep.records]
+
+    for label, kw in (("f32", {}), ("int8", {"kv_bits": 8})):
+        _, off = tokens(**kw)
+        eng, on = tokens(collect_overlap=True, **kw)
+        check(on == off, f"phase 12 narrow {label}: collect_overlap tokens "
+              "differ from the serial engine's")
+        check(len(eng.overlap_ms) > 0,
+              f"phase 12 narrow {label}: no tick overlapped")
+        out[f"overlap_{label}"] = {"equal": True,
+                                   "overlapped": len(eng.overlap_ms)}
+    _, kept = tokens(donate=False)
+    _, donated = tokens()
+    check(kept == donated, "phase 12 narrow: donate=False tokens differ")
+    out["donate_equal"] = True
+    log("load", part="narrow f32 (phase 6's config)",
+        overlap_tokens_equal=True,
+        overlapped={k: v["overlapped"] for k, v in out.items()
+                    if k.startswith("overlap")},
+        donate_false_tokens_equal=True)
+    return out
+
+
+def donate_phase(torch, ContinuousBatcher, cfg, params, gen) -> dict:
+    """(d) at full width: phase 5's engine with ``donate=False`` and with
+    ``donate=True``, each on 8 requests of 64 new tokens: a handle to the
+    public pool's ``k`` taken after two steps equals its snapshot after a
+    third (``donate=False``: the public leaves were rebound, the live pool
+    moved on), ``hbm_peak_bytes`` grows by exactly one pool, and the
+    card's peak allocation over each engine's life is printed."""
+    prompts = window_prompts(torch, cfg, gen, n=8)
+    out = {}
+    for donate in (True, False):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng = ContinuousBatcher(params, cfg, donate=donate, **ENGINE)
+        eng.warmup()
+        rids = [eng.submit(p, 64) for p in prompts]
+        eng.step()
+        eng.step()
+        handle = eng.pool["k"]
+        snap = handle.clone()
+        eng.step()
+        torch.cuda.synchronize()
+        held = torch.equal(handle, snap)
+        moved = not torch.equal(eng.pool["k"], snap)
+        if donate:
+            check(handle is eng.pool["k"] and moved,
+                  "phase 12 (d): donate=True's pool is not the live one")
+        else:
+            check(held and moved and handle is not eng.pool["k"],
+                  "phase 12 (d): donate=False lost a held handle's values")
+        del handle, snap
+        done = {r.rid: r.tokens for r in eng.drain()}
+        check(sorted(done) == sorted(rids), "phase 12 (d): a request lost")
+        torch.cuda.synchronize()
+        out[donate] = {"peak_bytes": torch.cuda.max_memory_allocated() - base,
+                       "hbm_peak_bytes": eng.hbm_peak_bytes,
+                       "pool_bytes": pool_bytes(eng),
+                       "tokens": [done[r] for r in rids]}
+        del eng
+    grow = out[False]["hbm_peak_bytes"] - out[True]["hbm_peak_bytes"]
+    check(grow == out[True]["pool_bytes"],
+          f"phase 12 (d): hbm_peak_bytes grew by {grow}, one pool is "
+          f"{out[True]['pool_bytes']}")
+    res = {"donate": {k: out[True][k] for k in ("peak_bytes",
+                                                "hbm_peak_bytes")},
+           "no_donate": {k: out[False][k] for k in ("peak_bytes",
+                                                    "hbm_peak_bytes")},
+           "pool_bytes": out[True]["pool_bytes"],
+           "equal_share": equal_share(out[True]["tokens"],
+                                      out[False]["tokens"])}
+    log("load", part="(d) donate=False", handle_kept=True,
+        pool_gb=round(res["pool_bytes"] / 1e9, 3),
+        peak_gb={"donate": round(out[True]["peak_bytes"] / 1e9, 3),
+                 "no_donate": round(out[False]["peak_bytes"] / 1e9, 3)},
+        hbm_peak_gb={"donate": round(out[True]["hbm_peak_bytes"] / 1e9, 3),
+                     "no_donate": round(out[False]["hbm_peak_bytes"] / 1e9,
+                                        3)},
+        equal_share=round(res["equal_share"], 4))
+    return res
+
+
+def fleet_phase(cfg, costs: dict, page_bytes: int) -> dict:
+    """(e) ``run_fleet`` on the host: 64 simulated replicas of phase 5f's
+    engine shape in 4 racks, their cost model from (a)'s card numbers,
+    under a 4096-request diurnal trace with a flash crowd and phase 12's
+    tiers, a ``FlightRecorder`` on each run.  An uninterrupted twin
+    (no failover alert may fire), then watch weather (duplicated, delayed and
+    reordered deliveries), a rack killed at tick 24, a watch partition
+    and a rack evicted behind it, and an upgrade wave over the racks; then
+    the rack kill and a control-plane crash at tick 60 (journal
+    recovery).  Each run: nothing lost or duplicated, outcomes identical
+    to the twin, the kill paged within 16 ticks."""
+    from kubegpu_tpu_torch import fleet, loadgen
+    from kubegpu_tpu_torch.obs import chaos as ch
+    from kubegpu_tpu_torch.obs.alerts import FlightRecorder
+    from kubegpu_tpu_torch.obs.metrics import MetricsRegistry
+    spec, tiers = load_spec(
+        loadgen, cfg.vocab_size, n_requests=FLEET["requests"],
+        mean_iat_ticks=FLEET["mean_iat_ticks"], diurnal=True,
+        diurnal_period_ticks=128.0, flash_at=(40.0,), flash_rate_x=4.0,
+        flash_len_ticks=16.0, tenants=("acme", "blue", "coral"))
+    trace = loadgen.synth_trace(spec)
+    fcfg = fleet.FleetConfig(
+        vocab=cfg.vocab_size, n_slots=ENGINE["n_slots"],
+        page_size=ENGINE["page_size"], total_pages=ENGINE["total_pages"],
+        max_len=ENGINE["max_len"], prefill_tokens_per_tick=PREFIX[
+            "prefill_chunk"], page_bytes=page_bytes,
+        costs=fleet.ReplicaCosts(
+            block_ms=costs["block_ms"],
+            prefill_ms_per_token=costs["prefill_ms_per_token"]))
+    E = ch.DomainChaosEvent
+    kill_at = 24
+
+    def run(label, **kw):
+        rec = FlightRecorder(MetricsRegistry())
+        t0 = time.perf_counter()
+        rep = fleet.run_fleet(trace, tiers, cfg=fcfg,
+                              replicas=FLEET["replicas"],
+                              domains=FLEET["domains"], metrics=rec.metrics,
+                              controller=rec, **kw)
+        host_s = time.perf_counter() - t0
+        check(rep.load.lost == 0 and rep.load.duplicated == 0,
+              f"phase 12 (e) {label}: lost {rep.load.lost}, duplicated "
+              f"{rep.load.duplicated}")
+        check(rep.tier_inversions == 0,
+              f"phase 12 (e) {label}: a tier inversion")
+        check(sum(rep.cost_by_key.values()) == rep.busy_chip_ticks,
+              f"phase 12 (e) {label}: the chip-tick ledger does not "
+              "conserve")
+        return rep, rec, host_s
+
+    twin, twin_rec, twin_s = run("twin")
+    check(all(rule != "alert_failover_burn"
+              for _, rule in twin_rec.alert_log()),
+          f"phase 12 (e): the fault-free twin paged a failover burn "
+          f"{twin_rec.alert_log()}")
+    out = {"twin": {"host_s": twin_s, "ticks": twin.load.ticks,
+                    "completed": twin.load.completed,
+                    "alerts": twin_rec.alert_log(),
+                    "attainment": twin.load.slo_attainment,
+                    "sim_ms": twin.sim_ms}}
+    scenarios = (
+        ("chaos+upgrade", dict(
+            chaos=ch.DomainChaosInjector(events=[
+                E(tick=20, kind=ch.WATCH_DUP, dup=3, duration_ticks=16),
+                E(tick=20, kind=ch.WATCH_DELAY, delay_ticks=3,
+                  duration_ticks=16),
+                E(tick=20, kind=ch.WATCH_REORDER, duration_ticks=16),
+                E(tick=kill_at, kind=ch.DOMAIN_KILL, domain="rack1"),
+                E(tick=30, kind=ch.WATCH_PARTITION, duration_ticks=6),
+                E(tick=31, kind=ch.DOMAIN_EVICT, domain="rack2")]),
+            upgrade=True, upgrade_floor=24, upgrade_surge=4,
+            upgrade_start=40)),
+        ("kill+crash", dict(
+            chaos=ch.DomainChaosInjector(events=[
+                E(tick=kill_at, kind=ch.DOMAIN_KILL, domain="rack1")]),
+            journal=fleet.ControlPlaneJournal(), crash_at=60)))
+    for label, kw in scenarios:
+        rep, rec, host_s = run(label, **kw)
+        cmp_ = fleet.compare_outcomes(twin.load, rep.load)
+        check(cmp_["identical"] and cmp_["checked"] == len(trace),
+              f"phase 12 (e) {label}: outcomes differ from the twin {cmp_}")
+        pages = [t for t, rule in rec.alert_log()
+                 if rule == "alert_failover_burn"]
+        check(pages and kill_at <= pages[0] <= kill_at + 16,
+              f"phase 12 (e) {label}: the rack kill paged at {pages}")
+        out[label] = {
+            "host_s": host_s, "ticks": rep.load.ticks,
+            "killed_replicas": rep.killed_replicas,
+            "failovers": rep.failovers, "domain_kills": rep.domain_kills,
+            "domain_evictions": rep.domain_evictions,
+            "watch_delivered": rep.watch_delivered,
+            "upgrade_waves": rep.upgrade_waves,
+            "upgraded_replicas": rep.upgraded_replicas,
+            "min_alive": rep.min_alive, "recoveries": rep.recoveries,
+            "redriven": rep.redriven, "alerts": rec.alert_log(),
+            "page_after_ticks": pages[0] - kill_at,
+            "recorder_ms_per_tick": rec.overhead_per_tick_s * 1e3,
+            "sim_ms": rep.sim_ms, "outcomes_identical": True}
+        log("fleet", run=label, host_s=round(host_s, 3),
+            ticks=rep.load.ticks, killed=rep.killed_replicas,
+            failovers=rep.failovers, watch_delivered=rep.watch_delivered,
+            upgrade_waves=rep.upgrade_waves,
+            upgraded=rep.upgraded_replicas, min_alive=rep.min_alive,
+            recoveries=rep.recoveries, redriven=rep.redriven,
+            lost=0, duplicated=0, outcomes_identical=True,
+            paged_after_ticks=pages[0] - kill_at,
+            recorder_ms_per_tick=round(rec.overhead_per_tick_s * 1e3, 4))
+    log("fleet", run="twin", host_s=round(twin_s, 3),
+        ticks=twin.load.ticks, completed=twin.load.completed,
+        alerts=twin_rec.alert_log(),
+        replicas=FLEET["replicas"], domains=FLEET["domains"],
+        requests=len(trace), block_ms=round(costs["block_ms"], 4),
+        prefill_ms_per_token=round(costs["prefill_ms_per_token"], 6))
+    return out
+
+
+def load_phase(torch, kernels, cfg, params, gen, name,
+               profile: bool = False) -> dict:
+    """Phase 12: the load harness at phase 5f's engine shape (Llama-3-8B,
+    bf16, 8 slots, pages of 128, the prefix cache and 256-token chunks),
+    every engine ``warmup()``-ed, one seeded open-loop trace
+    (:func:`load_spec`) through:
+
+    (a) one engine, FIFO against tiered (``run_load(tiered=False|True)``,
+        each on a fresh engine): ticks, wall, goodput a tick and a second,
+        attainment by tier, TTFT p99 in ticks and ms, nothing lost or
+        duplicated; then, on the tiered engine, the device ms of a
+        replayed chunk step and tick (the fleet's cost model);
+    (b) ``DataParallelServePool(dp=2)`` on the one card, weights shared,
+        ``routing="affinity"`` against ``"least_loaded"``: the hit rate,
+        the gold tier's goodput ratio, kernel 4's launches;
+    (c) ``collect_overlap=True`` against (a)'s tiered leg, and on int8
+        pages (kernel 5) both ways: ``overlap_ms`` median and p99, the
+        overlapped ticks (> 0), tokens/s both ways, the share of equal
+        tokens (a request that differs must part at a near tie:
+        :func:`token_split`); with ``profile``, the idle share of three
+        steady steps both ways on bf16 pages;
+    (d) ``donate=False`` (:func:`donate_phase`), and (c)'s and (d)'s
+        token gates at the narrow f32 config (:func:`narrow_load`);
+    (e) ``run_fleet`` of 64 simulated replicas calibrated from (a)
+        (:func:`fleet_phase`)."""
+    import statistics
+
+    from kubegpu_tpu_torch import loadgen
+    from kubegpu_tpu_torch.models import (
+        ContinuousBatcher,
+        DataParallelServePool,
+    )
+    from kubegpu_tpu_torch.obs.metrics import MetricsRegistry, percentiles
+    t_phase = time.perf_counter()
+    spec, tiers = load_spec(loadgen, cfg.vocab_size)
+    trace = loadgen.synth_trace(spec)
+    prompts = steady_prompts(torch, cfg, gen)
+    out = {"trace": {"requests": len(trace),
+                     "last_arrival_tick": trace[-1]["arrival_tick"],
+                     "prompt_tokens": sum(len(e["prompt"]) for e in trace),
+                     "new_tokens": sum(e["max_new"] for e in trace)}}
+    log("load", trace=out["trace"], card=repr(name))
+    legs, warm = {}, {}
+
+    # (a) FIFO against tiered, a fresh engine each
+    for label, tiered in (("fifo", False), ("tiered", True)):
+        eng, warm[label] = load_engine(torch, ContinuousBatcher, cfg, params)
+        legs[label] = load_leg(torch, kernels, loadgen, f"(a) {label}", eng,
+                               trace, tiers, cfg.vocab_size, tiered=tiered)
+        if label == "fifo":
+            del eng
+            torch.cuda.empty_cache()
+    gold = LOAD_TIERS[0][0]
+    costs = calibrate(torch, eng, prompts)
+    prof = {}
+    if profile:
+        prof["bf16"] = steady_idle(torch, eng, prompts, "bf16 (overlap off)",
+                                   costs["block_ms"])
+    del eng
+    torch.cuda.empty_cache()
+    log("load", part="(a) FIFO vs tiered",
+        gold_goodput={k: legs[k]["goodput_by_tier"][gold]
+                      for k in ("fifo", "tiered")},
+        gold_goodput_ratio=(legs["tiered"]["goodput_by_tier"][gold]
+                            / max(legs["fifo"]["goodput_by_tier"][gold], 1)),
+        warmup_s={k: round(v, 2) for k, v in warm.items()},
+        block_ms=round(costs["block_ms"], 4),
+        chunk_ms=round(costs["chunk_ms"], 4),
+        prefill_ms_per_token=round(costs["prefill_ms_per_token"], 6))
+
+    # (b) two replicas on the one card, affinity against least-loaded
+    pools = {}
+    for routing in ("affinity", "least_loaded"):
+        pool = DataParallelServePool(params, cfg, dp=2,
+                                     devices=["cuda:0"] * 2,
+                                     routing=routing,
+                                     metrics=MetricsRegistry(),
+                                     **LOAD_POOL_ENGINE)
+        pool.warmup()
+        leg = load_leg(torch, kernels, loadgen, f"(b) dp=2 {routing}", pool,
+                       trace, tiers, cfg.vocab_size)
+        leg["hit_rate"] = pool.routing_affinity_hit_rate
+        leg["affinity_hits"] = pool.routing_affinity_hits
+        pools[routing] = leg
+        del pool
+        torch.cuda.empty_cache()
+    check(pools["affinity"]["affinity_hits"] > 0,
+          "phase 12 (b): affinity routing never hit a chain's replica")
+    check(pools["least_loaded"]["affinity_hits"] == 0,
+          "phase 12 (b): least-loaded routing counted affinity hits")
+    check(all(p["launches"]["paged_decode"] > 0 for p in pools.values()),
+          "phase 12 (b): a pool leg never ran kernel 4")
+    log("load", part="(b) dp=2 routing",
+        hit_rate={k: round(v["hit_rate"], 4) for k, v in pools.items()},
+        gold_goodput={k: v["goodput_by_tier"][gold]
+                      for k, v in pools.items()},
+        gold_goodput_ratio=(pools["affinity"]["goodput_by_tier"][gold]
+                            / max(pools["least_loaded"]["goodput_by_tier"][
+                                gold], 1)),
+        kernel4_launches={k: v["launches"]["paged_decode"]
+                          for k, v in pools.items()})
+
+    # (c) collect_overlap on bf16 pages (against (a)'s tiered leg) and on
+    # int8 pages both ways
+    overlap = {}
+    for label, kw in (("bf16", {}), ("int8", {"kv_bits": 8})):
+        if label == "bf16":
+            off = legs["tiered"]
+        else:
+            eng, _ = load_engine(torch, ContinuousBatcher, cfg, params, **kw)
+            off = load_leg(torch, kernels, loadgen, f"(c) {label} serial",
+                           eng, trace, tiers, cfg.vocab_size)
+            del eng
+            torch.cuda.empty_cache()
+        eng, _ = load_engine(torch, ContinuousBatcher, cfg, params,
+                             collect_overlap=True, **kw)
+        on = load_leg(torch, kernels, loadgen, f"(c) {label} overlap", eng,
+                      trace, tiers, cfg.vocab_size)
+        check(len(eng.overlap_ms) > 0,
+              f"phase 12 (c) {label}: no tick overlapped")
+        kernel = "paged_decode_q8" if kw else "paged_decode"
+        check(on["launches"][kernel] > 0,
+              f"phase 12 (c) {label}: {kernel} never ran")
+        ov = percentiles(eng.overlap_ms)
+        split = token_split(torch, cfg, params, off["records"],
+                            on["records"])
+        overlap[label] = {
+            "overlapped_ticks": len(eng.overlap_ms),
+            "overlap_ms_p50": statistics.median(eng.overlap_ms),
+            "overlap_ms_p99": ov["p99"],
+            "tokens_per_s": {"serial": off["tokens_per_s"],
+                             "overlap": on["tokens_per_s"]},
+            "goodput_tokens_per_s": {"serial": off["goodput_tokens_per_s"],
+                                     "overlap": on["goodput_tokens_per_s"]},
+            "ticks": {"serial": off["ticks"], "overlap": on["ticks"]},
+            "serial": {k: v for k, v in off.items() if k != "records"},
+            "overlap": {k: v for k, v in on.items() if k != "records"},
+            **split}
+        if profile and label == "bf16":
+            prof["bf16_overlap"] = steady_idle(torch, eng, prompts,
+                                               "bf16 (overlap on)",
+                                               costs["block_ms"])
+        del eng
+        torch.cuda.empty_cache()
+        log("load", part=f"(c) collect_overlap {label}",
+            overlapped_ticks=overlap[label]["overlapped_ticks"],
+            overlap_ms_p50=round(overlap[label]["overlap_ms_p50"], 4),
+            overlap_ms_p99=round(ov["p99"], 4),
+            tokens_per_s={k: round(v, 1) for k, v in
+                          overlap[label]["tokens_per_s"].items()},
+            equal_share=round(split["equal_share"], 4),
+            splits=[(g["rid"], g["pos"], round(g["gap"], 4),
+                     round(g["range"], 3)) for g in split["splits"]])
+    if profile:
+        log("profile", what="bf16 steady steps, overlap off vs on",
+            idle_share_events=(prof["bf16"]["idle_share_events"],
+                               prof["bf16_overlap"]["idle_share_events"]),
+            idle_share_traced=(prof["bf16"]["idle_share_traced"],
+                               prof["bf16_overlap"]["idle_share_traced"]),
+            wall_ms=(round(prof["bf16"]["wall_ms"], 3),
+                     round(prof["bf16_overlap"]["wall_ms"], 3)),
+            device_busy_ms=(round(prof["bf16"]["device_busy_ms"], 3),
+                            round(prof["bf16_overlap"]["device_busy_ms"],
+                                  3)))
+
+    # (d) donate=False at full width, then (c) and (d) at the narrow config
+    donate = donate_phase(torch, ContinuousBatcher, cfg, params, gen)
+    narrow = narrow_load(torch)
+    torch.cuda.empty_cache()
+
+    # (e) the fleet, calibrated from (a)
+    page_bytes = donate["pool_bytes"] // (ENGINE["total_pages"] + 1)
+    fleet = fleet_phase(cfg, costs, page_bytes)
+    for leg in list(legs.values()) + list(pools.values()):
+        leg.pop("records", None)
+    out.update(legs=legs, pools=pools, overlap=overlap, donate=donate,
+               narrow=narrow, fleet=fleet, costs=costs, warmup_s=warm,
+               profile=prof or None,
+               wall_s=time.perf_counter() - t_phase)
+    log("load", wall_s=round(out["wall_s"], 1))
+    return out
+
+
 def ptxas_instances(text: str) -> list:
     """Each kernel instance of an ``-Xptxas -v`` build log: its name
     (demangled by ``c++filt`` where the machine has it), registers a thread
@@ -3926,6 +4590,14 @@ def main(argv=None) -> int:
     check(all(pool_launches[k] > 0 for k in ("paged_decode",
                                              "paged_decode_q8")),
           f"a kernel of the pools' path never ran: {pool_launches}")
+    kernels.reset_launches()          # the load harness's path starts here
+    load = load_phase(torch, kernels, cfg, params,
+                      torch.Generator(device="cuda").manual_seed(SEED + 5),
+                      name, args.profile)
+    load_launches = dict(kernels.launches)   # ... and ends here
+    check(all(load_launches[k] > 0 for k in ("paged_decode",
+                                             "paged_decode_q8")),
+          f"a kernel of the load harness's path never ran: {load_launches}")
     log("static", what="int8 weights + int8 cache over bf16",
         decode=static["int8"]["serve_decode_tokens_per_s"]
         / static["bf16"]["serve_decode_tokens_per_s"],
@@ -3974,7 +4646,7 @@ def main(argv=None) -> int:
                   "kubegpu_tpu/ops/paged_attention.py:567")}
     paths = (serve_launches, prefix_launches, spec_launches, quant_launches,
              qw_launches, train_launches, t5_launches, program_launches,
-             lifecycle_launches, pool_launches)
+             lifecycle_launches, pool_launches, load_launches)
     # kernels 4-6 at llama_serve.py's bench shape, by their pool format
     program_rows = {k: program["program_shape"][fmt]
                     for k, fmt in zip(PAGED_KERNELS, ("bf16", "q8", "q4g16"))}
@@ -4013,7 +4685,7 @@ def main(argv=None) -> int:
                "dense_engine": dense,
                "paged_mass": quant["bf16"], "paged_rounding": rounding,
                "paged_nan": nan_checks, "lifecycle": lifecycle,
-               "pools": pools,
+               "pools": pools, "load": load,
                "profile": prof, "training": train,
                "flash_fwd_training_shape": fwd_train,
                "t5": t5_stats, "program": program,
@@ -4027,7 +4699,8 @@ def main(argv=None) -> int:
                             "t5_paged_serving": t5_launches,
                             "llama_serve": program_launches,
                             "sampling_and_lifecycle": lifecycle_launches,
-                            "pools": pool_launches},
+                            "pools": pool_launches,
+                            "load_and_fleet": load_launches},
                "kernels": line["kernels"],
                "total_s": time.perf_counter() - t_start}
     if args.details:

@@ -159,7 +159,6 @@ from kubegpu_tpu_torch.ops.paged_attention import (
 # queue-1 item that brings it).  The default is accepted; any other value
 # raises.
 _LATER = {
-    "collect_overlap": (False, "pools, fleet and llama_serve"),
     "mesh": (None, "multi-device"),
 }
 
@@ -911,10 +910,13 @@ def _captured(fn, eager_s: float):
 class _AdmissionQueue(deque):
     """The admission queue with an incremental queued-prompt-token total
     (``prompt_tokens``) that every mutation the engine makes keeps equal
-    to ``sum(r.prompt_len for r, _ in q)`` (append at submit and requeue,
-    popleft at admission, ``del q[i]`` at cancel and deadline pruning,
-    the sorted rebuild of :meth:`ContinuousBatcher._sort_queue`).  Items
-    are ``(request, padded_prompt)`` pairs."""
+    to ``sum(r.prompt_len for r, _ in q)``: each of the deque's
+    mutations (``append``, ``appendleft``, ``extend``, ``popleft``,
+    ``pop``, ``remove``, ``clear``, ``del q[i]``) adjusts it, as the
+    reference's queue does, so a caller that rebuilds the queue (the
+    sorted rebuild of :meth:`ContinuousBatcher._sort_queue`, a simulated
+    replica's ``clear`` + ``extend``) leaves the pool router's tiebreak
+    exact.  Items are ``(request, padded_prompt)`` pairs."""
 
     def __init__(self, items=()):
         super().__init__()
@@ -926,10 +928,31 @@ class _AdmissionQueue(deque):
         super().append(item)
         self.prompt_tokens += item[0].prompt_len
 
+    def appendleft(self, item) -> None:
+        super().appendleft(item)
+        self.prompt_tokens += item[0].prompt_len
+
+    def extend(self, items) -> None:
+        for item in items:
+            self.append(item)
+
     def popleft(self):
         item = super().popleft()
         self.prompt_tokens -= item[0].prompt_len
         return item
+
+    def pop(self):
+        item = super().pop()
+        self.prompt_tokens -= item[0].prompt_len
+        return item
+
+    def remove(self, item) -> None:
+        super().remove(item)
+        self.prompt_tokens -= item[0].prompt_len
+
+    def clear(self) -> None:
+        super().clear()
+        self.prompt_tokens = 0
 
     def __delitem__(self, i) -> None:
         self.prompt_tokens -= self[i][0].prompt_len
@@ -1078,10 +1101,23 @@ class ContinuousBatcher:
     window (:func:`_trim_acct`).  ``hbm`` (a
     :class:`LiveBytesTracker`) samples, at every dispatch, the bytes of
     the state tensors: the pool or cache leaves plus the slot vectors.
-    The port writes that state in place and holds no second handle, so
-    ``hbm_pool_bytes`` sits at 1x the state and equals
-    ``hbm_peak_bytes`` (the reference's donation gives the same 1x).
-    ``note_kv_quality`` records a measured ``kv_quality_delta``.
+    The ticks write that state in place; with ``donate=True`` (the
+    default) the public ``pool``/``cache`` ARE that state, so
+    ``hbm_pool_bytes`` sits at 1x (the reference's donation gives the
+    same 1x).  ``donate=False`` is the reference's debug mode: each
+    dispatch rebinds the public ``pool``/``cache`` leaves to fresh copies
+    of the live state (the graphs keep binding the live buffers), so a
+    handle taken before a step keeps the values it had, and the leaves
+    count twice.  ``note_kv_quality`` records a measured
+    ``kv_quality_delta``.
+
+    ``collect_overlap=True`` double-buffers the steady state (nothing
+    queued, no chunk prefilling): tick N+1 is dispatched before the host
+    reads tick N, so the card computes through the readout instead of
+    idling behind it; ``overlap_ms`` (and ``serve_collect_overlap_ms``)
+    holds each overlapped readout's wall.  Every dispatch's slab (and
+    mass) is copied into one of two pinned host buffers, used in turn,
+    with an event, and a collect reads that copy, never the live slab.
 
     The request lifecycle, as the reference's single engine: ``submit``
     takes a wall-clock ``deadline_s`` and a step-count ``deadline_ticks``
@@ -1133,9 +1169,7 @@ class ContinuousBatcher:
 
     Knobs of the reference engine outside this slice (``_LATER``) are
     accepted at the reference's default and raise ``NotImplementedError``
-    naming their ROADMAP.md item at any other value; so does
-    ``donate=False`` (the pools always update in place, which is what
-    ``donate=True`` asks for)."""
+    naming their ROADMAP.md item at any other value."""
 
     def __init__(self, params: dict, cfg: LlamaConfig, n_slots: int = 8,
                  max_len: int | None = None, stride: int = 16,
@@ -1155,14 +1189,12 @@ class ContinuousBatcher:
                  eos_id: int | None = None, tracer=None, trace_ctx=None,
                  chaos=None, tick_deadline_s: float | None = None,
                  max_retries: int = 2, tenant_quotas: dict | None = None,
-                 metrics=None, donate: bool = True, graphs: bool = True,
+                 metrics=None, donate: bool = True,
+                 collect_overlap: bool = False, graphs: bool = True,
                  device="cuda", **later):
         _refuse_later(_LATER, later)
-        if donate is not True:
-            raise NotImplementedError(
-                f"donate={donate!r} is not ported yet (ROADMAP.md queue 1: "
-                "pools, fleet and llama_serve); the pools and slot vectors "
-                "always update in place, as donate=True asks")
+        self.donate = bool(donate)
+        self.collect_overlap = bool(collect_overlap)
         self.device = torch.device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params lie on {params['embed'].device}, "
@@ -1312,6 +1344,9 @@ class ContinuousBatcher:
             self.total_pages = (total_pages if total_pages is not None
                                 else n_slots * self.max_pages)
         self.debug_invariants = bool(debug_invariants)
+        # the live state the ticks write in place (``_live``); with
+        # donate=False the public ``pool``/``cache`` are rebound to copies
+        # of it at every dispatch (:meth:`_rebind_public`)
         self.pool = self._empty_pool() if paged else None
         self.cache = (None if paged else
                       init_kv_cache(cfg, n_slots, self.max_len,
@@ -1369,6 +1404,21 @@ class ContinuousBatcher:
         self._mass_out = (torch.zeros((n_slots, self.max_pages),
                                       dtype=torch.float32, device=dev)
                           if evict_policy == "mass" else None)
+        # the host's copies of a dispatch's slab (and mass): two pinned
+        # buffers used in turn, each filled by one non-blocking copy
+        # enqueued after its dispatch's ticks and guarded by an event, so
+        # a collect reads a finished copy, never the live slab that the
+        # next dispatch rewrites (collect_overlap reads tick N after tick
+        # N+1 went out)
+        self._slab_host = [torch.zeros(self._slab_words(), dtype=torch.long,
+                                       pin_memory=cuda) for _ in range(2)]
+        self._mass_host = ([torch.zeros((n_slots, self.max_pages),
+                                        dtype=torch.float32,
+                                        pin_memory=cuda) for _ in range(2)]
+                           if self._mass_out is not None else None)
+        self._slab_ready = ([torch.cuda.Event() for _ in range(2)]
+                            if cuda else None)
+        self._slab_turn = 0
         self._tv = tv
         self._live = {"pool": self.pool, "cache": self.cache,
                       "tokens": self.tokens, "temps": self.temps,
@@ -1399,7 +1449,8 @@ class ContinuousBatcher:
             self._chunk_tok = torch.zeros(1, dtype=torch.long, device=dev)
         self.slot_req: dict[int, _Request] = {}
         self.queue = _AdmissionQueue()
-        self._inflight: torch.Tensor | None = None
+        # the host buffer (0 or 1) of the dispatch not yet collected
+        self._inflight: int | None = None
         self._inflight_k = 1
         self._inflight_spec = False
         self._inflight_budget: np.ndarray | None = None
@@ -1434,6 +1485,9 @@ class ContinuousBatcher:
         # readout's (``_sync_ms_last``)
         self.fused_block_ms: list[float] = []
         self.host_overhead_ms: list[float] = []
+        # collect_overlap: the host wall of each overlapped readout (tick
+        # N read while tick N+1 runs)
+        self.overlap_ms: list[float] = []
         self._sync_ms_last = 0.0
         self._metrics = metrics
         if metrics is not None:
@@ -1491,7 +1545,7 @@ class ContinuousBatcher:
         # _maybe_evict after the tick's one host sync
         self.pages_evicted = 0
         self._page_mass = np.zeros((n_slots, self.max_pages))
-        self._mass_pending: torch.Tensor | None = None
+        self._mass_pending: np.ndarray | None = None
         self.fused_dispatches = 0     # fused blocks dispatched
         self.fused_ticks_run = 0      # device ticks covered by them
         self.fused_stalls = 0         # lanes frozen by the page cap
@@ -2092,7 +2146,7 @@ class ContinuousBatcher:
             self._chunk_graph.replay()
             return
         t0 = time.perf_counter()
-        self._chunk_on(self.pool if st is None else st["pool"])
+        self._chunk_on(self._live["pool"] if st is None else st["pool"])
         if st is None and self._use_graph():
             self._capture_chunk(time.perf_counter() - t0)
 
@@ -2104,7 +2158,8 @@ class ContinuousBatcher:
         """Capture the chunk step over the live pool (nothing runs)."""
         # as in _capture: the graph's function must not refer to the engine
         params, pool, views, out, cfg, page, sampler = (
-            self.params, self.pool, self._chunk_views, self._chunk_tok,
+            self.params, self._live["pool"], self._chunk_views,
+            self._chunk_tok,
             self.cfg, self.page_size, self._sampler)
         self._chunk_graph, self.chunk_graph_stats = _captured(
             lambda: chunk_body(params, pool, views, out, cfg, page, sampler),
@@ -2205,7 +2260,7 @@ class ContinuousBatcher:
         return {"pool": self._empty_pool() if self.paged else None,
                 "cache": (None if self.paged else
                           {n: torch.zeros_like(x)
-                           for n, x in self.cache.items()}),
+                           for n, x in self._live["cache"].items()}),
                 "tokens": torch.zeros_like(self.tokens),
                 "temps": torch.zeros_like(self.temps),
                 "pos": torch.zeros_like(self.pos),
@@ -2299,14 +2354,15 @@ class ContinuousBatcher:
         :meth:`_fused_k_now`; speculative ticks unless the engine has none
         or degraded): upload the tables with each slot's token budget
         (what its request still owes, less a pending first token), run the
-        tick k times back to back, and keep the static slab for the next
-        step's single host fetch, with the active mask (``_spec_active``)
-        and the budgets the dispatch ran on.  The slab and the mass are
-        the graph's outputs, rewritten by the next dispatch: ``step``
-        collects them (``_collect``, ``_maybe_evict``) before it
-        dispatches again.  A dead engine raises; the chaos events due at
-        this tick apply first, before anything is uploaded, so a failed
-        dispatch is retried from the same state."""
+        tick k times back to back, and enqueue the copy of the static slab
+        (and mass) into the next of the two host buffers
+        (:meth:`_stage_out`) for the single host fetch, with the active
+        mask (``_spec_active``) and the budgets the dispatch ran on.  The
+        slab and the mass are the graph's outputs, rewritten by the next
+        dispatch; the host copy is not, so a collect may come after the
+        next dispatch (``collect_overlap``).  A dead engine raises; the
+        chaos events due at this tick apply first, before anything is
+        uploaded, so a failed dispatch is retried from the same state."""
         if self.dead is not None:
             raise ReplicaDeadError(self.dead)
         self._chaos_gate()
@@ -2321,32 +2377,126 @@ class ContinuousBatcher:
         self._upload_tables(budget, k)
         for _ in range(k):
             self._run_tick("spec" if spec else "plain")
+        if not self.donate:
+            self._rebind_public()
         self._sample_hbm()
-        self._inflight, self._inflight_k = self._slab, k
+        self._inflight, self._inflight_k = self._stage_out(), k
         self._inflight_spec, self._inflight_budget = spec, budget
         self._spec_active = self.active.copy() if spec else None
-        if self._mass_out is not None:
-            self._mass_pending = self._mass_out
         if k > 1:
             self.fused_dispatches += 1
             self.fused_ticks_run += k
         self._tick += k
+
+    def _stage_out(self) -> int:
+        """Enqueue the copy of the slab (and the mass) the ticks just
+        wrote into the next host buffer, then its event; returns the
+        buffer's index.  The copy runs after the ticks in stream order,
+        so nothing waits here."""
+        i = self._slab_turn
+        self._slab_turn ^= 1
+        self._slab_host[i].copy_(self._slab, non_blocking=True)
+        if self._mass_host is not None:
+            self._mass_host[i].copy_(self._mass_out, non_blocking=True)
+        if self._slab_ready is not None:
+            self._slab_ready[i].record()
+        return i
+
+    def _read_out(self, i: int) -> np.ndarray:
+        """Wait for host buffer ``i``'s copy (its event: the dispatch's
+        ticks and the copy, nothing later) and return the slab; the mass,
+        if any, becomes ``_mass_pending`` for :meth:`_maybe_evict`."""
+        if self._slab_ready is not None:
+            self._slab_ready[i].synchronize()
+        if self._mass_host is not None:
+            self._mass_pending = self._mass_host[i].numpy().copy()
+        return self._slab_host[i].numpy().copy()
+
+    def _rebind_public(self) -> None:
+        """``donate=False``: rebind the public ``pool`` (or ``cache``)
+        leaves to fresh copies of the live state the ticks write in place
+        (the graphs keep binding the live buffers).  A handle taken from
+        the public dict before a step keeps the values it had; the
+        previous copies are released before the new ones are made, so the
+        state's bytes peak at two pools (and at a caller's held copies)."""
+        name = "pool" if self.paged else "cache"
+        setattr(self, name, None)
+        setattr(self, name, {n: x.clone()
+                             for n, x in self._live[name].items()})
+
+    def _overlap_step(self, t_tick: float) -> list[_Request]:
+        """The steady state with ``collect_overlap``: dispatch tick N+1
+        on the pre-collect state, then read tick N's host copy while N+1
+        runs.  Dispatching before the readout is safe by the engine's
+        standing contracts: a slot that finished in tick N runs one
+        garbage tick (its writes land in its own pages or trash page 0,
+        and the next collect skips its vacated slot), its stale budget
+        only lets lanes run longer than needed (the host clamps), and
+        admission waits for the next step, so a freed slot is never
+        refilled under a stale tick.  If the dispatch kills the engine,
+        the unread tick N still holds real tokens: they are consumed and
+        what finished goes to the orphans, so a failover never loses
+        them."""
+        prev = (self._inflight, self._inflight_k, self._inflight_spec,
+                self._inflight_budget, self._spec_active)
+        try:
+            self._dispatch_with_retry()     # tick N+1, before N's readout
+        except ReplicaDeadError:
+            self._orphans.extend(self._collect_slab(*prev) + self._failed)
+            self._failed.clear()
+            raise
+        self._charge_chip_ticks()
+        t0 = time.perf_counter()
+        finished = self._collect_slab(*prev)
+        dt = self._sync_ms_last
+        self.overlap_ms.append(dt)
+        if self._metrics is not None:
+            self._metrics.observe("serve_collect_overlap_ms", dt)
+        finished.extend(self._failed)
+        self._failed.clear()
+        if self._tracer is not None:
+            tick = self._tracer.add_span(
+                "engine.tick", t_tick, time.perf_counter(),
+                parent=self._engine_anchor,
+                attrs={"tick": self._tick - 1, "overlap": True,
+                       "spec": prev[2], "fused_k": prev[1],
+                       "slots": len(self.slot_req)}).context
+            self._tracer.add_span(
+                "engine.verify" if self._inflight_spec
+                else "engine.dispatch", t_tick, t0, parent=tick)
+            self._tracer.add_span(
+                "engine.collect", t0, t0 + dt / 1e3, parent=tick,
+                attrs={"overlap_ms": round(dt, 3),
+                       "finished": len(finished)})
+        self._note_host_overhead(t_tick, dt)
+        self._watchdog(t_tick, finished)
+        for xs in (self.overlap_ms, self.fused_block_ms,
+                   self.host_overhead_ms):
+            _trim_acct(xs)
+        return finished
 
     def step(self) -> list[_Request]:
         """One engine tick: collect the previous block, retire finishers,
         expire deadlines, evict cold pages (with an ``evict_policy``),
         admit into freed slots, run one prefill chunk for each prefilling
         slot, dispatch the next block (without waiting for it), and
-        account the step (see the class docstring).  Returns the requests
-        that finished, then those that failed this step (shed, out of
-        retries, past their deadline).  A dead engine raises
-        :class:`ReplicaDeadError`; the requests that finished in the step
-        that killed it go to ``take_orphans()``."""
+        account the step (see the class docstring).  With
+        ``collect_overlap``, a step in the steady state (nothing queued,
+        no chunk prefilling, slots resident) dispatches the next block
+        first and collects the previous one after (:meth:`_overlap_step`).
+        Returns the requests that finished, then those that failed this
+        step (shed, out of retries, past their deadline).  A dead engine
+        raises :class:`ReplicaDeadError`; the requests that finished in
+        the step that killed it go to ``take_orphans()``."""
         if self.dead is not None:
             raise ReplicaDeadError(self.dead)
         self._step_count += 1
         self._sync_ms_last = 0.0
         t_tick = time.perf_counter()
+        if (self.collect_overlap and self._inflight is not None
+                and not self.queue and not self._prefilling
+                and self.slot_req):
+            return self._overlap_step(t_tick)
         finished = self._collect()
         t_col = time.perf_counter() if self._tracer is not None else 0.0
         try:
@@ -2622,11 +2772,12 @@ class ContinuousBatcher:
         its cache row.  That slot's next logits go non-finite while its
         neighbours stay exact."""
         if self.paged:
+            pool = self._live["pool"]
             pid = int(self._pt[slot, int(self._tpad[slot]) // self.page_size])
-            leaf = "k_scale" if "k_scale" in self.pool else "k"
-            self.pool[leaf][:, pid] = float("nan")
+            leaf = "k_scale" if "k_scale" in pool else "k"
+            pool[leaf][:, pid] = float("nan")
         else:
-            self.cache["k"][:, slot] = float("nan")
+            self._live["cache"]["k"][:, slot] = float("nan")
 
     def _poison_one_slot(self) -> bool:
         """Poison the lowest eligible slot (active and, paged, past its
@@ -2750,9 +2901,13 @@ class ContinuousBatcher:
 
     def _state_bytes(self) -> tuple[int, int]:
         """(pool or cache leaves' bytes, slot vectors' bytes) of the
-        engine's state."""
-        store = self.pool if self.paged else self.cache
+        engine's state; with ``donate=False`` the leaves count twice, the
+        live ones and the public copies :meth:`_rebind_public` made."""
+        name = "pool" if self.paged else "cache"
+        store = self._live[name]
         leaves = sum(x.numel() * x.element_size() for x in store.values())
+        if getattr(self, name) is not store:
+            leaves *= 2
         mirrors = sum(x.numel() * x.element_size()
                       for x in (self.first_toks, self.tokens, self.pos,
                                 self.temps))
@@ -2765,7 +2920,8 @@ class ContinuousBatcher:
     def hbm_pool_bytes(self) -> int:
         """Live state bytes at the most recent dispatch (``serve_hbm_pool
         _bytes``): the pool or cache leaves plus the slot vectors, 1x the
-        state (0 before the first dispatch)."""
+        state, the leaves twice with ``donate=False`` (0 before the first
+        dispatch)."""
         return self.hbm.live
 
     @property
@@ -2885,21 +3041,31 @@ class ContinuousBatcher:
                     else "engine.dispatch", t_d0, now, parent=tick)
 
     def _collect(self) -> list[_Request]:
+        """Collect the dispatch in flight, if any (:meth:`_collect_slab`)."""
         if self._inflight is None:
             return []
+        finished = self._collect_slab(
+            self._inflight, self._inflight_k, self._inflight_spec,
+            self._inflight_budget, self._spec_active)
+        self._inflight = None
+        self._spec_active = None
+        return finished
+
+    def _collect_slab(self, i: int, k: int, spec: bool, budget,
+                      spec_active) -> list[_Request]:
+        """Read host buffer ``i`` (THE host sync: its event) and consume
+        the ``k`` ticks it holds with the dispatch's own ``spec``,
+        ``budget`` and ``spec_active``.  Slots imported after that
+        dispatch sat it out."""
         t0 = time.perf_counter()
-        fused = self._inflight.cpu().numpy()    # THE host sync
+        fused = self._read_out(i)
         self._sync_ms_last = (time.perf_counter() - t0) * 1e3
-        if self._inflight_k > 1:
+        if k > 1:
             self.fused_block_ms.append(self._sync_ms_last)
             if self._metrics is not None:
                 self._metrics.observe("serve_fused_block_ms",
                                       self._sync_ms_last)
-        self._inflight = None
-        spec_active, self._spec_active = self._spec_active, None
-        finished = self._consume(fused, self._inflight_k,
-                                 self._inflight_spec, spec_active,
-                                 self._inflight_budget)
+        finished = self._consume(fused, k, spec, spec_active, budget)
         self._imported.clear()
         return finished
 
@@ -3067,7 +3233,7 @@ class ContinuousBatcher:
         ids = torch.from_numpy(self._pt[slot, :n_chain].astype(np.int64))
         chain = {name: leaf.cpu()
                  for name, leaf in gather_pages(
-                     self.pool, ids.to(self.device)).items()}
+                     self._live["pool"], ids.to(self.device)).items()}
         t = int(self._tvec[slot])
         self._exports[req.rid] = {
             "rid": req.rid, "t": t, "tpad": int(self._tpad[slot]),
@@ -3162,7 +3328,7 @@ class ContinuousBatcher:
         self._tpad[slot] = bucket
         self._cap[slot] = decode_capacity(need, bucket, self.page_size)
         dev = self.device
-        scatter_pages(self.pool,
+        scatter_pages(self._live["pool"],
                       {name: leaf.to(dev) for name, leaf in chain.items()},
                       torch.tensor(pages[:n_chain], device=dev))
         activate_slot(self.first_toks, self.tokens, self.pos, slot,
@@ -3221,8 +3387,8 @@ class ContinuousBatcher:
         chain at retirement (``_migrate_out``) or is inactive, and at
         least two real prompt pages stay."""
         if self.evict_policy == "mass" and self._mass_pending is not None:
-            # its block was synced in _collect: a copy of a ready tensor
-            mass = self._mass_pending.cpu().numpy()
+            # the collected block's mass, read with its slab
+            mass = self._mass_pending
             self._mass_pending = None
             live = self.active & np.isfinite(mass).all(axis=1)
             self._page_mass[live] = (0.8 * self._page_mass[live]

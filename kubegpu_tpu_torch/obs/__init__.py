@@ -1,14 +1,24 @@
 """Observability the serving engine and the workload programs read
-(counterpart of the parts of ``kubegpu_tpu/obs`` they use): request
-tracing (:mod:`.spans`), the chip-tick cost ledger (:mod:`.cost`), the
-metrics registry with the engine's percentile summary and live-byte
-tracker (:mod:`.metrics`) and the engine's fault injection
-(:mod:`.chaos`)."""
+(counterpart of ``kubegpu_tpu/obs``'s serving half): request tracing
+(:mod:`.spans`), the chip-tick cost ledger (:mod:`.cost`), the metrics
+registry with the engine's percentile summary and live-byte tracker
+(:mod:`.metrics`), fault injection for one engine and for a fleet's
+failure domains (:mod:`.chaos`), the tick-indexed series store
+(:mod:`.tsdb`) and the burn-rate alerts over it (:mod:`.alerts`)."""
 
+from kubegpu_tpu_torch.obs.alerts import (  # noqa: F401
+    Alert,
+    AlertEngine,
+    AlertRule,
+    FlightRecorder,
+    default_rules,
+)
 from kubegpu_tpu_torch.obs.chaos import (  # noqa: F401
     ChaosEvent,
     ChaosInjector,
     DispatchFailure,
+    DomainChaosEvent,
+    DomainChaosInjector,
     ReplicaDeadError,
     TickStallError,
 )
@@ -27,3 +37,4 @@ from kubegpu_tpu_torch.obs.spans import (  # noqa: F401
     Tracer,
     validate_chrome_trace,
 )
+from kubegpu_tpu_torch.obs.tsdb import SeriesStore  # noqa: F401

@@ -50,13 +50,25 @@ def test_walk_covers_the_control_plane_subpackages():
         assert f"kubegpu_tpu_torch/{sub}" in names, sub
 
 
+def test_walk_covers_the_load_and_fleet_modules():
+    """The AST walk reaches the load harness, the fleet and the flight
+    recorder (their reference copies import only numpy and the reference
+    package; the port's import neither)."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for sub in ("loadgen.py", "fleet.py", "obs/tsdb.py", "obs/alerts.py",
+                "obs/chaos.py"):
+        assert f"kubegpu_tpu_torch/{sub}" in names, sub
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys, kubegpu_tpu_torch.models, kubegpu_tpu_torch.ops, "
             "kubegpu_tpu_torch.convert, kubegpu_tpu_torch.kernels, "
             "kubegpu_tpu_torch.optim, kubegpu_tpu_torch.obs, "
             "kubegpu_tpu_torch.ops.strict, kubegpu_tpu_torch.scheduler, "
             "kubegpu_tpu_torch.scheduler.serve, kubegpu_tpu_torch.kubemeta, "
-            "kubegpu_tpu_torch.kubemeta.codec, "
+            "kubegpu_tpu_torch.kubemeta.codec, kubegpu_tpu_torch.loadgen, "
+            "kubegpu_tpu_torch.fleet, kubegpu_tpu_torch.obs.tsdb, "
+            "kubegpu_tpu_torch.obs.alerts, "
             "kubegpu_tpu_torch.workloads.programs.llama_serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")

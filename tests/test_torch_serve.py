@@ -80,13 +80,10 @@ def test_page_accounting_matches_reference(tiny):
                                                                      bucket)
 
 
-# the engine knobs and submit keywords of the reference that the port takes
-# at their defaults only: name -> (default, another value, ROADMAP.md item)
-LIFECYCLE = "pools, fleet and llama_serve"
-LATER_KNOBS = {
-    "collect_overlap": (False, True, LIFECYCLE),
-    "donate": (True, False, LIFECYCLE),
-}
+# the engine knobs of the reference that the port takes at their defaults
+# only (besides ``mesh``): name -> (default, another value, ROADMAP.md item);
+# collect_overlap and donate are ported (tests/test_torch_serve_overlap.py)
+LATER_KNOBS: dict = {}
 # knobs and submit keywords (ported, or taken at their defaults only) whose
 # reference defaults must keep serving the plain greedy tokens; every
 # submit keyword is ported (migrate_out: tests/test_torch_page_migration.py)
