@@ -177,8 +177,20 @@ printed as it ends (any failed check exits non-zero):
    killed, watch weather, an upgrade wave and a control-plane crash:
    nothing lost or duplicated, outcomes identical to the twin, the kill
    paged within 16 ticks; the host seconds).
+13. moe      -- the MoE family (``moe_phase``, after phase 9) at
+   Mixtral-8x7B's width cut to 8 layers in bf16: ``moe_forward`` [1, 512]
+   (kernel 1) against ``moe_prefill``'s last logits (bf16 printed; within
+   relative L2 1e-4 in f32 at 2 layers); the paged engine on the
+   reference's moe_paged_engine traffic (8 requests in a 512 bucket, 32
+   new tokens, stride 16, pages of 128) as a graph and eagerly (equal
+   tokens, tokens/s, the replayed tick's ms beside its byte bound), with
+   ``fused_ticks=4`` (equal tokens), ``kv_bits=8`` (kernel 5), the dense
+   engine (no kernel of the port); int8 experts at the full 32 layers with
+   int8 pages (tokens/s, peak memory, the tick against its bound); and a
+   narrow f32 config whose paged and dense engines' tokens equal
+   ``moe_greedy_generate``'s.
 
-Twelve paths are driven: serving (phases 4-5), the prefix cache (5f),
+Thirteen paths are driven: serving (phases 4-5), the prefix cache (5f),
 speculative serving (5g),
 quantized serving (5b),
 int8-weight serving (5c), the static path and the dense engine (5d-5e,
@@ -186,9 +198,9 @@ which run no kernel of the port, as the reference runs no Pallas kernel
 there), training (phase 7's steps), T5 paged serving (phase 8's bf16
 paged calls), the program's in-process engine runs (phase 9),
 sampling with the request lifecycle (phase 10, run after 5e), the
-serving pools (phase 11, after 10) and the load harness (phase 12, after
-11).  Launch counters are zeroed just before each and read just
-after; a graph replay counts the launches captured in it.  The serving
+serving pools (phase 11, after 10), the load harness (phase 12, after
+11) and MoE serving (phase 13, last).  Launch counters are zeroed just
+before each and read just after; a graph replay counts the launches captured in it.  The serving
 and training paths must run kernels 1-3 on their tensor-core instances
 only.  The line
 before the last is one JSON object per kernel; the last line is
@@ -1050,16 +1062,15 @@ def window_prompts(torch, cfg, gen, n: int = 12) -> list:
 
 
 def serving_window(torch, kernels, eng, cfg, gen, n_new, kernel="paged_decode",
-                   prompts=None) -> dict:
+                   prompts=None, up_front: int = 8) -> dict:
     """One timed window: requests with prompts of 200-512 tokens (``prompts``,
-    or 12 new ones from ``gen``), 8 up front and the rest after two ticks
-    (slots retire and are re-admitted), run to the end with ``drain``;
-    checked and timed on the host clock.  ``kernel`` is the paged kernel
-    of the engine's pool format: it must run ``tick_launches`` times a
-    tick (``stride × n_layers``, or ``γ × draft_layers + n_layers`` a
-    speculative tick), graph replays included, and the other paged
-    kernels not at all; the dense engine (``kernel=None``) runs none of
-    them."""
+    or 12 new ones from ``gen``), ``up_front`` up front and the rest after
+    two ticks (slots retire and are re-admitted), run to the end with
+    ``drain``; checked and timed on the host clock.  ``kernel`` is the paged
+    kernel of the engine's pool format: it must run ``tick_launches`` times
+    a tick (``stride × n_layers``, or ``γ × draft_layers + n_layers`` a
+    speculative tick), graph replays included, and the other paged kernels
+    not at all; the dense engine (``kernel=None``) runs none of them."""
     if prompts is None:
         prompts = window_prompts(torch, cfg, gen)
     tick0, tok0, ev0 = eng._tick, eng.emitted_tokens, eng.pages_evicted
@@ -1067,11 +1078,11 @@ def serving_window(torch, kernels, eng, cfg, gen, n_new, kernel="paged_decode",
     before = dict(kernels.launches)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rids = [eng.submit(p, n_new) for p in prompts[:8]]
+    rids = [eng.submit(p, n_new) for p in prompts[:up_front]]
     done = []
     for _ in range(2):
         done += eng.step()
-    rids += [eng.submit(p, n_new) for p in prompts[8:]]
+    rids += [eng.submit(p, n_new) for p in prompts[up_front:]]
     done += eng.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -4391,6 +4402,374 @@ def load_phase(torch, kernels, cfg, params, gen, name,
     return out
 
 
+# -- phase 13: the MoE family's serving path ---------------------------------
+
+# Mixtral-8x7B's width cut to 8 of its 32 layers in bf16 (32 would be 93.4 GB);
+# the reference's moe_paged_engine row: 8 slots, a 512 bucket, 32 new tokens,
+# stride 16, pages of 128 (ENGINE)
+MOE_LAYERS = 8
+MOE_NEW = 32
+# (g): phase 6's narrow f32 backbone with 8 experts, top 2, no drops
+MOE_NARROW = dict(n_experts=8, top_k=2, capacity_factor=4.0)
+
+
+def moe_config(n_layers: int):
+    import dataclasses
+
+    from kubegpu_tpu_torch.models import MoEConfig
+    cfg = MoEConfig.mixtral_8x7b_shaped()
+    return dataclasses.replace(cfg, base=dataclasses.replace(
+        cfg.base, n_layers=n_layers))
+
+
+def moe_int8_params(torch, cfg, seed: int) -> dict:
+    """``quantize_moe``'s tree at ``cfg``'s full depth, built a layer at a
+    time: each layer drawn in bf16 by ``moe_init`` at depth 1, quantized,
+    and copied into int8 stacks allocated once, so no bf16 copy of the
+    whole tree ever exists (the embedding, final norm and head are the
+    first draw's)."""
+    import dataclasses
+
+    from kubegpu_tpu_torch.models import moe_init
+    from kubegpu_tpu_torch.models.quant import QTensor, quantize_moe
+    one = dataclasses.replace(cfg, base=dataclasses.replace(cfg.base,
+                                                            n_layers=1))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = cfg.base.n_layers
+    out = None
+    for i in range(n):
+        q = quantize_moe(moe_init(one, device="cuda", generator=gen))
+        if out is None:
+            out = {k: v for k, v in q.items() if k != "layers"}
+            out["layers"] = {
+                k: (QTensor(v.values.new_empty((n,) + v.values.shape[1:]),
+                            v.scale.new_empty((n,) + v.scale.shape[1:]))
+                    if isinstance(v, QTensor)
+                    else v.new_empty((n,) + v.shape[1:]))
+                for k, v in q["layers"].items()}
+        for k, v in q["layers"].items():
+            dst = out["layers"][k]
+            for a, b in ((dst.values, v.values), (dst.scale, v.scale)) \
+                    if isinstance(v, QTensor) else ((dst, v),):
+                a[i].copy_(b[0])
+        del q
+    return out
+
+
+def moe_tick_bound(eng, moe, params) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, bytes) of one stride tick with every slot
+    decoding from its current position: each step reads every weight but
+    the embedding table (all experts: the dense one-hot form multiplies
+    every expert's capacity buffer; int8 experts at their int8 bytes) and
+    each slot's K/V history in the pool's format, and does
+    the weight products at the tick's row counts (the experts at ``E ×
+    B·C`` rows)."""
+    from kubegpu_tpu_torch.models.quant import tree_nbytes
+    cfg = eng.cfg
+    b, stride = eng.n_slots, eng.stride
+    elem = params["embed"].element_size()
+    weights = tree_nbytes(params) - params["embed"].numel() * elem
+    # the pool's bytes a token position (every layer, K and V, scales too)
+    pool = eng.pool
+    kv_row = (sum(x.numel() * x.element_size() for x in pool.values())
+              // (pool["k"].shape[1] * eng.page_size))
+    pos = [int(p) for p in eng.pos.tolist()]
+    kv = sum(p + j for p in pos for j in range(stride)) * kv_row
+    n_bytes = stride * (weights + b * cfg.d_model * elem) + kv
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    attn_w = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d
+    rows = moe.n_experts * b * moe.capacity(1)
+    keys = sum(p + j for p in pos for j in range(stride))
+    flops = (stride * (2 * b * (cfg.n_layers * attn_w + d * cfg.vocab_size)
+                       + cfg.n_layers * 2 * rows * 3 * d * f)
+             + 4 * cfg.n_layers * cfg.n_heads * hd * keys)
+    ms, by = bound_ms(n_bytes, flops, cfg.tdtype)
+    return ms, by, n_bytes
+
+
+def moe_tick_ms(torch, eng, prompts) -> float:
+    """Device ms of one replayed plain tick with every slot decoding (8
+    requests of 112 new tokens fill the 40 pages; two steps admit them and
+    run one tick): ``event_ms`` over 3 replays, the tick index reset before
+    each.  The engine is left mid-run: call it last on an engine."""
+    for p in prompts[:eng.n_slots]:
+        eng.submit(p, 112)
+    eng.step()
+    eng.step()
+    check(eng.active.all(), "phase 13: not every slot is decoding")
+
+    def tick():
+        eng._tv["tk"].zero_()
+        eng._run_tick("plain")
+
+    return event_ms(torch, tick, reps=3)
+
+
+def moe_narrow(torch) -> dict:
+    """(g) phase 6's narrow f32 backbone with 8 experts on the card: the
+    paged engine (graph) and the dense one, staggered requests, every token
+    equal to ``moe_greedy_generate``'s."""
+    from kubegpu_tpu_torch.models import (
+        ContinuousBatcher,
+        LlamaConfig,
+        MoEConfig,
+        decode,
+        moe_greedy_generate,
+        moe_init,
+    )
+    cfg = MoEConfig(base=LlamaConfig.tiny(**NARROW_CFG), **MOE_NARROW)
+    params = moe_init(cfg, seed=SEED, device="cuda")
+    g = torch.Generator().manual_seed(SEED)
+    reqs = [(torch.randint(0, cfg.base.vocab_size, (int(t),),
+                           generator=g).tolist(), n)
+            for t, n in ((5, 12), (20, 7), (9, 1), (32, 10), (3, 9))]
+    out = {}
+    for paged in (True, False):
+        eng = ContinuousBatcher(params, cfg, device="cuda",
+                                **{**NARROW_ENGINE, "paged": paged})
+        eng.warmup()
+        rids = {eng.submit(p, n): (p, n) for p, n in reqs[:3]}
+        done = eng.step() + eng.step()
+        rids.update({eng.submit(p, n): (p, n) for p, n in reqs[3:]})
+        done += eng.drain()
+        check(len(done) == len(reqs), "phase 13 (g): a request was lost")
+        for r in done:
+            p, n = rids[r.rid]
+            solo = moe_greedy_generate(params, [p], n, cfg,
+                                       device="cuda")[0].tolist()
+            check(r.tokens == solo, f"phase 13 (g) paged={paged} rid "
+                  f"{r.rid}: engine {r.tokens} != moe_greedy_generate "
+                  f"{solo}")
+        out["paged" if paged else "dense"] = len(done)
+    decode.clear_graphs()
+    log("moe", part="(g) narrow f32 engines vs moe_greedy_generate",
+        requests=out, equal=True)
+    return out
+
+
+def moe_phase(torch, kernels, gen, name) -> dict:
+    """Phase 13: the MoE family's serving path at Mixtral-8x7B's width, cut
+    to 8 layers in bf16 (random weights from ``SEED``), on ENGINE's shape
+    (the reference's moe_paged_engine row).  (a) ``moe_forward`` on [1,
+    512] (kernel 1 once a layer), its last logits against
+    ``moe_prefill``'s (the plain cached path): printed in bf16, within
+    relative L2 1e-4 in f32 at 2 layers;
+    (b) the paged engine as a graph and eagerly, one window of 8 staggered
+    requests (6 up front, 2 after two steps) of 32 new tokens each: equal
+    tokens, tokens/s, the replayed tick's ms beside its byte bound; (c)
+    ``fused_ticks=4`` on the same prompts: equal tokens, fused dispatches;
+    (d) ``kv_bits=8`` (kernel 5); (e) the dense engine (no kernel of the
+    port); (f) int8 experts (``quantize_moe``) at the full 32 layers, built
+    a layer at a time, on the paged engine with ``kv_bits=8``: tokens/s,
+    the card's peak memory over the window, the replayed tick's ms beside
+    its byte bound (the int8 bytes); (g) :func:`moe_narrow`.  Launches are
+    counted per leg; the phase's are returned under ``launches``."""
+    import dataclasses
+
+    from kubegpu_tpu_torch.models import (
+        ContinuousBatcher,
+        moe_forward,
+        moe_init,
+        moe_prefill,
+    )
+    from kubegpu_tpu_torch.models.quant import tree_nbytes
+    t_phase = time.perf_counter()
+    cfg = moe_config(MOE_LAYERS)
+    t0 = time.perf_counter()
+    params = moe_init(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "weights_bytes": tree_nbytes(params), "layers": MOE_LAYERS,
+           "reduced": "n_layers 32 -> 8 (bf16 tree 93.4 GB at 32)"}
+    log("moe", config="Mixtral-8x7B width", layers=MOE_LAYERS,
+        weights_gb=round(out["weights_bytes"] / 1e9, 2),
+        init_s=round(out["init_s"], 2))
+    legs = {}
+
+    def leg(label: str, before: dict) -> dict:
+        legs[label] = {k: kernels.launches[k] - before[k] for k in before}
+        return legs[label]
+
+    # (a) the forward (kernel 1 once a layer) at the width, and its parity
+    # with the plain cached prefill in f32 at 2 layers: in bf16 a routing
+    # choice is a step function of the router's logits, so bf16 noise
+    # reroutes tokens, more of them each layer
+    # (experiments/torch_moe_route_gap.py), and the bf16 gap (printed)
+    # measures that, not the kernel
+    before = dict(kernels.launches)
+    tokens = torch.randint(0, cfg.base.vocab_size, (1, 512), generator=gen,
+                           device="cuda")
+    with torch.no_grad():
+        logits, aux = moe_forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moe_forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        ref, _ = moe_prefill(params, tokens, cfg, max_len=512)
+    rel = ((logits[:, -1] - ref).norm() / ref.norm()).item()
+    fl = leg("forward", before)
+    check(tuple(logits.shape) == (1, 512, cfg.base.vocab_size)
+          and bool(torch.isfinite(logits).all())
+          and math.isfinite(float(aux)), "phase 13 (a): forward output")
+    check(fl["flash_fwd"] == 2 * cfg.base.n_layers,
+          f"phase 13 (a): flash_fwd ran {fl['flash_fwd']} times, want "
+          f"{2 * cfg.base.n_layers} (two forwards)")
+    del logits, ref
+    f32 = dataclasses.replace(cfg, base=dataclasses.replace(
+        cfg.base, n_layers=2, dtype="float32"))
+    p32 = moe_init(f32, seed=SEED + 8, device="cuda")
+    with torch.no_grad():
+        l32, _ = moe_forward(p32, tokens, f32)
+        r32, _ = moe_prefill(p32, tokens, f32, max_len=512)
+    rel32 = ((l32[:, -1] - r32).norm() / r32.norm()).item()
+    check(rel32 <= 1e-4, f"phase 13 (a): f32 forward vs prefill rel err "
+          f"{rel32}")
+    del p32, l32, r32
+    torch.cuda.empty_cache()
+    out["forward"] = {"ms": fwd_ms, "bf16_rel_err_vs_prefill": rel,
+                      "f32_rel_err_vs_prefill": rel32, "aux": float(aux)}
+    log("moe", part="(a) moe_forward [1,512] vs moe_prefill",
+        flash_launches=fl["flash_fwd"], ms=round(fwd_ms, 3),
+        bf16_rel_err=rel, f32_2_layers_rel_err=rel32, tol_f32=1e-4,
+        aux=float(aux))
+
+    # (b) the paged engine, graph and eager, and (c) fused K = 4
+    prompts = window_prompts(torch, cfg.base, gen, 8)
+    before = dict(kernels.launches)
+    eng, warm_s = warmed(torch, kernels, ContinuousBatcher, cfg, params,
+                         "moe bf16", "paged_decode")
+    eager, eager_warm_s = warmed(torch, kernels, ContinuousBatcher, cfg,
+                                 params, "moe bf16 eager", "paged_decode",
+                                 graphs=False)
+    check(eng.cfg == cfg.base, "phase 13: the engine does not run the "
+          "config's backbone")
+    graph = graph_log("moe bf16", eng)
+    runs = {id(e): serving_window(torch, kernels, e, cfg.base, gen, MOE_NEW,
+                                  prompts=prompts, up_front=6)
+            for e in (eng, eager)}
+    g_run, e_run = runs[id(eng)], runs[id(eager)]
+    same_tokens("phase 13 (b)", g_run, e_run)
+    del eager
+    fused, fused_warm_s = warmed(torch, kernels, ContinuousBatcher, cfg,
+                                 params, "moe fused K=4", "paged_decode",
+                                 fused_ticks=4)
+    f_run = serving_window(torch, kernels, fused, cfg.base, gen, MOE_NEW,
+                           prompts=prompts, up_front=6)
+    check(f_run["outputs"] == g_run["outputs"],
+          "phase 13 (c): fused K=4 tokens differ from K=1 tokens")
+    check(fused.fused_dispatches > 0, "phase 13 (c): the K=4 engine never "
+          "fused")
+    out["fused"] = {"tokens_per_s": f_run["tokens_per_s"],
+                    "fused_dispatches": fused.fused_dispatches,
+                    "warmup_s": fused_warm_s}
+    del fused
+    tick_ms = moe_tick_ms(torch, eng, prompts)
+    tick_bound, tick_by, tick_bytes = moe_tick_bound(eng, cfg, params)
+    pl = leg("paged", before)
+    check(pl["paged_decode"] > 0 and pl["flash_fwd"] == 0,
+          f"phase 13 (b): launches {pl}")
+    out["paged"] = {"tokens_per_s": g_run["tokens_per_s"],
+                    "eager_tokens_per_s": e_run["tokens_per_s"],
+                    "ticks": g_run["ticks"], "warmup_s": warm_s,
+                    "eager_warmup_s": eager_warm_s, "graph": graph,
+                    "tick_ms": tick_ms, "tick_bound_ms": tick_bound,
+                    "tick_bound_by": tick_by, "tick_bytes": tick_bytes}
+    log("moe", part="(b) paged engine graph vs eager, (c) fused K=4",
+        requests=len(prompts), n_new=MOE_NEW, equal=True,
+        tokens_per_s=g_run["tokens_per_s"],
+        eager_tokens_per_s=e_run["tokens_per_s"],
+        fused_tokens_per_s=f_run["tokens_per_s"],
+        fused_dispatches=out["fused"]["fused_dispatches"],
+        tick_ms=tick_ms, tick_bound_ms=tick_bound, tick_bound_by=tick_by,
+        tick_gb=round(tick_bytes / 1e9, 3),
+        share_of_bound=tick_bound / tick_ms, card=repr(name))
+    del eng
+    torch.cuda.empty_cache()
+
+    # (d) int8 pages
+    before = dict(kernels.launches)
+    q8, q8_warm_s = warmed(torch, kernels, ContinuousBatcher, cfg, params,
+                           "moe int8 pages", "paged_decode_q8", kv_bits=8)
+    q_run = serving_window(torch, kernels, q8, cfg.base, gen, MOE_NEW,
+                           "paged_decode_q8", prompts=prompts, up_front=6)
+    ql = leg("kv8", before)
+    check(ql["paged_decode_q8"] > 0, f"phase 13 (d): launches {ql}")
+    agree = equal_share(g_run["outputs"], q_run["outputs"])
+    out["kv8"] = {"tokens_per_s": q_run["tokens_per_s"],
+                  "warmup_s": q8_warm_s, "agree_with_bf16": agree}
+    log("moe", part="(d) paged engine, int8 pages",
+        tokens_per_s=q_run["tokens_per_s"], agree_with_bf16=agree,
+        q8_launches=ql["paged_decode_q8"])
+    del q8
+
+    # (e) the dense engine: no kernel of the port
+    before = dict(kernels.launches)
+    dense = ContinuousBatcher(params, cfg, graphs=True, **DENSE_ENGINE)
+    t0 = time.perf_counter()
+    dense.warmup()
+    torch.cuda.synchronize()
+    dense_warm_s = time.perf_counter() - t0
+    check(dense.graph_stats["tally"] == {},
+          f"phase 13 (e): the dense tick captured "
+          f"{dense.graph_stats['tally']}")
+    d_run = serving_window(torch, kernels, dense, cfg.base, gen, MOE_NEW,
+                           None, prompts=prompts, up_front=6)
+    dl = leg("dense", before)
+    check(not any(dl.values()), f"phase 13 (e): the dense engine launched "
+          f"{dl}")
+    agree = equal_share(g_run["outputs"], d_run["outputs"])
+    out["dense"] = {"tokens_per_s": d_run["tokens_per_s"],
+                    "warmup_s": dense_warm_s, "agree_with_paged": agree}
+    log("moe", part="(e) dense engine", tokens_per_s=d_run["tokens_per_s"],
+        agree_with_paged=agree)
+    del dense, params
+    torch.cuda.empty_cache()
+
+    # (f) int8 experts at the full depth, int8 pages
+    full = moe_config(32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qparams = moe_int8_params(torch, full, SEED + 6)
+    torch.cuda.synchronize()
+    q_init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    before = dict(kernels.launches)
+    qw, qw_warm_s = warmed(torch, kernels, ContinuousBatcher, full, qparams,
+                           "moe int8 experts", "paged_decode_q8", kv_bits=8)
+    w_run = serving_window(torch, kernels, qw, full.base, gen, MOE_NEW,
+                           "paged_decode_q8", prompts=prompts, up_front=6)
+    peak = torch.cuda.max_memory_allocated()
+    q_tick_ms = moe_tick_ms(torch, qw, prompts)
+    q_bound, q_by, q_bytes = moe_tick_bound(qw, full, qparams)
+    wl = leg("int8_experts", before)
+    check(wl["paged_decode_q8"] > 0, f"phase 13 (f): launches {wl}")
+    out["int8_experts"] = {"layers": 32,
+                           "weights_bytes": tree_nbytes(qparams),
+                           "init_s": q_init_s, "init_peak_bytes": init_peak,
+                           "peak_bytes": peak,
+                           "tokens_per_s": w_run["tokens_per_s"],
+                           "warmup_s": qw_warm_s, "tick_ms": q_tick_ms,
+                           "tick_bound_ms": q_bound, "tick_bound_by": q_by,
+                           "tick_bytes": q_bytes}
+    log("moe", part="(f) int8 experts, 32 layers, int8 pages",
+        weights_gb=round(tree_nbytes(qparams) / 1e9, 2),
+        init_s=round(q_init_s, 2), init_peak_gb=round(init_peak / 1e9, 2),
+        peak_gb=round(peak / 1e9, 2), tokens_per_s=w_run["tokens_per_s"],
+        tick_ms=q_tick_ms, tick_bound_ms=q_bound, tick_bound_by=q_by,
+        share_of_bound=q_bound / q_tick_ms, card=repr(name))
+    del qw, qparams
+    torch.cuda.empty_cache()
+
+    out["narrow"] = moe_narrow(torch)
+    out["launches"] = {k: sum(x[k] for x in legs.values())
+                       for k in kernels.launches}
+    out["legs"] = legs
+    out["wall_s"] = time.perf_counter() - t_phase
+    log("moe", wall_s=round(out["wall_s"], 1))
+    return out
+
+
 def ptxas_instances(text: str) -> list:
     """Each kernel instance of an ``-Xptxas -v`` build log: its name
     (demangled by ``c++filt`` where the machine has it), registers a thread
@@ -4628,6 +5007,17 @@ def main(argv=None) -> int:
     check(all(program_launches[k] > 0 for k in PAGED_KERNELS),
           f"a paged kernel never ran on the program's path: "
           f"{program_launches}")
+    torch.cuda.empty_cache()
+
+    kernels.reset_launches()          # the MoE serving path starts here
+    moe = moe_phase(torch, kernels,
+                    torch.Generator(device="cuda").manual_seed(SEED + 7),
+                    name)
+    moe_launches = moe["launches"]    # ... and ends in the phase
+    check(all(moe_launches[k] > 0 for k in ("flash_fwd", "paged_decode",
+                                            "paged_decode_q8")),
+          f"a kernel of the MoE serving path never ran: {moe_launches}")
+    only_tc(moe_launches, ("flash_fwd",), "MoE serving")
 
     routes = {"flash_fwd": ("kubegpu_tpu_torch/csrc/flash_fwd.cu",
                             "kubegpu_tpu/ops/flash_attention.py:200"),
@@ -4646,7 +5036,7 @@ def main(argv=None) -> int:
                   "kubegpu_tpu/ops/paged_attention.py:567")}
     paths = (serve_launches, prefix_launches, spec_launches, quant_launches,
              qw_launches, train_launches, t5_launches, program_launches,
-             lifecycle_launches, pool_launches, load_launches)
+             lifecycle_launches, pool_launches, load_launches, moe_launches)
     # kernels 4-6 at llama_serve.py's bench shape, by their pool format
     program_rows = {k: program["program_shape"][fmt]
                     for k, fmt in zip(PAGED_KERNELS, ("bf16", "q8", "q4g16"))}
@@ -4688,7 +5078,7 @@ def main(argv=None) -> int:
                "pools": pools, "load": load,
                "profile": prof, "training": train,
                "flash_fwd_training_shape": fwd_train,
-               "t5": t5_stats, "program": program,
+               "t5": t5_stats, "program": program, "moe": moe,
                "launches": {"serving": serve_launches,
                             "prefix_cache": prefix_launches,
                             "speculative": spec_launches,
@@ -4700,7 +5090,8 @@ def main(argv=None) -> int:
                             "llama_serve": program_launches,
                             "sampling_and_lifecycle": lifecycle_launches,
                             "pools": pool_launches,
-                            "load_and_fleet": load_launches},
+                            "load_and_fleet": load_launches,
+                            "moe_serving": moe_launches},
                "kernels": line["kernels"],
                "total_s": time.perf_counter() - t_start}
     if args.details:

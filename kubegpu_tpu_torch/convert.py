@@ -30,16 +30,17 @@ def _leaf(a, device, dtype) -> torch.Tensor:
                 dtype=dtype if dtype and t.is_floating_point() else t.dtype)
 
 
-def _tree(tree: dict, device, dtype) -> dict:
+def _tree(tree: dict, device, dtype, keep=frozenset()) -> dict:
+    """Convert every leaf; leaves named in ``keep`` keep their dtype."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
-            out[k] = _tree(v, device, dtype)
+            out[k] = _tree(v, device, dtype, keep)
         elif hasattr(v, "values") and hasattr(v, "scale"):
             out[k] = QTensor(_leaf(v.values, device, None),
                              _leaf(v.scale, device, None))
         else:
-            out[k] = _leaf(v, device, dtype)
+            out[k] = _leaf(v, device, None if k in keep else dtype)
     return out
 
 
@@ -57,3 +58,12 @@ def convert_t5_params(tree: dict, device="cuda",
     """Reference T5 params → the port's, as :func:`convert_llama_params`
     (the layouts match leaf for leaf)."""
     return _tree(tree, device, dtype)
+
+
+def convert_moe_params(tree: dict, device="cuda",
+                       dtype: torch.dtype | None = None) -> dict:
+    """Reference MoE params (``moe_init``'s tree, or ``quantize_moe``'s with
+    int8 experts and per-(layer, expert, channel) f32 scales) → the
+    port's, as :func:`convert_llama_params`, except that ``w_router`` stays
+    f32 whatever ``dtype`` (routing is precision-critical)."""
+    return _tree(tree, device, dtype, keep=frozenset({"w_router"}))

@@ -1,9 +1,10 @@
 """Model families of the port (so far: Llama, its cached decode, the dense
-and paged serving engines and the replica pools over them; the T5
-encoder-decoder with its paged decode; int8 weights for both in
-``quant``)."""
+and paged serving engines and the replica pools over them; the MoE family
+on the same decode and engines; the T5 encoder-decoder with its paged
+decode; int8 weights for all three in ``quant``)."""
 
 from kubegpu_tpu_torch.models.decode import (  # noqa: F401
+    generate,
     greedy_generate,
     sample_generate,
 )
@@ -11,6 +12,16 @@ from kubegpu_tpu_torch.models.llama import (  # noqa: F401
     LlamaConfig,
     llama_forward,
     llama_init,
+)
+from kubegpu_tpu_torch.models.moe import (  # noqa: F401
+    MoEConfig,
+    moe_decode_step,
+    moe_forward,
+    moe_greedy_generate,
+    moe_init,
+    moe_next_token_loss,
+    moe_prefill,
+    route_tokens,
 )
 from kubegpu_tpu_torch.models.serve import (  # noqa: F401
     ContinuousBatcher,

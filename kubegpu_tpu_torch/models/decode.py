@@ -125,13 +125,14 @@ def _project_qkv(h: torch.Tensor, lp: dict, cfg: LlamaConfig,
 
 
 def _attn_finish(x: torch.Tensor, o: torch.Tensor, lp: dict,
-                 cfg: LlamaConfig) -> torch.Tensor:
+                 cfg: LlamaConfig, ffn=None) -> torch.Tensor:
     """Attention output [B, H, T, hd] → wo projection + residual +
-    feed-forward."""
+    feed-forward: ``ffn(x, lp) -> x`` (residual included; the MoE family's
+    routed experts), or the dense SwiGLU when it is None."""
     b, t = x.shape[0], x.shape[1]
     o = o.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.head_dim)
     x = x + (o @ lp["wo"]).to(x.dtype)
-    return _dense_ffn(x, lp, cfg)
+    return _dense_ffn(x, lp, cfg) if ffn is None else ffn(x, lp)
 
 
 def _gathered_head(params: dict, x: torch.Tensor, rows: torch.Tensor,
@@ -149,7 +150,7 @@ def _gathered_head(params: dict, x: torch.Tensor, rows: torch.Tensor,
 def _forward_with_cache(params: dict, tokens: torch.Tensor, cache: dict,
                         pos_offset, cfg: LlamaConfig,
                         last_only: bool = False,
-                        head_rows: torch.Tensor | None = None):
+                        head_rows: torch.Tensor | None = None, ffn=None):
     """Run the decoder over ``tokens`` [B, T] starting at global position
     ``pos_offset`` (an int, or a [1] int64 tensor on the device: the form
     a CUDA graph replays), writing K/V into ``cache`` in place, quantized
@@ -158,7 +159,8 @@ def _forward_with_cache(params: dict, tokens: torch.Tensor, cache: dict,
     ([B, 1, vocab]): the values the reference's prefill keeps of its
     every-position logits, without them (16.8 GB in f32 at batch 32 ×
     1024 × 128256); with ``head_rows`` [B] on position ``head_rows[b]``
-    of row b alone ([B, 1, vocab], :func:`_gathered_head`)."""
+    of row b alone ([B, 1, vocab], :func:`_gathered_head`).  ``ffn``
+    overrides the feed-forward sublayer (:func:`_attn_finish`)."""
     b, t = tokens.shape
     kv_int8 = "k_scale" in cache
     x = embed_lookup(params["embed"], tokens)
@@ -179,7 +181,7 @@ def _forward_with_cache(params: dict, tokens: torch.Tensor, cache: dict,
             ck.index_copy_(2, q_pos, k.to(ck.dtype))
             cv.index_copy_(2, q_pos, v.to(cv.dtype))
             o = _cached_attend(q, ck, cv, q_pos)
-        x = _attn_finish(x, o, lp, cfg)
+        x = _attn_finish(x, o, lp, cfg, ffn)
     if head_rows is not None:
         return _gathered_head(params, x, head_rows, cfg)[:, None], cache
     if last_only:
@@ -189,22 +191,23 @@ def _forward_with_cache(params: dict, tokens: torch.Tensor, cache: dict,
 
 
 def prefill(params: dict, prompt: torch.Tensor, cfg: LlamaConfig,
-            max_len: int | None = None, kv_int8: bool = False):
+            max_len: int | None = None, kv_int8: bool = False, ffn=None):
     """Process the whole prompt [B, T]; returns (last-position logits
-    [B, vocab], primed cache)."""
+    [B, vocab], primed cache).  ``ffn(x, lp) -> x`` overrides the
+    feed-forward sublayer (MoE)."""
     cache = init_kv_cache(cfg, prompt.shape[0], max_len, kv_int8,
                           device=prompt.device)
     logits, cache = _forward_with_cache(params, prompt, cache, 0, cfg,
-                                        last_only=True)
+                                        last_only=True, ffn=ffn)
     return logits[:, -1], cache
 
 
 def decode_step(params: dict, cache: dict, token: torch.Tensor, pos,
-                cfg: LlamaConfig):
+                cfg: LlamaConfig, ffn=None):
     """One token in, next-token logits out.  token: [B]; ``pos``: the
     global position of ``token`` (an int or a [1] device tensor)."""
     logits, cache = _forward_with_cache(params, token[:, None], cache, pos,
-                                        cfg)
+                                        cfg, ffn=ffn)
     return logits[:, 0], cache
 
 
@@ -260,9 +263,9 @@ def _validate_rollout(cfg: LlamaConfig, t: int, n_steps: int,
 
 # Static decode state and the CUDA graph of the decode step, by call shape
 # (config, batch, max_len, cache format, device, the pick's static knobs,
-# the parameter tensors' addresses): a repeated call binds the same buffers
-# and replays the same graph.  An entry holds the parameter tensors its
-# graph reads.
+# the (ffn_factory, ffn_cfg) pair, the parameter tensors' addresses): a
+# repeated call binds the same buffers and replays the same graph.  An
+# entry holds the parameter tensors its graph reads.
 _graph_cache: dict[tuple, tuple] = {}
 _GRAPH_CACHE_SIZE = 4
 
@@ -275,7 +278,8 @@ def clear_graphs() -> None:
 
 def _rollout(params, prompt, cfg: LlamaConfig, n_steps: int, max_len: int,
              kv_int8: bool, graphs: bool = False,
-             sample: dict | None = None) -> torch.Tensor:
+             sample: dict | None = None,
+             ffn_key: tuple = (None, None)) -> torch.Tensor:
     """THE decode loop: prefill, then ``n_steps - 1`` decode steps, each
     reading its position and token from the device and writing its token
     into column ``pos`` of a static output (so the step never changes and,
@@ -283,9 +287,13 @@ def _rollout(params, prompt, cfg: LlamaConfig, n_steps: int, max_len: int,
     argmax, or with ``sample`` (``key``, ``temperature``, ``top_p``,
     ``top_k``, ``nucleus``) the reference's sampled pick: token i drawn
     under ``split(key, n_steps)[i]``, the key row read at a device step
-    index.  Returns [B, n_steps]."""
+    index.  ``ffn_key`` is the hashable ``(ffn_factory, ffn_cfg)`` pair
+    whose ``ffn_factory(ffn_cfg)`` overrides the feed-forward sublayer
+    (:func:`generate`).  Returns [B, n_steps]."""
     b, t = prompt.shape
     dev = prompt.device
+    ffn_factory, ffn_cfg = ffn_key
+    ffn = ffn_factory(ffn_cfg) if ffn_factory is not None else None
 
     def make() -> dict:
         st = {"cache": init_kv_cache(cfg, b, max_len, kv_int8, device=dev),
@@ -305,7 +313,8 @@ def _rollout(params, prompt, cfg: LlamaConfig, n_steps: int, max_len: int,
         knobs = (None if sample is None
                  else (sample["top_k"], sample["nucleus"]))
         st, cached = kernels.graph_state(
-            _graph_cache, (cfg, b, max_len, kv_int8, str(dev), knobs),
+            _graph_cache, (cfg, b, max_len, kv_int8, str(dev), knobs,
+                           ffn_key),
             params, make, _GRAPH_CACHE_SIZE)
         _reset_kv_cache(st["cache"])
     else:
@@ -316,7 +325,7 @@ def _rollout(params, prompt, cfg: LlamaConfig, n_steps: int, max_len: int,
         st["temp"].fill_(sample["temperature"])
         st["top_p"].fill_(sample["top_p"])
     logits, _ = _forward_with_cache(params, prompt, st["cache"], 0, cfg,
-                                    last_only=True)
+                                    last_only=True, ffn=ffn)
     st["pos"].fill_(t)
 
     def emit(logits: torch.Tensor) -> None:
@@ -334,7 +343,7 @@ def _rollout(params, prompt, cfg: LlamaConfig, n_steps: int, max_len: int,
 
     def step() -> None:
         logits, _ = decode_step(params, st["cache"], st["token"], st["pos"],
-                                cfg)
+                                cfg, ffn=ffn)
         st["pos"].add_(1)
         emit(logits)
 
@@ -343,6 +352,22 @@ def _rollout(params, prompt, cfg: LlamaConfig, n_steps: int, max_len: int,
 
 
 @torch.no_grad()
+def generate(params: dict, prompt, n_steps: int, cfg: LlamaConfig,
+             max_len: int | None = None, kv_int8: bool = False,
+             ffn_factory=None, ffn_cfg=None, device="cuda",
+             graphs: bool = True) -> torch.Tensor:
+    """Greedy decode with the feed-forward hook: ``ffn_factory(ffn_cfg)``
+    (both hashable: the pair keys the decode step's graph, as it keys the
+    reference's compile cache) builds the ``ffn(x, lp) -> x`` that replaces
+    the dense SwiGLU; how the MoE family rides this loop.  Otherwise as
+    :func:`greedy_generate`."""
+    prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
+    max_len = _validate_rollout(cfg, prompt.shape[1], n_steps, max_len)
+    return _rollout(params, prompt, cfg, n_steps, max_len, kv_int8,
+                    graphs=graphs and prompt.is_cuda,
+                    ffn_key=(ffn_factory, ffn_cfg))
+
+
 def greedy_generate(params: dict, prompt, n_steps: int, cfg: LlamaConfig,
                     max_len: int | None = None, kv_int8: bool = False,
                     device="cuda", graphs: bool = True) -> torch.Tensor:
@@ -352,10 +377,8 @@ def greedy_generate(params: dict, prompt, n_steps: int, cfg: LlamaConfig,
     the decode step runs as a CUDA graph, captured on the first call of a
     (config, batch, max_len, cache format) and replayed; ``graphs=False``
     runs it eagerly."""
-    prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
-    max_len = _validate_rollout(cfg, prompt.shape[1], n_steps, max_len)
-    return _rollout(params, prompt, cfg, n_steps, max_len, kv_int8,
-                    graphs=graphs and prompt.is_cuda)
+    return generate(params, prompt, n_steps, cfg, max_len=max_len,
+                    kv_int8=kv_int8, device=device, graphs=graphs)
 
 
 @torch.no_grad()

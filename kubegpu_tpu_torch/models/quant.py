@@ -8,8 +8,9 @@ scale.to(x.dtype)``, the reference's contract.  Python reaches
 :meth:`QTensor.__rmatmul__` on its own: ``Tensor.__matmul__`` returns
 ``NotImplemented`` to a foreign right-hand operand.  Since the model code
 uses weights only through ``@`` (and :meth:`QTensor.unbind` and slicing
-for stacked layers), :func:`quantize_llama` and :func:`quantize_t5` swap leaves in place
-and the forward, decode and serving paths run unchanged on the result.
+for stacked layers), :func:`quantize_llama`, :func:`quantize_moe` and
+:func:`quantize_t5` swap leaves in place and the forward, decode and
+serving paths run unchanged on the result.
 Norms, embeddings and relative-bias tables stay full precision.
 
 Eager PyTorch materialises ``values.to(x.dtype)`` on every call, so the
@@ -109,19 +110,24 @@ def quantize(w: torch.Tensor, batch_dims: int = 0) -> QTensor:
 
 
 def quantize_tree(params: dict, quant_keys: frozenset,
-                  stacked_subtrees: frozenset) -> dict:
+                  stacked_subtrees: frozenset,
+                  stacked_batch_dims: dict | None = None) -> dict:
     """Quantize the named matmul-weight leaves of a parameter tree in one
     pass: keys under a subtree named in ``stacked_subtrees`` are stacked
     ``[L, ...]`` weights with per-(layer, channel) scales, the rest get
-    per-channel scales.  Other leaves are kept as they are (the same
-    tensors)."""
+    per-channel scales.  ``stacked_batch_dims`` overrides the kept leading
+    axes of given stacked keys (MoE's ``[L, E, in, out]`` experts keep 2).
+    Other leaves are kept as they are (the same tensors)."""
+    overrides = stacked_batch_dims or {}
+
     def walk(tree: dict, stacked: bool) -> dict:
         out = {}
         for k, v in tree.items():
             if isinstance(v, dict):
                 out[k] = walk(v, k in stacked_subtrees)
             elif k in quant_keys:
-                out[k] = quantize(v, batch_dims=1 if stacked else 0)
+                out[k] = quantize(
+                    v, batch_dims=overrides.get(k, 1) if stacked else 0)
             else:
                 out[k] = v
         return out
@@ -144,6 +150,17 @@ def quantize_llama(params: dict) -> dict:
     ``llama_forward``, ``prefill``, ``greedy_generate`` and the serving
     engine unchanged."""
     return quantize_tree(params, _LLAMA_QUANT_KEYS, frozenset({"layers"}))
+
+
+def quantize_moe(params: dict) -> dict:
+    """A MoE parameter tree with int8 matmul weights: attention and the
+    head as Llama's, the stacked experts ``[L, E, in, out]`` with
+    per-(layer, expert, channel) scales ``[L, E, 1, out]``, so an expert
+    product ``[E, N, in] @ [E, in, out]`` scales each expert by its own;
+    the f32 router stays as it is."""
+    return quantize_tree(
+        params, _LLAMA_QUANT_KEYS, frozenset({"layers"}),
+        stacked_batch_dims={"w_gate": 2, "w_up": 2, "w_down": 2})
 
 
 def quantize_t5(params: dict) -> dict:

@@ -88,6 +88,13 @@ injection, the quarantine of a slot whose logits went non-finite and the
 replay of its request as prompt + accepted tokens, dispatch retries, a
 watchdog).
 
+The engine also serves the MoE family: handed a
+:class:`~kubegpu_tpu_torch.models.moe.MoEConfig`, it runs the config's
+Llama backbone (``cfg`` is ``cfg.base``) with the routed experts as the
+feed-forward of every body that reaches the FFN (``ffn``): a prefill
+wave's row, a chunk and a decode step's token each route as one group, as
+in the reference.  Speculative decoding is refused for it, as there.
+
 Page chains migrate between engines (``migrate_out``, ``import_chain``),
 and :class:`DataParallelServePool` and :class:`DisaggServePool` run several
 engines behind one queue: routing by prefix affinity, failover by replay,
@@ -130,6 +137,7 @@ from kubegpu_tpu_torch.models.llama import (
     embed_lookup,
     unbind_layers,
 )
+from kubegpu_tpu_torch.models.moe import MoEConfig, _moe_decode_ffn
 from kubegpu_tpu_torch import kernels, prng
 from kubegpu_tpu_torch.kubemeta.codec import pod_gang_spec
 from kubegpu_tpu_torch.obs.chaos import (
@@ -238,13 +246,14 @@ def _step_pick(sample: dict | None, j: int):
 def _paged_row_step(params: dict, tokens: torch.Tensor, pool: dict,
                     pt: torch.Tensor, tvec: torch.Tensor, tpad: torch.Tensor,
                     d0: torch.Tensor, buf: dict, pos: torch.Tensor, j: int,
-                    cfg: LlamaConfig, collect_mass: bool = False):
+                    cfg: LlamaConfig, collect_mass: bool = False, ffn=None):
     """One decode step for every slot against the paged pool: flushed
     history via the paged kernel, this block's keys via the write buffer
     (written in place at index ``j``), merged with the flash-decoding
     logsumexp merge.  Returns next-token logits [B, V] f32 and, with
     ``collect_mass``, the per-page attention mass [B, max_pages] averaged
-    over layers."""
+    over layers.  ``ffn`` overrides the feed-forward sublayer (MoE: each
+    slot's one token is a routing group)."""
     x = embed_lookup(params["embed"], tokens)[:, None, :]        # [B,1,D]
     positions = pos[:, None]
     k_scale, v_scale = pool.get("k_scale"), pool.get("v_scale")
@@ -262,7 +271,7 @@ def _paged_row_step(params: dict, tokens: torch.Tensor, pool: dict,
         masses += parts[3:]
         o_b, m_b, l_b = _attend_buffer_partials(q, bk, bv, j)
         o = merge_partials(o_p, m_p, l_p, o_b, m_b, l_b)
-        x = _attn_finish(x, o[:, :, None, :].to(x.dtype), lp, cfg)
+        x = _attn_finish(x, o[:, :, None, :].to(x.dtype), lp, cfg, ffn)
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"]).float()[:, 0]
     if collect_mass:
@@ -324,7 +333,8 @@ def _flush_buffer_paged(pool: dict, buf: dict, pt: torch.Tensor,
 def decode_block(params: dict, pool: dict, pt, tvec, tpad,
                  tokens: torch.Tensor, pos: torch.Tensor,
                  active: torch.Tensor, cfg: LlamaConfig, stride: int,
-                 collect_mass: bool = False, sample: dict | None = None):
+                 collect_mass: bool = False, sample: dict | None = None,
+                 ffn=None):
     """``stride`` decode steps for every slot, then the buffer flush.
     ``tokens``/``pos`` advance in place for active rows; the flushed
     decode count is ``pos - tvec`` for active rows and 0 for inactive
@@ -347,7 +357,7 @@ def decode_block(params: dict, pool: dict, pt, tvec, tpad,
     block = []
     for j in range(stride):
         out = _paged_row_step(params, tokens, pool, pt, tvec, tpad, d0, buf,
-                              pos, j, cfg, collect_mass)
+                              pos, j, cfg, collect_mass, ffn)
         if collect_mass:
             logits, pmass = out
             macc += pmass
@@ -367,7 +377,7 @@ def decode_block(params: dict, pool: dict, pt, tvec, tpad,
 @torch.no_grad()
 def tick_body(params: dict, tables: dict, st: dict, cfg: LlamaConfig,
               stride: int, eos_id: int | None = None,
-              sampler: dict | None = None) -> None:
+              sampler: dict | None = None, ffn=None) -> None:
     """ONE engine tick: :func:`decode_block` inside the reference's lane
     freeze (its ``_fused_body``), over the engine's ``tables`` (page
     table, lengths, page caps, token budgets, active mask) and state
@@ -384,7 +394,8 @@ def tick_body(params: dict, tables: dict, st: dict, cfg: LlamaConfig,
     its next block).  A sampling engine's ``sampler`` (``key0`` =
     ``fold_in(base, 0)``, ``top_k``) keys the tick ``tick + tk`` from the
     device tables, the reference's ``tick0 + tk``, so K fused ticks draw
-    what K single ticks draw.  The graph engine captures exactly this."""
+    what K single ticks draw.  ``ffn`` is the engine's feed-forward
+    override (MoE).  The graph engine captures exactly this."""
     t, f, out = tables, st["freeze"], st["out"]
     act = (t["active"] != 0) & (f["emitted"] < t["budget"]) & (
         f["dead"] == 0)
@@ -394,7 +405,8 @@ def tick_body(params: dict, tables: dict, st: dict, cfg: LlamaConfig,
     outs = decode_block(params, st["pool"], t["pt"], t["tvec"], t["tpad"],
                         st["tokens"], st["pos"], act, cfg, stride,
                         collect_mass=st["mass"] is not None,
-                        sample=_tick_sample(sampler, t, f, st, stride))
+                        sample=_tick_sample(sampler, t, f, st, stride),
+                        ffn=ffn)
     block, bad = outs[:2]
     if eos_id is not None:
         f["dead"].logical_or_(act & (block == eos_id).any(dim=0))
@@ -637,7 +649,7 @@ def _attend_rows_buffered(q: torch.Tensor, ck: torch.Tensor,
 def _row_step_buffered(params: dict, tokens: torch.Tensor, cache: dict,
                        buf: dict, flush_pos: torch.Tensor,
                        pos: torch.Tensor, j: int,
-                       cfg: LlamaConfig) -> torch.Tensor:
+                       cfg: LlamaConfig, ffn=None) -> torch.Tensor:
     """One decode step for every slot at its own position ``pos`` [B],
     its new K/V written into the block buffer at the shared index ``j``
     (in place).  Returns next-token logits [B, V] f32."""
@@ -651,7 +663,7 @@ def _row_step_buffered(params: dict, tokens: torch.Tensor, cache: dict,
         bv[:, :, j] = v[:, :, 0].to(bv.dtype)
         o = _attend_rows_buffered(q, cache["k"][li], cache["v"][li], bk, bv,
                                   flush_pos, j)
-        x = _attn_finish(x, o, lp, cfg)
+        x = _attn_finish(x, o, lp, cfg, ffn)
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"]).float()[:, 0]
 
@@ -677,7 +689,7 @@ def _flush_buffer(cache: dict, buf: dict, flush_pos: torch.Tensor) -> None:
 def decode_block_dense(params: dict, cache: dict, tokens: torch.Tensor,
                        pos: torch.Tensor, active: torch.Tensor,
                        cfg: LlamaConfig, stride: int,
-                       sample: dict | None = None):
+                       sample: dict | None = None, ffn=None):
     """``stride`` decode steps for every slot over the dense cache, then
     the buffer flush at the block-start positions.  ``tokens``/``pos``
     advance in place for active rows; inactive rows hold both.  Step j
@@ -692,7 +704,7 @@ def decode_block_dense(params: dict, cache: dict, tokens: torch.Tensor,
     block = []
     for j in range(stride):
         logits = _row_step_buffered(params, tokens, cache, buf, flush_pos,
-                                    pos, j, cfg)
+                                    pos, j, cfg, ffn)
         bad |= ~torch.isfinite(logits).all(dim=-1)
         nxt = torch.where(active, _step_pick(sample, j)(logits), tokens)
         tokens.copy_(nxt)
@@ -704,7 +716,8 @@ def decode_block_dense(params: dict, cache: dict, tokens: torch.Tensor,
 
 @torch.no_grad()
 def dense_tick_body(params: dict, tables: dict, st: dict, cfg: LlamaConfig,
-                    stride: int, sampler: dict | None = None) -> None:
+                    stride: int, sampler: dict | None = None,
+                    ffn=None) -> None:
     """ONE tick of the dense engine: :func:`decode_block_dense` over the
     slots the ``tables``' active mask names (keyed as :func:`tick_body`'s
     with a ``sampler``), its block, bad flags and the first tokens written
@@ -713,7 +726,8 @@ def dense_tick_body(params: dict, tables: dict, st: dict, cfg: LlamaConfig,
     block, bad = decode_block_dense(
         params, st["cache"], st["tokens"], st["pos"],
         tables["active"] != 0, cfg, stride,
-        sample=_tick_sample(sampler, tables, st["freeze"], st, stride))
+        sample=_tick_sample(sampler, tables, st["freeze"], st, stride),
+        ffn=ffn)
     out = st["out"]
     out["blocks"][0].copy_(block)
     out["bads"][0].copy_(bad)
@@ -750,7 +764,8 @@ def _adopt_vectors(slots, firsts, plens, first_toks, tokens, pos, temps,
 @torch.no_grad()
 def prefill_wave(params: dict, padded_prompts: torch.Tensor,
                  true_lens: torch.Tensor, cfg: LlamaConfig,
-                 max_len: int | None = None, sample: dict | None = None):
+                 max_len: int | None = None, sample: dict | None = None,
+                 ffn=None):
     """Batch-k prefill of bucket-padded prompts into a dense
     [L, k, Hkv, max_len or bucket, D] panel (the dense engine's rows are
     ``max_len`` wide, the paged engine copies the bucket's pages); returns
@@ -758,14 +773,17 @@ def prefill_wave(params: dict, padded_prompts: torch.Tensor,
     ``true_lens - 1`` of each row only.  With ``sample`` (the rows'
     ``temps``, the wave's ``key`` = ``fold_in(fold_in(base, 1), rid0)``,
     ``top_k``) the first tokens are the reference's per-row pick, the
-    whole wave drawn under the one key."""
+    whole wave drawn under the one key.  With an ``ffn`` (MoE) each row
+    routes whole, pad positions after the prompt included, as in the
+    reference."""
     k, bucket = padded_prompts.shape
     cache_w = init_kv_cache(cfg, k, max_len or bucket,
                             device=padded_prompts.device)
     # the head runs on each row's last prompt position alone: the row the
     # reference keeps of its [k, bucket, vocab] logits
     logits, cache_w = _forward_with_cache(params, padded_prompts, cache_w, 0,
-                                          cfg, head_rows=true_lens - 1)
+                                          cfg, head_rows=true_lens - 1,
+                                          ffn=ffn)
     if sample is None:
         return _pick_token(logits[:, 0]), cache_w
     return _pick_token(logits[:, 0], sample["temps"], sample["key"],
@@ -802,7 +820,8 @@ def adopt_wave(pool: dict, cache_w: dict, page_dst: torch.Tensor,
 @torch.no_grad()
 def prefill_chunk_logits(params: dict, pool: dict, chunk: torch.Tensor,
                          pt_row: torch.Tensor, s, tlen: torch.Tensor,
-                         cfg: LlamaConfig, page_size: int) -> torch.Tensor:
+                         cfg: LlamaConfig, page_size: int,
+                         ffn=None) -> torch.Tensor:
     """One page-aligned PROMPT CHUNK of one slot, straight into the pool
     (the reference's ``_chunk_body``): chunk tokens [1, C] at global
     positions ``[s, s + C)``, ``s`` a page multiple ([1] int32 on the
@@ -819,7 +838,8 @@ def prefill_chunk_logits(params: dict, pool: dict, chunk: torch.Tensor,
     in the slot's own pages (or trash page 0), never attended.  The LM
     head runs at row ``clip(tlen - s - 1, 0, C - 1)`` only: returns its
     logits [1, vocab] f32, the request's first-token logits on its final
-    chunk (:func:`chunk_body` picks from them)."""
+    chunk (:func:`chunk_body` picks from them).  With an ``ffn`` (MoE) the
+    chunk is one routing group."""
     c = chunk.shape[1]
     dev = chunk.device
     n_wide = pt_row.shape[1]
@@ -852,7 +872,7 @@ def prefill_chunk_logits(params: dict, pool: dict, chunk: torch.Tensor,
         o_c, m_c, l_c = _chunk_causal_partials(q, k, v)
         o = merge_partials(o_p, m_p, l_p, o_c, m_c, l_c)
         o = o.reshape(1, cfg.n_heads, c, cfg.head_dim).to(x.dtype)
-        x = _attn_finish(x, o, lp, cfg)
+        x = _attn_finish(x, o, lp, cfg, ffn)
     row = torch.clamp(tlen.long() - svec.long() - 1, 0, c - 1)
     return _gathered_head(params, x, row, cfg)
 
@@ -860,7 +880,7 @@ def prefill_chunk_logits(params: dict, pool: dict, chunk: torch.Tensor,
 @torch.no_grad()
 def chunk_body(params: dict, pool: dict, inp: dict, out: torch.Tensor,
                cfg: LlamaConfig, page_size: int,
-               sampler: dict | None = None) -> None:
+               sampler: dict | None = None, ffn=None) -> None:
     """ONE chunk step over the engine's static chunk input ``inp`` (views
     of one int32 buffer: ``tokens`` [1, C], ``s``, ``tlen``, ``rid`` [1],
     ``temp`` [1] (its f32 view), ``pt`` [1, max_pages]) into ``pool``, the
@@ -871,7 +891,7 @@ def chunk_body(params: dict, pool: dict, inp: dict, out: torch.Tensor,
     this."""
     logits = prefill_chunk_logits(
         params, pool, inp["tokens"].long(), inp["pt"], inp["s"], inp["tlen"],
-        cfg, page_size)
+        cfg, page_size, ffn)
     if sampler is None:
         out.copy_(_pick_token(logits))
         return
@@ -1167,11 +1187,18 @@ class ContinuousBatcher:
     ``pages_migrated_out``, ``pages_migrated_in``).  Both run eagerly, as
     index copies outside every graph.
 
+    ``cfg`` may be a :class:`~kubegpu_tpu_torch.models.moe.MoEConfig`:
+    the engine then runs ``cfg.base`` (``self.cfg``) with the routed
+    experts as every tick's, wave's and chunk's feed-forward; every knob
+    above works with it except ``spec_gamma > 0`` (``ValueError``, as in
+    the reference).
+
     Knobs of the reference engine outside this slice (``_LATER``) are
     accepted at the reference's default and raise ``NotImplementedError``
     naming their ROADMAP.md item at any other value."""
 
-    def __init__(self, params: dict, cfg: LlamaConfig, n_slots: int = 8,
+    def __init__(self, params: dict, cfg: LlamaConfig | MoEConfig,
+                 n_slots: int = 8,
                  max_len: int | None = None, stride: int = 16,
                  prompt_buckets: tuple[int, ...] = (128, 512, 1024),
                  sampling: bool = False, top_k: int = 0, seed: int = 0,
@@ -1193,6 +1220,15 @@ class ContinuousBatcher:
                  collect_overlap: bool = False, graphs: bool = True,
                  device="cuda", **later):
         _refuse_later(_LATER, later)
+        # a MoEConfig serves through this engine: its Llama backbone sizes
+        # attention and the pool, its routed experts ride the ffn hook
+        self._ffn = None
+        if isinstance(cfg, MoEConfig):
+            self._ffn = _moe_decode_ffn(cfg)
+            cfg = cfg.base
+        elif not isinstance(cfg, LlamaConfig):
+            raise TypeError(
+                f"unsupported engine config {type(cfg).__name__}")
         self.donate = bool(donate)
         self.collect_overlap = bool(collect_overlap)
         self.device = torch.device(device)
@@ -1235,6 +1271,11 @@ class ContinuousBatcher:
                     "speculative serving is greedy-only (acceptance "
                     "compares argmaxes); build a sampling=False engine "
                     "or set spec_gamma=0")
+            if self._ffn is not None:
+                raise ValueError(
+                    "speculative serving supports the dense Llama family "
+                    "only (the draft_view slice has no story for routed "
+                    "experts)")
             if self.spec_gamma + 1 > page_size:
                 raise ValueError(
                     f"spec_gamma {self.spec_gamma} + 1 must be <= "
@@ -2152,17 +2193,18 @@ class ContinuousBatcher:
 
     def _chunk_on(self, pool: dict) -> None:
         chunk_body(self.params, pool, self._chunk_views, self._chunk_tok,
-                   self.cfg, self.page_size, self._sampler)
+                   self.cfg, self.page_size, self._sampler, self._ffn)
 
     def _capture_chunk(self, eager_s: float) -> None:
         """Capture the chunk step over the live pool (nothing runs)."""
         # as in _capture: the graph's function must not refer to the engine
-        params, pool, views, out, cfg, page, sampler = (
+        params, pool, views, out, cfg, page, sampler, ffn = (
             self.params, self._live["pool"], self._chunk_views,
             self._chunk_tok,
-            self.cfg, self.page_size, self._sampler)
+            self.cfg, self.page_size, self._sampler, self._ffn)
         self._chunk_graph, self.chunk_graph_stats = _captured(
-            lambda: chunk_body(params, pool, views, out, cfg, page, sampler),
+            lambda: chunk_body(params, pool, views, out, cfg, page, sampler,
+                               ffn),
             eager_s)
 
     def warmup(self) -> None:
@@ -2237,7 +2279,8 @@ class ContinuousBatcher:
             sample = {"temps": temps_w, "top_k": self.top_k,
                       "key": prng.fold_in(self._sampler["key1"], rid0)}
         return prefill_wave(self.params, padded, true_lens, self.cfg,
-                            None if self.paged else self.max_len, sample)
+                            None if self.paged else self.max_len, sample,
+                            self._ffn)
 
     def _adopt(self, st: dict, cache_w: dict, page_dst, slots, firsts,
                lens, temps_w) -> None:
@@ -2289,18 +2332,18 @@ class ContinuousBatcher:
         on.  It refers to what the tick reads, not to the engine: a graph
         holding it would otherwise keep the engine (and its parameters)
         alive past its last reference."""
-        params, tv, cfg, stride, eos, sampler = (
+        params, tv, cfg, stride, eos, sampler, ffn = (
             self.params, self._tv, self.cfg, self.stride, self.eos_id,
-            self._sampler)
+            self._sampler, self._ffn)
         if kind == "spec":
             dparams, gamma = self._draft_params, self.spec_gamma
             return lambda st: spec_tick_body(params, dparams, tv, st, cfg,
                                              gamma, eos)
         if not self.paged:
             return lambda st: dense_tick_body(params, tv, st, cfg, stride,
-                                              sampler)
+                                              sampler, ffn)
         return lambda st: tick_body(params, tv, st, cfg, stride, eos,
-                                    sampler)
+                                    sampler, ffn)
 
     def _capture(self, kind: str, eager_s: float) -> None:
         """Capture the tick body of ``kind`` over the live state (nothing
@@ -3592,10 +3635,14 @@ class DataParallelServePool:
     when replica i dies) and ``serve_chip_ticks_total``.  A dead or
     retired replica keeps its engine object, and with it its pool.
 
-    ``tp > 1`` (a replica over several devices) raises
+    ``cfg`` may be a :class:`~kubegpu_tpu_torch.models.moe.MoEConfig`:
+    each replica's engine serves the MoE family (it scales out on dp
+    replicas; page chains hold attention K/V only, so migration is the
+    same).  ``tp > 1`` (a replica over several devices) raises
     ``NotImplementedError``: ROADMAP.md queue 1 item 9 (multi-device)."""
 
-    def __init__(self, params: dict, cfg: LlamaConfig, dp: int = 1,
+    def __init__(self, params: dict, cfg: LlamaConfig | MoEConfig,
+                 dp: int = 1,
                  tp: int = 1, devices=None, metrics=None,
                  max_replays: int = 2, chaos=None, tracer=None,
                  trace_ctx=None, routing: str = "affinity", **engine_kw):
@@ -4282,7 +4329,8 @@ class DisaggServePool(DataParallelServePool):
     again; with a whole role dead the pool serves symmetrically on what
     is left."""
 
-    def __init__(self, params: dict, cfg: LlamaConfig, prefill: int = 1,
+    def __init__(self, params: dict, cfg: LlamaConfig | MoEConfig,
+                 prefill: int = 1,
                  decode: int = 1, tp: int = 1, **kw):
         if prefill < 1 or decode < 1:
             raise ValueError(

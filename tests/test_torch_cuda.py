@@ -803,7 +803,8 @@ def _graph_serve(params, cfg, dev, **kw):
     eng = ContinuousBatcher(params, cfg, device=dev, **{**GRAPH_ENGINE, **kw})
     eng.warmup()
     before = dict(kernels.launches)
-    prompts = [[(7 * j + 3 * i + 1) % cfg.vocab_size for i in range(27)]
+    vocab = eng.cfg.vocab_size      # a MoE config's backbone's
+    prompts = [[(7 * j + 3 * i + 1) % vocab for i in range(27)]
                for j in range(5)]
     for p, n in zip(prompts[:3], (8, 5, 11)):
         eng.submit(p, n)
@@ -1174,3 +1175,58 @@ def test_spec_degrade_replays_warm_graphs(dev):
     assert got_eng == got
     assert all(pa._split_buffers[d][0] is parts
                for d, parts in scratch.items())
+
+
+# -- the MoE family on the engine -------------------------------------------
+
+def _tiny_bf16_moe(dev):
+    from kubegpu_tpu_torch.models import MoEConfig, moe_init
+    cfg = MoEConfig.tiny(d_model=256, n_heads=4, n_kv_heads=2, d_ff=256,
+                         max_seq_len=64, dtype="bfloat16",
+                         capacity_factor=4.0)
+    return cfg, moe_init(cfg, seed=0, device=dev)
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "int8"])
+def test_moe_engine_graph_tokens_equal_eager(dev, fmt):
+    """The MoE paged engine's tick (routed experts through the ffn hook)
+    replayed from its CUDA graph gives the eager tick's tokens bit for
+    bit; the graph's tally is the format's paged kernel ``stride ×
+    n_layers`` times."""
+    kw, name = GRAPH_FORMATS[fmt]
+    cfg, params = _tiny_bf16_moe(dev)
+    got, eng, launched = _graph_serve(params, cfg, dev, **kw)
+    want, eager, _ = _graph_serve(params, cfg, dev, graphs=False, **kw)
+    assert got == want and len(got) == 5
+    assert eng.cfg == cfg.base and eager._graph is None
+    assert eng.graph_stats["tally"] == {name: 2 * cfg.base.n_layers}
+    assert launched[name] == eng._tick * 2 * cfg.base.n_layers
+
+
+def test_route_tokens_captures(dev):
+    """``route_tokens`` and ``moe_ffn`` run under a CUDA graph capture
+    (a host sync there raises) and their replays give the eager bits on
+    new inputs written into the captured buffers."""
+    from kubegpu_tpu_torch.models import moe as mm
+    cfg, params = _tiny_bf16_moe(dev)
+    lp = {n: v[0] for n, v in params["layers"].items()}
+    g = torch.Generator(device=dev).manual_seed(0)
+    logits = torch.randn(4, 16, cfg.n_experts, generator=g, device=dev)
+    x = torch.randn(3, 16, cfg.base.d_model, generator=g,
+                    device=dev).to(torch.bfloat16)
+
+    def fn():
+        return (mm.route_tokens(logits, cfg.top_k, 5),
+                mm.moe_ffn(x, lp, cfg))
+
+    fn()
+    graph = kernels.Graph(fn)
+    routed, (y, aux) = graph.capture()
+    for _ in range(2):
+        logits.copy_(torch.randn(logits.shape, generator=g, device=dev))
+        x.copy_(torch.randn(x.shape, generator=g, device=dev))
+        graph.replay()
+        want_r, (want_y, want_aux) = fn()
+        for a, b in zip(routed, want_r):
+            assert torch.equal(a, b)
+        assert torch.equal(y, want_y) and torch.equal(aux, want_aux)

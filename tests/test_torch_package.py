@@ -60,10 +60,18 @@ def test_walk_covers_the_load_and_fleet_modules():
         assert f"kubegpu_tpu_torch/{sub}" in names, sub
 
 
+def test_walk_covers_the_moe_module():
+    """The AST walk reaches the MoE family (its reference imports JAX and
+    the reference's Llama module; the port's imports neither)."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert "kubegpu_tpu_torch/models/moe.py" in names
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys, kubegpu_tpu_torch.models, kubegpu_tpu_torch.ops, "
             "kubegpu_tpu_torch.convert, kubegpu_tpu_torch.kernels, "
             "kubegpu_tpu_torch.optim, kubegpu_tpu_torch.obs, "
+            "kubegpu_tpu_torch.models.moe, "
             "kubegpu_tpu_torch.ops.strict, kubegpu_tpu_torch.scheduler, "
             "kubegpu_tpu_torch.scheduler.serve, kubegpu_tpu_torch.kubemeta, "
             "kubegpu_tpu_torch.kubemeta.codec, kubegpu_tpu_torch.loadgen, "
@@ -84,6 +92,7 @@ def test_entry_points_default_to_the_card():
         pytest.skip("this host has a card: the default device works")
     from kubegpu_tpu_torch.convert import (
         convert_llama_params,
+        convert_moe_params,
         convert_t5_params,
     )
     from kubegpu_tpu_torch.models import (
@@ -91,9 +100,12 @@ def test_entry_points_default_to_the_card():
         DataParallelServePool,
         DisaggServePool,
         LlamaConfig,
+        MoEConfig,
         T5Config,
         greedy_generate,
         llama_init,
+        moe_greedy_generate,
+        moe_init,
         t5_greedy_generate,
         t5_greedy_generate_paged,
         t5_init,
@@ -104,6 +116,8 @@ def test_entry_points_default_to_the_card():
     params = llama_init(cfg, device="cpu")
     t5_cfg = T5Config.tiny()
     t5_params = t5_init(t5_cfg, device="cpu")
+    moe_cfg = MoEConfig.tiny()
+    moe_params = moe_init(moe_cfg, device="cpu")
     errors = (RuntimeError, AssertionError, ValueError)
     calls = [
         lambda: llama_init(cfg),
@@ -117,6 +131,12 @@ def test_entry_points_default_to_the_card():
                                       stride=4, prompt_buckets=(8,)),
         lambda: DisaggServePool(params, cfg, page_size=8, stride=4,
                                 prompt_buckets=(8,)),
+        lambda: moe_init(moe_cfg),
+        lambda: convert_moe_params({"w": np.zeros(2, np.float32)}),
+        lambda: moe_greedy_generate(moe_params, [[1, 2]], 2, moe_cfg),
+        lambda: ContinuousBatcher(moe_params, moe_cfg, paged=True,
+                                  page_size=8, stride=4,
+                                  prompt_buckets=(8,)),
         lambda: t5_init(t5_cfg),
         lambda: convert_t5_params({"w": np.zeros(2, np.float32)}),
         lambda: t5_greedy_generate(t5_params, [[1, 2]], 2, t5_cfg),
