@@ -22,7 +22,11 @@ printed as it ends (any failed check exits non-zero):
    128]).  Kernels 1-3 run their tensor-core instances in bf16 (TFLOP/s
    and share of the bound printed at each shape; dq and dk/dv must give
    equal bits on two launches) and their CUDA-core instances in the f32
-   edge cases.  Kernels 4-6 also run at the chunk step's shape (q [1,
+   edge cases; and at ViT-B/16's attention ([128, 12, 197, 64] bf16,
+   non-causal MHA, a ragged last tile: phase 14 (c)'s shape) on the
+   tensor-core instances, each against its plain version, equal bits on
+   two launches, timed beside ``scaled_dot_product_attention`` forward
+   and backward.  Kernels 4-6 also run at the chunk step's shape (q [1,
    8192, 128] bf16: C = 256 prompt positions of 32 heads folded over 8 kv
    heads, a 384-token history), with the time, the bound and its share,
    and a first chunk's row (s = 0) that must give l = 0 and a finite o;
@@ -189,8 +193,24 @@ printed as it ends (any failed check exits non-zero):
    int8 pages (tokens/s, peak memory, the tick against its bound); and a
    narrow f32 config whose paged and dense engines' tokens equal
    ``moe_greedy_generate``'s.
+14. train    -- the training families (``train_families_phase``, last),
+   bf16, random weights from seed 0, each on one fixed batch (a warm step
+   and three timed ones, finite losses, launches a step): (a)
+   ``make_moe_train_step`` at Mixtral-8x7B's width cut to 4 layers, [2,
+   2048], remat (kernels 1-3; the gradient through routing held to plain
+   attention in f32 at one layer, the bf16 gap printed with the tokens
+   each layer reroutes), model and executed one-hot TFLOP/s; (b) LoRA
+   rank 8 on wq/wv over Llama-3-8B at 32 layers, [4, 2048] (adapter
+   gradients against plain attention, the base's bytes unchanged); (c)
+   ViT-B/16 at [128, 224, 224, 3] (kernels 1-3 at [128, 12, 197, 64],
+   non-causal; loss and every gradient against plain attention; MFU); (d)
+   ResNet-50 at [64, 224, 224, 3] (cuDNN: no kernel of the port; the
+   running statistics moved); (e) the four training programs as pods
+   (``python -m``, the reference's line) with ``VIT_PRESET=b16`` and
+   ``RESNET_PRESET=50``, all at once, then ``LLAMA_PRESET=8b`` alone
+   where its reckoned peak fits the card's free memory.
 
-Thirteen paths are driven: serving (phases 4-5), the prefix cache (5f),
+Fourteen paths are driven: serving (phases 4-5), the prefix cache (5f),
 speculative serving (5g),
 quantized serving (5b),
 int8-weight serving (5c), the static path and the dense engine (5d-5e,
@@ -199,7 +219,8 @@ there), training (phase 7's steps), T5 paged serving (phase 8's bf16
 paged calls), the program's in-process engine runs (phase 9),
 sampling with the request lifecycle (phase 10, run after 5e), the
 serving pools (phase 11, after 10), the load harness (phase 12, after
-11) and MoE serving (phase 13, last).  Launch counters are zeroed just
+11), MoE serving (phase 13) and the training families (phase 14,
+last).  Launch counters are zeroed just
 before each and read just after; a graph replay counts the launches captured in it.  The serving
 and training paths must run kernels 1-3 on their tensor-core instances
 only.  The line
@@ -517,6 +538,108 @@ def flash_bwd_checks(torch, gen) -> dict:
     rate_line(fwd, 2 * 2 * d * pairs, "flash_fwd",
               f"training shape [{b},{hq},{t},{d}]")
     return {"flash_bwd_dq": out_dq, "flash_bwd_dkv": out_dkv}, fwd
+
+
+# ViT-B/16's attention (phase 14 (c)): bidirectional, 197 tokens (196
+# patches and the class token, a ragged last tile), 12 heads of 64, MHA
+VIT_ATTN = {"b": 128, "h": 12, "t": 197, "d": 64}
+
+
+def vit_shape_checks(torch, gen) -> dict:
+    """Kernels 1-3 at ViT-B/16's attention shape, bf16, non-causal, on
+    their tensor-core instances: the forward and lse against
+    ``xla_attention`` / ``_xla_lse``, dq and dk/dv against
+    ``flash_attention_bwd_ref``, equal bits on two launches of each, and
+    each one's time, bound and share beside ``scaled_dot_product_attention``
+    (forward, and autograd's backward of one call).  Returns {kernel:
+    numbers}."""
+    fa = importlib.import_module("kubegpu_tpu_torch.ops.flash_attention")
+    from kubegpu_tpu_torch import kernels
+    b, h, t, d = (VIT_ATTN[k] for k in "bhtd")
+    check(fa._flash_route(torch.bfloat16, d) == "tc",
+          "ViT's shape does not route to the tensor cores")
+    q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda")
+                   .bfloat16() for _ in range(4))
+    tc0 = {n: kernels.launches[f"{n}/tc"] for n in
+           ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    out, lse = fa.flash_attention(q, k, v, causal=False, return_lse=True)
+    out2, lse2 = fa.flash_attention(q, k, v, causal=False, return_lse=True)
+    ref = fa.xla_attention(q, k, v, causal=False)
+    ref_lse = fa._xla_lse(q, k, False, d ** -0.5)
+    torch.cuda.synchronize()
+    fwd = {"max_abs_err": max_err(out, ref),
+           "scaled_err": ((out.float() - ref.float()).abs()
+                          / ref.float().abs().clamp(min=1)).max().item(),
+           "lse_err": max_err(lse, ref_lse),
+           "bit_equal": bool(torch.equal(out, out2)
+                             and torch.equal(lse, lse2))}
+    del out2, lse2, ref, ref_lse
+    # the training shape's limits (flash_bwd_checks): 2e-2 per unit of
+    # max(1, |ref|), 1e-3 on lse, 1e-2 relative on the gradients
+    check(fwd["scaled_err"] <= 2e-2 and fwd["lse_err"] <= 1e-3,
+          f"flash bf16 ViT shape: {fwd}")
+    check(fwd["bit_equal"], "flash_fwd ViT shape: two launches differ")
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, False)
+    dq, dq2 = (fa._flash_bwd_dq_cuda(*args) for _ in range(2))
+    (dk, dv), (dk2, dv2) = (fa._flash_bwd_dkv_cuda(*args) for _ in range(2))
+    rq, rk, rv = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, False)
+    torch.cuda.synchronize()
+    errs = {"dq": rel_err(dq, rq), "dk": rel_err(dk, rk),
+            "dv": rel_err(dv, rv)}
+    check(max(errs.values()) <= 1e-2, f"flash bwd bf16 ViT shape rel err "
+          f"{errs} > 1e-2")
+    out_dq = {"max_abs_err": max_err(dq, rq), "rel_err": errs["dq"],
+              "bit_equal": bool(torch.equal(dq, dq2))}
+    out_dkv = {"max_abs_err": max(max_err(dk, rk), max_err(dv, rv)),
+               "rel_err": max(errs["dk"], errs["dv"]),
+               "bit_equal": bool(torch.equal(dk, dk2)
+                                 and torch.equal(dv, dv2))}
+    check(out_dq["bit_equal"] and out_dkv["bit_equal"],
+          "flash backward ViT shape: two launches differ")
+    tc = {n: kernels.launches[f"{n}/tc"] - tc0[n] for n in tc0}
+    check(tc == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2},
+          f"the ViT shape ran off the tensor cores: {tc}")
+    del dq2, dk2, dv2, rq, rk, rv
+    log("kernels", kernel="flash_fwd+bwd", case=f"bf16 [{b},{h},{t},{d}] "
+        "non-causal MHA (ViT-B/16)", fwd_scaled_err=fwd["scaled_err"],
+        lse_err=fwd["lse_err"], rel_err=errs, bit_equal=True)
+    pairs = b * h * t * t
+    io = (q.numel() + k.numel() + v.numel() + do.numel()) * 2 \
+        + (lse.numel() + delta.numel()) * 4
+    fwd["ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=False,
+                                                   return_lse=True))
+    fwd["plain_ms"] = cuda_ms(lambda: fa.xla_attention(q, k, v, False),
+                              reps=5)
+    fwd["bound_ms"], fwd["bound_by"] = bound_ms(
+        (2 * q.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 4,
+        2 * 2 * d * pairs, q.dtype)
+    out_dq["ms"] = cuda_ms(lambda: fa._flash_bwd_dq_cuda(*args))
+    out_dkv["ms"] = cuda_ms(lambda: fa._flash_bwd_dkv_cuda(*args))
+    out_dq["plain_ms"] = out_dkv["plain_ms"] = cuda_ms(
+        lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse, do, False),
+        reps=5)
+    out_dq["bound_ms"], out_dq["bound_by"] = bound_ms(
+        io + q.numel() * 2, 3 * 2 * d * pairs, q.dtype)
+    out_dkv["bound_ms"], out_dkv["bound_by"] = bound_ms(
+        io + 2 * k.numel() * 2, 4 * 2 * d * pairs, q.dtype)
+    import torch.nn.functional as F
+    fwd["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=False))
+    lq, lk, lv = (x.detach().requires_grad_() for x in (q, k, v))
+    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=False)
+    out_dq["library_ms"] = out_dkv["library_ms"] = cuda_ms(
+        lambda: torch.autograd.grad(lo, (lq, lk, lv), do, retain_graph=True))
+    del lo
+    for name, r, flops in (("flash_fwd", fwd, 2 * 2 * d * pairs),
+                           ("flash_bwd_dq", out_dq, 3 * 2 * d * pairs),
+                           ("flash_bwd_dkv", out_dkv, 4 * 2 * d * pairs)):
+        rate_line(r, flops, name, f"ViT shape [{b},{h},{t},{d}] non-causal")
+        log("kernels", kernel=name, case="ViT shape", ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"])
+    return {"flash_fwd": fwd, "flash_bwd_dq": out_dq,
+            "flash_bwd_dkv": out_dkv}
 
 
 def paged_case(torch, gen, dtype, n_layers, n_pages, hkv, page, dim, hq,
@@ -4770,6 +4893,653 @@ def moe_phase(torch, kernels, gen, name) -> dict:
     return out
 
 
+# -- phase 14: the training families ---------------------------------------
+
+# (a) Mixtral-8x7B's width cut to 4 of 32 layers: a layer is 1.451 G
+# parameters and AdamW holds 8 bytes a parameter (bf16 params, grads, mu,
+# nu), so 4 layers and the embedding and head hold 48.5 GB, plus AdamW's
+# temporaries (twice the largest leaf, w_gate's 3.76 GB); 5 layers would be
+# ~68 GB before activations
+MOE_TRAIN = {"layers": 4, "batch": 2, "seq": 2048}
+# AdamW's rate for (a): at the 1e-3 of phases 7 and (b)-(c) the fixed
+# batch's loss at this width rose again by the fourth step (10.87, 9.90,
+# 8.27, 10.95 on an NVIDIA H100 80GB HBM3 at 700.00 W): each step moves
+# every weight by ~lr, 6% of a 4096-wide weight's scale, and the router's
+# choices shift with it
+MOE_TRAIN_LR = 3e-4
+# (b) Llama-3-8B at full width and depth, rank 8 on wq/wv
+LORA_TRAIN = {"batch": 4, "seq": 2048, "rank": 8}
+# (c) ViT-B/16 at full width and depth, (d) ResNet-50, bf16 convolutions
+VIT_TRAIN_BATCH = 128
+RESNET_TRAIN_BATCH = 64
+# (e) the pods: each program's module and the keys of the reference's line
+TRAIN_PROGRAM_KEYS = {
+    "llama_pjit": ("preset", "mesh", "workers", "devices", "start_step",
+                   "resumed_opt", "losses"),
+    "vit_train": ("preset", "devices", "losses"),
+    "t5_train": ("devices", "tp", "losses"),
+    "resnet_single": ("first_loss", "last_loss", "chips"),
+}
+TRAIN_PROGRAM_HEADS = {"llama_pjit": "llama_pjit:", "vit_train": "vit:",
+                       "t5_train": "t5:", "resnet_single": "resnet:"}
+TRAIN_POD_ENV = {"TPU_WORKER_ID": "0", "TPU_VISIBLE_CHIPS": "0",
+                 "KUBETPU_EXPECT_CHIPS": "1"}
+TRAIN_PROGRAM_RUNS = (("llama_pjit", {}), ("vit_train", {}),
+                      ("vit_train", {"VIT_PRESET": "b16"}), ("t5_train", {}),
+                      ("resnet_single", {}),
+                      ("resnet_single", {"RESNET_PRESET": "50"}))
+
+
+def timed_steps(torch, kernels, step, n: int = 4, falls: bool = True
+                ) -> dict:
+    """``step()`` (returns the loss) ``n`` times on a fixed batch, each
+    ended by a synchronize: the first warm, the rest timed; the losses
+    finite and, with ``falls``, the last below the first.  The launch
+    counters are zeroed just before and read just after (the path's
+    launches), and the first step's launches kept.  Peak memory is over
+    the steps."""
+    import statistics
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    kernels.reset_launches()          # the path starts here
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        if i == 0:
+            first = dict(kernels.launches)
+    launches = dict(kernels.launches)   # ... and ends here
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(not falls or losses[-1] < losses[0],
+          f"the loss did not fall: {losses}")
+    return {"losses": losses, "step_ms": step_ms,
+            "step_ms_median": statistics.median(step_ms[1:]),
+            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "first_step_launches": first}
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """The paths of a nested dict's leaves, in ``tree_leaves``' order."""
+    return [n for k, v in tree.items() for n in (
+        leaf_names(v, f"{prefix}{k}/") if isinstance(v, dict)
+        else [prefix + k])]
+
+
+def rel_l2(got, ref) -> float:
+    return ((got.float() - ref.float()).norm()
+            / ref.float().norm().clamp(min=1e-30)).item()
+
+
+def moe_train_flops(cfg, batch: int, seq: int) -> tuple[float, float]:
+    """(model, executed) FLOPs of one MoE train step (3x the forward, as
+    ``train_flops_per_step``; remat's recompute not counted).  Model: each
+    token through its top-k experts.  Executed: the one-hot form's work,
+    every expert over its whole capacity buffer of every routing group
+    (a row), plus the dispatch and combine products ``[G, T, E, C] x [G, T,
+    d]``."""
+    b = cfg.base
+    hd, d, f = b.head_dim, b.d_model, b.d_ff
+    tokens = batch * seq
+    attn_w = d * (b.n_heads + 2 * b.n_kv_heads) * hd + b.n_heads * hd * d
+    attn = 2.0 * batch * b.n_heads * seq * seq * hd   # as the Llama count
+    common = b.n_layers * (2.0 * tokens * (attn_w + d * cfg.n_experts)
+                           + attn) + 2.0 * tokens * d * b.vocab_size
+    model = common + b.n_layers * 2.0 * tokens * cfg.top_k * 3 * d * f
+    cap = cfg.capacity(seq)
+    rows = batch * cfg.n_experts * cap
+    executed = common + b.n_layers * (
+        2.0 * rows * 3 * d * f + 2 * 2.0 * tokens * cfg.n_experts * cap * d)
+    return 3 * model, 3 * executed
+
+
+def moe_reroutes(torch, moe, run) -> tuple:
+    """``run()`` with ``moe.route_tokens`` wrapped to keep each call's
+    kept (token, expert) choices; returns (run()'s result, the choices of
+    the first ``n`` calls: the forward's layers, before any recompute)."""
+    seen = []
+    real = moe.route_tokens
+
+    def recording(logits, top_k, capacity):
+        out = real(logits, top_k, capacity)
+        seen.append(out[0].detach().sum(-1) > 0)
+        return out
+
+    moe.route_tokens = recording
+    try:
+        return run(), seen
+    finally:
+        moe.route_tokens = real
+
+
+def moe_train_parity(torch, cfg, params, gen, wanted) -> dict:
+    """Kernels against plain attention (autograd over ``xla_attention``):
+    the loss and the gradients of ``wanted`` ({name: (leaf, index)}) at
+    [1, seq], and each layer's tokens whose kept experts differ between
+    the two runs."""
+    import dataclasses
+
+    moe = importlib.import_module("kubegpu_tpu_torch.models.moe")
+    tokens = torch.randint(0, cfg.base.vocab_size, (1, MOE_TRAIN["seq"]),
+                           generator=gen, device="cuda")
+    runs = {}
+    for impl in ("auto", "plain"):
+        c = dataclasses.replace(cfg, base=dataclasses.replace(
+            cfg.base, attn_impl=impl))
+
+        def run():
+            loss = moe.moe_next_token_loss(params, tokens, c)
+            grads = torch.autograd.grad(loss, [w for w, _ in
+                                               wanted.values()])
+            return loss.item(), [g if i is None else g[i] for g, (_, i) in
+                                 zip(grads, wanted.values())]
+        (loss, grads), seen = moe_reroutes(torch, moe, run)
+        runs[impl] = (loss, grads, seen[:cfg.base.n_layers])
+    (lk, gk, sk), (lp, gp, sp) = runs["auto"], runs["plain"]
+    return {"loss": lk, "loss_plain": lp, "loss_rel_err": abs(lk - lp)
+            / abs(lp), "grad_rel_l2": {n: rel_l2(g, r) for n, g, r in
+                                       zip(wanted, gk, gp)},
+            "rerouted_tokens": [int((a != b).any(-1).sum()) for a, b in
+                                zip(sk, sp)]}
+
+
+def moe_train(torch, kernels, gen, name) -> dict:
+    """(a) ``make_moe_train_step`` + ``adamw(MOE_TRAIN_LR)`` at Mixtral's
+    width cut to ``MOE_TRAIN["layers"]`` layers (remat on, bf16), tokens
+    [2, 2048], after the parity of kernels against plain attention: in
+    bf16 at this depth (printed: a routing choice is a step in the
+    router's logits, so rounding reroutes tokens and moves the router's
+    and experts' gradients, as phase 13 found for the forward) with its
+    loss within 1e-2, and in f32 at one layer (gated: within 1e-3 on the
+    loss and every compared gradient, no token rerouted; f32 runs the
+    CUDA-core instances)."""
+    from kubegpu_tpu_torch.models import make_moe_train_step, moe_init
+    from kubegpu_tpu_torch.optim import adamw
+    from kubegpu_tpu_torch.tree import tree_leaves
+    import dataclasses
+    out = {}
+    # f32, one layer: the gradient through routing, kernels vs plain
+    cfg32 = moe_config(1)
+    cfg32 = dataclasses.replace(cfg32, base=dataclasses.replace(
+        cfg32.base, dtype="float32"))
+    p32 = moe_init(cfg32, seed=SEED + 1, device="cuda")
+    for p in tree_leaves(p32):
+        p.requires_grad_()
+    lay = p32["layers"]
+    f32 = moe_train_parity(torch, cfg32, p32, gen, {
+        "wq0": (lay["wq"], 0), "w_router0": (lay["w_router"], 0),
+        "w_gate0": (lay["w_gate"], 0), "lm_head": (p32["lm_head"], None)})
+    del p32, lay
+    torch.cuda.empty_cache()
+    check(f32["loss_rel_err"] <= 1e-3 and max(f32["grad_rel_l2"].values())
+          <= 1e-3 and not any(f32["rerouted_tokens"]),
+          f"phase 14 (a): f32 parity {f32}")
+    log("train14", part="(a) MoE f32 parity, 1 layer at Mixtral width, "
+        "kernels vs plain", tokens=f"[1,{MOE_TRAIN['seq']}]",
+        loss_rel_err=f32["loss_rel_err"], grad_rel_l2=f32["grad_rel_l2"],
+        rerouted_tokens=f32["rerouted_tokens"], tol=1e-3)
+    out["parity_f32"] = f32
+
+    cfg = moe_config(MOE_TRAIN["layers"])
+    check(cfg.base.remat, "the MoE train config must keep remat on")
+    t0 = time.perf_counter()
+    params = moe_init(cfg, seed=SEED, device="cuda")
+    for p in tree_leaves(params):
+        p.requires_grad_()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    lay = params["layers"]
+    bf16 = moe_train_parity(torch, cfg, params, gen, {
+        "wq0": (lay["wq"], 0), "w_router0": (lay["w_router"], 0),
+        "w_gate0": (lay["w_gate"], 0), "lm_head": (params["lm_head"], None)})
+    check(math.isfinite(bf16["loss"]) and bf16["loss_rel_err"] <= 1e-2
+          and all(math.isfinite(x) for x in bf16["grad_rel_l2"].values()),
+          f"phase 14 (a): bf16 parity {bf16}")
+    log("train14", part=f"(a) MoE bf16 parity, {cfg.base.n_layers} layers",
+        loss=bf16["loss"], loss_plain=bf16["loss_plain"],
+        loss_rel_err=bf16["loss_rel_err"], tol_loss_rel=1e-2,
+        grad_rel_l2=bf16["grad_rel_l2"],
+        rerouted_tokens=bf16["rerouted_tokens"])
+    out["parity_bf16"] = bf16
+    opt = adamw(MOE_TRAIN_LR)
+    state = opt.init(params)
+    step = make_moe_train_step(cfg, opt)
+    tokens = torch.randint(0, cfg.base.vocab_size,
+                           (MOE_TRAIN["batch"], MOE_TRAIN["seq"]),
+                           generator=gen, device="cuda")
+
+    def one():
+        nonlocal params, state
+        params, state, loss = step(params, state, tokens)
+        return loss
+
+    st = timed_steps(torch, kernels, one)
+    want = {"flash_fwd": 2 * cfg.base.n_layers,
+            "flash_bwd_dq": cfg.base.n_layers,
+            "flash_bwd_dkv": cfg.base.n_layers}
+    got = {k: st["first_step_launches"][k] for k in want}
+    check(got == want, f"phase 14 (a): launches a step {got}, want {want}")
+    only_tc(st["launches"], want, "MoE training")
+    model, executed = moe_train_flops(cfg, MOE_TRAIN["batch"],
+                                      MOE_TRAIN["seq"])
+    sec = st["step_ms_median"] / 1e3
+    out.update(st, layers=cfg.base.n_layers, params=n_params,
+               init_s=time.perf_counter() - t0, model_flops=model,
+               executed_flops=executed,
+               model_tflops_per_s=model / sec / 1e12,
+               executed_tflops_per_s=executed / sec / 1e12,
+               mfu=model / sec / PEAK_FLOPS["bfloat16"],
+               tokens_per_s=MOE_TRAIN["batch"] * MOE_TRAIN["seq"] / sec,
+               reduced="n_layers 32 -> 4 (AdamW state 8 B a parameter)")
+    log("train14", part="(a) MoE training", layers=cfg.base.n_layers,
+        params_b=round(n_params / 1e9, 3),
+        tokens=f"[{MOE_TRAIN['batch']},{MOE_TRAIN['seq']}]",
+        losses=st["losses"], step_ms=[round(x, 3) for x in st["step_ms"]],
+        step_ms_median=st["step_ms_median"],
+        tokens_per_s=out["tokens_per_s"],
+        model_tflops_per_s=out["model_tflops_per_s"],
+        executed_tflops_per_s=out["executed_tflops_per_s"], mfu=out["mfu"],
+        max_memory_gb=round(st["max_memory_gb"], 3),
+        launches_per_step=got, card=repr(name))
+    return out
+
+
+def tree_fingerprint(torch, tree) -> list:
+    """Per leaf: the sum and the sum of squares of its raw 16-bit words
+    (int64, in chunks): any change of a leaf's bytes that keeps both is
+    vanishingly unlikely, and no copy of the tree is made."""
+    from kubegpu_tpu_torch.tree import tree_leaves
+    out = []
+    for leaf in tree_leaves(tree):
+        words = leaf.detach().reshape(-1).view(torch.int16)
+        s1 = s2 = 0
+        for chunk in words.split(1 << 26):
+            c = chunk.long()
+            s1 += int(c.sum())
+            s2 += int((c * c).sum())
+        out.append((s1, s2))
+    return out
+
+
+def lora_train(torch, kernels, gen, name) -> dict:
+    """(b) ``make_lora_train_step`` + ``adamw(1e-3)`` over Llama-3-8B at
+    full width and depth (32 layers, remat), rank 8 on wq/wv, tokens [4,
+    2048]: the steps, then the adapter gradients through the kernels
+    against plain attention at [1, 2048] (the adapters then moved: at init
+    ``b`` is zero and ``a`` has no gradient), and the base tree's bytes
+    unchanged, no ``.grad`` on it."""
+    import dataclasses
+
+    from kubegpu_tpu_torch.models import (
+        LlamaConfig,
+        LoRAConfig,
+        llama_init,
+        lora_init,
+        lora_merge,
+        lora_n_params,
+        make_lora_train_step,
+    )
+    from kubegpu_tpu_torch.models.llama import next_token_loss
+    from kubegpu_tpu_torch.optim import adamw
+    from kubegpu_tpu_torch.tree import tree_leaves
+    cfg = LlamaConfig.llama3_8b()
+    lcfg = LoRAConfig(rank=LORA_TRAIN["rank"])
+    t0 = time.perf_counter()
+    base = llama_init(cfg, seed=SEED, device="cuda")
+    adapters = lora_init(base, lcfg, seed=SEED, device="cuda")
+    for p in tree_leaves(adapters):
+        p.requires_grad_()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    before = tree_fingerprint(torch, base)
+    opt = adamw(1e-3)
+    state = opt.init(adapters)
+    step = make_lora_train_step(cfg, lcfg, opt)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (LORA_TRAIN["batch"], LORA_TRAIN["seq"]),
+                           generator=gen, device="cuda")
+
+    def one():
+        nonlocal adapters, state
+        adapters, state, loss = step(adapters, state, base, tokens)
+        return loss
+
+    st = timed_steps(torch, kernels, one)
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    got = {k: st["first_step_launches"][k] for k in want}
+    check(got == want, f"phase 14 (b): launches a step {got}, want {want}")
+    only_tc(st["launches"], want, "LoRA training")
+    check(tree_fingerprint(torch, base) == before
+          and all(not p.requires_grad and p.grad is None
+                  for p in tree_leaves(base)),
+          "phase 14 (b): the base tree changed or holds a gradient")
+    # parity: the adapter gradients, kernels vs plain attention
+    ptok = tokens[:1]
+    runs = {}
+    for impl in ("auto", "plain"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        loss = next_token_loss(lora_merge(base, adapters, lcfg), ptok, c)
+        runs[impl] = (loss.item(), torch.autograd.grad(
+            loss, tree_leaves(adapters)))
+        del loss
+    (lk, gk), (lp, gp) = runs["auto"], runs["plain"]
+    rel = {n: rel_l2(g, r) for n, g, r in zip(leaf_names(adapters), gk,
+                                                  gp)}
+    loss_rel = abs(lk - lp) / abs(lp)
+    # bf16 through 32 layers: the plain path rounds its probabilities and
+    # autograd products to bf16 where the kernels keep f32 (phase 7's
+    # limits)
+    check(math.isfinite(lk) and loss_rel <= 1e-2 and max(rel.values())
+          <= 5e-2, f"phase 14 (b): parity loss {lk} vs {lp}, grads {rel}")
+    sec = st["step_ms_median"] / 1e3
+    out = dict(st, layers=cfg.n_layers, init_s=init_s,
+               adapter_params=lora_n_params(adapters),
+               base_params=sum(p.numel() for p in tree_leaves(base)),
+               tokens_per_s=LORA_TRAIN["batch"] * LORA_TRAIN["seq"] / sec,
+               parity={"loss": lk, "loss_plain": lp, "loss_rel_err": loss_rel,
+                       "grad_rel_l2": rel}, base_unchanged=True)
+    log("train14", part="(b) Llama-3-8B LoRA (rank 8, wq/wv), 32 layers",
+        tokens=f"[{LORA_TRAIN['batch']},{LORA_TRAIN['seq']}]",
+        adapter_params=out["adapter_params"], losses=st["losses"],
+        step_ms=[round(x, 3) for x in st["step_ms"]],
+        step_ms_median=st["step_ms_median"], tokens_per_s=out["tokens_per_s"],
+        max_memory_gb=round(st["max_memory_gb"], 3),
+        parity_loss_rel_err=loss_rel, parity_grad_rel_l2=rel,
+        tol_loss_rel=1e-2, tol_rel_l2=5e-2, base_unchanged=True,
+        card=repr(name))
+    return out
+
+
+def vit_train_flops(cfg, batch: int) -> float:
+    """Model FLOPs of one ViT train step (3x the forward): the patch
+    embedding, every block's matmuls and its bidirectional attention (2 x
+    2 x T² x d a layer), the head."""
+    t, d, f = cfg.n_patches + 1, cfg.d_model, cfg.d_ff
+    patch = cfg.patch_size * cfg.patch_size * 3
+    fwd = batch * (2.0 * cfg.n_patches * patch * d
+                   + cfg.n_layers * (2.0 * t * (4 * d * d + 2 * d * f)
+                                     + 4.0 * t * t * d)
+                   + 2.0 * d * cfg.n_classes)
+    return 3 * fwd
+
+
+def vit_train(torch, kernels, gen, name) -> dict:
+    """(c) ``make_vit_train_step`` + ``adamw(1e-3)`` for ViT-B/16 at full
+    width and depth (bf16) on one fixed batch of ``VIT_TRAIN_BATCH`` images
+    224 px: kernels 1-3 at [128, 12, 197, 64], non-causal; the loss and
+    every gradient through the kernels against plain attention first."""
+    import dataclasses
+
+    from kubegpu_tpu_torch.models import (
+        ViTConfig,
+        make_vit_train_step,
+        vit_init,
+        vit_loss,
+    )
+    from kubegpu_tpu_torch.optim import adamw
+    from kubegpu_tpu_torch.tree import tree_leaves
+    cfg = ViTConfig.base_16()
+    b = VIT_TRAIN_BATCH
+    params = vit_init(cfg, seed=SEED, device="cuda")
+    for p in tree_leaves(params):
+        p.requires_grad_()
+    images = torch.rand((b, cfg.image_size, cfg.image_size, 3),
+                        generator=gen, device="cuda")
+    labels = torch.randint(0, cfg.n_classes, (b,), generator=gen,
+                           device="cuda")
+    runs = {}
+    for impl in ("auto", "plain"):
+        loss = vit_loss(params, images, labels,
+                        dataclasses.replace(cfg, attn_impl=impl))
+        runs[impl] = (loss.item(), torch.autograd.grad(
+            loss, tree_leaves(params)))
+        del loss
+    (lk, gk), (lp, gp) = runs["auto"], runs["plain"]
+    rel = {n: rel_l2(g, r) for n, g, r in zip(leaf_names(params), gk, gp)}
+    loss_rel = abs(lk - lp) / abs(lp)
+    del runs, gk, gp
+    check(math.isfinite(lk) and loss_rel <= 1e-2 and max(rel.values())
+          <= 5e-2, f"phase 14 (c): parity loss {lk} vs {lp}, grads {rel}")
+    opt = adamw(1e-3)
+    state = opt.init(params)
+    step = make_vit_train_step(cfg, opt)
+
+    def one():
+        nonlocal params, state
+        params, state, loss = step(params, state, images, labels)
+        return loss
+
+    st = timed_steps(torch, kernels, one)
+    want = {k: cfg.n_layers for k in
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    got = {k: st["first_step_launches"][k] for k in want}
+    check(got == want, f"phase 14 (c): launches a step {got}, want {want}")
+    only_tc(st["launches"], want, "ViT training")
+    flops = vit_train_flops(cfg, b)
+    sec = st["step_ms_median"] / 1e3
+    out = dict(st, batch=b, images_per_s=b / sec, model_flops=flops,
+               mfu=flops / sec / PEAK_FLOPS["bfloat16"],
+               parity={"loss": lk, "loss_plain": lp, "loss_rel_err": loss_rel,
+                       "grad_rel_l2_max": max(rel.values()),
+                       "grad_rel_l2": rel})
+    log("train14", part="(c) ViT-B/16", batch=b, losses=st["losses"],
+        step_ms=[round(x, 3) for x in st["step_ms"]],
+        step_ms_median=st["step_ms_median"],
+        images_per_s=out["images_per_s"], mfu=out["mfu"],
+        max_memory_gb=round(st["max_memory_gb"], 3),
+        parity_loss_rel_err=loss_rel,
+        parity_grad_rel_l2_max=max(rel.values()), tol_loss_rel=1e-2,
+        tol_rel_l2=5e-2, launches_per_step=got, card=repr(name))
+    return out
+
+
+def conv_flops(torch, model, size: int) -> float:
+    """Forward FLOPs of one image through the model's convolutions and
+    head (2 x MACs), from their output shapes in one batch-1 forward."""
+    from kubegpu_tpu_torch.models.resnet import Conv, Dense
+    total = [0.0]
+
+    def hook(mod, args, out):
+        if isinstance(mod, Conv):
+            w = mod.weight
+            total[0] += 2.0 * w[0].numel() * out.numel()
+        else:
+            total[0] += 2.0 * mod.kernel.numel()
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (Conv, Dense))]
+    try:
+        with torch.no_grad():
+            model(torch.zeros((1, size, size, 3), device="cuda"), train=False)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def resnet_train(torch, kernels, gen, name) -> dict:
+    """(d) ``make_resnet_train_step`` + ``adam(1e-2)`` (the program's
+    optimizer) for ResNet-50 at ``RESNET_TRAIN_BATCH`` images of 224 px,
+    bf16 convolutions (cuDNN, channels_last; no kernel of the port, as the
+    reference runs no Pallas kernel there): step ms, images/s, and the
+    running statistics moved and finite."""
+    from kubegpu_tpu_torch.models import make_resnet_train_step, resnet50
+    from kubegpu_tpu_torch.models.resnet import resnet_variables
+    from kubegpu_tpu_torch.optim import adam
+    model = resnet50(device="cuda", seed=SEED)
+    params, stats = resnet_variables(model)
+    before = {k: v.clone() for k, v in stats.items()}
+    b = RESNET_TRAIN_BATCH
+    images = torch.randn((b, 224, 224, 3), generator=gen, device="cuda")
+    labels = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
+    opt = adam(1e-2)
+    state = opt.init(params)
+    step = make_resnet_train_step(model, opt)
+
+    def one():
+        nonlocal params, stats, state
+        params, stats, state, loss = step(params, stats, state, images,
+                                          labels)
+        return loss
+
+    # the loss is printed, not gated: Adam at 1e-2 on a fresh ResNet-50
+    # need not fall within three steps
+    st = timed_steps(torch, kernels, one, falls=False)
+    check(not any(st["launches"].values()),
+          f"phase 14 (d): ResNet launched a kernel of the port "
+          f"{st['launches']}")
+    moved = sum(int(not torch.equal(stats[k], v)) for k, v in before.items())
+    check(moved == len(before) and all(bool(torch.isfinite(v).all())
+                                       for v in stats.values()),
+          f"phase 14 (d): {moved} of {len(before)} running statistics "
+          "moved, or one is not finite")
+    flops = 3 * b * conv_flops(torch, model, 224)
+    sec = st["step_ms_median"] / 1e3
+    out = dict(st, batch=b, images_per_s=b / sec, model_flops=flops,
+               mfu=flops / sec / PEAK_FLOPS["bfloat16"],
+               stats_moved=moved)
+    log("train14", part="(d) ResNet-50", batch=b, losses=st["losses"],
+        step_ms=[round(x, 3) for x in st["step_ms"]],
+        step_ms_median=st["step_ms_median"],
+        images_per_s=out["images_per_s"], mfu=out["mfu"],
+        gflops_per_image_fwd=round(flops / 3 / b / 1e9, 3),
+        max_memory_gb=round(st["max_memory_gb"], 3), stats_moved=moved,
+        card=repr(name))
+    return out
+
+
+def train_program_line(text: str, program: str) -> dict:
+    """The program's result line as {key: value string}, in order."""
+    head = TRAIN_PROGRAM_HEADS[program]
+    lines = [ln for ln in text.splitlines() if ln.startswith(head)]
+    check(len(lines) == 1, f"{program}: {len(lines)} result lines\n{text}")
+    return dict(re.findall(r"(\w+)=(\[[^\]]*\]|\{[^}]*\}|\S+)",
+                           lines[0][len(head):]))
+
+
+def llama_8b_reckoning(torch) -> dict:
+    """``LLAMA_PRESET=8b``'s reckoned peak: AdamW's state (8 bytes a
+    parameter: bf16 params, grads, mu, nu) plus the update's temporaries
+    (two slices of ``optim.CHUNK`` bf16 elements), against the card's
+    memory and what is free of it now (this process keeps its earlier
+    phases' graphs and caches)."""
+    from kubegpu_tpu_torch import optim
+    from kubegpu_tpu_torch.models import LlamaConfig
+    cfg = LlamaConfig.llama3_8b()
+    hd, d, f, L = cfg.head_dim, cfg.d_model, cfg.d_ff, cfg.n_layers
+    n = (2 * cfg.vocab_size * d + L * (d * (cfg.n_heads + 2 * cfg.n_kv_heads)
+                                       * hd + cfg.n_heads * hd * d
+                                       + 3 * d * f + 2 * d) + d)
+    peak = 8 * n + 2 * 2 * optim.CHUNK
+    free, total = torch.cuda.mem_get_info()
+    return {"params": n, "reckoned_peak_gb": peak / 1e9,
+            "card_gb": total / 1e9, "free_gb": free / 1e9,
+            "this_process_reserved_gb": torch.cuda.memory_reserved() / 1e9,
+            "run": peak < free}
+
+
+def pod_env(knobs: dict) -> dict:
+    """This process's env without any program or allocation knob, plus a
+    one-card grant's (``TRAIN_POD_ENV``) and ``knobs``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("LLAMA_", "VIT_", "T5_", "RESNET_",
+                                "KUBETPU_", "TPU_", "JAX_"))}
+    env.update(TRAIN_POD_ENV, **knobs)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def run_pods(runs) -> list:
+    """``python -m`` each (program, knobs) of ``runs`` at once, as pods
+    sharing the card; each must exit 0 and print the reference's line
+    (its keys in order).  Returns the lines; the wall seconds are the
+    group's."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m",
+         f"kubegpu_tpu_torch.workloads.programs.{program}"], cwd=root,
+        env=pod_env(knobs), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for program, knobs in runs]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=600))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    got = []
+    for (program, knobs), proc, (out, err) in zip(runs, procs, outs):
+        check(proc.returncode == 0, f"{program} {knobs}: rc "
+              f"{proc.returncode}\n{out[-2000:]}\n{err[-4000:]}")
+        line = train_program_line(out, program)
+        check(tuple(line) == TRAIN_PROGRAM_KEYS[program],
+              f"{program}: keys {list(line)} differ from the reference's")
+        got.append({"program": program, "knobs": knobs, "line": line,
+                    "group_wall_s": wall})
+        log("train14", part="(e) pod", program=program, knobs=knobs,
+            line=line)
+    log("train14", part="(e) pods", n=len(runs), wall_s=round(wall, 2))
+    return got
+
+
+def train_programs(torch) -> dict:
+    """(e) each training program as its pod runs it: ``python -m
+    kubegpu_tpu_torch.workloads.programs.<name>`` with a one-card grant's
+    env at its defaults, plus ``VIT_PRESET=b16`` and ``RESNET_PRESET=50``,
+    all at once (each process takes ~8 s to reach the card, and these
+    pods are small); then, alone, ``LLAMA_PRESET=8b`` where its reckoned
+    peak fits the memory free on the card.  Each exits 0 with the
+    reference's line.  The kernels are already built: a child only loads
+    them."""
+    import gc
+    out = {"runs": run_pods(TRAIN_PROGRAM_RUNS)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    reck = out["llama_8b"] = llama_8b_reckoning(torch)
+    log("train14", part="(e) LLAMA_PRESET=8b reckoning",
+        params_b=round(reck["params"] / 1e9, 3),
+        reckoned_peak_gb=round(reck["reckoned_peak_gb"], 2),
+        free_gb=round(reck["free_gb"], 2), card_gb=round(reck["card_gb"], 2),
+        this_process_reserved_gb=round(reck["this_process_reserved_gb"], 2),
+        run=reck["run"])
+    if reck["run"]:
+        out["runs"] += run_pods((("llama_pjit", {"LLAMA_PRESET": "8b"}),))
+    return out
+
+
+def train_families_phase(torch, kernels, gen, name) -> dict:
+    """Phase 14: the training families on the card, random weights from
+    ``SEED``, bf16: (a) :func:`moe_train`, (b) :func:`lora_train`, (c)
+    :func:`vit_train`, (d) :func:`resnet_train`, (e) :func:`train_programs`.
+    Each leg's launches are counted over its steps (zeroed just before,
+    read just after); the phase's sum is returned under ``launches``."""
+    t_phase = time.perf_counter()
+    out = {}
+    for key, fn in (("moe", moe_train), ("lora", lora_train),
+                    ("vit", vit_train), ("resnet", resnet_train)):
+        t0 = time.perf_counter()
+        out[key] = fn(torch, kernels, gen, name)
+        out[key]["wall_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["programs"] = train_programs(torch)
+    out["launches"] = {k: sum(out[leg]["launches"][k] for leg in
+                              ("moe", "lora", "vit", "resnet"))
+                       for k in kernels.launches}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log("train14", wall_s=round(out["wall_s"], 1),
+        launches={k: v for k, v in out["launches"].items() if v})
+    return out
+
+
 def ptxas_instances(text: str) -> list:
     """Each kernel instance of an ``-Xptxas -v`` build log: its name
     (demangled by ``c++filt`` where the machine has it), registers a thread
@@ -4881,6 +5651,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     bwd, fwd_train = flash_bwd_checks(torch, gen)
     results.update(bwd)
+    # kernels 1-3 at ViT-B/16's shape draw from a generator of their own,
+    # so every other phase gets the inputs it got before
+    vit_shape = vit_shape_checks(
+        torch, torch.Generator(device="cuda").manual_seed(SEED + 9))
+    for kname, r in vit_shape.items():
+        results[kname]["vit_shape"] = r
     for kname, r in results.items():
         log("kernels", kernel=kname, ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -5018,6 +5794,19 @@ def main(argv=None) -> int:
                                             "paged_decode_q8")),
           f"a kernel of the MoE serving path never ran: {moe_launches}")
     only_tc(moe_launches, ("flash_fwd",), "MoE serving")
+    torch.cuda.empty_cache()
+
+    # the training families' paths: each leg zeroes the counters just
+    # before its steps and reads them just after
+    train14 = train_families_phase(
+        torch, kernels, torch.Generator(device="cuda").manual_seed(SEED + 8),
+        name)
+    train14_launches = train14["launches"]
+    check(all(train14_launches[k] > 0 for k in
+              ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+          f"a kernel of the training families never ran: {train14_launches}")
+    only_tc(train14_launches, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+            "the training families")
 
     routes = {"flash_fwd": ("kubegpu_tpu_torch/csrc/flash_fwd.cu",
                             "kubegpu_tpu/ops/flash_attention.py:200"),
@@ -5036,7 +5825,8 @@ def main(argv=None) -> int:
                   "kubegpu_tpu/ops/paged_attention.py:567")}
     paths = (serve_launches, prefix_launches, spec_launches, quant_launches,
              qw_launches, train_launches, t5_launches, program_launches,
-             lifecycle_launches, pool_launches, load_launches, moe_launches)
+             lifecycle_launches, pool_launches, load_launches, moe_launches,
+             train14_launches)
     # kernels 4-6 at llama_serve.py's bench shape, by their pool format
     program_rows = {k: program["program_shape"][fmt]
                     for k, fmt in zip(PAGED_KERNELS, ("bf16", "q8", "q4g16"))}
@@ -5055,7 +5845,10 @@ def main(argv=None) -> int:
             if "verify_shape" in r else {}),
          **({"program_shape": {x: program_rows[k][x] for x in (
              "ms", "plain_ms", "bound_ms", "max_abs_err")}}
-            if k in program_rows else {})}
+            if k in program_rows else {}),
+         **({"vit_shape": {x: r["vit_shape"][x] for x in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "max_abs_err")}} if "vit_shape" in r else {})}
         for k, r in results.items()]}
     for r in line["kernels"]:
         check(all(isinstance(r[k], float) and math.isfinite(r[k])
@@ -5079,6 +5872,7 @@ def main(argv=None) -> int:
                "profile": prof, "training": train,
                "flash_fwd_training_shape": fwd_train,
                "t5": t5_stats, "program": program, "moe": moe,
+               "flash_vit_shape": vit_shape, "train_families": train14,
                "launches": {"serving": serve_launches,
                             "prefix_cache": prefix_launches,
                             "speculative": spec_launches,
@@ -5091,7 +5885,8 @@ def main(argv=None) -> int:
                             "sampling_and_lifecycle": lifecycle_launches,
                             "pools": pool_launches,
                             "load_and_fleet": load_launches,
-                            "moe_serving": moe_launches},
+                            "moe_serving": moe_launches,
+                            "train_families": train14_launches},
                "kernels": line["kernels"],
                "total_s": time.perf_counter() - t_start}
     if args.details:

@@ -65,8 +65,7 @@ DKV_MASK = """        if (q0 + BM > Tq || kbase + 64 > S ||
             (causal && kbase + 63 > q0 + off)) {
 #pragma unroll
             for (int j = 0; j < BM / 8; ++j) {
-                const float2 lv =
-                    *reinterpret_cast<const float2*>(lse_s + 8 * j + cq);
+                const float2 lv = pair(lse_s, lse, j);
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
                     const int qi = q0 + 8 * j + cq + (e & 1);
@@ -81,8 +80,7 @@ DKV_MASK = """        if (q0 + BM > Tq || kbase + 64 > S ||
         } else {
 #pragma unroll
             for (int j = 0; j < BM / 8; ++j) {
-                const float2 lv =
-                    *reinterpret_cast<const float2*>(lse_s + 8 * j + cq);
+                const float2 lv = pair(lse_s, lse, j);
 #pragma unroll
                 for (int e = 0; e < 4; ++e)
                     sacc[4 * j + e] = p_of(4 * j + e, (e & 1) ? lv.y : lv.x);
@@ -92,8 +90,7 @@ DKV_MASK_PER_ELEMENT = """        const bool edge = q0 + BM > Tq || kbase + 64 >
                           (causal && kbase + 63 > q0 + off);
 #pragma unroll
         for (int j = 0; j < BM / 8; ++j) {
-            const float2 lv =
-                *reinterpret_cast<const float2*>(lse_s + 8 * j + cq);
+            const float2 lv = pair(lse_s, lse, j);
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 float p = p_of(4 * j + e, (e & 1) ? lv.y : lv.x);
@@ -169,7 +166,8 @@ def build(srcs: dict[str, dict[str, str]]) -> dict[tuple[str, str], Path]:
 
 
 def sass_counts(so: Path) -> dict[str, int]:
-    """Opcode counts of the D = 128 tensor-core instance in ``so``."""
+    """Opcode counts of the D = 128 tensor-core instance in ``so`` (of
+    kernel 3, the one that loads lse and delta by TMA)."""
     from kubegpu_tpu_torch import kernels
     cuobjdump = str(Path(kernels._nvcc()).with_name("cuobjdump"))
     text = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
@@ -177,7 +175,8 @@ def sass_counts(so: Path) -> dict[str, int]:
     ops, inside = Counter(), False
     for line in text.splitlines():
         if "Function :" in line:
-            inside = "_tc" in line and "ILi128E" in line
+            inside = ("_tc" in line and "ILi128E" in line
+                      and "Lb0E" not in line)
         elif inside:
             m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P[0-9T] )?([A-Z][A-Z0-9_]*)",
                          line)

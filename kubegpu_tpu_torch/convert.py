@@ -67,3 +67,42 @@ def convert_moe_params(tree: dict, device="cuda",
     port's, as :func:`convert_llama_params`, except that ``w_router`` stays
     f32 whatever ``dtype`` (routing is precision-critical)."""
     return _tree(tree, device, dtype, keep=frozenset({"w_router"}))
+
+
+def convert_vit_params(tree: dict, device="cuda",
+                       dtype: torch.dtype | None = None) -> dict:
+    """Reference ViT params → the port's, as :func:`convert_llama_params`
+    (the layouts match leaf for leaf)."""
+    return _tree(tree, device, dtype)
+
+
+def convert_lora_adapters(tree: dict, device="cuda",
+                          dtype: torch.dtype | None = None) -> dict:
+    """Reference LoRA adapters (``{target: {"a", "b"}}``) → the port's, a
+    copy of each leaf."""
+    return _tree(tree, device, dtype)
+
+
+def convert_resnet_variables(variables: dict, device="cuda") -> dict:
+    """Reference ResNet variables (flax's ``{"params", "batch_stats"}`` of
+    numpy arrays) → a state dict for the port's
+    :class:`~kubegpu_tpu_torch.models.resnet.ResNet` (``load_state_dict``):
+    the key is the flax path joined by dots (``Bottleneck_3.Conv_1``), a
+    convolution's HWIO ``kernel`` becomes the OIHW ``weight``, and the
+    rest (batch-norm ``scale``/``bias``/``mean``/``var``, the dense
+    ``kernel`` [in, out] and ``bias``) is copied as it is."""
+    out = {}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+                continue
+            t = _leaf(v, device, None)
+            if k == "kernel" and t.ndim == 4:
+                k, t = "weight", t.permute(3, 2, 0, 1).contiguous()
+            out[".".join(path + (k,))] = t
+
+    for coll in ("params", "batch_stats"):
+        walk(variables.get(coll, {}), ())
+    return out

@@ -26,7 +26,9 @@
 // bind it (~0.28 ms against ~0.05 ms of memory).  Design: a CTA owns 128
 // keys with two warpgroups of 64.  K and V come in once by TMA; 64-row Q
 // and dO tiles, with their lse and delta, stream through a 3-stage ring
-// (TMA, an mbarrier per stage), which the CTA's first thread keeps filled
+// (TMA, an mbarrier per stage; lse and delta only when T % 4 == 0, since a
+// 1-D TMA box must start 16-byte aligned: at T = 197 each thread reads its
+// columns' values from global memory), which the CTA's first thread keeps filled
 // between its own products.  Each warpgroup computes key-major:
 // S^T = K.Q^T and dP^T = V.dO^T are SS wgmmas; P^T comes from the
 // accumulator fragment (lse is per query, so per column here: read from the
@@ -272,7 +274,12 @@ template <int D> struct Smem {
     static constexpr int BYTES = BAR + (1 + 2 * STAGES) * 8;
 };
 
-template <int D>
+// LSE_TMA: lse and delta come by TMA, which needs each head's values to
+// start 16-byte aligned (T % 4 == 0); otherwise (ViT's T = 197) each thread
+// reads its columns' values from global memory.  A template argument, not a
+// flag, so the TMA instance keeps every register it had (the D = 128
+// instance sits at the 255 cap)
+template <int D, bool LSE_TMA>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
@@ -280,6 +287,7 @@ flash_bwd_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_do,
                  const __grid_constant__ CUtensorMap tm_lse,
                  const __grid_constant__ CUtensorMap tm_delta,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
                  bf16* __restrict__ dk, bf16* __restrict__ dv, int Hq,
                  int Hkv, int Tq, int S, int causal, float sscale,
                  float scale, int n_bhk) {
@@ -307,17 +315,19 @@ flash_bwd_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
     auto load = [&](int it, int s) {
         const int head = head0 + it / per_head;
         const int q0 = (qt_lo + it % per_head) * BM;
-        mbar_expect_tx(full + s, 2 * BM * D * 2 + 2 * BM * 4);
+        mbar_expect_tx(full + s, 2 * BM * D * 2 + (LSE_TMA ? 2 * BM * 4 : 0));
         tma_load_rows<D>(smem + L::Q + s * BM * D * 2, &tm_q, BM, q0, head,
                          full + s);
         tma_load_rows<D>(smem + L::DO + s * BM * D * 2, &tm_do, BM, q0, head,
                          full + s);
         // [B*Hq*T] flat: a ragged tile's tail reads the next head's values
         // (or zeros), which the mask below never uses
-        tma_load_1d(smem + L::LSE + s * BM * 4, &tm_lse, head * Tq + q0,
-                    full + s);
-        tma_load_1d(smem + L::DELTA + s * BM * 4, &tm_delta, head * Tq + q0,
-                    full + s);
+        if constexpr (LSE_TMA) {
+            tma_load_1d(smem + L::LSE + s * BM * 4, &tm_lse, head * Tq + q0,
+                        full + s);
+            tma_load_1d(smem + L::DELTA + s * BM * 4, &tm_delta,
+                        head * Tq + q0, full + s);
+        }
     };
     // every tile up to `need` issued (waiting if it must), then as many
     // more as free stages allow
@@ -367,6 +377,18 @@ flash_bwd_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
             reinterpret_cast<const float*>(smem + L::LSE) + s * BM;
         const float* delta_s =
             reinterpret_cast<const float*>(smem + L::DELTA) + s * BM;
+        const size_t hrow = (size_t)(head0 + it / per_head) * Tq;
+        // the values of queries q0 + 8j + cq + {0, 1}: from the stage, or
+        // from global memory (zero past T, where the mask drops them)
+        auto pair = [&](const float* stage, const float* g, int j) {
+            if constexpr (LSE_TMA) {
+                return *reinterpret_cast<const float2*>(stage + 8 * j + cq);
+            } else {
+                const int qi = q0 + 8 * j + cq;
+                return make_float2(qi < Tq ? g[hrow + qi] : 0.f,
+                                   qi + 1 < Tq ? g[hrow + qi + 1] : 0.f);
+            }
+        };
 
         feed(it + 1);
         float sacc[BM / 2], dpacc[BM / 2];
@@ -397,8 +419,7 @@ flash_bwd_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
             (causal && kbase + 63 > q0 + off)) {
 #pragma unroll
             for (int j = 0; j < BM / 8; ++j) {
-                const float2 lv =
-                    *reinterpret_cast<const float2*>(lse_s + 8 * j + cq);
+                const float2 lv = pair(lse_s, lse, j);
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
                     const int qi = q0 + 8 * j + cq + (e & 1);
@@ -413,8 +434,7 @@ flash_bwd_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
         } else {
 #pragma unroll
             for (int j = 0; j < BM / 8; ++j) {
-                const float2 lv =
-                    *reinterpret_cast<const float2*>(lse_s + 8 * j + cq);
+                const float2 lv = pair(lse_s, lse, j);
 #pragma unroll
                 for (int e = 0; e < 4; ++e)
                     sacc[4 * j + e] = p_of(4 * j + e, (e & 1) ? lv.y : lv.x);
@@ -431,8 +451,7 @@ flash_bwd_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
         wgmma_commit();
 #pragma unroll
         for (int j = 0; j < BM / 8; ++j) {
-            const float2 dl =
-                *reinterpret_cast<const float2*>(delta_s + 8 * j + cq);
+            const float2 dl = pair(delta_s, delta, j);
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const int i = 4 * j + e;
@@ -486,12 +505,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     const double scale = 1.0 / sqrt((double)D);
     const int n_bhk = B * Hkv;
     const int smem = Smem<D>::BYTES + 1024;   // + the 1024-byte alignment
+    auto kernel = (Tq & 3) == 0 ? flash_bwd_dkv_tc<D, true>
+                                : flash_bwd_dkv_tc<D, false>;
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_dkv_tc<D><<<(S + BN - 1) / BN * n_bhk, THREADS, smem, stream>>>(
-        mq, mk, mv, mdo, mlse, mdelta, static_cast<bf16*>(dk),
+    kernel<<<(S + BN - 1) / BN * n_bhk, THREADS, smem, stream>>>(
+        mq, mk, mv, mdo, mlse, mdelta, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), Hq, Hkv, Tq, S, causal,
         (float)(scale * 1.4426950408889634), (float)scale, n_bhk);
     return cudaGetLastError();

@@ -21,7 +21,9 @@
 // products, ~2.1e11 FLOP: the tensor cores bind it (~0.21 ms against
 // ~0.07 ms of memory).  Design: a CTA owns 128 query rows of one query head
 // with two warpgroups of 64.  Q and dO, with their lse and delta, come in
-// once by TMA; 64-key K and V tiles stream through a 3-stage ring (TMA, an
+// once by TMA (lse and delta only when T % 4 == 0: a 1-D TMA box must start
+// 16-byte aligned, so at T = 197 each thread reads its rows' values from
+// global memory); 64-key K and V tiles stream through a 3-stage ring (TMA, an
 // mbarrier per stage), which the CTA's first thread keeps filled between
 // its own products (no producer warp: ptxas caps each thread of a 9- or
 // 12-warp CTA at 168 registers, see flash_bwd_dkv.cu).  Per tile and
@@ -290,6 +292,7 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_do,
                 const __grid_constant__ CUtensorMap tm_lse,
                 const __grid_constant__ CUtensorMap tm_delta,
+                const float* __restrict__ lse, const float* __restrict__ delta,
                 bf16* __restrict__ dq, int Hq, int Hkv, int Tq, int S,
                 int causal, float sscale, float scale, int n_mb, int n_bh) {
     using L = Smem<D>;
@@ -307,6 +310,11 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tm_q,
     int n_kt = (S + BN - 1) / BN;
     if (causal)   // key tiles wholly past the last row's horizon
         n_kt = min(n_kt, (off + min(m0 + BM, Tq) - 1) / BN + 1);
+    // a head's lse and delta start 16-byte aligned only when T % 4 == 0:
+    // then one 1-D TMA box each; otherwise (ViT's T = 197) TMA cannot
+    // take the unaligned start, and each thread reads its two rows' values
+    // from global memory
+    const bool lse_tma = (Tq & 3) == 0;
 
     // Thread 0 also issues every TMA load (a producer warp would cost the
     // consumers registers: see the header).
@@ -339,13 +347,15 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tm_q,
     }
     __syncthreads();
     if (loader) {
-        mbar_expect_tx(q_full, 2 * BM * D * 2 + 2 * BM * 4);
+        mbar_expect_tx(q_full, 2 * BM * D * 2 + (lse_tma ? 2 * BM * 4 : 0));
         tma_load_rows<D>(smem + L::Q, &tm_q, BM, m0, bh, q_full);
         tma_load_rows<D>(smem + L::DO, &tm_do, BM, m0, bh, q_full);
         // [B*Hq*T] flat: a ragged tile's tail reads the next head's values
         // (or zeros), which the mask below never uses
-        tma_load_1d(smem + L::LSE, &tm_lse, bh * Tq + m0, q_full);
-        tma_load_1d(smem + L::DELTA, &tm_delta, bh * Tq + m0, q_full);
+        if (lse_tma) {
+            tma_load_1d(smem + L::LSE, &tm_lse, bh * Tq + m0, q_full);
+            tma_load_1d(smem + L::DELTA, &tm_delta, bh * Tq + m0, q_full);
+        }
     }
     feed(STAGES);
 
@@ -371,8 +381,12 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
         const int r = 64 * c + r0 + 8 * h;
-        lse2[h] = reinterpret_cast<const float*>(smem + L::LSE)[r] * LOG2E;
-        dl[h] = reinterpret_cast<const float*>(smem + L::DELTA)[r];
+        const size_t gi = (size_t)bh * Tq + m0 + r;
+        const bool in = m0 + r < Tq;   // a row past T is masked below
+        lse2[h] = (lse_tma ? reinterpret_cast<const float*>(smem + L::LSE)[r]
+                           : in ? lse[gi] : 0.f) * LOG2E;
+        dl[h] = lse_tma ? reinterpret_cast<const float*>(smem + L::DELTA)[r]
+                        : in ? delta[gi] : 0.f;
     }
 
     for (int n = 0; n < n_kt; ++n) {
@@ -480,7 +494,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
         smem);
     if (err != cudaSuccess) return err;
     flash_bwd_dq_tc<D><<<n_mb * n_bh, THREADS, smem, stream>>>(
-        mq, mk, mv, mdo, mlse, mdelta, static_cast<bf16*>(dq), Hq, Hkv, Tq,
+        mq, mk, mv, mdo, mlse, mdelta, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<bf16*>(dq), Hq, Hkv, Tq,
         S, causal, (float)(scale * 1.4426950408889634), (float)scale, n_mb,
         n_bh);
     return cudaGetLastError();

@@ -39,6 +39,7 @@ from kubegpu_tpu_torch.models.llama import (
     _rmsnorm,
     attention_sublayer,
     embed_lookup,
+    make_train_step,
     unbind_layers,
 )
 from kubegpu_tpu_torch.ops import attention
@@ -221,6 +222,26 @@ def moe_next_token_loss(params: dict, tokens: torch.Tensor,
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     ll = logp.gather(-1, tokens[:, 1:].long()[..., None])[..., 0]
     return -ll.mean() + cfg.router_aux_weight * aux / cfg.base.n_layers
+
+
+def make_moe_train_step(cfg: MoEConfig, optimizer, mesh=None,
+                        accum_steps: int = 1):
+    """``step(params, opt_state, tokens) → (params, opt_state, loss)``:
+    Llama's :func:`~kubegpu_tpu_torch.models.llama.make_train_step` over
+    :func:`moe_next_token_loss` (the LM loss plus the weighted aux loss),
+    updating in place.  The gradient reaches the router only through the
+    gates: the one-hot dispatch, positions and drops come from ``argmax``
+    and comparisons and carry none, the gates flow through ``combine`` and
+    its renormalisation, a tie in ``amax`` splits its gradient evenly (as
+    JAX's ``max``), and the aux loss differentiates through the mean
+    router probabilities only.  A mesh (expert parallelism) waits for
+    multi-device support: ROADMAP.md queue 1, item 9."""
+    if mesh is not None:
+        raise NotImplementedError("a mesh (expert-parallel MoE) waits for "
+                                  "multi-device support: ROADMAP.md queue 1,"
+                                  " item 9")
+    return make_train_step(cfg, optimizer, loss_fn=moe_next_token_loss,
+                           accum_steps=accum_steps)
 
 
 # -- serving: the cached decode with routed experts ---------------------------

@@ -55,3 +55,16 @@ def init_from_env() -> WorkerEnv:
             f"a pod of {env.num_workers} workers is not ported yet "
             "(ROADMAP.md queue 1: multi-device)")
     return env
+
+
+def program_device(device, program: str):
+    """``device`` as a ``torch.device``; a CUDA device on a host with no
+    card raises (a program runs on the card unless its caller asks for
+    the CPU)."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{program}: no CUDA device (pass device='cpu' "
+                           "to run on the CPU)")
+    return device

@@ -97,7 +97,10 @@ def _device_count(device) -> int:
 
 
 def main(device="cuda") -> int:
-    from kubegpu_tpu_torch.workloads.programs.distributed import init_from_env
+    from kubegpu_tpu_torch.workloads.programs.distributed import (
+        init_from_env,
+        program_device,
+    )
 
     env = init_from_env()
     import torch
@@ -108,10 +111,7 @@ def main(device="cuda") -> int:
     from kubegpu_tpu_torch.models.decode import prefill
     from kubegpu_tpu_torch.models.quant import quantize_llama
 
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("llama_serve: no CUDA device (pass device='cpu' "
-                           "to run on the CPU)")
+    device = program_device(device, "llama_serve")
     mode = os.environ.get("SERVE_CONFIG", "auto")
     if mode == "auto":
         mode = ("bench" if device.type == "cuda"

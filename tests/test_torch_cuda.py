@@ -460,10 +460,13 @@ def test_tiny_llama_backward_on_the_card(dev):
 
 
 # the tensor-core instances of kernels 1 and 3: head dims 64/128, groups
-# 1/4/8, causal on and off, T = S = 300 (ragged against the 128-row tiles)
-# and T = 64 against S = 1000 (end-aligned), B = 2
+# 1/4/8, causal on and off, T = S = 300 (ragged against the 128-row tiles),
+# T = 64 against S = 1000 (end-aligned) and T = S = 197 (ViT-B/16's
+# tokens: a head's lse and delta start off a 16-byte boundary, where the
+# backward reads them without TMA), B = 2
 TC_CASES = [(d, g, causal, t, s) for d in (64, 128) for g in (1, 4, 8)
-            for causal in (True, False) for t, s in ((300, 300), (64, 1000))]
+            for causal in (True, False)
+            for t, s in ((300, 300), (64, 1000), (197, 197))]
 
 
 def _tc_inputs(dev, d, g, t, s, seed=0):

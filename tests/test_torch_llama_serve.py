@@ -17,6 +17,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from kubegpu_tpu.ops import strict as jstrict
 from kubegpu_tpu.workloads.programs import distributed as jdist
@@ -41,6 +42,19 @@ MAIN_CASES = {
                        "SERVE_CHUNKED_PREFILL": "1"},
     "trace": {**CONT, "SERVE_TRACE": "1"},
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module: the tier-1 run puts six test
+    processes on the host's cores, and torch's default of a thread a core
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def clean_env(monkeypatch):
     for name in list(os.environ):

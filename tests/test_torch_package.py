@@ -67,6 +67,19 @@ def test_walk_covers_the_moe_module():
     assert "kubegpu_tpu_torch/models/moe.py" in names
 
 
+def test_walk_covers_the_training_families():
+    """The AST walk reaches ViT, LoRA, ResNet and the four training
+    programs (their references import JAX, flax or optax; the port's
+    import none)."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for sub in ("models/vit.py", "models/lora.py", "models/resnet.py",
+                "workloads/programs/llama_pjit.py",
+                "workloads/programs/vit_train.py",
+                "workloads/programs/t5_train.py",
+                "workloads/programs/resnet_single.py"):
+        assert f"kubegpu_tpu_torch/{sub}" in names, sub
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys, kubegpu_tpu_torch.models, kubegpu_tpu_torch.ops, "
             "kubegpu_tpu_torch.convert, kubegpu_tpu_torch.kernels, "
@@ -77,7 +90,13 @@ def test_import_leaves_jax_unloaded():
             "kubegpu_tpu_torch.kubemeta.codec, kubegpu_tpu_torch.loadgen, "
             "kubegpu_tpu_torch.fleet, kubegpu_tpu_torch.obs.tsdb, "
             "kubegpu_tpu_torch.obs.alerts, "
-            "kubegpu_tpu_torch.workloads.programs.llama_serve; "
+            "kubegpu_tpu_torch.workloads.programs.llama_serve, "
+            "kubegpu_tpu_torch.models.vit, kubegpu_tpu_torch.models.lora, "
+            "kubegpu_tpu_torch.models.resnet, "
+            "kubegpu_tpu_torch.workloads.programs.llama_pjit, "
+            "kubegpu_tpu_torch.workloads.programs.vit_train, "
+            "kubegpu_tpu_torch.workloads.programs.t5_train, "
+            "kubegpu_tpu_torch.workloads.programs.resnet_single; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -92,8 +111,11 @@ def test_entry_points_default_to_the_card():
         pytest.skip("this host has a card: the default device works")
     from kubegpu_tpu_torch.convert import (
         convert_llama_params,
+        convert_lora_adapters,
         convert_moe_params,
+        convert_resnet_variables,
         convert_t5_params,
+        convert_vit_params,
     )
     from kubegpu_tpu_torch.models import (
         ContinuousBatcher,
@@ -101,16 +123,28 @@ def test_entry_points_default_to_the_card():
         DisaggServePool,
         LlamaConfig,
         MoEConfig,
+        LoRAConfig,
         T5Config,
+        ViTConfig,
         greedy_generate,
+        lora_init,
         llama_init,
         moe_greedy_generate,
         moe_init,
+        resnet50,
+        resnet_tiny,
         t5_greedy_generate,
         t5_greedy_generate_paged,
         t5_init,
+        vit_init,
     )
     from kubegpu_tpu_torch.models.decode import init_kv_cache
+    from kubegpu_tpu_torch.workloads.programs import (
+        llama_pjit,
+        resnet_single,
+        t5_train,
+        vit_train,
+    )
 
     cfg = LlamaConfig.tiny()
     params = llama_init(cfg, device="cpu")
@@ -142,6 +176,15 @@ def test_entry_points_default_to_the_card():
         lambda: t5_greedy_generate(t5_params, [[1, 2]], 2, t5_cfg),
         lambda: t5_greedy_generate_paged(t5_params, [[1, 2]], 2, t5_cfg,
                                          page_size=4),
+        lambda: lora_init(params, LoRAConfig()),
+        lambda: convert_lora_adapters({"wq": {"a": np.zeros(2, np.float32)}}),
+        lambda: vit_init(ViTConfig.tiny()),
+        lambda: convert_vit_params({"w": np.zeros(2, np.float32)}),
+        lambda: resnet50(),
+        lambda: resnet_tiny(),
+        lambda: convert_resnet_variables(
+            {"params": {"Dense_0": {"bias": np.zeros(2, np.float32)}}}),
+        llama_pjit.main, vit_train.main, t5_train.main, resnet_single.main,
     ]
     for call in calls:
         with pytest.raises(errors):

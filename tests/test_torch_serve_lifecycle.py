@@ -16,6 +16,7 @@ mode."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from kubegpu_tpu.loadgen import LoadSpec, TierSpec, synth_trace
 from kubegpu_tpu.models import llama as jl
@@ -33,6 +34,17 @@ BASE = dict(n_slots=2, stride=2, prompt_buckets=(8, 16), paged=True,
 COUNTERS = ("slots_quarantined", "requests_retried", "requests_shed",
             "dispatch_failures", "requests_preempted", "requests_resumed",
             "deadline_misses", "shed_by_reason")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module: the tier-1 run puts six test
+    processes on the host's cores, and torch's default of a thread a core
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

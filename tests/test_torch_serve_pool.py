@@ -22,6 +22,7 @@ state bytes (the port's slot vectors are wider,
 import jax
 import numpy as np
 import pytest
+import torch
 
 from kubegpu_tpu.models import llama as jl
 from kubegpu_tpu.models import serve as js
@@ -42,6 +43,17 @@ COUNTERS = ("failovers", "requests_retried", "requests_preempted",
 # gauges whose values are the port's own: a wall-clock share, state bytes
 OWN_GAUGES = ("serve_host_overhead_pct", "serve_hbm_pool_bytes",
               "serve_hbm_peak_bytes")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread for this module: the tier-1 run puts six test
+    processes on the host's cores, and torch's default of a thread a core
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

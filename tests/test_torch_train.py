@@ -240,3 +240,29 @@ def test_stacked_leaf_backward_is_one_stack_per_leaf(remat, monkeypatch):
     loss = tl.next_token_loss(params, tokens, cfg)
     assert _leaf_grad_ops(loss, stacked) == {
         "SelectBackward0": len(stacked) * cfg.n_layers}
+
+
+def test_adamw_updates_a_large_leaf_in_slices_bit_for_bit(monkeypatch):
+    """Leaves over ``optim.CHUNK`` elements update slice by slice along
+    dim 0 (temporaries of a slice, not of the leaf): the same parameters
+    and moments, bit for bit, as one whole-leaf update, for stacked,
+    ragged (rows that do not divide evenly) and scalar leaves."""
+    from kubegpu_tpu_torch import optim
+    gen = torch.Generator().manual_seed(0)
+    shapes = {"stack": (5, 7, 3), "ragged": (301,), "mat": (2, 50),
+              "scalar": ()}
+    runs = []
+    for chunk in (optim.CHUNK, 7):
+        monkeypatch.setattr(optim, "CHUNK", chunk)
+        gen.manual_seed(0)
+        params = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
+        opt = adamw(1e-3)
+        state = opt.init(params)
+        for _ in range(3):
+            grads = {k: torch.randn(s, generator=gen)
+                     for k, s in shapes.items()}
+            state = opt.update(grads, state, params)
+        runs.append(tree_leaves(params) + tree_leaves(state["mu"])
+                    + tree_leaves(state["nu"]))
+    for whole, sliced in zip(*runs):
+        assert torch.equal(whole, sliced)
