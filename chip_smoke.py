@@ -34,7 +34,13 @@ printed as it ends (any failed check exits non-zero):
    128] bf16: γ + 1 = 5 or 3 positions of 32 heads folded over 8 kv heads
    a row, groups of 20 and 12 cut into query chunks of 8 + 8 + 4 and 8 +
    4; histories of 200-576 keys), two launches with equal bits, with the
-   time, the bound and its share.  Kernels 4-6 also hold the chaos path's
+   time, the bound and its share.  Kernel 4 also runs at phase 5h's shapes:
+   the beam's (q [4, 128, 128] bf16: 4 beams x 4 query heads folded over
+   each kv head, 4 pages a row, t = t_pad = 512 and, unaligned, 500, d =
+   0) and the prompt-lookup verify's (q [8, 288, 128] bf16: 9 positions x
+   4 heads, 11-page tables, t = t_pad = 0, d = pos up to 1151 and one row
+   at 37), two launches with equal bits, the time, the bound and its
+   share.  Kernels 4-6 also hold the chaos path's
    NaN (at the serving rows, each pool format as the engine writes it): a
    NaN on one row's valid key (``k``, or the int8/int4 ``k_scale``) makes
    exactly that row non-finite, kernel and plain, and leaves every other
@@ -85,6 +91,23 @@ printed as it ends (any failed check exits non-zero):
    logits within 3e-2), and the paged engine on int8 weights with
    ``kv_bits=8``, graph and eager, one window each on phase 5's first
    prompts (tokens equal; tokens/s beside 5b's bf16-weight int8 engine);
+5h. search — beam search, speculative and prompt-lookup decoding at
+   Llama-3-8B width and depth on 5c's int8 weights (``search_phase``), each
+   through its CUDA graphs and eagerly at 32 tokens (equal tokens and
+   stats), then timed through its graphs at full length: (a) ``beam_generate`` (int8 cache) and ``beam_generate_paged``
+   (bf16 pages of 128; kernel 4 ``n_layers x (steps - 1)`` times a call),
+   batch 4, prompt 512, 32 steps, 4 beams (``paged_vs_dense``, the share of
+   equal tokens and the score gap printed); (b) ``spec_generate`` and
+   ``spec_generate_fused``, batch 8, prompt 1024, 128 steps, γ 4, a draft
+   of 8 layers, the int8 cache, beside ``greedy_generate`` (acceptance,
+   iterations, the fused call's host reads), then a draft of all 32 layers
+   (its acceptance above the 8-layer draft's, more than one token an
+   iteration); (c) ``pld_generate_fused`` (int8 cache) and
+   ``pld_generate_paged`` (pages of 128; kernel 4 ``n_layers x
+   iterations`` times a call) on prompts tiled from a 128-token pattern, γ
+   8, n-gram 3; (d) phase 6's narrow f32 config: every decoder equals
+   ``greedy_generate`` (the paged beam the dense one), the paged PLD's
+   tokens and stats the fused one's, a perfect draft accepts 1.0;
 5d. static — ``llama_serve.py``'s bench traffic (batch 32, prompt 1024,
    128 steps): ``prefill`` and ``greedy_generate`` on int8 weights with
    the int8 cache, then on bf16 weights with the bf16 cache, its decode
@@ -210,12 +233,12 @@ printed as it ends (any failed check exits non-zero):
    ``RESNET_PRESET=50``, all at once, then ``LLAMA_PRESET=8b`` alone
    where its reckoned peak fits the card's free memory.
 
-Fourteen paths are driven: serving (phases 4-5), the prefix cache (5f),
+Fifteen paths are driven: serving (phases 4-5), the prefix cache (5f),
 speculative serving (5g),
 quantized serving (5b),
-int8-weight serving (5c), the static path and the dense engine (5d-5e,
-which run no kernel of the port, as the reference runs no Pallas kernel
-there), training (phase 7's steps), T5 paged serving (phase 8's bf16
+int8-weight serving (5c), the search decoders (5h, after 5c), the
+static path and the dense engine (5d-5e, which run no kernel of the port,
+as the reference runs no Pallas kernel there), training (phase 7's steps), T5 paged serving (phase 8's bf16
 paged calls), the program's in-process engine runs (phase 9),
 sampling with the request lifecycle (phase 10, run after 5e), the
 serving pools (phase 11, after 10), the load harness (phase 12, after
@@ -994,6 +1017,83 @@ def verify_shape_checks(torch, gen, slice_lens) -> dict:
                 bound_by=r["bound_by"], share_of_bound=r["share_of_bound"])
             out.setdefault(fmt, {})[f"gamma{gamma}"] = r
         del pools, pk, pv
+    return out
+
+
+# kernel 4 at the search decoders' call shapes (phase 5h): a sequence's W
+# beams folded into the query group over its prompt pages (t = t_pad, d = 0;
+# t_pad unaligned at t = 500), and the prompt-lookup verify's γ + 1 = 9
+# positions folded over a history wholly in the decode region (t = t_pad =
+# 0, d = pos), in tables of ceil((1152 + γ) / 128) + 1 = 11 pages
+SEARCH_SHAPES = {"beam": {"rows": 4, "beams": 4, "pages": 4, "t": (512, 500)},
+                 "pld": {"rows": 8, "gamma": 8, "pages": 11,
+                         "pos": (1024, 1152), "short_pos": 37}}
+
+
+def search_shape_checks(torch, gen) -> dict:
+    """Kernel 4 at the beam shape (q [4, 32·4, 128] bf16: 4 beams × 4 query
+    heads a kv head, 2 query chunks of 8, over 4 pages a row, t = t_pad =
+    512 and, unaligned, 500; d = 0) and the PLD verify shape (q [8, 32·9,
+    128] bf16: a group of 36, 5 query chunks of <= 8, over 11-page tables,
+    t = t_pad = 0, d = pos in [1024, 1152) and one row at pos = 37 < P)
+    against ``paged_attention_ref``: o within 1e-2, m within 1e-3, l within
+    1e-3 relative, equal bits on two launches.  Times, the bound from this
+    data's bytes (K and V of each row's valid keys, q, the table, t/t_pad/d,
+    o, m, l) and operations, and the share of the bound."""
+    pa = importlib.import_module("kubegpu_tpu_torch.ops.paged_attention")
+    beam, pld = SEARCH_SHAPES["beam"], SEARCH_SHAPES["pld"]
+    cases = {}
+    for t in beam["t"]:
+        n = beam["pages"]
+        rows = [([1 + n * i + j for j in range(n)], t, t, 0)
+                for i in range(beam["rows"])]
+        cases[f"beam_t{t}"] = (rows, 32 * beam["beams"])
+    pos = [int(x) for x in torch.randint(*pld["pos"], (pld["rows"],),
+                                         generator=gen, device="cuda")]
+    pos[-1] = pld["short_pos"]
+    n = pld["pages"]
+    cases["pld_verify"] = ([([1 + n * i + j for j in range(n)], 0, 0, p)
+                            for i, p in enumerate(pos)],
+                           32 * (pld["gamma"] + 1))
+    out = {}
+    for label, (rows, hq) in cases.items():
+        b = len(rows)
+        n_pages = 1 + sum(len(r[0]) for r in rows)
+        q, pk, pv, pt, t, tpad, d = paged_case(
+            torch, gen, torch.bfloat16, 4, n_pages, 8, 128, 128, hq, rows)
+        args = (q, pk, pv, pt, 3, t, tpad, d)
+        got = pa.paged_attention(*args)
+        again = pa.paged_attention(*args)
+        ref = pa.paged_attention_ref(*args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, c) for a, c in zip(got, again)),
+              f"{label} paged bf16: two launches differ")
+        err = max_err(got[0], ref[0])
+        m_err = max_err(got[1], ref[1])
+        l_rel = ((got[2] - ref[2]).abs()
+                 / ref[2].clamp(min=1e-30)).max().item()
+        check(err <= 1e-2, f"{label} paged bf16: o max |err| {err}")
+        check(m_err <= 1e-3 and l_rel <= 1e-3,
+              f"{label} paged bf16: m err {m_err} / l rel err {l_rel}")
+        valid = sum(r[1] + r[3] for r in rows)
+        n_bytes = (valid * 8 * 128 * 2 * 2 + b * hq * 128 * 2
+                   + pt.numel() * 4 + 3 * b * 4 + b * hq * (128 + 2) * 4)
+        r = {"max_abs_err": err, "m_err": m_err, "l_rel_err": l_rel,
+             "q_shape": [b, hq, 128], "valid_keys": valid}
+        r["ms"] = cuda_ms(lambda: pa.paged_attention(*args))
+        r["plain_ms"] = cuda_ms(lambda: pa.paged_attention_ref(*args),
+                                reps=5)
+        r["library_ms"] = None   # no PyTorch call reads a page table
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            n_bytes, 4 * hq * 128 * valid, torch.bfloat16)
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        log("kernels", kernel="paged bf16", case=f"{label} q [{b}, {hq}, "
+            f"128] bf16 (group {hq // 8} a kv head), {valid} valid keys, "
+            "two launches equal", max_abs_err=err, tol=1e-2, m_err=m_err,
+            l_rel_err=l_rel, ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            share_of_bound=r["share_of_bound"])
+        out[label] = r
     return out
 
 
@@ -3205,6 +3305,327 @@ def paged_nan_checks(torch, gen, slice_rows) -> dict:
             max_abs_err=err, tol=tol)
         out[fmt] = {"masked_positions": int(mask.sum()),
                     "max_abs_err_masked": err}
+    return out
+
+
+# -- phase 5h: beam search, speculative and prompt-lookup decoding ----------
+
+# the reference's bench rows on int8 weights (kubegpu_tpu/benchmark.py:
+# ``beam``, ``spec_decode``, ``spec_decode_pld``; random weights here): the
+# eager runs are cut to EAGER_STEPS tokens (compared with a graph run of as
+# many), never in width
+SEARCH = {"beam": {"b": 4, "t": 512, "steps": 32, "beams": 4, "page": 128},
+          "spec": {"b": 8, "t": 1024, "steps": 128, "gamma": 4, "draft": 8},
+          "pld": {"b": 8, "t": 1024, "steps": 128, "gamma": 8, "ngram": 3,
+                  "pattern": 128, "page": 128}}
+EAGER_STEPS = 32
+
+
+def timed_call(torch, kernels, fn):
+    """(fn()'s result, its wall ms between synchronizes, kernel 4's
+    launches in it)."""
+    before = kernels.launches["paged_decode"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return (res, (time.perf_counter() - t0) * 1e3,
+            kernels.launches["paged_decode"] - before)
+
+
+def graph_and_eager(torch, kernels, label, fn, launches_of, reads,
+                    keyed_by_steps: bool = True) -> dict:
+    """``fn(n_steps, graphs)`` through its graphs and eagerly at
+    ``EAGER_STEPS`` (equal tokens and stats), and through its graphs at the
+    full step count, timed.  Graphs whose state is ``keyed_by_steps`` are
+    captured again at the full count, so a first full call captures them
+    and a second is timed; otherwise the cut call's graphs serve.  Kernel 4
+    must launch ``launches_of(result, n_steps)`` times a call.  Returns the
+    timed graph call's result, the ms of each call and the timed call's
+    host reads (``reads["n"]``, counted by :func:`search_phase`)."""
+    runs = {}
+    order = (("graph_cut", EAGER_STEPS, True),
+             ("eager_cut", EAGER_STEPS, False))
+    order += ((("first", None, True),) if keyed_by_steps else ()) + (
+        ("graph", None, True),)
+    for key, n, graphs in order:
+        reads["n"] = 0
+        res, ms, k4 = timed_call(torch, kernels, lambda: fn(n, graphs))
+        want = launches_of(res, n)
+        check(k4 == want, f"phase 5h {label} ({key}): kernel 4 launched "
+              f"{k4} times, want {want}")
+        runs[key] = (res, ms, reads["n"])
+    (g_toks, g_extra), (e_toks, e_extra) = (runs["graph_cut"][0],
+                                            runs["eager_cut"][0])
+    same_extra = (torch.equal(g_extra, e_extra)
+                  if isinstance(g_extra, torch.Tensor) else g_extra == e_extra)
+    check(torch.equal(g_toks, e_toks) and same_extra,
+          f"phase 5h {label}: graph and eager runs differ")
+    if keyed_by_steps:
+        check(torch.equal(runs["first"][0][0], runs["graph"][0][0]),
+              f"phase 5h {label}: two graph calls differ")
+    return {"result": runs["graph"][0], "ms": runs["graph"][1],
+            "first_ms": runs.get("first", (None, None))[1],
+            "graph_cut_ms": runs["graph_cut"][1],
+            "eager_cut_ms": runs["eager_cut"][1],
+            "host_reads": runs["graph"][2]}
+
+
+def share_equal(a, b) -> float:
+    return (a == b).float().mean().item()
+
+
+def beam_search_runs(torch, kernels, cfg, qparams, gen, reads) -> dict:
+    """5h (a): ``beam_generate`` (int8 cache) and ``beam_generate_paged``
+    (bf16 pages of 128) on the int8 weights, the reference's ``beam`` row;
+    kernel 4 ``n_layers × (steps - 1)`` times a paged call, none a dense
+    one."""
+    from kubegpu_tpu_torch.models import decode as dec
+    c = SEARCH["beam"]
+    prompt = torch.randint(0, cfg.vocab_size, (c["b"], c["t"]), generator=gen,
+                           device="cuda")
+    out = {}
+    for label, fn, kw in (("dense", dec.beam_generate, {"kv_int8": True}),
+                          ("paged", dec.beam_generate_paged,
+                           {"page_size": c["page"]})):
+        def call(n, graphs, fn=fn, kw=kw):
+            return fn(qparams, prompt, n or c["steps"], cfg, beams=c["beams"],
+                      max_len=c["t"] + c["steps"], graphs=graphs, **kw)
+
+        def launches(res, n, label=label):
+            return (cfg.n_layers * ((n or c["steps"]) - 1)
+                    if label == "paged" else 0)
+
+        r = graph_and_eager(torch, kernels, f"beam {label}", call, launches,
+                            reads)
+        toks, score = r.pop("result")
+        check(toks.shape == (c["b"], c["steps"])
+              and bool(torch.isfinite(score).all())
+              and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+              f"phase 5h beam {label}: tokens or scores out of range")
+        out[label] = {**r, "tokens": toks, "score": score,
+                      "kernel4_launches": launches(None, None)}
+    dense, paged = out["dense"], out["paged"]
+    stats = {k: {x: v[x] for x in ("ms", "first_ms", "graph_cut_ms",
+                                   "eager_cut_ms", "kernel4_launches")}
+             for k, v in out.items()}
+    stats["paged_vs_dense"] = dense["ms"] / paged["ms"]
+    stats["tokens_equal_share"] = share_equal(dense["tokens"],
+                                              paged["tokens"])
+    stats["score_gap"] = (dense["score"] - paged["score"]).abs().max().item()
+    log("search", part="(a) beam, B {b}, prompt {t}, {steps} steps, W "
+        "{beams}".format(**c),
+        dense_int8_cache_ms=dense["ms"], paged_bf16_pages_ms=paged["ms"],
+        paged_vs_dense=stats["paged_vs_dense"],
+        eager_cut_ms={k: v["eager_cut_ms"] for k, v in out.items()},
+        tokens_equal_share=stats["tokens_equal_share"],
+        score_gap=stats["score_gap"],
+        kernel4_per_paged_call=paged["kernel4_launches"])
+    return stats
+
+
+def spec_runs(torch, kernels, cfg, qparams, gen, reads) -> dict:
+    """5h (b): ``spec_generate`` (the host loop) and ``spec_generate_fused``
+    with a draft of the first 8 layers and the int8 cache, beside
+    ``greedy_generate`` on the same inputs (the reference's
+    ``spec_decode`` row); then the fused loop with a draft of all 32
+    layers, whose acceptance must beat the 8-layer draft's with more than
+    one token an iteration."""
+    from kubegpu_tpu_torch.models import decode as dec
+    c = SEARCH["spec"]
+    b, t, steps = c["b"], c["t"], c["steps"]
+    max_len = t + steps
+    prompt = torch.randint(0, cfg.vocab_size, (b, t), generator=gen,
+                           device="cuda")
+
+    def greedy_call():
+        return dec.greedy_generate(qparams, prompt, steps, cfg,
+                                   max_len=max_len, kv_int8=True)
+
+    # captures the step (its graph is keyed by batch and cache length)
+    dec.greedy_generate(qparams, prompt, 2, cfg, max_len=max_len,
+                        kv_int8=True)
+    greedy, greedy_ms, _ = timed_call(torch, kernels, greedy_call)
+    dview = dec.draft_view(qparams, c["draft"])
+    out = {"greedy_ms": greedy_ms}
+    for label, fn in (("host", dec.spec_generate),
+                      ("fused", dec.spec_generate_fused)):
+        def call(n, graphs, fn=fn):
+            return fn(qparams, prompt, n or steps, cfg, c["draft"],
+                      gamma=c["gamma"], max_len=max_len, kv_int8=True,
+                      dparams=dview, graphs=graphs)
+
+        # the host loop's graphs are keyed by the cache length alone
+        r = graph_and_eager(torch, kernels, f"spec {label}", call,
+                            lambda res, n: 0, reads, label == "fused")
+        toks, st = r.pop("result")
+        # the host loop reads its acceptance once an iteration
+        out[label] = {**r, "stats": st, "greedy_equal_share": share_equal(
+            toks, greedy), "tokens": toks}
+    out["host"]["host_reads"] = "one an iteration"
+    full = dec.draft_view(qparams, cfg.n_layers)
+    reads["n"] = 0
+    (ptoks, pst), pms, _ = timed_call(
+        torch, kernels, lambda: dec.spec_generate_fused(
+            qparams, prompt, steps, cfg, cfg.n_layers, gamma=c["gamma"],
+            max_len=max_len, kv_int8=True, dparams=full))
+    fst = out["fused"]["stats"]
+    check(pst["acceptance_rate"] > fst["acceptance_rate"]
+          and (steps - 1) / pst["iterations"] > 1,
+          f"phase 5h: the 32-layer draft {pst} does not beat the 8-layer "
+          f"one {fst} with more than one token an iteration")
+    out["draft32"] = {"ms": pms, "stats": pst, "host_reads": reads["n"],
+                      "greedy_equal_share": share_equal(ptoks, greedy)}
+    out["host_fused_equal_share"] = share_equal(out["host"].pop("tokens"),
+                                                out["fused"].pop("tokens"))
+    log("search", part="(b) spec, B {b}, prompt {t}, {steps} steps, γ "
+        "{gamma}, draft {draft} layers, int8 cache".format(**c), host=out["host"]["stats"],
+        host_ms=out["host"]["ms"], fused=fst, fused_ms=out["fused"]["ms"],
+        fused_host_reads=out["fused"]["host_reads"], greedy_ms=greedy_ms,
+        eager_cut_ms={k: out[k]["eager_cut_ms"] for k in ("host", "fused")},
+        greedy_equal_share={k: out[k]["greedy_equal_share"]
+                            for k in ("host", "fused", "draft32")},
+        host_fused_equal_share=out["host_fused_equal_share"])
+    log("search", part=f"(b) draft of all {cfg.n_layers} layers (fused)",
+        stats=pst,
+        ms=pms, host_reads=reads["n"],
+        tokens_per_iteration=(steps - 1) / pst["iterations"])
+    return out
+
+
+def pld_runs(torch, kernels, cfg, qparams, gen, reads) -> dict:
+    """5h (c): ``pld_generate_fused`` (int8 cache) and
+    ``pld_generate_paged`` (bf16 pages of 128) on prompts tiled from one
+    128-token pattern (each row from another offset), the reference's
+    ``spec_decode_pld`` traffic; kernel 4 ``n_layers × iterations`` times
+    a paged call, none a fused one."""
+    from kubegpu_tpu_torch.models import decode as dec
+    c = SEARCH["pld"]
+    b, t, steps = c["b"], c["t"], c["steps"]
+    max_len = t + steps
+    pattern = torch.randint(0, cfg.vocab_size, (c["pattern"],), generator=gen,
+                            device="cuda")
+    prompt = torch.stack([pattern.roll(-16 * i).repeat(t // c["pattern"])
+                          for i in range(b)])
+    # the step's graph is (b)'s: one batch, cache length and format
+    greedy, greedy_ms, _ = timed_call(
+        torch, kernels, lambda: dec.greedy_generate(
+            qparams, prompt, steps, cfg, max_len=max_len, kv_int8=True))
+    out = {"greedy_ms": greedy_ms}
+    for label, fn, kw in (("fused", dec.pld_generate_fused,
+                           {"kv_int8": True}),
+                          ("paged", dec.pld_generate_paged,
+                           {"page_size": c["page"]})):
+        def call(n, graphs, fn=fn, kw=kw):
+            return fn(qparams, prompt, n or steps, cfg, gamma=c["gamma"],
+                      ngram=c["ngram"], max_len=max_len, graphs=graphs, **kw)
+
+        def launches(res, n, label=label):
+            return (cfg.n_layers * res[1]["iterations"] if label == "paged"
+                    else 0)
+
+        r = graph_and_eager(torch, kernels, f"pld {label}", call, launches,
+                            reads)
+        toks, st = r.pop("result")
+        out[label] = {**r, "stats": st,
+                      "greedy_equal_share": share_equal(toks, greedy),
+                      "tokens": toks,
+                      "kernel4_launches": cfg.n_layers * st["iterations"]}
+    out["paged_fused_equal_share"] = share_equal(out["fused"].pop("tokens"),
+                                                 out["paged"].pop("tokens"))
+    log("search", part="(c) PLD, B {b}, prompt {t} (a {pattern}-token "
+        "pattern tiled), {steps} steps, γ {gamma}, n-gram {ngram}"
+        .format(**c),
+        fused=out["fused"]["stats"], fused_ms=out["fused"]["ms"],
+        paged=out["paged"]["stats"], paged_ms=out["paged"]["ms"],
+        greedy_ms=greedy_ms,
+        host_reads={k: out[k]["host_reads"] for k in ("fused", "paged")},
+        eager_cut_ms={k: out[k]["eager_cut_ms"]
+                        for k in ("fused", "paged")},
+        greedy_equal_share={k: out[k]["greedy_equal_share"]
+                            for k in ("fused", "paged")},
+        paged_fused_equal_share=out["paged_fused_equal_share"],
+        kernel4_per_paged_call=out["paged"]["kernel4_launches"])
+    return out
+
+
+def search_narrow(torch) -> dict:
+    """5h (d): phase 6's narrow f32 config on the card, through the graphs:
+    every decoder's tokens equal ``greedy_generate``'s (the paged beam's
+    equal the dense beam's, scores within 1e-4); the paged PLD's tokens and
+    stats equal the fused PLD's; a perfect draft accepts exactly 1.0."""
+    from kubegpu_tpu_torch.models import LlamaConfig, llama_init
+    from kubegpu_tpu_torch.models import decode as dec
+    cfg = LlamaConfig.tiny(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+                           d_ff=512, vocab_size=512, max_seq_len=128)
+    params = llama_init(cfg, seed=SEED, device="cuda")
+    g = torch.Generator().manual_seed(SEED + 11)
+    prompt = torch.randint(0, 512, (2, 11), generator=g).cuda()
+    greedy = dec.greedy_generate(params, prompt, 12, cfg)
+    toks, _ = dec.beam_generate(params, prompt, 12, cfg, beams=1)
+    check(torch.equal(toks, greedy), "narrow f32: beam W=1 != greedy")
+    dense = dec.beam_generate(params, prompt, 9, cfg, beams=3)
+    paged = dec.beam_generate_paged(params, prompt, 9, cfg, beams=3,
+                                    page_size=8)
+    gap = (dense[1] - paged[1]).abs().max().item()
+    check(torch.equal(dense[0], paged[0]) and gap <= 1e-4,
+          f"narrow f32: the paged beam differs from the dense one ({gap})")
+    for fn in (dec.spec_generate, dec.spec_generate_fused):
+        toks, _ = fn(params, prompt, 9, cfg, 1, gamma=4)
+        check(torch.equal(toks, greedy[:, :9]),
+              f"narrow f32: {fn.__name__} != greedy")
+    toks, perfect = dec.spec_generate_fused(params, prompt, 12, cfg, 2,
+                                            gamma=4)
+    check(torch.equal(toks, greedy) and perfect["acceptance_rate"] == 1.0,
+          f"narrow f32: the perfect draft gave {perfect}")
+    pat = torch.tensor([5, 9, 2, 7, 11]).repeat(4)[None].repeat(2, 1).cuda()
+    want = dec.greedy_generate(params, pat, 14, cfg, max_len=48)
+    fused = dec.pld_generate_fused(params, pat, 14, cfg, gamma=4, ngram=2,
+                                   max_len=48)
+    paged = dec.pld_generate_paged(params, pat, 14, cfg, gamma=4, ngram=2,
+                                   max_len=48, page_size=8)
+    check(torch.equal(fused[0], want) and torch.equal(paged[0], want)
+          and fused[1] == paged[1],
+          f"narrow f32: PLD fused {fused[1]} / paged {paged[1]} != greedy")
+    out = {"beam_score_gap": gap, "perfect_draft": perfect,
+           "pld": fused[1]}
+    log("search", part="(d) narrow f32: every decoder equals greedy, paged "
+        "beam = dense, paged PLD = fused", **out)
+    return out
+
+
+def search_phase(torch, kernels, cfg, qparams, gen, name) -> dict:
+    """Phase 5h at Llama-3-8B width and depth on phase 5c's int8 weights:
+    (a) beam, (b) spec, (c) PLD, each through its graphs and eagerly, then
+    (d) the narrow f32 gates.  The fused loops' host reads a call are
+    counted at ``decode._read_loop_state``.  Returns the phase's numbers,
+    its peak memory and seconds."""
+    from kubegpu_tpu_torch.models import decode as dec
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reads = {"n": 0}
+    read = dec._read_loop_state
+
+    def counted(st):
+        reads["n"] += 1
+        return read(st)
+
+    dec._read_loop_state = counted
+    try:
+        out = {"beam": beam_search_runs(torch, kernels, cfg, qparams, gen,
+                                        reads),
+               "spec": spec_runs(torch, kernels, cfg, qparams, gen, reads),
+               "pld": pld_runs(torch, kernels, cfg, qparams, gen, reads)}
+    finally:
+        dec._read_loop_state = read
+    dec.clear_graphs()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["narrow"] = search_narrow(torch)
+    dec.clear_graphs()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log("search", peak_gb=round(out["peak_gb"], 2),
+        seconds=round(out["seconds"], 1), card=repr(name))
     return out
 
 
@@ -5644,6 +6065,11 @@ def main(argv=None) -> int:
     results["paged_decode_bias"] = paged_bias_checks(torch, gen)
     chunk = chunk_shape_checks(torch, gen)
     verify = verify_shape_checks(torch, gen, slice_lens)
+    # kernel 4 at phase 5h's shapes draws from a generator of its own, so
+    # every other phase gets the inputs it got before
+    search_shapes = search_shape_checks(
+        torch, torch.Generator(device="cuda").manual_seed(SEED + 12))
+    results["paged_decode"]["search_shapes"] = search_shapes
     for kname, fmt in (("paged_decode", "bf16"), ("paged_decode_q8", "q8"),
                        ("paged_decode_q4", "q4g16")):
         results[kname]["chunk_shape"] = chunk[fmt]
@@ -5718,6 +6144,14 @@ def main(argv=None) -> int:
         "int8 pages, graph, first window's prompts)",
         int8w_tokens_per_s=qweights["tokens_per_s"],
         bf16w_tokens_per_s=quant_serve["int8"]["tokens_per_s_windows"][0])
+    kernels.reset_launches()          # the search decoders' path starts here
+    search = search_phase(
+        torch, kernels, cfg, qparams,
+        torch.Generator(device="cuda").manual_seed(SEED + 10), name)
+    search_launches = dict(kernels.launches)   # ... and ends here
+    check(search_launches["paged_decode"] > 0,
+          f"kernel 4 never ran on the search decoders' path: "
+          f"{search_launches}")
     kernels.reset_launches()          # the static and dense paths start here
     static = static_phase(torch, cfg, (("int8", qparams, True),
                                        ("bf16", params, False)),
@@ -5824,9 +6258,9 @@ def main(argv=None) -> int:
                   "kubegpu_tpu_torch/csrc/paged_decode_bias.cu",
                   "kubegpu_tpu/ops/paged_attention.py:567")}
     paths = (serve_launches, prefix_launches, spec_launches, quant_launches,
-             qw_launches, train_launches, t5_launches, program_launches,
-             lifecycle_launches, pool_launches, load_launches, moe_launches,
-             train14_launches)
+             qw_launches, search_launches, train_launches, t5_launches,
+             program_launches, lifecycle_launches, pool_launches,
+             load_launches, moe_launches, train14_launches)
     # kernels 4-6 at llama_serve.py's bench shape, by their pool format
     program_rows = {k: program["program_shape"][fmt]
                     for k, fmt in zip(PAGED_KERNELS, ("bf16", "q8", "q4g16"))}
@@ -5843,6 +6277,10 @@ def main(argv=None) -> int:
              "ms", "plain_ms", "bound_ms", "max_abs_err")}
              for g, v in r["verify_shape"].items()}}
             if "verify_shape" in r else {}),
+         **({"search_shapes": {c: {x: v[x] for x in (
+             "ms", "plain_ms", "bound_ms", "max_abs_err")}
+             for c, v in r["search_shapes"].items()}}
+            if "search_shapes" in r else {}),
          **({"program_shape": {x: program_rows[k][x] for x in (
              "ms", "plain_ms", "bound_ms", "max_abs_err")}}
             if k in program_rows else {}),
@@ -5862,6 +6300,7 @@ def main(argv=None) -> int:
                "forward": fwd, "serving": serve, "fused": fused,
                "prefix": prefix, "paged_chunk_shape": chunk,
                "spec": spec, "paged_verify_shape": verify,
+               "search": search, "paged_search_shapes": search_shapes,
                "parity": parity,
                "quantized_serving": quant_serve,
                "quantized_weights": qweights, "static": static,
@@ -5878,6 +6317,7 @@ def main(argv=None) -> int:
                             "speculative": spec_launches,
                             "quantized_serving": quant_launches,
                             "int8_weight_serving": qw_launches,
+                            "search_decoders": search_launches,
                             "static_and_dense": plain_launches,
                             "training": train_launches,
                             "t5_paged_serving": t5_launches,

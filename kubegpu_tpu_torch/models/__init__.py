@@ -5,9 +5,17 @@ with its paged decode; int8 weights for all three in ``quant``; LoRA
 adapters over Llama and MoE; ViT and ResNet)."""
 
 from kubegpu_tpu_torch.models.decode import (  # noqa: F401
+    beam_generate,
+    beam_generate_paged,
+    decode_step,
+    draft_view,
     generate,
     greedy_generate,
+    init_kv_cache,
+    prefill,
     sample_generate,
+    spec_acceptance,
+    spec_generate,
 )
 from kubegpu_tpu_torch.models.llama import (  # noqa: F401
     LlamaConfig,

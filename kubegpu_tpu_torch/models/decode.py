@@ -14,9 +14,22 @@ solo oracle every serving parity check holds the engines to.
 :func:`sample_generate` draws its noise on JAX's own threefry key schedule
 (:mod:`kubegpu_tpu_torch.prng`), so its tokens equal the reference's for
 the same key.
+
+The search and speculative decoders follow: :func:`beam_generate` over a
+two-segment cache (the prompt once a sequence, the generated rows a beam)
+and :func:`beam_generate_paged` with the prompt on pages read by the paged
+kernel; :func:`spec_generate` (an early-exit self-draft, accepted on the
+host once an iteration), :func:`spec_generate_fused`,
+:func:`pld_generate_fused` and :func:`pld_generate_paged` (prompt-lookup
+drafts), whose acceptance stays on the device.  On the card each replays
+CUDA graphs of its step or iteration; a fused loop runs in blocks that
+cannot pass its last token and reads its counters once a block, as the
+reference's ``lax.while_loop`` has no PyTorch twin.
 """
 
 from __future__ import annotations
+
+from dataclasses import replace
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +44,10 @@ from kubegpu_tpu_torch.models.llama import (
 )
 from kubegpu_tpu_torch.ops.flash_attention import NEG_INF
 from kubegpu_tpu_torch.ops.kvquant import quantize_rows
+from kubegpu_tpu_torch.ops.paged_attention import (
+    merge_partials,
+    paged_attention,
+)
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int | None = None,
@@ -147,6 +164,23 @@ def _gathered_head(params: dict, x: torch.Tensor, rows: torch.Tensor,
     return (h @ params["lm_head"]).float()[:, 0]
 
 
+def _write_kv(cache: dict, layer: int, k: torch.Tensor, v: torch.Tensor,
+              at: torch.Tensor) -> dict:
+    """Write K/V rows [B, Hkv, T, D] into layer ``layer`` of a stacked cache
+    IN PLACE at positions ``at`` [T], quantized per token when the cache is
+    int8.  Returns that layer's leaves (views)."""
+    lc = {name: leaf[layer] for name, leaf in cache.items()}
+    if "k_scale" in cache:
+        for name, x_new in (("k", k), ("v", v)):
+            vals, scale = _quantize_rows(x_new)
+            lc[name].index_copy_(2, at, vals)
+            lc[f"{name}_scale"].index_copy_(2, at, scale)
+    else:
+        lc["k"].index_copy_(2, at, k.to(lc["k"].dtype))
+        lc["v"].index_copy_(2, at, v.to(lc["v"].dtype))
+    return lc
+
+
 def _forward_with_cache(params: dict, tokens: torch.Tensor, cache: dict,
                         pos_offset, cfg: LlamaConfig,
                         last_only: bool = False,
@@ -169,18 +203,12 @@ def _forward_with_cache(params: dict, tokens: torch.Tensor, cache: dict,
     for i, lp in enumerate(unbind_layers(params["layers"])):
         h = _rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
         q, k, v = _project_qkv(h, lp, cfg, positions)
-        ck, cv = cache["k"][i], cache["v"][i]
+        lc = _write_kv(cache, i, k, v, q_pos)
         if kv_int8:
-            ks, vs = cache["k_scale"][i], cache["v_scale"][i]
-            for dst, dst_scale, x_new in ((ck, ks, k), (cv, vs, v)):
-                vals, scale = _quantize_rows(x_new)
-                dst.index_copy_(2, q_pos, vals)
-                dst_scale.index_copy_(2, q_pos, scale)
-            o = _cached_attend_q8(q, ck, cv, ks, vs, q_pos)
+            o = _cached_attend_q8(q, lc["k"], lc["v"], lc["k_scale"],
+                                  lc["v_scale"], q_pos)
         else:
-            ck.index_copy_(2, q_pos, k.to(ck.dtype))
-            cv.index_copy_(2, q_pos, v.to(cv.dtype))
-            o = _cached_attend(q, ck, cv, q_pos)
+            o = _cached_attend(q, lc["k"], lc["v"], q_pos)
         x = _attn_finish(x, o, lp, cfg, ffn)
     if head_rows is not None:
         return _gathered_head(params, x, head_rows, cfg)[:, None], cache
@@ -276,6 +304,16 @@ def clear_graphs() -> None:
     _graph_cache.clear()
 
 
+def _loop_state(key: tuple, params, make, graphs: bool):
+    """(static state, graphs by name) of a decode loop: cached by call shape
+    and parameter addresses with ``graphs`` (:func:`kernels.graph_state`),
+    else made afresh with no graphs."""
+    if graphs:
+        return kernels.graph_state(_graph_cache, key, params, make,
+                                   _GRAPH_CACHE_SIZE)
+    return make(), None
+
+
 def _rollout(params, prompt, cfg: LlamaConfig, n_steps: int, max_len: int,
              kv_int8: bool, graphs: bool = False,
              sample: dict | None = None,
@@ -309,16 +347,11 @@ def _rollout(params, prompt, cfg: LlamaConfig, n_steps: int, max_len: int,
                       top_p=torch.zeros((), device=dev))
         return st
 
+    knobs = None if sample is None else (sample["top_k"], sample["nucleus"])
+    st, cached = _loop_state((cfg, b, max_len, kv_int8, str(dev), knobs,
+                              ffn_key), params, make, graphs)
     if graphs:
-        knobs = (None if sample is None
-                 else (sample["top_k"], sample["nucleus"]))
-        st, cached = kernels.graph_state(
-            _graph_cache, (cfg, b, max_len, kv_int8, str(dev), knobs,
-                           ffn_key),
-            params, make, _GRAPH_CACHE_SIZE)
         _reset_kv_cache(st["cache"])
-    else:
-        st, cached = make(), None
     if sample is not None:
         st["keys"][:n_steps] = prng.split(sample["key"].to(dev), n_steps)
         st["step"].zero_()
@@ -414,12 +447,284 @@ def sample_generate(params: dict, prompt, n_steps: int, cfg: LlamaConfig,
                     graphs=graphs and prompt.is_cuda, sample=sample)
 
 
+# -- beam search over a two-segment cache ------------------------------------
+
+def _top_k(x: torch.Tensor, k: int):
+    """The ``k`` largest entries of each row of ``x`` and their indices, in
+    ``lax.top_k``'s order: descending, ties toward the lower index.
+    ``torch.topk`` promises neither on CUDA, so this is a stable sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _beam_attend(q: torch.Tensor, pcache: dict, gcache: dict,
+                 step_i) -> torch.Tensor:
+    """Two-segment beam attention.  q: [B·W, Hq, 1, D].  The PROMPT
+    segment (``pcache`` k/v [B, Hkv, T, D], one layer) is read once per
+    sequence by all W beams through a batched einsum, never a repeated
+    copy; the GEN segment (``gcache`` k/v [B·W, Hkv, G, D]) is per beam,
+    and its rows past ``step_i`` (an int or a [1] device tensor) mask out.
+    The softmax is joint over both segments.  int8 caches fold their
+    per-token scales into the scores (k) and the probabilities (v), as
+    :func:`_cached_attend_q8`."""
+    bw, hq, _, d = q.shape
+    b, hkv, t_p = pcache["k"].shape[:3]
+    w, group = bw // b, hq // hkv
+    ps = torch.einsum("bwkgd,bksd->bwkgs",
+                      q.reshape(b, w, hkv, group, d).float(),
+                      pcache["k"].to(q.dtype).float())
+    if "k_scale" in pcache:
+        ps = ps * pcache["k_scale"][:, None, :, None, :]
+    gs = torch.einsum("nkgd,nksd->nkgs", q.reshape(bw, hkv, group, d).float(),
+                      gcache["k"].to(q.dtype).float())
+    if "k_scale" in gcache:
+        gs = gs * gcache["k_scale"][:, :, None, :]
+    live = torch.arange(gcache["k"].shape[2], device=q.device) <= step_i
+    gs = gs.masked_fill(~live, NEG_INF)
+    scores = torch.cat([ps.reshape(bw, hkv, group, t_p), gs],
+                       dim=-1) * d ** -0.5
+    probs = torch.softmax(scores, dim=-1)
+    pp = probs[..., :t_p].reshape(b, w, hkv, group, t_p)
+    gp = probs[..., t_p:]
+    if "v_scale" in pcache:
+        pp = pp * pcache["v_scale"][:, None, :, None, :]
+    if "v_scale" in gcache:
+        gp = gp * gcache["v_scale"][:, :, None, :]
+    out = torch.einsum("bwkgs,bksd->bwkgd", pp,
+                       pcache["v"].to(q.dtype).float()).reshape(
+        bw, hkv, group, d)
+    out = out + torch.einsum("nkgs,nksd->nkgd", gp,
+                             gcache["v"].to(q.dtype).float())
+    return out.reshape(bw, hq, 1, d).to(q.dtype)
+
+
+def _beam_inputs(params: dict, tokens: torch.Tensor, step_i, t: int):
+    """(the gen write position [1], rope positions [B·W, 1], embeddings) of
+    a beam step whose tokens sit at global position ``t + step_i``."""
+    at = step_i + torch.arange(1, device=tokens.device)
+    positions = (t + at)[None, :].expand(tokens.shape[0], 1)
+    return at, positions, embed_lookup(params["embed"], tokens[:, None])
+
+
+def _logits(params: dict, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """Final norm and head of one position a row: [B, 1, D] → [B, V] f32."""
+    x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ params["lm_head"]).float()[:, 0]
+
+
+def _beam_decode_step(params: dict, tokens: torch.Tensor, pcache: dict,
+                      gcache: dict, step_i, t: int,
+                      cfg: LlamaConfig) -> torch.Tensor:
+    """One beam decode step over the two-segment cache.  tokens: [B·W] at
+    global position ``t + step_i``.  Writes ONLY the gen segment, in place
+    at the shared offset ``step_i``; returns logits [B·W, V] f32."""
+    at, positions, x = _beam_inputs(params, tokens, step_i, t)
+    for i, lp in enumerate(unbind_layers(params["layers"])):
+        h = _rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = _project_qkv(h, lp, cfg, positions)
+        gc = _write_kv(gcache, i, k, v, at)
+        pc = {name: leaf[i] for name, leaf in pcache.items()}
+        x = _attn_finish(x, _beam_attend(q, pc, gc, step_i), lp, cfg)
+    return _logits(params, x, cfg)
+
+
+def _beam_paged_decode_step(params: dict, tokens: torch.Tensor, st: dict,
+                            step_i, t: int, beams: int,
+                            cfg: LlamaConfig) -> torch.Tensor:
+    """One beam decode step with the PROMPT segment on the page pool
+    ``st["pool"]`` (page tables ``st["pt"]``, ``t = t_pad = t``, ``d = 0``).
+    The W beams of a sequence fold into the paged kernel's query group
+    ([B·W, Hq, D] → [B, Hkv·W·g, D]), so one row's walk reads its prompt
+    pages once for all W beams.  The per-beam GEN segment ``st["gcache"]``
+    stays a dense buffer, written in place at ``step_i``, whose partials
+    merge with the kernel's.  Returns logits [B·W, V] f32."""
+    bw = tokens.shape[0]
+    b, hkv, hd = bw // beams, cfg.n_kv_heads, cfg.head_dim
+    group = cfg.n_heads // hkv
+    at, positions, x = _beam_inputs(params, tokens, step_i, t)
+
+    def unfold(a: torch.Tensor) -> torch.Tensor:
+        rest = a.shape[2:]
+        return a.reshape(b, hkv, beams, group, *rest).transpose(1, 2) \
+            .reshape(bw, hkv * group, *rest)
+
+    for li, lp in enumerate(unbind_layers(params["layers"])):
+        h = _rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = _project_qkv(h, lp, cfg, positions)     # [B·W, H, 1, D]
+        gc = _write_kv(st["gcache"], li, k, v, at)
+        qp = q[:, :, 0].reshape(b, beams, hkv, group, hd).transpose(1, 2) \
+            .reshape(b, hkv * beams * group, hd).contiguous()
+        o_p, m_p, l_p = map(unfold, paged_attention(
+            qp, st["pool"]["k"], st["pool"]["v"], st["pt"], li, st["tvec"],
+            st["tvec"], st["d0"]))
+        o = merge_partials(o_p, m_p, l_p,
+                           *_attend_buffer_partials(q, gc["k"], gc["v"],
+                                                    step_i))
+        x = _attn_finish(x, o[:, :, None].to(x.dtype), lp, cfg)
+    return _logits(params, x, cfg)
+
+
+def _paginate(panel: torch.Tensor, page_size: int) -> torch.Tensor:
+    """A prefill panel [L, B, Hkv, n·P, D] as B·n pool pages [L, B·n, Hkv,
+    P, D], row b's pages contiguous from ``b·n``."""
+    n_layers, b, hkv, s, hd = panel.shape
+    n = s // page_size
+    return panel.reshape(n_layers, b, hkv, n, page_size, hd) \
+        .transpose(2, 3).reshape(n_layers, b * n, hkv, page_size, hd)
+
+
+def _page_pool(cfg: LlamaConfig, b: int, n_row: int, page_size: int,
+               device) -> dict:
+    """A zeroed pool of ``b`` rows of ``n_row`` contiguous pages behind
+    trash page 0, with its page tables ``1 + b·n_row + [0, n_row)``, and
+    t, t_pad, d vectors of zeros."""
+    shape = (cfg.n_layers, 1 + b * n_row, cfg.n_kv_heads, page_size,
+             cfg.head_dim)
+    i32 = dict(dtype=torch.int32, device=device)
+    return {"pool": {name: torch.zeros(shape, dtype=cfg.tdtype, device=device)
+                     for name in ("k", "v")},
+            "pt": 1 + torch.arange(b, **i32)[:, None] * n_row
+            + torch.arange(n_row, **i32),
+            "tvec": torch.zeros((b,), **i32),
+            "d0": torch.zeros((b,), **i32)}
+
+
+def _fill_pool(st: dict, params: dict, prompt: torch.Tensor,
+               cfg: LlamaConfig, n_row: int, page_size: int) -> torch.Tensor:
+    """Prefill ``prompt`` into a panel of ``n_row`` pages a row and copy it
+    into ``st["pool"]``'s pages; returns the last position's logits."""
+    logits, panel = prefill(params, prompt, cfg, n_row * page_size)
+    for name in ("k", "v"):
+        st["pool"][name][:, 1:].copy_(_paginate(panel[name], page_size))
+    return logits
+
+
+def _beam_search(params: dict, prompt: torch.Tensor, cfg: LlamaConfig,
+                 n_steps: int, beams: int, kv_int8: bool,
+                 page_size: int | None, graphs: bool):
+    """THE beam loop of :func:`beam_generate` (``page_size`` None) and
+    :func:`beam_generate_paged`.  Prefill once on [B, T]: the dense prompt
+    segment is exactly the prompt long; the paged one is a pool of
+    ``ceil(T/P)`` pages a row.  The first frontier is each sequence's top
+    W first tokens; each of the ``n_steps - 1`` steps scores [B, W·V]
+    jointly, keeps the top W (:func:`_top_k`), and gathers the gen rows and
+    the running outputs of the surviving beams ``b·W + idx // V`` (the
+    prompt segment is beam-invariant).  The step reads its index from the
+    device, so with ``graphs`` it is captured once and replayed.  Returns
+    the best beam [B, n_steps] and its summed log-probability [B]."""
+    b, t = prompt.shape
+    dev = prompt.device
+    bw = b * beams
+    n_pp = None if page_size is None else -(-t // page_size)
+
+    def make() -> dict:
+        st = {"gcache": init_kv_cache(cfg, bw, max(n_steps - 1, 1),
+                                      kv_int8 and n_pp is None, device=dev),
+              "scores": torch.zeros((b, beams), device=dev),
+              "token": torch.zeros((bw,), dtype=torch.long, device=dev),
+              "out": torch.zeros((bw, n_steps), dtype=torch.long,
+                                 device=dev),
+              "i": torch.zeros((1,), dtype=torch.long, device=dev)}
+        if n_pp is None:
+            st["pcache"] = init_kv_cache(cfg, b, t, kv_int8, device=dev)
+        else:
+            st.update(_page_pool(cfg, b, n_pp, page_size, dev))
+            st["tvec"].fill_(t)
+        return st
+
+    st, cached = _loop_state(("beam", cfg, b, t, n_steps, beams, kv_int8,
+                              page_size, str(dev)), params, make, graphs)
+    if n_pp is None:
+        logits = _forward_with_cache(params, prompt, st["pcache"], 0, cfg,
+                                     last_only=True)[0][:, -1]
+    else:
+        logits = _fill_pool(st, params, prompt, cfg, n_pp, page_size)
+    _reset_kv_cache(st["gcache"])
+    scores, first = _top_k(F.log_softmax(logits, dim=-1), beams)
+    st["scores"].copy_(scores)
+    st["token"].copy_(first.reshape(bw))
+    st["out"].zero_()
+    st["out"][:, 0] = st["token"]
+    st["i"].zero_()
+
+    def step() -> None:
+        if n_pp is None:
+            logits = _beam_decode_step(params, st["token"], st["pcache"],
+                                       st["gcache"], st["i"], t, cfg)
+        else:
+            logits = _beam_paged_decode_step(params, st["token"], st, st["i"],
+                                             t, beams, cfg)
+        logp = F.log_softmax(logits, dim=-1)
+        v = logp.shape[-1]
+        joint = st["scores"][:, :, None] + logp.reshape(b, beams, v)
+        scores, idx = _top_k(joint.reshape(b, beams * v), beams)
+        rows = (torch.arange(b, device=dev)[:, None] * beams
+                + idx // v).reshape(bw)
+        for leaf in st["gcache"].values():
+            leaf.copy_(leaf.index_select(1, rows))
+        token = (idx % v).reshape(bw)
+        out = st["out"].index_select(0, rows)
+        out.index_copy_(1, st["i"] + 1, token[:, None])
+        st["out"].copy_(out)
+        st["token"].copy_(token)
+        st["scores"].copy_(scores)
+        st["i"].add_(1)
+
+    kernels.run_graph(step, n_steps - 1, cached, "step")
+    # the beams are score-sorted by the top-k: beam 0 is the best
+    return (st["out"].reshape(b, beams, n_steps)[:, 0].clone(),
+            st["scores"][:, 0].clone())
+
+
+def _check_beams(cfg: LlamaConfig, beams: int) -> None:
+    if not 1 <= beams <= cfg.vocab_size:
+        raise ValueError(f"beams must be in [1, vocab_size={cfg.vocab_size}]"
+                         f", got {beams}")
+
+
+@torch.no_grad()
+def beam_generate(params: dict, prompt, n_steps: int, cfg: LlamaConfig,
+                  beams: int = 4, max_len: int | None = None,
+                  kv_int8: bool = False, device="cuda", graphs: bool = True):
+    """Beam search over the KV-cache decode loop (:func:`_beam_search`):
+    returns (tokens [B, n_steps], the best beam per sequence, and its total
+    log-probability [B] f32).  Scores are sums of log-probabilities; all
+    beams have equal length, so none is normalized.  ``max_len`` checks the
+    caller's length contract but sizes nothing: the cache is two segments
+    of exactly T and ``n_steps - 1`` positions.  On the card the step runs
+    as a CUDA graph; ``graphs=False`` runs it eagerly."""
+    prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
+    _validate_rollout(cfg, prompt.shape[1], n_steps, max_len)
+    _check_beams(cfg, beams)
+    return _beam_search(params, prompt, cfg, n_steps, beams, kv_int8, None,
+                        graphs and prompt.is_cuda)
+
+
+@torch.no_grad()
+def beam_generate_paged(params: dict, prompt, n_steps: int, cfg: LlamaConfig,
+                        beams: int = 4, page_size: int = 128,
+                        max_len: int | None = None, device="cuda",
+                        graphs: bool = True):
+    """:func:`beam_generate` with the prompt K/V on a page pool read by the
+    paged kernel (kernel 4 on the card): the beams of a sequence alias its
+    pages, which the kernel reads once per sequence, not once per beam.
+    The pool is in the model dtype.  Same return contract and scores as the
+    dense version."""
+    prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
+    _validate_rollout(cfg, prompt.shape[1], n_steps, max_len)
+    _check_beams(cfg, beams)
+    return _beam_search(params, prompt, cfg, n_steps, beams, False, page_size,
+                        graphs and prompt.is_cuda)
+
+
 def _attend_buffer_partials(q: torch.Tensor, bk: torch.Tensor,
-                            bv: torch.Tensor, j: int):
-    """Softmax partials over the dense in-block write buffer, valid at
-    buffer index <= j.  q: [B, Hq, 1, D]; buffer [B, Hkv, stride, D].
-    Returns (o [B, Hq, D] f32 normalized, m [B, Hq], l [B, Hq]) for the
-    flash-decoding merge with the paged pool's partials."""
+                            bv: torch.Tensor, j):
+    """Softmax partials over a dense write buffer, valid at buffer index
+    <= j (an int, or a [1] device tensor: the form a CUDA graph replays).
+    q: [B, Hq, 1, D]; buffer [B, Hkv, stride, D].  Returns (o [B, Hq, D]
+    f32 normalized, m [B, Hq], l [B, Hq]) for the flash-decoding merge
+    with the paged pool's partials.  Shared by the serve engine's in-block
+    buffer and the paged beam search's gen segment."""
     b, hq, _, d = q.shape
     hkv, stride = bk.shape[1], bk.shape[2]
     qg = q.reshape(b, hkv, hq // hkv, d)
@@ -504,3 +809,402 @@ def spec_acceptance(drafted: torch.Tensor, full: torch.Tensor, cap):
     if isinstance(cap, torch.Tensor):
         return matched, torch.minimum(matched, cap.to(torch.int32))
     return matched, matched.clamp(max=int(cap))
+
+
+def _check_spec(cfg: LlamaConfig, draft_layers: int, gamma: int) -> None:
+    if not 1 <= draft_layers <= cfg.n_layers:
+        raise ValueError(
+            f"draft_layers {draft_layers} not in [1, {cfg.n_layers}]")
+    if gamma < 1:
+        raise ValueError(f"gamma must be >= 1, got {gamma}")
+
+
+def _prefill_into(params: dict, prompt: torch.Tensor, cache: dict,
+                  cfg: LlamaConfig) -> torch.Tensor:
+    """Prefill ``prompt`` into ``cache`` (static state, reset first);
+    returns the last position's logits [B, V]."""
+    _reset_kv_cache(cache)
+    return _forward_with_cache(params, prompt, cache, 0, cfg,
+                               last_only=True)[0][:, -1]
+
+
+@torch.no_grad()
+def spec_generate(params: dict, prompt, n_steps: int, cfg: LlamaConfig,
+                  draft_layers: int, gamma: int = 4,
+                  max_len: int | None = None, kv_int8: bool = False,
+                  dparams: dict | None = None, device="cuda",
+                  graphs: bool = True):
+    """Greedy speculative decoding as a host loop: the first
+    ``draft_layers`` of the model (``dparams``, a :func:`draft_view` built
+    once by the caller, else here) propose ``g = min(gamma, remaining)``
+    tokens, then ONE chunked full-model forward verifies [cur, d_1..d_g];
+    the longest matching prefix, capped at ``g - 1`` (the g-th draft was
+    never processed by the draft, so accepting it would leave a hole in its
+    cache; when all match it comes back as the correction) and by the
+    budget, is accepted, plus the full model's argmax after it.  The batch
+    runs in lockstep on the smallest acceptance, read on the host once an
+    iteration (the reference's design).  Every emitted token is the full
+    model's argmax: the output equals :func:`greedy_generate`'s, up to
+    rounding of the chunked forward in bf16.  On the card each iteration's
+    draft steps and verify are one CUDA graph (one a ``g``).  Returns
+    (tokens [B, n_steps], {"iterations": full-model forwards,
+    "acceptance_rate": accepted / acceptable slots})."""
+    prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
+    b, t = prompt.shape
+    max_len = _validate_rollout(cfg, t, n_steps, max_len)
+    _check_spec(cfg, draft_layers, gamma)
+    if dparams is None:
+        dparams = draft_view(params, draft_layers)
+    dcfg = replace(cfg, n_layers=draft_layers)
+    dev = prompt.device
+
+    def make() -> dict:
+        long = dict(dtype=torch.long, device=dev)
+        return {"fcache": init_kv_cache(cfg, b, max_len, kv_int8, device=dev),
+                "dcache": init_kv_cache(dcfg, b, max_len, kv_int8,
+                                        device=dev),
+                "cur": torch.zeros((b,), **long),
+                "pos": torch.zeros((1,), **long),
+                "drafted": torch.zeros((b, gamma), **long),
+                "f": torch.zeros((b, gamma + 1), **long)}
+
+    st, cached = _loop_state(
+        ("spec", cfg, draft_layers, b, max_len, gamma, kv_int8, str(dev)),
+        {"full": params, "draft": dparams}, make, graphs and prompt.is_cuda)
+    st["cur"].copy_(_prefill_into(params, prompt, st["fcache"],
+                                  cfg).argmax(dim=-1))
+    _prefill_into(dparams, prompt, st["dcache"], dcfg)
+    st["pos"].fill_(t)
+
+    def draft_and_verify(g: int) -> None:
+        tok = st["cur"]
+        for i in range(g):
+            dlogits, _ = decode_step(dparams, st["dcache"], tok,
+                                     st["pos"] + i, dcfg)
+            tok = dlogits.argmax(dim=-1)
+            st["drafted"][:, i] = tok
+        chunk = torch.cat([st["cur"][:, None], st["drafted"][:, :g]], dim=1)
+        vlogits, _ = _forward_with_cache(params, chunk, st["fcache"],
+                                         st["pos"], cfg)
+        st["f"][:, :g + 1] = vlogits.argmax(dim=-1)
+
+    out = [st["cur"].clone()]
+    iterations = proposed = accepted = 0
+    while len(out) < n_steps:
+        if n_steps - len(out) == 1:
+            # a draft cannot help (take caps at 0): one full-model step
+            vlogits, _ = _forward_with_cache(params, st["cur"][:, None],
+                                             st["fcache"], st["pos"], cfg)
+            out.append(vlogits[:, 0].argmax(dim=-1))
+            iterations += 1
+            break
+        g = min(gamma, n_steps - len(out))
+        kernels.run_graph(lambda: draft_and_verify(g), 1, cached, f"iter{g}")
+        matched, _ = spec_acceptance(st["drafted"][:, :g], st["f"], g)
+        j = int(matched.min())                      # the host read
+        take = min(j, g - 1, n_steps - len(out) - 1)
+        out.extend(st["drafted"][:, i].clone() for i in range(take))
+        st["cur"].copy_(st["f"][:, take])
+        out.append(st["cur"].clone())
+        st["pos"].add_(take + 1)
+        iterations += 1
+        # g - 1 acceptable slots: the g-th draft is only ever emitted as
+        # the correction, so a perfect draft reads 1.0
+        proposed += g - 1
+        accepted += take
+    return torch.stack(out[:n_steps], dim=1), {
+        "iterations": iterations,
+        "acceptance_rate": accepted / proposed if proposed else 0.0}
+
+
+# -- the fused loops: acceptance on the device, replayed in blocks ----------
+
+def _read_loop_state(st: dict) -> list[int]:
+    """The fused loop's counters ``[n_out, iterations, accepted,
+    proposed]``: its one host read a block."""
+    return st["ctr"].tolist()
+
+
+def _fused_loop(st: dict, body, n_steps: int, max_emit: int,
+                cached: dict | None) -> dict:
+    """Run ``body`` (one iteration, acceptance on the device) until
+    ``n_steps`` tokens are out: the reference's ``lax.while_loop``, replayed
+    in blocks.  An iteration emits at least one token and at most
+    ``max_emit``, so a block of ``ceil(remaining / max_emit)`` iterations
+    cannot reach ``n_steps`` before its last one starts: no iteration runs
+    past the end, and the host reads the counters once a block.  With
+    ``cached`` the body is a CUDA graph (``"iter"``).  Returns the stats."""
+    n_out, iterations, accepted, proposed = 1, 0, 0, 0
+    while n_out < n_steps:
+        kernels.run_graph(body, -(-(n_steps - n_out) // max_emit), cached,
+                          "iter")
+        n_out, iterations, accepted, proposed = _read_loop_state(st)
+    return {"iterations": iterations,
+            "acceptance_rate": accepted / proposed if proposed else 0.0}
+
+
+def _fused_state(b: int, width: int, dev) -> dict:
+    long = dict(dtype=torch.long, device=dev)
+    return {"out": torch.zeros((b, width), **long),
+            "cur": torch.zeros((b,), **long),
+            "pos": torch.zeros((1,), **long),
+            "ctr": torch.zeros((4,), **long)}
+
+
+def _start(st: dict, logits: torch.Tensor, t: int) -> None:
+    """The loop's state after the prefill: token 0 = the prefill's argmax
+    at position ``t``, one token out, the counters at zero."""
+    st["cur"].copy_(logits.argmax(dim=-1))
+    st["out"].zero_()
+    st["out"][:, 0] = st["cur"]
+    st["pos"].fill_(t)
+    st["ctr"].zero_()
+    st["ctr"][0] = 1
+
+
+def _advance(st: dict, drafted: torch.Tensor, f: torch.Tensor,
+             take: torch.Tensor, prop_i: torch.Tensor) -> None:
+    """End of a fused iteration: write the fixed γ+1 slab at ``n_out`` into
+    ``st["out"]`` (the ``take`` accepted drafts, then the correction
+    ``f[:, take]`` as filler to the end: the next slab starts after the
+    accepted prefix and overwrites it), move ``cur`` and ``pos`` and the
+    counters ``[n_out, iterations, accepted, proposed]``.  ``take`` and
+    ``prop_i`` are [1] device tensors."""
+    b, gamma = drafted.shape
+    slots = torch.arange(gamma + 1, device=f.device)
+    corr = f.gather(1, take.expand(b)[:, None])                  # [B, 1]
+    emit = torch.where(slots < take,
+                       torch.cat([drafted, drafted[:, -1:]], dim=1), corr)
+    st["out"].index_copy_(1, st["ctr"][0:1] + slots, emit)
+    st["cur"].copy_(corr[:, 0])
+    st["pos"].add_(take + 1)
+    st["ctr"].add_(torch.cat([take + 1, torch.ones_like(take), take,
+                              prop_i]))
+
+
+def _spec_fused(params: dict, dparams: dict, prompt: torch.Tensor,
+                cfg: LlamaConfig, n_steps: int, max_len: int,
+                draft_layers: int, gamma: int, kv_int8: bool, graphs: bool):
+    """The loop of :func:`spec_generate_fused`; ``graphs`` captures its
+    iteration and replays it (:func:`_fused_loop`)."""
+    b, t = prompt.shape
+    dev = prompt.device
+    dcfg = replace(cfg, n_layers=draft_layers)
+    # a verify chunk writes cache rows up to pos + γ, up to γ - 1 past the
+    # last emitted token; the out slab may overhang by γ + 1
+    clen = max_len + gamma
+
+    def make() -> dict:
+        st = _fused_state(b, n_steps + gamma + 1, dev)
+        st["fcache"] = init_kv_cache(cfg, b, clen, kv_int8, device=dev)
+        st["dcache"] = init_kv_cache(dcfg, b, clen, kv_int8, device=dev)
+        return st
+
+    st, cached = _loop_state(
+        ("spec_fused", cfg, draft_layers, b, t, n_steps, max_len, gamma,
+         kv_int8, str(dev)), {"full": params, "draft": dparams}, make, graphs)
+    logits = _prefill_into(params, prompt, st["fcache"], cfg)
+    _prefill_into(dparams, prompt, st["dcache"], dcfg)
+    _start(st, logits, t)
+
+    def body() -> None:
+        pos, n_out = st["pos"], st["ctr"][0:1]
+        tok, drafted = st["cur"], []
+        for i in range(gamma):
+            dlogits, _ = decode_step(dparams, st["dcache"], tok, pos + i,
+                                     dcfg)
+            tok = dlogits.argmax(dim=-1)
+            drafted.append(tok)
+        drafted = torch.stack(drafted, dim=1)                     # [B, γ]
+        chunk = torch.cat([st["cur"][:, None], drafted], dim=1)
+        vlogits, _ = _forward_with_cache(params, chunk, st["fcache"], pos,
+                                         cfg)
+        f = vlogits.argmax(dim=-1)
+        matched, _ = spec_acceptance(drafted, f, gamma)
+        # lockstep: the batch's smallest match, capped at γ - 1 (as the
+        # host loop) and by the budget
+        take = torch.minimum(matched.min().clamp(max=gamma - 1).long(),
+                             n_steps - 1 - n_out)
+        # the host loop's g - 1 with g = min(γ, remaining)
+        _advance(st, drafted, f, take,
+                 (n_steps - n_out).clamp(max=gamma) - 1)
+
+    stats = _fused_loop(st, body, n_steps, gamma, cached)
+    return st["out"][:, :n_steps].clone(), stats
+
+
+@torch.no_grad()
+def spec_generate_fused(params: dict, prompt, n_steps: int, cfg: LlamaConfig,
+                        draft_layers: int, gamma: int = 4,
+                        max_len: int | None = None, kv_int8: bool = False,
+                        dparams: dict | None = None, device="cuda",
+                        graphs: bool = True):
+    """:func:`spec_generate` with the acceptance on the device: each
+    iteration writes a fixed slab of γ+1 tokens at offset ``n_out`` (the
+    accepted drafts, then the correction as filler that the next slab
+    overwrites) and counts iterations, accepted and acceptable slots there.
+    The loop runs in blocks that cannot pass ``n_steps``
+    (:func:`_fused_loop`), the counters read once a block: on the card the
+    iteration is one CUDA graph, replayed.  Same contract, tokens and stats
+    as :func:`spec_generate`."""
+    prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
+    max_len = _validate_rollout(cfg, prompt.shape[1], n_steps, max_len)
+    _check_spec(cfg, draft_layers, gamma)
+    if dparams is None:
+        dparams = draft_view(params, draft_layers)
+    return _spec_fused(params, dparams, prompt, cfg, n_steps, max_len,
+                       draft_layers, gamma, kv_int8,
+                       graphs and prompt.is_cuda)
+
+
+# -- prompt-lookup decoding ---------------------------------------------------
+
+def _pld_lookup(seq: torch.Tensor, pos: torch.Tensor, ngram: int,
+                gamma: int) -> torch.Tensor:
+    """The prompt-lookup draft [B, γ]: the γ tokens of ``seq`` [B, S] that
+    followed the LATEST position i < ``pos`` whose ``ngram``-window (ending
+    at i) equals the window ending at ``pos`` ([1] device tensor); with no
+    match, the token at ``pos`` repeated.  Windows are cut as JAX's
+    ``dynamic_slice`` cuts them: a start out of range is clamped into it,
+    so at ``pos < ngram - 1`` the window is ``seq[:, :ngram]``."""
+    b, s = seq.shape
+    ar = torch.arange(s, device=seq.device)
+    w = seq.index_select(1, (pos - ngram + 1).clamp(0, s - ngram)
+                         + ar[:ngram])                             # [B, n]
+    m = torch.ones_like(seq, dtype=torch.bool)
+    for k in range(ngram):
+        shift = ngram - 1 - k
+        shifted = F.pad(seq, (shift, 0))[:, :s] if shift else seq
+        m &= shifted == w[:, k:k + 1]
+    cand = (ar >= ngram - 1) & (ar < pos)
+    i_match = torch.where(m & cand, ar, -1).amax(dim=1)            # [B]
+    start = (i_match + 1).clamp(0, s - gamma)
+    cont = seq.gather(1, start[:, None] + ar[:gamma])
+    last = seq.index_select(1, pos.clamp(0, s - 1))
+    return torch.where((i_match >= 0)[:, None], cont, last)
+
+
+def _paged_chunk_forward(params: dict, chunk: torch.Tensor, st: dict,
+                         pos: torch.Tensor, cfg: LlamaConfig,
+                         page_size: int) -> torch.Tensor:
+    """The verify forward with the KV history on the page pool
+    ``st["pool"]``: the serving engine's ``verify_forward`` at ``t = t_pad
+    = 0`` and ``d = pos``.  The chunk's C = γ+1 queries fold into the paged
+    kernel's group over the history ``[0, pos)``; its K/V is written in
+    place at ``[pos, pos + C)`` through the row's page table (a rejected
+    entry is masked by the next iteration's smaller ``d`` and overwritten);
+    in-chunk causality comes from the causal partials.  Returns logits [B,
+    C, V] f32."""
+    from kubegpu_tpu_torch.models.serve import verify_forward  # imports us
+    b = chunk.shape[0]
+    rows = pos.expand(b)
+    return verify_forward(params, chunk, st["pool"], st["pt"], st["tvec"],
+                          st["tvec"], rows.to(torch.int32), rows, cfg,
+                          page_size)
+
+
+def _check_pld(gamma: int, ngram: int) -> None:
+    if gamma < 1:
+        raise ValueError(f"gamma must be >= 1, got {gamma}")
+    if ngram < 1:
+        raise ValueError(f"ngram must be >= 1, got {ngram}")
+
+
+def _pld(params: dict, prompt: torch.Tensor, cfg: LlamaConfig, n_steps: int,
+         max_len: int, gamma: int, ngram: int, kv_int8: bool,
+         page_size: int | None, graphs: bool):
+    """The loop of :func:`pld_generate_fused` (``page_size`` None: the dense
+    cache) and :func:`pld_generate_paged` (a pool of ``ceil(clen/P) + 1``
+    contiguous pages a row: the spare page keeps the chunk's writes on the
+    row).  Each iteration looks the draft up over ``[prompt, out]``
+    (:func:`_pld_lookup`), verifies [cur, draft] in one chunked forward and
+    accepts the batch's smallest match with NO γ - 1 cap (there is no draft
+    cache to keep whole; a full match yields γ+1 tokens), capped by the
+    budget."""
+    b, t = prompt.shape
+    dev = prompt.device
+    clen = max_len + gamma
+    n_row = None if page_size is None else -(-clen // page_size) + 1
+
+    def make() -> dict:
+        st = _fused_state(b, n_steps + gamma + 1, dev)
+        st["prompt"] = torch.zeros((b, t), dtype=torch.long, device=dev)
+        if n_row is None:
+            st["fcache"] = init_kv_cache(cfg, b, clen, kv_int8, device=dev)
+        else:
+            st.update(_page_pool(cfg, b, n_row, page_size, dev))
+        return st
+
+    st, cached = _loop_state(("pld", cfg, b, t, n_steps, max_len, gamma,
+                              ngram, kv_int8, page_size, str(dev)), params,
+                             make, graphs)
+    st["prompt"].copy_(prompt)
+    if n_row is None:
+        logits = _prefill_into(params, prompt, st["fcache"], cfg)
+    else:
+        logits = _fill_pool(st, params, prompt, cfg, n_row, page_size)
+    _start(st, logits, t)
+
+    def body() -> None:
+        pos, n_out = st["pos"], st["ctr"][0:1]
+        # cur sits at sequence index pos = t + n_out - 1
+        drafted = _pld_lookup(torch.cat([st["prompt"], st["out"]], dim=1),
+                              pos, ngram, gamma)
+        chunk = torch.cat([st["cur"][:, None], drafted], dim=1)
+        if n_row is None:
+            vlogits, _ = _forward_with_cache(params, chunk, st["fcache"], pos,
+                                             cfg)
+        else:
+            vlogits = _paged_chunk_forward(params, chunk, st, pos, cfg,
+                                           page_size)
+        f = vlogits.argmax(dim=-1)
+        matched, _ = spec_acceptance(drafted, f, gamma)
+        budget = n_steps - 1 - n_out
+        _advance(st, drafted, f, torch.minimum(matched.min().long(), budget),
+                 budget.clamp(max=gamma))
+
+    stats = _fused_loop(st, body, n_steps, gamma + 1, cached)
+    return st["out"][:, :n_steps].clone(), stats
+
+
+@torch.no_grad()
+def pld_generate_fused(params: dict, prompt, n_steps: int, cfg: LlamaConfig,
+                       gamma: int = 8, ngram: int = 3,
+                       max_len: int | None = None, kv_int8: bool = False,
+                       device="cuda", graphs: bool = True):
+    """Prompt-lookup (n-gram) speculative decoding, acceptance on the
+    device (:func:`_pld`): the draft is the continuation of the latest
+    earlier occurrence of the sequence's trailing ``ngram``, so there is no
+    draft model and every iteration costs one chunked (γ+1) forward.  Every
+    emitted token is the full model's argmax (the lookup decides how many
+    each forward yields, never which).  The loop runs in blocks that cannot
+    pass ``n_steps`` (:func:`_fused_loop`); on the card the iteration is one
+    CUDA graph.  Returns (tokens [B, n_steps], {"iterations",
+    "acceptance_rate"})."""
+    prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
+    max_len = _validate_rollout(cfg, prompt.shape[1], n_steps, max_len)
+    _check_pld(gamma, ngram)
+    return _pld(params, prompt, cfg, n_steps, max_len, gamma, ngram, kv_int8,
+                None, graphs and prompt.is_cuda)
+
+
+@torch.no_grad()
+def pld_generate_paged(params: dict, prompt, n_steps: int, cfg: LlamaConfig,
+                       gamma: int = 8, ngram: int = 3,
+                       max_len: int | None = None, page_size: int = 128,
+                       device="cuda", graphs: bool = True):
+    """:func:`pld_generate_fused` with the KV history on a page pool of the
+    model dtype, read by the paged kernel (kernel 4 on the card) with the
+    chunk's queries folded into its group.  Same contract and stats.
+    ``gamma > page_size`` raises ``ValueError``: the reference writes the
+    chunk into a two-page window whose ``dynamic_update_slice`` clamps, so
+    there a chunk that starts late in a page lands shifted over the
+    history."""
+    prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
+    max_len = _validate_rollout(cfg, prompt.shape[1], n_steps, max_len)
+    _check_pld(gamma, ngram)
+    if gamma > page_size:
+        raise ValueError(f"gamma {gamma} > page_size {page_size}: the "
+                         "verify chunk would not fit its two-page window")
+    return _pld(params, prompt, cfg, n_steps, max_len, gamma, ngram, False,
+                page_size, graphs and prompt.is_cuda)
