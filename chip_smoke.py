@@ -216,7 +216,7 @@ printed as it ends (any failed check exits non-zero):
    int8 pages (tokens/s, peak memory, the tick against its bound); and a
    narrow f32 config whose paged and dense engines' tokens equal
    ``moe_greedy_generate``'s.
-14. train    -- the training families (``train_families_phase``, last),
+14. train    -- the training families (``train_families_phase``),
    bf16, random weights from seed 0, each on one fixed batch (a warm step
    and three timed ones, finite losses, launches a step): (a)
    ``make_moe_train_step`` at Mixtral-8x7B's width cut to 4 layers, [2,
@@ -232,8 +232,25 @@ printed as it ends (any failed check exits non-zero):
    (``python -m``, the reference's line) with ``VIT_PRESET=b16`` and
    ``RESNET_PRESET=50``, all at once, then ``LLAMA_PRESET=8b`` alone
    where its reckoned peak fits the card's free memory.
+15. tp       -- tensor-parallel serving (``tp_phase``, last), ranks spawned
+   by ``kubegpu_tpu_torch.parallel.launch``: (a) phase 6's narrow f32
+   config, every knob (waves, int8 and int4 pages, prefix cache + chunked
+   prefill, the speculative tick fused 2 at a time) at tp = 1 and on two
+   gloo ranks sharing the card (eager: gloo cannot be captured, and a
+   gloo engine with ``graphs=True`` must raise): equal tokens on the
+   model-dtype pools, every rank's host digest equal; (b) Llama-3-8B in
+   bf16: the tp = 1 engine's bf16 window (graph and eager), its int8 and
+   int4 windows (eager) and its first-step logits, then the engine
+   freed and two gloo ranks, each making the weights from the seed and
+   serving its shard (kernels 4-6 over 4 kv heads of 16 query heads):
+   the first-step logits within 3e-2 relative L2, the token agreement,
+   tokens/s beside tp = 1, a tick's wall with and without its
+   collectives, each rank's peak memory; (c) the NCCL path with graphs
+   over ``min(4, device_count)`` cards, or a line saying it was not run
+   for want of cards.  Kernels 4-6 also run in phase 3 at the local
+   shapes of tp = 2 and 4.
 
-Fifteen paths are driven: serving (phases 4-5), the prefix cache (5f),
+Sixteen paths are driven: serving (phases 4-5), the prefix cache (5f),
 speculative serving (5g),
 quantized serving (5b),
 int8-weight serving (5c), the search decoders (5h, after 5c), the
@@ -242,8 +259,8 @@ as the reference runs no Pallas kernel there), training (phase 7's steps), T5 pa
 paged calls), the program's in-process engine runs (phase 9),
 sampling with the request lifecycle (phase 10, run after 5e), the
 serving pools (phase 11, after 10), the load harness (phase 12, after
-11), MoE serving (phase 13) and the training families (phase 14,
-last).  Launch counters are zeroed just
+11), MoE serving (phase 13), the training families (phase 14) and
+tensor-parallel serving (phase 15, last; its counts are the ranks').  Launch counters are zeroed just
 before each and read just after; a graph replay counts the launches captured in it.  The serving
 and training paths must run kernels 1-3 on their tensor-core instances
 only.  The line
@@ -1094,6 +1111,75 @@ def search_shape_checks(torch, gen) -> dict:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             share_of_bound=r["share_of_bound"])
         out[label] = r
+    return out
+
+
+# kernels 4-6 at the tensor-parallel engine's local shapes (phase 15): each
+# rank's decode query holds Llama-3-8B's 32 / tp query heads over its 8 / tp
+# kv heads (the group stays 4), over the serving rows of phase 3
+TP_DEGREES = (2, 4)
+
+
+def tp_shape_checks(torch, gen, slice_rows) -> dict:
+    """Kernels 4 (bf16 pages), 5 (int8) and 6 (packed int4, groups of 16)
+    at the local shapes of tp = 2 (q [8, 16, 128], 4 kv heads) and tp = 4
+    (q [8, 8, 128], 2 kv heads), bf16, over the serving rows: against
+    ``paged_attention_ref`` (o within 1e-2, m within 1e-3, l within 1e-3
+    relative), equal bits on two launches; times, the bound from this
+    data's bytes and operations, and the share of the bound."""
+    pa = importlib.import_module("kubegpu_tpu_torch.ops.paged_attention")
+    kvq = importlib.import_module("kubegpu_tpu_torch.ops.kvquant")
+    kernel = {"bf16": "paged_decode", "q8": "paged_decode_q8",
+              "q4g16": "paged_decode_q4"}
+    out = {k: {} for k in kernel.values()}
+    valid = sum(t + d for _, t, _, d in slice_rows)
+    groups = sum(-(-t // 16) + -(-d // 16) for _, t, _, d in slice_rows)
+    for tp in TP_DEGREES:
+        hq, hkv = 32 // tp, 8 // tp
+        q, pk, pv, pt, t, tpad, d = paged_case(
+            torch, gen, torch.bfloat16, 4, 41, hkv, 128, 128, hq, slice_rows)
+        pools = {"bf16": (pk, pv, None, None),
+                 "q8": quantize_pool(torch, kvq, pk, pv, "q8"),
+                 "q4g16": quantize_pool(torch, kvq, pk, pv, "q4g16")}
+        fixed = (8 * hq * 128 * 2 + pt.numel() * 4 + 3 * 8 * 4
+                 + 8 * hq * (128 + 2) * 4)        # q, table, state, o/m/l
+        kv_bytes = {"bf16": valid * hkv * 128 * 2 * 2,
+                    "q8": valid * hkv * (128 + 4) * 2,
+                    "q4g16": (valid * 64 + groups * 4) * hkv * 2}
+        for fmt, (kq, vq, ks, vs) in pools.items():
+            args = (q, kq, vq, pt, 3, t, tpad, d, ks, vs)
+            got = pa.paged_attention(*args)
+            again = pa.paged_attention(*args)
+            ref = pa.paged_attention_ref(*args)
+            torch.cuda.synchronize()
+            label = f"tp{tp} {fmt}"
+            check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                  f"{label}: two launches differ")
+            err = max_err(got[0], ref[0])
+            m_err = max_err(got[1], ref[1])
+            l_rel = ((got[2] - ref[2]).abs()
+                     / ref[2].clamp(min=1e-30)).max().item()
+            check(err <= 1e-2, f"{label}: o max |err| {err} > 1e-2")
+            check(m_err <= 1e-3 and l_rel <= 1e-3,
+                  f"{label}: m err {m_err} / l rel err {l_rel} > 1e-3")
+            r = {"max_abs_err": err, "m_err": m_err, "l_rel_err": l_rel,
+                 "q_shape": [8, hq, 128], "kv_heads": hkv,
+                 "valid_keys": valid}
+            r["ms"] = cuda_ms(lambda: pa.paged_attention(*args))
+            r["plain_ms"] = cuda_ms(lambda: pa.paged_attention_ref(*args),
+                                    reps=5)
+            r["library_ms"] = None   # no PyTorch call reads a page table
+            r["bound_ms"], r["bound_by"] = bound_ms(
+                fixed + kv_bytes[fmt], 4 * hq * 128 * valid, torch.bfloat16)
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+            log("kernels", kernel=kernel[fmt], case=f"tp={tp} local shape q "
+                f"[8, {hq}, 128] over {hkv} kv heads, {fmt} pages, two "
+                "launches equal", max_abs_err=err, tol=1e-2, m_err=m_err,
+                l_rel_err=l_rel, ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                share_of_bound=r["share_of_bound"])
+            out[kernel[fmt]][f"tp{tp}"] = r
+        del q, pk, pv, pools
     return out
 
 
@@ -5961,6 +6047,386 @@ def train_families_phase(torch, kernels, gen, name) -> dict:
     return out
 
 
+# -- phase 15: tensor-parallel serving ----------------------------------------
+
+# (a): phase 6's narrow f32 config (head_dim 64; tp = 2 leaves one kv head a
+# rank) on its engine shape, each case's knobs over the plain engine's
+TP_NARROW = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
+                 vocab_size=512, max_seq_len=128)
+TP_NARROW_ENGINE = dict(n_slots=3, stride=4, prompt_buckets=(16, 32),
+                        paged=True, page_size=16, device="cuda")
+TP_NARROW_CASES = {
+    "plain": {}, "q8": dict(kv_bits=8), "q4": dict(kv_bits=4),
+    "prefix_chunked": dict(prefix_cache=True, chunked_prefill=True,
+                           prefill_chunk=16),
+    "spec_fused": dict(prefix_cache=True, chunked_prefill=True,
+                       prefill_chunk=16, spec_gamma=2, draft_layers=1,
+                       fused_ticks=2)}
+# (b), (c): pool format -> (kv_bits, its kernel, prompts, new tokens): a
+# window of 8 prompts of 200-512 tokens, all up front, 16 new tokens (one
+# tick), on phase 5's engine shape
+TP_FULL = {"bf16": (16, "paged_decode", 8, 16),
+           "q8": (8, "paged_decode_q8", 8, 16),
+           "q4": (4, "paged_decode_q4", 8, 16)}
+# the first-step logits of tp > 1 against tp = 1 at full width in bf16:
+# relative L2 (a row-split product's partials are rounded to bf16 before
+# their sum, and over 32 layers the residual stream moves by a few bf16 ulp)
+TP_LOGIT_REL_L2 = 3e-2
+
+
+def tp_narrow_traffic(case: str) -> list:
+    """(prompt, max_new, submit-after-steps) of a narrow case, from a CPU
+    generator of its own: the plain engine's five staggered requests, or
+    (the prefix-cache cases) four sharing a 16-token page."""
+    import torch
+    g = torch.Generator().manual_seed(SEED + 15)
+    if "prefix_cache" not in TP_NARROW_CASES[case]:
+        return [(torch.randint(0, 512, (t,), generator=g).tolist(), n, s)
+                for t, n, s in ((5, 12, 0), (20, 7, 0), (9, 1, 0),
+                                (32, 10, 2), (3, 9, 2))]
+    shared = torch.randint(0, 512, (16,), generator=g).tolist()
+    return [(shared + torch.randint(0, 512, (t,), generator=g).tolist(), n, s)
+            for t, n, s in ((9, 10, 0), (14, 6, 3), (5, 12, 3), (11, 1, 3))]
+
+
+def tp_narrow_run(torch, kernels, mesh=None, graphs=True) -> dict:
+    """Every narrow case on one engine each (``mesh``: a tensor-parallel
+    rank's), ``warmup()`` first: tokens by request, counters, the host
+    digest and the paged kernels' launches."""
+    from kubegpu_tpu_torch.models import ContinuousBatcher, LlamaConfig
+    from kubegpu_tpu_torch.models import llama_init
+    cfg = LlamaConfig.tiny(**TP_NARROW)
+    params = llama_init(cfg, seed=SEED, device="cuda")
+    out = {}
+    for case, kw in TP_NARROW_CASES.items():
+        eng = ContinuousBatcher(params, cfg, mesh=mesh, graphs=graphs,
+                                **TP_NARROW_ENGINE, **kw)
+        eng.warmup()
+        before = dict(kernels.launches)
+        reqs = tp_narrow_traffic(case)
+        rids, done, steps = [], [], 0
+        for p, n, after in reqs:
+            while steps < after:
+                done += eng.step()
+                steps += 1
+            rids.append(eng.submit(p, n))
+        done += eng.drain()
+        eng.check_page_invariants()
+        by_rid = {r.rid: r.tokens for r in done}
+        out[case] = {"tokens": [by_rid[r] for r in rids],
+                     "digest": eng.host_digest(),
+                     "launches": {k: kernels.launches[k] - before[k]
+                                  for k in PAGED_KERNELS},
+                     "prefix_hits": eng.prefix_hits,
+                     "spec_ticks": eng.spec_ticks,
+                     "fused_dispatches": eng.fused_dispatches}
+        del eng
+    return out
+
+
+def tp_first_logits(torch, eng, prompts) -> "torch.Tensor":
+    """The first-step logits [8, V] f32 of the first 8 prompts (a dense
+    prefill at bucket 512, the head at ``t - 1``) through the engine's
+    weights, local config and group: the full vocabulary on every rank."""
+    from kubegpu_tpu_torch.models import decode as dec
+    lens = [len(p) for p in prompts[:8]]
+    toks = torch.zeros((8, 512), dtype=torch.long, device="cuda")
+    for i, p in enumerate(prompts[:8]):
+        toks[i, :len(p)] = torch.tensor(p, device="cuda")
+    cache = dec.init_kv_cache(eng._lcfg, 8, 512, device="cuda")
+    with torch.no_grad():
+        logits, _ = dec._forward_with_cache(
+            eng.params, toks, cache, 0, eng._lcfg,
+            head_rows=torch.tensor(lens, device="cuda") - 1,
+            tp_group=eng._tp_group)
+    return logits[:, 0].float().cpu()
+
+
+def tp_tick_ms(torch, eng, group, reps: int = 2) -> float:
+    """Wall ms of one eager plain tick body on scratch state, its
+    collectives over ``group`` (None: each rank's partial sums and its
+    vocabulary shard kept local, the same kernels and GEMMs without a
+    collective), median of ``reps``."""
+    import statistics
+
+    from kubegpu_tpu_torch.models import serve as srv
+    st = eng._scratch_state()
+    walls = []
+    for _ in range(reps + 1):
+        st["freeze"]["tk"].zero_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.tick_body(eng.params, eng._tv, st, eng._lcfg, eng.stride,
+                      eng.eos_id, eng._sampler, eng._ffn, group)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls[1:])
+
+
+def tp_rank(job: dict) -> dict:
+    """One rank of phase 15 (a spawned process over the launch's group):
+    ``job["kind"]`` "narrow" runs :func:`tp_narrow_run` on a ("tp",) mesh;
+    "full" makes Llama-3-8B's bf16 weights from the seed, and for each
+    pool format of ``job["formats"]`` warms an engine on its shard
+    (graphs over NCCL only), runs the window on ``job["prompts"]`` and
+    frees it; the bf16 engine also gives the first-step logits and the
+    tick's wall with and without its collectives.  Returns rank 0's
+    results with every rank's host digests and peak memory."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from kubegpu_tpu_torch import kernels
+    from kubegpu_tpu_torch.models import (
+        ContinuousBatcher,
+        LlamaConfig,
+        llama_init,
+        make_serve_mesh,
+    )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tp, rank = dist.get_world_size(), dist.get_rank()
+    mesh = make_serve_mesh(tp, "cuda")
+    group = mesh.get_group("tp")
+    backend = str(dist.get_backend(group))
+    graphs = backend == "nccl"
+    if graphs is False:
+        try:
+            ContinuousBatcher(llama_init(LlamaConfig.tiny(**TP_NARROW),
+                                         device="cuda"),
+                              LlamaConfig.tiny(**TP_NARROW), mesh=mesh,
+                              graphs=True, **TP_NARROW_ENGINE)
+            raise SmokeFailure("a gloo tp engine took graphs=True")
+        except ValueError as exc:
+            check("graphs=False" in str(exc), f"gloo graphs: {exc}")
+    kernels.reset_launches()
+    out = {"backend": backend, "tp": tp, "device": str(torch.cuda.current_device())}
+    torch.cuda.reset_peak_memory_stats()
+    if job["kind"] == "narrow":
+        out["cases"] = tp_narrow_run(torch, kernels, mesh, graphs)
+    else:
+        cfg = LlamaConfig.llama3_8b()
+        t0 = time.perf_counter()
+        params = llama_init(cfg, seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        for fmt in job["formats"]:
+            bits, kernel, n_prompts, n_new = TP_FULL[fmt]
+            eng, warm_s = warmed(torch, kernels, ContinuousBatcher, cfg,
+                                 params, f"tp={tp} {fmt}", kernel, mesh=mesh,
+                                 graphs=graphs, kv_bits=bits)
+            r = {"warmup_s": warm_s, "pool_bytes": pool_bytes(eng)}
+            if fmt == "bf16":
+                r["first_logits"] = tp_first_logits(torch, eng,
+                                                    job["prompts"])
+                r["tick_ms"] = tp_tick_ms(torch, eng, group)
+                r["tick_ms_no_collectives"] = tp_tick_ms(torch, eng, None)
+            run = serving_window(torch, kernels, eng, cfg, None, n_new,
+                                 kernel=kernel,
+                                 prompts=job["prompts"][:n_prompts])
+            r.update({k: run[k] for k in ("tokens_per_s", "wall_s", "ticks",
+                                          "paged_launches", "outputs")})
+            r["digest"] = eng.host_digest()
+            out[fmt] = r
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        del params
+    out["launches"] = dict(kernels.launches)
+    facts = {"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "digests": {k: v["digest"] for k, v in
+                         (out["cases"] if job["kind"] == "narrow"
+                          else {f: out[f] for f in job["formats"]}).items()},
+             "launches": out["launches"]}
+    every = [None] * tp
+    dist.all_gather_object(every, facts)
+    out["ranks"] = every
+    return out
+
+
+def tp_launch(job: dict, tp: int, backend: str) -> dict:
+    from kubegpu_tpu_torch.parallel import launch
+    t0 = time.perf_counter()
+    out = launch(tp_rank, tp, job, backend=backend, device="cuda",
+                 timeout_s=600)
+    out["launch_s"] = time.perf_counter() - t0
+    for i, r in enumerate(out["ranks"]):
+        check(r["digests"] == out["ranks"][0]["digests"],
+              f"tp={tp} {backend}: rank {i}'s host state parts from rank 0's")
+    return out
+
+
+def token_agreement(a: list, b: list) -> float:
+    pairs = [(x, y) for ra, rb in zip(a, b) for x, y in zip(ra, rb)]
+    return sum(x == y for x, y in pairs) / max(len(pairs), 1)
+
+
+def tp_single(torch, kernels, gen, runs) -> tuple:
+    """The tp = 1 side at full width: Llama-3-8B's bf16 weights from the
+    seed, the window's prompts from ``gen``, and for each (pool format,
+    graphs) of ``runs`` a warmed engine's window on them; the eager bf16
+    engine's first-step logits.  The weights and engines are freed before
+    it returns (the ranks need the card)."""
+    import gc
+
+    from kubegpu_tpu_torch.models import ContinuousBatcher, LlamaConfig
+    from kubegpu_tpu_torch.models import llama_init
+    cfg = LlamaConfig.llama3_8b()
+    params = llama_init(cfg, seed=SEED, device="cuda")
+    prompts = window_prompts(torch, cfg, gen, n=8)
+    single, logits = {}, None
+    for fmt, graphs in runs:
+        bits, kernel, n_prompts, n_new = TP_FULL[fmt]
+        eng, _ = warmed(torch, kernels, ContinuousBatcher, cfg, params,
+                        f"tp=1 {fmt}", kernel, graphs=graphs, kv_bits=bits)
+        run = serving_window(torch, kernels, eng, cfg, None, n_new,
+                             kernel=kernel, prompts=prompts[:n_prompts])
+        single[fmt + ("" if graphs else " eager")] = run
+        if fmt == "bf16" and logits is None:
+            logits = tp_first_logits(torch, eng, prompts)
+        del eng
+        gc.collect()
+    del params
+    torch.cuda.empty_cache()
+    return prompts, single, logits
+
+
+def logits_gap(got, ref) -> tuple[float, float]:
+    """(the largest per-row relative L2 of ``got`` against ``ref``, the
+    share of rows whose argmax agrees)."""
+    rel = ((got - ref).norm(dim=1) / ref.norm(dim=1)).max().item()
+    return rel, (got.argmax(1) == ref.argmax(1)).float().mean().item()
+
+
+def tp_nccl(torch, name, prompts, single, ref_logits,
+            n: int | None = None) -> dict | None:
+    """(c): Llama-3-8B's bf16 engine over ``min(4, device_count)`` NCCL
+    ranks, one a card, its tick captured as a graph: the first-step
+    logits within ``TP_LOGIT_REL_L2`` of tp = 1's, the window's token
+    agreement and tokens/s beside the tp = 1 graph engine's, the tick's
+    wall with and without its collectives.  None (and a line saying so)
+    where there is one card.  ``n`` overrides the rank count."""
+    n = n or min(4, torch.cuda.device_count())
+    if n < 2:
+        log("tp", part="c NCCL", run=False,
+            reason=f"{torch.cuda.device_count()} card visible; the NCCL "
+            "path needs two or more (one rank a card)")
+        return None
+    out = tp_launch({"kind": "full", "prompts": prompts,
+                     "formats": ["bf16"]}, n, "nccl")
+    r = out["bf16"]
+    rel, argmax_equal = logits_gap(r.pop("first_logits"), ref_logits)
+    check(rel <= TP_LOGIT_REL_L2, f"tp={n} NCCL first-step logits rel L2 "
+          f"{rel} > {TP_LOGIT_REL_L2}")
+    row = {"tp": n, "tokens_per_s": r["tokens_per_s"],
+           "tp1_graph_tokens_per_s": single["bf16"]["tokens_per_s"],
+           "agreement": token_agreement(r["outputs"],
+                                        single["bf16"]["outputs"]),
+           "tick_ms": r["tick_ms"],
+           "tick_ms_no_collectives": r["tick_ms_no_collectives"],
+           "collective_ms": r["tick_ms"] - r["tick_ms_no_collectives"],
+           "first_logits_rel_l2": rel, "first_argmax_equal": argmax_equal,
+           "rank_peak_gb": [x["peak_gb"] for x in out["ranks"]],
+           "launch_s": out["launch_s"], "warmup_s": r["warmup_s"],
+           "paged_launches": r["paged_launches"], "ticks": r["ticks"],
+           "launches": {k: out["launches"][k] for k in PAGED_KERNELS}}
+    log("tp", part="c NCCL bf16", graphs=True, card=repr(name), **row)
+    return row
+
+
+def tp_phase(torch, kernels, gen, name) -> dict:
+    """Tensor-parallel serving on the card.  (a) The narrow f32 engines of
+    every knob at tp = 1 (graphs) and tp = 2 (two gloo ranks on the card,
+    eager): equal tokens on the model-dtype pools, equal host digests on
+    every rank, kernels 4-6 launched on the local heads.  (b) Llama-3-8B
+    in bf16: the tp = 1 engines' windows (bf16 graph and eager, int8 and
+    int4 eager) and first-step logits, freed; then two gloo ranks, each on
+    its shard: logits within ``TP_LOGIT_REL_L2``, the token agreement,
+    tokens/s, the tick's collectives, each rank's peak memory.  (c) NCCL
+    over ``min(4, device_count)`` cards with graphs (:func:`tp_nccl`)."""
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) narrow f32
+    one = tp_narrow_run(torch, kernels)
+    two = tp_launch({"kind": "narrow"}, 2, "gloo")
+    for case, ref in one.items():
+        got = two["cases"][case]
+        equal = got["tokens"] == ref["tokens"]
+        agree = token_agreement(got["tokens"], ref["tokens"])
+        # the model-dtype pools hold the tp = 1 tokens; a quantized pool's
+        # codes may round the other way on a last-bit difference
+        check(equal or case in ("q8", "q4"),
+              f"narrow tp=2 {case}: tokens differ from tp=1")
+        check(agree >= 0.75, f"narrow tp=2 {case}: agreement {agree}")
+        check(got["digest"] == ref["digest"] or not equal,
+              f"narrow tp=2 {case}: host state differs from tp=1")
+        fired = {k: v for k, v in got["launches"].items() if v}
+        check(fired, f"narrow tp=2 {case}: no paged kernel ran")
+        log("tp", part="a narrow f32", case=case, backend="gloo",
+            tokens_equal=equal, agreement=agree, launches=fired,
+            prefix_hits=got["prefix_hits"], spec_ticks=got["spec_ticks"],
+            fused_dispatches=got["fused_dispatches"])
+    out["narrow"] = {"launch_s": two["launch_s"],
+                     "cases": {c: {k: v for k, v in r.items()
+                                   if k != "tokens"}
+                               for c, r in two["cases"].items()}}
+    # (b) full width: tp = 1 first, then freed
+    prompts, single, ref_l = tp_single(
+        torch, kernels, gen, (("bf16", True), ("bf16", False),
+                              ("q8", False), ("q4", False)))
+    parent_gb = torch.cuda.memory_reserved() / 1e9
+    kernels.reset_launches()          # the tp path's launches are the ranks'
+    full = tp_launch({"kind": "full", "prompts": prompts,
+                      "formats": list(TP_FULL)}, 2, "gloo")
+    rel, argmax_equal = logits_gap(full["bf16"].pop("first_logits"), ref_l)
+    check(rel <= TP_LOGIT_REL_L2, f"tp=2 first-step logits rel L2 {rel} > "
+          f"{TP_LOGIT_REL_L2}")
+    rows = {}
+    for fmt in TP_FULL:
+        r = full[fmt]
+        ref = single[f"{fmt} eager"]
+        rows[fmt] = {
+            "tokens_per_s": r["tokens_per_s"],
+            "tp1_eager_tokens_per_s": ref["tokens_per_s"],
+            "agreement": token_agreement(r["outputs"], ref["outputs"]),
+            "paged_launches": r["paged_launches"], "ticks": r["ticks"],
+            "warmup_s": r["warmup_s"], "pool_bytes": r["pool_bytes"]}
+        if fmt == "bf16":
+            rows[fmt]["tp1_graph_tokens_per_s"] = \
+                single["bf16"]["tokens_per_s"]
+            rows[fmt].update(tick_ms=r["tick_ms"],
+                             tick_ms_no_collectives=r["tick_ms_no_collectives"],
+                             collective_ms=r["tick_ms"]
+                             - r["tick_ms_no_collectives"])
+        log("tp", part="b Llama-3-8B bf16 weights", pool=fmt, tp=2,
+            backend="gloo", graphs=False, card=repr(name), **rows[fmt])
+    peaks = [r["peak_gb"] for r in full["ranks"]]
+    log("tp", part="b", first_logits_rel_l2=rel, tol=TP_LOGIT_REL_L2,
+        first_argmax_equal=argmax_equal, rank_peak_gb=peaks,
+        parent_reserved_gb=parent_gb, init_s=full["init_s"],
+        launch_s=full["launch_s"],
+        rank_launches=[{k: r["launches"][k] for k in PAGED_KERNELS}
+                       for r in full["ranks"]])
+    out["full"] = {"rows": rows, "first_logits_rel_l2": rel,
+                   "first_argmax_equal": argmax_equal, "rank_peak_gb": peaks,
+                   "parent_reserved_gb": parent_gb,
+                   "init_s": full["init_s"], "launch_s": full["launch_s"]}
+    launches = {k: full["launches"][k] + two["launches"][k]
+                for k in PAGED_KERNELS}
+    # (c) NCCL over the cards there are, with graphs
+    out["nccl"] = tp_nccl(torch, name, prompts, single, ref_l)
+    if out["nccl"] is not None:
+        for k in PAGED_KERNELS:
+            launches[k] += out["nccl"]["launches"][k]
+    out["launches"] = launches
+    out["single"] = {k: {x: v[x] for x in ("tokens_per_s", "wall_s",
+                                           "ticks")}
+                     for k, v in single.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("tp", phase_s=round(out["phase_s"], 1), launches=launches)
+    return out
+
+
 def ptxas_instances(text: str) -> list:
     """Each kernel instance of an ``-Xptxas -v`` build log: its name
     (demangled by ``c++filt`` where the machine has it), registers a thread
@@ -6070,6 +6536,13 @@ def main(argv=None) -> int:
     search_shapes = search_shape_checks(
         torch, torch.Generator(device="cuda").manual_seed(SEED + 12))
     results["paged_decode"]["search_shapes"] = search_shapes
+    # kernels 4-6 at the tensor-parallel local shapes (phase 15) draw from
+    # a generator of their own, so every other phase gets the inputs it got
+    tp_shapes = tp_shape_checks(
+        torch, torch.Generator(device="cuda").manual_seed(SEED + 15),
+        slice_rows)
+    for kname, r in tp_shapes.items():
+        results[kname]["tp_shapes"] = r
     for kname, fmt in (("paged_decode", "bf16"), ("paged_decode_q8", "q8"),
                        ("paged_decode_q4", "q4g16")):
         results[kname]["chunk_shape"] = chunk[fmt]
@@ -6241,6 +6714,15 @@ def main(argv=None) -> int:
           f"a kernel of the training families never ran: {train14_launches}")
     only_tc(train14_launches, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
             "the training families")
+    torch.cuda.empty_cache()
+
+    kernels.reset_launches()          # the tensor-parallel path starts here
+    tp = tp_phase(torch, kernels,
+                  torch.Generator(device="cuda").manual_seed(SEED + 16), name)
+    tp_launches = {**dict.fromkeys(kernels.launches, 0), **tp["launches"]}
+    check(all(tp_launches[k] > 0 for k in PAGED_KERNELS),
+          f"a paged kernel never ran on the tensor-parallel path: "
+          f"{tp['launches']}")
 
     routes = {"flash_fwd": ("kubegpu_tpu_torch/csrc/flash_fwd.cu",
                             "kubegpu_tpu/ops/flash_attention.py:200"),
@@ -6260,7 +6742,7 @@ def main(argv=None) -> int:
     paths = (serve_launches, prefix_launches, spec_launches, quant_launches,
              qw_launches, search_launches, train_launches, t5_launches,
              program_launches, lifecycle_launches, pool_launches,
-             load_launches, moe_launches, train14_launches)
+             load_launches, moe_launches, train14_launches, tp_launches)
     # kernels 4-6 at llama_serve.py's bench shape, by their pool format
     program_rows = {k: program["program_shape"][fmt]
                     for k, fmt in zip(PAGED_KERNELS, ("bf16", "q8", "q4g16"))}
@@ -6286,7 +6768,11 @@ def main(argv=None) -> int:
             if k in program_rows else {}),
          **({"vit_shape": {x: r["vit_shape"][x] for x in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "max_abs_err")}} if "vit_shape" in r else {})}
+             "max_abs_err")}} if "vit_shape" in r else {}),
+         **({"tp_shapes": {g: {x: v[x] for x in (
+             "ms", "plain_ms", "bound_ms", "share_of_bound",
+             "max_abs_err")} for g, v in r["tp_shapes"].items()}}
+            if "tp_shapes" in r else {})}
         for k, r in results.items()]}
     for r in line["kernels"]:
         check(all(isinstance(r[k], float) and math.isfinite(r[k])
@@ -6312,6 +6798,7 @@ def main(argv=None) -> int:
                "flash_fwd_training_shape": fwd_train,
                "t5": t5_stats, "program": program, "moe": moe,
                "flash_vit_shape": vit_shape, "train_families": train14,
+               "paged_tp_shapes": tp_shapes, "tensor_parallel": tp,
                "launches": {"serving": serve_launches,
                             "prefix_cache": prefix_launches,
                             "speculative": spec_launches,
@@ -6326,7 +6813,8 @@ def main(argv=None) -> int:
                             "pools": pool_launches,
                             "load_and_fleet": load_launches,
                             "moe_serving": moe_launches,
-                            "train_families": train14_launches},
+                            "train_families": train14_launches,
+                            "tensor_parallel": tp["launches"]},
                "kernels": line["kernels"],
                "total_s": time.perf_counter() - t_start}
     if args.details:

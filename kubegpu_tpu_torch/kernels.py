@@ -209,10 +209,15 @@ class Graph:
     reserved) say what it cost.  A failure raises: nothing falls back to
     an eager run.  Python's collector runs before the capture and not
     during it: a dropped graph that it destroyed under a capture (an
-    engine freed with a reference cycle) would invalidate the capture."""
+    engine freed with a reference cycle) would invalidate the capture.
+    ``capture_error_mode`` is CUDA's: "global" (the default) refuses an
+    unsafe call from any thread during the capture; "thread_local" only
+    from the capturing one, which a function with NCCL collectives needs
+    (the process group's watchdog thread queries its events meanwhile)."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, capture_error_mode: str = "global"):
         self.fn = fn
+        self.capture_error_mode = capture_error_mode
         self.graph = None
         self.stream = None
         self.tally: dict[str, int] = {}
@@ -242,7 +247,8 @@ class Graph:
         gc.disable()
         try:
             with torch.cuda.stream(side):
-                graph.capture_begin()
+                graph.capture_begin(
+                    capture_error_mode=self.capture_error_mode)
                 t0 = time.perf_counter()
                 try:
                     out = self.fn()

@@ -50,6 +50,7 @@ from kubegpu_tpu_torch.models.serve import (  # noqa: F401
     ContinuousBatcher,
     DataParallelServePool,
     DisaggServePool,
+    make_serve_mesh,
 )
 from kubegpu_tpu_torch.models.t5 import (  # noqa: F401
     T5Config,

@@ -48,6 +48,7 @@ from kubegpu_tpu_torch.ops.paged_attention import (
     merge_partials,
     paged_attention,
 )
+from kubegpu_tpu_torch.parallel.collectives import all_gather_last, all_reduce
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int | None = None,
@@ -120,11 +121,18 @@ def _cached_attend_q8(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     return out.reshape(b, hq, t, d).to(q.dtype)
 
 
-def _dense_ffn(x: torch.Tensor, lp: dict, cfg: LlamaConfig) -> torch.Tensor:
-    """The SwiGLU feed-forward sublayer, residual included."""
+def _dense_ffn(x: torch.Tensor, lp: dict, cfg: LlamaConfig,
+               tp_group=None) -> torch.Tensor:
+    """The SwiGLU feed-forward sublayer, residual included.  Under tensor
+    parallelism (``tp_group``) w_gate/w_up hold this rank's d_ff columns
+    and w_down the matching rows, so the down product is a partial sum,
+    all-reduced over the group (the reference's ``lax.psum``)."""
     h = _rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
     up = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
-    return x + (up @ lp["w_down"]).to(x.dtype)
+    down = up @ lp["w_down"]
+    if tp_group is not None:
+        all_reduce(down, tp_group)
+    return x + down.to(x.dtype)
 
 
 def _project_qkv(h: torch.Tensor, lp: dict, cfg: LlamaConfig,
@@ -142,26 +150,43 @@ def _project_qkv(h: torch.Tensor, lp: dict, cfg: LlamaConfig,
 
 
 def _attn_finish(x: torch.Tensor, o: torch.Tensor, lp: dict,
-                 cfg: LlamaConfig, ffn=None) -> torch.Tensor:
+                 cfg: LlamaConfig, ffn=None, tp_group=None) -> torch.Tensor:
     """Attention output [B, H, T, hd] → wo projection + residual +
     feed-forward: ``ffn(x, lp) -> x`` (residual included; the MoE family's
-    routed experts), or the dense SwiGLU when it is None."""
+    routed experts), or the dense SwiGLU when it is None.  Under tensor
+    parallelism (``tp_group``; ``cfg`` is then the rank's LOCAL config)
+    ``o`` holds this rank's heads and ``wo`` their rows, so the projection
+    is a partial sum, all-reduced over the group, and so is the dense
+    SwiGLU's down product."""
     b, t = x.shape[0], x.shape[1]
     o = o.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.head_dim)
-    x = x + (o @ lp["wo"]).to(x.dtype)
-    return _dense_ffn(x, lp, cfg) if ffn is None else ffn(x, lp)
+    proj = o @ lp["wo"]
+    if tp_group is not None:
+        all_reduce(proj, tp_group)
+    x = x + proj.to(x.dtype)
+    return _dense_ffn(x, lp, cfg, tp_group) if ffn is None else ffn(x, lp)
+
+
+def _lm_head(params: dict, h: torch.Tensor, tp_group=None) -> torch.Tensor:
+    """Normed hidden states [..., D] → f32 logits [..., vocab]; under
+    tensor parallelism ``lm_head`` holds this rank's vocabulary shard, and
+    the shards' logits are all-gathered, so every rank picks from the
+    same full row."""
+    logits = (h @ params["lm_head"]).float()
+    return logits if tp_group is None else all_gather_last(logits, tp_group)
 
 
 def _gathered_head(params: dict, x: torch.Tensor, rows: torch.Tensor,
-                   cfg: LlamaConfig) -> torch.Tensor:
+                   cfg: LlamaConfig, tp_group=None) -> torch.Tensor:
     """The LM head at one position a row: hidden states ``x`` [B, T, D]
     → next-token logits [B, vocab] f32 at positions ``rows`` [B].  The
     rows are gathered before the final norm and ``lm_head`` (both act on
     each position alone), so the head never makes the [B, T, vocab]
-    logits the reference computes and indexes."""
+    logits the reference computes and indexes (:func:`_lm_head` under
+    ``tp_group``)."""
     h = x[torch.arange(x.shape[0], device=x.device), rows.long()][:, None]
     h = _rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return (h @ params["lm_head"]).float()[:, 0]
+    return _lm_head(params, h, tp_group)[:, 0]
 
 
 def _write_kv(cache: dict, layer: int, k: torch.Tensor, v: torch.Tensor,
@@ -184,7 +209,8 @@ def _write_kv(cache: dict, layer: int, k: torch.Tensor, v: torch.Tensor,
 def _forward_with_cache(params: dict, tokens: torch.Tensor, cache: dict,
                         pos_offset, cfg: LlamaConfig,
                         last_only: bool = False,
-                        head_rows: torch.Tensor | None = None, ffn=None):
+                        head_rows: torch.Tensor | None = None, ffn=None,
+                        tp_group=None):
     """Run the decoder over ``tokens`` [B, T] starting at global position
     ``pos_offset`` (an int, or a [1] int64 tensor on the device: the form
     a CUDA graph replays), writing K/V into ``cache`` in place, quantized
@@ -194,7 +220,10 @@ def _forward_with_cache(params: dict, tokens: torch.Tensor, cache: dict,
     every-position logits, without them (16.8 GB in f32 at batch 32 ×
     1024 × 128256); with ``head_rows`` [B] on position ``head_rows[b]``
     of row b alone ([B, 1, vocab], :func:`_gathered_head`).  ``ffn``
-    overrides the feed-forward sublayer (:func:`_attn_finish`)."""
+    overrides the feed-forward sublayer (:func:`_attn_finish`).  Under
+    tensor parallelism (``tp_group``) ``cfg`` is the rank's local config,
+    the cache holds its KV heads, and the logits are the full vocabulary
+    on every rank."""
     b, t = tokens.shape
     kv_int8 = "k_scale" in cache
     x = embed_lookup(params["embed"], tokens)
@@ -209,13 +238,14 @@ def _forward_with_cache(params: dict, tokens: torch.Tensor, cache: dict,
                                   lc["v_scale"], q_pos)
         else:
             o = _cached_attend(q, lc["k"], lc["v"], q_pos)
-        x = _attn_finish(x, o, lp, cfg, ffn)
+        x = _attn_finish(x, o, lp, cfg, ffn, tp_group)
     if head_rows is not None:
-        return _gathered_head(params, x, head_rows, cfg)[:, None], cache
+        return (_gathered_head(params, x, head_rows, cfg, tp_group)[:, None],
+                cache)
     if last_only:
         x = x[:, -1:]
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float(), cache
+    return _lm_head(params, x, tp_group), cache
 
 
 def prefill(params: dict, prompt: torch.Tensor, cfg: LlamaConfig,

@@ -37,10 +37,14 @@ class LlamaConfig:
     dtype: str = "bfloat16"
     remat: bool = True        # recompute each layer in the backward
     attn_impl: str = "auto"   # auto | plain (see ops.attention)
+    # the head width, pinned apart from d_model / n_heads: the
+    # tensor-parallel engine's local config divides the head counts by tp
+    # and keeps the physical width
+    head_dim_override: int | None = None
 
     @property
     def head_dim(self) -> int:
-        return self.d_model // self.n_heads
+        return self.head_dim_override or self.d_model // self.n_heads
 
     @classmethod
     def llama3_8b(cls) -> "LlamaConfig":

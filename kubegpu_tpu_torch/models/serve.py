@@ -112,7 +112,7 @@ from __future__ import annotations
 import hashlib
 import time
 from collections import OrderedDict, deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -123,6 +123,7 @@ from kubegpu_tpu_torch.models.decode import (
     _chunk_causal_partials,
     _forward_with_cache,
     _gathered_head,
+    _lm_head,
     _project_qkv,
     _quantize_rows,
     _sample_token,
@@ -138,6 +139,7 @@ from kubegpu_tpu_torch.models.llama import (
     unbind_layers,
 )
 from kubegpu_tpu_torch.models.moe import MoEConfig, _moe_decode_ffn
+from kubegpu_tpu_torch.models.quant import QTensor
 from kubegpu_tpu_torch import kernels, prng
 from kubegpu_tpu_torch.kubemeta.codec import pod_gang_spec
 from kubegpu_tpu_torch.obs.chaos import (
@@ -162,13 +164,14 @@ from kubegpu_tpu_torch.ops.paged_attention import (
     paged_attention,
     scatter_pages,
 )
+from kubegpu_tpu_torch.parallel.collectives import broadcast_float
 
 # Reference knobs this slice does not port: name -> (default, ROADMAP.md
 # queue-1 item that brings it).  The default is accepted; any other value
-# raises.
-_LATER = {
-    "mesh": (None, "multi-device"),
-}
+# raises.  Every knob is ported (``mesh`` since the tensor-parallel
+# engine); what item 9's next part brings (the pools at tp > 1, page-chain
+# migration under a mesh) raises where it is asked for (``_refuse_tp``).
+_LATER: dict = {}
 
 # The same for ``submit``'s keywords: every one is ported.
 _LATER_SUBMIT: dict = {}
@@ -246,14 +249,22 @@ def _step_pick(sample: dict | None, j: int):
 def _paged_row_step(params: dict, tokens: torch.Tensor, pool: dict,
                     pt: torch.Tensor, tvec: torch.Tensor, tpad: torch.Tensor,
                     d0: torch.Tensor, buf: dict, pos: torch.Tensor, j: int,
-                    cfg: LlamaConfig, collect_mass: bool = False, ffn=None):
+                    cfg: LlamaConfig, collect_mass: bool = False, ffn=None,
+                    tp_group=None):
     """One decode step for every slot against the paged pool: flushed
     history via the paged kernel, this block's keys via the write buffer
     (written in place at index ``j``), merged with the flash-decoding
     logsumexp merge.  Returns next-token logits [B, V] f32 and, with
     ``collect_mass``, the per-page attention mass [B, max_pages] averaged
     over layers.  ``ffn`` overrides the feed-forward sublayer (MoE: each
-    slot's one token is a routing group)."""
+    slot's one token is a routing group).
+
+    Under tensor parallelism (``tp_group``) ``cfg`` is the rank's LOCAL
+    config, the pool and buffer hold its KV heads, the paged kernel walks
+    those alone, the row-split projections are all-reduced, and the
+    vocabulary shards of the logits are all-gathered: the returned logits
+    are the full [B, V] on every rank, so every rank picks the same
+    token."""
     x = embed_lookup(params["embed"], tokens)[:, None, :]        # [B,1,D]
     positions = pos[:, None]
     k_scale, v_scale = pool.get("k_scale"), pool.get("v_scale")
@@ -271,9 +282,10 @@ def _paged_row_step(params: dict, tokens: torch.Tensor, pool: dict,
         masses += parts[3:]
         o_b, m_b, l_b = _attend_buffer_partials(q, bk, bv, j)
         o = merge_partials(o_p, m_p, l_p, o_b, m_b, l_b)
-        x = _attn_finish(x, o[:, :, None, :].to(x.dtype), lp, cfg, ffn)
+        x = _attn_finish(x, o[:, :, None, :].to(x.dtype), lp, cfg, ffn,
+                         tp_group)
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ params["lm_head"]).float()[:, 0]
+    logits = _lm_head(params, x, tp_group)[:, 0]
     if collect_mass:
         return logits, torch.stack(masses).mean(dim=0)
     return logits
@@ -334,7 +346,7 @@ def decode_block(params: dict, pool: dict, pt, tvec, tpad,
                  tokens: torch.Tensor, pos: torch.Tensor,
                  active: torch.Tensor, cfg: LlamaConfig, stride: int,
                  collect_mass: bool = False, sample: dict | None = None,
-                 ffn=None):
+                 ffn=None, tp_group=None):
     """``stride`` decode steps for every slot, then the buffer flush.
     ``tokens``/``pos`` advance in place for active rows; the flushed
     decode count is ``pos - tvec`` for active rows and 0 for inactive
@@ -342,7 +354,8 @@ def decode_block(params: dict, pool: dict, pt, tvec, tpad,
     :func:`_step_pick`) under the block's key row j.  Returns (token block
     [stride, B], per-slot non-finite flag) and, with ``collect_mass``, the
     per-page attention mass averaged over the block's steps [B,
-    max_pages], the signal mass eviction reads."""
+    max_pages], the signal mass eviction reads.  ``tp_group``: see
+    :func:`_paged_row_step`."""
     d0 = torch.where(active, pos - tvec, torch.zeros_like(pos)).to(torch.int32)
     n_layers, _, hkv = pool["k"].shape[:3]
     b = tokens.shape[0]
@@ -357,7 +370,7 @@ def decode_block(params: dict, pool: dict, pt, tvec, tpad,
     block = []
     for j in range(stride):
         out = _paged_row_step(params, tokens, pool, pt, tvec, tpad, d0, buf,
-                              pos, j, cfg, collect_mass, ffn)
+                              pos, j, cfg, collect_mass, ffn, tp_group)
         if collect_mass:
             logits, pmass = out
             macc += pmass
@@ -377,7 +390,7 @@ def decode_block(params: dict, pool: dict, pt, tvec, tpad,
 @torch.no_grad()
 def tick_body(params: dict, tables: dict, st: dict, cfg: LlamaConfig,
               stride: int, eos_id: int | None = None,
-              sampler: dict | None = None, ffn=None) -> None:
+              sampler: dict | None = None, ffn=None, tp_group=None) -> None:
     """ONE engine tick: :func:`decode_block` inside the reference's lane
     freeze (its ``_fused_body``), over the engine's ``tables`` (page
     table, lengths, page caps, token budgets, active mask) and state
@@ -395,7 +408,8 @@ def tick_body(params: dict, tables: dict, st: dict, cfg: LlamaConfig,
     ``fold_in(base, 0)``, ``top_k``) keys the tick ``tick + tk`` from the
     device tables, the reference's ``tick0 + tk``, so K fused ticks draw
     what K single ticks draw.  ``ffn`` is the engine's feed-forward
-    override (MoE).  The graph engine captures exactly this."""
+    override (MoE), ``tp_group`` its tensor-parallel group (``cfg`` then
+    the local config).  The graph engine captures exactly this."""
     t, f, out = tables, st["freeze"], st["out"]
     act = (t["active"] != 0) & (f["emitted"] < t["budget"]) & (
         f["dead"] == 0)
@@ -406,7 +420,7 @@ def tick_body(params: dict, tables: dict, st: dict, cfg: LlamaConfig,
                         st["tokens"], st["pos"], act, cfg, stride,
                         collect_mass=st["mass"] is not None,
                         sample=_tick_sample(sampler, t, f, st, stride),
-                        ffn=ffn)
+                        ffn=ffn, tp_group=tp_group)
     block, bad = outs[:2]
     if eos_id is not None:
         f["dead"].logical_or_(act & (block == eos_id).any(dim=0))
@@ -501,7 +515,7 @@ def _write_window(pool: dict, li: int, kv: dict, pt: torch.Tensor,
 def verify_forward(params: dict, chunk: torch.Tensor, pool: dict,
                    pt: torch.Tensor, tvec: torch.Tensor, tpad: torch.Tensor,
                    d0: torch.Tensor, pos: torch.Tensor, cfg: LlamaConfig,
-                   page_size: int) -> torch.Tensor:
+                   page_size: int, tp_group=None) -> torch.Tensor:
     """The full model's verify forward (the reference's ``_verify_fwd``):
     C = γ+1 positions of EVERY slot, ``chunk`` [B, C] at positions
     ``pos[b] + [0, C)``.  Per layer: q/k/v at those positions; the
@@ -513,7 +527,8 @@ def verify_forward(params: dict, chunk: torch.Tensor, pool: dict,
     partials over its own UNQUANTIZED K/V.  Rejected entries need no
     rollback: the next tick's ``d0`` does not cover them, and its verify
     overwrites them.  Returns f32 logits [B, C, vocab] (the head runs on
-    every position)."""
+    every position; under ``tp_group`` the full vocabulary on every rank,
+    as :func:`_paged_row_step`'s)."""
     b, c = chunk.shape
     positions = pos.long()[:, None] + torch.arange(c, device=chunk.device)
     phys0 = tpad + d0
@@ -529,15 +544,16 @@ def verify_forward(params: dict, chunk: torch.Tensor, pool: dict,
         o_c, m_c, l_c = _chunk_causal_partials(q, k, v)
         o = merge_partials(o_p, m_p, l_p, o_c, m_c, l_c)
         o = o.reshape(b, cfg.n_heads, c, cfg.head_dim).to(x.dtype)
-        x = _attn_finish(x, o, lp, cfg)
+        x = _attn_finish(x, o, lp, cfg, None, tp_group)
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float()
+    return _lm_head(params, x, tp_group)
 
 
 @torch.no_grad()
 def spec_block(params: dict, dparams: dict, pool: dict, pt, tvec, tpad,
                tokens: torch.Tensor, pos: torch.Tensor, active: torch.Tensor,
-               gcap: torch.Tensor, cfg: LlamaConfig, gamma: int):
+               gcap: torch.Tensor, cfg: LlamaConfig, gamma: int,
+               tp_group=None):
     """One speculative tick for every slot (the reference's
     ``_spec_tick_body``): the draft ``dparams`` (a :func:`draft_view`)
     proposes γ tokens a slot through :func:`_paged_row_step` -- it reads
@@ -549,7 +565,9 @@ def spec_block(params: dict, dparams: dict, pool: dict, pt, tvec, tpad,
     place for active rows (``pos`` by take + 1).  Returns (emit [B, γ+1]:
     accepted drafts, then the correction, then filler; take and matched
     [B], 0 on inactive rows; the per-slot non-finite flag over every
-    verify position)."""
+    verify position).  Under ``tp_group`` the draft and the verify run on
+    the rank's shards (``dparams`` cut by the same specs) and pick from
+    the full logits."""
     dev = tokens.device
     d0 = torch.where(active, pos - tvec, torch.zeros_like(pos)).to(torch.int32)
     n_draft = next(iter(dparams["layers"].values())).shape[0]
@@ -559,12 +577,13 @@ def spec_block(params: dict, dparams: dict, pool: dict, pt, tvec, tpad,
     tok, drafted = tokens, []
     for i in range(gamma):
         tok = _pick_token(_paged_row_step(dparams, tok, pool, pt, tvec, tpad,
-                                          d0, buf, pos + i, i, cfg))
+                                          d0, buf, pos + i, i, cfg,
+                                          tp_group=tp_group))
         drafted.append(tok)
     drafted = torch.stack(drafted, dim=1)                        # [B, γ]
     chunk = torch.cat([tokens[:, None], drafted], dim=1)
     vlogits = verify_forward(params, chunk, pool, pt, tvec, tpad, d0, pos,
-                             cfg, pool["k"].shape[3])
+                             cfg, pool["k"].shape[3], tp_group)
     bad = ~torch.isfinite(vlogits).flatten(1).all(dim=1)
     full = _pick_token(vlogits)                                  # [B, γ+1]
     matched, take = spec_acceptance(drafted, full, gcap)
@@ -582,7 +601,7 @@ def spec_block(params: dict, dparams: dict, pool: dict, pt, tvec, tpad,
 @torch.no_grad()
 def spec_tick_body(params: dict, dparams: dict, tables: dict, st: dict,
                    cfg: LlamaConfig, gamma: int,
-                   eos_id: int | None = None) -> None:
+                   eos_id: int | None = None, tp_group=None) -> None:
     """ONE speculative engine tick: :func:`spec_block` inside the
     reference's lane freeze (its ``_fused_spec_body``), in the shape of
     :func:`tick_body`.  A lane runs while it is active, owes tokens and is
@@ -601,7 +620,7 @@ def spec_tick_body(params: dict, dparams: dict, tables: dict, st: dict,
     act = act & ~overrun
     emit, take, matched, bad = spec_block(
         params, dparams, st["pool"], t["pt"], t["tvec"], t["tpad"],
-        st["tokens"], st["pos"], act, t["gcap"], cfg, gamma)
+        st["tokens"], st["pos"], act, t["gcap"], cfg, gamma, tp_group)
     if eos_id is not None:
         landed = (torch.arange(gamma + 1, device=emit.device)[None, :]
                   <= take[:, None])
@@ -765,7 +784,7 @@ def _adopt_vectors(slots, firsts, plens, first_toks, tokens, pos, temps,
 def prefill_wave(params: dict, padded_prompts: torch.Tensor,
                  true_lens: torch.Tensor, cfg: LlamaConfig,
                  max_len: int | None = None, sample: dict | None = None,
-                 ffn=None):
+                 ffn=None, tp_group=None):
     """Batch-k prefill of bucket-padded prompts into a dense
     [L, k, Hkv, max_len or bucket, D] panel (the dense engine's rows are
     ``max_len`` wide, the paged engine copies the bucket's pages); returns
@@ -775,7 +794,9 @@ def prefill_wave(params: dict, padded_prompts: torch.Tensor,
     ``top_k``) the first tokens are the reference's per-row pick, the
     whole wave drawn under the one key.  With an ``ffn`` (MoE) each row
     routes whole, pad positions after the prompt included, as in the
-    reference."""
+    reference.  Under ``tp_group`` (``cfg`` the local config) the panel
+    holds the rank's KV heads and the first tokens are picked from the
+    all-gathered logits."""
     k, bucket = padded_prompts.shape
     cache_w = init_kv_cache(cfg, k, max_len or bucket,
                             device=padded_prompts.device)
@@ -783,7 +804,7 @@ def prefill_wave(params: dict, padded_prompts: torch.Tensor,
     # reference keeps of its [k, bucket, vocab] logits
     logits, cache_w = _forward_with_cache(params, padded_prompts, cache_w, 0,
                                           cfg, head_rows=true_lens - 1,
-                                          ffn=ffn)
+                                          ffn=ffn, tp_group=tp_group)
     if sample is None:
         return _pick_token(logits[:, 0]), cache_w
     return _pick_token(logits[:, 0], sample["temps"], sample["key"],
@@ -821,7 +842,7 @@ def adopt_wave(pool: dict, cache_w: dict, page_dst: torch.Tensor,
 def prefill_chunk_logits(params: dict, pool: dict, chunk: torch.Tensor,
                          pt_row: torch.Tensor, s, tlen: torch.Tensor,
                          cfg: LlamaConfig, page_size: int,
-                         ffn=None) -> torch.Tensor:
+                         ffn=None, tp_group=None) -> torch.Tensor:
     """One page-aligned PROMPT CHUNK of one slot, straight into the pool
     (the reference's ``_chunk_body``): chunk tokens [1, C] at global
     positions ``[s, s + C)``, ``s`` a page multiple ([1] int32 on the
@@ -839,7 +860,9 @@ def prefill_chunk_logits(params: dict, pool: dict, chunk: torch.Tensor,
     head runs at row ``clip(tlen - s - 1, 0, C - 1)`` only: returns its
     logits [1, vocab] f32, the request's first-token logits on its final
     chunk (:func:`chunk_body` picks from them).  With an ``ffn`` (MoE) the
-    chunk is one routing group."""
+    chunk is one routing group.  Under ``tp_group`` (``cfg`` the local
+    config) the chunk writes and attends the rank's KV heads and the
+    logits are the full vocabulary."""
     c = chunk.shape[1]
     dev = chunk.device
     n_wide = pt_row.shape[1]
@@ -872,15 +895,15 @@ def prefill_chunk_logits(params: dict, pool: dict, chunk: torch.Tensor,
         o_c, m_c, l_c = _chunk_causal_partials(q, k, v)
         o = merge_partials(o_p, m_p, l_p, o_c, m_c, l_c)
         o = o.reshape(1, cfg.n_heads, c, cfg.head_dim).to(x.dtype)
-        x = _attn_finish(x, o, lp, cfg, ffn)
+        x = _attn_finish(x, o, lp, cfg, ffn, tp_group)
     row = torch.clamp(tlen.long() - svec.long() - 1, 0, c - 1)
-    return _gathered_head(params, x, row, cfg)
+    return _gathered_head(params, x, row, cfg, tp_group)
 
 
 @torch.no_grad()
 def chunk_body(params: dict, pool: dict, inp: dict, out: torch.Tensor,
                cfg: LlamaConfig, page_size: int,
-               sampler: dict | None = None, ffn=None) -> None:
+               sampler: dict | None = None, ffn=None, tp_group=None) -> None:
     """ONE chunk step over the engine's static chunk input ``inp`` (views
     of one int32 buffer: ``tokens`` [1, C], ``s``, ``tlen``, ``rid`` [1],
     ``temp`` [1] (its f32 view), ``pt`` [1, max_pages]) into ``pool``, the
@@ -891,7 +914,7 @@ def chunk_body(params: dict, pool: dict, inp: dict, out: torch.Tensor,
     this."""
     logits = prefill_chunk_logits(
         params, pool, inp["tokens"].long(), inp["pt"], inp["s"], inp["tlen"],
-        cfg, page_size, ffn)
+        cfg, page_size, ffn, tp_group)
     if sampler is None:
         out.copy_(_pick_token(logits))
         return
@@ -915,16 +938,41 @@ def activate_slot(first_toks: torch.Tensor, tokens: torch.Tensor,
         temps[slot:slot + 1].fill_(temp)
 
 
-def _captured(fn, eager_s: float):
-    """(``fn`` captured as a :class:`kernels.Graph`, its stats: ``eager_s``,
-    the eager run before the capture, which loaded the libraries and sized
-    the kernels' scratch; the capture's and the instantiation's seconds;
-    the bytes the graph reserved; its tally of launches)."""
+def _captured(fn, eager_s: float, mode: str = "global"):
+    """(``fn`` captured as a :class:`kernels.Graph` in capture error mode
+    ``mode``, its stats: ``eager_s``, the eager run before the capture,
+    which loaded the libraries and sized the kernels' scratch; the
+    capture's and the instantiation's seconds; the bytes the graph
+    reserved; its tally of launches)."""
     graph = kernels.Graph(fn)
+    graph.capture_error_mode = mode
     graph.capture()
     return graph, {"eager_s": eager_s, "capture_s": graph.capture_s,
                    "instantiate_s": graph.instantiate_s,
                    "pool_bytes": graph.pool_bytes, "tally": dict(graph.tally)}
+
+
+def make_serve_mesh(tp: int, device_type: str | None = None):
+    """A 1-axis ``("tp",)`` :class:`~torch.distributed.device_mesh.
+    DeviceMesh` over this process's group of ``tp`` ranks: the port's
+    counterpart of the reference's ``make_serve_mesh`` over tp devices.
+    Every rank calls it after ``init_process_group``
+    (:func:`kubegpu_tpu_torch.parallel.launch` starts the ranks and the
+    group) and hands it to its ``ContinuousBatcher(mesh=...)``.  dp
+    scale-out does not live on this mesh: dp replicas are independent
+    engines.  ``device_type`` defaults to "cuda" where a card is
+    visible, else "cpu"."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized():
+        raise RuntimeError("make_serve_mesh needs an initialized process "
+                           "group (kubegpu_tpu_torch.parallel.launch)")
+    n = dist.get_world_size()
+    if n != tp:
+        raise ValueError(f"need {tp} ranks for tp={tp}, got {n}")
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    return init_device_mesh(device_type, (tp,), mesh_dim_names=("tp",))
 
 
 class _AdmissionQueue(deque):
@@ -1218,7 +1266,7 @@ class ContinuousBatcher:
                  max_retries: int = 2, tenant_quotas: dict | None = None,
                  metrics=None, donate: bool = True,
                  collect_overlap: bool = False, graphs: bool = True,
-                 device="cuda", **later):
+                 device="cuda", mesh=None, **later):
         _refuse_later(_LATER, later)
         # a MoEConfig serves through this engine: its Llama backbone sizes
         # attention and the pool, its routed experts ride the ffn hook
@@ -1237,6 +1285,9 @@ class ContinuousBatcher:
                              f"engine device is {self.device}")
         self.params = params
         self.cfg = cfg
+        # the config the device bodies run: the whole model's, or under a
+        # mesh the rank's local one (set with the mesh below)
+        self._lcfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len or cfg.max_seq_len
         self.stride = stride
@@ -1300,6 +1351,44 @@ class ContinuousBatcher:
                 "fused_ticks > 1 requires paged=True — the fused block "
                 "advances page-pool state on device; the dense slot cache "
                 "has no multi-tick story")
+        # -- tensor-parallel serving: ``mesh`` is a ("tp",) DeviceMesh
+        # (make_serve_mesh) over this process's group; the pool and the
+        # paged kernels shard over KV heads, the host state stays
+        # replicated.  Validated here, so a bad degree fails at
+        # construction.
+        self.mesh = mesh
+        self.tp, self.tp_rank, self._tp_group = 1, 0, None
+        # an NCCL group's watchdog thread queries events while the tick is
+        # captured: its graphs take CUDA's thread-local capture mode
+        self._capture_mode = "global"
+        if mesh is not None:
+            if not paged:
+                raise ValueError(
+                    "mesh (tensor-parallel) serving requires paged=True — "
+                    "the sharded engine is the page-pool engine; the dense "
+                    "slot cache has no mesh story")
+            if self._ffn is not None:
+                raise ValueError(
+                    "tensor-parallel serving supports the dense Llama "
+                    "family only; MoE scales out on dp replicas "
+                    "(DataParallelServePool)")
+            names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+            if names != ("tp",):
+                raise ValueError(
+                    f"serving mesh must have exactly the ('tp',) axis, got "
+                    f"{names} — dp replicas are separate engines "
+                    "(DataParallelServePool)")
+            self.tp = int(mesh.size())
+            for name, val in (("n_kv_heads", cfg.n_kv_heads),
+                              ("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff),
+                              ("vocab_size", cfg.vocab_size)):
+                if val % self.tp:
+                    raise ValueError(
+                        f"tp={self.tp} must divide cfg.{name}={val} (KV "
+                        "heads shard the pool; q heads/d_ff/vocab shard "
+                        "the weights)")
+            self._tp_group = mesh.get_group("tp")
+            self.tp_rank = int(mesh.get_local_rank("tp"))
         if kv_int8 and not paged:
             raise ValueError(
                 "kv_int8=True requires paged=True (the dense engine's int8 "
@@ -1348,6 +1437,10 @@ class ContinuousBatcher:
                                  "('window', 'mass')")
             if not paged:
                 raise ValueError("evict_policy requires paged=True")
+            if mesh is not None:
+                raise ValueError(
+                    "evict_policy requires mesh=None (the mass signal is a "
+                    "chip-local head-shard statistic)")
             if self.spec_gamma or self.fused_ticks > 1:
                 raise ValueError(
                     "evict_policy rides the plain K=1 decode path "
@@ -1385,6 +1478,9 @@ class ContinuousBatcher:
             self.total_pages = (total_pages if total_pages is not None
                                 else n_slots * self.max_pages)
         self.debug_invariants = bool(debug_invariants)
+        self.graphs = bool(graphs)
+        if mesh is not None:
+            self._shard_for_mesh(mesh)
         # the live state the ticks write in place (``_live``); with
         # donate=False the public ``pool``/``cache`` are rebound to copies
         # of it at every dispatch (:meth:`_rebind_public`)
@@ -1393,7 +1489,8 @@ class ContinuousBatcher:
                       init_kv_cache(cfg, n_slots, self.max_len,
                                     device=self.device))
         # the draft: a view of the first draft_layers layers, made once
-        self._draft_params = (draft_view(params, self.draft_layers)
+        # (under a mesh, of this rank's shards: a view cut by the same specs)
+        self._draft_params = (draft_view(self.params, self.draft_layers)
                               if self.spec_gamma else None)
         self._free_pages = list(range(1, self.total_pages + 1))
         # every allocated page -> the slots whose table holds it; a page
@@ -1468,7 +1565,6 @@ class ContinuousBatcher:
                       "spec_out": (self._spec_slab_views(self._slab)
                                    if self.spec_gamma else None),
                       "mass": self._mass_out}
-        self.graphs = bool(graphs)
         # the tick graphs by kind ("spec", "plain") and their stats
         self._graphs: dict[str, kernels.Graph] = {}
         self._graph_stats: dict[str, dict] = {}
@@ -1611,12 +1707,90 @@ class ContinuousBatcher:
         if tracer is not None:
             with tracer.span("engine.start", parent=trace_ctx,
                              attrs={"n_slots": n_slots, "paged": paged,
-                                    "tp": 1,
+                                    "tp": self.tp,
                                     "spec_gamma": self.spec_gamma}) as sp:
                 self._engine_anchor = sp.context
         self._req_spans: dict[int, object] = {}   # rid -> open Span
         self._submit_ts: dict[int, float] = {}    # rid -> submit wall
         self._first_tok_ts: dict[int, float] = {}  # rid -> TTFT wall
+
+    def _shard_for_mesh(self, mesh) -> None:
+        """Lay the engine out over its ("tp",) mesh ONCE, at construction
+        (the reference's ``device_put_tree``): this rank's weight shards cut
+        Megatron-style (:func:`serve_param_specs`; int8 weights' scales
+        with their values on a column split), and the local config the
+        device bodies run (the head counts and d_ff divided by tp, the
+        physical head width kept).  The pool is made at its local shape,
+        ``Hkv / tp`` heads (:meth:`_empty_pool`).  A gloo group moves CUDA
+        tensors through the host, which no CUDA graph can capture, so on
+        the card it needs ``graphs=False``."""
+        import torch.distributed as dist
+
+        # (kubegpu_tpu_torch.parallel imports the models package)
+        from kubegpu_tpu_torch.parallel.sharding import (
+            serve_param_specs,
+            shard_tree,
+        )
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"mesh devices are {mesh.device_type!r}, the "
+                             f"engine's {self.device.type!r}")
+        backend = dist.get_backend(self._tp_group)
+        if self.graphs and self.device.type == "cuda" and backend != "nccl":
+            raise ValueError(
+                f"graphs=True needs an NCCL tp group: {backend} moves CUDA "
+                "tensors through the host and cannot be captured in a CUDA "
+                "graph; build this engine with graphs=False")
+        self._capture_mode = ("thread_local" if backend == "nccl"
+                              else "global")
+        cfg, tp = self.cfg, self.tp
+        self._lcfg = replace(cfg, n_heads=cfg.n_heads // tp,
+                             n_kv_heads=cfg.n_kv_heads // tp,
+                             d_ff=cfg.d_ff // tp,
+                             head_dim_override=cfg.head_dim)
+        quant = isinstance(self.params["layers"]["wq"], QTensor)
+        self.params = shard_tree(self.params, serve_param_specs(quant),
+                                 self.tp_rank, tp)
+
+    def _refuse_tp(self, what: str) -> None:
+        """Under a mesh, what item 9's next part brings raises."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} under a mesh is not ported yet (ROADMAP.md queue "
+                "1, item 9: page-chain migration under a mesh)")
+
+    def _clock(self) -> float:
+        """The wall clock a host decision reads (a ``deadline_s``): this
+        process's, or under a mesh rank 0's, broadcast, so every rank
+        takes the same decision and the replicated host state never
+        parts."""
+        now = time.monotonic()
+        if self._tp_group is None:
+            return now
+        return broadcast_float(now, self._tp_group)
+
+    def host_digest(self) -> str:
+        """A sha256 of the engine's host state: page tables, lengths and
+        caps, the free list, page refcounts, the prefix registry, slot
+        occupancy, the queue and the counters.  Under a mesh every rank
+        runs the same host code on the same submits and picks from the same
+        all-gathered logits, so every rank must hold the same digest."""
+        h = hashlib.sha256()
+        for a in (self._pt, self._tvec, self._tpad, self._cap, self.active,
+                  self._gcap):
+            h.update(np.ascontiguousarray(a).tobytes())
+        state = (self._free_pages, sorted(self._page_refs.items()),
+                 list(self._prefix_cache.values()),
+                 sorted((s, r.rid) for s, r in self.slot_req.items()),
+                 [r.rid for r, _ in self.queue], sorted(self._prefilling),
+                 self._tick, self._step_count, self._next_rid,
+                 self.emitted_tokens, self.prefill_tokens, self.prefix_hits,
+                 self.pages_aliased, self.chunks_run, self.prefill_waves,
+                 self.slot_steps, self.requests_shed, self.deadline_misses,
+                 self.spec_ticks, self.spec_drafts_proposed,
+                 self.spec_drafts_accepted, self.fused_dispatches,
+                 self.fused_ticks_run)
+        h.update(repr(state).encode())
+        return h.hexdigest()
 
     # -- the tick's static buffers ---------------------------------------
 
@@ -1689,8 +1863,10 @@ class ContinuousBatcher:
         """A pool of ``total_pages + 1`` pages in this engine's format,
         every page empty: zeros in the model dtype, int8 zeros with scales
         1, or packed int4 :data:`Q4_ZERO_BYTE` with scales 1; each
-        dequantizes to exact zero."""
-        cfg, dev = self.cfg, self.device
+        dequantizes to exact zero.  Under a mesh the pool holds this rank's
+        ``Hkv / tp`` heads (dim 2, :func:`~kubegpu_tpu_torch.parallel.
+        sharding.pool_specs`)."""
+        cfg, dev = self._lcfg, self.device
         shape = (cfg.n_layers, self.total_pages + 1, cfg.n_kv_heads,
                  self.page_size, cfg.head_dim)
         if self.kv_bits == 16:
@@ -1743,6 +1919,8 @@ class ContinuousBatcher:
             raise ValueError(
                 "migrate_out needs the paged pool (page chains are "
                 "the migration transfer unit)")
+        if migrate_out:
+            self._refuse_tp("migrate_out")
         if temperature < 0:
             raise ValueError(
                 f"temperature must be >= 0, got {temperature}")
@@ -1777,7 +1955,7 @@ class ContinuousBatcher:
                        max_new_tokens=max_new_tokens,
                        temperature=float(temperature), prompt=prompt_np,
                        admit_len=t, tier=int(tier), tenant=str(tenant),
-                       deadline=(time.monotonic() + deadline_s
+                       deadline=(self._clock() + deadline_s
                                  if deadline_s is not None else None),
                        deadline_tick=(self._step_count + deadline_ticks
                                       if deadline_ticks is not None
@@ -2193,19 +2371,20 @@ class ContinuousBatcher:
 
     def _chunk_on(self, pool: dict) -> None:
         chunk_body(self.params, pool, self._chunk_views, self._chunk_tok,
-                   self.cfg, self.page_size, self._sampler, self._ffn)
+                   self._lcfg, self.page_size, self._sampler, self._ffn,
+                   self._tp_group)
 
     def _capture_chunk(self, eager_s: float) -> None:
         """Capture the chunk step over the live pool (nothing runs)."""
         # as in _capture: the graph's function must not refer to the engine
-        params, pool, views, out, cfg, page, sampler, ffn = (
+        params, pool, views, out, cfg, page, sampler, ffn, group = (
             self.params, self._live["pool"], self._chunk_views,
-            self._chunk_tok,
-            self.cfg, self.page_size, self._sampler, self._ffn)
+            self._chunk_tok, self._lcfg, self.page_size, self._sampler,
+            self._ffn, self._tp_group)
         self._chunk_graph, self.chunk_graph_stats = _captured(
             lambda: chunk_body(params, pool, views, out, cfg, page, sampler,
-                               ffn),
-            eager_s)
+                               ffn, group),
+            eager_s, self._capture_mode)
 
     def warmup(self) -> None:
         """Run every shape this engine can hit -- each power-of-two wave
@@ -2278,9 +2457,9 @@ class ContinuousBatcher:
         if self._sampler is not None:
             sample = {"temps": temps_w, "top_k": self.top_k,
                       "key": prng.fold_in(self._sampler["key1"], rid0)}
-        return prefill_wave(self.params, padded, true_lens, self.cfg,
+        return prefill_wave(self.params, padded, true_lens, self._lcfg,
                             None if self.paged else self.max_len, sample,
-                            self._ffn)
+                            self._ffn, self._tp_group)
 
     def _adopt(self, st: dict, cache_w: dict, page_dst, slots, firsts,
                lens, temps_w) -> None:
@@ -2332,18 +2511,18 @@ class ContinuousBatcher:
         on.  It refers to what the tick reads, not to the engine: a graph
         holding it would otherwise keep the engine (and its parameters)
         alive past its last reference."""
-        params, tv, cfg, stride, eos, sampler, ffn = (
-            self.params, self._tv, self.cfg, self.stride, self.eos_id,
-            self._sampler, self._ffn)
+        params, tv, cfg, stride, eos, sampler, ffn, group = (
+            self.params, self._tv, self._lcfg, self.stride, self.eos_id,
+            self._sampler, self._ffn, self._tp_group)
         if kind == "spec":
             dparams, gamma = self._draft_params, self.spec_gamma
             return lambda st: spec_tick_body(params, dparams, tv, st, cfg,
-                                             gamma, eos)
+                                             gamma, eos, group)
         if not self.paged:
             return lambda st: dense_tick_body(params, tv, st, cfg, stride,
                                               sampler, ffn)
         return lambda st: tick_body(params, tv, st, cfg, stride, eos,
-                                    sampler, ffn)
+                                    sampler, ffn, group)
 
     def _capture(self, kind: str, eager_s: float) -> None:
         """Capture the tick body of ``kind`` over the live state (nothing
@@ -2352,7 +2531,7 @@ class ContinuousBatcher:
         scratch."""
         fn, live = self._tick_fn(kind), self._live
         self._graphs[kind], self._graph_stats[kind] = _captured(
-            lambda: fn(live), eager_s)
+            lambda: fn(live), eager_s, self._capture_mode)
 
     @property
     def _graph(self) -> kernels.Graph | None:
@@ -2755,7 +2934,7 @@ class ContinuousBatcher:
         if not any(r.deadline is not None or r.deadline_tick is not None
                    for r in reqs):
             return
-        now = time.monotonic()
+        now = self._clock()
 
         def expired(r: _Request) -> bool:
             return ((r.deadline is not None and now > r.deadline)
@@ -2897,6 +3076,9 @@ class ContinuousBatcher:
         if self.tick_deadline_s is None or self.dead is not None:
             return
         dt = time.perf_counter() - t0
+        if self._tp_group is not None:
+            # rank 0's wall decides for every rank
+            dt = broadcast_float(dt, self._tp_group)
         if dt > self.tick_deadline_s:
             self._orphans.extend(finished)
             self.dead = (f"watchdog: tick {self._tick - 1} took "
@@ -3312,9 +3494,11 @@ class ContinuousBatcher:
         Raises ``ValueError`` for a dense engine, a budget below 2, a
         sampled request on a greedy engine, another page size, a digest
         mismatch, or a request that exceeds ``max_len`` or the pool, and
-        :class:`ReplicaDeadError` on a dead engine."""
+        :class:`ReplicaDeadError` on a dead engine.  Under a mesh it raises
+        ``NotImplementedError`` (ROADMAP.md item 9's next part)."""
         if not self.paged:
             raise ValueError("import_chain needs the paged pool")
+        self._refuse_tp("import_chain")
         if self.dead is not None:
             raise ReplicaDeadError(f"replica dead: {self.dead}")
         if max_new_tokens < 2:
@@ -3639,7 +3823,8 @@ class DataParallelServePool:
     each replica's engine serves the MoE family (it scales out on dp
     replicas; page chains hold attention K/V only, so migration is the
     same).  ``tp > 1`` (a replica over several devices) raises
-    ``NotImplementedError``: ROADMAP.md queue 1 item 9 (multi-device)."""
+    ``NotImplementedError``: the pools at tp > 1 are the next part of
+    ROADMAP.md queue 1 item 9 (multi-device)."""
 
     def __init__(self, params: dict, cfg: LlamaConfig | MoEConfig,
                  dp: int = 1,
@@ -3648,8 +3833,10 @@ class DataParallelServePool:
                  trace_ctx=None, routing: str = "affinity", **engine_kw):
         if tp != 1:
             raise NotImplementedError(
-                f"tp={tp} is not ported yet (ROADMAP.md queue 1 item 9: "
-                "multi-device); a replica runs on one device")
+                f"tp={tp} is not ported yet (ROADMAP.md queue 1 item 9, "
+                "multi-device: the pools at tp > 1 are its next part); a "
+                "replica runs on one device, and one tensor-parallel "
+                "engine is ContinuousBatcher(mesh=make_serve_mesh(tp))")
         if devices is None:
             devices = [torch.device("cuda", i)
                        for i in range(torch.cuda.device_count())][:dp * tp]

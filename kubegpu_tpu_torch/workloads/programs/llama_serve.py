@@ -56,11 +56,14 @@ Env knobs:
                  on the prefix cache / chunked prefill
   SERVE_TP, SERVE_DP  continuous+paged: tensor / data parallel serving.
                  An ask the visible devices cannot satisfy degrades to the
-                 one-device engine (loudly under strict mode); a dp ask
-                 they can satisfy at tp 1 serves through a
-                 DataParallelServePool (dp replicas, one a card), and a
-                 tp ask raises NotImplementedError, as the port's
-                 multi-device engine is not written yet
+                 one-device engine (loudly under strict mode).  A tp ask
+                 they can satisfy (SERVE_DP=1) spawns SERVE_TP ranks, one
+                 a card over NCCL (gloo ranks on the CPU), each serving
+                 its shard of one tensor-parallel engine; rank 0 prints
+                 the lines.  A dp ask at tp 1 serves through a
+                 DataParallelServePool (dp replicas, one a card); dp and
+                 tp together raise NotImplementedError (the pools at
+                 tp > 1: ROADMAP.md queue 1, item 9)
   SERVE_TRACE    "1" traces the engine (so does a KUBETPU_TRACE_CONTEXT
                  token); SERVE_TRACE_OUT writes the Chrome trace there
 
@@ -105,11 +108,8 @@ def main(device="cuda") -> int:
     env = init_from_env()
     import torch
 
-    from kubegpu_tpu_torch.models import (
-        LlamaConfig, greedy_generate, llama_init,
-    )
+    from kubegpu_tpu_torch.models import LlamaConfig, greedy_generate
     from kubegpu_tpu_torch.models.decode import prefill
-    from kubegpu_tpu_torch.models.quant import quantize_llama
 
     device = program_device(device, "llama_serve")
     mode = os.environ.get("SERVE_CONFIG", "auto")
@@ -130,12 +130,11 @@ def main(device="cuda") -> int:
         int8 = os.environ.get("SERVE_INT8", "0") == "1"
         cfg = LlamaConfig.tiny(n_heads=4, n_kv_heads=4, dtype="float32",
                                max_seq_len=prompt_t + steps)
-    params = llama_init(cfg, seed=0, device=device)
-    if int8:
-        params = quantize_llama(params)
     if os.environ.get("SERVE_MODE", "static") == "continuous":
-        return _serve_continuous(env, cfg, params, batch, prompt_t, steps,
+        # the engine's process (or each tp rank) makes the weights
+        return _serve_continuous(env, cfg, None, batch, prompt_t, steps,
                                  int8, device=device)
+    params = _model_params(cfg, int8, device)
     max_len = prompt_t + steps
     prompt = (torch.arange(batch * prompt_t, device=device).reshape(
         batch, prompt_t) % cfg.vocab_size)
@@ -206,22 +205,32 @@ def main(device="cuda") -> int:
     return 0
 
 
+def _model_params(cfg, int8: bool, device):
+    """The program's weights: ``llama_init`` from seed 0, int8 when
+    asked (every process that serves makes the same tree)."""
+    from kubegpu_tpu_torch.models import llama_init
+    from kubegpu_tpu_torch.models.quant import quantize_llama
+    params = llama_init(cfg, seed=0, device=device)
+    return quantize_llama(params) if int8 else params
+
+
 def _serve_continuous(env, cfg, params, n_slots, prompt_t, steps, int8,
-                      device="cuda") -> int:
+                      device="cuda", record: dict | None = None) -> int:
     """Arrival-driven serving as a schedulable workload: saturate a
     ContinuousBatcher with SERVE_REQS requests and report steady-state
-    engine throughput + occupancy as harvestable metric lines."""
-    import numpy as np
+    engine throughput + occupancy as harvestable metric lines.
+    ``params`` None makes the program's weights (:func:`_model_params`)
+    where the engine runs: here, or in each tensor-parallel rank.  A
+    ``record`` dict receives each request's tokens (submit order) and
+    the metric lines."""
     import torch
 
-    from kubegpu_tpu_torch.models.serve import ContinuousBatcher
     from kubegpu_tpu_torch.ops.strict import fallback
 
     device = torch.device(device)
     stride = max(4, min(16, steps))
     n_reqs = int(os.environ.get("SERVE_REQS", str(3 * n_slots)))
     max_len = prompt_t + steps + stride + 8
-    base = np.arange(prompt_t) % cfg.vocab_size
     # the paged pool serves by default; the dense engine serves instead
     # when the prompt bucket does not align to a page (tiny configs)
     page_size = 128
@@ -291,9 +300,9 @@ def _serve_continuous(env, cfg, params, n_slots, prompt_t, steps, int8,
         evict_policy = evict_param = None
     # mesh serving (SERVE_TP / SERVE_DP): an ask the allocation or the
     # head geometry cannot satisfy degrades to the one-device engine
-    # (loudly under strict mode); a dp ask it can satisfy at tp = 1 runs
-    # dp replicas behind one queue, and a tp ask needs the multi-device
-    # engine, which is not ported yet
+    # (loudly under strict mode); a tp ask it can satisfy runs tp ranks
+    # of one sharded engine, a dp ask at tp = 1 dp replicas behind one
+    # queue (both at once: the pools at tp > 1 are not ported yet)
     n_dev = _device_count(device)
     tp = int(os.environ.get("SERVE_TP", "1"))
     dp = int(os.environ.get("SERVE_DP", "1"))
@@ -308,6 +317,86 @@ def _serve_continuous(env, cfg, params, n_slots, prompt_t, steps, int8,
                      "; ".join(bad) + " — single-chip engine would "
                      "serve instead of the mesh-sharded one")
             tp = dp = 1
+    plan = dict(n_slots=n_slots, prompt_t=prompt_t, steps=steps,
+                n_reqs=n_reqs, stride=stride, paged=paged, tp=tp, dp=dp,
+                n_dev=n_dev, int8=int8, kv_int8=kv_int8,
+                prefix_cache=prefix_cache, chunked=chunked,
+                spec_gamma=spec_gamma, fused_k=fused_k,
+                eng_kw=dict(n_slots=n_slots, max_len=max_len, stride=stride,
+                            prompt_buckets=(prompt_t,), paged=paged,
+                            page_size=page_size, kv_int8=kv_int8,
+                            kv_bits=kv_bits, evict_policy=evict_policy,
+                            evict_param=evict_param,
+                            prefix_cache=prefix_cache,
+                            chunked_prefill=chunked, spec_gamma=spec_gamma,
+                            draft_layers=draft_layers, fused_ticks=fused_k))
+    if paged and tp > 1 and dp == 1:
+        # one rank a card over NCCL (gloo ranks on the CPU), each making
+        # its weights and serving its shard; rank 0 reports
+        from kubegpu_tpu_torch.parallel import launch
+        from kubegpu_tpu_torch.models.serve import _params_on
+        if device.type == "cuda":
+            # the paged kernels once, here: the ranks then only load them
+            from kubegpu_tpu_torch import kernels
+            kernels.build(["paged_decode", "paged_decode_q8",
+                           "paged_decode_q4"])
+        host = None if params is None else _params_on(params,
+                                                      torch.device("cpu"))
+        ok, lines, tokens = launch(
+            _tp_rank, tp, cfg, host, plan,
+            backend="nccl" if device.type == "cuda" else "gloo",
+            device=device.type)
+    else:
+        if params is None:
+            params = _model_params(cfg, int8, device)
+        if not (paged and dp > 1):
+            plan["tp"] = plan["dp"] = 1
+        ok, lines, tokens = _serve(cfg, params, plan, device)
+    if record is not None:
+        record.update(tokens=tokens, lines=lines)
+    if env.worker_id == 0:
+        for line in lines:
+            print(line)
+    if not ok:
+        print("FAIL: continuous engine dropped or corrupted requests",
+              file=sys.stderr)
+        return 3
+    return 0
+
+
+def _tp_rank(cfg, params, plan: dict):
+    """One tensor-parallel rank of :func:`_serve_continuous`: the weights
+    (the caller's, or made here on this rank's card), a ("tp",) mesh over
+    the launch's group, and :func:`_serve` on it; rank 0's result is the
+    run's."""
+    import torch
+    import torch.distributed as dist
+
+    from kubegpu_tpu_torch.models.serve import _params_on, make_serve_mesh
+    on_card = dist.get_backend() == "nccl"
+    device = (torch.device("cuda", torch.cuda.current_device()) if on_card
+              else torch.device("cpu"))
+    params = (_model_params(cfg, plan["int8"], device) if params is None
+              else _params_on(params, device))
+    mesh = make_serve_mesh(plan["tp"], device.type)
+    return _serve(cfg, params, plan, device, mesh=mesh,
+                  rank0=dist.get_rank() == 0)
+
+
+def _serve(cfg, params, plan: dict, device, mesh=None, rank0: bool = True):
+    """Build the planned engine (a tensor-parallel rank's under ``mesh``,
+    the dp pool, or one engine), warm it up, run SERVE_REQS requests
+    through it and return (ok, the metric lines, each request's tokens).
+    Only ``rank0`` writes the Chrome trace."""
+    import numpy as np
+
+    from kubegpu_tpu_torch.models.serve import ContinuousBatcher
+
+    n_slots, prompt_t, steps = (plan["n_slots"], plan["prompt_t"],
+                                plan["steps"])
+    n_reqs, stride, tp, dp = (plan["n_reqs"], plan["stride"], plan["tp"],
+                              plan["dp"])
+    base = np.arange(prompt_t) % cfg.vocab_size
     # end-to-end request tracing: the crishim injects
     # KUBETPU_TRACE_CONTEXT into the pod's env; decoding it parents every
     # engine span under the scheduler's bind span.  No token (or
@@ -316,21 +405,14 @@ def _serve_continuous(env, cfg, params, n_slots, prompt_t, steps, int8,
     trace_ctx = SpanContext.decode(os.environ.get(TRACE_ENV))
     tracer = (Tracer() if trace_ctx is not None
               or os.environ.get("SERVE_TRACE") == "1" else None)
-    eng_kw = dict(n_slots=n_slots, max_len=max_len, stride=stride,
-                  prompt_buckets=(prompt_t,), paged=paged,
-                  page_size=page_size, kv_int8=kv_int8,
-                  kv_bits=kv_bits,
-                  evict_policy=evict_policy, evict_param=evict_param,
-                  prefix_cache=prefix_cache, chunked_prefill=chunked,
-                  spec_gamma=spec_gamma, draft_layers=draft_layers,
-                  fused_ticks=fused_k,
-                  tracer=tracer, trace_ctx=trace_ctx)
-    if paged and tp > 1:
-        raise NotImplementedError(
-            f"SERVE_TP={tp} / SERVE_DP={dp} on {n_dev} devices needs the "
-            "multi-device engine, which is not ported yet (ROADMAP.md "
-            "queue 1: multi-device)")
-    if paged and dp > 1:
+    eng_kw = dict(plan["eng_kw"], tracer=tracer, trace_ctx=trace_ctx)
+    if mesh is not None:
+        # a gloo group cannot be captured in a CUDA graph
+        import torch.distributed as dist
+        graphs = dist.get_backend(mesh.get_group("tp")) == "nccl"
+        eng = ContinuousBatcher(params, cfg, device=device, mesh=mesh,
+                                graphs=graphs, **eng_kw)
+    elif plan["paged"] and dp > 1:
         from kubegpu_tpu_torch.models.serve import DataParallelServePool
         # the first dp cards, or dp replicas on the caller's CPU
         eng = DataParallelServePool(
@@ -338,7 +420,6 @@ def _serve_continuous(env, cfg, params, n_slots, prompt_t, steps, int8,
             devices=None if device.type == "cuda" else [device] * dp,
             **eng_kw)
     else:
-        tp = dp = 1
         eng = ContinuousBatcher(params, cfg, device=device, **eng_kw)
     # every wave size, the chunk step and the tick run (and, on the card,
     # are captured) OUTSIDE the timed window; warmup() leaves the engine's
@@ -347,125 +428,123 @@ def _serve_continuous(env, cfg, params, n_slots, prompt_t, steps, int8,
     eng.warmup()
     warmup_s = time.perf_counter() - t_w0
     t0 = time.perf_counter()
+    rids = []
     for i in range(n_reqs):
         # arrays, not python lists: converting a long list costs ~ms per
         # submit and lands inside the measured window
-        eng.submit((base + i) % cfg.vocab_size, steps)
+        rids.append(eng.submit((base + i) % cfg.vocab_size, steps))
     done = eng.drain()
     elapsed = time.perf_counter() - t0
     total = sum(len(r.tokens) for r in done)
     ok = len(done) == n_reqs and all(
         0 <= t < cfg.vocab_size for r in done for t in r.tokens)
-    if env.worker_id == 0:
-        common = {
-            "unit": "tokens/s", "mode": "continuous",
-            "slots": n_slots, "prompt": prompt_t, "steps": steps,
-            "requests": n_reqs, "int8": int8,
-            "devices": n_dev,
-        }
-        print(json.dumps({
-            "metric": "serve_engine_tokens_per_s",
-            "value": round(total / elapsed, 1), **common,
-        }))
-        print(json.dumps({
-            "metric": "serve_engine_occupancy",
-            "value": round(eng.occupancy, 4), "unit": "fraction",
-        }))
-        # config echo + phase timings: everything needed to rebuild this
-        # engine, as harvestable numerics
-        from kubegpu_tpu_torch.obs.metrics import percentiles
-        stall = percentiles(eng.stall_ms)
-        for name, value in (
-                ("serve_engine_cfg_slots", n_slots),
-                ("serve_engine_cfg_prompt", prompt_t),
-                ("serve_engine_cfg_steps", steps),
-                ("serve_engine_cfg_stride", stride),
-                ("serve_engine_cfg_requests", n_reqs),
-                ("serve_engine_cfg_paged", int(paged)),
-                ("serve_engine_cfg_tp", tp),
-                ("serve_engine_cfg_dp", dp),
-                ("serve_engine_cfg_mesh_devices", tp * dp),
-                ("serve_engine_cfg_kv_int8", int(kv_int8)),
-                ("serve_engine_cfg_int8_weights", int(int8)),
-                ("serve_engine_cfg_prefix_cache", int(prefix_cache)),
-                ("serve_engine_cfg_chunked_prefill", int(chunked)),
-                ("serve_engine_cfg_spec_gamma", spec_gamma),
-                ("serve_engine_cfg_fused_k", fused_k),
-                ("serve_fused_dispatches",
-                 eng.fused_dispatches if hasattr(eng, "fused_dispatches")
-                 else sum(e.fused_dispatches for e in eng.replicas)),
-                ("serve_engine_cfg_draft_layers",
-                 getattr(eng, "draft_layers",
-                         eng.replicas[0].draft_layers
-                         if hasattr(eng, "replicas") else 0)),
-                ("serve_engine_spec_accept_rate",
-                 round(eng.spec_acceptance_rate, 4)),
-                ("serve_engine_spec_tokens_per_tick",
-                 round(eng.spec_tokens_per_tick, 3)),
-                ("serve_engine_phase_warmup_ms",
-                 round(warmup_s * 1e3, 1)),
-                ("serve_engine_phase_drain_ms",
-                 round(elapsed * 1e3, 1)),
-                ("serve_engine_waves", eng.prefill_waves),
-                ("serve_engine_ticks",
-                 eng.slot_steps // (stride * n_slots)),
-                ("serve_engine_stall_p50_ms",
-                 round(stall["p50"], 3)),
-                ("serve_engine_stall_p99_ms",
-                 round(stall["p99"], 3)),
-                # fault-tolerance echo: zeros on a healthy run
-                ("serve_failover_total",
-                 getattr(eng, "failovers", 0)),
-                ("serve_requests_retried",
-                 getattr(eng, "requests_retried_total",
-                         eng.requests_retried)),
-                ("serve_slots_quarantined", eng.slots_quarantined),
-                ("serve_requests_shed", eng.requests_shed),
-                # live / peak state bytes at the dispatch boundaries
-                ("serve_hbm_pool_bytes", eng.hbm_pool_bytes),
-                ("serve_hbm_peak_bytes", eng.hbm_peak_bytes),
-                # overload echo: with no tiers every request is
-                # best-effort, so goodput is the raw tokens/s above
-                ("serve_goodput_tokens_per_s",
-                 round(total / elapsed, 1)),
-                ("serve_requests_preempted",
-                 getattr(eng, "requests_preempted", 0)),
-                ("serve_requests_resumed",
-                 getattr(eng, "requests_resumed", 0)),
-                ("serve_deadline_miss",
-                 getattr(eng, "deadline_misses", 0)),
-                # closed-loop echo: a bare engine is one replica with no
-                # routing
-                ("serve_routing_affinity_hits",
-                 getattr(eng, "routing_affinity_hits", 0)),
-                ("serve_autoscale_events",
-                 getattr(eng, "autoscale_events", 0)),
-                ("serve_replicas_active",
-                 len(eng._alive()) if hasattr(eng, "_alive") else 1),
-                # kv compression & eviction echo
-                ("serve_kv_bits",
-                 eng.kv_bits if hasattr(eng, "kv_bits")
-                 else eng.replicas[0].kv_bits),
-                ("serve_pages_evicted_total",
-                 eng.pages_evicted if hasattr(eng, "pages_evicted")
-                 else sum(e.pages_evicted for e in eng.replicas)),
-                ("serve_kv_quality_delta",
-                 getattr(eng, "kv_quality_delta", 0.0))):
-            print(json.dumps({"metric": name, "value": value}))
-        if tracer is not None:
-            # trace echo: the span count is harvestable; the Chrome trace
-            # goes to SERVE_TRACE_OUT when asked
-            print(json.dumps({"metric": "serve_trace_spans",
-                              "value": len(tracer.spans())}))
-            trace_out = os.environ.get("SERVE_TRACE_OUT")
-            if trace_out:
-                with open(trace_out, "w") as f:
-                    f.write(tracer.to_chrome_trace())
-    if not ok:
-        print("FAIL: continuous engine dropped or corrupted requests",
-              file=sys.stderr)
-        return 3
-    return 0
+    by_rid = {r.rid: r.tokens for r in done}
+    tokens = [by_rid.get(rid) for rid in rids]
+    common = {
+        "unit": "tokens/s", "mode": "continuous",
+        "slots": n_slots, "prompt": prompt_t, "steps": steps,
+        "requests": n_reqs, "int8": plan["int8"],
+        "devices": plan["n_dev"],
+    }
+    lines = [json.dumps({
+        "metric": "serve_engine_tokens_per_s",
+        "value": round(total / elapsed, 1), **common,
+    }), json.dumps({
+        "metric": "serve_engine_occupancy",
+        "value": round(eng.occupancy, 4), "unit": "fraction",
+    })]
+    # config echo + phase timings: everything needed to rebuild this
+    # engine, as harvestable numerics
+    from kubegpu_tpu_torch.obs.metrics import percentiles
+    stall = percentiles(eng.stall_ms)
+    for name, value in (
+            ("serve_engine_cfg_slots", n_slots),
+            ("serve_engine_cfg_prompt", prompt_t),
+            ("serve_engine_cfg_steps", steps),
+            ("serve_engine_cfg_stride", stride),
+            ("serve_engine_cfg_requests", n_reqs),
+            ("serve_engine_cfg_paged", int(plan["paged"])),
+            ("serve_engine_cfg_tp", tp),
+            ("serve_engine_cfg_dp", dp),
+            ("serve_engine_cfg_mesh_devices", tp * dp),
+            ("serve_engine_cfg_kv_int8", int(plan["kv_int8"])),
+            ("serve_engine_cfg_int8_weights", int(plan["int8"])),
+            ("serve_engine_cfg_prefix_cache", int(plan["prefix_cache"])),
+            ("serve_engine_cfg_chunked_prefill", int(plan["chunked"])),
+            ("serve_engine_cfg_spec_gamma", plan["spec_gamma"]),
+            ("serve_engine_cfg_fused_k", plan["fused_k"]),
+            ("serve_fused_dispatches",
+             eng.fused_dispatches if hasattr(eng, "fused_dispatches")
+             else sum(e.fused_dispatches for e in eng.replicas)),
+            ("serve_engine_cfg_draft_layers",
+             getattr(eng, "draft_layers",
+                     eng.replicas[0].draft_layers
+                     if hasattr(eng, "replicas") else 0)),
+            ("serve_engine_spec_accept_rate",
+             round(eng.spec_acceptance_rate, 4)),
+            ("serve_engine_spec_tokens_per_tick",
+             round(eng.spec_tokens_per_tick, 3)),
+            ("serve_engine_phase_warmup_ms",
+             round(warmup_s * 1e3, 1)),
+            ("serve_engine_phase_drain_ms",
+             round(elapsed * 1e3, 1)),
+            ("serve_engine_waves", eng.prefill_waves),
+            ("serve_engine_ticks",
+             eng.slot_steps // (stride * n_slots)),
+            ("serve_engine_stall_p50_ms",
+             round(stall["p50"], 3)),
+            ("serve_engine_stall_p99_ms",
+             round(stall["p99"], 3)),
+            # fault-tolerance echo: zeros on a healthy run
+            ("serve_failover_total",
+             getattr(eng, "failovers", 0)),
+            ("serve_requests_retried",
+             getattr(eng, "requests_retried_total",
+                     eng.requests_retried)),
+            ("serve_slots_quarantined", eng.slots_quarantined),
+            ("serve_requests_shed", eng.requests_shed),
+            # live / peak state bytes at the dispatch boundaries (a tp
+            # rank's: its KV-head shard of the pool)
+            ("serve_hbm_pool_bytes", eng.hbm_pool_bytes),
+            ("serve_hbm_peak_bytes", eng.hbm_peak_bytes),
+            # overload echo: with no tiers every request is
+            # best-effort, so goodput is the raw tokens/s above
+            ("serve_goodput_tokens_per_s",
+             round(total / elapsed, 1)),
+            ("serve_requests_preempted",
+             getattr(eng, "requests_preempted", 0)),
+            ("serve_requests_resumed",
+             getattr(eng, "requests_resumed", 0)),
+            ("serve_deadline_miss",
+             getattr(eng, "deadline_misses", 0)),
+            # closed-loop echo: a bare engine is one replica with no
+            # routing
+            ("serve_routing_affinity_hits",
+             getattr(eng, "routing_affinity_hits", 0)),
+            ("serve_autoscale_events",
+             getattr(eng, "autoscale_events", 0)),
+            ("serve_replicas_active",
+             len(eng._alive()) if hasattr(eng, "_alive") else 1),
+            # kv compression & eviction echo
+            ("serve_kv_bits",
+             eng.kv_bits if hasattr(eng, "kv_bits")
+             else eng.replicas[0].kv_bits),
+            ("serve_pages_evicted_total",
+             eng.pages_evicted if hasattr(eng, "pages_evicted")
+             else sum(e.pages_evicted for e in eng.replicas)),
+            ("serve_kv_quality_delta",
+             getattr(eng, "kv_quality_delta", 0.0))):
+        lines.append(json.dumps({"metric": name, "value": value}))
+    if tracer is not None:
+        # trace echo: the span count is harvestable; the Chrome trace
+        # goes to SERVE_TRACE_OUT when asked
+        lines.append(json.dumps({"metric": "serve_trace_spans",
+                                 "value": len(tracer.spans())}))
+        trace_out = os.environ.get("SERVE_TRACE_OUT")
+        if trace_out and rank0:
+            with open(trace_out, "w") as f:
+                f.write(tracer.to_chrome_trace())
+    return ok, lines, tokens
 
 
 if __name__ == "__main__":

@@ -140,14 +140,14 @@ def test_tp_ask_degrades_on_one_device(clean_env, capsys):
 
 @pytest.mark.parametrize("knob", ["SERVE_TP", "SERVE_DP"])
 def test_satisfiable_tp_dp_ask_is_not_ported(clean_env, knob):
-    """A tp ask the devices could serve needs the multi-device engine,
-    alone or under a dp ask (a dp ask at tp 1 is ported: the pool)."""
-    env = {**CONT, knob: "2"}
-    if knob == "SERVE_DP":
-        env["SERVE_TP"] = "2"
+    """A tp ask under a dp ask the devices could serve needs the pools at
+    tp > 1, the next part of ROADMAP.md item 9 (a tp ask alone is ported:
+    tests/test_torch_serve_tp.py; a dp ask at tp 1 too: the pool).  The
+    knob named is the larger of the two."""
+    env = {**CONT, "SERVE_TP": "2", "SERVE_DP": "2", knob: "4"}
     for k, v in env.items():
         clean_env.setenv(k, v)
-    clean_env.setattr(tls, "_device_count", lambda device: 4)
+    clean_env.setattr(tls, "_device_count", lambda device: 8)
     with pytest.raises(NotImplementedError, match="multi-device"):
         tls.main(device="cpu")
 

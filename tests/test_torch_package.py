@@ -201,3 +201,13 @@ def test_kernels_build_lazily():
     routes = {f"{k}/{r}" for k, rs in kernels.ROUTES.items() for r in rs}
     assert set(kernels.ROUTES) <= set(kernels.SIGNATURES)
     assert set(kernels.launches) == set(kernels.SIGNATURES) | routes
+
+
+def test_walk_covers_the_parallel_package():
+    """The AST walk reaches the tensor-parallel package (its reference,
+    ``kubegpu_tpu/parallel``, imports JAX; the port's imports torch and
+    the port only)."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for sub in ("__init__.py", "sharding.py", "collectives.py",
+                "launch.py"):
+        assert f"kubegpu_tpu_torch/parallel/{sub}" in names, sub

@@ -98,11 +98,19 @@ DEFAULT_SUBMIT = {"deadline_s": None, "deadline_ticks": None, "tier": 0,
     *((k, v[1]) for k, v in LATER_KNOBS.items()),
 ])
 def test_unported_knobs_raise(tiny, knob, value):
-    assert ts._LATER_SUBMIT == {}
+    """Each knob taken at its default only raises at another value.  Every
+    knob is ported now (``_LATER`` is empty): ``mesh`` takes a ("tp",)
+    DeviceMesh (tests/test_torch_serve_tp.py), and anything else raises
+    the reference's ValueError."""
+    assert ts._LATER_SUBMIT == {} and ts._LATER == {}
     _, _, cfg, params_t = tiny
     kw = dict(ENGINE, device="cpu")
     kw[knob] = value
-    item = LATER_KNOBS[knob][2] if knob in LATER_KNOBS else ""
+    if knob == "mesh":
+        with pytest.raises(ValueError, match=r"exactly the \('tp',\) axis"):
+            ts.ContinuousBatcher(params_t, cfg, **kw)
+        return
+    item = LATER_KNOBS[knob][2]
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         ts.ContinuousBatcher(params_t, cfg, **kw)
 

@@ -200,7 +200,8 @@ def test_refusals(moe):
     with pytest.raises(ValueError, match="Llama"):
         ts.ContinuousBatcher(params_t, cfg, spec_gamma=2, device="cpu",
                              **PAGED)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    # the reference's refusal: MoE scales out on dp replicas, not tp
+    with pytest.raises(ValueError, match="MoE scales out on dp replicas"):
         ts.ContinuousBatcher(params_t, cfg, mesh=object(), device="cpu",
                              **PAGED)
     with pytest.raises(TypeError, match="unsupported engine config"):
