@@ -249,8 +249,29 @@ printed as it ends (any failed check exits non-zero):
    over ``min(4, device_count)`` cards, or a line saying it was not run
    for want of cards.  Kernels 4-6 also run in phase 3 at the local
    shapes of tp = 2 and 4.
+16. pool_tp  -- the serving pools at tp > 1 (``pool_tp_phase``, last): each
+   replica a gang of tp rank processes (``DataParallelServePool(tp=2)``,
+   ``DisaggServePool(1, 1, tp=2)``), cutting its shards from this
+   process's weights on the card.  (a) The narrow f32 config over gloo
+   ranks sharing the card: the dp = 2 and the 1 + 1 disaggregated pools'
+   tokens, routes, migrations and replica host digests equal the tp = 1
+   pools'.  (b) Llama-3-8B's width cut to 8 of 32 layers (gloo is a
+   check, not a path), four gloo ranks on the card, eager: the dp pool
+   and the disaggregated pool over bf16 pages and the dp pool over int8
+   pages (kernel 5), every rank's launches equal ``stride × n_layers`` a
+   tick at 4 local kv heads; pool tokens/s beside one gang's on the same
+   window (the pool after ``retire_replica(1)``; 8 prompts of 16 new
+   tokens: a wave and a tick a replica, a check and not a throughput),
+   the round trip a replica step costs, migration ms and bytes a chain,
+   each rank's peak memory (below the whole tree's bytes), first-step
+   logits within 3e-2 relative L2 of tp = 1's, the token agreement with
+   the tp = 1 pool (not gated).  (c) NCCL with graphs at 32 layers over
+   four cards (gang 0 on cards 0-1, gang 1 on 2-3), as (b) over bf16
+   pages, and the throughput: the dp pool and one gang on a window of 32
+   prompts of 128 new tokens (two waves and 16 ticks a replica); or a
+   line saying it was not run for want of cards.
 
-Sixteen paths are driven: serving (phases 4-5), the prefix cache (5f),
+Seventeen paths are driven: serving (phases 4-5), the prefix cache (5f),
 speculative serving (5g),
 quantized serving (5b),
 int8-weight serving (5c), the search decoders (5h, after 5c), the
@@ -260,7 +281,8 @@ paged calls), the program's in-process engine runs (phase 9),
 sampling with the request lifecycle (phase 10, run after 5e), the
 serving pools (phase 11, after 10), the load harness (phase 12, after
 11), MoE serving (phase 13), the training families (phase 14) and
-tensor-parallel serving (phase 15, last; its counts are the ranks').  Launch counters are zeroed just
+tensor-parallel serving (phase 15) and the pools at tp > 1 (phase 16,
+last; the counts of both are the ranks').  Launch counters are zeroed just
 before each and read just after; a graph replay counts the launches captured in it.  The serving
 and training paths must run kernels 1-3 on their tensor-core instances
 only.  The line
@@ -4019,7 +4041,8 @@ def pool_prompts(torch, vocab, gen, prefix: int, tail: tuple, n: int = 16,
         for i, k in enumerate(lens)]
 
 
-def pool_window(torch, pool, prompts, n_new) -> dict:
+def pool_window(torch, pool, prompts, n_new, label: str = "phase 11"
+                ) -> dict:
     """Submit every prompt (``n_new[i]`` new tokens) and drain, timed to a
     synchronize: tokens by submit order, each request returned exactly
     once and without error, tokens/s, the routes and which replica
@@ -4042,13 +4065,13 @@ def pool_window(torch, pool, prompts, n_new) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(sorted(r.rid for r in done) == sorted(rids),
-          "phase 11: a request was lost or returned twice")
+          f"{label}: a request was lost or returned twice")
     check(all(r.error is None for r in done),
-          f"phase 11: errors {[r.error for r in done if r.error]}")
+          f"{label}: errors {[r.error for r in done if r.error]}")
     by_rid = {r.rid: r.tokens for r in done}
     tokens = [by_rid[r] for r in rids]
     check(all(len(t) == n for t, n in zip(tokens, n_new)),
-          "phase 11: a request came back short")
+          f"{label}: a request came back short")
     return {"tokens": tokens, "wall_s": wall,
             "tokens_per_s": sum(map(len, tokens)) / wall,
             "routes": [tuple(x) for x in getattr(pool, "route_log", ())],
@@ -6427,6 +6450,377 @@ def tp_phase(torch, kernels, gen, name) -> dict:
     return out
 
 
+# -- phase 16: the serving pools at tp > 1 ------------------------------------
+
+# (a): phase 15's narrow f32 config and engine, the prefix cache on, eager
+TP_POOL_NARROW = dict({k: v for k, v in TP_NARROW_ENGINE.items()
+                       if k != "device"}, prefix_cache=True, graphs=False)
+# (b): Llama-3-8B's width at 8 of its 32 layers (gloo ranks sharing one
+# card are a check, not a path: PERF.md §6); phase 11's engine shape;
+# a window of 8 prompts of 200-512 tokens, 16 new tokens (a wave and a
+# tick a replica)
+TP_POOL_LAYERS = 8
+TP_POOL_NEW = 16
+# (c)'s throughput window: 32 prompts of 128 new tokens, at 8 slots two
+# waves and 16 ticks a replica of the dp pool, four waves and 32 ticks
+# for one gang
+TP_POOL_LONG = 32
+TP_POOL_LONG_NEW = 128
+TP_POOL_ENGINE = dict(POOL_ENGINE, graphs=False)
+
+
+def pool_rank_counts(state: dict, reset: bool = False) -> dict:
+    """Gang body: this rank's kernel counters (zeroed after the read when
+    ``reset``), its device, and the kv heads its engine serves."""
+    from kubegpu_tpu_torch import kernels
+    out = {"launches": dict(kernels.launches), "device": state["device"],
+           "kv_heads": state["engine"]._lcfg.n_kv_heads}
+    if reset:
+        kernels.reset_launches()
+    return out
+
+
+def pool_rank_memory(state: dict) -> dict:
+    """Gang body: this rank's peak and live allocations on its card."""
+    import torch
+    return {"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "device": state["device"]}
+
+
+def pool_rank_logits(state: dict, prompts: list):
+    """Gang body: the first-step logits of ``prompts`` through this gang's
+    engine (:func:`tp_first_logits`; every rank takes part), rank 0's."""
+    import torch
+    out = tp_first_logits(torch, state["engine"], prompts)
+    return out if state["rank"] == 0 else None
+
+
+def gang_counts(pool, reset: bool = False) -> list:
+    """Every live gang replica's ranks' counters (see
+    :func:`pool_rank_counts`), replica by replica."""
+    return [pool.replicas[i].on_ranks(pool_rank_counts, reset)
+            for i in pool._alive()]
+
+
+def gang_launches(counts: list) -> dict:
+    """The paged kernels' launches summed over every rank of ``counts``."""
+    return {k: sum(r["launches"][k] for g in counts for r in g)
+            for k in PAGED_KERNELS}
+
+
+def pool_tp_window(torch, kernels, pool, prompts, n_new, kernel, label,
+                   stride_layers: int) -> dict:
+    """``pool_window`` on a warmed tp = 2 pool, its gangs' counters zeroed
+    just before and read just after: every rank launched ``kernel``
+    ``stride × n_layers`` times a tick its replica ran (``stride_layers``)
+    at its local kv heads, and no other paged kernel; the round trips of
+    the window's steps."""
+    gang_counts(pool, reset=True)
+    live = pool._alive()
+    ticks0 = {i: pool.replicas[i]._tick for i in live}
+    for i in live:
+        pool.replicas[i].round_trip_ms.clear()
+    run = pool_window(torch, pool, prompts, n_new, label=label)
+    counts = gang_counts(pool)
+    for i, ranks in zip(live, counts):
+        ticks = pool.replicas[i]._tick - ticks0[i]
+        for r in ranks:
+            got = {k: r["launches"][k] for k in PAGED_KERNELS}
+            check(got[kernel] == ticks * stride_layers
+                  and sum(got.values()) == got[kernel],
+                  f"{label}: replica {i} rank on {r['device']} launched "
+                  f"{got} for {ticks} ticks")
+    rt = [x for i in live for x in pool.replicas[i].round_trip_ms]
+    run.update(launches=gang_launches(counts), round_trip_ms=rt,
+               ticks=[pool.replicas[i]._tick - ticks0[i] for i in live],
+               kv_heads=[r["kv_heads"] for g in counts for r in g],
+               devices=[r["device"] for g in counts for r in g])
+    return run
+
+
+def pool_tp_narrow(torch, kernels) -> dict:
+    """(a): the narrow f32 config, every pool at tp = 1 and at tp = 2
+    (gloo ranks sharing the card): tokens, routes, migrations and every
+    replica's host digest equal; kernel 4 ran in every rank."""
+    from kubegpu_tpu_torch.models import (
+        DataParallelServePool,
+        DisaggServePool,
+        LlamaConfig,
+        llama_init,
+    )
+    cfg = LlamaConfig.tiny(**TP_NARROW)
+    params = llama_init(cfg, seed=SEED, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    prompts = pool_prompts(torch, cfg.vocab_size, g, 16, (4, 14), n=9)
+    n_new = [12] * 8 + [1]
+    out, launches = {}, dict.fromkeys(PAGED_KERNELS, 0)
+    for label, cls, kw in (("dp=2", DataParallelServePool, {"dp": 2}),
+                           ("disagg 1+1", DisaggServePool,
+                            {"prefill": 1, "decode": 1})):
+        runs = {}
+        for tp in (1, 2):
+            with cls(params, cfg, tp=tp, devices=["cuda:0"] * 2 * tp,
+                     **kw, **TP_POOL_NARROW) as pool:
+                pool.warmup()
+                if tp == 2:
+                    gang_counts(pool, reset=True)
+                run = pool_window(torch, pool, prompts, n_new,
+                                  label=f"phase 16 (a) {label} tp={tp}")
+                run["digests"] = [e.host_digest() for e in pool.replicas]
+                run["migrations"] = getattr(pool, "migrations", 0)
+                if tp == 2:
+                    run["launches"] = gang_launches(gang_counts(pool))
+                runs[tp] = run
+        one, two = runs[1], runs[2]
+        for key in ("tokens", "routes", "digests", "migrations"):
+            check(two[key] == one[key],
+                  f"phase 16 (a) {label}: {key} differ from tp = 1")
+        check(two["launches"]["paged_decode"] > 0,
+              f"phase 16 (a) {label}: kernel 4 never ran in the ranks")
+        for k in PAGED_KERNELS:
+            launches[k] += two["launches"][k]
+        out[label] = {"migrations": two["migrations"],
+                      "launches": two["launches"]}
+        log("pool_tp", part="a narrow f32", pool=label, backend="gloo",
+            tokens_equal=True, routes_equal=True, digests_equal=True,
+            migrations=two["migrations"], launches=two["launches"])
+    out["launches"] = launches
+    return out
+
+
+def chain_bytes_of(pool) -> list:
+    """Wrap the prefill replica's ``take_export`` to note each chain's
+    bytes (every leaf, full heads); returns the list it fills."""
+    eng, sizes = pool.replicas[0], []
+    real = eng.take_export
+
+    def noted(rid):
+        exp = real(rid)
+        if exp is not None:
+            sizes.append(sum(v.numel() * v.element_size()
+                             for v in exp["chain"].values()))
+        return exp
+
+    eng.take_export = noted
+    return sizes
+
+
+def pool_tp_full(torch, kernels, gen, name, n_layers: int, devices: list,
+                 graphs: bool, label: str, formats=("bf16", "int8"),
+                 long: bool = False) -> dict:
+    """(b) and (c): Llama-3-8B's width at ``n_layers`` (bf16 weights from
+    the seed, on card 0), the window's prompts from ``gen``.  The tp = 1
+    dp pool on ``devices[:2]`` first (its tokens and tokens/s, one
+    engine's first-step logits), then on ``devices`` (four entries, gang
+    b on entries 2b, 2b+1): the dp = 2 × tp = 2 pool (tokens/s, round
+    trips, logits, each rank's peak), then its replica 0 alone after
+    ``retire_replica(1)`` on the same window; the 1 + 1 disaggregated pool
+    (migrations, ms and bytes a chain); over int8 pages the dp pool again
+    (kernel 5).  With ``long``, the dp pool and then its replica 0 alone
+    also run the throughput window (``TP_POOL_LONG`` prompts of
+    ``TP_POOL_LONG_NEW`` new tokens)."""
+    from dataclasses import replace
+
+    from kubegpu_tpu_torch.models import (
+        DataParallelServePool,
+        DisaggServePool,
+        LlamaConfig,
+        llama_init,
+    )
+    cfg = replace(LlamaConfig.llama3_8b(), n_layers=n_layers)
+    params = llama_init(cfg, seed=SEED, device="cuda")
+    tree_gb = sum(x.numel() * x.element_size() for x in
+                  [params["embed"], params["lm_head"],
+                   *params["layers"].values()]) / 1e9
+    prompts = window_prompts(torch, cfg, gen, n=8)
+    n_new = [TP_POOL_NEW] * len(prompts)
+    if long:
+        long_prompts = window_prompts(torch, cfg, gen, n=TP_POOL_LONG)
+        long_new = [TP_POOL_LONG_NEW] * TP_POOL_LONG
+    kw = dict(TP_POOL_ENGINE, graphs=graphs)
+    stride_layers = kw["stride"] * n_layers
+    out = {"tree_gb": tree_gb, "n_layers": n_layers}
+    # tp = 1
+    t0 = time.perf_counter()
+    with DataParallelServePool(params, cfg, dp=2, devices=devices[:2],
+                               **kw) as pool:
+        pool.warmup()
+        one = pool_window(torch, pool, prompts, n_new,
+                          label=f"phase 16 {label} tp=1")
+        ref_logits = tp_first_logits(torch, pool.replicas[0], prompts)
+    del pool          # its engines (and a copy of the weights on card 1)
+    torch.cuda.empty_cache()
+    out["tp1"] = {"tokens_per_s": one["tokens_per_s"],
+                  "wall_s": time.perf_counter() - t0}
+    # dp = 2 × tp = 2, bf16 pages; then one gang alone
+    t0 = time.perf_counter()
+    pool = DataParallelServePool(params, cfg, dp=2, tp=2, devices=devices,
+                                 **kw)
+    build_s = time.perf_counter() - t0
+    try:
+        t1 = time.perf_counter()
+        pool.warmup()
+        warm_s = time.perf_counter() - t1
+        run = pool_tp_window(torch, kernels, pool, prompts, n_new,
+                             "paged_decode", f"phase 16 {label} dp=2 tp=2",
+                             stride_layers)
+        if long:
+            lrun = pool_tp_window(torch, kernels, pool, long_prompts,
+                                  long_new, "paged_decode",
+                                  f"phase 16 {label} dp=2 tp=2 long",
+                                  stride_layers)
+        logits = pool.replicas[0].on_ranks(pool_rank_logits, prompts)[0]
+        memory = [pool.replicas[i].on_ranks(pool_rank_memory)
+                  for i in range(2)]
+        pool.retire_replica(1)
+        pool.step()
+        check(pool.dead_replicas == {1: "scale-down drain"},
+              f"phase 16 {label}: the retire did not land")
+        alone = pool_tp_window(torch, kernels, pool, prompts, n_new,
+                               "paged_decode",
+                               f"phase 16 {label} one tp=2 gang",
+                               stride_layers)
+        if long:
+            lalone = pool_tp_window(torch, kernels, pool, long_prompts,
+                                    long_new, "paged_decode",
+                                    f"phase 16 {label} one tp=2 gang long",
+                                    stride_layers)
+    finally:
+        pool.close()
+    torch.cuda.empty_cache()
+    rel, argmax_equal = logits_gap(logits, ref_logits)
+    check(rel <= TP_LOGIT_REL_L2, f"phase 16 {label}: first-step logits "
+          f"rel L2 {rel} > {TP_LOGIT_REL_L2}")
+    peaks = [r["peak_gb"] for g in memory for r in g]
+    check(max(peaks) < tree_gb, f"phase 16 {label}: a rank's peak "
+          f"{max(peaks)} GB reaches the whole tree's {tree_gb} GB")
+    check(run["kv_heads"] == [cfg.n_kv_heads // 2] * 4,
+          f"phase 16 {label}: local kv heads {run['kv_heads']}")
+    rt = sorted(run["round_trip_ms"])
+    out["dp"] = {
+        "tokens_per_s": run["tokens_per_s"],
+        "one_gang_tokens_per_s": alone["tokens_per_s"],
+        "tp1_pool_tokens_per_s": one["tokens_per_s"],
+        "agreement_tp1": token_agreement(run["tokens"], one["tokens"]),
+        "round_trip_ms_median": rt[len(rt) // 2],
+        "round_trip_ms_mean": sum(rt) / len(rt), "steps": len(rt),
+        "first_logits_rel_l2": rel, "first_argmax_equal": argmax_equal,
+        "rank_peak_gb": peaks,
+        "rank_allocated_gb": [r["allocated_gb"] for g in memory for r in g],
+        "rank_devices": [r["device"] for g in memory for r in g],
+        "build_s": build_s, "warmup_s": warm_s, "ticks": run["ticks"],
+        "alone_ticks": alone["ticks"],
+        "launches": run["launches"], "alone_launches": alone["launches"]}
+    log("pool_tp", part=label, pool="dp=2 tp=2 bf16", graphs=graphs,
+        card=repr(name), n_layers=n_layers, tree_gb=round(tree_gb, 3),
+        **{k: v for k, v in out["dp"].items() if k != "rank_devices"})
+    launches = {k: run["launches"][k] + alone["launches"][k]
+                for k in PAGED_KERNELS}
+    if long:
+        lrt = sorted(lrun["round_trip_ms"])
+        out["long"] = {
+            "prompts": TP_POOL_LONG, "new_tokens": TP_POOL_LONG_NEW,
+            "tokens_per_s": lrun["tokens_per_s"],
+            "one_gang_tokens_per_s": lalone["tokens_per_s"],
+            "ratio": lrun["tokens_per_s"] / lalone["tokens_per_s"],
+            "wall_s": lrun["wall_s"], "one_gang_wall_s": lalone["wall_s"],
+            "ticks": lrun["ticks"], "one_gang_ticks": lalone["ticks"],
+            "round_trip_ms_median": lrt[len(lrt) // 2], "steps": len(lrt),
+            "agreement_one_gang": token_agreement(
+                lrun["tokens"], lalone["tokens"]),
+            "launches": lrun["launches"],
+            "one_gang_launches": lalone["launches"]}
+        log("pool_tp", part=label, pool="dp=2 tp=2 bf16 long window",
+            **out["long"])
+        for k in PAGED_KERNELS:
+            launches[k] += (lrun["launches"][k]
+                            + lalone["launches"][k])
+    # the 1 + 1 disaggregated pool, bf16 pages
+    t0 = time.perf_counter()
+    with DisaggServePool(params, cfg, prefill=1, decode=1, tp=2,
+                         devices=devices, **kw) as pool:
+        pool.warmup()
+        sizes = chain_bytes_of(pool)
+        dis = pool_tp_window(torch, kernels, pool, prompts, n_new,
+                             "paged_decode", f"phase 16 {label} disagg",
+                             stride_layers)
+        check(pool.migrations == len(prompts) == len(sizes),
+              f"phase 16 {label}: migrations {pool.migrations}")
+        out["disagg"] = {
+            "tokens_per_s": dis["tokens_per_s"],
+            "agreement_tp1": token_agreement(dis["tokens"], one["tokens"]),
+            "migrations": pool.migrations,
+            "migrated_pages": pool.migrated_pages,
+            "migration_ms": list(pool.migration_ms),
+            "chain_bytes": sizes,
+            "round_trip_ms_median": sorted(dis["round_trip_ms"])[
+                len(dis["round_trip_ms"]) // 2],
+            "wall_s": time.perf_counter() - t0, "launches": dis["launches"]}
+    torch.cuda.empty_cache()
+    log("pool_tp", part=label, pool="disagg 1+1 tp=2 bf16",
+        **{k: v for k, v in out["disagg"].items()})
+    for k in PAGED_KERNELS:
+        launches[k] += dis["launches"][k]
+    if "int8" in formats:
+        t0 = time.perf_counter()
+        with DataParallelServePool(params, cfg, dp=2, tp=2, devices=devices,
+                                   kv_bits=8, **kw) as pool:
+            pool.warmup()
+            q8 = pool_tp_window(torch, kernels, pool, prompts, n_new,
+                                "paged_decode_q8",
+                                f"phase 16 {label} dp=2 tp=2 int8",
+                                stride_layers)
+        torch.cuda.empty_cache()
+        out["int8"] = {"tokens_per_s": q8["tokens_per_s"],
+                       "agreement_tp1": token_agreement(q8["tokens"],
+                                                        one["tokens"]),
+                       "wall_s": time.perf_counter() - t0,
+                       "launches": q8["launches"]}
+        log("pool_tp", part=label, pool="dp=2 tp=2 int8",
+            **out["int8"])
+        for k in PAGED_KERNELS:
+            launches[k] += q8["launches"][k]
+    del params
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+def pool_tp_nccl(torch, kernels, gen, name) -> dict | None:
+    """(c): the dp and disaggregated pools at Llama-3-8B's full 32 layers
+    over NCCL with graphs, gang 0 on cards 0-1 and gang 1 on cards 2-3;
+    None (and a line saying so) with fewer than four cards."""
+    n = torch.cuda.device_count()
+    if n < 4:
+        log("pool_tp", part="c NCCL", run=False,
+            reason=f"{n} card(s) visible; two tp = 2 gangs over NCCL need "
+            "four (one rank a card)")
+        return None
+    devices = [f"cuda:{i}" for i in range(4)]
+    return pool_tp_full(torch, kernels, gen, name, 32, devices, True,
+                        "c NCCL", formats=("bf16",), long=True)
+
+
+def pool_tp_phase(torch, kernels, gen, name) -> dict:
+    """Phase 16 (the module docstring): (a) narrow f32, (b) 8 layers over
+    four gloo ranks on card 0, (c) NCCL over four cards where there are
+    four.  The paged kernels' launches are the ranks'."""
+    t_phase = time.perf_counter()
+    out = {"narrow": pool_tp_narrow(torch, kernels)}
+    torch.cuda.empty_cache()
+    out["gloo"] = pool_tp_full(torch, kernels, gen, name, TP_POOL_LAYERS,
+                               ["cuda:0"] * 4, False, "b gloo")
+    out["nccl"] = pool_tp_nccl(torch, kernels, gen, name)
+    launches = {k: sum(out[p]["launches"][k] for p in
+                       ("narrow", "gloo", "nccl") if out[p] is not None)
+                for k in PAGED_KERNELS}
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("pool_tp", phase_s=round(out["phase_s"], 1), launches=launches)
+    return out
+
+
 def ptxas_instances(text: str) -> list:
     """Each kernel instance of an ``-Xptxas -v`` build log: its name
     (demangled by ``c++filt`` where the machine has it), registers a thread
@@ -6723,6 +7117,17 @@ def main(argv=None) -> int:
     check(all(tp_launches[k] > 0 for k in PAGED_KERNELS),
           f"a paged kernel never ran on the tensor-parallel path: "
           f"{tp['launches']}")
+    torch.cuda.empty_cache()
+
+    kernels.reset_launches()          # the pools at tp > 1 start here
+    pool_tp = pool_tp_phase(
+        torch, kernels, torch.Generator(device="cuda").manual_seed(SEED + 18),
+        name)
+    pool_tp_launches = {**dict.fromkeys(kernels.launches, 0),
+                        **pool_tp["launches"]}
+    check(all(pool_tp_launches[k] > 0 for k in ("paged_decode",
+                                                 "paged_decode_q8")),
+          f"a kernel of the pools at tp > 1 never ran: {pool_tp['launches']}")
 
     routes = {"flash_fwd": ("kubegpu_tpu_torch/csrc/flash_fwd.cu",
                             "kubegpu_tpu/ops/flash_attention.py:200"),
@@ -6742,7 +7147,8 @@ def main(argv=None) -> int:
     paths = (serve_launches, prefix_launches, spec_launches, quant_launches,
              qw_launches, search_launches, train_launches, t5_launches,
              program_launches, lifecycle_launches, pool_launches,
-             load_launches, moe_launches, train14_launches, tp_launches)
+             load_launches, moe_launches, train14_launches, tp_launches,
+             pool_tp_launches)
     # kernels 4-6 at llama_serve.py's bench shape, by their pool format
     program_rows = {k: program["program_shape"][fmt]
                     for k, fmt in zip(PAGED_KERNELS, ("bf16", "q8", "q4g16"))}
@@ -6799,6 +7205,7 @@ def main(argv=None) -> int:
                "t5": t5_stats, "program": program, "moe": moe,
                "flash_vit_shape": vit_shape, "train_families": train14,
                "paged_tp_shapes": tp_shapes, "tensor_parallel": tp,
+               "pools_tp": pool_tp,
                "launches": {"serving": serve_launches,
                             "prefix_cache": prefix_launches,
                             "speculative": spec_launches,
@@ -6814,7 +7221,8 @@ def main(argv=None) -> int:
                             "load_and_fleet": load_launches,
                             "moe_serving": moe_launches,
                             "train_families": train14_launches,
-                            "tensor_parallel": tp["launches"]},
+                            "tensor_parallel": tp["launches"],
+                            "pools_tp": pool_tp["launches"]},
                "kernels": line["kernels"],
                "total_s": time.perf_counter() - t_start}
     if args.details:

@@ -58,7 +58,8 @@ from kubegpu_tpu_torch.loadgen import (LoadReport, TierSpec, _busy,
                                        _slo_met, score_run)
 from kubegpu_tpu_torch.models.serve import (DataParallelServePool,
                                             DisaggServePool,
-                                            _AdmissionQueue, _Request)
+                                            _AdmissionQueue, _Request,
+                                            page_keys)
 from kubegpu_tpu_torch.obs.chaos import (DOMAIN_EVICT, DOMAIN_KILL,
                                          FAIL_DISPATCH, KILL, NAN_LOGITS,
                                          STALL, WATCH_DELAY, WATCH_DUP,
@@ -258,13 +259,9 @@ class SimReplicaEngine:
             raise ValueError(
                 f"request needs {self._pages_for(t, max_new_tokens)} "
                 f"pages but the pool has only {self.total_pages}")
-        # the port engine's and pool router's chain-hash scheme (over the
+        # the port engine's and pool router's chain keys (over the
         # prompt's int64 bytes); tokens keep the int32 stream
-        n_cacheable = (t - 1) // self.page_size
-        p64 = prompt_np.astype(np.int64)
-        keys = tuple(
-            hash(p64[:(i + 1) * self.page_size].tobytes())
-            for i in range(n_cacheable))
+        keys = page_keys(prompt_np, self.page_size)
         req = _Request(rid=self._next_rid, prompt_len=t,
                        max_new_tokens=max_new_tokens,
                        temperature=float(temperature),

@@ -109,6 +109,7 @@ graph, and no traced value feeds device math.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import time
 from collections import OrderedDict, deque
@@ -164,13 +165,15 @@ from kubegpu_tpu_torch.ops.paged_attention import (
     paged_attention,
     scatter_pages,
 )
-from kubegpu_tpu_torch.parallel.collectives import broadcast_float
+from kubegpu_tpu_torch.parallel.collectives import (
+    all_gather_dim,
+    broadcast_float,
+)
 
 # Reference knobs this slice does not port: name -> (default, ROADMAP.md
 # queue-1 item that brings it).  The default is accepted; any other value
 # raises.  Every knob is ported (``mesh`` since the tensor-parallel
-# engine); what item 9's next part brings (the pools at tp > 1, page-chain
-# migration under a mesh) raises where it is asked for (``_refuse_tp``).
+# engine, with page-chain migration under it and the pools at tp > 1).
 _LATER: dict = {}
 
 # The same for ``submit``'s keywords: every one is ported.
@@ -1027,6 +1030,36 @@ class _AdmissionQueue(deque):
         super().__delitem__(i)
 
 
+def page_keys(prompt, page_size: int) -> tuple:
+    """The prefix registry's keys of a prompt's cacheable pages: one a
+    whole leading page but the page holding token ``t - 1``, each a 64-bit
+    blake2b of the int64 prompt up to that page's end.  The reference keys
+    on Python's ``hash`` of the same bytes, which is salted per process;
+    a digest keys the same way in every process, so the router of a pool
+    and its replicas' rank processes compare keys.  Only equality of keys
+    matters: routing and aliasing decide as the reference's do."""
+    p = np.ascontiguousarray(prompt, np.int64)
+    return tuple(
+        int.from_bytes(hashlib.blake2b(p[:(i + 1) * page_size].tobytes(),
+                                       digest_size=8).digest(), "little",
+                       signed=True)
+        for i in range((int(p.shape[0]) - 1) // page_size))
+
+
+def _on_engine_device(method):
+    """Run an engine method with the engine's card current: the kernels
+    launch on the current device's stream, and the graphs capture and
+    replay there, so an engine on another card than the current one
+    (a pool's replica on card 1) runs on its own."""
+    @functools.wraps(method)
+    def run(self, *args, **kw):
+        if self.device.type != "cuda":
+            return method(self, *args, **kw)
+        with torch.cuda.device(self.device):
+            return method(self, *args, **kw)
+    return run
+
+
 def _chain_digest(chain: dict, t: int) -> str:
     """Content hash of an exported page chain: the reference's sha256 over
     the prompt length, then each leaf's name, shape (a tuple's text), dtype
@@ -1280,7 +1313,9 @@ class ContinuousBatcher:
         self.donate = bool(donate)
         self.collect_overlap = bool(collect_overlap)
         self.device = torch.device(device)
-        if params["embed"].device.type != self.device.type:
+        # under a mesh the tree may lie anywhere: the cut moves only this
+        # rank's shard to the engine's device (_shard_for_mesh)
+        if mesh is None and params["embed"].device.type != self.device.type:
             raise ValueError(f"params lie on {params['embed'].device}, "
                              f"engine device is {self.device}")
         self.params = params
@@ -1723,7 +1758,9 @@ class ContinuousBatcher:
         physical head width kept).  The pool is made at its local shape,
         ``Hkv / tp`` heads (:meth:`_empty_pool`).  A gloo group moves CUDA
         tensors through the host, which no CUDA graph can capture, so on
-        the card it needs ``graphs=False``."""
+        the card it needs ``graphs=False``.  The tree is cut where it lies
+        (the host, this card or another one) and only the shard lands on
+        the engine's device."""
         import torch.distributed as dist
 
         # (kubegpu_tpu_torch.parallel imports the models package)
@@ -1749,14 +1786,7 @@ class ContinuousBatcher:
                              head_dim_override=cfg.head_dim)
         quant = isinstance(self.params["layers"]["wq"], QTensor)
         self.params = shard_tree(self.params, serve_param_specs(quant),
-                                 self.tp_rank, tp)
-
-    def _refuse_tp(self, what: str) -> None:
-        """Under a mesh, what item 9's next part brings raises."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} under a mesh is not ported yet (ROADMAP.md queue "
-                "1, item 9: page-chain migration under a mesh)")
+                                 self.tp_rank, tp, self.device)
 
     def _clock(self) -> float:
         """The wall clock a host decision reads (a ``deadline_s``): this
@@ -1903,10 +1933,9 @@ class ContinuousBatcher:
         page chain at retirement, before its pages return (the prefill
         leg of disaggregated serving; :meth:`take_export`).
         With ``prefix_cache`` the request keeps one registry key a full
-        leading prompt page (a hash of the prompt up to that page's end,
-        as the reference: Python's ``hash`` of bytes, so keys compare only
-        within one process); the page holding token ``t - 1`` is never
-        cached."""
+        leading prompt page (a digest of the prompt up to that page's end,
+        :func:`page_keys`, the same in every process); the page holding
+        token ``t - 1`` is never cached."""
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
@@ -1919,8 +1948,6 @@ class ContinuousBatcher:
             raise ValueError(
                 "migrate_out needs the paged pool (page chains are "
                 "the migration transfer unit)")
-        if migrate_out:
-            self._refuse_tp("migrate_out")
         if temperature < 0:
             raise ValueError(
                 f"temperature must be >= 0, got {temperature}")
@@ -1999,8 +2026,7 @@ class ContinuousBatcher:
         padded[0, :t] = prompt_np
         keys: tuple = ()
         if self.paged and self.prefix_cache_enabled:
-            keys = tuple(hash(prompt_np[:(i + 1) * self.page_size].tobytes())
-                         for i in range((t - 1) // self.page_size))
+            keys = page_keys(prompt_np, self.page_size)
         req.prefix_keys = keys
         req.admit_len = t
         req.seq = self._seq
@@ -2386,6 +2412,7 @@ class ContinuousBatcher:
                                ffn, group),
             eager_s, self._capture_mode)
 
+    @_on_engine_device
     def warmup(self) -> None:
         """Run every shape this engine can hit -- each power-of-two wave
         size up to ``max_wave`` per prompt bucket through prefill and
@@ -2697,6 +2724,7 @@ class ContinuousBatcher:
             _trim_acct(xs)
         return finished
 
+    @_on_engine_device
     def step(self) -> list[_Request]:
         """One engine tick: collect the previous block, retire finishers,
         expire deadlines, evict cold pages (with an ``evict_policy``),
@@ -3103,15 +3131,15 @@ class ContinuousBatcher:
 
     def _charge_chip_ticks(self) -> None:
         """Charge the dispatch that just went out (``_inflight_k`` device
-        ticks on one device) to the resident slots, pro rata by work
-        units: a prefilling slot weighs the prompt tokens it prefilled this
-        tick, a decoding slot one unit; each charge goes to the request's
-        (tenant, tier)."""
+        ticks on each of the engine's ``tp`` devices) to the resident
+        slots, pro rata by work units: a prefilling slot weighs the prompt
+        tokens it prefilled this tick, a decoding slot one unit; each
+        charge goes to the request's (tenant, tier)."""
         self.busy_ticks += self._inflight_k
         entries = [(req.tenant, req.tier,
                     self._tick_prefill_tokens.get(slot, 0) or 1)
                    for slot, req in sorted(self.slot_req.items())]
-        self.cost.charge(entries, self._inflight_k)
+        self.cost.charge(entries, self.tp * self._inflight_k)
         self._tick_prefill_tokens.clear()
 
     def _note_host_overhead(self, t_tick: float, sync_ms: float) -> None:
@@ -3453,12 +3481,18 @@ class ContinuousBatcher:
         ``max_new_tokens == 1`` nothing was flushed past it), into host
         tensors and keep it for :meth:`take_export` with its digest, the
         prompt, its prefix keys and the first token.  The export lives on
-        the host, so it survives this engine's death."""
+        the host, so it survives this engine's death.  Under a mesh each
+        rank gathers its ``Hkv / tp`` heads of the chain and the ranks
+        all-gather them along the KV-head dim the pool is cut on
+        (``pool_specs``), so every rank exports the full-head chain, digest
+        and all, as one engine would."""
         n_chain = int(self._tpad[slot]) // self.page_size
         ids = torch.from_numpy(self._pt[slot, :n_chain].astype(np.int64))
-        chain = {name: leaf.cpu()
-                 for name, leaf in gather_pages(
-                     self._live["pool"], ids.to(self.device)).items()}
+        local = gather_pages(self._live["pool"], ids.to(self.device))
+        if self._tp_group is not None:
+            local = {name: all_gather_dim(leaf, 2, self._tp_group)
+                     for name, leaf in local.items()}
+        chain = {name: leaf.cpu() for name, leaf in local.items()}
         t = int(self._tvec[slot])
         self._exports[req.rid] = {
             "rid": req.rid, "t": t, "tpad": int(self._tpad[slot]),
@@ -3480,6 +3514,7 @@ class ContinuousBatcher:
         out, self._exports = self._exports, {}
         return out
 
+    @_on_engine_device
     def import_chain(self, export: dict, max_new_tokens: int,
                      temperature: float = 0.0, tier: int = 0,
                      tenant: str = "") -> int | None:
@@ -3494,11 +3529,11 @@ class ContinuousBatcher:
         Raises ``ValueError`` for a dense engine, a budget below 2, a
         sampled request on a greedy engine, another page size, a digest
         mismatch, or a request that exceeds ``max_len`` or the pool, and
-        :class:`ReplicaDeadError` on a dead engine.  Under a mesh it raises
-        ``NotImplementedError`` (ROADMAP.md item 9's next part)."""
+        :class:`ReplicaDeadError` on a dead engine.  Under a mesh the
+        digest is checked on the full-head chain and each rank scatters its
+        own heads, cut as ``pool_specs`` cuts the pool."""
         if not self.paged:
             raise ValueError("import_chain needs the paged pool")
-        self._refuse_tp("import_chain")
         if self.dead is not None:
             raise ReplicaDeadError(f"replica dead: {self.dead}")
         if max_new_tokens < 2:
@@ -3555,6 +3590,14 @@ class ContinuousBatcher:
         self._tpad[slot] = bucket
         self._cap[slot] = decode_capacity(need, bucket, self.page_size)
         dev = self.device
+        if self._tp_group is not None:
+            # (kubegpu_tpu_torch.parallel imports the models package)
+            from kubegpu_tpu_torch.parallel.sharding import (
+                pool_specs,
+                shard_tree,
+            )
+            chain = shard_tree(chain, pool_specs(chain), self.tp_rank,
+                               self.tp)
         scatter_pages(self._live["pool"],
                       {name: leaf.to(dev) for name, leaf in chain.items()},
                       torch.tensor(pages[:n_chain], device=dev))
@@ -3778,6 +3821,304 @@ class _PoolEntry:
     tenant: str = ""              # quota bucket (survives failover)
 
 
+# -- a pool replica over tp devices: a gang of rank processes ----------------
+
+# the engine's errors that reach the pool as themselves (failover, retire, a
+# rejected replay or migration); any other error in a rank ends its gang
+_PASSED = (ValueError, TypeError, NotImplementedError, ReplicaDeadError)
+_SCALARS = (int, float, bool, str, type(None))
+
+
+class _MetricsLog:
+    """The write surface of a metrics registry (``inc``, ``set_gauge``,
+    ``delete_gauge``, ``observe``), recording each write: a rank's engine
+    feeds one, and its replica replays rank 0's writes into the pool's
+    registry, in their order, at the end of each call."""
+
+    def __init__(self) -> None:
+        self.ops: list = []
+
+    def inc(self, name: str, delta: float = 1.0) -> None:
+        self.ops.append(("inc", name, delta))
+
+    def set_gauge(self, name: str, value: float) -> None:
+        self.ops.append(("set_gauge", name, value))
+
+    def delete_gauge(self, name: str) -> None:
+        self.ops.append(("delete_gauge", name))
+
+    def observe(self, name: str, value: float) -> None:
+        self.ops.append(("observe", name, value))
+
+    def take(self) -> list:
+        ops, self.ops = self.ops, []
+        return ops
+
+
+def _engine_view(state: dict) -> dict:
+    """What a replica's host view holds of its rank's engine: every scalar
+    attribute (counters, knobs, ``dead``, ``_tick``), the state bytes, the
+    queued and resident requests, the prefix registry's keys, the
+    chunk-prefilling slots, the failed requests not yet returned, the cost
+    ledger, the sheds by reason, the free pages, the trace anchor, and the
+    ``stall_ms`` samples since the last view (all of them, under
+    ``stall_reset``, once the engine trimmed its list)."""
+    eng = state["engine"]
+    scalars = {k: v for k, v in vars(eng).items() if type(v) in _SCALARS}
+    scalars.update(hbm_pool_bytes=eng.hbm_pool_bytes,
+                   hbm_peak_bytes=eng.hbm_peak_bytes)
+    sent = state.get("stall_sent", 0)
+    reset = len(eng.stall_ms) < sent
+    state["stall_sent"] = len(eng.stall_ms)
+    return {"scalars": scalars, "queue": [r for r, _ in eng.queue],
+            "slot_req": dict(eng.slot_req),
+            "prefix_cache": list(eng._prefix_cache),
+            "prefilling": list(eng._prefilling),
+            "failed": list(eng._failed), "cost": eng.cost,
+            "shed_by_reason": dict(eng.shed_by_reason),
+            "stall_new": eng.stall_ms[0 if reset else sent:],
+            "stall_reset": reset,
+            "available_pages": eng._available_pages(),
+            "anchor": eng._engine_anchor}
+
+
+def _gang_reply(state: dict, value=None, exc=None, wall: float = 0.0) -> dict:
+    """A rank's answer to a replica call: its host digest and the type of
+    the engine error it passed on; rank 0 adds the value, the error, the
+    call's wall on its clock, the engine's host view, and the metric
+    writes and finished spans since the last call."""
+    eng, log, tracer = (state.get(k) for k in ("engine", "metrics",
+                                                "tracer"))
+    ops = log.take() if log is not None else []
+    spans = tracer.take_finished() if tracer is not None else ([], [])
+    out = {"digest": None if eng is None else eng.host_digest(),
+           "raised": None if exc is None else type(exc).__name__}
+    if state["rank"] == 0:
+        out.update(value=value, exc=exc, wall=wall, metrics=ops, spans=spans,
+                   view=None if eng is None else _engine_view(state))
+    return out
+
+
+def _gang_build(state: dict, params: dict, cfg, engine_kw: dict,
+                metered: bool, traced: bool, trace_ctx, chaos) -> dict:
+    """Rank body: this rank's engine on its device over a ("tp",) mesh of
+    its gang, cut from ``params`` where they lie."""
+    from kubegpu_tpu_torch.obs.spans import Tracer
+    dev = torch.device(state["device"])
+    state["metrics"] = _MetricsLog() if metered else None
+    state["tracer"] = Tracer() if traced else None
+    try:
+        state["engine"] = ContinuousBatcher(
+            params, cfg, device=dev,
+            mesh=make_serve_mesh(state["tp"], dev.type),
+            metrics=state["metrics"], tracer=state["tracer"],
+            trace_ctx=trace_ctx, chaos=chaos, **engine_kw)
+    except _PASSED as exc:
+        return _gang_reply(state, exc=exc)
+    return _gang_reply(state)
+
+
+def _gang_call(state: dict, method: str, args: tuple, kw: dict) -> dict:
+    """Rank body: ``engine.method(*args, **kw)``."""
+    t0 = time.perf_counter()
+    try:
+        value = getattr(state["engine"], method)(*args, **kw)
+    except _PASSED as exc:
+        return _gang_reply(state, exc=exc, wall=time.perf_counter() - t0)
+    return _gang_reply(state, value, wall=time.perf_counter() - t0)
+
+
+def _gang_getattr(state: dict, name: str) -> dict:
+    """Rank body: the value of one of the engine's attributes or
+    properties (a method raises ``AttributeError``: the replica's methods
+    are its own)."""
+    value = getattr(state["engine"], name, _gang_getattr)
+    if value is _gang_getattr or callable(value):
+        return _gang_reply(state, exc=AttributeError(
+            f"a tp replica has no value {name!r}"))
+    return _gang_reply(state, value)
+
+
+def _gang_setattr(state: dict, name: str, value) -> dict:
+    setattr(state["engine"], name, value)
+    return _gang_reply(state)
+
+
+class _GangReplica:
+    """One replica of a pool at ``tp > 1``: a started
+    :class:`~kubegpu_tpu_torch.parallel.launch.Gang` of ``tp`` rank
+    processes, each serving its shard of one engine over a ("tp",) mesh,
+    behind the engine surface the pools read and write.
+
+    Each call runs on every rank (the replicated host state stays
+    replicated) and every rank answers with its host digest: digests that
+    part, or ranks that disagree on an error, raise ``RuntimeError``.
+    Rank 0's answer refreshes the host view the pool reads between calls
+    (``queue``, ``slot_req``, ``_prefix_cache``, ``_prefilling``,
+    ``_failed``, ``cost``, ``shed_by_reason``, ``stall_ms``,
+    ``_available_pages()``, ``_engine_anchor`` and every scalar attribute;
+    any other value is fetched from rank 0 when it is read), replays its
+    metric writes into ``metrics`` and lands its finished spans in
+    ``tracer``.  An engine error of ``_PASSED``'s types
+    (:class:`ReplicaDeadError` and ``ValueError`` among them) is raised
+    here as itself.  A rank that raises anything else or dies ends the
+    gang, and the call raises :class:`ReplicaDeadError` (a
+    ``RuntimeError``) with the rank's traceback: the replica is dead, its
+    last host view stays readable and ``take_orphans()`` returns nothing,
+    so the pool replays every request that view holds.
+    ``round_trip_ms`` keeps, for each ``step``, this process's wall minus
+    rank 0's own wall for the step: the cost of the round trip."""
+
+    def __init__(self, gang, params: dict, cfg, engine_kw: dict,
+                 metrics=None, chaos=None, tracer=None, trace_ctx=None):
+        self._metrics, self._tracer = metrics, tracer
+        self._attrs: dict = {}
+        self.round_trip_ms: list[float] = []
+        self.stall_ms: list[float] = []
+        self._gang = gang
+        self.devices = gang.devices
+        try:
+            self._call(_gang_build, params, cfg, engine_kw,
+                       metrics is not None, tracer is not None, trace_ctx,
+                       chaos)
+        except BaseException:
+            self.close()
+            raise
+
+    def _call(self, fn, *args, step: bool = False):
+        t0 = time.perf_counter()
+        try:
+            replies = self._gang.call(fn, *args)
+        except RuntimeError as exc:
+            # a rank raised or died, and the gang is closed
+            reason = f"tp gang on {self.devices} failed: {exc}"
+            self._attrs = dict(self._attrs,
+                               dead=self._attrs.get("dead") or reason)
+            raise ReplicaDeadError(reason) from exc
+        wall = time.perf_counter() - t0
+        head = replies[0]
+        if any((r["digest"], r["raised"]) != (head["digest"], head["raised"])
+               for r in replies):
+            self.close()
+            raise RuntimeError(
+                f"the tp ranks' host state parted ({fn.__name__}"
+                f"{args[:1]}): digests {[r['digest'] for r in replies]}, "
+                f"errors {[r['raised'] for r in replies]}")
+        self._digest = head["digest"]
+        if head["view"] is not None:
+            self._absorb(head["view"])
+        if self._metrics is not None:
+            for op, *a in head["metrics"]:
+                getattr(self._metrics, op)(*a)
+        if self._tracer is not None:
+            self._tracer.add_finished(*head["spans"])
+        if step:
+            self.round_trip_ms.append((wall - head["wall"]) * 1e3)
+            _trim_acct(self.round_trip_ms)
+        if head["exc"] is not None:
+            raise head["exc"]
+        return head["value"]
+
+    def _absorb(self, view: dict) -> None:
+        self._attrs = view["scalars"]
+        self.queue = _AdmissionQueue((r, None) for r in view["queue"])
+        self.slot_req = view["slot_req"]
+        self._prefix_cache = dict.fromkeys(view["prefix_cache"])
+        self._prefilling = dict.fromkeys(view["prefilling"])
+        self._failed = view["failed"]
+        self.cost = view["cost"]
+        self.shed_by_reason = view["shed_by_reason"]
+        if view["stall_reset"]:
+            self.stall_ms.clear()
+        self.stall_ms.extend(view["stall_new"])
+        _trim_acct(self.stall_ms)
+        self._free = view["available_pages"]
+        self._engine_anchor = view["anchor"]
+
+    def __getattr__(self, name: str):
+        attrs = self.__dict__.get("_attrs", {})
+        if name in attrs:
+            return attrs[name]
+        if name.startswith("__") or "_digest" not in self.__dict__:
+            raise AttributeError(name)
+        return self._call(_gang_getattr, name)
+
+    @property
+    def dead(self):
+        return self._attrs.get("dead")
+
+    @dead.setter
+    def dead(self, reason) -> None:
+        if self._gang.alive:
+            try:
+                self._call(_gang_setattr, "dead", reason)
+                return
+            except ReplicaDeadError:
+                pass
+        self._attrs = dict(self._attrs, dead=reason)
+
+    def _method(self, name: str, *args, **kw):
+        return self._call(_gang_call, name, args, kw, step=name == "step")
+
+    def submit(self, *args, **kw) -> int:
+        return self._method("submit", *args, **kw)
+
+    def step(self) -> list[_Request]:
+        return self._method("step")
+
+    def warmup(self) -> None:
+        self._method("warmup")
+
+    def drain(self, *args, **kw) -> list[_Request]:
+        return self._method("drain", *args, **kw)
+
+    def cancel(self, *args, **kw):
+        return self._method("cancel", *args, **kw)
+
+    def take_orphans(self) -> list[_Request]:
+        # a failed gang's unread finished requests died with it; its last
+        # view still holds them as resident, so they replay
+        if not self._gang.alive:
+            return []
+        return self._method("take_orphans")
+
+    def take_export(self, rid: int) -> dict | None:
+        return self._method("take_export", rid)
+
+    def take_exports(self) -> dict[int, dict]:
+        return self._method("take_exports")
+
+    def import_chain(self, export: dict, *args, **kw) -> int | None:
+        # the chain reaches the ranks in shared memory, which moves a host
+        # tensor's storage: send copies, so the caller's export stays as
+        # it was
+        export = dict(export, chain={k: v.clone()
+                                     for k, v in export["chain"].items()})
+        return self._method("import_chain", export, *args, **kw)
+
+    def check_page_invariants(self) -> None:
+        self._method("check_page_invariants")
+
+    def host_digest(self) -> str:
+        """Rank 0's host digest after the last call (every rank's was
+        equal to it)."""
+        return self._digest
+
+    def _available_pages(self) -> int:
+        return self._free
+
+    def on_ranks(self, fn, *args) -> list:
+        """``fn(state, *args)`` on every rank (``state["engine"]`` is the
+        rank's engine); every rank's result, in rank order.  For
+        measurement (a rank's memory, its kernel counters): it changes no
+        host view."""
+        return self._gang.call(fn, *args)
+
+    def close(self) -> None:
+        """End the gang's processes (idempotent)."""
+        self._gang.close()
+
+
 class DataParallelServePool:
     """``dp`` independent engine replicas behind one admission queue (the
     reference's pool at ``tp=1``: each replica a :class:`ContinuousBatcher`
@@ -3822,21 +4163,23 @@ class DataParallelServePool:
     ``cfg`` may be a :class:`~kubegpu_tpu_torch.models.moe.MoEConfig`:
     each replica's engine serves the MoE family (it scales out on dp
     replicas; page chains hold attention K/V only, so migration is the
-    same).  ``tp > 1`` (a replica over several devices) raises
-    ``NotImplementedError``: the pools at tp > 1 are the next part of
-    ROADMAP.md queue 1 item 9 (multi-device)."""
+    same).
+
+    ``tp > 1``: each replica is a tensor-parallel engine on its block of
+    ``tp`` devices (replica i on ``devices[b·tp:(b+1)·tp]``, b its block),
+    one process a rank (:class:`_GangReplica`; NCCL where the block's
+    devices are distinct cards, gloo where they share a card or are the
+    CPU).  Each rank cuts its shard from ``params`` where they lie; the
+    routing, failover, scaling and migration above are the same.  The
+    pool owns the gangs' processes: :meth:`close` (or leaving a ``with``
+    block) ends them.  A MoE config at ``tp > 1`` raises the engine's
+    ``ValueError``, as the reference's does."""
 
     def __init__(self, params: dict, cfg: LlamaConfig | MoEConfig,
                  dp: int = 1,
                  tp: int = 1, devices=None, metrics=None,
                  max_replays: int = 2, chaos=None, tracer=None,
                  trace_ctx=None, routing: str = "affinity", **engine_kw):
-        if tp != 1:
-            raise NotImplementedError(
-                f"tp={tp} is not ported yet (ROADMAP.md queue 1 item 9, "
-                "multi-device: the pools at tp > 1 are its next part); a "
-                "replica runs on one device, and one tensor-parallel "
-                "engine is ContinuousBatcher(mesh=make_serve_mesh(tp))")
         if devices is None:
             devices = [torch.device("cuda", i)
                        for i in range(torch.cuda.device_count())][:dp * tp]
@@ -3864,7 +4207,22 @@ class DataParallelServePool:
         # one tracer for every replica: a replayed request's spans share
         # the timeline of its first life
         self._tracer = tracer
-        self.replicas = [self._build_engine(i) for i in range(dp)]
+        self._unsub = None
+        # at tp > 1 every replica's rank processes start at once (a gang
+        # takes seconds to reach its devices); _build_engine takes them
+        self._starting = {i: self._start_gang(i) for i in range(dp)
+                          if tp > 1}
+        self.replicas = []
+        try:
+            for i in range(dp):
+                self.replicas.append(self._build_engine(i))
+        except BaseException:
+            self.close()     # the replicas built so far
+            raise
+        finally:
+            for gang in self._starting.values():
+                gang.close()
+            self._starting = {}
         self.max_replays = int(max_replays)
         # the host-side record: pool rid -> entry, (replica, local rid) ->
         # pool rid
@@ -3879,7 +4237,6 @@ class DataParallelServePool:
         # observed that the next step() turns into failovers
         self._gang_replica: dict[str, int] = {}
         self._pending_deaths: deque[tuple[int, str]] = deque()
-        self._unsub = None
         # prefix-affinity routing: each replica's set of chain keys,
         # registered or inbound (queued or resident requests'), rebuilt
         # every step() and warmed at each submit; host-side only
@@ -3903,17 +4260,30 @@ class DataParallelServePool:
             self._params_by_dev[dev] = _params_on(self._params, dev)
         return self._params_by_dev[dev]
 
-    def _build_engine(self, i: int) -> ContinuousBatcher:
-        """Build replica ``i``'s engine on its device: the only place a
-        replica is constructed (``__init__`` and :meth:`add_replica`), so
+    def _build_engine(self, i: int) -> "ContinuousBatcher | _GangReplica":
+        """Build replica ``i``'s engine on its device block: the only place
+        a replica is constructed (``__init__`` and :meth:`add_replica`), so
         a subclass that overrides it inherits the routing, failover and
-        scaling above it."""
+        scaling above it.  At ``tp > 1`` the replica is a gang of rank
+        processes on the block's devices."""
+        if self.tp > 1:
+            return _GangReplica(
+                self._starting.pop(i, None) or self._start_gang(i),
+                self._params, self._cfg, self._engine_kw,
+                metrics=self._metrics, chaos=self._chaos.get(i),
+                tracer=self._tracer, trace_ctx=self._trace_ctx)
         dev = self._devs[self._blocks[i]]
         return ContinuousBatcher(
             self._replica_params(dev), self._cfg, device=dev,
             metrics=self._metrics, chaos=self._chaos.get(i),
             tracer=self._tracer, trace_ctx=self._trace_ctx,
             **self._engine_kw)
+
+    def _start_gang(self, i: int):
+        """Start the rank processes of replica ``i``'s device block."""
+        from kubegpu_tpu_torch.parallel.launch import Gang
+        b, tp = self._blocks[i], self.tp
+        return Gang(self._devs[b * tp:(b + 1) * tp])
 
     def warmup(self) -> None:
         """Warm every replica, one after the other (each captures its own
@@ -3941,9 +4311,7 @@ class DataParallelServePool:
         eng = self.replicas[0]
         if not (eng.paged and eng.prefix_cache_enabled):
             return ()
-        p = np.asarray(prompt_np, np.int64)
-        return tuple(hash(p[:(i + 1) * eng.page_size].tobytes())
-                     for i in range((int(p.shape[0]) - 1) // eng.page_size))
+        return page_keys(prompt_np, eng.page_size)
 
     def _affinity(self, j: int, keys: tuple) -> int:
         """The longest leading run of ``keys`` in replica ``j``'s digest
@@ -4163,9 +4531,20 @@ class DataParallelServePool:
         self._unsub = api.watch(_cb)
 
     def close(self) -> None:
+        """Stop watching the apiserver and end every replica's rank
+        processes (the replicas of a pool at ``tp > 1``); idempotent."""
         if self._unsub is not None:
             self._unsub()
             self._unsub = None
+        for eng in self.replicas:
+            if isinstance(eng, _GangReplica):
+                eng.close()
+
+    def __enter__(self) -> "DataParallelServePool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     # -- failover ----------------------------------------------------------
 
@@ -4514,7 +4893,10 @@ class DisaggServePool(DataParallelServePool):
     orphans), an unexported prefill replays on a live prefill replica, a
     decode death replays prompt + accepted tokens through a prefill leg
     again; with a whole role dead the pool serves symmetrically on what
-    is left."""
+    is left.  At ``tp > 1`` each role's replica is a gang (see
+    :class:`DataParallelServePool`): the prefill gang's ranks all-gather
+    their heads of a chain, so the export is the full-head chain on the
+    host, and the decode gang's ranks each scatter their own heads."""
 
     def __init__(self, params: dict, cfg: LlamaConfig | MoEConfig,
                  prefill: int = 1,

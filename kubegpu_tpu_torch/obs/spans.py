@@ -208,6 +208,33 @@ class Tracer:
         with self._lock:
             self._spans.append(span)
 
+    # -- finished records across processes -----------------------------
+
+    def take_finished(self) -> tuple[list, list]:
+        """Pop every finished span (as a plain tuple) and instant event
+        recorded so far: what a tracer in another process (a
+        tensor-parallel rank's) hands to the tracer that keeps the
+        timeline (:meth:`add_finished`)."""
+        with self._lock:
+            spans = [(s.name, s.trace_id, s.span_id, s.parent_id, s.t0,
+                      s.t1, s.attrs, s.tid) for s in self._spans]
+            instants = list(self._instants)
+            self._spans.clear()
+            self._instants.clear()
+        return spans, instants
+
+    def add_finished(self, spans: list, instants: list) -> None:
+        """Land what :meth:`take_finished` popped elsewhere, ids, parents
+        and times unchanged (``perf_counter`` is the host's monotonic
+        clock, one for all its processes)."""
+        for name, trace_id, span_id, parent_id, t0, t1, attrs, tid in spans:
+            sp = Span(self, name, trace_id, span_id, parent_id, t0, attrs,
+                      tid)
+            sp.t1 = t1
+            self._finish(sp)
+        with self._lock:
+            self._instants.extend(instants)
+
     # -- gang linkage (ScheduleTrace → request traces) ------------------
 
     def link_gang(self, gang: str, ctx: "Span | SpanContext") -> None:

@@ -17,15 +17,20 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return x
 
 
-def all_gather_last(x: torch.Tensor, group) -> torch.Tensor:
-    """Every rank's ``x`` [..., n] side by side along the last dim, rank
-    order: [..., tp·n] (the vocabulary shards of the logits; the
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` side by side along ``dim``, rank order (the
     reference's tiled ``lax.all_gather``).  A list ``all_gather`` takes
     CUDA tensors over NCCL and over gloo alike."""
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim=-1)
+    return torch.cat(parts, dim=dim)
+
+
+def all_gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` [..., n] side by side along the last dim:
+    [..., tp·n] (the vocabulary shards of the logits)."""
+    return all_gather_dim(x, -1, group)
 
 
 def broadcast_float(value: float, group) -> float:

@@ -62,33 +62,41 @@ def pool_specs(pool: dict) -> dict:
             for name, x in pool.items()}
 
 
-def _cut(x: torch.Tensor, spec: tuple, rank: int, tp: int) -> torch.Tensor:
+def _cut(x: torch.Tensor, spec: tuple, rank: int, tp: int,
+         device: torch.device | None = None) -> torch.Tensor:
     """Rank ``rank``'s slice of ``x`` under ``spec``, as a contiguous
-    copy (a view would keep the whole leaf's storage alive); ``x`` itself
-    when the spec keeps it whole."""
+    copy on ``device`` (default: ``x``'s; a view would keep the whole
+    leaf's storage alive); ``x`` itself, moved to ``device`` where it lies
+    elsewhere, when the spec keeps it whole.  Only the slice is copied:
+    the whole leaf never lands on ``device``."""
+    device = x.device if device is None else torch.device(device)
     if TP not in spec:
-        return x
+        return x.to(device)
     dim = spec.index(TP)
     n = x.shape[dim]
     if n % tp:
         raise ValueError(f"tp={tp} must divide dim {dim} of a leaf of shape "
                          f"{tuple(x.shape)}")
     part = x.narrow(dim, rank * (n // tp), n // tp)
-    return torch.empty_like(part, memory_format=torch.contiguous_format
-                            ).copy_(part)
+    return torch.empty(part.shape, dtype=part.dtype,
+                       device=device).copy_(part)
 
 
-def shard_tree(tree, specs, rank: int, tp: int):
+def shard_tree(tree, specs, rank: int, tp: int,
+               device: torch.device | None = None):
     """Rank ``rank``'s shard of every leaf of ``tree`` under the matching
     ``specs`` (a tree of the same nesting, QTensor leaves matched by
-    QTensor specs); ``tree`` is not changed."""
+    QTensor specs), on ``device`` (default: where each leaf lies); ``tree``
+    is not changed.  A tree on the host or on another card is cut where
+    it lies and only the shard moves."""
     if isinstance(tree, dict):
-        return {k: shard_tree(v, specs[k], rank, tp) for k, v in tree.items()}
+        return {k: shard_tree(v, specs[k], rank, tp, device)
+                for k, v in tree.items()}
     if isinstance(tree, QTensor):
         if not isinstance(specs, QTensor):
             raise TypeError("a QTensor leaf needs a QTensor spec pair")
-        return QTensor(_cut(tree.values, specs.values, rank, tp),
-                       _cut(tree.scale, specs.scale, rank, tp))
+        return QTensor(_cut(tree.values, specs.values, rank, tp, device),
+                       _cut(tree.scale, specs.scale, rank, tp, device))
     if isinstance(specs, QTensor):
         raise TypeError("a QTensor spec pair matches a plain tensor leaf")
-    return _cut(tree, specs, rank, tp)
+    return _cut(tree, specs, rank, tp, device)

@@ -60,10 +60,11 @@ Env knobs:
                  they can satisfy (SERVE_DP=1) spawns SERVE_TP ranks, one
                  a card over NCCL (gloo ranks on the CPU), each serving
                  its shard of one tensor-parallel engine; rank 0 prints
-                 the lines.  A dp ask at tp 1 serves through a
-                 DataParallelServePool (dp replicas, one a card); dp and
-                 tp together raise NotImplementedError (the pools at
-                 tp > 1: ROADMAP.md queue 1, item 9)
+                 the lines.  A dp ask serves through a
+                 DataParallelServePool in this process: dp replicas, each
+                 on SERVE_TP cards of its own (replica i on cards
+                 i*tp..(i+1)*tp-1); at tp > 1 each replica is a gang of tp
+                 rank processes over NCCL (gloo ranks on the CPU)
   SERVE_TRACE    "1" traces the engine (so does a KUBETPU_TRACE_CONTEXT
                  token); SERVE_TRACE_OUT writes the Chrome trace there
 
@@ -301,8 +302,8 @@ def _serve_continuous(env, cfg, params, n_slots, prompt_t, steps, int8,
     # mesh serving (SERVE_TP / SERVE_DP): an ask the allocation or the
     # head geometry cannot satisfy degrades to the one-device engine
     # (loudly under strict mode); a tp ask it can satisfy runs tp ranks
-    # of one sharded engine, a dp ask at tp = 1 dp replicas behind one
-    # queue (both at once: the pools at tp > 1 are not ported yet)
+    # of one sharded engine, a dp ask dp replicas behind one queue, each
+    # a tp-rank gang of its own at tp > 1
     n_dev = _device_count(device)
     tp = int(os.environ.get("SERVE_TP", "1"))
     dp = int(os.environ.get("SERVE_DP", "1"))
@@ -330,16 +331,15 @@ def _serve_continuous(env, cfg, params, n_slots, prompt_t, steps, int8,
                             prefix_cache=prefix_cache,
                             chunked_prefill=chunked, spec_gamma=spec_gamma,
                             draft_layers=draft_layers, fused_ticks=fused_k))
+    if paged and tp > 1 and device.type == "cuda":
+        # the paged kernels once, here: the ranks then only load them
+        from kubegpu_tpu_torch import kernels
+        kernels.build(["paged_decode", "paged_decode_q8", "paged_decode_q4"])
     if paged and tp > 1 and dp == 1:
         # one rank a card over NCCL (gloo ranks on the CPU), each making
         # its weights and serving its shard; rank 0 reports
         from kubegpu_tpu_torch.parallel import launch
         from kubegpu_tpu_torch.models.serve import _params_on
-        if device.type == "cuda":
-            # the paged kernels once, here: the ranks then only load them
-            from kubegpu_tpu_torch import kernels
-            kernels.build(["paged_decode", "paged_decode_q8",
-                           "paged_decode_q4"])
         host = None if params is None else _params_on(params,
                                                       torch.device("cpu"))
         ok, lines, tokens = launch(
@@ -387,16 +387,11 @@ def _serve(cfg, params, plan: dict, device, mesh=None, rank0: bool = True):
     """Build the planned engine (a tensor-parallel rank's under ``mesh``,
     the dp pool, or one engine), warm it up, run SERVE_REQS requests
     through it and return (ok, the metric lines, each request's tokens).
-    Only ``rank0`` writes the Chrome trace."""
-    import numpy as np
-
+    Only ``rank0`` writes the Chrome trace; a pool's replica gangs end
+    before it returns."""
     from kubegpu_tpu_torch.models.serve import ContinuousBatcher
 
-    n_slots, prompt_t, steps = (plan["n_slots"], plan["prompt_t"],
-                                plan["steps"])
-    n_reqs, stride, tp, dp = (plan["n_reqs"], plan["stride"], plan["tp"],
-                              plan["dp"])
-    base = np.arange(prompt_t) % cfg.vocab_size
+    tp, dp = plan["tp"], plan["dp"]
     # end-to-end request tracing: the crishim injects
     # KUBETPU_TRACE_CONTEXT into the pod's env; decoding it parents every
     # engine span under the scheduler's bind span.  No token (or
@@ -414,13 +409,31 @@ def _serve(cfg, params, plan: dict, device, mesh=None, rank0: bool = True):
                                 graphs=graphs, **eng_kw)
     elif plan["paged"] and dp > 1:
         from kubegpu_tpu_torch.models.serve import DataParallelServePool
-        # the first dp cards, or dp replicas on the caller's CPU
+        # the first dp·tp cards (at tp > 1 each replica's ranks cut their
+        # shards from this process's tree), or the caller's CPU
         eng = DataParallelServePool(
             params, cfg, dp=dp, tp=tp,
-            devices=None if device.type == "cuda" else [device] * dp,
+            devices=None if device.type == "cuda" else [device] * (dp * tp),
             **eng_kw)
     else:
         eng = ContinuousBatcher(params, cfg, device=device, **eng_kw)
+    try:
+        return _drive(eng, cfg, plan, tracer, rank0)
+    finally:
+        if hasattr(eng, "close"):
+            eng.close()      # a pool's replica gangs end here
+
+
+def _drive(eng, cfg, plan: dict, tracer, rank0: bool):
+    """:func:`_serve`'s run on the built engine or pool: warm it up, run
+    SERVE_REQS requests and return (ok, the metric lines, the tokens)."""
+    import numpy as np
+
+    n_slots, prompt_t, steps = (plan["n_slots"], plan["prompt_t"],
+                                plan["steps"])
+    n_reqs, stride, tp, dp = (plan["n_reqs"], plan["stride"], plan["tp"],
+                              plan["dp"])
+    base = np.arange(prompt_t) % cfg.vocab_size
     # every wave size, the chunk step and the tick run (and, on the card,
     # are captured) OUTSIDE the timed window; warmup() leaves the engine's
     # state and counters as they were

@@ -1233,3 +1233,59 @@ def test_route_tokens_captures(dev):
         for a, b in zip(routed, want_r):
             assert torch.equal(a, b)
         assert torch.equal(y, want_y) and torch.equal(aux, want_aux)
+
+
+def test_tp_pool_over_gloo_on_one_card(dev):
+    """``DataParallelServePool(dp=2, tp=2)`` with four gloo ranks sharing
+    the card (``graphs=False``): its tokens equal the tp = 1 pool's on the
+    same card (f32 weights), every rank runs on the card, and
+    ``graphs=True`` over gloo is refused with the engine's
+    ``ValueError``."""
+    from kubegpu_tpu_torch.models import llama as ml
+    from kubegpu_tpu_torch.models import serve as ms
+    cfg = ml.LlamaConfig.tiny(n_heads=4, n_kv_heads=4, max_seq_len=64)
+    params = ml.llama_init(cfg, seed=0, device=dev)
+    kw = dict(n_slots=2, stride=4, prompt_buckets=(8, 16), page_size=8,
+              prefix_cache=True, graphs=False)
+    prompts = [([(i * 3 + j) % cfg.vocab_size for i in range(4 + j)], 5 + j)
+               for j in range(5)]
+    runs = []
+    for tp in (1, 2):
+        with ms.DataParallelServePool(params, cfg, dp=2, tp=tp,
+                                      devices=["cuda:0"] * 2 * tp,
+                                      **kw) as pool:
+            rids = [pool.submit(p, n) for p, n in prompts]
+            done = {r.rid: r.tokens for r in pool.drain()}
+            runs.append(([done[r] for r in rids], list(pool.route_log)))
+            if tp == 2:
+                assert pool.replicas[0].devices == ["cuda:0", "cuda:0"]
+    assert runs[0] == runs[1]
+    with pytest.raises(ValueError, match="graphs=False"):
+        ms.DataParallelServePool(params, cfg, dp=1, tp=2,
+                                 devices=["cuda:0"] * 2,
+                                 **dict(kw, graphs=True))
+
+
+def test_pool_replica_on_another_card(dev):
+    """A tp = 1 pool over cards 0 and 1 (each replica's engine runs its
+    kernels and graphs with its own card current): tokens equal the same
+    pool's on card 0 alone."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from kubegpu_tpu_torch.models import llama as ml
+    from kubegpu_tpu_torch.models import serve as ms
+    cfg = ml.LlamaConfig.tiny(n_heads=4, n_kv_heads=4, max_seq_len=64)
+    params = ml.llama_init(cfg, seed=0, device=dev)
+    kw = dict(n_slots=2, stride=4, prompt_buckets=(8, 16), page_size=8)
+    prompts = [([(i * 3 + j) % cfg.vocab_size for i in range(4 + j)], 5 + j)
+               for j in range(5)]
+    runs = []
+    for devices in (["cuda:0", "cuda:0"], ["cuda:0", "cuda:1"]):
+        pool = ms.DataParallelServePool(params, cfg, dp=2, devices=devices,
+                                        **kw)
+        pool.warmup()
+        rids = [pool.submit(p, n) for p, n in prompts]
+        done = {r.rid: r for r in pool.drain()}
+        assert all(done[r].error is None for r in rids)
+        runs.append([done[r].tokens for r in rids])
+    assert runs[0] == runs[1]

@@ -5,8 +5,9 @@ llama_serve``) against the JAX package's, both run in-process on the CPU
 ``main()`` under the same env must exit 0 on both sides and print the same
 metric names in the same order (the weights differ: each package draws its
 own; ``tests/test_torch_llama_serve_engine.py`` holds the lines' values on
-shared weights).  The strict-mode fences, the tp/dp degradation, the worker
-env and ``python -m`` without a card are checked on their own.  Sizes are
+shared weights), with the dp pool at tp 1 and at tp 2.  The strict-mode
+fences, the tp/dp degradation, the worker env and ``python -m`` without a
+card are checked on their own.  Sizes are
 tiny (one slot, 3 requests): under the tier-1 run's parallel workers each
 JAX engine's compile takes several times its time alone."""
 
@@ -138,18 +139,28 @@ def test_tp_ask_degrades_on_one_device(clean_env, capsys):
         tls.main(device="cpu")
 
 
-@pytest.mark.parametrize("knob", ["SERVE_TP", "SERVE_DP"])
-def test_satisfiable_tp_dp_ask_is_not_ported(clean_env, knob):
-    """A tp ask under a dp ask the devices could serve needs the pools at
-    tp > 1, the next part of ROADMAP.md item 9 (a tp ask alone is ported:
-    tests/test_torch_serve_tp.py; a dp ask at tp 1 too: the pool).  The
-    knob named is the larger of the two."""
-    env = {**CONT, "SERVE_TP": "2", "SERVE_DP": "2", knob: "4"}
-    for k, v in env.items():
+def test_llama_serve_tp_dp_equals_reference(clean_env, capsys):
+    """``SERVE_TP=2 SERVE_DP=2`` on four devices: both programs serve
+    through their ``DataParallelServePool(dp=2, tp=2)`` (the port's two
+    replicas each a gang of two gloo ranks on the CPU, the reference's on
+    4 of its 8 virtual devices) and print the same metric lines, the tp,
+    dp, mesh-device and replica echo equal."""
+    for k, v in {**CONT, "SERVE_TP": "2", "SERVE_DP": "2"}.items():
         clean_env.setenv(k, v)
-    clean_env.setattr(tls, "_device_count", lambda device: 8)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tls.main(device="cpu")
+    clean_env.setattr(tls, "_device_count", lambda device: 4)
+    ours, ref = run_both(capsys, lambda: tls.main(device="cpu"), jls.main)
+    assert [m["metric"] for m in ours] == [m["metric"] for m in ref]
+    assert [sorted(m) for m in ours] == [sorted(m) for m in ref]
+    got = {m["metric"]: m["value"] for m in ours}
+    want = {m["metric"]: m["value"] for m in ref}
+    for name in ("serve_engine_cfg_dp", "serve_engine_cfg_tp",
+                 "serve_engine_cfg_mesh_devices", "serve_replicas_active",
+                 "serve_failover_total", "serve_kv_bits"):
+        assert got[name] == want[name], name
+    assert (got["serve_engine_cfg_tp"], got["serve_engine_cfg_dp"],
+            got["serve_engine_cfg_mesh_devices"],
+            got["serve_replicas_active"]) == (2, 2, 4, 2)
+    assert ours[0]["requests"] == 3
 
 
 def test_dp_ask_serves_through_the_pool(clean_env, capsys):

@@ -211,3 +211,18 @@ def test_walk_covers_the_parallel_package():
     for sub in ("__init__.py", "sharding.py", "collectives.py",
                 "launch.py"):
         assert f"kubegpu_tpu_torch/parallel/{sub}" in names, sub
+
+
+def test_rank_bodies_import_no_jax():
+    """A spawned tensor-parallel rank imports its bodies afresh: the
+    port's gang bodies live in ``models/serve.py`` and ``parallel/
+    launch.py`` (the walk above), the tests' in ``tests/tp_ranks.py``,
+    which imports neither JAX nor anything of ``kubegpu_tpu``."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert "kubegpu_tpu_torch/parallel/launch.py" in names
+    src = (ROOT / "kubegpu_tpu_torch/parallel/launch.py").read_text()
+    assert "class Gang" in src
+    assert "class _GangReplica" in (
+        ROOT / "kubegpu_tpu_torch/models/serve.py").read_text()
+    ranks = ROOT / "tests" / "tp_ranks.py"
+    assert not _imported_roots(ranks) & set(FORBIDDEN)

@@ -398,8 +398,8 @@ def test_disagg_degrades_when_a_role_dies(tiny):
 
 
 def test_pool_refusals():
-    """The pool's construction errors: too few devices, an unknown
-    routing, tp > 1 (not ported: multi-device), an empty role."""
+    """The pool's construction errors: too few devices (at tp = 2 too),
+    an unknown routing, an empty role."""
     cfg = tl.LlamaConfig.tiny(max_seq_len=64)
     params = tl.llama_init(cfg, device="cpu")
     with pytest.raises(ValueError, match="needs 3 devices, have 2"):
@@ -407,9 +407,9 @@ def test_pool_refusals():
     with pytest.raises(ValueError, match="routing"):
         ts.DataParallelServePool(params, cfg, dp=1, devices=["cpu"],
                                  routing="random", **POOL)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        ts.DataParallelServePool(params, cfg, dp=1, tp=2,
-                                 devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="needs 4 devices, have 3"):
+        ts.DataParallelServePool(params, cfg, dp=2, tp=2,
+                                 devices=["cpu"] * 3)
     with pytest.raises(ValueError, match="one replica per role"):
         ts.DisaggServePool(params, cfg, prefill=0, devices=["cpu"])
 

@@ -13,8 +13,11 @@ tp-aware bodies' logits (one decode step, the verify, a prompt chunk, a
 prefill) agree with the tp = 1 bodies' within 1e-5 (a row-split product's
 partials are summed in another order than one GEMM's); after every drain
 each rank's host digest (page tables, free list, counters) is the same,
-and equal to the tp = 1 engine's.  Two launches (tp = 2 and tp = 4) run
-every case and the JAX side runs once per case, both memoized for the
+and equal to the tp = 1 engine's.  Page-chain migration between two
+engines of one tp = 2 group exports the full-head chain (all-gathered over
+the ranks) within 1e-5 of the JAX mesh engine's and the tp = 1 engine's,
+and the importer's tokens equal theirs.  Two launches (tp = 2 and tp = 4)
+run every case and the JAX side runs once per case, both memoized for the
 module; ``llama_serve.py`` with ``SERVE_TP=2`` spawns its own ranks."""
 
 import functools
@@ -127,13 +130,26 @@ REFUSALS = {
     "moe": {"engine": dict(ENGINE), "moe": True},
     "evict": {"engine": dict(ENGINE, evict_policy="window")},
     "axes": {"engine": dict(ENGINE), "mesh_names": ("dp",)},
-    "migrate_out": {"engine": dict(ENGINE),
-                    "events": [_submit([1, 2, 3], 4, migrate_out=True)]},
-    "import_chain": {"engine": dict(ENGINE), "import_chain": True},
 }
+# page-chain migration between two engines of one group, a pool format
+# each: a 13-token prompt (two pages, prefix keys for the first) exported
+# after its one-token prefill leg and imported to make 6 tokens
+MIGRATIONS = {
+    "migrate": dict(ENGINE, prefix_cache=True),
+    "migrate_int8": dict(ENGINE, prefix_cache=True, kv_bits=8),
+    "migrate_int4": dict(ENGINE, prefix_cache=True, kv_bits=4),
+}
+MIGRATE_N = 6
+
+
+def migrate_prompt(vocab: int) -> list:
+    return [(i * 11 + 7) % vocab for i in range(13)]
 
 
 def _case(name: str, vocab: int) -> dict:
+    if name in MIGRATIONS:
+        return {"name": name, "engine": MIGRATIONS[name],
+                "prompt": migrate_prompt(vocab), "n": MIGRATE_N}
     eng, quant, traffic = {**CASES, **PORT_CASES}[name]
     return {"name": name, "engine": eng, "quant_weights": quant,
             "events": traffic(vocab)}
@@ -146,6 +162,7 @@ def _rank_cases(vocab: int, tp: int) -> list:
         # sampling is deterministic per seed: the same seed again
         cases.append(dict(_case("sampled", vocab), name="sampled_again"))
         cases += [{"name": n, "events": [], **c} for n, c in REFUSALS.items()]
+        cases += [_case(n, vocab) for n in MIGRATIONS]
     return cases
 
 
@@ -192,8 +209,28 @@ def _port_tp1(name: str) -> dict:
     params_np = jax.tree.map(np.asarray,
                              jl.llama_init(jax.random.PRNGKey(0), cfg_j))
     case = _case(name, cfg_j.vocab_size)
-    params = tp_ranks.engine_params(params_np, case["quant_weights"])
+    params = tp_ranks.engine_params(params_np, case.get("quant_weights",
+                                                        False))
     return tp_ranks.serve_case(params, tl.LlamaConfig.tiny(**CFG_KW), case)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_migration(name: str) -> dict:
+    """The JAX mesh engines' migration case ``name`` at tp = 2: the
+    export and the importer's tokens."""
+    cfg_j = jl.LlamaConfig.tiny(**CFG_KW)
+    params_j = jl.llama_init(jax.random.PRNGKey(0), cfg_j)
+    mesh = js.make_serve_mesh(2)
+    src = js.ContinuousBatcher(params_j, cfg_j, mesh=mesh,
+                               **MIGRATIONS[name])
+    rid = src.submit(migrate_prompt(cfg_j.vocab_size), 1, migrate_out=True)
+    first = [r.tokens for r in src.drain()]
+    exp = src.take_export(rid)
+    dst = js.ContinuousBatcher(params_j, cfg_j, mesh=mesh,
+                               **MIGRATIONS[name])
+    dst.import_chain(exp, MIGRATE_N)
+    return {"export": exp, "first": first,
+            "tokens": {r.rid: r.tokens for r in dst.drain()}}
 
 
 # -- the shard cutter ---------------------------------------------------------
@@ -388,10 +425,43 @@ def test_refusals_are_the_reference(ranks2, name):
     assert ranks2[0][name]["error"] == _jax_refusal(name)
 
 
-@pytest.mark.parametrize("name", ["migrate_out", "import_chain"])
-def test_migration_under_a_mesh_waits_for_item_9(ranks2, name):
-    err = ranks2[0][name]["error"]
-    assert err.startswith("NotImplementedError") and "item 9" in err, err
+@pytest.mark.parametrize("name", list(MIGRATIONS))
+def test_migration_under_a_mesh_equals_jax(ranks2, name):
+    """Two engines of one tp = 2 group: the exporter's ranks all-gather
+    their KV heads of the chain, so the export holds every head (int8 and
+    int4 scales with their values) within 1e-5 of the JAX mesh engine's
+    export and of the tp = 1 engine's, with the same length, pages, first
+    token and prefix keys, and a digest over the full chain; the
+    importer's ranks each scatter their heads, and its tokens, counters
+    and host digest equal the tp = 1 importer's, the tokens the JAX
+    importer's too, on every rank."""
+    got = ranks2[0][name]
+    ref = _port_tp1(name)
+    want = _jax_migration(name)
+    exp, jexp = got["export"], want["export"]
+    assert set(exp["chain"]) == set(jexp["chain"]) == set(
+        ref["export"]["chain"])
+    for leaf, x in exp["chain"].items():
+        for other in (np.asarray(jexp["chain"][leaf]),
+                      ref["export"]["chain"][leaf]):
+            assert x.shape == other.shape, leaf
+            np.testing.assert_allclose(x.astype(np.float64),
+                                       other.astype(np.float64), rtol=0,
+                                       atol=LOGIT_TOL, err_msg=leaf)
+    assert exp["chain"]["k"].shape[2] == CFG_KW["n_kv_heads"]
+    for k in ("t", "tpad", "pages", "first_token"):
+        assert exp[k] == jexp[k] == ref["export"][k], k
+    assert exp["keys"] == len(jexp["prefix_keys"]) == ref["export"]["keys"]
+    assert exp["digest"] == ts._chain_digest(
+        {k: torch.from_numpy(v) for k, v in exp["chain"].items()}, exp["t"])
+    assert got["first"] == ref["first"] == want["first"]
+    assert list(got["tokens"].values()) == list(ref["tokens"].values()) \
+        == list(want["tokens"].values())
+    assert got["counters"] == ref["counters"]
+    assert got["counters"]["chains_imported"] == 1
+    assert got["exported"] == ref["exported"] == (1, exp["pages"])
+    assert len(set(got["digests"])) == 1
+    assert got["digest"] == ref["digest"]
 
 
 class _DuckMesh:

@@ -1,8 +1,9 @@
-"""Rank entry points for ``tests/test_torch_serve_tp.py``.
+"""Rank entry points for ``tests/test_torch_serve_tp.py`` and
+``tests/test_torch_serve_tp_pool.py``.
 
 Each tensor-parallel rank is a spawned process that imports this module
 afresh, so it imports torch, numpy and the port only (never JAX: the test
-module that launches the ranks imports the JAX package).  The same
+modules that launch the ranks import the JAX package).  The same
 functions serve the test process's own tp = 1 runs.
 """
 
@@ -55,16 +56,46 @@ def engine_params(params_np: dict, quant_weights: bool) -> dict:
     return quantize_llama(params) if quant_weights else params
 
 
+def migrate_case(params: dict, cfg, case: dict, mesh=None) -> dict:
+    """Page-chain migration between two engines of one group (``mesh``
+    None: two tp = 1 engines): the first prefills ``case["prompt"]`` as a
+    one-token ``migrate_out`` leg and exports its chain, the second
+    imports it with ``case["n"]`` tokens to make and decodes.  The export
+    (its chain as numpy arrays), the second engine's tokens, counters and
+    host digest."""
+    src = ContinuousBatcher(params, cfg, device="cpu", mesh=mesh,
+                            **case["engine"])
+    rid = src.submit(case["prompt"], 1, migrate_out=True)
+    first = src.drain()
+    exp = src.take_export(rid)
+    dst = ContinuousBatcher(params, cfg, device="cpu", mesh=mesh,
+                            **case["engine"])
+    local = dst.import_chain(exp, case["n"])
+    done = dst.drain()
+    dst.check_page_invariants()
+    chain = {k: v.numpy() for k, v in exp["chain"].items()}
+    return {"export": {**{k: exp[k] for k in ("t", "tpad", "pages",
+                                              "first_token", "digest")},
+                       "keys": len(exp["prefix_keys"]), "chain": chain},
+            "first": [r.tokens for r in first],
+            "tokens": {r.rid: r.tokens for r in done}, "local": local,
+            "digest": dst.host_digest(),
+            "counters": {c: getattr(dst, c) for c in (
+                "chains_imported", "pages_migrated_in", "prefix_hits")},
+            "exported": (src.chains_exported, src.pages_migrated_out)}
+
+
 def serve_case(params: dict, cfg, case: dict, mesh=None) -> dict:
     """One case on one engine (``mesh`` None: the tp = 1 engine): its
-    tokens, counters and host digest; or the error its construction, its
-    traffic or (``import_chain``) an import raised."""
+    tokens, counters and host digest; or the error its construction or
+    its traffic raised.  A case with a ``prompt`` is a migration
+    (:func:`migrate_case`)."""
+    if "prompt" in case:
+        return migrate_case(params, cfg, case, mesh)
     try:
         eng = ContinuousBatcher(params, cfg, device="cpu", mesh=mesh,
                                 **case["engine"])
         got = run_traffic(eng, case["events"])
-        if case.get("import_chain"):
-            eng.import_chain({}, 4)
     except (ValueError, NotImplementedError) as exc:
         return {"error": f"{type(exc).__name__}: {exc}"}
     eng.check_page_invariants()
@@ -180,3 +211,28 @@ def shard_pieces(params_np: dict, cfg_kw: dict, seed: int) -> dict:
         res["pools"] = pools
         out["int8" if quant else "f32"] = res
     return out
+
+
+# -- gang bodies (tests/test_torch_serve_tp_pool.py) -------------------------
+
+def raise_on_rank(state: dict, rank: int) -> int:
+    """A gang body that raises on ``rank`` only."""
+    if state["rank"] == rank:
+        raise ArithmeticError(f"rank {rank} raised on purpose")
+    return state["rank"]
+
+
+def bump_rid(state: dict, rank: int) -> None:
+    """A gang body that moves ``rank``'s engine's next rid, so its host
+    state parts from the other ranks'."""
+    if state["rank"] == rank:
+        state["engine"]._next_rid += 1
+
+
+def engine_shapes(state: dict) -> dict:
+    """A gang body: this rank's device, its pool's KV heads and its wq
+    shard's columns."""
+    eng = state["engine"]
+    return {"device": state["device"], "backend": state["backend"],
+            "kv_heads": eng.pool["k"].shape[2],
+            "wq_cols": eng.params["layers"]["wq"].shape[-1]}
