@@ -238,18 +238,20 @@ printed as it ends (any failed check exits non-zero):
    prefill, the speculative tick fused 2 at a time) at tp = 1 and on two
    gloo ranks sharing the card (eager: gloo cannot be captured, and a
    gloo engine with ``graphs=True`` must raise): equal tokens on the
-   model-dtype pools, every rank's host digest equal; (b) Llama-3-8B in
-   bf16: the tp = 1 engine's bf16 window (graph and eager), its int8 and
+   model-dtype pools, every rank's host digest equal; (b) Llama-3-8B's
+   width cut to 8 of 32 layers (gloo is a check, not a path), in bf16:
+   the tp = 1 engine's bf16 window (graph and eager), its int8 and
    int4 windows (eager) and its first-step logits, then the engine
    freed and two gloo ranks, each making the weights from the seed and
    serving its shard (kernels 4-6 over 4 kv heads of 16 query heads):
    the first-step logits within 3e-2 relative L2, the token agreement,
    tokens/s beside tp = 1, a tick's wall with and without its
    collectives, each rank's peak memory; (c) the NCCL path with graphs
-   over ``min(4, device_count)`` cards, or a line saying it was not run
+   over ``min(4, device_count)`` cards at all 32 layers, against a tp = 1
+   graph engine of its own, or a line saying it was not run
    for want of cards.  Kernels 4-6 also run in phase 3 at the local
    shapes of tp = 2 and 4.
-16. pool_tp  -- the serving pools at tp > 1 (``pool_tp_phase``, last): each
+16. pool_tp  -- the serving pools at tp > 1 (``pool_tp_phase``): each
    replica a gang of tp rank processes (``DataParallelServePool(tp=2)``,
    ``DisaggServePool(1, 1, tp=2)``), cutting its shards from this
    process's weights on the card.  (a) The narrow f32 config over gloo
@@ -270,6 +272,24 @@ printed as it ends (any failed check exits non-zero):
    pages, and the throughput: the dp pool and one gang on a window of 32
    prompts of 128 new tokens (two waves and 16 ticks a replica); or a
    line saying it was not run for want of cards.
+17. cluster  -- the cluster layer (``cluster_phase``, last): (a)
+   ``NvmlBackend().discover()`` against ``torch.cuda`` and nvidia-smi
+   (count, names, UUIDs, memory, NVLink pairs, the slice type picked);
+   (b) the cluster ``apply --real --set backend.type=nvml`` builds
+   (``SimCluster.from_config``: one node agent over ``NvmlBackend``) with
+   real pods: ``kubegpu_tpu_torch/examples/config2-resnet-1gpu.json`` and
+   ``serve-llama.json`` (a static and a continuous serving pod) applied at
+   once, each pod exiting 0 on the card its grant names (the UUID it
+   reports equals its ``CUDA_VISIBLE_DEVICES``, one card visible), its
+   metric lines harvested as ``workload_*``, its kernel launches among
+   them (``KUBETPU_REPORT_LAUNCHES=1``; the continuous pod must have run
+   kernel 5, which decodes its int8 pages); two cards run pods at once, one card each after the
+   one before; then ``python -m kubegpu_tpu_torch apply -f
+   config2-resnet-1gpu.json --real --set backend.type=nvml`` as
+   ``cli.main``, which must exit 0 with its pod Succeeded; (c) host
+   only, 32 mock ``h100-sxm-8`` nodes filled by a seeded mix of 1- to
+   16-card gangs in one scheduling pass each: decision ms p50/p99, mean
+   locality, every gang on one node unless it is a multislice 16.
 
 Seventeen paths are driven: serving (phases 4-5), the prefix cache (5f),
 speculative serving (5g),
@@ -281,8 +301,10 @@ paged calls), the program's in-process engine runs (phase 9),
 sampling with the request lifecycle (phase 10, run after 5e), the
 serving pools (phase 11, after 10), the load harness (phase 12, after
 11), MoE serving (phase 13), the training families (phase 14) and
-tensor-parallel serving (phase 15) and the pools at tp > 1 (phase 16,
-last; the counts of both are the ranks').  Launch counters are zeroed just
+tensor-parallel serving (phase 15) and the pools at tp > 1 (phase 16;
+the counts of both are the ranks'); the cluster layer (phase 17, last)
+launches no kernel in this process: its pods are processes of their own,
+and report their counts as metric lines.  Launch counters are zeroed just
 before each and read just after; a graph replay counts the launches captured in it.  The serving
 and training paths must run kernels 1-3 on their tensor-core instances
 only.  The line
@@ -301,7 +323,9 @@ block of T5's paged decode like the ticks, one train step after phase
 
 from __future__ import annotations
 
+import contextlib
 import importlib
+import io
 import json
 import math
 import os
@@ -6095,6 +6119,18 @@ TP_FULL = {"bf16": (16, "paged_decode", 8, 16),
 # relative L2 (a row-split product's partials are rounded to bf16 before
 # their sum, and over 32 layers the residual stream moves by a few bf16 ulp)
 TP_LOGIT_REL_L2 = 3e-2
+# (b): Llama-3-8B's width at 8 of its 32 layers (two gloo ranks sharing one
+# card are a check, not a path, as phase 16's (b)); (c) over NCCL keeps 32
+TP_GLOO_LAYERS = 8
+
+
+def llama3_8b_at(n_layers: int | None):
+    """``LlamaConfig.llama3_8b()``, at ``n_layers`` layers where given."""
+    import dataclasses
+
+    from kubegpu_tpu_torch.models import LlamaConfig
+    cfg = LlamaConfig.llama3_8b()
+    return dataclasses.replace(cfg, n_layers=n_layers) if n_layers else cfg
 
 
 def tp_narrow_traffic(case: str) -> list:
@@ -6189,7 +6225,8 @@ def tp_tick_ms(torch, eng, group, reps: int = 2) -> float:
 def tp_rank(job: dict) -> dict:
     """One rank of phase 15 (a spawned process over the launch's group):
     ``job["kind"]`` "narrow" runs :func:`tp_narrow_run` on a ("tp",) mesh;
-    "full" makes Llama-3-8B's bf16 weights from the seed, and for each
+    "full" makes Llama-3-8B's bf16 weights from the seed (at
+    ``job["n_layers"]`` layers where it is given), and for each
     pool format of ``job["formats"]`` warms an engine on its shard
     (graphs over NCCL only), runs the window on ``job["prompts"]`` and
     frees it; the bf16 engine also gives the first-step logits and the
@@ -6228,7 +6265,7 @@ def tp_rank(job: dict) -> dict:
     if job["kind"] == "narrow":
         out["cases"] = tp_narrow_run(torch, kernels, mesh, graphs)
     else:
-        cfg = LlamaConfig.llama3_8b()
+        cfg = llama3_8b_at(job.get("n_layers"))
         t0 = time.perf_counter()
         params = llama_init(cfg, seed=SEED, device="cuda")
         torch.cuda.synchronize()
@@ -6284,17 +6321,18 @@ def token_agreement(a: list, b: list) -> float:
     return sum(x == y for x, y in pairs) / max(len(pairs), 1)
 
 
-def tp_single(torch, kernels, gen, runs) -> tuple:
+def tp_single(torch, kernels, gen, runs, n_layers: int | None = None
+              ) -> tuple:
     """The tp = 1 side at full width: Llama-3-8B's bf16 weights from the
-    seed, the window's prompts from ``gen``, and for each (pool format,
+    seed (at ``n_layers`` layers where it is given, else all 32), the
+    window's prompts from ``gen``, and for each (pool format,
     graphs) of ``runs`` a warmed engine's window on them; the eager bf16
     engine's first-step logits.  The weights and engines are freed before
     it returns (the ranks need the card)."""
     import gc
 
-    from kubegpu_tpu_torch.models import ContinuousBatcher, LlamaConfig
-    from kubegpu_tpu_torch.models import llama_init
-    cfg = LlamaConfig.llama3_8b()
+    from kubegpu_tpu_torch.models import ContinuousBatcher, llama_init
+    cfg = llama3_8b_at(n_layers)
     params = llama_init(cfg, seed=SEED, device="cuda")
     prompts = window_prompts(torch, cfg, gen, n=8)
     single, logits = {}, None
@@ -6362,11 +6400,13 @@ def tp_phase(torch, kernels, gen, name) -> dict:
     every knob at tp = 1 (graphs) and tp = 2 (two gloo ranks on the card,
     eager): equal tokens on the model-dtype pools, equal host digests on
     every rank, kernels 4-6 launched on the local heads.  (b) Llama-3-8B
-    in bf16: the tp = 1 engines' windows (bf16 graph and eager, int8 and
-    int4 eager) and first-step logits, freed; then two gloo ranks, each on
-    its shard: logits within ``TP_LOGIT_REL_L2``, the token agreement,
-    tokens/s, the tick's collectives, each rank's peak memory.  (c) NCCL
-    over ``min(4, device_count)`` cards with graphs (:func:`tp_nccl`)."""
+    at ``TP_GLOO_LAYERS`` layers in bf16: the tp = 1 engines' windows
+    (bf16 graph and eager, int8 and int4 eager) and first-step logits,
+    freed; then two gloo ranks, each on its shard: logits within
+    ``TP_LOGIT_REL_L2``, the token agreement, tokens/s, the tick's
+    collectives, each rank's peak memory.  (c) NCCL over ``min(4,
+    device_count)`` cards with graphs at all 32 layers (:func:`tp_nccl`,
+    against a tp = 1 graph engine of its own)."""
     t_phase = time.perf_counter()
     out = {}
     # (a) narrow f32
@@ -6393,14 +6433,15 @@ def tp_phase(torch, kernels, gen, name) -> dict:
                      "cases": {c: {k: v for k, v in r.items()
                                    if k != "tokens"}
                                for c, r in two["cases"].items()}}
-    # (b) full width: tp = 1 first, then freed
+    # (b) full width at TP_GLOO_LAYERS: tp = 1 first, then freed
     prompts, single, ref_l = tp_single(
         torch, kernels, gen, (("bf16", True), ("bf16", False),
-                              ("q8", False), ("q4", False)))
+                              ("q8", False), ("q4", False)), TP_GLOO_LAYERS)
     parent_gb = torch.cuda.memory_reserved() / 1e9
     kernels.reset_launches()          # the tp path's launches are the ranks'
     full = tp_launch({"kind": "full", "prompts": prompts,
-                      "formats": list(TP_FULL)}, 2, "gloo")
+                      "formats": list(TP_FULL), "n_layers": TP_GLOO_LAYERS},
+                     2, "gloo")
     rel, argmax_equal = logits_gap(full["bf16"].pop("first_logits"), ref_l)
     check(rel <= TP_LOGIT_REL_L2, f"tp=2 first-step logits rel L2 {rel} > "
           f"{TP_LOGIT_REL_L2}")
@@ -6422,7 +6463,8 @@ def tp_phase(torch, kernels, gen, name) -> dict:
                              collective_ms=r["tick_ms"]
                              - r["tick_ms_no_collectives"])
         log("tp", part="b Llama-3-8B bf16 weights", pool=fmt, tp=2,
-            backend="gloo", graphs=False, card=repr(name), **rows[fmt])
+            backend="gloo", graphs=False, n_layers=TP_GLOO_LAYERS,
+            card=repr(name), **rows[fmt])
     peaks = [r["peak_gb"] for r in full["ranks"]]
     log("tp", part="b", first_logits_rel_l2=rel, tol=TP_LOGIT_REL_L2,
         first_argmax_equal=argmax_equal, rank_peak_gb=peaks,
@@ -6430,13 +6472,19 @@ def tp_phase(torch, kernels, gen, name) -> dict:
         launch_s=full["launch_s"],
         rank_launches=[{k: r["launches"][k] for k in PAGED_KERNELS}
                        for r in full["ranks"]])
-    out["full"] = {"rows": rows, "first_logits_rel_l2": rel,
+    out["full"] = {"rows": rows, "n_layers": TP_GLOO_LAYERS,
+                   "reduced": "n_layers 32 -> 8 (gloo on one card: a check)",
+                   "first_logits_rel_l2": rel,
                    "first_argmax_equal": argmax_equal, "rank_peak_gb": peaks,
                    "parent_reserved_gb": parent_gb,
                    "init_s": full["init_s"], "launch_s": full["launch_s"]}
     launches = {k: full["launches"][k] + two["launches"][k]
                 for k in PAGED_KERNELS}
-    # (c) NCCL over the cards there are, with graphs
+    # (c) NCCL over the cards there are, with graphs, at all 32 layers
+    # against a tp = 1 graph engine of its own
+    if torch.cuda.device_count() >= 2:
+        prompts, single, ref_l = tp_single(torch, kernels, gen,
+                                           (("bf16", True),))
     out["nccl"] = tp_nccl(torch, name, prompts, single, ref_l)
     if out["nccl"] is not None:
         for k in PAGED_KERNELS:
@@ -6821,6 +6869,298 @@ def pool_tp_phase(torch, kernels, gen, name) -> dict:
     return out
 
 
+# -- phase 17: the cluster layer ---------------------------------------------
+
+CLUSTER_SPECS = ("config2-resnet-1gpu.json", "serve-llama.json")
+# (c): mock H100 nodes, the gang sizes drawn, misses in a row that end it
+SCALE_NODES = 32
+SCALE_SIZES = (1, 2, 4, 8, 16)
+SCALE_MISSES = 8
+
+
+def smi_cards() -> list:
+    """(name, uuid, memory MiB) of each card, as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,uuid,memory.total",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout
+    return [tuple(x.strip() for x in line.split(","))
+            for line in out.strip().splitlines()]
+
+
+def cluster_discovery(torch) -> dict:
+    """(a) ``NvmlBackend().discover()`` against ``torch.cuda`` and
+    nvidia-smi: the same cards by UUID, names and memory (NVML's total is
+    nvidia-smi's MiB; torch's is the part CUDA can allocate, no more), and
+    the slice type the NVLink pairs pick."""
+    from kubegpu_tpu_torch.topology import TOPOLOGY_REGISTRY
+    from kubegpu_tpu_torch.tpuplugin import NvmlBackend
+    be = NvmlBackend()
+    adv = be.discover()
+    cards, pairs = be.cards()
+    smi = {row[1]: row for row in smi_cards()}
+    n = torch.cuda.device_count()
+    props = {f"GPU-{p.uuid}": p for p in
+             (torch.cuda.get_device_properties(i) for i in range(n))}
+    check(len(adv.chips) == len(cards) == n == len(smi),
+          f"cluster: NVML {len(cards)} cards, torch {n}, nvidia-smi "
+          f"{len(smi)}")
+    check({c["uuid"] for c in cards} == set(props) == set(smi),
+          "cluster: NVML's UUIDs differ from torch's or nvidia-smi's")
+    for card, chip in zip(cards, adv.chips):
+        p, row = props[card["uuid"]], smi[card["uuid"]]
+        check(card["name"] == p.name == row[0],
+              f"cluster: names {card['name']!r} {p.name!r} {row[0]!r}")
+        check(card["memory_bytes"] == int(row[2]) << 20
+              and p.total_memory <= card["memory_bytes"],
+              f"cluster: memory {card['memory_bytes']} against nvidia-smi "
+              f"{row[2]} MiB and torch {p.total_memory}")
+        check(chip.uuid == card["uuid"]
+              and chip.hbm_gib == card["memory_bytes"] / (1 << 30),
+              "cluster: the advertisement differs from NVML")
+    registered = (len(pairs) == n * (n - 1) // 2
+                  and f"h100-sxm-{n}" in TOPOLOGY_REGISTRY
+                  and all("H100" in c["name"] for c in cards))
+    want = f"h100-sxm-{n}" if registered else f"local-{n}card"
+    check(adv.slice_type == want and adv.switched == registered,
+          f"cluster: slice type {adv.slice_type}, expected {want}")
+    out = {"cards": n, "names": [c["name"] for c in cards],
+           "memory_mib": [c["memory_bytes"] >> 20 for c in cards],
+           "torch_memory_mib": [props[c["uuid"]].total_memory >> 20
+                                for c in cards],
+           "nvlink_pairs": pairs, "slice_type": adv.slice_type,
+           "switched": adv.switched, "uuids_equal": True}
+    log("cluster", part="(a) discovery", **out)
+    return out
+
+
+def pod_device(stdout: str) -> dict | None:
+    """The ``pod_device`` line a program prints on the card."""
+    for ln in stdout.splitlines():
+        if ln.startswith('{"pod_device"'):
+            return json.loads(ln)["pod_device"]
+    return None
+
+
+def cluster_pods() -> dict:
+    """(b) The cluster ``apply --real --set backend.type=nvml`` builds
+    (``SimCluster.from_config``: one node agent over ``NvmlBackend``,
+    ``SubprocessRuntime``, ``DeviceScheduler`` over ``GangAllocator``): the
+    two specs applied at once and run to the end on this node's cards,
+    each pod asked to report its kernel launches."""
+    from kubegpu_tpu_torch.cli import pods_from_spec
+    from kubegpu_tpu_torch.cluster import SimCluster
+    from kubegpu_tpu_torch.config import KubeTpuConfig, load_structured_file
+    from kubegpu_tpu_torch.kernels import SIGNATURES as KERNEL_NAMES
+    from kubegpu_tpu_torch.kubemeta import PodPhase
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = KubeTpuConfig.load(None, ["backend.type=nvml",
+                                    "runtime.real_processes=true"])
+    cfg.runtime.extra_env = {"KUBETPU_REPORT_LAUNCHES": "1"}
+    cl = SimCluster.from_config(cfg)
+    api, agent, runtime = cl.api, cl.agents[0], cl.runtime
+    done = (PodPhase.SUCCEEDED, PodPhase.FAILED)
+    pods = []
+    for spec in CLUSTER_SPECS:
+        pods += pods_from_spec(load_structured_file(os.path.join(
+            root, "kubegpu_tpu_torch", "examples", spec)))[0]
+    cl.submit(*pods)
+    t0 = time.perf_counter()
+    started, ended, most_running, waited = {}, {}, 0, False
+    try:
+        while time.perf_counter() - t0 < 600:
+            for h in cl.step()[1]:
+                started[h.pod_name] = time.perf_counter() - t0
+            phases = {p.name: p.status.phase for p in api.list("Pod")}
+            running = [k for k, v in phases.items()
+                       if v == PodPhase.RUNNING]
+            most_running = max(most_running, len(running))
+            waited |= bool(running) and PodPhase.PENDING in phases.values()
+            for name in cl.reap(timeout=0.25):
+                ended[name] = time.perf_counter() - t0
+            if all(p.status.phase in done for p in api.list("Pod")):
+                break
+    finally:
+        cl.close()
+    wall = time.perf_counter() - t0
+    n_cards = len(agent.adv.chips)
+    snap = cl.metrics.snapshot()
+    handles = {h.pod_name: h for h in runtime.containers()}
+    out = {"cards": n_cards, "wall_s": wall, "pods": {}}
+    printed = {}    # metric -> the values the pods printed
+    for pod in pods:
+        h = handles.get(pod.name)
+        check(h is not None and h.exit_code == 0,
+              f"cluster pod {pod.name}: rc {h and h.exit_code}\n"
+              f"{h and h.stdout[-2000:]}\n{h and h.stderr[-4000:]}")
+        check(api.get("Pod", pod.name).status.phase == PodPhase.SUCCEEDED,
+              f"cluster pod {pod.name}: not Succeeded")
+        seen = pod_device(h.stdout)
+        check(seen is not None and seen["uuid"] ==
+              h.env["CUDA_VISIBLE_DEVICES"] and seen["count"] == 1,
+              f"cluster pod {pod.name}: saw {seen and seen['count']} cards, "
+              "not the one card of its grant")
+        lines = metric_lines(h.stdout)
+        for k, v in lines.items():
+            printed.setdefault(k, []).append(v)
+        launched = {k[len("launches_"):]: int(v) for k, v in lines.items()
+                    if k.startswith("launches_")}
+        check(set(launched) == set(KERNEL_NAMES),
+              f"cluster pod {pod.name}: reported launches of "
+              f"{sorted(launched)}")
+        out["pods"][pod.name] = {
+            "wall_s": ended[pod.name] - started[pod.name],
+            "started_s": started[pod.name], "ended_s": ended[pod.name],
+            "granted_uuid_seen": True, "cuda_device_count": seen["count"],
+            "hbm_gib": float(h.env["KUBETPU_HBM_GIB"]),
+            "harvested": sorted(lines), "launches": launched}
+        log("cluster", part="(b) pod", pod=pod.name,
+            wall_s=round(out["pods"][pod.name]["wall_s"], 2),
+            cuda_device_count=seen["count"], granted_uuid_seen=True,
+            hbm_gib=h.env["KUBETPU_HBM_GIB"], harvested=len(lines),
+            launches={k: v for k, v in launched.items() if v})
+    # harvested: every pod's line observed once, the gauge one pod's value
+    check(all(snap["histograms"].get(f"workload_{k}", {}).get("count")
+              == len(vs) and snap["gauges"].get(f"workload_{k}") in vs
+              for k, vs in printed.items()),
+          "cluster: the pods' metric lines were not harvested")
+    serving = [k for k in out["pods"] if k.startswith("llama-serve")]
+    check(all(len(out["pods"][k]["harvested"]) > len(KERNEL_NAMES)
+              for k in serving),
+          "cluster: a serving pod printed no metric line of its own")
+    # the static pod's path runs no kernel of the port (as 5d's); the
+    # continuous pod's engine decodes on int8 pages, kernel 5
+    cb = out["pods"]["llama-serve-cb"]["launches"]
+    check(cb["paged_decode_q8"] > 0,
+          f"cluster: the continuous serving pod did not run kernel 5: {cb}")
+    order = sorted(out["pods"], key=lambda k: started[k])
+    uuids = {handles[k].env["CUDA_VISIBLE_DEVICES"] for k in out["pods"]}
+    if n_cards >= 2:
+        check(most_running >= 2 and len(uuids) >= 2,
+              "cluster: two cards ran the pods one after the other")
+    else:
+        check(waited and most_running == 1
+              and all(started[b] >= ended[a] for a, b in zip(order, order[1:])),
+              "cluster: a pod did not wait for the one card")
+    out["concurrent"] = most_running
+    out["schedule_ms"] = [e.detail["detail"]["total_ms"]
+                          for e in cl.trace.events("schedule")]
+    log("cluster", part="(b) pods", cards=n_cards, concurrent=most_running,
+        waited_pending=waited, wall_s=round(wall, 2),
+        schedule_ms=[round(x, 3) for x in out["schedule_ms"]])
+    return out
+
+
+def cluster_apply() -> dict:
+    """(b) ``python -m kubegpu_tpu_torch apply -f
+    config2-resnet-1gpu.json --real --set backend.type=nvml``, as
+    ``cli.main``: exit 0 and its one pod Succeeded in the table."""
+    from kubegpu_tpu_torch.cli import main as cli_main
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = os.path.join(root, "kubegpu_tpu_torch", "examples",
+                        CLUSTER_SPECS[0])
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["apply", "-f", spec, "--real", "--set",
+                       "backend.type=nvml", "--timeout", "300"])
+    wall = time.perf_counter() - t0
+    table = buf.getvalue()
+    check(rc == 0 and table.count(" Succeeded ") == 1,
+          f"cluster apply --real: rc {rc}\n{table}")
+    out = {"rc": rc, "wall_s": wall, "table": table.splitlines()}
+    log("cluster", part="(b) apply --real", rc=rc, wall_s=round(wall, 2),
+        row=out["table"][1].split())
+    return out
+
+
+def cluster_scale() -> dict:
+    """(c) Host only: ``SCALE_NODES`` mock ``h100-sxm-8`` nodes filled by
+    a seeded mix of gangs of ``SCALE_SIZES`` cards (16: two 8-card pods,
+    multislice; k <= 8: k/c pods of c cards) in one scheduling pass each,
+    until the cards run out or ``SCALE_MISSES`` gangs in a row do not
+    fit (a gang that does not fit is deleted).  Every gang sits on one
+    node unless it is a multislice 16, which spans two."""
+    import random
+
+    from kubegpu_tpu_torch.cluster import SimCluster, tpu_pod
+    from kubegpu_tpu_torch.kubemeta import GangSpec, pod_allocation
+    from kubegpu_tpu_torch.obs import percentiles
+
+    cl = SimCluster(["h100-sxm-8"] * SCALE_NODES)
+    rng = random.Random(SEED)
+    free, misses, sizes = 8 * SCALE_NODES, 0, []
+    t0 = time.perf_counter()
+    try:
+        while free and misses < SCALE_MISSES:
+            k = rng.choice(SCALE_SIZES)
+            c = 8 if k == 16 else rng.choice([d for d in (1, 2, 4, 8)
+                                               if d <= k])
+            n = k // c
+            axes = {"dp": n, "tp": c} if n > 1 else {"tp": c}
+            name = f"g{len(sizes)}-{k}"
+            pods = [tpu_pod(f"{name}-{i}", chips=c, mesh_axes=axes,
+                            gang=GangSpec(name=name, size=n, index=i),
+                            multislice=k == 16, command=["noop"])
+                    for i in range(n)]
+            cl.submit(*pods)
+            result, _ = cl.step()
+            if result.scheduled:
+                free -= k
+                sizes.append(k)
+                misses = 0
+            else:
+                misses += 1
+                for p in pods:
+                    cl.api.delete("Pod", p.name)
+        spread = {}
+        for p in cl.api.list("Pod"):
+            a = pod_allocation(p)
+            spread.setdefault(a.gang_name, set()).add(a.node_name)
+        for gang, nodes in spread.items():
+            want = 2 if gang.endswith("-16") else 1
+            check(len(nodes) == want,
+                  f"cluster scale: gang {gang} on {len(nodes)} nodes")
+        events = cl.trace.events()
+        ms = [e.detail["detail"]["total_ms"] for e in events
+              if e.kind in ("schedule", "fail")]
+        loc = [e.detail["detail"]["locality"] for e in events
+               if e.kind == "schedule"]
+    finally:
+        cl.close()
+    pct = percentiles(ms, (50, 99))
+    out = {"nodes": SCALE_NODES, "cards": 8 * SCALE_NODES,
+           "cards_placed": 8 * SCALE_NODES - free, "gangs": len(sizes),
+           "gangs_by_size": {k: sizes.count(k) for k in SCALE_SIZES},
+           "decisions": len(ms), "schedule_ms_p50": pct["p50"],
+           "schedule_ms_p99": pct["p99"], "mean_locality": sum(loc) / len(loc),
+           "seconds": time.perf_counter() - t0}
+    log("cluster", part="(c) scale, host only", **out)
+    return out
+
+
+def cluster_phase(torch, kernels) -> dict:
+    """Phase 17: the cluster layer on this node (see the docstring)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()          # the cluster path starts here
+    out = {"discovery": cluster_discovery(torch),
+           "pods": cluster_pods(), "apply": cluster_apply(),
+           "scale": cluster_scale()}
+    here = dict(kernels.launches)              # ... and ends here
+    check(not any(here.values()),
+          f"the cluster path launched a kernel in this process: {here}")
+    # the pods' own counts, as they reported them
+    out["launches"] = {name: sum(p["launches"][name]
+                                 for p in out["pods"]["pods"].values())
+                       for name in kernels.SIGNATURES}
+    out["phase_s"] = time.perf_counter() - t0
+    log("cluster", phase_s=round(out["phase_s"], 1))
+    return out
+
+
 def ptxas_instances(text: str) -> list:
     """Each kernel instance of an ``-Xptxas -v`` build log: its name
     (demangled by ``c++filt`` where the machine has it), registers a thread
@@ -7129,6 +7469,8 @@ def main(argv=None) -> int:
                                                  "paged_decode_q8")),
           f"a kernel of the pools at tp > 1 never ran: {pool_tp['launches']}")
 
+    cluster = cluster_phase(torch, kernels)
+
     routes = {"flash_fwd": ("kubegpu_tpu_torch/csrc/flash_fwd.cu",
                             "kubegpu_tpu/ops/flash_attention.py:200"),
               "paged_decode": ("kubegpu_tpu_torch/csrc/paged_decode.cu",
@@ -7148,7 +7490,7 @@ def main(argv=None) -> int:
              qw_launches, search_launches, train_launches, t5_launches,
              program_launches, lifecycle_launches, pool_launches,
              load_launches, moe_launches, train14_launches, tp_launches,
-             pool_tp_launches)
+             pool_tp_launches, cluster["launches"])
     # kernels 4-6 at llama_serve.py's bench shape, by their pool format
     program_rows = {k: program["program_shape"][fmt]
                     for k, fmt in zip(PAGED_KERNELS, ("bf16", "q8", "q4g16"))}
@@ -7205,7 +7547,7 @@ def main(argv=None) -> int:
                "t5": t5_stats, "program": program, "moe": moe,
                "flash_vit_shape": vit_shape, "train_families": train14,
                "paged_tp_shapes": tp_shapes, "tensor_parallel": tp,
-               "pools_tp": pool_tp,
+               "pools_tp": pool_tp, "cluster": cluster,
                "launches": {"serving": serve_launches,
                             "prefix_cache": prefix_launches,
                             "speculative": spec_launches,
@@ -7222,7 +7564,8 @@ def main(argv=None) -> int:
                             "moe_serving": moe_launches,
                             "train_families": train14_launches,
                             "tensor_parallel": tp["launches"],
-                            "pools_tp": pool_tp["launches"]},
+                            "pools_tp": pool_tp["launches"],
+                            "cluster": cluster["launches"]},
                "kernels": line["kernels"],
                "total_s": time.perf_counter() - t_start}
     if args.details:

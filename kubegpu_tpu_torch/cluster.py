@@ -1,0 +1,275 @@
+"""SimCluster: the in-process simulated control plane (SURVEY.md §5 (c);
+copied from ``kubegpu_tpu/cluster.py``).
+
+Wires fake apiserver + N node agents (one per host, mock backend) + the
+device scheduler into one steppable cluster, so the example specs run
+end-to-end through the real scheduling/injection code — only the
+transports (gRPC/HTTP) are collapsed into function calls.  With the
+``nvml`` backend the cluster is this node, one agent over
+:class:`NvmlBackend`, and with real processes a pod runs on the cards its
+grant names (the mock's made-up card UUIDs name no card CUDA knows).
+
+Not ported yet, and raising ``NotImplementedError``: the CRI socket
+(``wire_cri``, ROADMAP item 10d) and fault recovery (the reference's
+``FaultRecoveryController`` and the ``fail_*``/``heal_*`` injections,
+ROADMAP item 10c).  What the reference's controller does on a healthy
+cluster, re-syncing the scheduler after a node changes, ``step`` does.
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+
+from kubegpu_tpu_torch.crishim import FakeRuntime, NodeAgent, SubprocessRuntime
+from kubegpu_tpu_torch.kubemeta import (
+    ContainerSpec,
+    FakeApiServer,
+    GangSpec,
+    ObjectMeta,
+    Pod,
+    PodPhase,
+    PodSpec,
+    ResourceRequests,
+    WatchEvent,
+)
+from kubegpu_tpu_torch.kubemeta.codec import (
+    set_pod_gang,
+    set_pod_mesh_axes,
+    set_pod_migratable,
+    set_pod_multislice,
+)
+from kubegpu_tpu_torch.obs import MetricsRegistry, ScheduleTrace
+from kubegpu_tpu_torch.scheduler import DeviceScheduler
+from kubegpu_tpu_torch.tpuplugin import DeviceBackend, mock_cluster
+
+RECOVERY_ITEM = ("fault recovery (FaultRecoveryController with NVML health) "
+                 "is not ported yet: ROADMAP item 10c")
+
+_port_counter = itertools.count(0)
+
+
+def pick_coordinator_port() -> int:
+    """Distinct ports per cluster so parallel tests' coordinators never
+    collide."""
+    return 8476 + (next(_port_counter) % 500)
+
+
+def tpu_pod(name: str, chips: int = 0, millitpu: int = 0,
+            gang: GangSpec | None = None,
+            mesh_axes: dict[str, int] | None = None,
+            command: list[str] | None = None,
+            env: dict[str, str] | None = None,
+            priority: int = 0,
+            multislice: bool = False,
+            namespace: str = "default",
+            migratable: bool = False,
+            hbm_gib: float = 0.0,
+            workload: str | None = None) -> Pod:
+    """Pod-spec builder — the user surface (reference: example/ YAML).
+    ``workload="serving"`` annotates the traffic model: the scheduler
+    scores the gang's slice with serving axis weights (tp hot on every
+    decode step, dp-replica hops nearly free)."""
+    pod = Pod(
+        metadata=ObjectMeta(name=name, namespace=namespace),
+        spec=PodSpec(containers=[ContainerSpec(
+            name="main",
+            command=command or [],
+            env=env or {},
+            resources=ResourceRequests(tpu_chips=chips, millitpu=millitpu,
+                                       hbm_gib=hbm_gib),
+        )], priority=priority),
+    )
+    if gang is not None:
+        set_pod_gang(pod, gang)
+    if mesh_axes is not None:
+        set_pod_mesh_axes(pod, mesh_axes)
+    if multislice:
+        set_pod_multislice(pod)
+    if migratable:
+        set_pod_migratable(pod)
+    if workload is not None:
+        from kubegpu_tpu_torch.kubemeta.codec import set_pod_workload_kind
+        set_pod_workload_kind(pod, workload)
+    return pod
+
+
+class SimCluster:
+    def __init__(self, slice_types: list[str], real_processes: bool = False,
+                 extra_env: dict[str, str] | None = None,
+                 config: "KubeTpuConfig | None" = None,
+                 wire_cri: bool = False,
+                 backends: list[DeviceBackend] | None = None):
+        """One node agent per backend of ``backends``, or per host of
+        ``mock_cluster(slice_types)`` where it is None."""
+        from kubegpu_tpu_torch.allocator import GangAllocator
+        from kubegpu_tpu_torch.config import KubeTpuConfig
+
+        cfg = config or KubeTpuConfig()
+        self.config = cfg
+        self.api = FakeApiServer()
+        self.metrics = MetricsRegistry()
+        self.trace = ScheduleTrace(capacity=cfg.obs.trace_capacity)
+        if real_processes or cfg.runtime.real_processes:
+            merged_env = {**cfg.runtime.extra_env, **(extra_env or {})}
+            self.runtime = SubprocessRuntime(extra_env=merged_env)
+        else:
+            self.runtime = FakeRuntime()
+        if wire_cri or cfg.runtime.wire_cri:
+            raise NotImplementedError(
+                "wire_cri: the CRI unix socket (criserver.py) is not ported "
+                "yet: ROADMAP item 10d")
+        self.agents = [NodeAgent(self.api, b, self.runtime,
+                                 metrics=self.metrics)
+                       for b in (mock_cluster(slice_types) if backends is None
+                                 else backends)]
+        for a in self.agents:
+            a.register()
+        sc = cfg.scheduler
+        self.scheduler = DeviceScheduler(
+            self.api,
+            allocator=GangAllocator(
+                max_placements_per_shape=sc.max_placements_per_shape,
+                locality_weight=sc.locality_weight,
+                frag_weight=sc.frag_weight,
+                fill_weight=sc.fill_weight),
+            metrics=self.metrics, trace=self.trace,
+            # explicit config port wins; 0 = auto, rotating per cluster so
+            # parallel tests' coordinators never collide
+            coordinator_port=sc.coordinator_port or pick_coordinator_port(),
+            gang_grace_s=sc.gang_grace_s)
+        # a node change re-syncs the scheduler at the next step, as the
+        # reference's recovery controller does first thing in its pass
+        self._nodes_dirty = True
+        self._unsub = self.api.watch(self._on_event)
+
+    @classmethod
+    def from_config(cls, cfg: "KubeTpuConfig") -> "SimCluster":
+        """Build a cluster entirely from the config tree (SURVEY.md §6
+        config row: backend selection is a config field, mirroring the
+        reference's plugin seam).  ``nvml`` makes the cluster this node as
+        NVML finds it, ignoring ``slice_types``; without NVML or a card it
+        raises (no mock stands in)."""
+        if cfg.obs.json_logs:
+            import logging
+
+            from kubegpu_tpu_torch.obs import configure_logging
+            configure_logging(getattr(logging, cfg.obs.log_level.upper(),
+                                      logging.INFO))
+        if cfg.backend.type == "nvml":
+            from kubegpu_tpu_torch.tpuplugin import NvmlBackend
+            return cls([], config=cfg, backends=[NvmlBackend()])
+        return cls(list(cfg.backend.slice_types), config=cfg)
+
+    # -- lifecycle events: free resources when pods finish/disappear -----
+
+    def _on_event(self, ev: WatchEvent) -> None:
+        if ev.kind == "Node":
+            self._nodes_dirty = True
+        if ev.kind != "Pod":
+            return
+        pod = ev.obj
+        if ev.type == "DELETED" or (
+                ev.type == "MODIFIED"
+                and pod.status.phase in (PodPhase.SUCCEEDED, PodPhase.FAILED)):
+            self.scheduler.return_pod_resources(pod.name,
+                                                pod.metadata.namespace)
+
+    # -- driving ---------------------------------------------------------
+
+    def submit(self, *pods: Pod) -> None:
+        for p in pods:
+            self.api.create("Pod", p)
+
+    def set_quota(self, namespace: str, chips: int | None = None,
+                  millitpu: int | None = None, name: str = "quota") -> None:
+        """Create/replace a device quota object (k8s ResourceQuota
+        parity — the scheduler denies asks that would exceed it).
+        Several quota objects may coexist in one namespace; each enforces
+        independently, so the tightest limit wins."""
+        from kubegpu_tpu_torch.kubemeta import NotFound, Quota, QuotaSpec
+
+        try:
+            self.api.delete("Quota", name, namespace=namespace)
+        except NotFound:
+            pass
+        self.api.create("Quota", Quota(
+            metadata=ObjectMeta(name=name, namespace=namespace),
+            spec=QuotaSpec(tpu_chips=chips, millitpu=millitpu)))
+
+    def step(self):
+        """One control-plane tick: re-sync after a node change, schedule
+        pending, start bound pods."""
+        if self._nodes_dirty:
+            self._nodes_dirty = False
+            self.scheduler.sync()
+        result = self.scheduler.run_once()
+        started = []
+        for a in self.agents:
+            started.extend(a.run_once())
+        return result, started
+
+    # -- fault injection (SURVEY.md §6: kill a host mid-gang, flap a
+    #    link/chip): not ported yet, ROADMAP item 10c ---------------------
+
+    def agent_for(self, node_name: str) -> NodeAgent:
+        for a in self.agents:
+            if a.node_name == node_name:
+                return a
+        raise KeyError(f"no agent for node {node_name}")
+
+    def fail_host(self, node_name: str) -> None:
+        raise NotImplementedError(RECOVERY_ITEM)
+
+    def restore_host(self, node_name: str) -> None:
+        raise NotImplementedError(RECOVERY_ITEM)
+
+    def fail_chip(self, node_name: str, local_index: int) -> None:
+        raise NotImplementedError(RECOVERY_ITEM)
+
+    def heal_chip(self, node_name: str, local_index: int) -> None:
+        raise NotImplementedError(RECOVERY_ITEM)
+
+    def fail_link(self, coord_a, coord_b, slice_id: str | None = None) -> None:
+        raise NotImplementedError(RECOVERY_ITEM)
+
+    def heal_link(self, coord_a, coord_b, slice_id: str | None = None) -> None:
+        raise NotImplementedError(RECOVERY_ITEM)
+
+    def reap(self, timeout: float | None = None) -> dict[str, int]:
+        codes: dict[str, int] = {}
+        for a in self.agents:
+            codes.update(a.reap(timeout=timeout))
+        return codes
+
+    def run_to_completion(self, timeout_s: float = 120.0,
+                          tick_s: float = 0.02) -> dict[str, int]:
+        """Step until every pod is terminal (or unschedulable pods remain
+        and nothing is running).  Returns pod → exit code."""
+        deadline = time.monotonic() + timeout_s
+        exit_codes: dict[str, int] = {}
+        while time.monotonic() < deadline:
+            self.step()
+            exit_codes.update(self.reap(timeout=tick_s))
+            pods = self.api.list("Pod")
+            if all(p.status.phase in (PodPhase.SUCCEEDED, PodPhase.FAILED)
+                   for p in pods):
+                return exit_codes
+            running = any(p.status.phase == PodPhase.RUNNING for p in pods)
+            pending = [p for p in pods if p.status.phase == PodPhase.PENDING]
+            if pending and not running:
+                # give held gangs a chance; bail only if truly stuck
+                r, _ = self.step()
+                if not r.scheduled and not running and not r.held:
+                    break
+            time.sleep(0 if running else tick_s)
+        return exit_codes
+
+    def pod_phase(self, name: str) -> PodPhase:
+        return self.api.get("Pod", name).status.phase
+
+    def close(self) -> None:
+        self._unsub()
+        for a in self.agents:
+            for h in a.handles.values():
+                h.kill()

@@ -4,7 +4,9 @@
 registry with the engine's percentile summary and live-byte tracker
 (:mod:`.metrics`), fault injection for one engine and for a fleet's
 failure domains (:mod:`.chaos`), the tick-indexed series store
-(:mod:`.tsdb`) and the burn-rate alerts over it (:mod:`.alerts`)."""
+(:mod:`.tsdb`) and the burn-rate alerts over it (:mod:`.alerts`); and the
+cluster layer's schedule trace (:mod:`.trace`) and JSON logs
+(:mod:`.logging`)."""
 
 from kubegpu_tpu_torch.obs.alerts import (  # noqa: F401
     Alert,
@@ -23,6 +25,10 @@ from kubegpu_tpu_torch.obs.chaos import (  # noqa: F401
     TickStallError,
 )
 from kubegpu_tpu_torch.obs.cost import CostLedger  # noqa: F401
+from kubegpu_tpu_torch.obs.logging import (  # noqa: F401
+    configure as configure_logging,
+    get_logger,
+)
 from kubegpu_tpu_torch.obs.metrics import (  # noqa: F401
     LiveBytesTracker,
     MetricsRegistry,
@@ -37,4 +43,5 @@ from kubegpu_tpu_torch.obs.spans import (  # noqa: F401
     Tracer,
     validate_chrome_trace,
 )
+from kubegpu_tpu_torch.obs.trace import ScheduleTrace, TraceEvent  # noqa: F401
 from kubegpu_tpu_torch.obs.tsdb import SeriesStore  # noqa: F401

@@ -19,8 +19,8 @@ then evicts its gang without requeue.  ``scheduler`` and ``cluster`` are
 duck-typed.
 
 :func:`main` is the reference's standalone extender service; the extender
-webhook and the cluster it serves belong to the cluster layer, which is
-not ported yet (ROADMAP.md queue 1 item 10).
+webhook is one of the cluster layer's daemons, not ported yet (ROADMAP.md
+queue 1 item 10d).
 """
 
 from __future__ import annotations
@@ -232,7 +232,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.parse_args(argv)
     raise NotImplementedError(
         "the extender webhook is not ported yet (ROADMAP.md queue 1 item "
-        "10: the GPU cluster layer)")
+        "10d: the GPU cluster layer's daemons)")
 
 
 if __name__ == "__main__":

@@ -162,4 +162,5 @@ def main(device="cuda") -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    from kubegpu_tpu_torch.workloads.programs.distributed import run_program
+    raise SystemExit(run_program(main))

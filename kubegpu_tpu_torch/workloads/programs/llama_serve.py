@@ -561,4 +561,5 @@ def _drive(eng, cfg, plan: dict, tracer, rank0: bool):
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    from kubegpu_tpu_torch.workloads.programs.distributed import run_program
+    raise SystemExit(run_program(main))

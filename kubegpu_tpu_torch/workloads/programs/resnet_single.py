@@ -2,7 +2,8 @@
 ``kubegpu_tpu/workloads/programs/resnet_single.py``, BASELINE config 2's
 workload).
 
-Checks that the injection granted exactly the chips the pod expects, then
+Checks that the injection granted exactly the chips the pod expects (and,
+on the card, that CUDA sees that many cards), then
 trains a structure-preserving ResNet on a fixed synthetic batch with
 ``adam(1e-2)`` and prints the reference's line::
 
@@ -14,7 +15,8 @@ runs on the card and fails where there is none; :func:`main` takes
 ``device="cpu"`` for tests.
 
 Env knobs (the reference's):
-  KUBETPU_EXPECT_CHIPS  the chip count ``TPU_VISIBLE_CHIPS`` must list
+  KUBETPU_EXPECT_CHIPS  the chip count ``TPU_VISIBLE_CHIPS`` must list,
+                        and on the card ``torch.cuda.device_count()``
                         (else exit 2)
   RESNET_PRESET         "50": ResNet-50 (100 classes, bf16 convolutions);
                         otherwise ``resnet_tiny``
@@ -58,6 +60,11 @@ def main(device="cuda") -> int:
     from kubegpu_tpu_torch.optim import adam
 
     device = program_device(device, "resnet_single")
+    if device.type == "cuda" and expect is not None \
+            and torch.cuda.device_count() != int(expect):
+        print(f"FAIL: expected {expect} cards, CUDA sees "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 2
     model = (resnet50(num_classes=100, device=device, seed=1)
              if os.environ.get("RESNET_PRESET") == "50"
              else resnet_tiny(device=device, seed=1))
@@ -82,4 +89,5 @@ def main(device="cuda") -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    from kubegpu_tpu_torch.workloads.programs.distributed import run_program
+    raise SystemExit(run_program(main))

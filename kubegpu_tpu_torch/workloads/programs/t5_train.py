@@ -90,4 +90,5 @@ def main(device="cuda") -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    from kubegpu_tpu_torch.workloads.programs.distributed import run_program
+    raise SystemExit(run_program(main))

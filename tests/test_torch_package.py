@@ -80,6 +80,26 @@ def test_walk_covers_the_training_families():
         assert f"kubegpu_tpu_torch/{sub}" in names, sub
 
 
+def test_walk_covers_the_cluster_layer():
+    """The AST walk reaches the cluster layer (topology, the advertisers,
+    kubemeta, the allocator, the extender, the crishim, the cluster, the
+    config and the CLI); their references import no JAX either, but the
+    port keeps its own copies."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for sub in ("__main__.py", "cli.py", "cluster.py", "config.py",
+                "topology/__init__.py", "topology/mesh.py",
+                "topology/slices.py", "topology/locality.py",
+                "tpuplugin/__init__.py", "tpuplugin/backend.py",
+                "tpuplugin/mock.py", "tpuplugin/nvml.py",
+                "kubemeta/objects.py", "kubemeta/controlplane.py",
+                "obs/trace.py", "obs/logging.py",
+                "allocator/__init__.py", "allocator/gang.py",
+                "allocator/ordering.py", "scheduler/extender.py",
+                "crishim/__init__.py", "crishim/runtime.py",
+                "crishim/shim.py", "crishim/agent.py"):
+        assert f"kubegpu_tpu_torch/{sub}" in names, sub
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys, kubegpu_tpu_torch.models, kubegpu_tpu_torch.ops, "
             "kubegpu_tpu_torch.convert, kubegpu_tpu_torch.kernels, "
@@ -96,7 +116,10 @@ def test_import_leaves_jax_unloaded():
             "kubegpu_tpu_torch.workloads.programs.llama_pjit, "
             "kubegpu_tpu_torch.workloads.programs.vit_train, "
             "kubegpu_tpu_torch.workloads.programs.t5_train, "
-            "kubegpu_tpu_torch.workloads.programs.resnet_single; "
+            "kubegpu_tpu_torch.workloads.programs.resnet_single, "
+            "kubegpu_tpu_torch.cli, kubegpu_tpu_torch.cluster, "
+            "kubegpu_tpu_torch.tpuplugin.nvml, kubegpu_tpu_torch.crishim, "
+            "kubegpu_tpu_torch.allocator, kubegpu_tpu_torch.topology; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
