@@ -92,7 +92,8 @@ printed as it ends (any failed check exits non-zero):
    ``kv_bits=8``, graph and eager, one window each on phase 5's first
    prompts (tokens equal; tokens/s beside 5b's bf16-weight int8 engine);
 5h. search — beam search, speculative and prompt-lookup decoding at
-   Llama-3-8B width and depth on 5c's int8 weights (``search_phase``), each
+   Llama-3-8B width cut to 16 of 32 layers (a view of 5c's int8 weights:
+   the script's time limit) (``search_phase``), each
    through its CUDA graphs and eagerly at 32 tokens (equal tokens and
    stats), then timed through its graphs at full length: (a) ``beam_generate`` (int8 cache) and ``beam_generate_paged``
    (bf16 pages of 128; kernel 4 ``n_layers x (steps - 1)`` times a call),
@@ -100,7 +101,7 @@ printed as it ends (any failed check exits non-zero):
    equal tokens and the score gap printed); (b) ``spec_generate`` and
    ``spec_generate_fused``, batch 8, prompt 1024, 128 steps, γ 4, a draft
    of 8 layers, the int8 cache, beside ``greedy_generate`` (acceptance,
-   iterations, the fused call's host reads), then a draft of all 32 layers
+   iterations, the fused call's host reads), then a draft of all 16 layers
    (its acceptance above the 8-layer draft's, more than one token an
    iteration); (c) ``pld_generate_fused`` (int8 cache) and
    ``pld_generate_paged`` (pages of 128; kernel 4 ``n_layers x
@@ -187,8 +188,9 @@ printed as it ends (any failed check exits non-zero):
    token equal to ``greedy_generate``'s (the int8 pools' to one int8
    engine's), the disaggregated pool's to the symmetric pool's and the
    replays to the fault-free run;
-12. load     -- the open-loop load harness at phase 5f's engine shape
-   (``load_phase``): one seeded bursty trace (48 requests, prompts around
+12. load     -- the open-loop load harness at phase 5f's engine shape,
+   Llama-3-8B's width cut to 16 of 32 layers (a view of the bf16 weights:
+   the script's time limit) (``load_phase``): one seeded bursty trace (48 requests, prompts around
    300 tokens, half on 3 shared 128-token prefixes, the reference's three
    goodput tiers) through ``run_load`` on one engine FIFO and tiered
    (goodput a tick and a second, attainment by tier, TTFT p99 in ticks
@@ -239,7 +241,7 @@ printed as it ends (any failed check exits non-zero):
    gloo ranks sharing the card (eager: gloo cannot be captured, and a
    gloo engine with ``graphs=True`` must raise): equal tokens on the
    model-dtype pools, every rank's host digest equal; (b) Llama-3-8B's
-   width cut to 8 of 32 layers (gloo is a check, not a path), in bf16:
+   width cut to 4 of 32 layers (gloo is a check, not a path), in bf16:
    the tp = 1 engine's bf16 window (graph and eager), its int8 and
    int4 windows (eager) and its first-step logits, then the engine
    freed and two gloo ranks, each making the weights from the seed and
@@ -257,7 +259,7 @@ printed as it ends (any failed check exits non-zero):
    process's weights on the card.  (a) The narrow f32 config over gloo
    ranks sharing the card: the dp = 2 and the 1 + 1 disaggregated pools'
    tokens, routes, migrations and replica host digests equal the tp = 1
-   pools'.  (b) Llama-3-8B's width cut to 8 of 32 layers (gloo is a
+   pools'.  (b) Llama-3-8B's width cut to 4 of 32 layers (gloo is a
    check, not a path), four gloo ranks on the card, eager: the dp pool
    and the disaggregated pool over bf16 pages and the dp pool over int8
    pages (kernel 5), every rank's launches equal ``stride × n_layers`` a
@@ -272,7 +274,7 @@ printed as it ends (any failed check exits non-zero):
    pages, and the throughput: the dp pool and one gang on a window of 32
    prompts of 128 new tokens (two waves and 16 ticks a replica); or a
    line saying it was not run for want of cards.
-17. cluster  -- the cluster layer (``cluster_phase``, last): (a)
+17. cluster  -- the cluster layer (``cluster_phase``): (a)
    ``NvmlBackend().discover()`` against ``torch.cuda`` and nvidia-smi
    (count, names, UUIDs, memory, NVLink pairs, the slice type picked);
    (b) the cluster ``apply --real --set backend.type=nvml`` builds
@@ -290,8 +292,31 @@ printed as it ends (any failed check exits non-zero):
    only, 32 mock ``h100-sxm-8`` nodes filled by a seeded mix of 1- to
    16-card gangs in one scheduling pass each: decision ms p50/p99, mean
    locality, every gang on one node unless it is a multislice 16.
+18. gang     -- the gang bootstrap and fault recovery (``gang_phase``,
+   last), through the cluster ``apply --real --set backend.type=nvml``
+   builds: (a) ``NvmlBackend().discover()`` with its health reads
+   (remapped rows, XID events, NVLink pairs): which the card answers,
+   what they read, every card healthy; (b) with two or more cards
+   ``allreduce-bench.json`` and ``dp-gang.json`` at ``min(4, cards)``
+   workers over NCCL, each worker on the card its grant names, worker
+   0's bandwidth line, the NCCL transport of each pair (``NCCL_DEBUG=
+   INFO``), the dp gang's workers each launching kernels 1-3 (their
+   CUDA-core instances: the preset is f32) and its losses within 1e-4
+   relative of one worker's at the same global batch; on one card two
+   ``allreduce_bench`` workers with a 2-pod gang's env of 500 millicards
+   sharing it over gloo (started as the node agent starts pods: the
+   allocator places no fractional gang), and a line saying the NCCL
+   gangs were not run; (c) with two or more
+   cards the all-reduce bus bandwidth over NCCL ranks, one a card, at
+   bf16 buffers of 4 MiB to 1 GiB, beside the 450 GB/s a direction
+   registered for ``h100-sxm-*``; (d) a running ``llama_pjit`` gang (one
+   pod on one card, two workers on more) loses a card it holds: the next
+   tick kills every member and requeues the gang, which is re-placed on
+   other cards where enough are healthy, else pends until the card heals,
+   then runs to Succeeded (ms and ticks from the fault to the eviction
+   and from the heal or re-placement to Succeeded).
 
-Seventeen paths are driven: serving (phases 4-5), the prefix cache (5f),
+Eighteen paths are driven: serving (phases 4-5), the prefix cache (5f),
 speculative serving (5g),
 quantized serving (5b),
 int8-weight serving (5c), the search decoders (5h, after 5c), the
@@ -302,12 +327,12 @@ sampling with the request lifecycle (phase 10, run after 5e), the
 serving pools (phase 11, after 10), the load harness (phase 12, after
 11), MoE serving (phase 13), the training families (phase 14) and
 tensor-parallel serving (phase 15) and the pools at tp > 1 (phase 16;
-the counts of both are the ranks'); the cluster layer (phase 17, last)
-launches no kernel in this process: its pods are processes of their own,
-and report their counts as metric lines.  Launch counters are zeroed just
-before each and read just after; a graph replay counts the launches captured in it.  The serving
-and training paths must run kernels 1-3 on their tensor-core instances
-only.  The line
+the counts of both are the ranks'); the cluster layer (phase 17) and the
+gangs (phase 18, last) launch no kernel in this process: their pods are
+processes of their own, and report their counts as metric lines.  Launch
+counters are zeroed just before each and read just after; a graph replay
+counts the launches captured in it.  The serving and training paths must
+run kernels 1-3 on their tensor-core instances only.  The line
 before the last is one JSON object per kernel; the last line is
 ``{"ok": true, "device": {...}}``.  ``--details PATH`` writes every
 phase's numbers to PATH as JSON.  With ``--profile`` it also traces one
@@ -333,6 +358,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by input type
@@ -3446,6 +3472,9 @@ def paged_nan_checks(torch, gen, slice_rows) -> dict:
 # ``beam``, ``spec_decode``, ``spec_decode_pld``; random weights here): the
 # eager runs are cut to EAGER_STEPS tokens (compared with a graph run of as
 # many), never in width
+# phase 5h runs the first 16 of the 32 layers (a view of 5c's int8 tree):
+# the script's time limit, since phase 18 was added
+SEARCH_LAYERS = 16
 SEARCH = {"beam": {"b": 4, "t": 512, "steps": 32, "beams": 4, "page": 128},
           "spec": {"b": 8, "t": 1024, "steps": 128, "gamma": 4, "draft": 8},
           "pld": {"b": 8, "t": 1024, "steps": 128, "gamma": 8, "ngram": 3,
@@ -3727,7 +3756,8 @@ def search_narrow(torch) -> dict:
 
 
 def search_phase(torch, kernels, cfg, qparams, gen, name) -> dict:
-    """Phase 5h at Llama-3-8B width and depth on phase 5c's int8 weights:
+    """Phase 5h at Llama-3-8B width (``cfg``'s depth) on phase 5c's int8
+    weights:
     (a) beam, (b) spec, (c) PLD, each through its graphs and eagerly, then
     (d) the narrow f32 gates.  The fused loops' host reads a call are
     counted at ``decode._read_loop_state``.  Returns the phase's numbers,
@@ -4438,6 +4468,9 @@ def pool_phase(torch, kernels, cfg, params, gen, name) -> dict:
 
 # the reference's cb_slo_goodput tiers: (name, TTFT ticks, ticks a token,
 # share of the traffic)
+# phase 12 runs the first 16 of the 32 layers (a view of the bf16 tree),
+# for the script's time limit since phase 18 was added
+LOAD_LAYERS = 16
 LOAD_TIERS = (("gold", 8, 4.0, 0.3), ("std", 30, 8.0, 0.4),
               ("batch", 10 ** 6, 10 ** 6, 0.3))
 LOAD_ENGINE = dict(ENGINE, **PREFIX)
@@ -6119,9 +6152,10 @@ TP_FULL = {"bf16": (16, "paged_decode", 8, 16),
 # relative L2 (a row-split product's partials are rounded to bf16 before
 # their sum, and over 32 layers the residual stream moves by a few bf16 ulp)
 TP_LOGIT_REL_L2 = 3e-2
-# (b): Llama-3-8B's width at 8 of its 32 layers (two gloo ranks sharing one
-# card are a check, not a path, as phase 16's (b)); (c) over NCCL keeps 32
-TP_GLOO_LAYERS = 8
+# (b): Llama-3-8B's width at 4 of its 32 layers (two gloo ranks sharing one
+# card are a check, not a path, as phase 16's (b); 4 since phase 18 was
+# added, for the script's time limit); (c) over NCCL keeps 32
+TP_GLOO_LAYERS = 4
 
 
 def llama3_8b_at(n_layers: int | None):
@@ -6503,11 +6537,12 @@ def tp_phase(torch, kernels, gen, name) -> dict:
 # (a): phase 15's narrow f32 config and engine, the prefix cache on, eager
 TP_POOL_NARROW = dict({k: v for k, v in TP_NARROW_ENGINE.items()
                        if k != "device"}, prefix_cache=True, graphs=False)
-# (b): Llama-3-8B's width at 8 of its 32 layers (gloo ranks sharing one
-# card are a check, not a path: PERF.md §6); phase 11's engine shape;
+# (b): Llama-3-8B's width at 4 of its 32 layers (gloo ranks sharing one
+# card are a check, not a path: PERF.md §6; 4 since phase 18 was added,
+# for the script's time limit); phase 11's engine shape;
 # a window of 8 prompts of 200-512 tokens, 16 new tokens (a wave and a
 # tick a replica)
-TP_POOL_LAYERS = 8
+TP_POOL_LAYERS = 4
 TP_POOL_NEW = 16
 # (c)'s throughput window: 32 prompts of 128 new tokens, at 8 slots two
 # waves and 16 ticks a replica of the dp pool, four waves and 32 ticks
@@ -6851,7 +6886,7 @@ def pool_tp_nccl(torch, kernels, gen, name) -> dict | None:
 
 
 def pool_tp_phase(torch, kernels, gen, name) -> dict:
-    """Phase 16 (the module docstring): (a) narrow f32, (b) 8 layers over
+    """Phase 16 (the module docstring): (a) narrow f32, (b) 4 layers over
     four gloo ranks on card 0, (c) NCCL over four cards where there are
     four.  The paged kernels' launches are the ranks'."""
     t_phase = time.perf_counter()
@@ -7161,6 +7196,449 @@ def cluster_phase(torch, kernels) -> dict:
     return out
 
 
+# -- phase 18: the gang bootstrap and fault recovery -------------------------
+
+GANG_SPECS = ("allreduce-bench.json", "dp-gang.json")
+GANG_PROGRAM = "kubegpu_tpu_torch.workloads.programs."
+# (c): all-reduce buffer sizes (bf16, MiB) and timed reduces at each
+BUSBW_MIB = (4, 64, 256, 1024)
+BUSBW_ITERS = 20
+# (d): the recovery gang's steps (tiny f32 preset), and how long after its
+# start the card fails (a process takes ~8 s to reach the card)
+RECOVERY_STEPS = 1000
+RECOVERY_FAULT_S = 12.0
+# what the NCCL log says a pair of ranks rides: P2P, SHM, NET; NVLS
+NCCL_CHANNEL = re.compile(
+    r"Channel \d+/\d+ : (\d+)\[\w+\] -> (\d+)\[\w+\] via (\S+)")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def nvml_cluster(extra_env: dict):
+    """The cluster ``apply --real --set backend.type=nvml`` builds, each
+    pod reporting its kernel launches, on a coordinator port of its own."""
+    from kubegpu_tpu_torch.cluster import SimCluster
+    from kubegpu_tpu_torch.config import KubeTpuConfig
+
+    cfg = KubeTpuConfig.load(None, ["backend.type=nvml",
+                                    "runtime.real_processes=true"])
+    cfg.runtime.extra_env = {"KUBETPU_REPORT_LAUNCHES": "1", **extra_env}
+    cfg.scheduler.coordinator_port = free_port()
+    return SimCluster.from_config(cfg)
+
+
+def gang_spec_pods(spec: str, workers: int) -> list:
+    """The example spec's gang at ``workers`` pods (mesh dp = workers)."""
+    from kubegpu_tpu_torch.cli import pods_from_spec
+    from kubegpu_tpu_torch.config import load_structured_file
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    doc = load_structured_file(os.path.join(root, "kubegpu_tpu_torch",
+                                            "examples", spec))
+    entry = dict(doc["pods"][0])
+    entry["gang"] = dict(entry["gang"], size=workers)
+    entry["mesh_axes"] = {"dp": workers}
+    return pods_from_spec({"cluster": doc["cluster"], "pods": [entry]})[0]
+
+
+def drive_pods(cl, pods, timeout_s: float = 300.0) -> dict:
+    """Submit ``pods`` and step the cluster until each is terminal: the
+    last container of each pod, and when each started and ended."""
+    from kubegpu_tpu_torch.kubemeta import PodPhase
+
+    done = (PodPhase.SUCCEEDED, PodPhase.FAILED)
+    cl.submit(*pods)
+    t0 = time.perf_counter()
+    started, ended = {}, {}
+    while time.perf_counter() - t0 < timeout_s:
+        for h in cl.step()[1]:
+            started[h.pod_name] = time.perf_counter() - t0
+        for name in cl.reap(timeout=0.25):
+            ended[name] = time.perf_counter() - t0
+        if all(cl.pod_phase(p.name) in done for p in pods):
+            break
+    handles = {h.pod_name: h for h in cl.runtime.containers()}
+    for p in pods:
+        h = handles.get(p.name)
+        check(h is not None and h.exit_code == 0
+              and cl.pod_phase(p.name) == PodPhase.SUCCEEDED,
+              f"gang pod {p.name}: rc {h and h.exit_code}\n"
+              f"{h and h.stdout[-3000:]}\n{h and h.stderr[-4000:]}")
+    return {"wall_s": time.perf_counter() - t0, "started": started,
+            "ended": ended, "handles": {p.name: handles[p.name]
+                                        for p in pods}}
+
+
+def on_granted_cards(label: str, handles: dict) -> list:
+    """Each worker ran on the one card its grant names; their UUIDs by
+    worker id."""
+    uuids = {}
+    for name, h in handles.items():
+        seen = pod_device(h.stdout)
+        check(seen is not None and seen["uuid"] ==
+              h.env["CUDA_VISIBLE_DEVICES"] and seen["count"] == 1,
+              f"{label} {name}: saw {seen}, not the one card of its grant")
+        uuids[int(h.env["TPU_WORKER_ID"])] = seen["uuid"]
+    return [uuids[w] for w in sorted(uuids)]
+
+
+def worker_zero(handles: dict):
+    return next(h for h in handles.values()
+                if h.env["TPU_WORKER_ID"] == "0")
+
+
+def bench_line(label: str, handles: dict) -> dict:
+    """Worker 0's ``allreduce_algo_bandwidth`` line (no other worker
+    prints one)."""
+    lines = {name: [json.loads(ln) for ln in h.stdout.splitlines()
+                    if ln.startswith('{"metric": "allreduce_algo')]
+             for name, h in handles.items()}
+    zero = worker_zero(handles).pod_name
+    check(len(lines[zero]) == 1 and not any(
+        v for k, v in lines.items() if k != zero),
+        f"{label}: the bandwidth lines {lines}; worker 0 printed\n"
+        f"{handles[zero].stdout[-3000:]}")
+    return lines[zero][0]
+
+
+def nccl_transports(log_dir: str) -> dict:
+    """What the pods' NCCL logs (``NCCL_DEBUG=INFO`` into files under
+    ``log_dir``) say each pair of ranks rode, and whether NVLink SHARP
+    (NVLS) came up."""
+    pairs, version, nvls = {}, None, False
+    for fname in sorted(os.listdir(log_dir)):
+        with open(os.path.join(log_dir, fname)) as f:
+            text = f.read()
+        for a, b, via in NCCL_CHANNEL.findall(text):
+            pairs.setdefault(f"{a}->{b}", set()).add(via)
+        m = re.search(r"NCCL version (\S+)", text)
+        version = version or (m and m.group(1))
+        nvls |= "NVLS" in text and "NVLS multicast support is not" not in text
+    return {"pairs": {k: sorted(v) for k, v in sorted(pairs.items())},
+            "via": sorted({v.split("/")[0] for vs in pairs.values()
+                           for v in vs}),
+            "nvls": nvls, "nccl": version}
+
+
+def gang_health(torch) -> dict:
+    """(a) ``NvmlBackend().discover()`` with its health reads on every
+    card: which queries the card answers, what they read, every card
+    healthy and no bad link."""
+    from kubegpu_tpu_torch.tpuplugin import NvmlBackend
+    be = NvmlBackend()
+    try:
+        adv = be.discover()
+        cards, pairs = be.cards()
+    finally:
+        be.close()
+    n = torch.cuda.device_count()
+    check(len(cards) == n and all(c.healthy for c in adv.chips)
+          and adv.bad_links == (),
+          f"gang health: {[c.healthy for c in adv.chips]}, bad links "
+          f"{adv.bad_links}")
+    out = {"cards": n, "slice_type": adv.slice_type, "nvlink_pairs": pairs,
+           "remapped_rows": [c["remapped_rows"] for c in cards],
+           "xid_watched": [c["xid_watched"] for c in cards],
+           "xid": [c["xid"] for c in cards], "all_healthy": True,
+           "supported": {
+               "remapped_rows": all(c["remapped_rows"] is not None
+                                    for c in cards),
+               "xid_events": all(c["xid_watched"] for c in cards),
+               "nvlink_p2p": len(pairs) == n * (n - 1) // 2}}
+    log("gang", part="(a) health", **out)
+    return out
+
+
+def shared_card_gang() -> dict:
+    """Two ``allreduce_bench`` workers with the env the crishim injects
+    into a 2-pod gang of 500 millicards on this node's first card, started
+    by ``SubprocessRuntime`` as the node agent starts pods.  The scheduler
+    does not place such a gang (as the reference's, its allocator takes a
+    fractional ask for one pod only), so this drives the bootstrap's
+    shared-card branch alone: both workers hold one card, so gloo."""
+    from kubegpu_tpu_torch.crishim import SubprocessRuntime
+    from kubegpu_tpu_torch.tpuplugin import NvmlBackend
+    from kubegpu_tpu_torch.tpuplugin.mock import build_gpu_env
+
+    be = NvmlBackend()
+    try:
+        adv = be.discover()
+    finally:
+        be.close()
+    runtime, port = SubprocessRuntime(), free_port()
+    t0 = time.perf_counter()
+    handles = {}
+    for w in range(2):
+        env = build_gpu_env(adv.host_block, [adv.chips[0]], w, 2,
+                            f"127.0.0.1:{port}", [adv.node_name] * 2)
+        env["KUBETPU_MILLITPU"] = "500"
+        handles[f"allreduce-{w}"] = runtime.create_container(
+            f"allreduce-{w}", "main",
+            [sys.executable, "-m", GANG_PROGRAM + "allreduce_bench"], env)
+    for name, h in handles.items():
+        code = h.wait(timeout=300)
+        if code is None:
+            h.kill()
+        check(code == 0, f"gang pod {name}: rc {code}\n{h.stdout[-3000:]}"
+              f"\n{h.stderr[-4000:]}")
+    return {"wall_s": time.perf_counter() - t0, "handles": handles}
+
+
+def gang_pods(torch, kernels, n_cards: int) -> dict:
+    """(b) The example gangs through the cluster ``apply --real --set
+    backend.type=nvml`` builds.  Two or more cards: ``allreduce-bench``
+    and ``dp-gang`` at ``min(4, cards)`` workers over NCCL, one card each
+    (the pairs' NCCL transport from ``NCCL_DEBUG=INFO``; the dp gang's
+    losses against one worker at the same global batch, in this process).
+    One card: two ``allreduce_bench`` workers sharing it over gloo (a
+    check, not a path: see :func:`shared_card_gang`)."""
+    out = {}
+    if n_cards < 2:
+        run = shared_card_gang()
+        uuids = on_granted_cards("(b) shared-card gang", run["handles"])
+        line = bench_line("(b) shared-card gang", run["handles"])
+        check(len(set(uuids)) == 1 and line["devices"] == 2
+              and line["value"] > 0,
+              f"(b) shared-card gang: cards {uuids}, line {line}")
+        out["shared_card"] = {"workers": 2, "backend": "gloo",
+                              "line": line, "wall_s": run["wall_s"]}
+        log("gang", part="(b) allreduce_bench, 2 workers on one card, gloo",
+            **line, wall_s=round(run["wall_s"], 2))
+        log("gang", part="(b) NCCL gangs not run: one card (the allreduce "
+            "and dp gangs take one card a worker)")
+        return out
+    n = min(4, n_cards)
+    log_dir = tempfile.mkdtemp(prefix="nccl-log-")
+    # NCCL logs to files (%p: the pid), out of the pods' metric lines
+    cl = nvml_cluster({"NCCL_DEBUG": "INFO", "NCCL_DEBUG_FILE":
+                       os.path.join(log_dir, "nccl.%p.log")})
+    try:
+        run = drive_pods(cl, gang_spec_pods(GANG_SPECS[0], n))
+        transports = nccl_transports(log_dir)
+    finally:
+        cl.close()
+        shutil.rmtree(log_dir, ignore_errors=True)
+    uuids = on_granted_cards("(b) allreduce gang", run["handles"])
+    line = bench_line("(b) allreduce gang", run["handles"])
+    check(len(set(uuids)) == n and line["devices"] == n,
+          f"(b) allreduce gang: cards {uuids}, line {line}")
+    check(transports["nccl"] is not None,
+          "(b) allreduce gang: no NCCL log line: the workers did not use NCCL")
+    out["allreduce"] = {"workers": n, "backend": "nccl", "line": line,
+                        "transports": transports, "wall_s": run["wall_s"]}
+    log("gang", part=f"(b) allreduce_bench, {n} workers, NCCL", **line,
+        wall_s=round(run["wall_s"], 2))
+    log("gang", part="(b) NCCL transport", **transports)
+
+    from kubegpu_tpu_torch.models import LlamaConfig
+    from kubegpu_tpu_torch.workloads.programs import llama_pjit
+    pods = gang_spec_pods(GANG_SPECS[1], n)
+    steps = int(pods[0].spec.containers[0].env["LLAMA_STEPS"])
+    cfg = LlamaConfig.tiny(n_heads=4, n_kv_heads=4, dtype="float32")
+    one = llama_pjit.train(cfg, torch.device("cuda"), steps,
+                           llama_pjit.global_batch({"dp": n}))
+    cl = nvml_cluster({})
+    try:
+        run = drive_pods(cl, pods)
+    finally:
+        cl.close()
+    uuids = on_granted_cards("(b) dp gang", run["handles"])
+    got = train_program_line(worker_zero(run["handles"]).stdout, "llama_pjit")
+    losses = [float(x) for x in got["losses"].strip("[]").split(",")]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, one))
+    launched = {}
+    for name, h in run["handles"].items():
+        counts = {k[len("launches_"):]: int(v)
+                  for k, v in metric_lines(h.stdout).items()
+                  if k.startswith("launches_")}
+        check(all(counts.get(k, 0) > 0 for k in
+                  ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+              f"(b) dp gang {name}: kernels 1-3 did not all run: {counts}")
+        for k, v in counts.items():
+            launched[k] = launched.get(k, 0) + v
+    check(len(set(uuids)) == n and got["workers"] == str(n)
+          and len(losses) == steps and all(map(math.isfinite, losses))
+          and gap <= 1e-4,
+          f"(b) dp gang: cards {uuids}, line {got}, one worker {one}")
+    out["dp"] = {"workers": n, "losses": losses, "one_worker": one,
+                 "max_rel_gap": gap, "launches": launched,
+                 "wall_s": run["wall_s"]}
+    log("gang", part=f"(b) dp gang, {n} workers, NCCL", losses=losses,
+        one_worker=[round(x, 6) for x in one], max_rel_gap=gap,
+        launches={k: v for k, v in launched.items() if v},
+        wall_s=round(run["wall_s"], 2))
+    return out
+
+
+def busbw_rank(sizes_mib: tuple, iters: int) -> dict:
+    """One rank of (c): each size's all-reduce of a bf16 buffer, its
+    mean ms over ``iters`` after a warm-up, and its bus bandwidth."""
+    import torch
+    import torch.distributed as dist
+    n = dist.get_world_size()
+    out = {}
+    for mib in sizes_mib:
+        x = torch.ones(mib << 19, dtype=torch.bfloat16, device="cuda")
+        for _ in range(3):
+            dist.all_reduce(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            dist.all_reduce(x)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / iters
+        out[mib] = {"ms": dt * 1e3,
+                    "busbw_gbs": 2 * (n - 1) / n * x.numel() * 2 / dt / 1e9}
+        del x
+    return out
+
+
+def gang_busbw(n_cards: int) -> dict | None:
+    """(c) All-reduce bus bandwidth over NCCL, ``parallel.launch`` ranks
+    one a card, beside the 450 GB/s a direction registered for
+    ``h100-sxm-*``; None on one card."""
+    if n_cards < 2:
+        log("gang", part="(c) busBW not run: one card")
+        return None
+    from kubegpu_tpu_torch.parallel import launch
+    from kubegpu_tpu_torch.topology import TOPOLOGY_REGISTRY
+    n = min(4, n_cards)
+    t0 = time.perf_counter()
+    sizes = launch(busbw_rank, n, BUSBW_MIB, BUSBW_ITERS, backend="nccl",
+                   device="cuda")
+    link = TOPOLOGY_REGISTRY["h100-sxm-8"].ici_gbps_per_link
+    out = {"ranks": n, "registered_gbs": link, "sizes": sizes,
+           "seconds": time.perf_counter() - t0}
+    for mib, r in sizes.items():
+        log("gang", part=f"(c) busBW {n} ranks NCCL", mib=mib,
+            ms=round(r["ms"], 4), busbw_gbs=round(r["busbw_gbs"], 2),
+            of_registered=round(r["busbw_gbs"] / link, 3))
+    return out
+
+
+def gang_recovery(torch, n_cards: int) -> dict:
+    """(d) A running ``llama_pjit`` gang (one 1-card pod on one card, a
+    2-worker dp gang on more) loses a card it holds: the next tick kills
+    every member and requeues the gang; with a healthy card for each
+    worker left it is re-placed on them, else it pends until the card
+    heals; then it runs to Succeeded."""
+    from kubegpu_tpu_torch.cluster import tpu_pod
+    from kubegpu_tpu_torch.kubemeta import GangSpec, PodPhase, pod_allocation
+
+    workers = 2 if n_cards >= 2 else 1
+    replaced = n_cards - 1 >= workers
+    cl = nvml_cluster({})
+    node = cl.agents[0].node_name
+    names = [f"rec-{i}" for i in range(workers)]
+    pods = [tpu_pod(name, chips=1,
+                    gang=GangSpec(name="rec", size=workers, index=i),
+                    mesh_axes={"dp": workers},
+                    command=[sys.executable, "-m",
+                             GANG_PROGRAM + "llama_pjit"],
+                    env={"LLAMA_STEPS": str(RECOVERY_STEPS)})
+             for i, name in enumerate(names)]
+    done = (PodPhase.SUCCEEDED, PodPhase.FAILED)
+    try:
+        cl.submit(*pods)
+        first = {h.pod_name: h for h in cl.step()[1]}
+        check(set(first) == set(names), f"(d) started {sorted(first)}")
+        t_start = time.perf_counter()
+        while time.perf_counter() - t_start < RECOVERY_FAULT_S:
+            check(not cl.reap(timeout=0.25),
+                  "(d) the gang ended before the fault")
+        check(all(h.running() for h in first.values()),
+              "(d) a member was not running at the fault")
+        victim = pod_allocation(cl.api.get("Pod", names[0]))
+        li = victim.chips[0].local_index
+        failed = first[names[0]].env["CUDA_VISIBLE_DEVICES"]
+        t_fault = time.perf_counter()
+        cl.fail_chip(node, li)
+        ticks, restarted = 0, {}
+        while any(h.running() for h in first.values()):
+            restarted.update({h.pod_name: h for h in cl.step()[1]})
+            ticks += 1
+            check(ticks <= 5, "(d) the gang's members outlived the fault")
+        evict_ms = (time.perf_counter() - t_fault) * 1e3
+        codes = [h.exit_code for h in first.values()]
+        check(all(c is not None and c < 0 for c in codes)
+              and cl.metrics.counter("gangs_evicted") == 1,
+              f"(d) members' exit codes {codes} after the fault")
+        out = {"workers": workers, "cards": n_cards, "failed_local_index": li,
+               "evict_ms": evict_ms, "evict_ticks": ticks,
+               "killed_codes": codes}
+        log("gang", part="(d) fault to eviction", workers=workers,
+            ms=round(evict_ms, 2), ticks=ticks, killed_codes=codes)
+        if replaced:
+            t_back, back_ticks = t_fault, ticks
+        else:
+            for _ in range(3):
+                result, started = cl.step()
+                check(not started and all(
+                    cl.pod_phase(n) == PodPhase.PENDING for n in names),
+                    "(d) the gang did not pend on the failed card")
+            t_back, back_ticks = time.perf_counter(), 0
+            cl.heal_chip(node, li)
+        while not all(cl.pod_phase(n) in done for n in names):
+            restarted.update({h.pod_name: h for h in cl.step()[1]})
+            cl.reap(timeout=0.25)
+            back_ticks += 1
+            check(time.perf_counter() - t_back < 300,
+                  "(d) the gang did not run to its end")
+        back_ms = (time.perf_counter() - t_back) * 1e3
+    finally:
+        cl.close()
+    check(set(restarted) == set(names), f"(d) restarted {sorted(restarted)}")
+    uuids = on_granted_cards("(d) recovered gang", restarted)
+    check(all(h.exit_code == 0 for h in restarted.values())
+          and all(cl.pod_phase(n) == PodPhase.SUCCEEDED for n in names),
+          f"(d) the recovered gang: "
+          f"{[(h.exit_code, h.stderr[-2000:]) for h in restarted.values()]}")
+    check(failed not in uuids if replaced else uuids == [failed],
+          f"(d) re-placed on {uuids}, the failed card {failed}")
+    launched = {}
+    for h in restarted.values():
+        for k, v in metric_lines(h.stdout).items():
+            if k.startswith("launches_"):
+                launched[k[len("launches_"):]] = launched.get(
+                    k[len("launches_"):], 0) + int(v)
+    out.update({"replaced": replaced, "back_ms": back_ms,
+                "back_ticks": back_ticks, "launches": launched})
+    log("gang", part=("(d) re-placement" if replaced else "(d) heal")
+        + " to Succeeded", ms=round(back_ms, 2), ticks=back_ticks,
+        excluded_failed_card=replaced)
+    return out
+
+
+def gang_phase(torch, kernels) -> dict:
+    """Phase 18: the gang bootstrap and fault recovery (the docstring)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    n = torch.cuda.device_count()
+    out = {"health": gang_health(torch)}
+    out["pods"] = gang_pods(torch, kernels, n)
+    kernels.reset_launches()          # from here, launches are the pods'
+    out["busbw"] = gang_busbw(n)
+    out["recovery"] = gang_recovery(torch, n)
+    here = dict(kernels.launches)
+    check(not any(here.values()),
+          f"the gang path launched a kernel in this process: {here}")
+    out["launches"] = {
+        k: (out["pods"].get("dp", {}).get("launches", {}).get(k, 0)
+            + out["recovery"]["launches"].get(k, 0))
+        for k in kernels.SIGNATURES}
+    check(all(out["launches"][k] > 0 for k in
+              ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+          f"a kernel of the gang path never ran: {out['launches']}")
+    out["phase_s"] = time.perf_counter() - t0
+    log("gang", phase_s=round(out["phase_s"], 1))
+    return out
+
+
 def ptxas_instances(text: str) -> list:
     """Each kernel instance of an ``-Xptxas -v`` build log: its name
     (demangled by ``c++filt`` where the machine has it), registers a thread
@@ -7213,6 +7691,7 @@ def main(argv=None) -> int:
     try:
         from kubegpu_tpu_torch import kernels
         from kubegpu_tpu_torch.models import LlamaConfig, llama_init
+        from kubegpu_tpu_torch.models.decode import draft_view
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here ({exc})",
               file=sys.stderr)
@@ -7353,7 +7832,8 @@ def main(argv=None) -> int:
         bf16w_tokens_per_s=quant_serve["int8"]["tokens_per_s_windows"][0])
     kernels.reset_launches()          # the search decoders' path starts here
     search = search_phase(
-        torch, kernels, cfg, qparams,
+        torch, kernels, llama3_8b_at(SEARCH_LAYERS),
+        draft_view(qparams, SEARCH_LAYERS),
         torch.Generator(device="cuda").manual_seed(SEED + 10), name)
     search_launches = dict(kernels.launches)   # ... and ends here
     check(search_launches["paged_decode"] > 0,
@@ -7387,7 +7867,8 @@ def main(argv=None) -> int:
                                              "paged_decode_q8")),
           f"a kernel of the pools' path never ran: {pool_launches}")
     kernels.reset_launches()          # the load harness's path starts here
-    load = load_phase(torch, kernels, cfg, params,
+    load = load_phase(torch, kernels, llama3_8b_at(LOAD_LAYERS),
+                      draft_view(params, LOAD_LAYERS),
                       torch.Generator(device="cuda").manual_seed(SEED + 5),
                       name, args.profile)
     load_launches = dict(kernels.launches)   # ... and ends here
@@ -7470,6 +7951,7 @@ def main(argv=None) -> int:
           f"a kernel of the pools at tp > 1 never ran: {pool_tp['launches']}")
 
     cluster = cluster_phase(torch, kernels)
+    gang = gang_phase(torch, kernels)
 
     routes = {"flash_fwd": ("kubegpu_tpu_torch/csrc/flash_fwd.cu",
                             "kubegpu_tpu/ops/flash_attention.py:200"),
@@ -7490,7 +7972,7 @@ def main(argv=None) -> int:
              qw_launches, search_launches, train_launches, t5_launches,
              program_launches, lifecycle_launches, pool_launches,
              load_launches, moe_launches, train14_launches, tp_launches,
-             pool_tp_launches, cluster["launches"])
+             pool_tp_launches, cluster["launches"], gang["launches"])
     # kernels 4-6 at llama_serve.py's bench shape, by their pool format
     program_rows = {k: program["program_shape"][fmt]
                     for k, fmt in zip(PAGED_KERNELS, ("bf16", "q8", "q4g16"))}
@@ -7547,7 +8029,7 @@ def main(argv=None) -> int:
                "t5": t5_stats, "program": program, "moe": moe,
                "flash_vit_shape": vit_shape, "train_families": train14,
                "paged_tp_shapes": tp_shapes, "tensor_parallel": tp,
-               "pools_tp": pool_tp, "cluster": cluster,
+               "pools_tp": pool_tp, "cluster": cluster, "gang": gang,
                "launches": {"serving": serve_launches,
                             "prefix_cache": prefix_launches,
                             "speculative": spec_launches,
@@ -7565,7 +8047,8 @@ def main(argv=None) -> int:
                             "train_families": train14_launches,
                             "tensor_parallel": tp["launches"],
                             "pools_tp": pool_tp["launches"],
-                            "cluster": cluster["launches"]},
+                            "cluster": cluster["launches"],
+                            "gang": gang["launches"]},
                "kernels": line["kernels"],
                "total_s": time.perf_counter() - t_start}
     if args.details:

@@ -9,11 +9,11 @@ transports (gRPC/HTTP) are collapsed into function calls.  With the
 :class:`NvmlBackend`, and with real processes a pod runs on the cards its
 grant names (the mock's made-up card UUIDs name no card CUDA knows).
 
-Not ported yet, and raising ``NotImplementedError``: the CRI socket
-(``wire_cri``, ROADMAP item 10d) and fault recovery (the reference's
-``FaultRecoveryController`` and the ``fail_*``/``heal_*`` injections,
-ROADMAP item 10c).  What the reference's controller does on a healthy
-cluster, re-syncing the scheduler after a node changes, ``step`` does.
+Each tick runs the :class:`FaultRecoveryController` first: a card, host or
+NVLink pair failed through ``fail_*`` (or read bad from NVML by
+``NvmlBackend``) evicts and requeues the gangs it breaks.  Not ported yet,
+and raising ``NotImplementedError``: the CRI socket (``wire_cri``, ROADMAP
+item 10d).
 """
 
 from __future__ import annotations
@@ -40,11 +40,11 @@ from kubegpu_tpu_torch.kubemeta.codec import (
     set_pod_multislice,
 )
 from kubegpu_tpu_torch.obs import MetricsRegistry, ScheduleTrace
-from kubegpu_tpu_torch.scheduler import DeviceScheduler
+from kubegpu_tpu_torch.scheduler import (
+    DeviceScheduler,
+    FaultRecoveryController,
+)
 from kubegpu_tpu_torch.tpuplugin import DeviceBackend, mock_cluster
-
-RECOVERY_ITEM = ("fault recovery (FaultRecoveryController with NVML health) "
-                 "is not ported yet: ROADMAP item 10c")
 
 _port_counter = itertools.count(0)
 
@@ -138,9 +138,8 @@ class SimCluster:
             # parallel tests' coordinators never collide
             coordinator_port=sc.coordinator_port or pick_coordinator_port(),
             gang_grace_s=sc.gang_grace_s)
-        # a node change re-syncs the scheduler at the next step, as the
-        # reference's recovery controller does first thing in its pass
-        self._nodes_dirty = True
+        self.recovery = FaultRecoveryController(
+            self.api, self.scheduler, metrics=self.metrics, trace=self.trace)
         self._unsub = self.api.watch(self._on_event)
 
     @classmethod
@@ -164,8 +163,6 @@ class SimCluster:
     # -- lifecycle events: free resources when pods finish/disappear -----
 
     def _on_event(self, ev: WatchEvent) -> None:
-        if ev.kind == "Node":
-            self._nodes_dirty = True
         if ev.kind != "Pod":
             return
         pod = ev.obj
@@ -198,11 +195,9 @@ class SimCluster:
             spec=QuotaSpec(tpu_chips=chips, millitpu=millitpu)))
 
     def step(self):
-        """One control-plane tick: re-sync after a node change, schedule
-        pending, start bound pods."""
-        if self._nodes_dirty:
-            self._nodes_dirty = False
-            self.scheduler.sync()
+        """One control-plane tick: recover from faults, schedule pending,
+        start bound pods."""
+        self.recovery.run_once()
         result = self.scheduler.run_once()
         started = []
         for a in self.agents:
@@ -210,7 +205,8 @@ class SimCluster:
         return result, started
 
     # -- fault injection (SURVEY.md §6: kill a host mid-gang, flap a
-    #    link/chip): not ported yet, ROADMAP item 10c ---------------------
+    #    link/chip — drives the elastic-recovery tests; on a card node the
+    #    chip is a card and the link an NVLink pair) ----------------------
 
     def agent_for(self, node_name: str) -> NodeAgent:
         for a in self.agents:
@@ -219,22 +215,68 @@ class SimCluster:
         raise KeyError(f"no agent for node {node_name}")
 
     def fail_host(self, node_name: str) -> None:
-        raise NotImplementedError(RECOVERY_ITEM)
+        """Machine death: containers die, node goes NotReady."""
+        self.agent_for(node_name).fail()
+        self.api.set_node_ready(node_name, False)
 
     def restore_host(self, node_name: str) -> None:
-        raise NotImplementedError(RECOVERY_ITEM)
+        self.agent_for(node_name).restore()
+        self.api.set_node_ready(node_name, True)
 
     def fail_chip(self, node_name: str, local_index: int) -> None:
-        raise NotImplementedError(RECOVERY_ITEM)
+        a = self.agent_for(node_name)
+        a.backend.fail_chip(local_index)
+        a.advertise()
 
     def heal_chip(self, node_name: str, local_index: int) -> None:
-        raise NotImplementedError(RECOVERY_ITEM)
+        a = self.agent_for(node_name)
+        a.backend.heal_chip(local_index)
+        a.advertise()
 
     def fail_link(self, coord_a, coord_b, slice_id: str | None = None) -> None:
-        raise NotImplementedError(RECOVERY_ITEM)
+        """Flap a link: every live agent owning an endpoint advertises
+        the failure (both sides of a cross-host link report it).  Coords are
+        slice-local, so with multiple slices of the same shape the link is
+        ambiguous — ``slice_id`` is required then."""
+        candidates = []
+        for a in self.agents:
+            if slice_id is not None and a.backend.slice_id != slice_id:
+                continue
+            topo = a.backend.topo
+            if (topo.has_coord(tuple(coord_a))
+                    and topo.has_coord(tuple(coord_b))):
+                candidates.append(a)
+        owning_slices = {a.backend.slice_id for a in candidates}
+        if len(owning_slices) > 1:
+            raise ValueError(
+                f"link {coord_a}–{coord_b} exists in slices "
+                f"{sorted(owning_slices)}; pass slice_id")
+        owned = False
+        for a in candidates:
+            if not a.down and a.backend.fail_link(coord_a, coord_b):
+                a.advertise()
+                owned = True
+        if not owned:
+            raise ValueError(f"no live agent owns link {coord_a}–{coord_b}")
 
     def heal_link(self, coord_a, coord_b, slice_id: str | None = None) -> None:
-        raise NotImplementedError(RECOVERY_ITEM)
+        pair = (min(tuple(coord_a), tuple(coord_b)),
+                max(tuple(coord_a), tuple(coord_b)))
+        owners = [a for a in self.agents
+                  if (slice_id is None or a.backend.slice_id == slice_id)
+                  and pair in a.backend.bad_links]
+        owning_slices = {a.backend.slice_id for a in owners}
+        if len(owning_slices) > 1:  # symmetric with fail_link's ambiguity rule
+            raise ValueError(
+                f"link {coord_a}–{coord_b} is bad in slices "
+                f"{sorted(owning_slices)}; pass slice_id")
+        if not owners:
+            raise ValueError(
+                f"link {coord_a}–{coord_b} was not marked bad on any agent")
+        for a in owners:
+            a.backend.heal_link(coord_a, coord_b)
+            if not a.down:
+                a.advertise()
 
     def reap(self, timeout: float | None = None) -> dict[str, int]:
         codes: dict[str, int] = {}
@@ -270,6 +312,10 @@ class SimCluster:
 
     def close(self) -> None:
         self._unsub()
+        self.recovery.close()
         for a in self.agents:
             for h in a.handles.values():
                 h.kill()
+            close = getattr(a.backend, "close", None)
+            if close is not None:       # NvmlBackend's event set
+                close()

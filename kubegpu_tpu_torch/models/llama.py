@@ -206,8 +206,24 @@ def next_token_loss(params: dict, tokens: torch.Tensor,
     return -logp.gather(-1, targets[..., None])[..., 0].mean()
 
 
+def _dp_mean(grads, loss, group):
+    """The group's mean of ``grads`` and ``loss``: one f32 all-reduce of
+    them all, flattened."""
+    import torch.distributed as dist
+
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + [loss.reshape(1).float()])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    out, at = [], 0
+    for g in grads:
+        out.append(flat[at:at + g.numel()].view(g.shape).to(g.dtype))
+        at += g.numel()
+    return out, flat[at].to(loss.dtype)
+
+
 def make_train_step(cfg: LlamaConfig, optimizer, loss_fn=None,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, dp_group=None):
     """``step(params, opt_state, tokens) → (params, opt_state, loss)``: the
     counterpart of the reference's ``make_train_step``.  ``params`` are
     leaf tensors with ``requires_grad``; ``optimizer`` is a
@@ -219,8 +235,15 @@ def make_train_step(cfg: LlamaConfig, optimizer, loss_fn=None,
     activation memory scales with the microbatch while the update stays
     the full batch's.  Unlike the reference's pure step, the update runs in
     place to save memory: the returned params and state are the arguments,
-    updated.  Single device: the reference's ``mesh`` waits for
-    multi-device (ROADMAP.md queue 1, item 9)."""
+    updated.
+
+    ``dp_group``, a ``torch.distributed`` group of data-parallel workers
+    each stepping on its equal share of the batch, is the reference's
+    mesh with a dp axis only: the gradients and the loss are averaged over
+    the group (one all-reduce a step) before the update, so every worker
+    takes the update of the whole batch and returns its mean loss.  The
+    reference's fsdp and tp axes wait for multi-device support (ROADMAP.md
+    queue 1, item 9)."""
     loss_fn = loss_fn if loss_fn is not None else next_token_loss
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -247,7 +270,10 @@ def make_train_step(cfg: LlamaConfig, optimizer, loss_fn=None,
             loss = loss / accum_steps
             grads = [(acc / accum_steps).to(p.dtype)
                      for acc, p in zip(sums, leaves)]
+        loss = loss.detach()
+        if dp_group is not None:
+            grads, loss = _dp_mean(grads, loss, dp_group)
         opt_state = optimizer.update(grads, opt_state, leaves)
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
 
     return step

@@ -6,16 +6,34 @@ The crishim sets ``TPU_WORKER_ID`` / ``JAX_COORDINATOR_ADDRESS`` /
 ``KUBETPU_MILLITPU``, ``KUBETPU_HBM_GIB`` and ``KUBETPU_SLICE_ID``; the names
 stay the crishim's.  The port's crishim also names the granted cards by UUID
 in ``CUDA_VISIBLE_DEVICES``, which the CUDA runtime reads itself.
-:func:`init_from_env` reads them; a single-worker pod needs nothing more.  A
-pod of more than one worker raises: its bootstrap over ``torch.distributed``
-is not ported yet.
+
+:func:`init_from_env` turns them into one ``torch.distributed`` process
+group where the pod is one worker of several, as the reference's starts
+``jax.distributed``: the rendezvous is a ``TCPStore`` at the coordinator
+address (worker 0 serves it), rank ``TPU_WORKER_ID`` of
+``JAX_NUM_PROCESSES``, and it gives up after :data:`RENDEZVOUS_TIMEOUT_S`
+(a worker whose peers never come raises).  Each worker holds one card, the
+one of its grant, as ``cuda:0``; the workers tell each other their cards'
+UUIDs through the store and pick the backend as
+:class:`~kubegpu_tpu_torch.parallel.launch.Gang` does: NCCL when every
+worker's card is distinct, gloo when two share a card (NCCL refuses that)
+or on the CPU.  A worker granted several cards raises: an in-process mesh
+over them is ROADMAP item 9's.  A single-worker pod needs nothing more
+than the env.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import socket
+import time
 from dataclasses import dataclass
+
+# a gang's rendezvous gives up after this long: its workers start in one
+# control-plane tick, so a peer this late is not coming
+RENDEZVOUS_TIMEOUT_S = 120.0
+CARD_KEY = "kubetpu/card"     # a worker's card UUID in the rendezvous store
 
 
 @dataclass
@@ -47,18 +65,93 @@ def read_env() -> WorkerEnv:
     )
 
 
-def init_from_env() -> WorkerEnv:
-    """The injected env of this worker (nothing to start for a
-    single-worker pod).  More than one worker raises
-    ``NotImplementedError``: the reference starts ``jax.distributed``
-    there, and the port's multi-device runtime is not written yet."""
+def init_from_env(device="cuda") -> WorkerEnv:
+    """The injected env of this worker; where it is one of several, join
+    the gang's process group first (see the module docstring).
+    ``device`` is the program's (``"cuda"`` or ``"cpu"``)."""
+    env = read_env()
+    if env.num_workers > 1:
+        join_gang(env, device, RENDEZVOUS_TIMEOUT_S)
+    return env
+
+
+def single_worker_env(program: str) -> WorkerEnv:
+    """The injected env of a program that runs one worker only: a pod of
+    more than one raises ``NotImplementedError`` before any rendezvous."""
     env = read_env()
     if env.num_workers > 1:
         raise NotImplementedError(
-            f"a pod of {env.num_workers} workers is not ported yet "
-            "(ROADMAP item 10b: the multi-device gang bootstrap over "
-            "torch.distributed)")
+            f"{program}: a pod of {env.num_workers} workers waits for "
+            "multi-device support (ROADMAP.md queue 1, item 9)")
     return env
+
+
+def gang_backend(cards: list[str]) -> str:
+    """NCCL when every worker holds a card of its own (``cards``: each
+    worker's card UUID, or ``"cpu"``), else gloo: NCCL refuses two ranks
+    on one card, and runs on cards only."""
+    own = "cpu" not in cards and len(set(cards)) == len(cards)
+    return "nccl" if own else "gloo"
+
+
+def join_gang(env: WorkerEnv, device, timeout_s: float) -> str:
+    """Join the ``env.num_workers`` workers into one process group and
+    return its backend (``"nccl"`` or ``"gloo"``)."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        n = torch.cuda.device_count()
+        if n == 0:
+            raise RuntimeError("join_gang: no CUDA device (pass "
+                               "device='cpu' to run on the CPU)")
+        if n > 1:
+            raise NotImplementedError(
+                f"a worker of a {env.num_workers}-worker gang sees {n} "
+                "cards; one worker over several cards waits for "
+                "multi-device support (ROADMAP.md queue 1, item 9)")
+        torch.cuda.set_device(0)
+        card = f"GPU-{torch.cuda.get_device_properties(0).uuid}"
+    else:
+        card = "cpu"
+    host, port = env.coordinator.rsplit(":", 1)
+    timeout = timedelta(seconds=timeout_s)
+    if env.worker_id:
+        _wait_for_coordinator(host, int(port), time.monotonic() + timeout_s)
+    store = dist.TCPStore(host, int(port), env.num_workers,
+                          is_master=env.worker_id == 0, timeout=timeout)
+    store.set(f"{CARD_KEY}/{env.worker_id}", card)
+    backend = gang_backend([store.get(f"{CARD_KEY}/{r}").decode()
+                            for r in range(env.num_workers)])
+    dist.init_process_group(backend, store=store, rank=env.worker_id,
+                            world_size=env.num_workers, timeout=timeout)
+    return backend
+
+
+def _wait_for_coordinator(host: str, port: int, deadline: float) -> None:
+    """Return once ``host:port`` accepts a connection; raise
+    ``TimeoutError`` at ``deadline``."""
+    while True:
+        try:
+            socket.create_connection((host, port), timeout=1.0).close()
+            return
+        except OSError:
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"the gang's coordinator {host}:{port} did not come "
+                    "up in time") from None
+            time.sleep(0.1)
+
+
+def leave_gang() -> None:
+    """Destroy the process group :func:`init_from_env` made, if any."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def program_device(device, program: str):

@@ -1,10 +1,17 @@
 """Llama training workload (counterpart of
-``kubegpu_tpu/workloads/programs/llama_pjit.py``, BASELINE config 4's).
+``kubegpu_tpu/workloads/programs/llama_pjit.py``, BASELINE configs 3 and
+4's).
 
-The pod trains a Llama-family model on its card with ``make_train_step`` +
-``adamw(1e-3)`` and prints the reference's line (worker 0)::
+Each gang member joins the gang's process group from the injected env
+(:func:`~kubegpu_tpu_torch.workloads.programs.distributed.init_from_env`),
+holds the parameters made from the same seed (so they are replicated),
+takes its rows of the global batch (``max(2, dp·fsdp)`` rows, the
+reference's ``P(("dp", "fsdp"), None)``) and trains with
+``make_train_step(..., dp_group=)`` + ``adamw(1e-3)``: the gradients and
+the loss are averaged over the workers before each update.  Worker 0
+prints the reference's line with the global mean losses::
 
-    llama_pjit: preset=tiny mesh={'dp': 1} workers=1 devices=1
+    llama_pjit: preset=tiny mesh={'dp': 2} workers=2 devices=2
     start_step=0 resumed_opt=False losses=[...]   (one line)
 
     python -m kubegpu_tpu_torch.workloads.programs.llama_pjit
@@ -16,11 +23,13 @@ Env knobs (the reference's):
   LLAMA_PRESET   tiny (default) | 8b
   LLAMA_STEPS    number of train steps (default 3)
   LLAMA_MESH     e.g. "dp:2,tp:2"; defaults to the scheduler-injected
-                 KUBETPU_MESH_AXES, else dp over all devices.  The axes
-                 fold down to the devices present (:func:`parse_mesh`);
-                 a mesh of more than one device raises
-                 ``NotImplementedError``: sharded training waits for
-                 multi-device support (ROADMAP.md queue 1, item 9)
+                 KUBETPU_MESH_AXES, else dp over all devices.  The devices
+                 are the gang's workers times each worker's cards, and the
+                 axes fold down to them (:func:`parse_mesh`).  Only the dp
+                 axis over one card a worker runs: an fsdp or tp axis, or
+                 a worker with several cards, raises
+                 ``NotImplementedError`` (ROADMAP.md queue 1, item 9)
+                 before any rendezvous
   LLAMA_CKPT_DIR restore / save (params and optimizer state): raises
                  ``NotImplementedError``, the reference's
                  ``TrainCheckpointer`` is item 9's
@@ -29,9 +38,7 @@ Env knobs (the reference's):
                  of the train steps there (``llama_pjit.trace.json``), where
                  the reference writes a ``jax.profiler`` trace
 
-Exit codes: 0, or 3 for a non-finite loss.  A pod of more than one worker
-raises in :func:`~kubegpu_tpu_torch.workloads.programs.distributed.
-init_from_env`.
+Exit codes: 0, or 3 for a non-finite loss.
 """
 
 from __future__ import annotations
@@ -84,71 +91,113 @@ def _n_devices(device) -> int:
     return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
-def main(device="cuda") -> int:
-    from kubegpu_tpu_torch.workloads.programs.distributed import (
-        init_from_env,
-        program_device,
-    )
+def global_batch(axes: dict[str, int]) -> int:
+    """The reference's batch: ``max(2, dp·fsdp)`` rows."""
+    return max(2, axes.get("dp", 1) * axes.get("fsdp", 1))
 
-    env = init_from_env()
-    import math
 
+def step_tokens(step: int, batch: int, seq: int, vocab: int, device):
+    """The reference's tokens of ``step``: ``[batch, seq]``, a new batch
+    every step."""
     import torch
 
-    from kubegpu_tpu_torch.models import LlamaConfig, llama_init
+    return (torch.arange(batch * seq, dtype=torch.int64, device=device)
+            .reshape(batch, seq) * (step + 3)) % vocab
+
+
+def train(cfg, device, steps: int, batch: int, rank: int = 0,
+          world: int = 1, group=None) -> list[float]:
+    """``steps`` train steps from the parameters of seed 0 on rows
+    ``rank·batch/world`` onwards of each global batch, the gradients
+    averaged over ``group`` (None: one worker); the mean losses."""
+    import torch
+
+    from kubegpu_tpu_torch.models import llama_init
     from kubegpu_tpu_torch.models.llama import make_train_step
     from kubegpu_tpu_torch.optim import adamw
     from kubegpu_tpu_torch.tree import tree_leaves
-
-    device = program_device(device, "llama_pjit")
-    preset = os.environ.get("LLAMA_PRESET", "tiny")
-    steps = int(os.environ.get("LLAMA_STEPS", "3"))
-    cfg = (LlamaConfig.llama3_8b() if preset == "8b"
-           else LlamaConfig.tiny(n_heads=4, n_kv_heads=4, dtype="float32"))
-    n_devices = _n_devices(device)
-    axes = parse_mesh(os.environ.get("LLAMA_MESH"), n_devices)
-    if math.prod(axes.values()) > 1:
-        raise NotImplementedError(
-            f"llama_pjit: a mesh of {math.prod(axes.values())} devices "
-            f"({axes}) waits for multi-device support (ROADMAP.md queue 1, "
-            "item 9)")
-    if os.environ.get("LLAMA_CKPT_DIR"):
-        raise NotImplementedError(
-            "llama_pjit: LLAMA_CKPT_DIR needs the reference's "
-            "TrainCheckpointer, which waits for multi-device support "
-            "(ROADMAP.md queue 1, item 9)")
 
     params = llama_init(cfg, seed=0, device=device)
     for p in tree_leaves(params):
         p.requires_grad_()
     opt = adamw(1e-3)
     opt_state = opt.init(params)
-    step_fn = make_train_step(cfg, opt)
-    batch = max(2, axes.get("dp", 1) * axes.get("fsdp", 1))
+    step_fn = make_train_step(cfg, opt, dp_group=group)
+    rows = batch // world
     seq = 32   # the all-T loss contract: tokens are [B, T]
-    start_step, resumed_opt = 0, False
-    profile_dir = os.environ.get("LLAMA_PROFILE_DIR")
-    prof = None
-    if profile_dir and env.worker_id == 0:
-        from torch.profiler import ProfilerActivity, profile
-        prof = profile(activities=[ProfilerActivity.CPU] + (
-            [ProfilerActivity.CUDA] if device.type == "cuda" else []))
-        prof.start()
     losses = []
+    for i in range(steps):
+        tokens = step_tokens(i, batch, seq, cfg.vocab_size, device)
+        with torch.profiler.record_function(f"train_step_{i}"):
+            params, opt_state, loss = step_fn(
+                params, opt_state, tokens[rank * rows:(rank + 1) * rows])
+        losses.append(float(loss))
+    return losses
+
+
+def main(device="cuda") -> int:
+    import math
+
+    from kubegpu_tpu_torch.workloads.programs.distributed import (
+        init_from_env,
+        leave_gang,
+        program_device,
+        read_env,
+    )
+
+    env = read_env()
+    preset = os.environ.get("LLAMA_PRESET", "tiny")
+    steps = int(os.environ.get("LLAMA_STEPS", "3"))
+    device = program_device(device, "llama_pjit")
+    local = _n_devices(device)
+    n_devices = env.num_workers * local
+    axes = parse_mesh(os.environ.get("LLAMA_MESH"), n_devices)
+    # what multi-device support must bring first, refused from the env
+    # alone: no worker waits on peers that will not come
+    sharded = {k: v for k, v in axes.items() if k != "dp" and v > 1}
+    if sharded or local > 1:
+        raise NotImplementedError(
+            f"llama_pjit: the mesh {axes} over {env.num_workers} worker(s) "
+            f"of {local} device(s) shards more than the dp axis over one "
+            "card a worker; that waits for multi-device support "
+            "(ROADMAP.md queue 1, item 9)")
+    if os.environ.get("LLAMA_CKPT_DIR"):
+        raise NotImplementedError(
+            "llama_pjit: LLAMA_CKPT_DIR needs the reference's "
+            "TrainCheckpointer, which waits for multi-device support "
+            "(ROADMAP.md queue 1, item 9)")
+    env = init_from_env(device)
     try:
-        for i in range(start_step, start_step + steps):
-            tokens = (torch.arange(batch * seq, dtype=torch.int64,
-                                   device=device).reshape(batch, seq)
-                      * (i + 3)) % cfg.vocab_size
-            with torch.profiler.record_function(f"train_step_{i}"):
-                params, opt_state, loss = step_fn(params, opt_state, tokens)
-            losses.append(float(loss))
+        import torch
+        import torch.distributed as dist
+
+        from kubegpu_tpu_torch.models import LlamaConfig
+
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        cfg = (LlamaConfig.llama3_8b() if preset == "8b"
+               else LlamaConfig.tiny(n_heads=4, n_kv_heads=4,
+                                     dtype="float32"))
+        start_step, resumed_opt = 0, False
+        profile_dir = os.environ.get("LLAMA_PROFILE_DIR")
+        prof = None
+        if profile_dir and env.worker_id == 0:
+            from torch.profiler import ProfilerActivity, profile
+            prof = profile(activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if device.type == "cuda" else []))
+            prof.start()
+        try:
+            losses = train(cfg, device, steps, global_batch(axes),
+                           env.worker_id, env.num_workers,
+                           dist.group.WORLD if env.num_workers > 1 else None)
+        finally:
+            if prof is not None:
+                prof.stop()
+                os.makedirs(profile_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(
+                    profile_dir, "llama_pjit.trace.json"))
     finally:
-        if prof is not None:
-            prof.stop()
-            os.makedirs(profile_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(profile_dir,
-                                                  "llama_pjit.trace.json"))
+        leave_gang()
 
     if env.worker_id == 0:
         print(f"llama_pjit: preset={preset} mesh={axes} "

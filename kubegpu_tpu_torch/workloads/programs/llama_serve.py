@@ -102,11 +102,11 @@ def _device_count(device) -> int:
 
 def main(device="cuda") -> int:
     from kubegpu_tpu_torch.workloads.programs.distributed import (
-        init_from_env,
         program_device,
+        single_worker_env,
     )
 
-    env = init_from_env()
+    env = single_worker_env("llama_serve")
     import torch
 
     from kubegpu_tpu_torch.models import LlamaConfig, greedy_generate

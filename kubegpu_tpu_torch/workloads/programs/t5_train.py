@@ -20,8 +20,8 @@ loss-decrease gate measures the same data.  The reference draws it with
 ``jax.random.randint``; ``kubegpu_tpu_torch.prng`` has no ``randint``, so
 here it comes from ``torch.Generator``s seeded 1 and 2: other tokens, the
 same shapes and range.  Exit codes: 0, or 3 for a non-finite or
-non-falling loss.  A pod of more than one worker raises in
-``init_from_env``.
+non-falling loss.  A pod of more than one worker raises (ROADMAP item 9)
+before any rendezvous.
 """
 
 from __future__ import annotations
@@ -32,11 +32,11 @@ import sys
 
 def main(device="cuda") -> int:
     from kubegpu_tpu_torch.workloads.programs.distributed import (
-        init_from_env,
         program_device,
+        single_worker_env,
     )
 
-    env = init_from_env()
+    env = single_worker_env("t5_train")
     import math
 
     import torch

@@ -17,8 +17,8 @@ One FIXED batch: images drawn with :func:`kubegpu_tpu_torch.prng.uniform`
 on ``prng_key(0)``, bit-equal to the reference's ``jax.random.uniform(
 PRNGKey(0), ...)``, and labels ``arange(batch) % n_classes``, so the
 loss-decrease gate measures the same data.  Exit codes: 0, or 3 for a
-non-finite or non-falling loss.  A pod of more than one worker raises in
-``init_from_env``.
+non-finite or non-falling loss.  A pod of more than one worker raises
+(ROADMAP item 9) before any rendezvous.
 """
 
 from __future__ import annotations
@@ -29,11 +29,11 @@ import sys
 
 def main(device="cuda") -> int:
     from kubegpu_tpu_torch.workloads.programs.distributed import (
-        init_from_env,
         program_device,
+        single_worker_env,
     )
 
-    env = init_from_env()
+    env = single_worker_env("vit_train")
     import math
 
     import torch

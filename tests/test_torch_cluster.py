@@ -358,15 +358,22 @@ def test_gangs_stay_on_one_node_unless_multislice():
 
 
 def test_unported_knobs_raise_naming_their_item():
+    # fault injection is ported (item 10c): a failed card evicts its gang,
+    # which pends on a one-card node until the card heals
     cl = pcluster.SimCluster(["h100-sxm-1"])
     try:
-        for call in (lambda: cl.fail_host("x"), lambda: cl.restore_host("x"),
-                     lambda: cl.fail_chip("x", 0),
-                     lambda: cl.heal_chip("x", 0),
-                     lambda: cl.fail_link((0, 0, 0), (1, 0, 0)),
-                     lambda: cl.heal_link((0, 0, 0), (1, 0, 0))):
-            with pytest.raises(NotImplementedError, match="item 10c"):
-                call()
+        node = cl.agents[0].node_name
+        cl.submit(pcluster.tpu_pod("p", chips=1, command=["noop"]))
+        assert cl.step()[0].scheduled == ["p"]
+        cl.fail_chip(node, 0)
+        result, _ = cl.step()
+        assert result.unschedulable == ["p"]
+        assert cl.metrics.counter("gangs_evicted") == 1
+        assert cl.pod_phase("p") == pcluster.PodPhase.PENDING
+        cl.heal_chip(node, 0)
+        assert cl.step()[0].scheduled == ["p"]
+        with pytest.raises(KeyError, match="no agent"):
+            cl.fail_host("x")
     finally:
         cl.close()
     with pytest.raises(NotImplementedError, match="item 10d"):

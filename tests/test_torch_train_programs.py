@@ -158,9 +158,17 @@ def test_resnet_refuses_a_wrong_chip_count(pod, capsys):
 
 @pytest.mark.parametrize("program", ["llama_pjit", "vit_train", "t5_train"])
 def test_a_second_worker_raises(program, pod):
+    """Before any rendezvous (no coordinator is set): the single-worker
+    programs refuse a pod of two workers, and ``llama_pjit``'s dp gang
+    refuses a tp axis, both naming item 9."""
     pod(JAX_NUM_PROCESSES="2", TPU_WORKER_ID="1")
-    with pytest.raises(NotImplementedError, match="2 workers"):
+    match = "2 workers"
+    if program == "llama_pjit":
+        pod(LLAMA_MESH="tp:2")
+        match = "mesh {'tp': 2} over 2 worker"
+    with pytest.raises(NotImplementedError, match=match) as err:
         PROGRAMS[program][0].main(device="cpu")
+    assert "item 9" in str(err.value)
 
 
 def test_t5_tensor_parallel_raises(pod):
@@ -176,12 +184,14 @@ def test_llama_checkpoint_dir_raises(pod, tmp_path):
 
 
 def test_llama_mesh_of_many_devices_raises(pod, monkeypatch):
-    """A mesh that fits more than one device (here two cards seen) waits
-    for item 9."""
-    pod(LLAMA_MESH="dp:2", LLAMA_STEPS="1")
+    """One worker that sees two cards: its in-process mesh waits for item
+    9, whatever the axes (the dp axis spans workers, one card each)."""
     monkeypatch.setattr(llama_pjit, "_n_devices", lambda device: 2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        llama_pjit.main(device="cpu")
+    for mesh in ("dp:2", "fsdp:2", None):
+        pod(LLAMA_STEPS="1", **({"LLAMA_MESH": mesh} if mesh else {}))
+        with pytest.raises(NotImplementedError,
+                           match="over 1 worker.s. of 2 device.*item 9"):
+            llama_pjit.main(device="cpu")
 
 
 def test_llama_profile_dir_writes_a_chrome_trace(pod, tmp_path, capsys):
