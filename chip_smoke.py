@@ -257,12 +257,13 @@ printed as it ends (any failed check exits non-zero):
    replica a gang of tp rank processes (``DataParallelServePool(tp=2)``,
    ``DisaggServePool(1, 1, tp=2)``), cutting its shards from this
    process's weights on the card.  (a) The narrow f32 config over gloo
-   ranks sharing the card: the dp = 2 and the 1 + 1 disaggregated pools'
-   tokens, routes, migrations and replica host digests equal the tp = 1
-   pools'.  (b) Llama-3-8B's width cut to 4 of 32 layers (gloo is a
-   check, not a path), four gloo ranks on the card, eager: the dp pool
-   and the disaggregated pool over bf16 pages and the dp pool over int8
-   pages (kernel 5), every rank's launches equal ``stride × n_layers`` a
+   ranks sharing the card: the 1 + 1 disaggregated pool's tokens, routes,
+   migrations and replica host digests equal the tp = 1 pool's.  (b)
+   Llama-3-8B's width cut to 4 of 32 layers (gloo is a check, not a
+   path), four gloo ranks on the card, eager: the dp pool over bf16 pages
+   (kernel 4) and the disaggregated pool over int8 pages (kernel 5; three
+   pools of ranks in all since phase 19 was added, for the script's time
+   limit), every rank's launches equal ``stride × n_layers`` a
    tick at 4 local kv heads; pool tokens/s beside one gang's on the same
    window (the pool after ``retire_replica(1)``; 8 prompts of 16 new
    tokens: a wave and a tick a replica, a check and not a throughput),
@@ -292,8 +293,8 @@ printed as it ends (any failed check exits non-zero):
    only, 32 mock ``h100-sxm-8`` nodes filled by a seeded mix of 1- to
    16-card gangs in one scheduling pass each: decision ms p50/p99, mean
    locality, every gang on one node unless it is a multislice 16.
-18. gang     -- the gang bootstrap and fault recovery (``gang_phase``,
-   last), through the cluster ``apply --real --set backend.type=nvml``
+18. gang     -- the gang bootstrap and fault recovery (``gang_phase``),
+   through the cluster ``apply --real --set backend.type=nvml``
    builds: (a) ``NvmlBackend().discover()`` with its health reads
    (remapped rows, XID events, NVLink pairs): which the card answers,
    what they read, every card healthy; (b) with two or more cards
@@ -315,8 +316,31 @@ printed as it ends (any failed check exits non-zero):
    other cards where enough are healthy, else pends until the card heals,
    then runs to Succeeded (ms and ticks from the fault to the eviction
    and from the heal or re-placement to Succeeded).
+19. daemons  -- the cluster layer as its operators run it (``daemons_phase``,
+   last): (a) three processes on this host, ``python -m
+   kubegpu_tpu_torch.kubemeta.apiserver_serve`` on a free port, ``python
+   -m kubegpu_tpu_torch.scheduler.daemon`` and ``python -m
+   kubegpu_tpu_torch.crishim.serve --backend nvml --real-processes --env
+   KUBETPU_REPORT_LAUNCHES=1 --http-port ...``, talking only over HTTP and
+   the CRI socket; the Node read back over HTTP advertises this host's
+   cards (nvidia-smi's UUIDs, NVML's slice type).  (b) ``serve-llama.json``'s
+   ``llama-serve-cb`` created over ``HttpApiClient`` and followed on the
+   watch to Succeeded; over HTTP, the card its log says it saw is the one
+   its ``AllocateFrom`` names (through the node's advertisement), and the
+   node's ``/metrics`` holds every metric line it printed, kernel 5's
+   launches above 0; then one-card ``python -c`` probe pods, one at a
+   time: ms from the create to the SCHEDULED event at the client, p50 and
+   p99.  (c) In this process the cluster ``SimCluster.from_config`` builds
+   with ``backend.type=nvml`` (its own apiserver) behind
+   ``ExtenderHTTPServer``: a one-card pod through ``/filter``,
+   ``/prioritize`` and ``/bind``, whose ``AllocateFrom`` names a card of
+   this host.  (d) With two or more cards ``allreduce-bench.json``'s gang
+   at ``min(4, cards)`` workers through the daemons, each worker on its
+   grant's card.  At the end the daemons are stopped, and no process the
+   phase started is alive or listed by nvidia-smi's or NVML's compute
+   processes.
 
-Eighteen paths are driven: serving (phases 4-5), the prefix cache (5f),
+Nineteen paths are driven: serving (phases 4-5), the prefix cache (5f),
 speculative serving (5g),
 quantized serving (5b),
 int8-weight serving (5c), the search decoders (5h, after 5c), the
@@ -327,9 +351,10 @@ sampling with the request lifecycle (phase 10, run after 5e), the
 serving pools (phase 11, after 10), the load harness (phase 12, after
 11), MoE serving (phase 13), the training families (phase 14) and
 tensor-parallel serving (phase 15) and the pools at tp > 1 (phase 16;
-the counts of both are the ranks'); the cluster layer (phase 17) and the
-gangs (phase 18, last) launch no kernel in this process: their pods are
-processes of their own, and report their counts as metric lines.  Launch
+the counts of both are the ranks'); the cluster layer (phase 17), the
+gangs (phase 18) and the daemons (phase 19, last) launch no kernel in
+this process: their pods are processes of their own, and report their
+counts as metric lines.  Launch
 counters are zeroed just before each and read just after; a graph replay
 counts the launches captured in it.  The serving and training paths must
 run kernels 1-3 on their tensor-core instances only.  The line
@@ -6623,24 +6648,21 @@ def pool_tp_window(torch, kernels, pool, prompts, n_new, kernel, label,
 
 
 def pool_tp_narrow(torch, kernels) -> dict:
-    """(a): the narrow f32 config, every pool at tp = 1 and at tp = 2
-    (gloo ranks sharing the card): tokens, routes, migrations and every
-    replica's host digest equal; kernel 4 ran in every rank."""
-    from kubegpu_tpu_torch.models import (
-        DataParallelServePool,
-        DisaggServePool,
-        LlamaConfig,
-        llama_init,
-    )
+    """(a): the narrow f32 config, the 1 + 1 disaggregated pool at tp = 1
+    and at tp = 2 (gloo ranks sharing the card): tokens, routes,
+    migrations and every replica's host digest equal; kernel 4 ran in
+    every rank.  (The dp pool at tp = 2 runs in (b); one pool here keeps
+    the ranks this phase starts, which dominate its time, to three
+    pools.)"""
+    from kubegpu_tpu_torch.models import DisaggServePool, LlamaConfig, llama_init
     cfg = LlamaConfig.tiny(**TP_NARROW)
     params = llama_init(cfg, seed=SEED, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(SEED + 17)
     prompts = pool_prompts(torch, cfg.vocab_size, g, 16, (4, 14), n=9)
     n_new = [12] * 8 + [1]
     out, launches = {}, dict.fromkeys(PAGED_KERNELS, 0)
-    for label, cls, kw in (("dp=2", DataParallelServePool, {"dp": 2}),
-                           ("disagg 1+1", DisaggServePool,
-                            {"prefill": 1, "decode": 1})):
+    for label, cls, kw in (("disagg 1+1", DisaggServePool,
+                            {"prefill": 1, "decode": 1}),):
         runs = {}
         for tp in (1, 2):
             with cls(params, cfg, tp=tp, devices=["cuda:0"] * 2 * tp,
@@ -6690,8 +6712,8 @@ def chain_bytes_of(pool) -> list:
 
 
 def pool_tp_full(torch, kernels, gen, name, n_layers: int, devices: list,
-                 graphs: bool, label: str, formats=("bf16", "int8"),
-                 long: bool = False) -> dict:
+                 graphs: bool, label: str, long: bool = False,
+                 disagg_bits: int = 16) -> dict:
     """(b) and (c): Llama-3-8B's width at ``n_layers`` (bf16 weights from
     the seed, on card 0), the window's prompts from ``gen``.  The tp = 1
     dp pool on ``devices[:2]`` first (its tokens and tokens/s, one
@@ -6699,8 +6721,8 @@ def pool_tp_full(torch, kernels, gen, name, n_layers: int, devices: list,
     b on entries 2b, 2b+1): the dp = 2 × tp = 2 pool (tokens/s, round
     trips, logits, each rank's peak), then its replica 0 alone after
     ``retire_replica(1)`` on the same window; the 1 + 1 disaggregated pool
-    (migrations, ms and bytes a chain); over int8 pages the dp pool again
-    (kernel 5).  With ``long``, the dp pool and then its replica 0 alone
+    (migrations, ms and bytes a chain) over ``disagg_bits`` pages (8:
+    kernel 5).  With ``long``, the dp pool and then its replica 0 alone
     also run the throughput window (``TP_POOL_LONG`` prompts of
     ``TP_POOL_LONG_NEW`` new tokens)."""
     from dataclasses import replace
@@ -6819,19 +6841,20 @@ def pool_tp_full(torch, kernels, gen, name, n_layers: int, devices: list,
         for k in PAGED_KERNELS:
             launches[k] += (lrun["launches"][k]
                             + lalone["launches"][k])
-    # the 1 + 1 disaggregated pool, bf16 pages
+    # the 1 + 1 disaggregated pool over bf16 or int8 pages
     t0 = time.perf_counter()
+    pages = {"kv_bits": 8} if disagg_bits == 8 else {}
     with DisaggServePool(params, cfg, prefill=1, decode=1, tp=2,
-                         devices=devices, **kw) as pool:
+                         devices=devices, **pages, **kw) as pool:
         pool.warmup()
         sizes = chain_bytes_of(pool)
         dis = pool_tp_window(torch, kernels, pool, prompts, n_new,
-                             "paged_decode", f"phase 16 {label} disagg",
-                             stride_layers)
+                             "paged_decode_q8" if pages else "paged_decode",
+                             f"phase 16 {label} disagg", stride_layers)
         check(pool.migrations == len(prompts) == len(sizes),
               f"phase 16 {label}: migrations {pool.migrations}")
         out["disagg"] = {
-            "tokens_per_s": dis["tokens_per_s"],
+            "kv_bits": disagg_bits, "tokens_per_s": dis["tokens_per_s"],
             "agreement_tp1": token_agreement(dis["tokens"], one["tokens"]),
             "migrations": pool.migrations,
             "migrated_pages": pool.migrated_pages,
@@ -6841,29 +6864,10 @@ def pool_tp_full(torch, kernels, gen, name, n_layers: int, devices: list,
                 len(dis["round_trip_ms"]) // 2],
             "wall_s": time.perf_counter() - t0, "launches": dis["launches"]}
     torch.cuda.empty_cache()
-    log("pool_tp", part=label, pool="disagg 1+1 tp=2 bf16",
+    log("pool_tp", part=label, pool=f"disagg 1+1 tp=2 kv{disagg_bits}",
         **{k: v for k, v in out["disagg"].items()})
     for k in PAGED_KERNELS:
         launches[k] += dis["launches"][k]
-    if "int8" in formats:
-        t0 = time.perf_counter()
-        with DataParallelServePool(params, cfg, dp=2, tp=2, devices=devices,
-                                   kv_bits=8, **kw) as pool:
-            pool.warmup()
-            q8 = pool_tp_window(torch, kernels, pool, prompts, n_new,
-                                "paged_decode_q8",
-                                f"phase 16 {label} dp=2 tp=2 int8",
-                                stride_layers)
-        torch.cuda.empty_cache()
-        out["int8"] = {"tokens_per_s": q8["tokens_per_s"],
-                       "agreement_tp1": token_agreement(q8["tokens"],
-                                                        one["tokens"]),
-                       "wall_s": time.perf_counter() - t0,
-                       "launches": q8["launches"]}
-        log("pool_tp", part=label, pool="dp=2 tp=2 int8",
-            **out["int8"])
-        for k in PAGED_KERNELS:
-            launches[k] += q8["launches"][k]
     del params
     torch.cuda.empty_cache()
     out["launches"] = launches
@@ -6882,7 +6886,7 @@ def pool_tp_nccl(torch, kernels, gen, name) -> dict | None:
         return None
     devices = [f"cuda:{i}" for i in range(4)]
     return pool_tp_full(torch, kernels, gen, name, 32, devices, True,
-                        "c NCCL", formats=("bf16",), long=True)
+                        "c NCCL", long=True)
 
 
 def pool_tp_phase(torch, kernels, gen, name) -> dict:
@@ -6893,7 +6897,8 @@ def pool_tp_phase(torch, kernels, gen, name) -> dict:
     out = {"narrow": pool_tp_narrow(torch, kernels)}
     torch.cuda.empty_cache()
     out["gloo"] = pool_tp_full(torch, kernels, gen, name, TP_POOL_LAYERS,
-                               ["cuda:0"] * 4, False, "b gloo")
+                               ["cuda:0"] * 4, False, "b gloo",
+                               disagg_bits=8)
     out["nccl"] = pool_tp_nccl(torch, kernels, gen, name)
     launches = {k: sum(out[p]["launches"][k] for p in
                        ("narrow", "gloo", "nccl") if out[p] is not None)
@@ -7639,6 +7644,500 @@ def gang_phase(torch, kernels) -> dict:
     return out
 
 
+# -- phase 19: the daemons ---------------------------------------------------
+
+# (b): the serving pod the daemons run, and one-card ``python -c`` probe
+# pods timed from their create to the SCHEDULED watch event at the client
+DAEMON_POD = "llama-serve-cb"
+DAEMON_PROBES = 8
+DAEMON_TIMEOUT_S = 300.0
+
+
+class Daemon:
+    """One daemon of the phase as a process of its own (``python -m``),
+    its stdout and stderr in files under ``log_dir``: a pipe nobody reads
+    would stall it."""
+
+    def __init__(self, label: str, log_dir: str, module: str, *args: str):
+        self.label = label
+        self.paths = [os.path.join(log_dir, f"{label}.{k}")
+                      for k in ("out", "err")]
+        out, err = (open(p, "w") for p in self.paths)
+        with out, err:
+            self.proc = subprocess.Popen([sys.executable, "-m", module, *args],
+                                         stdout=out, stderr=err, text=True)
+
+    def text(self) -> str:
+        return "".join(open(p).read() for p in self.paths)
+
+    def wait_for(self, needle: str, timeout: float = 120.0) -> str:
+        """The first line of its output holding ``needle``."""
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            hit = [ln for ln in self.text().splitlines() if needle in ln]
+            if hit:
+                return hit[0]
+            check(self.proc.poll() is None, f"daemons: the {self.label} "
+                  f"exited {self.proc.returncode}:\n{self.text()[-3000:]}")
+            time.sleep(0.05)
+        check(False, f"daemons: no {needle!r} from the {self.label} in "
+              f"{timeout} s:\n{self.text()[-3000:]}")
+
+    def stop(self) -> int:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+        try:
+            return self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            return self.proc.wait()
+
+
+def process_tree(roots) -> set:
+    """The pids of every live descendant of ``roots`` (from /proc)."""
+    children = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        children.setdefault(ppid, []).append(int(d))
+    out, todo = set(), list(roots)
+    while todo:
+        for c in children.get(todo.pop(), []):
+            if c not in out:
+                out.add(c)
+                todo.append(c)
+    return out
+
+
+def alive(pid: int) -> bool:
+    """``pid`` exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def nvml_compute_pids() -> set:
+    """The pids NVML lists as compute processes on any card
+    (``nvmlDeviceGetComputeRunningProcesses_v3``)."""
+    import ctypes
+
+    from kubegpu_tpu_torch.tpuplugin.nvml import load_library
+
+    class Info(ctypes.Structure):     # nvml.h's nvmlProcessInfo_t
+        _fields_ = [("pid", ctypes.c_uint),
+                    ("usedGpuMemory", ctypes.c_ulonglong),
+                    ("gpuInstanceId", ctypes.c_uint),
+                    ("computeInstanceId", ctypes.c_uint)]
+
+    lib = load_library()
+    check(lib.nvmlInit_v2() == 0, "daemons: nvmlInit_v2 failed")
+    pids = set()
+    try:
+        count = ctypes.c_uint(0)
+        check(lib.nvmlDeviceGetCount_v2(ctypes.byref(count)) == 0,
+              "daemons: nvmlDeviceGetCount_v2 failed")
+        for i in range(count.value):
+            handle = ctypes.c_void_p()
+            check(lib.nvmlDeviceGetHandleByIndex_v2(
+                ctypes.c_uint(i), ctypes.byref(handle)) == 0,
+                "daemons: nvmlDeviceGetHandleByIndex_v2 failed")
+            n, infos = ctypes.c_uint(256), (Info * 256)()
+            rc = lib.nvmlDeviceGetComputeRunningProcesses_v3(
+                handle, ctypes.byref(n), infos)
+            check(rc == 0, f"daemons: nvmlDeviceGetComputeRunningProcesses"
+                  f"_v3 returned {rc} on card {i}")
+            pids |= {infos[k].pid for k in range(n.value)}
+    finally:
+        lib.nvmlShutdown()
+    return pids
+
+
+def smi_compute_pids() -> set:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout
+    return {int(x) for x in out.split() if x.strip().isdigit()}
+
+
+class PodWatch:
+    """The client's watch: when each object first reached each phase (a
+    Pod) or changed (a Node), on this process's clock."""
+
+    def __init__(self, client):
+        import threading
+        self.cond = threading.Condition()
+        self.seen = {}
+        self.unsub = client.watch(self._on)
+
+    def _on(self, ev) -> None:
+        now = time.perf_counter()
+        key = (ev.kind, ev.obj.metadata.name,
+               ev.obj.status.phase.value if ev.kind == "Pod" else ev.type)
+        with self.cond:
+            self.seen.setdefault(key, now)
+            self.cond.notify_all()
+
+    def wait(self, kind: str, name: str, states, timeout: float):
+        """(state, time) of the first of ``states`` ``name`` reached."""
+        with self.cond:
+            ok = self.cond.wait_for(lambda: any(
+                (kind, name, s) in self.seen for s in states), timeout)
+            check(ok, f"daemons: {kind} {name} reached none of {states} "
+                  f"in {timeout} s")
+            return min(((s, self.seen[(kind, name, s)]) for s in states
+                        if (kind, name, s) in self.seen),
+                       key=lambda x: x[1])
+
+
+def http_text(url: str) -> str:
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.read().decode()
+
+
+def granted_uuids(client, pod_name: str) -> list:
+    """The UUIDs of the cards a pod's ``AllocateFrom`` names, through its
+    node's advertisement, both read over HTTP."""
+    from kubegpu_tpu_torch.kubemeta import node_advertisement, pod_allocation
+    pod = client.get("Pod", pod_name)
+    alloc = pod_allocation(pod)
+    check(alloc is not None, f"daemons: {pod_name} has no AllocateFrom")
+    adv = node_advertisement(client.get("Node", alloc.node_name))
+    by_index = {c.local_index: c.uuid for c in adv.chips}
+    return [by_index[c.local_index] for c in alloc.chips]
+
+
+def daemon_node(client) -> dict:
+    """(a) The Node read back over HTTP advertises this host's cards: the
+    UUIDs nvidia-smi lists, in NVML's order, and the slice type and
+    switched flag an in-process ``NvmlBackend`` discovers (phase 17
+    (a) holds those to torch and nvidia-smi)."""
+    from kubegpu_tpu_torch.kubemeta import node_advertisement
+    from kubegpu_tpu_torch.tpuplugin import NvmlBackend
+    nodes = client.list("Node")
+    check(len(nodes) == 1, f"daemons: {len(nodes)} nodes registered")
+    adv = node_advertisement(nodes[0])
+    be = NvmlBackend()
+    try:
+        local = be.discover()
+    finally:
+        be.close()
+    smi = [row[1] for row in smi_cards()]
+    uuids = [c.uuid for c in adv.chips]
+    check(sorted(uuids) == sorted(smi)
+          and uuids == [c.uuid for c in local.chips]
+          and (adv.slice_type, adv.switched)
+          == (local.slice_type, local.switched),
+          f"daemons: the node advertises {uuids} as {adv.slice_type}, "
+          f"NVML {[c.uuid for c in local.chips]} as {local.slice_type}")
+    out = {"node": nodes[0].name, "cards": len(uuids),
+           "slice_type": adv.slice_type, "switched": adv.switched,
+           "uuids_equal": True}
+    log("daemons", part="(a) node over HTTP", **out)
+    return out
+
+
+def daemon_serving_pod(client, watch, node_url: str) -> dict:
+    """(b) ``serve-llama.json``'s continuous serving pod through the three
+    daemons: created over HTTP, Succeeded on the watch; then over HTTP
+    the card it saw (its log) against its grant, its kernel 5 launches
+    and its metric lines among the node's harvested ones."""
+    from kubegpu_tpu_torch.cli import pods_from_spec
+    from kubegpu_tpu_torch.config import load_structured_file
+    from kubegpu_tpu_torch.kernels import SIGNATURES as KERNEL_NAMES
+    from kubegpu_tpu_torch.obs import parse_prometheus
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    pods = pods_from_spec(load_structured_file(os.path.join(
+        root, "kubegpu_tpu_torch", "examples", CLUSTER_SPECS[1])))[0]
+    pod = next(p for p in pods if p.name == DAEMON_POD)
+    t0 = time.perf_counter()
+    client.create("Pod", pod)
+    _, t_sched = watch.wait("Pod", DAEMON_POD, ("Scheduled",),
+                            DAEMON_TIMEOUT_S)
+    _, t_run = watch.wait("Pod", DAEMON_POD, ("Running",), DAEMON_TIMEOUT_S)
+    # what the card's driver lists while the pod runs (a container in its
+    # own pid namespace may list nothing: then the phase's last check
+    # cannot see a process either)
+    listed = {"nvml": len(nvml_compute_pids()),
+              "nvidia_smi": len(smi_compute_pids())}
+    state, t_end = watch.wait("Pod", DAEMON_POD, ("Succeeded", "Failed"),
+                              DAEMON_TIMEOUT_S)
+    container = pod.spec.containers[0].name
+    logs = http_text(f"{node_url}/containerLogs/{DAEMON_POD}/{container}")
+    check(state == "Succeeded", f"daemons: {DAEMON_POD} {state}: "
+          f"{client.get('Pod', DAEMON_POD).status.message}\n{logs[-2000:]}")
+    granted = granted_uuids(client, DAEMON_POD)
+    seen = pod_device(logs)
+    check(len(granted) == 1 and seen is not None
+          and seen["uuid"] == granted[0] and seen["count"] == 1,
+          f"daemons: {DAEMON_POD} saw {seen}, granted {granted}")
+    lines = metric_lines(logs)
+    prom = parse_prometheus(http_text(f"{node_url}/metrics"))
+
+    def harvested(k):
+        fam = prom.get(f"kubetpu_workload_{k}_last")
+        return None if fam is None else next(iter(fam["samples"].values()))
+    check(lines and all(harvested(k) == float(v) for k, v in lines.items()),
+          f"daemons: the node's /metrics lacks {DAEMON_POD}'s lines: "
+          f"{sorted(k for k in lines if harvested(k) is None)}")
+    launched = {k: int(lines.get(f"launches_{k}", 0)) for k in KERNEL_NAMES}
+    check(harvested("launches_paged_decode_q8") > 0,
+          f"daemons: {DAEMON_POD} did not run kernel 5: {launched}")
+    out = {"uuid": granted[0], "granted_uuid_seen": True,
+           "create_to_scheduled_ms": (t_sched - t0) * 1e3,
+           "scheduled_to_running_ms": (t_run - t_sched) * 1e3,
+           "wall_s": t_end - t0, "harvested": sorted(lines),
+           "launches": launched, "compute_processes_listed": listed}
+    log("daemons", part="(b) serving pod", pod=DAEMON_POD,
+        **{k: v for k, v in out.items() if k != "harvested"},
+        harvested=len(lines))
+    return out
+
+
+def daemon_probes(client, watch) -> dict:
+    """(b) One-card ``python -c`` probe pods, one at a time: ms from the
+    create to the SCHEDULED event at this client (the quantity the
+    reference's ``run_wire_bench`` records) and to Succeeded."""
+    from kubegpu_tpu_torch.cluster import tpu_pod
+    from kubegpu_tpu_torch.obs import percentiles
+    sched, done = [], []
+    for i in range(DAEMON_PROBES):
+        name = f"probe-{i}"
+        t0 = time.perf_counter()
+        client.create("Pod", tpu_pod(name, chips=1, command=[
+            sys.executable, "-c", "print('probe')"]))
+        _, t_sched = watch.wait("Pod", name, ("Scheduled",), 60.0)
+        state, t_end = watch.wait("Pod", name, ("Succeeded", "Failed"), 60.0)
+        check(state == "Succeeded", f"daemons: {name} {state}")
+        sched.append((t_sched - t0) * 1e3)
+        done.append((t_end - t0) * 1e3)
+        client.delete("Pod", name)
+    p = percentiles(sched, (50, 99))
+    out = {"probes": DAEMON_PROBES, "create_to_scheduled_ms": sched,
+           "create_to_scheduled_ms_p50": p["p50"],
+           "create_to_scheduled_ms_p99": p["p99"],
+           "create_to_succeeded_ms_p50": percentiles(done, (50,))["p50"]}
+    log("daemons", part="(b) probes", **{k: v for k, v in out.items()
+                                         if k != "create_to_scheduled_ms"})
+    return out
+
+
+def daemon_webhook() -> dict:
+    """(c) The extender webhook over HTTP, in this process: the cluster
+    ``SimCluster.from_config`` builds with ``backend.type=nvml`` (this
+    node, its own apiserver), a one-card pod through ``/filter``,
+    ``/prioritize`` and ``/bind``; the ``AllocateFrom`` the bind writes
+    names a card of this host (its UUID through the node's
+    advertisement)."""
+    import urllib.request
+
+    from kubegpu_tpu_torch.cluster import SimCluster, tpu_pod
+    from kubegpu_tpu_torch.config import KubeTpuConfig
+    from kubegpu_tpu_torch.kubemeta import node_advertisement, pod_allocation
+    from kubegpu_tpu_torch.kubemeta.codec import ALLOCATE_FROM_KEY
+    from kubegpu_tpu_torch.scheduler.webhook import (
+        ExtenderHTTPServer,
+        pod_to_doc,
+    )
+
+    def post(url, payload):
+        req = urllib.request.Request(
+            url, data=json.dumps(payload).encode(), method="POST",
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=30) as r:
+            body = json.loads(r.read())
+        return body, (time.perf_counter() - t0) * 1e3
+
+    cl = SimCluster.from_config(KubeTpuConfig.load(None,
+                                                   ["backend.type=nvml"]))
+    srv = ExtenderHTTPServer(cl.scheduler, port=0).start()
+    try:
+        pod = tpu_pod("webhook-probe", chips=1, command=["noop"])
+        cl.api.create("Pod", pod)
+        nodes = [n.name for n in cl.api.list("Node")]
+        base = f"{srv.address}/kubetpu"
+        filt, f_ms = post(f"{base}/filter", {"Pod": pod_to_doc(pod),
+                                             "NodeNames": nodes})
+        check(filt["NodeNames"] == nodes and filt["Error"] == "",
+              f"daemons: /filter {filt}")
+        scores, p_ms = post(f"{base}/prioritize", {"Pod": pod_to_doc(pod),
+                                                   "NodeNames": nodes})
+        best = max(scores, key=lambda s: s["Score"])["Host"]
+        bound, b_ms = post(f"{base}/bind", {
+            "PodName": pod.name, "PodNamespace": "default",
+            "PodUID": pod.metadata.uid, "Node": best})
+        check(bound["Error"] == "", f"daemons: /bind {bound}")
+        got = cl.api.get("Pod", pod.name)
+        alloc = pod_allocation(got)
+        adv = node_advertisement(cl.api.get("Node", best))
+        uuid = {c.local_index: c.uuid for c in adv.chips}[
+            alloc.chips[0].local_index]
+        smi = [row[1] for row in smi_cards()]
+        check(got.spec.node_name == best and ALLOCATE_FROM_KEY in
+              got.metadata.annotations and len(alloc.chips) == 1
+              and uuid in smi,
+              f"daemons: the bind's AllocateFrom names {uuid}, not a card "
+              f"of {smi}")
+    finally:
+        srv.close()
+        cl.close()
+    out = {"node": best, "uuid": uuid, "scores": scores,
+           "filter_ms": f_ms, "prioritize_ms": p_ms, "bind_ms": b_ms}
+    log("daemons", part="(c) extender webhook over HTTP", **out)
+    return out
+
+
+def daemon_gang(client, watch, node_url: str, n_cards: int) -> dict | None:
+    """(d) Two or more cards: ``allreduce-bench.json``'s gang at
+    ``min(4, cards)`` workers through the daemons, each worker on the card
+    its grant names; worker 0's bandwidth line."""
+    if n_cards < 2:
+        log("daemons", part="(d) gang not run: one card (the gang takes "
+            "one card a worker)")
+        return None
+    n = min(4, n_cards)
+    pods = gang_spec_pods(GANG_SPECS[0], n)
+    t0 = time.perf_counter()
+    for p in pods:
+        client.create("Pod", p)
+    uuids, line = {}, None
+    for p in pods:
+        state, _ = watch.wait("Pod", p.name, ("Succeeded", "Failed"),
+                              DAEMON_TIMEOUT_S)
+        logs = http_text(f"{node_url}/containerLogs/{p.name}/"
+                         f"{p.spec.containers[0].name}")
+        check(state == "Succeeded", f"daemons: gang pod {p.name} {state}\n"
+              f"{logs[-2000:]}")
+        seen, granted = pod_device(logs), granted_uuids(client, p.name)
+        check(seen is not None and [seen["uuid"]] == granted
+              and seen["count"] == 1,
+              f"daemons: gang pod {p.name} saw {seen}, granted {granted}")
+        uuids[p.name] = seen["uuid"]
+        for ln in logs.splitlines():
+            if ln.startswith('{"metric": "allreduce_algo'):
+                line = json.loads(ln)
+    check(len(set(uuids.values())) == n and line is not None
+          and line["value"] > 0, f"daemons: gang cards {uuids}, line {line}")
+    out = {"workers": n, "uuids": uuids, "line": line,
+           "wall_s": time.perf_counter() - t0}
+    log("daemons", part=f"(d) allreduce gang, {n} workers", **line,
+        wall_s=round(out["wall_s"], 2))
+    return out
+
+
+def daemons_phase(torch, kernels) -> dict:
+    """Phase 19: the daemons (see the docstring)."""
+    import threading
+
+    from kubegpu_tpu_torch.kubemeta import HttpApiClient
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()          # the daemons' path starts here
+    # the compute processes the card's driver lists before the phase: a
+    # container may list them under other pids than its own, so the end
+    # also holds their count to this one
+    before = {"nvidia_smi": len(smi_compute_pids()),
+              "nvml": len(nvml_compute_pids())}
+    log_dir = tempfile.mkdtemp(prefix="daemons-")
+    port, http_port = free_port(), free_port()
+    url, node_url = (f"http://127.0.0.1:{port}",
+                     f"http://127.0.0.1:{http_port}")
+    daemons, client, watch, out = [], None, None, {}
+    started, sampling = set(), threading.Event()
+
+    def sample():                     # every process the daemons start
+        while not sampling.wait(0.05):
+            started.update(process_tree([d.proc.pid for d in daemons]))
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    try:
+        daemons.append(Daemon(
+            "apiserver", log_dir, "kubegpu_tpu_torch.kubemeta.apiserver_serve",
+            "--port", str(port)))
+        daemons[0].wait_for("apiserver: listening on")
+        daemons.append(Daemon(
+            "scheduler", log_dir, "kubegpu_tpu_torch.scheduler.daemon",
+            "--apiserver", url, "--tick", "0.2"))
+        daemons.append(Daemon(
+            "node", log_dir, "kubegpu_tpu_torch.crishim.serve",
+            "--apiserver", url, "--backend", "nvml", "--real-processes",
+            "--env", "KUBETPU_REPORT_LAUNCHES=1", "--tick", "0.05",
+            "--advertise-interval", "2",
+            "--cri-socket", os.path.join(log_dir, "cri.sock"),
+            "--http-port", str(http_port)))
+        sampler.start()
+        daemons[1].wait_for("scheduler: connected")
+        daemons[2].wait_for("crishim: http on port")
+        out["start_s"] = time.perf_counter() - t_phase
+        log("daemons", part="started", seconds=round(out["start_s"], 2),
+            apiserver=url, node_http=node_url)
+        client = HttpApiClient(url)
+        out["node"] = daemon_node(client)
+        watch = PodWatch(client)
+        # the watch's first poll starts from "now": see one change first
+        client.patch_annotations("Node", out["node"]["node"],
+                                 {"kubetpu.io/watch-sync": "1"})
+        watch.wait("Node", out["node"]["node"], ("MODIFIED",), 30.0)
+        out["pod"] = daemon_serving_pod(client, watch, node_url)
+        out["probes"] = daemon_probes(client, watch)
+        out["webhook"] = daemon_webhook()
+        out["gang"] = daemon_gang(client, watch, node_url,
+                                  torch.cuda.device_count())
+        for d in daemons:
+            check(d.proc.poll() is None,
+                  f"daemons: the {d.label} died:\n{d.text()[-3000:]}")
+    finally:
+        if watch is not None:
+            watch.unsub()
+        if client is not None:
+            client.close()
+        sampling.set()
+        if sampler.is_alive():
+            sampler.join()
+        started.update(process_tree([d.proc.pid for d in daemons]))
+        codes = {d.label: d.stop() for d in reversed(daemons)}
+        logs = {d.label: d.text()[-2000:] for d in daemons}
+        shutil.rmtree(log_dir, ignore_errors=True)
+    check(codes["node"] == 0, f"daemons: the node daemon's stop: rc "
+          f"{codes['node']}\n{logs['node']}")
+    ours = started | {d.proc.pid for d in daemons}
+    left = sorted(p for p in ours if alive(p))
+    smi, nvml = smi_compute_pids(), nvml_compute_pids()
+    after = {"nvidia_smi": len(smi), "nvml": len(nvml)}
+    out["compute_processes"] = {"before": before, "after": after,
+                                "self_listed": {"nvidia_smi": os.getpid()
+                                                in smi, "nvml":
+                                                os.getpid() in nvml}}
+    check(not left and not (ours & smi) and not (ours & nvml)
+          and all(after[k] <= before[k] for k in before),
+          f"daemons: still alive {left}; on a card per nvidia-smi "
+          f"{sorted(ours & smi)}, per NVML {sorted(ours & nvml)}; listed "
+          f"before {before}, after {after}")
+    here = dict(kernels.launches)     # ... and ends here
+    check(not any(here.values()),
+          f"the daemons' path launched a kernel in this process: {here}")
+    out["processes_started"] = len(ours)
+    out["stop_codes"] = codes
+    out["launches"] = {k: out["pod"]["launches"].get(k, 0)
+                       for k in kernels.SIGNATURES}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("daemons", part="stopped", processes_started=len(ours),
+        left_alive=0, on_a_card=0, stop_codes=codes,
+        **out["compute_processes"])
+    log("daemons", phase_s=round(out["phase_s"], 1))
+    return out
+
+
 def ptxas_instances(text: str) -> list:
     """Each kernel instance of an ``-Xptxas -v`` build log: its name
     (demangled by ``c++filt`` where the machine has it), registers a thread
@@ -7952,6 +8451,7 @@ def main(argv=None) -> int:
 
     cluster = cluster_phase(torch, kernels)
     gang = gang_phase(torch, kernels)
+    daemons = daemons_phase(torch, kernels)
 
     routes = {"flash_fwd": ("kubegpu_tpu_torch/csrc/flash_fwd.cu",
                             "kubegpu_tpu/ops/flash_attention.py:200"),
@@ -7972,7 +8472,8 @@ def main(argv=None) -> int:
              qw_launches, search_launches, train_launches, t5_launches,
              program_launches, lifecycle_launches, pool_launches,
              load_launches, moe_launches, train14_launches, tp_launches,
-             pool_tp_launches, cluster["launches"], gang["launches"])
+             pool_tp_launches, cluster["launches"], gang["launches"],
+             daemons["launches"])
     # kernels 4-6 at llama_serve.py's bench shape, by their pool format
     program_rows = {k: program["program_shape"][fmt]
                     for k, fmt in zip(PAGED_KERNELS, ("bf16", "q8", "q4g16"))}
@@ -8030,6 +8531,7 @@ def main(argv=None) -> int:
                "flash_vit_shape": vit_shape, "train_families": train14,
                "paged_tp_shapes": tp_shapes, "tensor_parallel": tp,
                "pools_tp": pool_tp, "cluster": cluster, "gang": gang,
+               "daemons": daemons,
                "launches": {"serving": serve_launches,
                             "prefix_cache": prefix_launches,
                             "speculative": spec_launches,
@@ -8048,7 +8550,8 @@ def main(argv=None) -> int:
                             "tensor_parallel": tp["launches"],
                             "pools_tp": pool_tp["launches"],
                             "cluster": cluster["launches"],
-                            "gang": gang["launches"]},
+                            "gang": gang["launches"],
+                            "daemons": daemons["launches"]},
                "kernels": line["kernels"],
                "total_s": time.perf_counter() - t_start}
     if args.details:

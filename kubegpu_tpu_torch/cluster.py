@@ -11,9 +11,9 @@ grant names (the mock's made-up card UUIDs name no card CUDA knows).
 
 Each tick runs the :class:`FaultRecoveryController` first: a card, host or
 NVLink pair failed through ``fail_*`` (or read bad from NVML by
-``NvmlBackend``) evicts and requeues the gangs it breaks.  Not ported yet,
-and raising ``NotImplementedError``: the CRI socket (``wire_cri``, ROADMAP
-item 10d).
+``NvmlBackend``) evicts and requeues the gangs it breaks.  With ``wire_cri``
+(or ``config.runtime.wire_cri``) each node gets its own ``CriServer`` on a
+unix socket, and its agent reaches the shim only through it.
 """
 
 from __future__ import annotations
@@ -115,14 +115,24 @@ class SimCluster:
             self.runtime = SubprocessRuntime(extra_env=merged_env)
         else:
             self.runtime = FakeRuntime()
-        if wire_cri or cfg.runtime.wire_cri:
-            raise NotImplementedError(
-                "wire_cri: the CRI unix socket (criserver.py) is not ported "
-                "yet: ROADMAP item 10d")
-        self.agents = [NodeAgent(self.api, b, self.runtime,
-                                 metrics=self.metrics)
-                       for b in (mock_cluster(slice_types) if backends is None
-                                 else backends)]
+        self.cri_servers: list["CriServer"] = []
+        self.agents = []
+        for b in (mock_cluster(slice_types) if backends is None
+                  else backends):
+            shim = None
+            if wire_cri or cfg.runtime.wire_cri:
+                # per-node CRI unix socket between agent (kubelet role)
+                # and shim, as in the reference deployment (SURVEY §4.3)
+                from kubegpu_tpu_torch.crishim.criserver import (
+                    CriServer,
+                    RemoteCriShim,
+                )
+                server = CriServer(self.api, b, b.discover().node_name,
+                                   self.runtime).start()
+                self.cri_servers.append(server)
+                shim = RemoteCriShim(server.socket_path)
+            self.agents.append(NodeAgent(self.api, b, self.runtime,
+                                         metrics=self.metrics, shim=shim))
         for a in self.agents:
             a.register()
         sc = cfg.scheduler
@@ -316,6 +326,10 @@ class SimCluster:
         for a in self.agents:
             for h in a.handles.values():
                 h.kill()
+            if hasattr(a.shim, "close"):
+                a.shim.close()
             close = getattr(a.backend, "close", None)
             if close is not None:       # NvmlBackend's event set
                 close()
+        for s in self.cri_servers:
+            s.close()

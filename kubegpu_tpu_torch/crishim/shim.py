@@ -22,9 +22,9 @@ log = get_logger("crishim")
 
 
 class CriError(RuntimeError):
-    """A container call the CRI server refused (the reference's
-    ``criserver.CriError``; the port's CRI wire is not written yet, ROADMAP
-    item 10, so only a shim override raises it)."""
+    """A CRI verb refused: raised by the server's verbs and carried back
+    over the wire (the reference's ``criserver.CriError``; defined here so
+    the agent and the servers share it without an import cycle)."""
 
 
 class CriShim:

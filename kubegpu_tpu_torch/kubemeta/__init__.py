@@ -5,8 +5,12 @@ Scheduler and node agent never talk directly: all coordination rides on
 Node/Pod annotations through the apiserver.  ``objects`` are k8s-shaped
 dataclasses, ``codec`` converts advertisement / request / allocation structs
 ⇄ annotation JSON, and ``controlplane`` is the in-process fake apiserver
-(create/get/list/patch/delete/watch).  The reference's HTTP apiserver and
-its wire serializer are not ported yet (ROADMAP: the daemons).
+(create/get/list/patch/delete/watch).  On the wire: ``serialize`` turns the
+objects into the reference's JSON documents, ``apiserver_http`` serves a
+``FakeApiServer`` over HTTP (``ApiServerHTTP``) and reads it back with the
+same method surface (``HttpApiClient``), ``apiserver_serve`` is that
+server as its own process, and ``cache`` the scheduler's watch-fed read
+cache.
 """
 
 from kubegpu_tpu_torch.kubemeta.objects import (
@@ -51,6 +55,11 @@ from kubegpu_tpu_torch.kubemeta.controlplane import (
     NotFound,
     WatchEvent,
 )
+from kubegpu_tpu_torch.kubemeta.apiserver_http import (
+    ApiServerHTTP,
+    HttpApiClient,
+)
+from kubegpu_tpu_torch.kubemeta.serialize import from_doc, to_doc
 
 __all__ = [
     "ContainerSpec", "GangSpec", "Node", "ObjectMeta", "Pod", "PodPhase",
@@ -64,4 +73,5 @@ __all__ = [
     "set_pod_allocation", "set_pod_migratable",
     "set_pod_gang", "set_pod_mesh_axes", "set_pod_multislice",
     "Conflict", "FakeApiServer", "NotFound", "WatchEvent",
+    "ApiServerHTTP", "HttpApiClient", "from_doc", "to_doc",
 ]

@@ -2,7 +2,7 @@
 (counterpart of ``kubegpu_tpu/obs``'s serving half): request tracing
 (:mod:`.spans`), the chip-tick cost ledger (:mod:`.cost`), the metrics
 registry with the engine's percentile summary and live-byte tracker
-(:mod:`.metrics`), fault injection for one engine and for a fleet's
+(:mod:`.metrics`, with the daemons' :data:`global_registry`), fault injection for one engine and for a fleet's
 failure domains (:mod:`.chaos`), the tick-indexed series store
 (:mod:`.tsdb`) and the burn-rate alerts over it (:mod:`.alerts`); and the
 cluster layer's schedule trace (:mod:`.trace`) and JSON logs
@@ -32,6 +32,7 @@ from kubegpu_tpu_torch.obs.logging import (  # noqa: F401
 from kubegpu_tpu_torch.obs.metrics import (  # noqa: F401
     LiveBytesTracker,
     MetricsRegistry,
+    global_registry,
     parse_prometheus,
     percentiles,
 )

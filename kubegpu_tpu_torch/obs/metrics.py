@@ -5,7 +5,9 @@ it when given a ``metrics=`` registry; its text format, its ``# HELP``
 lines and its metric names are the reference's, name for name.  Also the
 engine's bounded histogram, :func:`percentiles` and
 :class:`LiveBytesTracker`, and :func:`parse_prometheus`,
-:func:`documented_names` and :func:`serve_prometheus`.
+:func:`documented_names` and :func:`serve_prometheus`; and
+:data:`global_registry`, the process-wide registry the daemons publish
+(the apiserver's ``/metrics`` reads it).
 
 METRICS TABLE — every metric name the code observes.  tier-1
 (``tests/test_obs_spans.py``) greps the source for literal
@@ -623,6 +625,11 @@ def documented_names() -> dict[str, frozenset]:
         cur = None
     return {"metrics": metrics, "spans": frozenset(spans),
             "docs": docs}
+
+
+# the process-wide registry: the node and scheduler daemons publish into it
+# and the apiserver's /metrics serves it
+global_registry = MetricsRegistry()
 
 
 def serve_prometheus(registry: MetricsRegistry, host: str = "127.0.0.1",

@@ -18,14 +18,16 @@ retires the replica (the graceful drain through the replay parking) and
 then evicts its gang without requeue.  ``scheduler`` and ``cluster`` are
 duck-typed.
 
-:func:`main` is the reference's standalone extender service; the extender
-webhook is one of the cluster layer's daemons, not ported yet (ROADMAP.md
-queue 1 item 10d).
+:func:`main` is the reference's standalone extender service: the
+:mod:`.webhook` over ``SimCluster.from_config``; with ``--set
+backend.type=nvml`` the cluster is this card node.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import sys
 from dataclasses import dataclass
 
 import numpy as np
@@ -210,9 +212,13 @@ class ServingAutoscaler:
 
 
 def main(argv: list[str] | None = None) -> int:
-    """The reference's ``kubetpu-extender`` command line.  It parses the
-    same arguments, then raises ``NotImplementedError``: the webhook and
-    the simulated cluster it binds are the cluster layer's."""
+    from kubegpu_tpu_torch.cluster import SimCluster
+    from kubegpu_tpu_torch.config import KubeTpuConfig
+    from kubegpu_tpu_torch.scheduler.webhook import (
+        ExtenderHTTPServer,
+        policy_config,
+    )
+
     ap = argparse.ArgumentParser(
         prog="kubetpu-extender",
         description="HTTP scheduler-extender webhook (kube-scheduler "
@@ -229,10 +235,31 @@ def main(argv: list[str] | None = None) -> int:
                     help="dotted config override, repeatable")
     ap.add_argument("--slices", nargs="+",
                     help="override cluster slice types")
-    ap.parse_args(argv)
-    raise NotImplementedError(
-        "the extender webhook is not ported yet (ROADMAP.md queue 1 item "
-        "10d: the GPU cluster layer's daemons)")
+    args = ap.parse_args(argv)
+
+    cfg = KubeTpuConfig.load(args.config, args.set or [])
+    if args.slices:
+        cfg.backend.slice_types = args.slices
+    cl = SimCluster.from_config(cfg)
+    srv = ExtenderHTTPServer(cl.scheduler, host=args.host,
+                             port=args.port).start()
+    print(f"extender listening on {srv.address}", file=sys.stderr)
+    # the stanza must carry an address kube-scheduler can REACH — the
+    # bind address is wrong for 0.0.0.0 (that's kube-scheduler's own host)
+    bound_port = srv.address.rsplit(":", 1)[1]   # actual port (ephemeral
+    advertise = args.advertise_url or (          # binds resolve to real)
+        f"http://kubetpu-extender.kube-system.svc:{bound_port}"
+        if args.host == "0.0.0.0" else srv.address)
+    print(json.dumps(policy_config(advertise), indent=2))
+    try:
+        import threading
+        threading.Event().wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.close()
+        cl.close()
+    return 0
 
 
 if __name__ == "__main__":

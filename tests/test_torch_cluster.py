@@ -376,8 +376,17 @@ def test_unported_knobs_raise_naming_their_item():
             cl.fail_host("x")
     finally:
         cl.close()
-    with pytest.raises(NotImplementedError, match="item 10d"):
-        pcluster.SimCluster(["h100-sxm-1"], wire_cri=True)
+    # the CRI socket is ported (item 10d): a pod round-trips through it
+    cl = pcluster.SimCluster(["h100-sxm-1"], wire_cri=True)
+    try:
+        assert len(cl.cri_servers) == 1
+        cl.submit(pcluster.tpu_pod("w", chips=1, command=["noop"]))
+        _, started = cl.step()
+        assert started[0].env["CUDA_VISIBLE_DEVICES"].startswith("GPU-")
+        assert cl.reap(timeout=2) == {"w": 0}
+        assert cl.pod_phase("w") == pcluster.PodPhase.SUCCEEDED
+    finally:
+        cl.close()
     # the nvml backend is ported: without NVML it raises, no mock stands in
     cfg = pconfig.KubeTpuConfig()
     cfg.backend.type = "nvml"

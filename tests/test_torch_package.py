@@ -100,6 +100,38 @@ def test_walk_covers_the_cluster_layer():
         assert f"kubegpu_tpu_torch/{sub}" in names, sub
 
 
+def test_walk_covers_the_daemons():
+    """The AST walk reaches the daemons and their wire modules (their
+    references import no JAX; the port keeps its own copies)."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for sub in ("kubemeta/serialize.py", "kubemeta/apiserver_http.py",
+                "kubemeta/apiserver_serve.py", "kubemeta/cache.py",
+                "crishim/criserver.py", "crishim/protowire.py",
+                "crishim/grpcserver.py", "crishim/serve.py",
+                "scheduler/daemon.py", "scheduler/webhook.py",
+                "obs/metrics.py"):
+        assert f"kubegpu_tpu_torch/{sub}" in names, sub
+
+
+DAEMONS = ("kubegpu_tpu_torch.kubemeta.apiserver_serve",
+           "kubegpu_tpu_torch.scheduler.daemon",
+           "kubegpu_tpu_torch.crishim.serve",
+           "kubegpu_tpu_torch.scheduler.webhook",
+           "kubegpu_tpu_torch.crishim.grpcserver")
+
+
+def test_daemon_imports_leave_torch_and_grpc_unloaded():
+    """The daemons import no torch (a process that pays torch's import
+    starts seconds later) and no grpcio until a gRPC server starts."""
+    code = (f"import sys, importlib; [importlib.import_module(m) for m in "
+            f"{DAEMONS!r}]; bad = [m for m in sys.modules if "
+            "m.split('.')[0] in ('torch', 'grpc', 'jax', 'kubegpu_tpu')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys, kubegpu_tpu_torch.models, kubegpu_tpu_torch.ops, "
             "kubegpu_tpu_torch.convert, kubegpu_tpu_torch.kernels, "

@@ -26,6 +26,17 @@ from kubegpu_tpu_torch.models import llama as tl
 from kubegpu_tpu_torch.models import serve as ts
 from kubegpu_tpu_torch.ops import paged_attention as tpa
 
+from jax_shared import one_torch_thread, shared_paged_executables
+
+
+@pytest.fixture(scope="module", autouse=True)
+def fast_module():
+    """One torch thread, and the JAX engines' executables shared across
+    this module's configs (``tests/jax_shared.py``)."""
+    with one_torch_thread(), shared_paged_executables(js):
+        yield
+
+
 # tests/test_page_pool.py's engine, with its prefix cache and chunks
 ENGINE = dict(n_slots=3, max_len=32, stride=2, prompt_buckets=(8, 16),
               paged=True, page_size=8, debug_invariants=True,

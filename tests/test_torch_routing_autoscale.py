@@ -311,10 +311,29 @@ def test_scale_cycle_through_extender_gang_path(tiny):
         cl.close()
 
 
-def test_extender_command_needs_the_cluster_layer():
-    """The port's ``main`` parses the reference's arguments and refuses:
-    the webhook is the cluster layer's (not ported)."""
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tscale.main(["--port", "0"])
+def test_extender_command_needs_the_cluster_layer(monkeypatch, capsys):
+    """The port's ``main`` is the reference's extender service over the
+    cluster layer: it binds the webhook, prints the reference's policy
+    stanza for the bound address, and serves until interrupted."""
+    import json
+    import sys
+    import threading
+
+    from kubegpu_tpu.scheduler import webhook as rhook
+
+    real_wait = threading.Event.wait
+
+    def wait(self, timeout=None):
+        # main's serve-forever wait is interrupted as ^C would; every
+        # other wait (threads starting, the server's shutdown) is real
+        if sys._getframe(1).f_code is tscale.main.__code__:
+            raise KeyboardInterrupt
+        return real_wait(self, timeout)
+
+    monkeypatch.setattr(threading.Event, "wait", wait)
+    assert tscale.main(["--port", "0", "--slices", "h100-sxm-1"]) == 0
+    out = capsys.readouterr()
+    addr = out.err.split("extender listening on ")[1].split()[0]
+    assert json.loads(out.out) == rhook.policy_config(addr)
     with pytest.raises(SystemExit):
         tscale.main(["--bogus"])

@@ -27,22 +27,18 @@ from kubegpu_tpu_torch.obs.chaos import (
     ReplicaDeadError,
 )
 
+from jax_shared import one_torch_thread, shared_paged_executables
+
 ENGINE = dict(n_slots=2, stride=4, prompt_buckets=(8, 16), paged=True,
               page_size=8)
 TINY = dict(n_heads=4, n_kv_heads=4, max_seq_len=64)
 
 
 @pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread for this module: the tier-1 run puts six test
-    processes on the host's cores, and torch's default of a thread a core
-    oversubscribes them (six concurrent copies of
-    ``tests/test_torch_serve_moe.py`` took 488 s at the default, 50 s at
-    one thread)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+def one_thread():
+    """One torch thread for this module (``tests/jax_shared.py``)."""
+    with one_torch_thread():
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -84,32 +80,9 @@ CASES = [(0, 1, 16), (0, 4, 16), (2, 1, 16), (2, 4, 16), (0, 1, 8)]
 @pytest.fixture(scope="module")
 def jserve():
     """The JAX package's serve module, its paged engines sharing their
-    executables across this module's configs.  The reference builds a
-    config's jitted executables afresh (one ``_paged_engine_fns`` entry a
-    config), and tracing them dominates this file's time.  Two configs
-    that differ only in ``fused_k`` run the same single-tick executables
-    (decode and verify block: a fused block runs the unmodified
-    single-tick body), and the wave, adopt and chunk executables do not
-    read ``spec_gamma``, ``draft_layers`` or ``fused_k``: a later config
-    gets the jitted functions an earlier one built, so each program is
-    traced and compiled once a module."""
+    executables across this module's configs (``tests/jax_shared.py``)."""
     mod = importlib.import_module("kubegpu_tpu.models.serve")
-    inner, shared = mod._paged_engine_fns, {}
-
-    def fns(*args, **kw):
-        out = list(inner(*args, **kw))
-        tick = dict(kw, fused_k=0)
-        wave = dict(tick, spec_gamma=0, draft_layers=0)
-        for what, key, idx in (("tick", tick, (0, 5)),
-                               ("wave", wave, (1, 2, 3))):
-            key = (what, args, tuple(sorted(key.items())))
-            first = shared.setdefault(key, [out[i] for i in idx])
-            for i, fn in zip(idx, first):
-                out[i] = fn
-        return tuple(out)
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(mod, "_paged_engine_fns", fns)
+    with shared_paged_executables(mod):
         yield mod
 
 

@@ -21,6 +21,7 @@ import torch
 
 from kubegpu_tpu.models import decode as jd
 from kubegpu_tpu.models import llama as jl
+from kubegpu_tpu.models import serve as js
 from kubegpu_tpu.models.serve import ContinuousBatcher as JaxBatcher
 from kubegpu_tpu.ops import kvquant as jq
 from kubegpu_tpu.ops import paged_attention as jpa
@@ -29,6 +30,17 @@ from kubegpu_tpu_torch.models import decode as td
 from kubegpu_tpu_torch.models import llama as tl
 from kubegpu_tpu_torch.models import serve as ts
 from kubegpu_tpu_torch.ops import paged_attention as tpa
+
+from jax_shared import one_torch_thread, shared_paged_executables
+
+
+@pytest.fixture(scope="module", autouse=True)
+def fast_module():
+    """One torch thread, and the JAX engines' executables shared across
+    this module's configs (``tests/jax_shared.py``)."""
+    with one_torch_thread(), shared_paged_executables(js):
+        yield
+
 
 ENGINE = dict(n_slots=2, stride=4, prompt_buckets=(8, 16), paged=True,
               page_size=8, prefill_chunk=8)

@@ -42,6 +42,17 @@ from kubegpu_tpu_torch.models import quant as tquant
 from kubegpu_tpu_torch.models import serve as ts
 from kubegpu_tpu_torch.tree import tree_leaves
 
+from jax_shared import one_torch_thread, shared_paged_executables
+
+
+@pytest.fixture(scope="module", autouse=True)
+def fast_module():
+    """One torch thread, and the JAX engines' executables shared across
+    this module's configs (``tests/jax_shared.py``)."""
+    with one_torch_thread(), shared_paged_executables(js):
+        yield
+
+
 # the reference's TestSpeculativeEngine geometry
 ENGINE = dict(n_slots=3, stride=4, prompt_buckets=(8, 16), paged=True,
               page_size=8)

@@ -18,11 +18,23 @@ import numpy as np
 import pytest
 
 from kubegpu_tpu.models import llama as jl
+from kubegpu_tpu.models import serve as js
 from kubegpu_tpu.models.serve import ContinuousBatcher as JaxBatcher
 from kubegpu_tpu_torch.convert import convert_llama_params
 from kubegpu_tpu_torch.models import decode as td
 from kubegpu_tpu_torch.models import llama as tl
 from kubegpu_tpu_torch.models import serve as ts
+
+from jax_shared import one_torch_thread, shared_paged_executables
+
+
+@pytest.fixture(scope="module", autouse=True)
+def fast_module():
+    """One torch thread, and the JAX engines' executables shared across
+    this module's configs (``tests/jax_shared.py``)."""
+    with one_torch_thread(), shared_paged_executables(js):
+        yield
+
 
 ENGINE = dict(n_slots=3, stride=4, prompt_buckets=(8, 16), paged=True,
               page_size=8)
