@@ -316,8 +316,8 @@ printed as it ends (any failed check exits non-zero):
    other cards where enough are healthy, else pends until the card heals,
    then runs to Succeeded (ms and ticks from the fault to the eviction
    and from the heal or re-placement to Succeeded).
-19. daemons  -- the cluster layer as its operators run it (``daemons_phase``,
-   last): (a) three processes on this host, ``python -m
+19. daemons  -- the cluster layer as its operators run it
+   (``daemons_phase``): (a) three processes on this host, ``python -m
    kubegpu_tpu_torch.kubemeta.apiserver_serve`` on a free port, ``python
    -m kubegpu_tpu_torch.scheduler.daemon`` and ``python -m
    kubegpu_tpu_torch.crishim.serve --backend nvml --real-processes --env
@@ -339,8 +339,25 @@ printed as it ends (any failed check exits non-zero):
    grant's card.  At the end the daemons are stopped, and no process the
    phase started is alive or listed by nvidia-smi's or NVML's compute
    processes.
+20. workloads -- the allocator core and the workload surface
+   (``workloads_phase``, last): (a) the C++ allocator core compiled
+   afresh with this host's compiler (seconds); each of its seven entries
+   against the Python paths (``KUBETPU_NO_NATIVE=1``) on seeded
+   occupancies of ``h100-sxm-8`` and ``v5e-256``, all equal; phase 17
+   (c)'s seeded gang mix over 32 mock ``h100-sxm-8`` nodes with the core
+   and on the Python paths: equal bindings and localities, decision ms
+   p50/p99 of each.  (b) On ``--set backend.type=nvml``: ``configs``
+   (the nine names), ``demo config1 --real`` (its 0-card pod sees no
+   card), ``demo config2 --real`` (the ResNet pod on the card its grant
+   names), ``metrics --format prometheus`` of
+   ``config2-resnet-1gpu.json`` scheduled, and a ``mnist_mlp`` pod whose
+   loss falls on its granted card, its first and last losses against
+   ``mnist_mlp.train`` on the CPU from the same initial parameters;
+   ``prefetch_to_device``'s card branch against its numpy source,
+   exactly, over six epochs; every pod's kernel launches as it reported
+   them (``KUBETPU_REPORT_LAUNCHES=1``).
 
-Nineteen paths are driven: serving (phases 4-5), the prefix cache (5f),
+Twenty paths are driven: serving (phases 4-5), the prefix cache (5f),
 speculative serving (5g),
 quantized serving (5b),
 int8-weight serving (5c), the search decoders (5h, after 5c), the
@@ -352,9 +369,10 @@ serving pools (phase 11, after 10), the load harness (phase 12, after
 11), MoE serving (phase 13), the training families (phase 14) and
 tensor-parallel serving (phase 15) and the pools at tp > 1 (phase 16;
 the counts of both are the ranks'); the cluster layer (phase 17), the
-gangs (phase 18) and the daemons (phase 19, last) launch no kernel in
-this process: their pods are processes of their own, and report their
-counts as metric lines.  Launch
+gangs (phase 18), the daemons (phase 19) and the workload surface (phase
+20, last) launch no kernel in this process: their pods are processes of
+their own, and report their counts as metric lines (phase 20's pods run
+no kernel of the port).  Launch
 counters are zeroed just before each and read just after; a graph replay
 counts the launches captured in it.  The serving and training paths must
 run kernels 1-3 on their tensor-core instances only.  The line
@@ -385,6 +403,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 # H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by input type
 PEAK_BYTES = 3.35e12
@@ -7123,6 +7142,15 @@ def cluster_scale() -> dict:
     until the cards run out or ``SCALE_MISSES`` gangs in a row do not
     fit (a gang that does not fit is deleted).  Every gang sits on one
     node unless it is a multislice 16, which spans two."""
+    out, _ = scale_mix()
+    log("cluster", part="(c) scale, host only", **out)
+    return out
+
+
+def scale_mix() -> tuple[dict, dict]:
+    """Phase 17 (c)'s seeded mix (see ``cluster_scale``): its numbers,
+    and its decisions (each pod's node and cards, each scheduled gang's
+    locality in order)."""
     import random
 
     from kubegpu_tpu_torch.cluster import SimCluster, tpu_pod
@@ -7155,10 +7183,11 @@ def cluster_scale() -> dict:
                 misses += 1
                 for p in pods:
                     cl.api.delete("Pod", p.name)
-        spread = {}
+        spread, bindings = {}, {}
         for p in cl.api.list("Pod"):
             a = pod_allocation(p)
             spread.setdefault(a.gang_name, set()).add(a.node_name)
+            bindings[p.name] = (a.node_name, [ch.coord for ch in a.chips])
         for gang, nodes in spread.items():
             want = 2 if gang.endswith("-16") else 1
             check(len(nodes) == want,
@@ -7177,8 +7206,7 @@ def cluster_scale() -> dict:
            "decisions": len(ms), "schedule_ms_p50": pct["p50"],
            "schedule_ms_p99": pct["p99"], "mean_locality": sum(loc) / len(loc),
            "seconds": time.perf_counter() - t0}
-    log("cluster", part="(c) scale, host only", **out)
-    return out
+    return out, {"bindings": bindings, "localities": loc}
 
 
 def cluster_phase(torch, kernels) -> dict:
@@ -8138,6 +8166,391 @@ def daemons_phase(torch, kernels) -> dict:
     return out
 
 
+# -- phase 20: the allocator core and the workload surface -------------------
+
+CORE_SPECS = ("h100-sxm-8", "v5e-256")
+CORE_TRIALS = 6
+WORKLOAD_PROGRAM = "kubegpu_tpu_torch.workloads.programs."
+CORE_ENTRIES = ("find_free_placements", "rank_free_placements",
+                "fragmentation_score", "eval_order", "orient_rings",
+                "align_units", "connected_order")
+
+
+@contextlib.contextmanager
+def python_paths():
+    """The allocator's Python paths (``KUBETPU_NO_NATIVE=1``), which the
+    port reads at every call."""
+    saved = os.environ.get("KUBETPU_NO_NATIVE")
+    os.environ["KUBETPU_NO_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("KUBETPU_NO_NATIVE")
+        else:
+            os.environ["KUBETPU_NO_NATIVE"] = saved
+
+
+def core_build() -> dict:
+    """(a) The core compiled afresh with this host's compiler (into a
+    scratch directory: the library the cluster phases loaded stays)."""
+    from kubegpu_tpu_torch.allocator import _native
+
+    saved = _native.BUILD_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        _native.BUILD_DIR = Path(tmp)
+        try:
+            t0 = time.perf_counter()
+            warnings = _native.build()
+            seconds = time.perf_counter() - t0
+        finally:
+            _native.BUILD_DIR = saved
+    compiler = subprocess.run([_native.cxx(), "--version"],
+                              capture_output=True, text=True,
+                              timeout=60).stdout.splitlines()[0]
+    check(not warnings.strip(), f"core: the build warned:\n{warnings}")
+    out = {"compiler": compiler, "flags": " ".join(_native.CXX_FLAGS),
+           "build_s": seconds}
+    log("workloads", part="(a) core build", compiler=repr(compiler),
+        build_s=round(seconds, 3))
+    return out
+
+
+def core_entries(name: str) -> dict:
+    """(a) Each entry of the core against the Python path on
+    ``CORE_TRIALS`` seeded occupancies of spec ``name``: every placement
+    of 1-8 cards, the top 8 of 64 ranked, each of the first three
+    placements' fragmentation score and the locality of its first four
+    orders and a shuffled one, ring orientation and alignment over blocks
+    of four cards, and the connected fallback of gangs of 1-3 pods of 1-3
+    cards.  Returns the count of results compared, per entry: all equal."""
+    import random
+
+    from kubegpu_tpu_torch.allocator import _native, gang
+    from kubegpu_tpu_torch.allocator.gang import GangRequest, SliceState
+    from kubegpu_tpu_torch.allocator.ordering import candidate_orders
+    from kubegpu_tpu_torch.topology import TOPOLOGY_REGISTRY
+    from kubegpu_tpu_torch.topology.locality import (
+        ici_locality,
+        resolve_axis_weights,
+        traffic_pairs_for_mesh_axes,
+    )
+    from kubegpu_tpu_torch.topology.slices import (
+        find_free_placements,
+        fragmentation_score,
+        subslice_shapes,
+    )
+
+    rng = random.Random(SEED)
+    st = SliceState("core", TOPOLOGY_REGISTRY[name])
+    topo = st.topo
+    coords = [ch.coord for ch in topo.chips]
+    for i, c in enumerate(coords):
+        st.available.add(c)
+        st.local_index[c] = i % st.spec.chips_per_host
+    counts = dict.fromkeys(CORE_ENTRIES, 0)
+
+    def same(entry, got, want):
+        check(got == want, f"core: {entry} on {name} differs from the "
+              f"Python path: {got} against {want}")
+        counts[entry] += 1
+
+    for _ in range(CORE_TRIALS):
+        occ = set(rng.sample(coords, rng.randrange(len(coords) // 2)))
+        for total in (1, 2, 4, 8):
+            for shape in subslice_shapes(total, topo.spec.mesh_shape):
+                with python_paths():
+                    py = find_free_placements(topo, occ, shape)
+                    frags = [fragmentation_score(topo, occ, p)
+                             for p in py[:64]]
+                same("find_free_placements", find_free_placements(
+                    topo, occ, shape), py)
+                ranked = sorted(zip(frags, py), key=lambda t: -t[0])[:8]
+                same("rank_free_placements",
+                     _native.rank_free_placements_native(
+                         topo, occ, shape, 64, 8), ranked)
+                for pl, frag in zip(py[:3], frags):
+                    same("fragmentation_score",
+                         _native.fragmentation_score_native(
+                             topo, occ, pl.coords), frag)
+                    shuffled = list(pl.coords)
+                    rng.shuffle(shuffled)
+                    axes = {"dp": 2, "tp": total // 2} if total > 1 \
+                        else {"dp": 1}
+                    weights = resolve_axis_weights(axes, None)
+                    for order in candidate_orders(pl)[:4] + [shuffled]:
+                        same("eval_order", _native.eval_order_native(
+                            topo, order, axes, weights), ici_locality(
+                            topo, traffic_pairs_for_mesh_axes(
+                                order, axes, weights)))
+        picked = rng.sample(coords, 8)
+        blocks = [picked[i:i + 4] for i in (0, 4)]
+        units = [sorted(b) for b in blocks]
+        for close in (False, True):
+            with python_paths():
+                want = gang._orient_rings(blocks, close)
+            same("orient_rings", gang._orient_rings(blocks, close), want)
+        with python_paths():
+            want = gang._align_units(units, 1)
+        same("align_units", gang._align_units(units, 1), want)
+        st.used_millichips = {c: 1000 for c in occ}
+        blocked = st.blocked_for_whole()
+        for pods in (1, 2, 3):
+            for cpp in (1, 2, 3):
+                req = GangRequest("core", num_pods=pods, chips_per_pod=cpp)
+                with python_paths():
+                    want = gang._connected_order(st, req, blocked)
+                same("connected_order",
+                     gang._connected_order(st, req, blocked), want)
+    log("workloads", part="(a) core entries", spec=name, **counts)
+    return counts
+
+
+def core_scale() -> dict:
+    """(a) Phase 17 (c)'s seeded gang mix with the core and on the Python
+    paths: equal bindings and localities; decision ms of each."""
+    native, ours = scale_mix()
+    with python_paths():
+        python, theirs = scale_mix()
+    check(ours == theirs, "core: phase 17 (c)'s mix binds otherwise with "
+          "the core than on the Python paths")
+    out = {"native": native, "python": python, "equal_bindings": True,
+           "pods": len(ours["bindings"])}
+    log("workloads", part="(a) the gang mix", pods=out["pods"],
+        equal_bindings=True, gangs=native["gangs"],
+        native_ms_p50=native["schedule_ms_p50"],
+        native_ms_p99=native["schedule_ms_p99"],
+        python_ms_p50=python["schedule_ms_p50"],
+        python_ms_p99=python["schedule_ms_p99"],
+        native_s=round(native["seconds"], 3),
+        python_s=round(python["seconds"], 3))
+    return out
+
+
+def cli_text(argv: list, keep: list | None = None) -> tuple[int, str]:
+    """``python -m kubegpu_tpu_torch <argv>`` as ``cli.main`` in this
+    process: its exit code and what it printed.  With ``keep``, the
+    cluster the command builds is appended to it."""
+    from kubegpu_tpu_torch import cli
+
+    build = cli._build_cluster
+    if keep is not None:
+        cli._build_cluster = lambda *a: keep.append(build(*a)) or keep[-1]
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        cli._build_cluster = build
+    return rc, buf.getvalue()
+
+
+def demo_real(name: str) -> dict:
+    """(b) ``demo <name> --real --set backend.type=nvml``: exit 0, every
+    pod Succeeded, each pod's handle (stdout, env)."""
+    kept = []
+    t0 = time.perf_counter()
+    rc, table = cli_text(["demo", name, "--real", "--set",
+                          "backend.type=nvml", "--set",
+                          "runtime.extra_env=KUBETPU_REPORT_LAUNCHES:1",
+                          "--timeout", "300"], kept)
+    wall = time.perf_counter() - t0
+    handles = {h.pod_name: h for h in kept[0].runtime.containers()}
+    check(rc == 0 and all(h.exit_code == 0 for h in handles.values()),
+          f"demo {name} --real: rc {rc}\n{table}\n" + "\n".join(
+              h.stderr[-2000:] for h in handles.values()))
+    return {"rc": rc, "wall_s": wall, "table": table.splitlines()[:4],
+            "handles": handles,
+            "launches": {p: pod_launches(h) for p, h in handles.items()}}
+
+
+def pod_launches(h) -> dict:
+    """The kernel launches a pod run with ``KUBETPU_REPORT_LAUNCHES=1``
+    reported: one count for each kernel of the port."""
+    from kubegpu_tpu_torch.kernels import SIGNATURES as KERNEL_NAMES
+
+    launched = {k[len("launches_"):]: int(v)
+                for k, v in metric_lines(h.stdout).items()
+                if k.startswith("launches_")}
+    check(set(launched) == set(KERNEL_NAMES),
+          f"pod {h.pod_name}: reported launches of {sorted(launched)}")
+    return launched
+
+
+def prefetch_check(torch) -> dict:
+    """(b) ``prefetch_to_device``'s card branch against its numpy source,
+    exactly, over three epochs each of two consumers of 1024-row MNIST-width
+    batches: one that copies each batch back at once (a batch yielded
+    before its copy ended shows stale rows), one whose stream sleeps ~20 ms
+    before it clones each batch and drops it unsynchronized (a batch's memory
+    handed to a later copy while the consumer's queued clone still reads
+    it, as it would be without ``record_stream``, shows the later rows)."""
+    import numpy as np
+
+    from kubegpu_tpu_torch.workloads.data import (
+        ShardedBatcher,
+        prefetch_to_device,
+        synthetic_features,
+    )
+
+    batcher = ShardedBatcher(synthetic_features(8192, 784, 10),
+                             batch_size=1024, seed=SEED)
+    batches = bad = 0
+    for epoch in range(3):
+        for src, got in zip(batcher.batches(epoch), prefetch_to_device(
+                batcher.batches(epoch), size=2, device="cuda")):
+            batches += 1
+            bad += any(not np.array_equal(got[k].cpu().numpy(), src[k])
+                       for k in src)
+    for epoch in range(3, 6):
+        srcs, snaps = [], []
+        for src, got in zip(batcher.batches(epoch), prefetch_to_device(
+                batcher.batches(epoch), size=2, device="cuda")):
+            torch.cuda._sleep(40_000_000)     # ~20 ms at 1.98 GHz
+            snaps.append({k: t.clone() for k, t in got.items()})
+            srcs.append(src)
+            del got
+        torch.cuda.synchronize()
+        batches += len(srcs)
+        bad += sum(any(not np.array_equal(snap[k].cpu().numpy(), src[k])
+                       for k in src) for src, snap in zip(srcs, snaps))
+    check(bad == 0, f"prefetch_to_device: {bad} of {batches} batches on the "
+          "card differ from their numpy source")
+    return {"batches": batches, "equal": True}
+
+
+def mnist_reference(torch, pod: dict) -> dict:
+    """(b) The ``mnist_mlp`` pod's losses against ``mnist_mlp.train`` from
+    the pod's initial parameters (``init_params`` on the card, seed 0): on
+    the card in this process and on the CPU, every epoch's mean within
+    rtol 1e-4 of the CPU's; the pod's printed first and last losses within
+    the 4-decimal rounding of its line (5e-5) plus rtol 1e-4 of the CPU's."""
+    from kubegpu_tpu_torch.workloads.data import ShardedBatcher, \
+        synthetic_features
+    from kubegpu_tpu_torch.workloads.programs import mnist_mlp
+
+    batcher = ShardedBatcher(synthetic_features(256, 784, 10),
+                             batch_size=64)
+    init = mnist_mlp.init_params("cuda")
+    card = mnist_mlp.train(init, batcher, "cuda")
+    cpu = mnist_mlp.train({k: v.cpu() for k, v in init.items()}, batcher,
+                          "cpu")
+    err = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    check(err <= 1e-4, f"mnist_mlp: the card's epoch losses {card} are not "
+          f"within rtol 1e-4 of the CPU's {cpu}")
+    for k, want in (("first_loss", cpu[0]), ("last_loss", cpu[-1])):
+        check(abs(pod[k] - want) <= 5e-5 + 1e-4 * abs(want),
+              f"mnist_mlp pod: {k}={pod[k]} against the CPU's {want:.6f}")
+    return {"card_losses": card, "cpu_losses": cpu, "max_rel_err": err}
+
+
+def workload_commands(torch) -> dict:
+    """(b) The workload surface on this node: ``configs``, ``demo config1
+    --real`` (the 0-card pod sees no card), ``demo config2 --real`` (the
+    ResNet pod on the card its grant names), ``metrics --format
+    prometheus`` of ``config2-resnet-1gpu.json`` scheduled, and a
+    ``mnist_mlp`` pod on its granted card whose loss falls."""
+    from kubegpu_tpu_torch.cluster import SimCluster, tpu_pod
+    from kubegpu_tpu_torch.config import KubeTpuConfig
+    from kubegpu_tpu_torch.workloads.specs import ALL_CONFIGS
+
+    out = {"launches": {}}
+    rc, text = cli_text(["configs"])
+    names = [ln.split(":")[0] for ln in text.splitlines()]
+    check(rc == 0 and names == sorted(ALL_CONFIGS),
+          f"configs: rc {rc}, names {names}")
+    out["configs"] = names
+    d1 = demo_real("config1")
+    h = d1["handles"]["mnist-cpu"]
+    check(h.env.get("CUDA_VISIBLE_DEVICES") == "" and
+          h.stdout.strip().splitlines()[0].endswith("cards=0"),
+          f"demo config1: the 0-card pod saw a card: {h.stdout[-500:]}")
+    out["config1"] = {"wall_s": d1["wall_s"], "line": h.stdout.strip().
+                      splitlines()[0]}
+    out["launches"].update(d1["launches"])
+    d2 = demo_real("config2")
+    out["launches"].update(d2["launches"])
+    h = d2["handles"]["resnet-1chip"]
+    seen = pod_device(h.stdout)
+    check(seen is not None and seen["uuid"] == h.env["CUDA_VISIBLE_DEVICES"]
+          and seen["count"] == 1,
+          f"demo config2: the pod saw {seen}, not its grant's card")
+    out["config2"] = {"wall_s": d2["wall_s"], "card_seen": seen["name"],
+                      "line": [ln for ln in h.stdout.splitlines()
+                               if ln.startswith("resnet:")][0]}
+    log("workloads", part="(b) demo --real", config1=repr(
+        out["config1"]["line"]), config2=repr(out["config2"]["line"]),
+        config2_on_granted_card=True,
+        wall_s=[round(d1["wall_s"], 2), round(d2["wall_s"], 2)])
+    spec = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "kubegpu_tpu_torch", "examples",
+                        "config2-resnet-1gpu.json")
+    rc, text = cli_text(["metrics", "-f", spec, "--schedule-only",
+                         "--format", "prometheus", "--set",
+                         "backend.type=nvml"])
+    check(rc == 0 and "# TYPE kubetpu_schedule_latency_ms histogram" in text,
+          f"metrics: rc {rc}\n{text[-1000:]}")
+    out["metrics_lines"] = len(text.splitlines())
+    cfg = KubeTpuConfig.load(None, ["backend.type=nvml",
+                                    "runtime.real_processes=true"])
+    cfg.runtime.extra_env = {"KUBETPU_REPORT_LAUNCHES": "1"}
+    cl = SimCluster.from_config(cfg)
+    t0 = time.perf_counter()
+    try:
+        cl.submit(tpu_pod("mnist-mlp", chips=1, command=[
+            sys.executable, "-m", WORKLOAD_PROGRAM + "mnist_mlp"],
+            env={"KUBETPU_EXPECT_CHIPS": "1"}))
+        codes = cl.run_to_completion(timeout_s=300)
+    finally:
+        cl.close()
+    h = cl.runtime.containers()[0]
+    seen = pod_device(h.stdout)
+    line = [ln for ln in h.stdout.splitlines()
+            if ln.startswith("mnist_mlp:")]
+    check(codes == {"mnist-mlp": 0} and line and seen is not None
+          and seen["uuid"] == h.env["CUDA_VISIBLE_DEVICES"],
+          f"mnist_mlp pod: {codes}\n{h.stdout[-1000:]}\n{h.stderr[-2000:]}")
+    first, last = (float(line[0].split(k + "=")[1].split()[0])
+                   for k in ("first_loss", "last_loss"))
+    check(last < first, f"mnist_mlp pod: the loss did not fall: {line[0]}")
+    out["launches"]["mnist-mlp"] = pod_launches(h)
+    out["mnist_mlp"] = {"wall_s": time.perf_counter() - t0,
+                        "first_loss": first, "last_loss": last,
+                        "card_seen": seen["name"]}
+    out["mnist_mlp"]["reference"] = mnist_reference(torch, out["mnist_mlp"])
+    out["prefetch"] = prefetch_check(torch)
+    log("workloads", part="(b) metrics and mnist_mlp",
+        metrics_lines=out["metrics_lines"], mnist_first_loss=first,
+        mnist_last_loss=last, mnist_on_granted_card=True,
+        mnist_wall_s=round(out["mnist_mlp"]["wall_s"], 2),
+        mnist_max_rel_err_card_vs_cpu=out["mnist_mlp"]["reference"][
+            "max_rel_err"],
+        prefetch_batches_equal=out["prefetch"]["batches"],
+        pod_launches=out["launches"])
+    return out
+
+
+def workloads_phase(torch, kernels) -> dict:
+    """Phase 20: the allocator core and the workload surface (see the
+    docstring)."""
+    t0 = time.perf_counter()
+    kernels.reset_launches()          # the workloads' path starts here
+    out = {"core_build": core_build(),
+           "core_entries": {n: core_entries(n) for n in CORE_SPECS},
+           "core_scale": core_scale(),
+           "commands": workload_commands(torch)}
+    here = dict(kernels.launches)     # ... and ends here
+    check(not any(here.values()),
+          f"the workloads' path launched a kernel in this process: {here}")
+    # what the pods (ResNet, the MLPs) reported launching
+    out["launches"] = {k: sum(pod[k] for pod in
+                              out["commands"]["launches"].values())
+                       for k in kernels.SIGNATURES}
+    out["phase_s"] = time.perf_counter() - t0
+    log("workloads", phase_s=round(out["phase_s"], 1))
+    return out
+
+
 def ptxas_instances(text: str) -> list:
     """Each kernel instance of an ``-Xptxas -v`` build log: its name
     (demangled by ``c++filt`` where the machine has it), registers a thread
@@ -8452,6 +8865,7 @@ def main(argv=None) -> int:
     cluster = cluster_phase(torch, kernels)
     gang = gang_phase(torch, kernels)
     daemons = daemons_phase(torch, kernels)
+    workloads = workloads_phase(torch, kernels)
 
     routes = {"flash_fwd": ("kubegpu_tpu_torch/csrc/flash_fwd.cu",
                             "kubegpu_tpu/ops/flash_attention.py:200"),
@@ -8473,7 +8887,7 @@ def main(argv=None) -> int:
              program_launches, lifecycle_launches, pool_launches,
              load_launches, moe_launches, train14_launches, tp_launches,
              pool_tp_launches, cluster["launches"], gang["launches"],
-             daemons["launches"])
+             daemons["launches"], workloads["launches"])
     # kernels 4-6 at llama_serve.py's bench shape, by their pool format
     program_rows = {k: program["program_shape"][fmt]
                     for k, fmt in zip(PAGED_KERNELS, ("bf16", "q8", "q4g16"))}
@@ -8531,7 +8945,7 @@ def main(argv=None) -> int:
                "flash_vit_shape": vit_shape, "train_families": train14,
                "paged_tp_shapes": tp_shapes, "tensor_parallel": tp,
                "pools_tp": pool_tp, "cluster": cluster, "gang": gang,
-               "daemons": daemons,
+               "daemons": daemons, "workloads": workloads,
                "launches": {"serving": serve_launches,
                             "prefix_cache": prefix_launches,
                             "speculative": spec_launches,
@@ -8551,7 +8965,8 @@ def main(argv=None) -> int:
                             "pools_tp": pool_tp["launches"],
                             "cluster": cluster["launches"],
                             "gang": gang["launches"],
-                            "daemons": daemons["launches"]},
+                            "daemons": daemons["launches"],
+                            "workloads": workloads["launches"]},
                "kernels": line["kernels"],
                "total_s": time.perf_counter() - t_start}
     if args.details:

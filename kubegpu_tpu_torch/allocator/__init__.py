@@ -9,9 +9,11 @@ TPU-native equivalent: given cluster occupancy and a gang request
 
 ``ordering`` chooses the logical-device order (chip → worker/mesh position)
 that maximizes ring locality — the seam where placement quality turns into
-collective bandwidth.  Copied from ``kubegpu_tpu/allocator``: the reference's
-C++ core (``_native``) is not ported, so ``gang`` and ``ordering`` run their
-Python paths, which the reference's tests hold the core equal to.
+collective bandwidth.  Copied from ``kubegpu_tpu/allocator``, with its C++
+core (``_native``, built by the host's compiler at first use), which
+accelerates the placement search and knows switched nodes; ``gang`` and
+``ordering`` keep the Python paths it is held equal to
+(``KUBETPU_NO_NATIVE=1`` runs them).
 """
 
 from kubegpu_tpu_torch.allocator.gang import (

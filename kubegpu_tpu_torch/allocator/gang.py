@@ -1,8 +1,9 @@
 """The gang allocator core — reference: ``grpalloc.PodFitsGroupConstraints``
 + ``ComputePodScore`` (SURVEY.md §3, §4.2 hot loop).  Copied from
-``kubegpu_tpu/allocator/gang.py``, its Python paths only: the reference's
-native core is not ported (ROADMAP), and its tests hold the core equal to
-these paths.
+``kubegpu_tpu/allocator/gang.py``: the placement search, ring orientation,
+unit alignment and connected fallback run in the port's C++ core
+(``_native``) unless ``KUBETPU_NO_NATIVE`` asks for these Python paths,
+which its tests hold the core equal to.
 
 Semantics (reference parity, TPU-translated):
 - *Fit*: can this gang's total chip ask be satisfied by a free contiguous
@@ -23,6 +24,7 @@ from __future__ import annotations
 import heapq
 from dataclasses import dataclass, field
 
+from kubegpu_tpu_torch.allocator import _native
 from kubegpu_tpu_torch.kubemeta.codec import AllocatedChip, Allocation
 from kubegpu_tpu_torch.topology.mesh import Coord, TopologySpec, TpuTopology
 from kubegpu_tpu_torch.topology.slices import (
@@ -333,6 +335,9 @@ def _orient_rings(blocks: list[list[Coord]], close: bool = False) -> list[Coord]
     options = [_block_cycle_options(b) for b in blocks]
     if len(blocks) == 1:
         return list(options[0][0])
+    native = _native.orient_rings_native(options, close)
+    if native is not None:
+        return native
 
     def trans_cost(prev_opt: list[Coord], nxt_opt: list[Coord]) -> int:
         d = _dist(prev_opt[-1], nxt_opt[0])
@@ -425,9 +430,11 @@ def _block_orders(topo: TpuTopology, placement: Placement,
     geometry, so results are shared across slices of the same topology
     shape and across scheduling passes (the same placements recur
     constantly under churn).  Callers must not mutate the returned
-    orders."""
+    orders.  The native-path flag is part of the key so the parity tests
+    compare real computations, not cache hits."""
     key = (topo.spec.name, topo.spec.mesh_shape, topo.spec.wrap,
-           topo.spec.host_block, topo.spec.switched, placement, ring_span)
+           topo.spec.host_block, topo.spec.switched, placement, ring_span,
+           _native.enabled())
     hit = _block_orders_memo.get(key)
     if hit is None:
         hit = _block_orders_uncached(topo, placement, ring_span)
@@ -502,6 +509,9 @@ def _align_units(units: list[list[Coord]], step: int) -> list[Coord] | None:
     if len(units) < 2 or len({len(u) for u in units}) != 1:
         return None
     options = [_cycle_variants(u, step) for u in units]
+    native = _native.align_units_native(options)
+    if native is not None:
+        return native
 
     def gain(a: list[Coord], b: list[Coord]) -> int:
         return sum(1 for p, q in zip(a, b) if _dist(p, q) == 1)
@@ -583,6 +593,55 @@ class _Candidate:
     score: float
 
 
+def _connected_order(st: SliceState, req: GangRequest, blocked: set[Coord],
+                     mask=None) -> list[Coord] | None:
+    """The first free start's connected region (a sorted-frontier BFS),
+    chunked host-locally into ``req.num_pods`` pods, or None where no
+    start works."""
+    total = req.total_chips
+    c = req.chips_per_pod
+    res = _native.connected_order_native(st.topo, blocked, total, c,
+                                         req.num_pods, mask=mask)
+    if res is not None:
+        return res[1]
+    free = sorted({ch.coord for ch in st.topo.chips} - blocked)
+    for start in free:
+        seen = {start}
+        frontier = [start]
+        region: list[Coord] = []
+        # min-heap pop == the old frontier.sort(); pop(0) order
+        # (smallest coord each iteration) at O(log n) per pop —
+        # the native core's sorted-frontier BFS matches this too
+        while frontier and len(region) + len(frontier) <= len(free):
+            nxt = heapq.heappop(frontier)
+            region.append(nxt)
+            if len(region) >= total:
+                break
+            for nb in st.topo.neighbors(nxt):
+                if nb not in seen and nb not in blocked:
+                    seen.add(nb)
+                    heapq.heappush(frontier, nb)
+        if len(region) < total:
+            continue
+        # chunk host-locally: pods take chips host by host
+        by_host: dict[int, list[Coord]] = {}
+        for x in region:
+            by_host.setdefault(st.topo.chip_at(x).host_id, []).append(x)
+        order: list[Coord] = []
+        chunks_formed = 0
+        for hid in sorted(by_host):
+            chips = sorted(by_host[hid])
+            usable = (len(chips) // c) * c
+            take = min(usable, total - len(order))
+            order.extend(chips[:take])
+            chunks_formed += take // c
+            if len(order) >= total:
+                break
+        if len(order) == total and chunks_formed == req.num_pods:
+            return order
+    return None
+
+
 class GangAllocator:
     """Pure-function fit/score/assign over SliceStates (no I/O) — the same
     testability property the reference's allocator had (SURVEY.md §5)."""
@@ -596,6 +655,10 @@ class GangAllocator:
         self.locality_weight = locality_weight
         self.frag_weight = frag_weight
         self.fill_weight = fill_weight
+        # Build and load the native core NOW, not inside the first
+        # scheduling decision — the lazy path costs a compile (or a
+        # dlopen) and would land in the latency histogram's tail.
+        _native.available()
 
     # -- public API ------------------------------------------------------
 
@@ -685,7 +748,11 @@ class GangAllocator:
         # resolve to an equal-scored placement).  This is what keeps the
         # empty-cluster small-gang case (many placements) off the p99.
         ranked: list[tuple[float, int, Placement]] = []
-        fscore = fragmentation_scorer(st.topo, blocked)
+        # ONE occupancy mask for the whole per-slice search: the shape
+        # scan, frag ranking, and connected fallback all reuse it (the
+        # per-call rebuild dominated 1024-chip decision times)
+        occ_mask = _native.occupancy_mask(st.topo, blocked)
+        fscore = fragmentation_scorer(st.topo, blocked, mask=occ_mask)
         # Bound the ordering work, not just the candidate count: a
         # 256-chip placement's ring search costs ~16x a 16-chip one's,
         # and origin matters even less for big placements (fewer
@@ -703,11 +770,21 @@ class GangAllocator:
             # shape far more than the origin, so the frag ranking is the
             # score ranking to within ties — every shape stays
             # represented, and the global bound below still applies.
+            # The enumerate+rank+truncate runs fused in C when the
+            # library is up (top-K only ever crosses back into Python).
+            native_ranked = _native.rank_free_placements_native(
+                st.topo, blocked, shape,
+                self.max_placements_per_shape,
+                k_scored, mask=occ_mask)
+            if native_ranked is not None:
+                ranked.extend((f, si, pl) for f, pl in native_ranked)
+                continue
             shape_ranked = [
                 (fscore(pl), si, pl)
                 for pl in find_free_placements(
                     st.topo, blocked, shape,
-                    limit=self.max_placements_per_shape)]
+                    limit=self.max_placements_per_shape,
+                    mask=occ_mask)]
             shape_ranked.sort(key=lambda t: -t[0])
             ranked.extend(shape_ranked[:k_scored])
         # stable: frag desc, then the shape-compactness preference order
@@ -759,7 +836,8 @@ class GangAllocator:
             # host-chunking filter — fall back to a connected free set;
             # the reference's group allocator had the same flexibility
             # since groups weren't geometric.
-            cand = self._connected_candidate(st, req, blocked, axes)
+            cand = self._connected_candidate(st, req, blocked, axes,
+                                             mask=occ_mask)
             if cand is not None:
                 best = cand
         if best is None:
@@ -768,56 +846,22 @@ class GangAllocator:
 
     def _connected_candidate(self, st: SliceState, req: GangRequest,
                              blocked: set[Coord],
-                             axes: dict[str, int]) -> _Candidate | None:
+                             axes: dict[str, int],
+                             mask=None) -> _Candidate | None:
         """BFS-grow a connected set of free chips, chunked host-locally."""
-        total = req.total_chips
-        c = req.chips_per_pod
-        free = sorted({ch.coord for ch in st.topo.chips} - blocked)
-        for start in free:
-            seen = {start}
-            frontier = [start]
-            region: list[Coord] = []
-            # min-heap pop == the old frontier.sort(); pop(0) order
-            # (smallest coord each iteration) at O(log n) per pop —
-            # the native port's sorted-frontier BFS matches this too
-            while frontier and len(region) + len(frontier) <= len(free):
-                nxt = heapq.heappop(frontier)
-                region.append(nxt)
-                if len(region) >= total:
-                    break
-                for nb in st.topo.neighbors(nxt):
-                    if nb not in seen and nb not in blocked:
-                        seen.add(nb)
-                        heapq.heappush(frontier, nb)
-            if len(region) < total:
-                continue
-            # chunk host-locally: pods take chips host by host
-            by_host: dict[int, list[Coord]] = {}
-            for x in region:
-                by_host.setdefault(st.topo.chip_at(x).host_id, []).append(x)
-            order: list[Coord] = []
-            chunks_formed = 0
-            for hid in sorted(by_host):
-                chips = sorted(by_host[hid])
-                usable = (len(chips) // c) * c
-                take = min(usable, total - len(order))
-                order.extend(chips[:take])
-                chunks_formed += take // c
-                if len(order) >= total:
-                    break
-            if len(order) != total or chunks_formed != req.num_pods:
-                continue
-            loc = evaluate_order(st.topo, order, axes, req.axis_weights,
-                                 st.bad_links)
-            pl = Placement(origin=min(order), shape=(0, 0, 0),
-                           coords=tuple(order))
-            frag = fragmentation_score(st.topo, blocked, pl)
-            score = 10.0 * (self.locality_weight * loc
-                            + self.frag_weight * frag
-                            + self.fill_weight * st.fill_fraction())
-            return _Candidate(slice_state=st, placement=pl, order=order,
-                              locality=loc, score=score)
-        return None
+        order = _connected_order(st, req, blocked, mask)
+        if order is None:
+            return None
+        loc = evaluate_order(st.topo, order, axes, req.axis_weights,
+                             st.bad_links)
+        pl = Placement(origin=min(order), shape=(0, 0, 0),
+                       coords=tuple(order))
+        frag = fragmentation_score(st.topo, blocked, pl)
+        score = 10.0 * (self.locality_weight * loc
+                        + self.frag_weight * frag
+                        + self.fill_weight * st.fill_fraction())
+        return _Candidate(slice_state=st, placement=pl, order=order,
+                          locality=loc, score=score)
 
     def _feasible_orders(self, st: SliceState, pl: Placement,
                          req: GangRequest,

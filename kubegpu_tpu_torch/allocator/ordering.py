@@ -1,5 +1,5 @@
 """Logical-device ordering: map allocated chips to mesh positions (copied
-from ``kubegpu_tpu/allocator/ordering.py``, Python paths only).
+from ``kubegpu_tpu/allocator/ordering.py``).
 
 Placement alone doesn't determine collective bandwidth — the *order* in
 which chips are assigned to logical mesh coordinates does (SURVEY.md §8
@@ -22,6 +22,7 @@ from __future__ import annotations
 import functools
 import itertools
 
+from kubegpu_tpu_torch.allocator import _native
 from kubegpu_tpu_torch.topology.locality import (
     ici_locality,
     resolve_axis_weights,
@@ -43,21 +44,26 @@ def evaluate_order(
 ) -> float:
     """Weighted ICI locality of a candidate logical order.
 
-    The fault-free path is pure geometry and memoized (same orders recur
-    across slices and passes); ``bad_links`` (failed ICI links) bypass the
-    memo.  The reference's native core and its flag are not ported: the
-    Python path is the one its tests hold the core equal to.
+    ``bad_links`` (failed ICI links) force the slow Python path — faults
+    are rare, and correctness of avoiding a dead link beats the native
+    fast path's speed.  The fault-free path is pure geometry and
+    memoized (same orders recur across slices and passes); the
+    native-path flag keys the memo so parity tests compare real runs.
     """
     axis_weights = resolve_axis_weights(axes, axis_weights)
     if not bad_links:
         key = (topo.spec.name, topo.spec.mesh_shape, topo.spec.wrap,
-               topo.spec.host_block, topo.spec.switched, tuple(order), tuple(axes.items()),
-               tuple(sorted(axis_weights.items())))
+               topo.spec.host_block, topo.spec.switched, tuple(order),
+               tuple(axes.items()), tuple(sorted(axis_weights.items())),
+               _native.enabled())
         hit = _eval_order_memo.get(key)
         if hit is not None:
             return hit
-        score = ici_locality(
-            topo, traffic_pairs_for_mesh_axes(order, axes, axis_weights))
+        score = _native.eval_order_native(topo, order, axes, axis_weights)
+        if score is None:
+            score = ici_locality(
+                topo, traffic_pairs_for_mesh_axes(order, axes,
+                                                  axis_weights))
         if len(_eval_order_memo) >= 16384:
             _eval_order_memo.clear()
         _eval_order_memo[key] = score

@@ -6,8 +6,11 @@ Here the control plane is the in-process SimCluster, so the CLI collapses
 kubectl + cluster into one binary:
 
   python -m kubegpu_tpu_torch apply -f spec.json   # submit pods, run them
+  python -m kubegpu_tpu_torch demo config4         # a named BASELINE config
   python -m kubegpu_tpu_torch top -f spec.json     # schedule only; occupancy
+  python -m kubegpu_tpu_torch metrics -f spec.json # run; dump the metrics
   python -m kubegpu_tpu_torch slices               # known slice types
+  python -m kubegpu_tpu_torch configs              # named example workloads
 
 ``apply --real`` launches each pod as a process on the cards its grant
 names (``CUDA_VISIBLE_DEVICES``); the port's programs need a card.  On a
@@ -17,9 +20,11 @@ NVML finds it (the spec's slices are ignored), and a grant names real cards
 
   python -m kubegpu_tpu_torch apply -f spec.json --real --set backend.type=nvml
 
-The reference's ``demo``, ``bench``, ``metrics`` and ``configs`` commands
-raise ``NotImplementedError`` until ``workloads/specs.py`` is ported
-(ROADMAP item 10f).
+``demo <name>`` submits one of ``workloads/specs.py``'s ``ALL_CONFIGS``
+(``configs`` lists them) and schedules it, or with ``--real`` runs it the
+same way.  The reference's ``bench`` raises ``NotImplementedError``: it runs
+the reference's benchmark harness, which the port's benchmark brings
+(ROADMAP item 11a).
 
 Spec file format (JSON; YAML with PyYAML installed), as the reference's::
 
@@ -39,6 +44,7 @@ The port's own specs are under ``kubegpu_tpu_torch/examples/``.
 from __future__ import annotations
 
 import argparse
+import json
 import string
 import sys
 
@@ -197,7 +203,7 @@ def _build_cluster(args, slices: list[str]) -> SimCluster:
 
 
 def _run_spec(args):
-    """Shared spec pipeline for apply/top: load, build, quota,
+    """Shared spec pipeline for apply/top/metrics: load, build, quota,
     submit, schedule (or run).  Returns the live SimCluster, or an int
     exit code on spec errors — caller must close() the cluster."""
     spec = load_spec_file(args.file)
@@ -241,14 +247,57 @@ def cmd_top(args) -> int:
     return cmd_apply(args)
 
 
-# the reference's commands a later slice ports
-UNPORTED = ("demo", "bench", "metrics", "configs")
+def cmd_demo(args) -> int:
+    from kubegpu_tpu_torch.workloads.specs import ALL_CONFIGS
+    if args.name not in ALL_CONFIGS:
+        print(f"unknown workload {args.name!r}; try: "
+              f"{', '.join(sorted(ALL_CONFIGS))}", file=sys.stderr)
+        return 2
+    pods, slices = ALL_CONFIGS[args.name]()
+    cl = _build_cluster(args, args.slices or slices)
+    cl.submit(*pods)
+    if args.real:
+        cl.run_to_completion(timeout_s=args.timeout)
+    else:
+        cl.step()
+    render_pod_table(cl)
+    print()
+    render_top(cl)
+    bad = [p for p in cl.api.list("Pod")
+           if p.status.phase == PodPhase.FAILED]
+    cl.close()
+    return 1 if bad else 0
 
 
-def cmd_unported(args) -> int:
+def cmd_bench(args) -> int:
     raise NotImplementedError(
-        f"{args.verb} is not ported yet: it needs workloads/specs.py "
-        "(ROADMAP item 10f)")
+        "bench is not ported yet: it runs the reference's benchmark "
+        "harness (kubegpu_tpu/benchmark.py), which the port's benchmark "
+        "brings (ROADMAP item 11a)")
+
+
+def cmd_metrics(args) -> int:
+    """Run a spec and dump the cluster metrics registry — the same
+    content GET /metrics serves on the extender webhook, from the CLI."""
+    cl = _run_spec(args)
+    if isinstance(cl, int):
+        return cl
+    if args.format == "prometheus":
+        print(cl.metrics.to_prometheus(), end="")
+    else:
+        print(json.dumps(cl.metrics.snapshot(), indent=2, sort_keys=True))
+    bad = [p for p in cl.api.list("Pod")
+           if p.status.phase == PodPhase.FAILED]   # match apply's gate
+    cl.close()
+    return 1 if bad else 0
+
+
+def cmd_configs(args) -> int:
+    from kubegpu_tpu_torch.workloads.specs import ALL_CONFIGS
+    for name, fn in sorted(ALL_CONFIGS.items()):
+        doc = ((fn.__doc__ or "").strip().splitlines() or [""])[0]
+        print(f"{name}: {doc}")
+    return 0
 
 
 def cmd_slices(args) -> int:
@@ -308,13 +357,29 @@ def main(argv: list[str] | None = None) -> int:
     common(p, with_file=True)
     p.set_defaults(fn=cmd_top)
 
+    p = sub.add_parser("demo", help="run a named example workload")
+    p.add_argument("name", help="e.g. config4 (see `configs`)")
+    common(p)
+    p.set_defaults(fn=cmd_demo)
+
+    p = sub.add_parser("bench", help="not ported yet (ROADMAP item 11a)")
+    p.add_argument("rest", nargs=argparse.REMAINDER)
+    p.set_defaults(fn=cmd_bench)
+
+    p = sub.add_parser("metrics",
+                       help="run a spec and dump the metrics registry")
+    common(p, with_file=True)
+    p.add_argument("--schedule-only", action="store_true",
+                   help="schedule but do not execute workloads")
+    p.add_argument("--format", choices=["json", "prometheus"],
+                   default="json")
+    p.set_defaults(fn=cmd_metrics)
+
     p = sub.add_parser("slices", help="list known slice types")
     p.set_defaults(fn=cmd_slices)
 
-    for verb in UNPORTED:
-        p = sub.add_parser(verb, help="not ported yet (ROADMAP item 10f)")
-        p.add_argument("rest", nargs=argparse.REMAINDER)
-        p.set_defaults(fn=cmd_unported)
+    p = sub.add_parser("configs", help="list named example workloads")
+    p.set_defaults(fn=cmd_configs)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -17,6 +17,10 @@ from dataclasses import dataclass, field
 
 @dataclass
 class ContainerHandle:
+    """One launched container.  :meth:`wait` and :meth:`kill` hold a lock
+    of the handle's own, so a reaper and a killer never collect one
+    process at once."""
+
     pod_name: str
     container_name: str
     env: dict[str, str]
@@ -26,6 +30,8 @@ class ContainerHandle:
     stdout: str = ""
     stderr: str = ""
     _proc: subprocess.Popen | None = field(default=None, repr=False)
+    _lock: threading.Lock = field(default_factory=threading.Lock,
+                                  repr=False, compare=False)
 
     def running(self) -> bool:
         """Liveness without collecting output (CRI ListContainers)."""
@@ -34,19 +40,63 @@ class ContainerHandle:
         return self._proc is not None and self._proc.poll() is None
 
     def wait(self, timeout: float | None = None) -> int | None:
-        if self._proc is not None:
-            try:
-                out, err = self._proc.communicate(timeout=timeout)
-                self.stdout, self.stderr = out, err
-                self.exit_code = self._proc.returncode
-            except subprocess.TimeoutExpired:
-                return None
-        return self.exit_code
+        with self._lock:
+            return self._collect(timeout)
 
     def kill(self) -> None:
-        if self._proc is not None and self._proc.poll() is None:
-            self._proc.kill()
-            self.wait(timeout=10)
+        """Kill the process first, then collect it."""
+        with self._lock:
+            if self._proc is not None and self._proc.poll() is None:
+                self._proc.kill()
+            self._collect(timeout=10)
+
+    def _collect(self, timeout: float | None) -> int | None:
+        if self._proc is None or self.exit_code is not None:
+            return self.exit_code
+        try:
+            out, err = self._proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            return None
+        except (OSError, ValueError):
+            # an earlier communicate() was cut short (an exception raised
+            # inside it) and left its pipes torn down: reap the process
+            # without them and keep the output it had written
+            try:
+                self._proc.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                return None
+            self.stdout, self.stderr = _salvage_output(self._proc)
+        else:
+            self.stdout, self.stderr = out, err
+        self.exit_code = self._proc.returncode
+        return self.exit_code
+
+
+def _salvage_output(proc: subprocess.Popen) -> tuple[str, str]:
+    """The output of a reaped process whose communicate() was cut short:
+    the chunks that call had read (CPython's POSIX ``Popen`` keeps them in
+    ``_fileobj2output`` for the next call), then what the pipes that are
+    still open hold, read without blocking.  A pipe whose descriptor is
+    gone gives only its chunks."""
+    chunks = getattr(proc, "_fileobj2output", None) or {}
+    texts = []
+    for pipe in (proc.stdout, proc.stderr):
+        data = b"".join(chunks.get(pipe, ())) if pipe is not None else b""
+        if pipe is not None and not pipe.closed:
+            try:
+                fd = pipe.fileno()
+                os.set_blocking(fd, False)
+                while chunk := os.read(fd, 32768):
+                    data += chunk
+            except (OSError, ValueError):
+                pass        # drained (EAGAIN) or the descriptor is gone
+            try:
+                pipe.close()
+            except OSError:
+                pass
+        texts.append(data.decode(errors="replace")
+                     .replace("\r\n", "\n").replace("\r", "\n"))
+    return texts[0], texts[1]
 
 
 class ContainerRuntime:

@@ -128,10 +128,6 @@ def serve_node_http(runtime, registry, host: str = "127.0.0.1",
     return srv
 
 
-def _interrupt(signum, frame):
-    raise KeyboardInterrupt
-
-
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="kubetpu-crishim",
@@ -168,35 +164,41 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--http-host", default="127.0.0.1",
                     help="bind address for --http-port")
     args = ap.parse_args(argv)
+    stop = threading.Event()
     if threading.current_thread() is threading.main_thread():
-        # SIGTERM unwinds through the ``finally`` below, as ^C does, so a
-        # stopped daemon leaves no pod process holding a card
-        signal.signal(signal.SIGTERM, _interrupt)
+        # SIGTERM asks the loop to leave at its next safe point (never
+        # mid-call, as a raise from the handler would: one inside a pod's
+        # communicate() left its pipes torn down), then the ``finally``
+        # below stops the pods, so no pod process holds a card; ^C still
+        # raises KeyboardInterrupt
+        signal.signal(signal.SIGTERM, lambda signum, frame: stop.set())
 
     api, server, agent = build_agent(args)
-    backoff = args.tick
-    while True:   # registration retries too: the apiserver may still be
-        try:      # coming up when the daemon starts (concurrent boot)
-            agent.register()
-            break
-        except (OSError, ValueError, Conflict, NotFound) as e:
-            print(f"crishim: cannot register with {args.apiserver}, "
-                  f"retrying in {backoff:.1f}s: {e}", file=sys.stderr)
-            time.sleep(backoff)
-            backoff = min(backoff * 2, 10.0)
-    print(f"crishim: node {agent.node_name} registered; "
-          f"CRI socket {server.socket_path}", file=sys.stderr)
     http = None
-    if args.http_port:
-        http = serve_node_http(agent.runtime, agent.metrics, args.http_host,
-                               args.http_port)
-        print(f"crishim: http on port {http.server_address[1]}",
-              file=sys.stderr)
-
-    last_advertise = time.monotonic()
-    backoff = args.tick
     try:
-        while True:
+        backoff = args.tick
+        while not stop.is_set():   # registration retries too: the
+            try:                   # apiserver may still be coming up
+                agent.register()   # when the daemon starts
+                break
+            except (OSError, ValueError, Conflict, NotFound) as e:
+                print(f"crishim: cannot register with {args.apiserver}, "
+                      f"retrying in {backoff:.1f}s: {e}", file=sys.stderr)
+                stop.wait(backoff)
+                backoff = min(backoff * 2, 10.0)
+        else:
+            return 0
+        print(f"crishim: node {agent.node_name} registered; "
+              f"CRI socket {server.socket_path}", file=sys.stderr)
+        if args.http_port:
+            http = serve_node_http(agent.runtime, agent.metrics,
+                                   args.http_host, args.http_port)
+            print(f"crishim: http on port {http.server_address[1]}",
+                  file=sys.stderr)
+
+        last_advertise = time.monotonic()
+        backoff = args.tick
+        while not stop.is_set():
             try:
                 agent.run_once()
                 agent.reap(timeout=0)
@@ -212,7 +214,7 @@ def main(argv: list[str] | None = None) -> int:
                 # NOT die and orphan its containers and registration
                 print(f"crishim: control-plane error, retrying in "
                       f"{backoff:.1f}s: {e}", file=sys.stderr)
-                time.sleep(backoff)
+                stop.wait(backoff)
                 backoff = min(backoff * 2, 10.0)
                 if isinstance(e, NotFound):
                     try:   # Node object gone (apiserver state reset)
@@ -220,7 +222,7 @@ def main(argv: list[str] | None = None) -> int:
                     except Exception:
                         pass
                 continue
-            time.sleep(args.tick)
+            stop.wait(args.tick)
     except KeyboardInterrupt:
         pass
     finally:

@@ -86,9 +86,9 @@ def main(argv: list[str] | None = None) -> int:
                   f"in {backoff:.1f}s: {e}", file=sys.stderr)
             time.sleep(backoff)
             backoff = min(backoff * 2, 10.0)
-    # One-time warm-up BEFORE declaring readiness: seeding the geometry
-    # memos (the reference also loads its native allocator core here; the
-    # port runs the Python paths) otherwise lands on the first real decision (the reference's wire bench: 506 ms
+    # One-time warm-up BEFORE declaring readiness: building/dlopening
+    # the native allocator core + seeding the geometry memos otherwise
+    # lands on the first real decision (the reference's wire bench: 506 ms
     # max vs 4.5 ms p50).  Readiness means "first decision runs at steady
     # state".
     t_warm = time.perf_counter()

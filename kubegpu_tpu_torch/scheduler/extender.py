@@ -152,11 +152,13 @@ class DeviceScheduler:
         self.sync()
 
     def warm_start(self) -> None:
-        """Pay the one-time costs BEFORE the first real decision: run
-        throwaway placements per known slice topology so the
-        ring-orientation geometry memos start hot (the reference also
-        loads its native core here, which the port does not have).
-        Pure reads: ``find_assignment`` never commits."""
+        """Pay the one-time costs BEFORE the first real decision: load
+        (building if stale) the native allocator core and run throwaway
+        placements per known slice topology so the ring-orientation
+        geometry memos start hot.  Pure reads: ``find_assignment`` never
+        commits."""
+        from kubegpu_tpu_torch.allocator import _native
+        _native.get_lib()
         with self._lock:
             for st in self.slices.values():
                 n = len(st.topo.chips)

@@ -4,9 +4,10 @@ This is the TPU-native analogue of the reference's grouped-resource-tree
 matching (SURVEY.md §3 ``grpalloc.PodFitsGroupConstraints``): where the
 reference searched a hierarchy for a feasible group assignment, KubeTPU
 searches the torus for a free contiguous sub-slice of the requested shape.
-The reference also runs this search in a C++ core
-(``kubegpu_tpu/allocator/csrc``); the port runs the Python paths only, which
-the reference's tests hold equal to the core (ROADMAP: the native core).
+The hot-path version of this search lives in the port's C++ allocator core
+(``kubegpu_tpu_torch/allocator/csrc``, copied from the reference's); this
+module is the Python implementation the core is held equal to and the
+shape/placement vocabulary shared with it.
 """
 
 from __future__ import annotations
@@ -106,13 +107,22 @@ def find_free_placements(
     occupied: set[Coord],
     shape: Coord,
     limit: int | None = None,
+    mask=None,
 ) -> list[Placement]:
     """Free contiguous placements of ``shape`` given an occupancy set.
 
     This is the feasibility predicate behind the scheduler's ``/filter``
     verb (SURVEY.md §4.2).  ``limit`` caps the returned candidates so the
-    prioritize step scores a bounded set.
+    prioritize step scores a bounded set.  ``mask`` is an optional
+    prebuilt :func:`_native.occupancy_mask` for ``occupied`` (callers
+    scanning many shapes against one occupancy build it once).
     """
+    from kubegpu_tpu_torch.allocator import _native
+
+    native = _native.find_free_placements_native(topo, occupied, shape,
+                                                 limit, mask=mask)
+    if native is not None:
+        return native
     out: list[Placement] = []
     for p in enumerate_placements(topo, shape):
         if not any(c in occupied for c in p.coords):
@@ -160,12 +170,25 @@ def fragmentation_score(topo: TpuTopology, occupied: set[Coord],
     higher means tighter packing, leaving larger free blocks for future
     gangs (the bin-packing pressure case, BASELINE config 5).
     """
+    from kubegpu_tpu_torch.allocator import _native
+
+    native = _native.fragmentation_score_native(
+        topo, occupied, placement.coords)
+    if native is not None:
+        return native
     return _fragmentation_score_py(topo, occupied, placement)
 
 
-def fragmentation_scorer(topo: TpuTopology, occupied: set[Coord]):
+def fragmentation_scorer(topo: TpuTopology, occupied: set[Coord],
+                         mask=None):
     """``placement -> score`` closure for scoring MANY placements
-    against ONE occupancy set."""
+    against ONE occupancy set: the native path builds its O(chips)
+    occupancy mask once instead of per call."""
+    from kubegpu_tpu_torch.allocator import _native
+
+    native = _native.frag_scorer_native(topo, occupied, mask=mask)
+    if native is not None:
+        return lambda placement: native(placement.coords)
     return lambda placement: _fragmentation_score_py(
         topo, occupied, placement)
 

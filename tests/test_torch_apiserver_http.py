@@ -39,7 +39,7 @@ from kubegpu_tpu_torch.kubemeta.apiserver_http import (
     ApiServerHTTP,
     HttpApiClient,
 )
-from kubegpu_tpu_torch.kubemeta.codec import pod_gang_spec
+from kubegpu_tpu_torch.kubemeta.codec import DEVICE_INFO_KEY, pod_gang_spec
 from kubegpu_tpu_torch.kubemeta.serialize import from_doc, to_doc
 from kubegpu_tpu_torch.obs import MetricsRegistry, global_registry
 
@@ -483,9 +483,12 @@ def test_pod_runs_through_external_daemon(tmp_path, transport):
                               "--advertise-interval", "1")
     try:
         def registered():
+            # the Node's cards come in a PATCH after its create: wait for
+            # the advertisement, not for the Node merely being listed
             assert proc.poll() is None, (
                 "daemon died at startup:\n" + proc.stderr.read())
-            return api.list("Node")
+            return any(DEVICE_INFO_KEY in n.metadata.annotations
+                       for n in api.list("Node"))
         _wait(registered, what="node registration")
         sched = DeviceScheduler(api, allocator=GangAllocator())
         api.create("Pod", tpu_pod(

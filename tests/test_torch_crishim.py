@@ -7,6 +7,7 @@ one-card node runs its second pod after the first."""
 import json
 import os
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -202,3 +203,22 @@ def test_subprocess_runtime_inherits_only_its_list(tmp_path, monkeypatch):
     assert "CUDA_HOME" not in env
     assert env["PYTHONPATH"].split(os.pathsep)[0] == str(
         Path(__file__).resolve().parent.parent)
+
+
+def test_a_torn_handle_is_reaped_with_its_output():
+    """A handle whose earlier ``communicate`` left a pipe's descriptor gone
+    is killed, reaped, and keeps the output it had written."""
+    talk = ("import sys, time; print('first', flush=True); "
+            "print('err1', file=sys.stderr, flush=True); time.sleep(0.3); "
+            "print('second', flush=True); time.sleep(60)")
+    h = SubprocessRuntime().create_container(
+        "p", "main", [sys.executable, "-c", talk], {})
+    deadline = time.monotonic() + 30
+    while "second" not in "".join(
+            c.decode() for c in getattr(h._proc, "_fileobj2output", {})
+            .get(h._proc.stdout, [])):
+        assert h.wait(timeout=0.2) is None and time.monotonic() < deadline
+    os.close(h._proc.stderr.fileno())
+    h.kill()
+    assert h.exit_code == -9 and not h.running()
+    assert h.stdout == "first\nsecond\n" and "err1" in h.stderr

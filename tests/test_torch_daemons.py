@@ -193,6 +193,49 @@ def test_stopped_node_daemon_stops_its_pods(tmp_path):
         srv.close()
 
 
+def test_node_daemons_stopped_mid_tick_exit_cleanly(tmp_path):
+    """SIGTERM at staggered moments to four node daemons ticking every
+    10 ms, each running a live pod: the signal lands anywhere in the loop
+    (inside a pod's reap, say), and every daemon still exits 0 with no pod
+    process left."""
+    from kubegpu_tpu_torch.allocator import GangAllocator
+    from kubegpu_tpu_torch.scheduler import DeviceScheduler
+
+    api = FakeApiServer()
+    srv = ApiServerHTTP(api).start()
+    sizes = (8, 4, 2, 1)     # one node each; a pod of n cards fits one
+    nods = [_spawn("kubegpu_tpu_torch.crishim.serve", "--apiserver",
+                   srv.address, "--backend", "mock", "--slice",
+                   f"h100-sxm-{n}", "--real-processes", "--tick", "0.01")
+            for n in sizes]
+    try:
+        for nod in nods:
+            assert _line_err(nod, "registered")
+        sched = DeviceScheduler(api, allocator=GangAllocator())
+        for n in sizes:       # biggest first: each lands on its own node
+            api.create("Pod", tpu_pod(f"sleeper-{n}", chips=n, command=[
+                sys.executable, "-c",
+                f"import os, time; open({str(tmp_path / str(n))!r}, 'w')"
+                ".write(str(os.getpid())); time.sleep(120)"]))
+            assert sched.run_once().scheduled == [f"sleeper-{n}"]
+        pidfiles = [tmp_path / str(n) for n in sizes]
+        _wait(lambda: all(p.exists() and p.read_text() for p in pidfiles),
+              what="pod start")
+        pids = [int(p.read_text()) for p in pidfiles]
+        for i, nod in enumerate(nods):
+            time.sleep(0.013 * i)
+            nod.send_signal(signal.SIGTERM)
+        codes = [nod.wait(timeout=20) for nod in nods]
+        assert codes == [0] * len(nods), [
+            nod.stderr.read()[-2000:] for nod in nods]
+        for pid in pids:
+            with pytest.raises(ProcessLookupError):
+                os.kill(pid, 0)
+    finally:
+        _stop(*nods)
+        srv.close()
+
+
 def test_extender_service_prints_the_references_stanza():
     """``python -m kubegpu_tpu_torch.scheduler.serve --port 0`` on the mock
     backend binds an ephemeral port, prints the reference's policy stanza

@@ -50,6 +50,16 @@ def test_walk_covers_the_control_plane_subpackages():
         assert f"kubegpu_tpu_torch/{sub}" in names, sub
 
 
+def test_walk_covers_the_native_core_and_the_workloads():
+    """The AST walk reaches the allocator core's bindings, the input
+    pipeline, the workload specs and the MNIST programs."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for sub in ("allocator/_native.py", "workloads/data.py",
+                "workloads/specs.py", "workloads/programs/mnist_mlp.py",
+                "workloads/programs/mnist_torch.py"):
+        assert f"kubegpu_tpu_torch/{sub}" in names, sub
+
+
 def test_walk_covers_the_load_and_fleet_modules():
     """The AST walk reaches the load harness, the fleet and the flight
     recorder (their reference copies import only numpy and the reference
